@@ -1,16 +1,23 @@
-"""Card smoke test of the PyTorch port's serving path (deeprec_tpu_torch).
+"""Card smoke test of the PyTorch port (deeprec_tpu_torch): its serving
+path and its host-index training path.
 
 Run from the root of a checkout on a machine with one CUDA card:
 
     python3 chip_smoke.py
 
-It imports no JAX. Phases (any failure exits non-zero):
+It imports no JAX. Float32 throughout: TF32 is switched off for matrix
+products and convolutions, so both sides of every comparison compute in
+full f32. Phases (any failure exits non-zero):
 
 1. builds the hand-written CUDA kernels from deeprec_tpu_torch/csrc/ (nvcc,
-   sm_90a) and prints the build time;
+   sm_90a, one process per source) and prints the build time;
 2. runs each kernel's wrapper against its plain PyTorch version at the
-   shapes the serving path gives it (a B=4096 Criteo batch), and times both
-   with CUDA events;
+   shapes the main paths give it (a B=4096 Criteo batch), and times the
+   kernel, the plain version and one PyTorch library call computing the
+   same function with CUDA events, beside the kernel's HBM-bytes bound:
+   K1 and K2 at the serving shape; K2's backward, K1's optimizer read and
+   K3a at the training shape of one resolved batch; K3a's scatter_set and
+   K3b at the JAX benchmark's own shape (CAP 2^21, U 17,664);
 3. writes a full-width DLRM serving checkpoint (13 dense + 26 categorical
    columns, emb dim 16, fused adagrad columns, a 2^21-slot table holding the
    keys of 20 synthetic Criteo batches; weights and rows from seed 0);
@@ -20,10 +27,21 @@ It imports no JAX. Phases (any failure exits non-zero):
    must be above 0; prints the p50 predict latency;
 5. serves HTTP over the card's predictor (predict, healthz, a dynamically
    batched pair), writes an incremental save, /refresh-es and checks the
-   changed predictions against a CPU predictor refreshed the same way.
+   changed predictions against a CPU predictor refreshed the same way;
+6. trains bench.py's --metadata configuration at full width (the DLRM
+   above on a host-index table of 2^21 rows with the native resolver,
+   CounterFilter(1) + GlobalStepEvict, fused Adagrad, optax-style dense
+   Adagrad) on SyntheticCriteo(4096, seed=7): 5 steps in lockstep with a
+   CPU Trainer (own resolver, same weights) holding wires and metadata
+   planes bit-equal and losses and rows within tolerance, then 3 timed
+   runs of 10 steps with the host half staged ahead (bench.py's default
+   method) and 3 with it inline, and a torch.profiler breakdown of 3
+   steps; K1, K2, K2's backward and K3a must have launched;
+7. the light layout (bench.py's default, lazy init): 3 steps in lockstep
+   with a CPU Trainer, then 3 timed runs of 10 steps.
 
 The last line is {"ok": true, "device": {...}}; the line before it holds
-the kernels' numbers as JSON.
+the kernels' numbers as JSON, the line before that the training numbers.
 """
 from __future__ import annotations
 
@@ -47,6 +65,14 @@ CAPACITY = 1 << 21
 EMB_DIM = 16
 PROB_ATOL = 1e-4   # card vs CPU probabilities: f32 sums in another order
 POOL_RTOL = 1e-5   # kernel K2 vs plain: f32 sums in another order
+# K2 backward vs plain: f32 atomics add in a run-dependent order; a sum of
+# k terms errs by at most ~k*eps of the sum of their magnitudes
+BWD_TOL = 1e-4
+LOSS_ATOL = 1e-4   # card vs CPU trainer per-step loss (f32, other orders)
+ROW_ATOL = 1e-4    # card vs CPU trainer table rows after the lockstep
+MAX_UNIQUE = 26 * B // 6  # bench.py's dedup width: U = 17,750 lanes
+K3B_U = 17664      # benchmarks/pallas_meta_bench.py's own U (and CAP 2^21)
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM peak (the card's power limit printed)
 
 
 def log(*a):
@@ -89,6 +115,28 @@ def wall_ms(fn, calls=100):
         fn()
     torch.cuda.synchronize()
     return (time.perf_counter() - t0) * 1e3 / calls
+
+
+def bound(nbytes):
+    """(bound_ms, bytes): the least time to move ``nbytes`` at peak HBM
+    rate. The kernels here do a few operations per byte, far below the
+    card's compute peaks, so bytes bound them all."""
+    return nbytes / HBM_BYTES_PER_S * 1e3, int(nbytes)
+
+
+def entry(name, source, replaces, err, ms, plain_ms, library_ms, nbytes):
+    bound_ms, nbytes = bound(nbytes)
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
+            "library_ms": library_ms, "bytes": nbytes}
+
+
+def log_times(what, ms, plain_ms, library_ms, nbytes, extra=""):
+    bms, _ = bound(nbytes)
+    lib = "null" if library_ms is None else f"{library_ms:.4f}"
+    log(f"{what}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+        f"{lib} ms, bound {bms:.4f} ms ({nbytes} bytes at 3.35 TB/s){extra}")
 
 
 def criteo_parts():
@@ -170,15 +218,30 @@ def check_kernels(dev):
             f"{wall_ms(lambda: fused_pooled_lookup_plain(v, s, m, comb)):.4f}"
             f" ms; max_abs_err {err:.3g}")
     k2_ms, k2_plain = times["criteo 26 x width-1", "sum"]
+
+    # one PyTorch call computing the same function, as the yardstick
+    k1_lib = time_ms(lambda: torch.index_select(table[:, :EMB_DIM], 0, slots))
+    k1_bytes = (slots.numel() * slots.element_size()
+                + torch.unique(slots).numel() * EMB_DIM * 4
+                + n_slots * EMB_DIM * 4)
+    log_times("K1 gather_rows (serving shape)", k1_ms, k1_plain, k1_lib,
+              k1_bytes, "; library: torch.index_select")
+    valid_f = valid.float()
+    k2_lib = time_ms(lambda: torch.nn.functional.embedding_bag(
+        inv, urows, per_sample_weights=valid_f, mode="sum"))
+    k2_bytes = (inv.numel() * inv.element_size() + valid.numel()
+                + int(uniq.n_unique) * EMB_DIM * 4 + inv.shape[0] * EMB_DIM * 4)
+    log_times("K2 fused_pooled_lookup (serving shape, [26*4096, 1] sum)",
+              k2_ms, k2_plain, k2_lib, k2_bytes,
+              "; library: embedding_bag(mode='sum', per_sample_weights)")
     return [
-        {"name": "gather_rows", "route": "cuda",
-         "source": "deeprec_tpu_torch/csrc/gather_rows.cu",
-         "replaces": "deeprec_tpu/ops/pallas_gather.py:78",
-         "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain},
-        {"name": "fused_pooled_lookup", "route": "cuda",
-         "source": "deeprec_tpu_torch/csrc/fused_pooled_lookup.cu",
-         "replaces": "deeprec_tpu/ops/pallas_fused_lookup.py:80",
-         "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": k2_plain},
+        entry("gather_rows", "deeprec_tpu_torch/csrc/gather_rows.cu",
+              "deeprec_tpu/ops/pallas_gather.py:78", k1_err, k1_ms,
+              k1_plain, k1_lib, k1_bytes),
+        entry("fused_pooled_lookup",
+              "deeprec_tpu_torch/csrc/fused_pooled_lookup.cu",
+              "deeprec_tpu/ops/pallas_fused_lookup.py:80", k2_err, k2_ms,
+              k2_plain, k2_lib, k2_bytes),
     ]
 
 
@@ -190,12 +253,9 @@ def write_checkpoint(path):
     from deeprec_tpu_torch.models.ctr import flax_leaves
     from deeprec_tpu_torch.sparse.embedding_var import init_rows
 
-    _, coll, model = criteo_parts()
+    _, coll, _ = criteo_parts()
     g = torch.Generator().manual_seed(SEED)
-    with torch.no_grad():  # He-scaled weights keep the logits spread out
-        for p in model.parameters():
-            std = (2.0 / p.shape[1]) ** 0.5 if p.dim() == 2 else 0.01
-            p.copy_(torch.randn(p.shape, generator=g) * std)
+    model = seeded_model(g)
     keys = np.unique(np.concatenate([
         coll.pack_ids_np(b).reshape(-1)
         for b in SyntheticCriteo(batch_size=B, seed=7).take(20)]))
@@ -318,14 +378,358 @@ def check_http(path, gpu, cpu, table, batch):
         thread.join(timeout=30)
 
 
+# -- phases 2 and 6: the training path ----------------------------------------
+def host_collection(metadata):
+    """bench.py's table: host index over 2^21 rows. ``use_native=True``
+    raises when the C++ resolver cannot be built: no Python fallback."""
+    from deeprec_tpu_torch import config as cfg
+    from deeprec_tpu_torch import feature_column as fc
+    from deeprec_tpu_torch.data.criteo import CAT_NAMES
+    from deeprec_tpu_torch.host_index import HostIndexEmbeddingCollection
+    meta = {}
+    if metadata:  # bench.py --metadata
+        meta = dict(counter_filter=cfg.CounterFilter(filter_freq=1),
+                    evict=cfg.GlobalStepEvict(steps_to_live=1 << 30))
+    return HostIndexEmbeddingCollection(
+        [fc.EmbeddingColumn(fc.CategoricalColumn(n), EMB_DIM)
+         for n in CAT_NAMES],
+        name="emb", capacity=CAPACITY,
+        initializer=cfg.Initializer("normal", scale=0.05),
+        max_unique=MAX_UNIQUE, fused_slot_columns=EMB_DIM,
+        fused_slot_init=0.1, use_native=True, **meta)
+
+
+def check_training_kernels(dev):
+    """K2 backward, K1's optimizer read and K3a at the training shape of
+    one resolved B=4096 batch; scatter_set and K3b at the JAX benchmark's
+    shape. Returns the kernels' JSON entries."""
+    from deeprec_tpu_torch.data.criteo import SyntheticCriteo
+    from deeprec_tpu_torch.ops.fused_lookup import (
+        fused_pooled_lookup_backward, fused_pooled_lookup_backward_plain)
+    from deeprec_tpu_torch.ops.gather import gather_rows, gather_rows_plain
+    from deeprec_tpu_torch.ops.meta_scatter import (
+        blocked_rmw_set, blocked_rmw_set_plain, meta_scatter,
+        meta_scatter_plain, scatter_set)
+
+    g = torch.Generator().manual_seed(SEED + 1)
+    coll = host_collection(metadata=True)
+    r = coll.pack_ids(next(SyntheticCriteo(batch_size=B, seed=7)),
+                      dev).decode()
+    u = r.uslots.shape[0]
+    n_real = int(r.n_unique)
+    log(f"training shape: {r.inverse.shape[0]} ids, {n_real} unique keys in "
+        f"{u} lanes")
+
+    # K2 backward: [26*4096, 1] bags (one id each) into the U unique lanes
+    slots = r.inverse.view(-1, 1)
+    valid = (r.uslots != CAPACITY)[r.inverse].view(-1, 1)
+    d_pooled = torch.randn(slots.shape[0], EMB_DIM, generator=g).to(dev)
+    got = fused_pooled_lookup_backward(d_pooled, slots, valid, "sum", u)
+    ref = fused_pooled_lookup_backward_plain(d_pooled, slots, valid, "sum",
+                                             u)
+    mag = fused_pooled_lookup_backward_plain(d_pooled.abs(), slots, valid,
+                                             "sum", u)
+    bwd_err = (got - ref).abs().max().item()
+    if not bool(((got - ref).abs() <= BWD_TOL * mag + 1e-7).all()):
+        fail(f"K2 backward differs from its plain version by {bwd_err}")
+    hot = int(torch.bincount(r.inverse.long(), minlength=u).max())
+    bwd_ms = time_ms(lambda: fused_pooled_lookup_backward(
+        d_pooled, slots, valid, "sum", u))
+    bwd_plain = time_ms(lambda: fused_pooled_lookup_backward_plain(
+        d_pooled, slots, valid, "sum", u))
+    idx, src = r.inverse.long(), torch.where(valid, d_pooled, 0.0)
+    bwd_lib = time_ms(lambda: torch.zeros(u, EMB_DIM, device=dev).index_add_(
+        0, idx, src))
+    bwd_bytes = (d_pooled.numel() * 4 + slots.numel() * 4 + valid.numel()
+                 + u * EMB_DIM * 4)
+    log_times("K2 fused_pooled_lookup_backward ([26*4096, 1] sum, D 16)",
+              bwd_ms, bwd_plain, bwd_lib, bwd_bytes,
+              f"; library: zeros + index_add_; max_abs_err {bwd_err:.3g}; "
+              f"hottest lane takes {hot} adds")
+
+    # K1 at the training shape: the unique-row fetch and the optimizer's
+    # read of whole fused rows (value + accumulator)
+    table = torch.randn(CAPACITY + 1, 2 * EMB_DIM, generator=g).to(dev)
+    for what, d in (("unique-row fetch", EMB_DIM),
+                    ("optimizer row read", 2 * EMB_DIM)):
+        if not torch.equal(gather_rows(table, r.uslots, d),
+                           gather_rows_plain(table, r.uslots, d)):
+            fail(f"K1 ({what}) differs from its plain version")
+        kt = time_ms(lambda: gather_rows(table, r.uslots, d))
+        pt = time_ms(lambda: gather_rows_plain(table, r.uslots, d))
+        lt = time_ms(lambda: torch.index_select(table[:, :d], 0, r.uslots))
+        log_times(f"K1 gather_rows, training {what} ([{u}] x {d})", kt, pt,
+                  lt, u * 4 + 2 * (n_real + 1) * d * 4)
+
+    # K3a on the path: the three metadata writes of lookup_or_create
+    cap = CAPACITY
+    dest = torch.where(r.created & ~r.readonly, r.uslots, cap + 1)
+    live = (r.counts > 0) & (r.uslots != cap) & ~r.readonly
+    mdest = torch.where(live, r.uslots, cap + 1)
+
+    def planes():
+        return [torch.full((cap + 1,), -1, dtype=torch.int32, device=dev),
+                torch.full((cap + 1,), -1, dtype=torch.int32, device=dev),
+                torch.zeros((cap + 1,), dtype=torch.int32, device=dev)]
+    kp, pp = planes(), planes()
+    meta_scatter(kp[0], dest, kp[1], kp[2], mdest, r.counts, 3)
+    meta_scatter_plain(pp[0], dest, pp[1], pp[2], mdest, r.counts, 3, cap)
+    if not all(torch.equal(a, b) for a, b in zip(kp, pp)):
+        fail("K3a meta_scatter differs from its plain version")
+    k3a_ms = time_ms(lambda: meta_scatter(kp[0], dest, kp[1], kp[2], mdest,
+                                          r.counts, 3))
+    k3a_plain = time_ms(lambda: meta_scatter_plain(
+        pp[0], dest, pp[1], pp[2], mdest, r.counts, 3, cap))
+    d_keep, m_keep = dest[dest < cap].long(), mdest[mdest < cap].long()
+    c_keep = r.counts[mdest < cap]
+    gs = torch.tensor(3, dtype=torch.int32, device=dev)
+
+    def three_calls():
+        pp[0].index_put_((d_keep,), gs)
+        pp[1].index_put_((m_keep,), gs)
+        pp[2].index_add_(0, m_keep, c_keep)
+    k3a_lib = time_ms(three_calls)
+    n_d, n_m = d_keep.numel(), m_keep.numel()
+    k3a_bytes = 3 * u * 4 + (n_d + 3 * n_m) * 4
+    log_times(f"K3a meta_scatter (3 planes of {cap + 1}, {u} lanes: {n_d} "
+              f"created, {n_m} live)", k3a_ms, k3a_plain, k3a_lib, k3a_bytes,
+              "; library: index_put_ x2 + index_add_ on pre-filtered lanes")
+
+    # the JAX benchmark's question, on this card: CAP 2^21, U 17,664
+    bslots = torch.randperm(cap, generator=g)[:K3B_U].to(torch.int32).to(dev)
+    bvals = torch.randint(-9, 9, (K3B_U,), generator=g,
+                          dtype=torch.int32).to(dev)
+    plane = torch.randint(-1, 9, (cap + 1,), generator=g,
+                          dtype=torch.int32).to(dev)
+    one, ref1 = plane.clone(), plane.clone()
+    scatter_set(one, bslots, 7)
+    ref1[bslots.long()] = 7
+    if not torch.equal(one, ref1):
+        fail("K3a scatter_set differs from index_put_")
+    b64 = bslots.long()
+    seven = torch.tensor(7, dtype=torch.int32, device=dev)
+    ss_ms = time_ms(lambda: scatter_set(one, bslots, 7))
+    ss_plain = time_ms(lambda: meta_scatter_plain(None, bslots, one, None,
+                                                  bslots, None, 7, cap))
+    ss_lib = time_ms(lambda: one.index_put_((b64,), seven))
+    log_times(f"K3a scatter_set (benchmark shape: plane {cap + 1}, U "
+              f"{K3B_U})", ss_ms, ss_plain, ss_lib, K3B_U * 8,
+              "; library: index_put_")
+    got = blocked_rmw_set(plane, bslots, bvals, cap)
+    if not torch.equal(got, blocked_rmw_set_plain(plane, bslots, bvals, cap)):
+        fail("K3b blocked_rmw_set differs from its plain version")
+    k3b_ms = time_ms(lambda: blocked_rmw_set(plane, bslots, bvals, cap))
+    k3b_plain = time_ms(lambda: blocked_rmw_set_plain(plane, bslots, bvals,
+                                                      cap))
+    inplace = plane.clone()
+    k3b_lib = time_ms(lambda: inplace.index_put_((b64,), bvals))
+    k3b_bytes = 2 * cap * 4 + 2 * K3B_U * 4
+    log_times(f"K3b blocked_rmw_set (benchmark shape: CAP {cap}, U {K3B_U})",
+              k3b_ms, k3b_plain, k3b_lib, k3b_bytes,
+              "; library: index_put_ in place (the scatter K3b streams "
+              "the plane instead of)")
+    return [
+        entry("fused_pooled_lookup_backward",
+              "deeprec_tpu_torch/csrc/fused_pooled_lookup.cu",
+              "deeprec_tpu/ops/pallas_fused_lookup.py:80", bwd_err, bwd_ms,
+              bwd_plain, bwd_lib, bwd_bytes),
+        entry("meta_scatter", "deeprec_tpu_torch/csrc/meta_scatter.cu",
+              "benchmarks/pallas_meta_bench.py:108", 0.0, k3a_ms, k3a_plain,
+              k3a_lib, k3a_bytes),
+        entry("blocked_rmw_set", "deeprec_tpu_torch/csrc/meta_scatter.cu",
+              "benchmarks/pallas_meta_bench.py:151", 0.0, k3b_ms, k3b_plain,
+              k3b_lib, k3b_bytes),
+    ]
+
+
+def seeded_model(g):
+    """bench.py's DLRM with He-scaled random weights drawn from ``g``."""
+    _, _, model = criteo_parts()
+    with torch.no_grad():  # He-scaled weights keep the logits spread out
+        for p in model.parameters():
+            std = (2.0 / p.shape[1]) ** 0.5 if p.dim() == 2 else 0.01
+            p.copy_(torch.randn(p.shape, generator=g) * std)
+    return model
+
+
+def trainer(dev, metadata):
+    from deeprec_tpu_torch.optim.dense import Adagrad
+    from deeprec_tpu_torch.optim.sparse import sparse_adagrad_fused
+    from deeprec_tpu_torch.train.trainer import Trainer
+    numeric, _, _ = criteo_parts()
+    model = seeded_model(torch.Generator().manual_seed(SEED))
+    return Trainer(model, numeric,
+                   {"emb": host_collection(metadata)},
+                   {"emb": sparse_adagrad_fused(0.05)}, Adagrad(0.05),
+                   device=dev)
+
+
+def lockstep(tg, tc, batches, what):
+    """Train the card and CPU trainers on ``batches``; hold the wires (so
+    slots, keys and inverse) bit-equal and the losses within LOSS_ATOL.
+    Returns both states."""
+    sg, sc = tg.init(batches[0]), tc.init(batches[0])
+    worst = 0.0
+    for i, b in enumerate(batches):
+        dg, cg, lg = tg.prepare_batch(b)
+        dc, cc, lc = tc.prepare_batch(b)
+        if not torch.equal(cg["emb"].buf.cpu(), cc["emb"].buf):
+            fail(f"{what}: card and CPU resolves differ at step {i}")
+        g0, c0 = sg.metrics.loss_sum.item(), sc.metrics.loss_sum.item()
+        sg = tg._train_step(sg, dg, cg, lg)
+        sc = tc._train_step(sc, dc, cc, lc)
+        lg_, lc_ = ((sg.metrics.loss_sum.item() - g0) / B,
+                    (sc.metrics.loss_sum.item() - c0) / B)
+        if not (np.isfinite(lg_) and abs(lg_ - lc_) <= LOSS_ATOL):
+            fail(f"{what}: step {i} loss {lg_} on the card vs {lc_} on CPU")
+        worst = max(worst, abs(lg_ - lc_))
+    eg, ec = sg.tables["emb"].ev, sc.tables["emb"].ev
+    for f in ("freqs", "versions", "create_steps"):
+        if not torch.equal(getattr(eg, f).cpu(), getattr(ec, f)):
+            fail(f"{what}: {f} planes differ between card and CPU")
+    rows = (eg.values.cpu() - ec.values).abs().max().item()
+    if not rows <= ROW_ATOL:
+        fail(f"{what}: table rows differ by {rows} between card and CPU")
+    log(f"{what}: {len(batches)} steps in lockstep with a CPU trainer: wires "
+        f"and metadata planes bit-equal, max |dloss| {worst:.3g} (limit "
+        f"{LOSS_ATOL}), max |drow| {rows:.3g} (limit {ROW_ATOL}); "
+        f"{int((ec.freqs > 0).sum())} rows with freq > 0")
+    return sg, worst, rows
+
+
+def timed_runs(tg, state, batches, runs=3, steps=10, inline=False):
+    """examples/s of ``runs`` runs of ``steps`` steps (host clock around
+    work ending in a synchronize). Staged: every batch's host half
+    (packing, the resolve in step order, the copies) is done before the
+    clock starts, as bench.py's default does; inline: train_step does it
+    inside the clock."""
+    rates = []
+    for k in range(runs):
+        chunk = batches[k * steps:(k + 1) * steps]
+        items = chunk if inline else [tg.prepare_batch(b) for b in chunk]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for it in items:
+            state = (tg.train_step(state, it) if inline
+                     else tg._train_step(state, *it))
+        torch.cuda.synchronize()
+        rates.append(steps * B / (time.perf_counter() - t0))
+    return state, rates
+
+
+def profile_steps(tg, state, batches, step_ms):
+    """Device time by kernel over len(batches) staged steps
+    (torch.profiler; only the device-side kernel and copy events are
+    summed, so nothing is counted twice)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    items = [tg.prepare_batch(b) for b in batches]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for it in items:
+            state = tg._train_step(state, *it)
+        torch.cuda.synchronize()
+    n = len(items)
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+    ka = sorted((e for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA),
+                key=dev_us, reverse=True)
+    total_ms = sum(dev_us(e) for e in ka) / 1e3 / n
+    launches = sum(e.count for e in ka) / n
+    log(f"profile of {n} staged metadata steps: {launches:.0f} device "
+        f"kernels and copies per step, busy {total_ms:.3f} ms per step = "
+        f"{100 * total_ms / step_ms:.1f} % of the unprofiled median step "
+        f"({step_ms:.3f} ms); idle {100 - 100 * total_ms / step_ms:.1f} %")
+    for e in ka[:20]:
+        log(f"  {dev_us(e) / 1e3 / n:8.4f} ms/step {e.count / n:6.1f} "
+            f"calls/step  {e.key[:100]}")
+    return state, total_ms
+
+
+def check_training(dev, smi):
+    """Phases 6 and 7. Returns (launches by path, training summary)."""
+    from deeprec_tpu_torch.data.criteo import SyntheticCriteo
+    from deeprec_tpu_torch.ops.fused_lookup import (
+        fused_pooled_lookup, fused_pooled_lookup_backward)
+    from deeprec_tpu_torch.ops.gather import gather_rows
+    from deeprec_tpu_torch.ops.meta_scatter import meta_scatter
+    from deeprec_tpu_torch.train import metrics
+    counters = {"gather_rows": gather_rows,
+                "fused_pooled_lookup": fused_pooled_lookup,
+                "fused_pooled_lookup_backward": fused_pooled_lookup_backward,
+                "meta_scatter": meta_scatter}
+    batches = list(SyntheticCriteo(batch_size=B, seed=7).take(68))
+    out = {}
+
+    # --metadata: the slice's main path
+    t0 = time.perf_counter()
+    tg, tc = trainer(dev, True), trainer("cpu", True)
+    log(f"metadata trainers built in {time.perf_counter() - t0:.1f} s")
+    for fn in counters.values():
+        fn.launches = 0
+    sg, dloss, drow = lockstep(tg, tc, batches[:5], "metadata layout")
+    del tc
+    sg, staged = timed_runs(tg, sg, batches[5:35])
+    sg, inline = timed_runs(tg, sg, batches[35:65], inline=True)
+    launches = {k: fn.launches for k, fn in counters.items()}
+    log(f"training main path (metadata layout, {sg.step} steps) launches: "
+        f"{launches}")
+    for k, v in launches.items():
+        if v <= 0:
+            fail(f"{k} was not launched on the training path")
+    med = statistics.median(staged)
+    sg, dev_ms = profile_steps(tg, sg, batches[65:68], B / med * 1e3)
+    summ = metrics.summarize(sg.metrics)
+    if not (summ["examples"] == sg.step * B and np.isfinite(summ["loss"])
+            and 0.0 <= summ["auc"] <= 1.0):
+        fail(f"metadata metrics are off: {summ}")
+    for name, rates in (("staged", staged), ("inline", inline)):
+        log(f"metadata layout examples/s at B={B}, {name} host half: median "
+            f"{statistics.median(rates):.1f}, min {min(rates):.1f}, max "
+            f"{max(rates):.1f} over 3 runs of 10 steps, on {smi}")
+    log(f"metadata layout after {sg.step} steps: {summ}")
+    out["metadata"] = {"staged_eps": staged, "inline_eps": inline,
+                       "device_ms_per_step": dev_ms, "max_dloss": dloss,
+                       "max_drow": drow, "summary": summ}
+    del tg, sg
+
+    # the light layout: bench.py's default, lazy init, no metadata writes
+    tg, tc = trainer(dev, False), trainer("cpu", False)
+    for fn in counters.values():
+        fn.launches = 0
+    sg, dloss, drow = lockstep(tg, tc, batches[:3], "light layout")
+    del tc
+    sg, staged = timed_runs(tg, sg, batches[3:33])
+    light = {k: fn.launches for k, fn in counters.items()}
+    log(f"light layout ({sg.step} steps) launches: {light}")
+    for k in ("gather_rows", "fused_pooled_lookup",
+              "fused_pooled_lookup_backward"):
+        if light[k] <= 0:
+            fail(f"{k} was not launched on the light training path")
+    if light["meta_scatter"]:
+        fail("the light layout wrote metadata")
+    log(f"light layout examples/s at B={B}, staged host half: median "
+        f"{statistics.median(staged):.1f}, min {min(staged):.1f}, max "
+        f"{max(staged):.1f} over 3 runs of 10 steps, on {smi}")
+    out["light"] = {"staged_eps": staged, "max_dloss": dloss,
+                    "max_drow": drow,
+                    "summary": metrics.summarize(sg.metrics)}
+    return {"train_metadata": launches, "train_light": light}, out
+
+
 def run(dev, smi):
-    """Phases 2-5 on ``dev``; returns the kernels' JSON entries."""
+    """Phases 2-7 on ``dev``; returns the kernels' JSON entries and the
+    training numbers."""
     from deeprec_tpu_torch.data.criteo import SyntheticCriteo
     from deeprec_tpu_torch.ops.fused_lookup import fused_pooled_lookup
     from deeprec_tpu_torch.ops.gather import gather_rows
     from deeprec_tpu_torch.ops import _build
 
-    kernels = check_kernels(dev)
+    kernels = check_kernels(dev) + check_training_kernels(dev)
 
     _build.BUILD.mkdir(parents=True, exist_ok=True)  # git-ignored
     with tempfile.TemporaryDirectory(dir=str(_build.BUILD)) as path:
@@ -345,11 +749,10 @@ def run(dev, smi):
         probs = [gpu.predict(b) for b in held]
         launches = {"gather_rows": gather_rows.launches,
                     "fused_pooled_lookup": fused_pooled_lookup.launches}
-        log(f"main path (5 predicts at B={B}) launches: {launches}")
-        for k in kernels:
-            k["launches"] = launches[k["name"]]
-            if k["launches"] <= 0:
-                fail(f"{k['name']} was not launched on the main path")
+        log(f"serving path (5 predicts at B={B}) launches: {launches}")
+        for k, v in launches.items():
+            if v <= 0:
+                fail(f"{k} was not launched on the serving path")
         coll = gpu.collections["emb"]
         aux, _ = coll.readonly_rows(gpu.tables["emb"],
                                     coll.pack_ids(held[0], dev))
@@ -380,7 +783,15 @@ def run(dev, smi):
             f"warm-up, host clock) on {smi}")
 
         check_http(path, gpu, cpu, table, held[1])
-    return kernels
+        del gpu, cpu
+
+    paths, training = check_training(dev, smi)
+    paths["serving"] = launches
+    for k in kernels:  # launches on the slice's main path: --metadata
+        k["launches"] = paths["train_metadata"].get(k["name"], 0)
+        k["launches_by_path"] = {p: c.get(k["name"], 0)
+                                 for p, c in paths.items()}
+    return kernels, training
 
 
 def main():
@@ -405,7 +816,8 @@ def main():
     log(f"kernels built (nvcc sm_90a) and loaded in "
         f"{time.perf_counter() - t0:.2f} s")
 
-    kernels = run(torch.device("cuda"), smi)
+    kernels, training = run(torch.device("cuda"), smi)
+    log(json.dumps({"training": training, "card": smi}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,4 +1,5 @@
-// K2: fused gather + pool. For each bag b,
+// K2: fused gather + pool, forward and backward (the backward is below the
+// forward kernel). For each bag b,
 //   out[b, :] = scale(n_b) * sum over k with valid[b, k] of
 //               values[clamp(slots[b, k], 0, R-1), :D]
 // with scale 1 (sum), 1/max(n,1) (mean) or 1/sqrt(max(n,1)) (sqrtn), n_b
@@ -67,6 +68,48 @@ __global__ void fused_pooled_lookup_kernel(
   }
 }
 
+// K2 backward: the pooling's gradient with respect to values,
+//   d_values[clamp(slots[b, k], 0, R-1), :] += d_pooled[b, :] / scale_b
+// for every valid lane (b, k), scale_b = 1 (sum), max(n_b,1) (mean) or
+// sqrt(max(n_b,1)) (sqrtn). The Pallas TPU kernel has no backward (its
+// caller differentiated the XLA gather instead); this is the port's own.
+// Bound by HBM bytes: d_pooled read once, slots/valid read once, each
+// touched d_values element written (the wrapper zero-fills the [R, D]
+// output first). Design: as the forward, one sub-warp per bag and one
+// column per thread; every valid lane adds its share with an f32
+// atomicAdd. Criteo's skew puts thousands of adds on a few hot rows, which
+// serialise in L2; a segmented sum over a sorted inverse would avoid that
+// and is left to a later change. The atomics add in a different order on
+// every run, so results agree with the plain version to rounding, not bits.
+template <typename I>
+__global__ void fused_pooled_lookup_bwd_kernel(
+    const float* __restrict__ d_pooled, int64_t d,
+    const I* __restrict__ slots, int64_t s_b, int64_t s_k,
+    const bool* __restrict__ valid, int64_t v_b, int64_t v_k, int64_t n_bags,
+    int64_t w, int combiner, float* __restrict__ d_values, int64_t n_rows,
+    int lanes) {
+  int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  int64_t b = t / lanes;
+  if (b >= n_bags) return;
+  int lane = (int)(t - b * lanes);
+  const I* bag_slots = slots + b * s_b;
+  const bool* bag_valid = valid + b * v_b;
+  int n = 0;
+  for (int64_t k = 0; k < w; ++k) n += bag_valid[k * v_k] ? 1 : 0;
+  const float m = (float)(n > 1 ? n : 1);
+  for (int64_t c = lane; c < d; c += lanes) {
+    float g = d_pooled[b * d + c];
+    if (combiner == 1) g = g / m;
+    else if (combiner == 2) g = g / sqrtf(m);
+    for (int64_t k = 0; k < w; ++k) {
+      if (!bag_valid[k * v_k]) continue;
+      int64_t s = (int64_t)bag_slots[k * s_k];
+      s = s < 0 ? 0 : (s >= n_rows ? n_rows - 1 : s);
+      atomicAdd(d_values + s * d + c, g);
+    }
+  }
+}
+
 template <typename V>
 cudaError_t launch(const void* values, int64_t ld, int64_t n_rows, int64_t d,
                    const void* slots, int slots_are_64, int64_t s_b,
@@ -112,4 +155,33 @@ extern "C" int deeprec_fused_pooled_lookup(
                           st);
   return launch<float>(values, ld, n_rows, d, slots, slots_are_64, s_b, s_k,
                        valid, v_b, v_k, n_bags, w, combiner, out, st);
+}
+
+// d_pooled [n_bags, d] contiguous f32; slots/valid as for the forward;
+// d_values [n_rows, d] contiguous f32, zero-filled by the caller, receives
+// the sums. Returns the launch's cudaError_t; 0 is success.
+extern "C" int deeprec_fused_pooled_lookup_bwd(
+    const void* d_pooled, int64_t d, const void* slots, int slots_are_64,
+    int64_t s_b, int64_t s_k, const void* valid, int64_t v_b, int64_t v_k,
+    int64_t n_bags, int64_t w, int combiner, void* d_values, int64_t n_rows,
+    void* stream) {
+  if (n_bags == 0 || d == 0) return 0;
+  cudaStream_t st = (cudaStream_t)stream;
+  int lanes = 1;
+  while (lanes < 32 && lanes < d) lanes <<= 1;
+  const int threads = 256;
+  const int64_t blocks = (n_bags * lanes + threads - 1) / threads;
+  if (slots_are_64)
+    fused_pooled_lookup_bwd_kernel<int64_t><<<(unsigned)blocks, threads, 0,
+                                              st>>>(
+        (const float*)d_pooled, d, (const int64_t*)slots, s_b, s_k,
+        (const bool*)valid, v_b, v_k, n_bags, w, combiner, (float*)d_values,
+        n_rows, lanes);
+  else
+    fused_pooled_lookup_bwd_kernel<int32_t><<<(unsigned)blocks, threads, 0,
+                                              st>>>(
+        (const float*)d_pooled, d, (const int32_t*)slots, s_b, s_k,
+        (const bool*)valid, v_b, v_k, n_bags, w, combiner, (float*)d_values,
+        n_rows, lanes);
+  return (int)cudaGetLastError();
 }

@@ -1,17 +1,22 @@
-"""Feature columns and the coalesced embedding collection (serving path).
+"""Feature columns and the coalesced embedding collection.
 
 Port of ``deeprec_tpu/feature_column.py``: the column dataclasses,
-``pack_dense``/``normalize_dense`` and the read-only half of
-:class:`EmbeddingCollection` (``pack_ids_np``, ``readonly_rows``,
-``embeddings_readonly``, ``embeddings_from_rows``).
+``pack_dense``/``normalize_dense``, and of :class:`EmbeddingCollection` the
+serving half (``pack_ids_np``, ``readonly_rows``, ``embeddings_readonly``,
+``embeddings_from_rows``) and the trainer hooks (``gather_unique``,
+``rows_for_training``, ``embeddings``, ``apply_gradients``, ``init_slot``).
+The device-index ``lookup_or_create`` is not ported: the trainable table
+is ``host_index.HostIndexEmbeddingCollection``.
 
 Layout: a collection packs its columns' ids into one feature-major
 ``[total_width, B]`` int64 block, each column's ids salted with its column
 group so coalesced columns never share rows. ``readonly_rows`` dedups the
 flat block, probes the hash index and fetches the unique rows with kernel
-K1; ``embeddings_readonly`` pools them per column with kernel K2 straight
-through ``inverse``, so the ``[total_width*B, dim]`` expanded rows are
-never materialised.
+K1; ``embeddings_readonly`` and ``embeddings`` pool them per column with
+kernel K2 straight through ``inverse``, so the ``[total_width*B, dim]``
+expanded rows are never materialised. Pooling is differentiable with
+respect to the unique rows (K2's backward kernel), which is how training
+gets its sparse gradient.
 """
 from __future__ import annotations
 
@@ -22,7 +27,7 @@ import numpy as np
 import torch
 
 from .config import EmbeddingVariableConfig, Initializer
-from .ops.fused_lookup import fused_pooled_lookup
+from .ops.fused_lookup import pooled_lookup
 from .ops.gather import gather_rows
 from .ops.unique import unique
 from .sparse import embedding_var as ev
@@ -142,7 +147,7 @@ class EmbeddingCollection:
         return np.concatenate(blocks, axis=0)
 
     def pack_ids(self, batch: Dict[str, np.ndarray],
-                 device) -> torch.Tensor:
+                 device="cuda") -> torch.Tensor:
         return torch.from_numpy(self.pack_ids_np(batch)).to(device)
 
     def readonly_rows(self, state: ev.EVState, cats: torch.Tensor):
@@ -160,6 +165,42 @@ class EmbeddingCollection:
         rows = torch.where((found | ~valid)[:, None], rows, defaults)
         return aux, rows
 
+    # -- trainer hooks (the Trainer never assumes a state type) ------------
+    def gather_unique(self, values: torch.Tensor,
+                      aux: CollectionAux) -> torch.Tensor:
+        """``[U, dim]`` rows of the unique keys: the differentiable leaf."""
+        return ev.gather(values, aux.ev_aux, self.config)
+
+    def rows_for_training(self, state, aux: CollectionAux) -> torch.Tensor:
+        return self.gather_unique(state.values, aux)
+
+    def embeddings(self, urows: torch.Tensor,
+                   aux: CollectionAux) -> Dict[str, torch.Tensor]:
+        """Pooled per-column embeddings for training: ``name -> [B, dim]``.
+        Validity comes from the slots (padding and overflow keys sit on the
+        null row), so they add nothing and leave the mean denominators."""
+        a = aux.ev_aux
+        valid = (a.slots != self.config.capacity)[a.uniq.inverse]
+        return self.embeddings_from_rows(urows, a.uniq.inverse, valid)
+
+    def apply_gradients(self, state, opt, slot_state, aux: CollectionAux,
+                        urow_grads: torch.Tensor, step: int,
+                        urows: Optional[torch.Tensor] = None):
+        """Sparse-apply the gradient of :meth:`gather_unique`'s output.
+        ``urows`` are the effective current rows (required under lazy init:
+        created rows update from their init, not from the store's zeros).
+        Updates ``state.values`` in place; returns ``(state, slot_state)``."""
+        a = aux.ev_aux
+        if urows is None:
+            urows = ev.gather(state.values, a, self.config)
+        _, slot_state = opt.apply(state.values, slot_state, a.slots,
+                                  urow_grads, a.admitted, step,
+                                  cur_rows=urows, created=a.created)
+        return state, slot_state
+
+    def init_slot(self, opt, state):
+        return opt.init(state.values)
+
     def embeddings_readonly(self, urows: torch.Tensor, aux: CollectionAux):
         """(pooled dict, sequence dict) for serving: every non-padding key
         pools, unknown ones with the default row ``readonly_rows`` gave
@@ -174,7 +215,8 @@ class EmbeddingCollection:
                              valid: torch.Tensor) -> Dict[str, torch.Tensor]:
         """Pool per column into ``name -> [B, dim]``: flat id ``i`` (layout
         ``[total_width, B]``) reads row ``urows[inverse[i]]`` when
-        ``valid[i]``. One K2 launch per pooling group."""
+        ``valid[i]``. One K2 launch per pooling group, differentiable with
+        respect to ``urows``."""
         B = inverse.shape[0] // self.total_width
         inv = inverse.view(self.total_width, B)
         val = valid.view(self.total_width, B)
@@ -182,12 +224,12 @@ class EmbeddingCollection:
         for o, w, combiner, names in self._pool_groups:
             if w == 1:
                 n = len(names)
-                pooled = fused_pooled_lookup(
+                pooled = pooled_lookup(
                     urows, inv[o:o + n].reshape(n * B, 1),
                     val[o:o + n].reshape(n * B, 1), combiner)
                 out.update(zip(names, pooled.view(n, B, -1)))
             else:
-                out[names[0]] = fused_pooled_lookup(
+                out[names[0]] = pooled_lookup(
                     urows, inv[o:o + w].T, val[o:o + w].T, combiner)
         return out
 

@@ -1,5 +1,6 @@
 """CTR models (port of ``deeprec_tpu/models/ctr.py``): DLRM, and the
-functions that carry a flax-trained model's weights across.
+functions that carry a flax-trained model's weights and its
+``optax.adagrad`` state across.
 
 Models consume ``dense [B, Dd]`` and ``emb``, a dict name -> ``[B, d]``
 pooled embeddings, and return logits ``[B]``.
@@ -90,3 +91,27 @@ def load_flax_params(module: nn.Module, leaves: Sequence) -> nn.Module:
                     "dense leaves do not match the model's parameters")
             dst.copy_(src)
     return module
+
+
+def load_flax_adagrad_state(module: nn.Module,
+                            leaves: Sequence) -> List[torch.Tensor]:
+    """The accumulators of an ``optax.adagrad`` state as the port's dense
+    optimizer holds them (``optim.dense.Adagrad``): one tensor per entry of
+    ``module.parameters()``, in that order. ``leaves`` are the state's
+    ``sum_of_squares`` leaves, which follow the flax param flatten order
+    (``jax.tree_util.tree_leaves(opt_state)``; leaves past the parameter
+    count are ignored)."""
+    spec = _flax_params(module)
+    if len(leaves) < len(spec):
+        raise ValueError(f"{len(leaves)} leaves for {len(spec)} parameters")
+    by_param = {}
+    for (path, lin, leaf), value in zip(spec, leaves):
+        acc = torch.tensor(np.asarray(value))
+        dst = lin.bias if leaf == "bias" else lin.weight
+        acc = acc if leaf == "bias" else acc.T.contiguous()
+        if tuple(acc.shape) != tuple(dst.shape):
+            raise ValueError(f"adagrad leaf {'/'.join(path)} has shape "
+                             f"{tuple(np.shape(value))}, which does not fit "
+                             f"the model's {tuple(dst.shape)}")
+        by_param[id(dst)] = acc.to(dst.device)
+    return [by_param[id(p)] for p in module.parameters()]

@@ -1,8 +1,9 @@
 """Build and load the hand-written CUDA kernels.
 
 Every ``deeprec_tpu_torch/csrc/*.cu`` is compiled by ``nvcc`` for Hopper
-(``sm_90a``) into one shared library with a plain C interface, at first
-use, under the git-ignored ``deeprec_tpu_torch/build/``. The library's name
+(``sm_90a``), one process per source started together, and linked into
+one shared library with a plain C interface, at first use, under the
+git-ignored ``deeprec_tpu_torch/build/``. The library's name
 carries a hash of the sources and flags, so an edited kernel is rebuilt and
 an unchanged one is reused. It is loaded with ``ctypes``: pointers and the
 CUDA stream go as ``c_void_p``, sizes as ``c_int64``, and every entry
@@ -20,6 +21,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -38,6 +40,16 @@ _SIGNATURES = {
     "deeprec_fused_pooled_lookup": [_P, _I64, _I64, _I64, _P, _I, _I64,
                                     _I64, _P, _I64, _I64, _I64, _I64, _I, _P,
                                     _I, _P],
+    # d_pooled, d, slots, slots_are_64, s_b, s_k, valid, v_b, v_k, n_bags,
+    # w, combiner, d_values, n_rows, stream
+    "deeprec_fused_pooled_lookup_bwd": [_P, _I64, _P, _I, _I64, _I64, _P,
+                                        _I64, _I64, _I64, _I64, _I, _P, _I64,
+                                        _P],
+    # create_steps, dest, versions, freqs, mdest, counts, idx_are_64, gs,
+    # n, cap, stream (absent planes are NULL)
+    "deeprec_meta_scatter": [_P, _P, _P, _P, _P, _P, _I, _I, _I64, _I64, _P],
+    # plane, slots, slots_are_64, vals, n, cap, out, vec4, stream
+    "deeprec_blocked_rmw_set": [_P, _P, _I, _P, _I64, _I64, _P, _I, _P],
 }
 
 
@@ -60,20 +72,42 @@ def _library_path() -> Path:
     return BUILD / f"libdeeprec_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _compile(path: Path) -> None:
+    """One ``nvcc -c`` per source, all started together, then one link."""
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=str(BUILD)) as tmpdir:
+        objs, procs = [], []
+        compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
+        for src in sorted(CSRC.glob("*.cu")):
+            obj = os.path.join(tmpdir, src.stem + ".o")
+            cmd = [nvcc, *compile_flags, "-c", "-o", obj, str(src)]
+            procs.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True)))
+            objs.append(obj)
+        failed = []
+        for cmd, proc in procs:
+            _, err = proc.communicate()
+            if proc.returncode:
+                failed.append(f"{' '.join(cmd)}\n{err}")
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        tmp = path.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *objs]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode:
+            raise RuntimeError(f"nvcc link failed:\n{' '.join(cmd)}\n"
+                               f"{proc.stderr}")
+        os.replace(tmp, path)  # atomic: concurrent builders agree
+
+
 @functools.cache
 def library() -> ctypes.CDLL:
     """The kernels' shared library, compiled on first call."""
     path = _library_path()
     if not path.exists():
         BUILD.mkdir(parents=True, exist_ok=True)
-        tmp = path.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-               *map(str, sorted(CSRC.glob("*.cu")))]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{' '.join(cmd)}\n{proc.stderr}")
-        os.replace(tmp, path)  # atomic: concurrent builders agree
+        _compile(path)
     lib = ctypes.CDLL(str(path))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)

@@ -11,6 +11,12 @@ pooled rows written; the ``[B*w, D]`` expanded rows are never written); on
 a CPU tensor it runs :func:`fused_pooled_lookup_plain`, the plain PyTorch
 version the tests and the card smoke compare the kernel with. ``slots``
 and ``valid`` may be strided views.
+
+The backward, ``fused_pooled_lookup_backward`` (``d_values [R, D]`` from
+``d_pooled [B, D]``), is the port's own kernel in the same source: the
+Pallas kernel has no VJP. :func:`pooled_lookup` is the differentiable
+entry, a ``torch.autograd.Function`` whose forward is K2 and whose
+backward is that kernel; the collections pool through it.
 """
 from __future__ import annotations
 
@@ -76,5 +82,82 @@ def fused_pooled_lookup(values: torch.Tensor, slots: torch.Tensor,
     return out
 
 
+def fused_pooled_lookup_backward_plain(d_pooled: torch.Tensor,
+                                       slots: torch.Tensor,
+                                       valid: torch.Tensor, combiner: str,
+                                       n_rows: int) -> torch.Tensor:
+    g = d_pooled
+    if combiner != "sum":
+        n = valid.sum(1, keepdim=True).clamp_min(1).to(d_pooled.dtype)
+        g = g / (n if combiner == "mean" else n.sqrt())
+    lanes = torch.where(valid[..., None], g[:, None, :], 0)    # [B, w, D]
+    out = torch.zeros((n_rows, d_pooled.shape[1]), dtype=d_pooled.dtype,
+                      device=d_pooled.device)
+    return out.index_add_(0, slots.clamp(0, n_rows - 1).reshape(-1),
+                          lanes.reshape(-1, d_pooled.shape[1]))
+
+
+def fused_pooled_lookup_backward(d_pooled: torch.Tensor,
+                                 slots: torch.Tensor, valid: torch.Tensor,
+                                 combiner: str, n_rows: int) -> torch.Tensor:
+    """``[n_rows, D]`` gradient of :func:`fused_pooled_lookup` with respect
+    to ``values``, given ``d_pooled [B, D]``. On CUDA the f32 atomics add in
+    a different order on every run: results agree to rounding."""
+    d_pooled = d_pooled.contiguous()  # autograd may hand an expanded view
+    if n_rows <= 0 or d_pooled.dim() != 2 or \
+            d_pooled.shape[0] != slots.shape[0]:
+        raise ValueError("d_pooled must be [B, D] for slots [B, w] and "
+                         "n_rows > 0")
+    _check(d_pooled, slots, valid, combiner)
+    if d_pooled.device.type == "cpu":
+        return fused_pooled_lookup_backward_plain(d_pooled, slots, valid,
+                                                  combiner, n_rows)
+    if d_pooled.device.type != "cuda":
+        raise ValueError(f"fused_pooled_lookup_backward: unsupported device "
+                         f"{d_pooled.device}")
+    if d_pooled.dtype != torch.float32:
+        raise ValueError("the CUDA fused_pooled_lookup_backward takes "
+                         "float32 gradients")
+    n_bags, w = slots.shape
+    d = d_pooled.shape[1]
+    out = torch.zeros((n_rows, d), dtype=torch.float32,
+                      device=d_pooled.device)
+    with torch.cuda.device(d_pooled.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _build.library().deeprec_fused_pooled_lookup_bwd(
+            d_pooled.data_ptr(), d, slots.data_ptr(),
+            int(slots.dtype == torch.int64), slots.stride(0), slots.stride(1),
+            valid.data_ptr(), valid.stride(0), valid.stride(1), n_bags, w,
+            COMBINERS.index(combiner), out.data_ptr(), n_rows, stream)
+    _build.check(err, "fused_pooled_lookup_backward")
+    fused_pooled_lookup_backward.launches += 1
+    return out
+
+
+class _PooledLookup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, values, slots, valid, combiner):
+        ctx.save_for_backward(slots, valid)
+        ctx.combiner = combiner
+        ctx.n_rows = values.shape[0]
+        return fused_pooled_lookup(values, slots, valid, combiner)
+
+    @staticmethod
+    def backward(ctx, d_pooled):
+        slots, valid = ctx.saved_tensors
+        d_values = fused_pooled_lookup_backward(d_pooled, slots, valid,
+                                                ctx.combiner, ctx.n_rows)
+        return d_values, None, None, None
+
+
+def pooled_lookup(values: torch.Tensor, slots: torch.Tensor,
+                  valid: torch.Tensor, combiner: str = "mean"
+                  ) -> torch.Tensor:
+    """:func:`fused_pooled_lookup` that autograd differentiates with
+    respect to ``values`` through :func:`fused_pooled_lookup_backward`."""
+    return _PooledLookup.apply(values, slots, valid, combiner)
+
+
 #: kernel launches (CUDA path only), read by the card smoke
 fused_pooled_lookup.launches = 0
+fused_pooled_lookup_backward.launches = 0

@@ -58,14 +58,15 @@ class Predictor:
         weights are loaded from the checkpoint.
       numeric_columns / collections: the feature config of training.
       ckpt_dir: a directory of saves (JAX ``CheckpointManager`` format).
-      device: where tables and model live, e.g. ``"cuda"`` or ``"cpu"``.
+      device: where tables and model live: the card (``"cuda"``, the
+        default; raises when torch sees none) or ``"cpu"``.
       forward: optional custom forward, ``default_forward``'s signature.
     """
 
     def __init__(self, model: torch.nn.Module,
                  numeric_columns: Sequence[NumericColumn],
                  collections: Dict[str, EmbeddingCollection], ckpt_dir: str,
-                 *, device, forward=None):
+                 *, device="cuda", forward=None):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Predictor(device='cuda') but torch sees no "

@@ -1,9 +1,10 @@
 """EmbeddingVariable state: a hash index plus flat row stores.
 
-Port of the serving half of ``deeprec_tpu/sparse/embedding_var.py``:
-:class:`EVState`, :class:`LookupAux`, :func:`create`, the key-deterministic
-:func:`init_rows` and :func:`grow`. Row ``capacity`` of every store is the
-shared null row (zeros) that padding and failed lookups read.
+Port of part of ``deeprec_tpu/sparse/embedding_var.py``: :class:`EVState`,
+:class:`LookupAux`, :func:`create`, the key-deterministic :func:`init_rows`,
+:func:`grow` and the training gather :func:`gather`. Row ``capacity`` of
+every store is the shared null row (zeros) that padding and failed lookups
+read.
 """
 from __future__ import annotations
 
@@ -13,6 +14,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from ..config import EmbeddingVariableConfig
+from ..ops.gather import gather_rows
 from ..ops.unique import UniqueResult
 from . import hashtable as ht
 from . import keys as K
@@ -43,7 +45,7 @@ def _dtype(name: str) -> torch.dtype:
     return getattr(torch, name)
 
 
-def create(config: EmbeddingVariableConfig, device=None) -> EVState:
+def create(config: EmbeddingVariableConfig, device="cuda") -> EVState:
     cap = config.capacity
     dim = config.embedding_dim + config.fused_slot_columns
     i32 = dict(dtype=torch.int32, device=device)
@@ -84,6 +86,24 @@ def init_rows(config: EmbeddingVariableConfig,
     if ini.kind == "truncated_normal":
         z = torch.clamp(z, -2.0, 2.0)
     return (z * ini.scale).to(out["dtype"])
+
+
+def gather(values: torch.Tensor, aux: LookupAux,
+           config: EmbeddingVariableConfig) -> torch.Tensor:
+    """Embedding rows of the unique keys, ``[U, embedding_dim]``: the
+    training step's differentiable leaf (its caller marks it so).
+
+    The rows come through kernel K1, which reads only the first
+    ``embedding_dim`` columns of a fused-width table. Filter-less tables
+    use lazy init: a row created this step still holds zeros in the store,
+    so its deterministic init is added here on ``created`` lanes, and the
+    optimizer's write-back persists init + update in one scatter.
+    """
+    rows = gather_rows(values, aux.slots, config.embedding_dim)
+    if config.filter_freq > 0 or not config.lazy_init:
+        return rows
+    init = init_rows(config, aux.uniq.ukeys).to(rows.dtype)
+    return rows + torch.where(aux.created[:, None], init, 0.0)
 
 
 def permute_rows(rows: torch.Tensor, old_to_new: torch.Tensor,

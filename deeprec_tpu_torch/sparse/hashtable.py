@@ -37,7 +37,7 @@ class HashTable(NamedTuple):
         return self.keys.shape[0]
 
 
-def create(capacity: int, device=None) -> HashTable:
+def create(capacity: int, device="cuda") -> HashTable:
     if capacity & (capacity - 1):
         raise ValueError(f"capacity must be a power of two, got {capacity}")
     return HashTable(

@@ -34,6 +34,22 @@ def split_np(ids) -> tuple:
     return hi, lo
 
 
+def hash32_np(ids: np.ndarray, seed: int = 0) -> np.ndarray:
+    """Numpy mirror of :func:`hash32` over int64 ids (host-side resharding
+    at checkpoint restore must route keys exactly like the device does)."""
+    a = np.asarray(ids, dtype=np.int64)
+    lo = (a & np.int64(0xFFFFFFFF)).astype(np.uint32)
+    hi = (a >> np.int64(32)).astype(np.int64).astype(np.uint32)
+    with np.errstate(over="ignore"):
+        h = lo ^ (hi * np.uint32(0x85EBCA6B)) ^ np.uint32((seed * 0x9E3779B9) & 0xFFFFFFFF)
+        h ^= h >> np.uint32(16)
+        h = h * np.uint32(0x85EBCA6B)
+        h ^= h >> np.uint32(13)
+        h = h * np.uint32(0xC2B2AE35)
+        h ^= h >> np.uint32(16)
+    return h
+
+
 def to_numpy(keys: torch.Tensor) -> np.ndarray:
     """int64 key tensor (any device) -> int64 numpy."""
     return keys.detach().to("cpu", torch.int64).numpy()

@@ -1,1 +1,2 @@
-"""Forward conventions shared by training and serving."""
+"""The Trainer, its metrics, and the forward conventions shared by training
+and serving."""

@@ -54,7 +54,7 @@ def test_lookup_or_insert_bit_equal(cap, n_first, n_second, max_probes):
     second = np.concatenate([first[: n_first // 3], new])
     second = np.unique(second)  # deduplicated, as callers guarantee
     rng.shuffle(second)
-    jt, tt = JH.create(cap), TH.create(cap)
+    jt, tt = JH.create(cap), TH.create(cap, "cpu")
     jt, tt = _insert_both(jt, tt, first, max_probes)
     jt, tt = _insert_both(jt, tt, second, max_probes)
 
@@ -68,7 +68,7 @@ def test_lookup_or_insert_bit_equal(cap, n_first, n_second, max_probes):
 def test_rebuild_bit_equal():
     rng = np.random.default_rng(5)
     keys = _distinct_keys(rng, 180)
-    jt, tt = _insert_both(JH.create(256), TH.create(256), keys, 32)
+    jt, tt = _insert_both(JH.create(256), TH.create(256, "cpu"), keys, 32)
     keep = rng.random(256) < 0.5
     jn, jmap = JH.rebuild(jt, np.asarray(keep), 512)
     tn, tmap = TH.rebuild(tt, torch.from_numpy(keep), 512)

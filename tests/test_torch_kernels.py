@@ -1,6 +1,7 @@
 """Port parity: the plain PyTorch versions of kernels K1 (row gather) and
 K2 (gather+pool) against the Pallas TPU kernels, run on the CPU in
-interpret mode as tests/test_pallas_*.py run them. On a CPU tensor the
+interpret mode as tests/test_pallas_*.py run them, and K2's gradient
+against jax.vjp of the JAX collection's pooling. On a CPU tensor the
 port's wrappers run exactly these plain versions; the CUDA kernels are
 compared with them on the card (tests/test_torch_kernels_cuda.py,
 chip_smoke.py)."""
@@ -8,13 +9,17 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
+from deeprec_tpu import feature_column as jfc
 from deeprec_tpu.ops.pallas_fused_lookup import fused_pooled_lookup as jfused
 from deeprec_tpu.ops.pallas_gather import gather_rows as jgather
 
-from deeprec_tpu_torch.ops.fused_lookup import (fused_pooled_lookup,
-                                                fused_pooled_lookup_plain)
+from deeprec_tpu_torch import feature_column as tfc
+from deeprec_tpu_torch.ops.fused_lookup import (
+    fused_pooled_lookup, fused_pooled_lookup_backward,
+    fused_pooled_lookup_plain)
 from deeprec_tpu_torch.ops.gather import gather_rows, gather_rows_plain
 
 torch.set_num_threads(1)
@@ -121,3 +126,53 @@ def test_plain_versions_are_what_cpu_tensors_run():
     assert torch.equal(fused_pooled_lookup(vals, slots, valid, "sqrtn"),
                        fused_pooled_lookup_plain(vals, slots, valid, "sqrtn"))
     assert gather_rows.launches == 0 and fused_pooled_lookup.launches == 0
+    assert fused_pooled_lookup_backward.launches == 0
+
+
+def _columns(mod, combiner):
+    cat = mod.CategoricalColumn
+    return [mod.EmbeddingColumn(cat("a"), 16),
+            mod.EmbeddingColumn(cat("m", max_length=5), 16,
+                                combiner=combiner),
+            mod.EmbeddingColumn(cat("b"), 16),
+            mod.EmbeddingColumn(cat("c"), 16)]
+
+
+@pytest.mark.parametrize("combiner", ["sum", "mean", "sqrtn"])
+def test_pooling_gradient_matches_jax_vjp(combiner):
+    """d(pooled)/d(urows) through K2's autograd (its backward's plain
+    version here) equals jax.vjp of the JAX collection's pooling of
+    ``urows[inverse]``, with invalid lanes and an all-invalid bag."""
+    rng = np.random.default_rng(11)
+    b, u = 64, 200
+    jcoll = jfc.EmbeddingCollection(_columns(jfc, combiner), capacity=1024)
+    tcoll = tfc.EmbeddingCollection(_columns(tfc, combiner), capacity=1024)
+    width = jcoll.total_width
+    urows = rng.normal(size=(u, 16)).astype(np.float32)
+    inverse = rng.integers(0, u, width * b).astype(np.int32)
+    valid = rng.random(width * b) < 0.7
+    valid[b:6 * b:b] = False  # bag 0 of the multi-hot column (rows 1-5)
+    cots = {c.name: rng.normal(size=(b, 16)).astype(np.float32)
+            for c in jcoll.columns}
+
+    def pool(r):
+        return jcoll.embeddings_from_rows(r[jnp.asarray(inverse)],
+                                          jnp.asarray(valid))
+
+    ref_out, vjp = jax.vjp(pool, jnp.asarray(urows))
+    (ref_grad,) = vjp({k: jnp.asarray(v) for k, v in cots.items()})
+
+    tr = torch.from_numpy(urows).requires_grad_(True)
+    out = tcoll.embeddings_from_rows(tr, torch.from_numpy(inverse),
+                                     torch.from_numpy(valid))
+    sum((out[k] * torch.from_numpy(v)).sum() for k, v in cots.items()
+        ).backward()
+    for k in cots:  # f32 sums of up to 5 rows in another order
+        np.testing.assert_allclose(out[k].detach().numpy(),
+                                   np.asarray(ref_out[k]), rtol=1e-5,
+                                   atol=1e-6)
+    # each row's gradient sums ~70 scaled cotangent lanes in another
+    # order than XLA's scatter-add
+    np.testing.assert_allclose(tr.grad.numpy(), np.asarray(ref_grad),
+                               rtol=1e-5, atol=1e-6)
+    assert fused_pooled_lookup_backward.launches == 0

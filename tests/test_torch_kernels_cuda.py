@@ -1,5 +1,6 @@
-"""The hand-written CUDA kernels K1 (row gather) and K2 (gather+pool)
-against their plain PyTorch versions, on the card. A CUDA kernel has no
+"""The hand-written CUDA kernels K1 (row gather), K2 (gather+pool, forward
+and backward), K3a (meta_scatter) and K3b (blocked_rmw_set) against their
+plain PyTorch versions, on the card. A CUDA kernel has no
 CPU mode, so every test here skips without a card. This file imports no
 JAX, so it also runs on a machine without it:
 
@@ -8,9 +9,14 @@ JAX, so it also runs on a machine without it:
 import pytest
 import torch
 
-from deeprec_tpu_torch.ops.fused_lookup import (fused_pooled_lookup,
-                                                fused_pooled_lookup_plain)
+from deeprec_tpu_torch.ops.fused_lookup import (
+    fused_pooled_lookup, fused_pooled_lookup_backward,
+    fused_pooled_lookup_backward_plain, fused_pooled_lookup_plain,
+    pooled_lookup)
 from deeprec_tpu_torch.ops.gather import gather_rows, gather_rows_plain
+from deeprec_tpu_torch.ops.meta_scatter import (
+    blocked_rmw_set, blocked_rmw_set_plain, meta_scatter, meta_scatter_plain,
+    scatter_set)
 
 pytestmark = pytest.mark.cuda
 
@@ -94,3 +100,103 @@ def test_kernels_reject_bad_input_on_cuda(cuda):
         fused_pooled_lookup(values.double(), slots, valid, "sum")
     with pytest.raises(ValueError):
         gather_rows(values, slots[0].cpu())
+
+
+@pytest.mark.parametrize("combiner", ["sum", "mean", "sqrtn"])
+@pytest.mark.parametrize("bags,w,d,n_rows,idx", [
+    (26 * 512, 1, 16, 2000, torch.int32),  # DLRM: skewed, many adds a row
+    (512, 8, 16, 4096, torch.int64),
+    (300, 5, 6, 700, torch.int64),         # d not a power of two
+])
+def test_fused_pooled_lookup_backward_matches_plain(cuda, combiner, bags, w,
+                                                    d, n_rows, idx):
+    g = _gen()
+    # a skewed draw, as Criteo's: a few rows take most of the adds
+    slots = (torch.rand(bags, w, generator=g) ** 4 * (n_rows + 4) - 2)
+    slots = slots.long().to(idx)
+    valid = torch.rand(bags, w, generator=g) < 0.7
+    valid[0] = False
+    d_pooled = torch.randn(bags, d, generator=g)
+    ref = fused_pooled_lookup_backward_plain(d_pooled, slots, valid,
+                                             combiner, n_rows)
+    bound = fused_pooled_lookup_backward_plain(d_pooled.abs(), slots, valid,
+                                               combiner, n_rows)
+    before = fused_pooled_lookup_backward.launches
+    got = fused_pooled_lookup_backward(d_pooled.to(cuda), slots.to(cuda),
+                                       valid.to(cuda), combiner, n_rows)
+    torch.cuda.synchronize()
+    assert fused_pooled_lookup_backward.launches == before + 1
+    # f32 atomics add in a run-dependent order: the error of a sum of k
+    # terms is at most ~k*eps of the sum of their magnitudes; 1e-4 of it
+    # covers k up to ~800 adds in the worst case and far more in practice
+    assert ((got.cpu() - ref).abs() <= 1e-4 * bound + 1e-7).all()
+
+
+def test_pooled_lookup_autograd_on_card(cuda):
+    """The autograd entry runs K2 forward and K2 backward on the card."""
+    g = _gen()
+    values = torch.randn(500, 16, generator=g)
+    slots = torch.randint(0, 500, (64, 4), generator=g)
+    valid = torch.rand(64, 4, generator=g) < 0.8
+    w = torch.randn(64, 16, generator=g)
+    vc = values.to(cuda).requires_grad_(True)
+    f0, b0 = fused_pooled_lookup.launches, fused_pooled_lookup_backward.launches
+    (pooled_lookup(vc, slots.to(cuda), valid.to(cuda), "mean")
+     * w.to(cuda)).sum().backward()
+    torch.cuda.synchronize()
+    assert fused_pooled_lookup.launches == f0 + 1
+    assert fused_pooled_lookup_backward.launches == b0 + 1
+    vp = values.clone().requires_grad_(True)
+    (pooled_lookup(vp, slots, valid, "mean") * w).sum().backward()
+    torch.testing.assert_close(vc.grad.cpu(), vp.grad, rtol=1e-5, atol=1e-6)
+
+
+def _meta_case(g, cap, u, idx):
+    # unique slots, plus the null row cap, cap+1 and far out of range
+    slots = torch.randperm(cap, generator=g)[:u]
+    slots[:3] = torch.tensor([cap, cap + 1, cap + 1000])
+    return slots.to(idx)
+
+
+@pytest.mark.parametrize("idx", [torch.int32, torch.int64])
+def test_meta_scatter_matches_plain(cuda, idx):
+    g = _gen()
+    cap, u = 1 << 16, 5000
+    dest = _meta_case(g, cap, u, idx)
+    mdest = _meta_case(g, cap, u, idx)
+    counts = torch.randint(1, 9, (u,), generator=g, dtype=torch.int32)
+    planes = [torch.randint(-1, 50, (cap + 1,), generator=g,
+                            dtype=torch.int32) for _ in range(3)]
+    ref = [p.clone() for p in planes]
+    meta_scatter_plain(ref[0], dest, ref[1], ref[2], mdest, counts, 7, cap)
+    got = [p.to(cuda) for p in planes]
+    before = meta_scatter.launches
+    meta_scatter(got[0], dest.to(cuda), got[1], got[2], mdest.to(cuda),
+                 counts.to(cuda), 7)
+    torch.cuda.synchronize()
+    assert meta_scatter.launches == before + 1
+    for a, b in zip(got, ref):
+        assert torch.equal(a.cpu(), b)  # integer writes: bit-equal
+    one = planes[0].to(cuda)
+    scatter_set(one, dest.to(cuda), 11)
+    ref1 = planes[0].clone()
+    meta_scatter_plain(None, dest, ref1, None, dest, None, 11, cap)
+    assert torch.equal(one.cpu(), ref1)
+
+
+@pytest.mark.parametrize("cap,idx", [(1 << 16, torch.int64),
+                                     ((1 << 14) + 3, torch.int32)])
+def test_blocked_rmw_set_matches_plain(cuda, cap, idx):
+    g = _gen()
+    u = 3000
+    slots = _meta_case(g, cap, u, idx)
+    slots[3] = -4
+    vals = torch.randint(-100, 100, (u,), generator=g, dtype=torch.int32)
+    plane = torch.randint(-1, 50, (cap + 1,), generator=g, dtype=torch.int32)
+    ref = blocked_rmw_set_plain(plane, slots, vals, cap)
+    before = blocked_rmw_set.launches
+    got = blocked_rmw_set(plane.to(cuda), slots.to(cuda), vals.to(cuda), cap)
+    torch.cuda.synchronize()
+    assert blocked_rmw_set.launches == before + 1
+    assert got.shape == (cap,)
+    assert torch.equal(got.cpu(), ref)
