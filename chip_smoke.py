@@ -15,8 +15,9 @@ full f32. Phases (any failure exits non-zero):
    shapes the main paths give it (a B=4096 Criteo batch), and times the
    kernel, the plain version and one PyTorch library call computing the
    same function with CUDA events, beside the kernel's HBM-bytes bound:
-   K1 and K2 at the serving shape; K2's backward, K1's optimizer read and
-   K3a at the training shape of one resolved batch; K3a's scatter_set and
+   K1 and K2 at the serving shape; K2 (both directions), K1's optimizer
+   read and K3a at the training shape of one resolved batch; K3a's
+   scatter_set and
    K3b at the JAX benchmark's own shape (CAP 2^21, U 17,664);
 3. writes a full-width DLRM serving checkpoint (13 dense + 26 categorical
    columns, emb dim 16, fused adagrad columns, a 2^21-slot table holding the
@@ -400,16 +401,18 @@ def host_collection(metadata):
 
 
 def check_training_kernels(dev):
-    """K2 backward, K1's optimizer read and K3a at the training shape of
-    one resolved B=4096 batch; scatter_set and K3b at the JAX benchmark's
+    """K2 (both directions), K1's optimizer read and K3a at the training
+    shape of one resolved B=4096 batch; scatter_set and K3b at the JAX benchmark's
     shape. Returns the kernels' JSON entries."""
     from deeprec_tpu_torch.data.criteo import SyntheticCriteo
     from deeprec_tpu_torch.ops.fused_lookup import (
-        fused_pooled_lookup_backward, fused_pooled_lookup_backward_plain)
+        fused_pooled_lookup, fused_pooled_lookup_backward,
+        fused_pooled_lookup_backward_plain, fused_pooled_lookup_plain)
     from deeprec_tpu_torch.ops.gather import gather_rows, gather_rows_plain
     from deeprec_tpu_torch.ops.meta_scatter import (
         blocked_rmw_set, blocked_rmw_set_plain, meta_scatter,
         meta_scatter_plain, scatter_set)
+    from deeprec_tpu_torch.probes.kernel_probe import window_groups
 
     g = torch.Generator().manual_seed(SEED + 1)
     coll = host_collection(metadata=True)
@@ -432,7 +435,8 @@ def check_training_kernels(dev):
     bwd_err = (got - ref).abs().max().item()
     if not bool(((got - ref).abs() <= BWD_TOL * mag + 1e-7).all()):
         fail(f"K2 backward differs from its plain version by {bwd_err}")
-    hot = int(torch.bincount(r.inverse.long(), minlength=u).max())
+    # one add per (32-id window, row) once a warp groups its ids
+    adds, hot, windows = window_groups(r.inverse, valid.view(-1))
     bwd_ms = time_ms(lambda: fused_pooled_lookup_backward(
         d_pooled, slots, valid, "sum", u))
     bwd_plain = time_ms(lambda: fused_pooled_lookup_backward_plain(
@@ -445,7 +449,25 @@ def check_training_kernels(dev):
     log_times("K2 fused_pooled_lookup_backward ([26*4096, 1] sum, D 16)",
               bwd_ms, bwd_plain, bwd_lib, bwd_bytes,
               f"; library: zeros + index_add_; max_abs_err {bwd_err:.3g}; "
-              f"hottest lane takes {hot} adds")
+              f"hottest lane takes {hot} ids from {windows} 32-id windows; "
+              f"{adds} row adds after warp grouping")
+
+    # K2's forward at the same training shape
+    urows = torch.randn(u, EMB_DIM, generator=g).to(dev)
+    fwd = fused_pooled_lookup(urows, slots, valid, "sum")
+    torch.testing.assert_close(
+        fwd, fused_pooled_lookup_plain(urows, slots, valid, "sum"),
+        rtol=POOL_RTOL, atol=1e-6)
+    fwd_ms = time_ms(lambda: fused_pooled_lookup(urows, slots, valid, "sum"))
+    fwd_plain = time_ms(lambda: fused_pooled_lookup_plain(urows, slots, valid,
+                                                          "sum"))
+    fwd_lib = time_ms(lambda: torch.nn.functional.embedding_bag(
+        slots, urows, per_sample_weights=valid.float(), mode="sum"))
+    log_times("K2 fused_pooled_lookup (training shape, [26*4096, 1] sum)",
+              fwd_ms, fwd_plain, fwd_lib,
+              slots.numel() * 4 + valid.numel() + n_real * EMB_DIM * 4
+              + slots.shape[0] * EMB_DIM * 4,
+              "; library: embedding_bag(mode='sum', per_sample_weights)")
 
     # K1 at the training shape: the unique-row fetch and the optimizer's
     # read of whole fused rows (value + accumulator)
@@ -521,13 +543,17 @@ def check_training_kernels(dev):
     k3b_ms = time_ms(lambda: blocked_rmw_set(plane, bslots, bvals, cap))
     k3b_plain = time_ms(lambda: blocked_rmw_set_plain(plane, bslots, bvals,
                                                       cap))
+    # the library call computing K3b's own function, out of place: it
+    # copies plane[:cap] and scatters into the copy
+    k3b_lib = time_ms(lambda: torch.index_put(plane[:cap], (b64,), bvals))
     inplace = plane.clone()
-    k3b_lib = time_ms(lambda: inplace.index_put_((b64,), bvals))
+    k3b_inplace = time_ms(lambda: inplace.index_put_((b64,), bvals))
     k3b_bytes = 2 * cap * 4 + 2 * K3B_U * 4
     log_times(f"K3b blocked_rmw_set (benchmark shape: CAP {cap}, U {K3B_U})",
               k3b_ms, k3b_plain, k3b_lib, k3b_bytes,
-              "; library: index_put_ in place (the scatter K3b streams "
-              "the plane instead of)")
+              f"; library: torch.index_put out of place; the in-place "
+              f"index_put_ (no copy of the plane, another function) "
+              f"{k3b_inplace:.4f} ms")
     return [
         entry("fused_pooled_lookup_backward",
               "deeprec_tpu_torch/csrc/fused_pooled_lookup.cu",

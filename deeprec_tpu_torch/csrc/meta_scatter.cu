@@ -23,22 +23,30 @@
 //   out = plane[:cap]; out[slots[i]] = vals[i] for 0 <= slots[i] < cap
 // Replaces benchmarks/pallas_meta_bench.py pallas_blocked_rmw
 // (_rmw_kernel), which streamed the plane through VMEM in 64K-element
-// blocks (it did not compile on the TPU either: no scatter lowering). A
-// Hopper block holds at most 227 KB of shared memory, so each block owns a
-// TILE of 16K int32 (64 KB): it loads its tile, scans all U updates and
-// applies those that fall in the tile, and stores the tile. Bound by HBM
-// bytes: the whole plane read and written once (2 x 4 x cap bytes) plus
-// the U slots and values; the per-block scan of the U updates hits L2.
-// It is not on the training path: it computes K3b's function so the card
-// can answer the benchmark's question (stream the plane, or scatter).
+// blocks (it did not compile on the TPU either: no scatter lowering).
+// Bound by HBM bytes: the whole plane read and written once (2 x 4 x cap
+// bytes) plus the U slots and values. On Hopper the VMEM tile has no use:
+// nothing is read twice, and a block that scans all U updates for its own
+// tile (the TPU kernel's shape) reads them 128 times from L2. So two
+// kernels, one per pass. plane_copy_kernel streams plane -> out with
+// 16-byte accesses in one pass, each thread keeping kUnroll loads in
+// flight (128 blocks at CAP 2^21). scatter_updates_kernel, one thread per
+// update, stores the updates after it; it is launched as the copy's
+// programmatic dependent (griddepcontrol), so its blocks start while the
+// copy streams, load their slot and value, and wait only before the
+// store for the copy to finish and become visible: the kernel boundary
+// is the grid-wide barrier. The slots below cap are unique (a resolver's
+// slots), so no two updates collide. It is not on the training path: it
+// computes K3b's function so the card can answer the benchmark's question
+// (stream the plane, or scatter).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kTile = 1 << 14;       // int32 elements per block (64 KB)
-constexpr int kRmwThreads = 1024;
+constexpr int kCopyThreads = 1024;
+constexpr int kUnroll = 4;  // 16-byte loads in flight per thread
 
 template <typename I>
 __global__ void meta_scatter_kernel(int32_t* __restrict__ create_steps,
@@ -63,36 +71,74 @@ __global__ void meta_scatter_kernel(int32_t* __restrict__ create_steps,
   }
 }
 
+// Copies src[0, n) to dst in units of W (int4, or int32 when unaligned):
+// the grid covers n in one pass, each thread loading its kUnroll units
+// before storing them. A thread's units lie one grid-width apart, so the
+// whole grid streams through one region of the plane at a time.
+template <typename W>
+__device__ __forceinline__ void copy_units(const W* __restrict__ src,
+                                           W* __restrict__ dst, int64_t n) {
+  const int64_t stride = (int64_t)gridDim.x * kCopyThreads;
+  const int64_t first = (int64_t)blockIdx.x * kCopyThreads + threadIdx.x;
+  W r[kUnroll];
+#pragma unroll
+  for (int u = 0; u < kUnroll; ++u)
+    if (first + u * stride < n) r[u] = __ldcs(src + first + u * stride);
+#pragma unroll
+  for (int u = 0; u < kUnroll; ++u)
+    if (first + u * stride < n) __stcs(dst + first + u * stride, r[u]);
+}
+
+// out[0, cap) = plane[0, cap); with vec4, as int4 and then, in block 0,
+// the cap % 4 elements past the last int4. Lets the dependent scatter
+// launch at once.
+__global__ void __launch_bounds__(kCopyThreads) plane_copy_kernel(
+    const int32_t* __restrict__ plane, int32_t* __restrict__ out, int64_t cap,
+    int vec4) {
+  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
+  if (!vec4) {
+    copy_units(plane, out, cap);
+    return;
+  }
+  const int64_t n4 = cap / 4;
+  copy_units(reinterpret_cast<const int4*>(plane),
+             reinterpret_cast<int4*>(out), n4);
+  if (blockIdx.x == 0 && threadIdx.x < cap - 4 * n4)
+    out[4 * n4 + threadIdx.x] = plane[4 * n4 + threadIdx.x];
+}
+
 template <typename I>
-__global__ void blocked_rmw_kernel(const int32_t* __restrict__ plane,
-                                   const I* __restrict__ slots,
-                                   const int32_t* __restrict__ vals,
-                                   int64_t n, int64_t cap,
-                                   int32_t* __restrict__ out, int vec4) {
-  extern __shared__ int32_t tile[];
-  const int64_t lo = (int64_t)blockIdx.x * kTile;
-  const int64_t rest = cap - lo;
-  const int len = (int)(rest < kTile ? rest : kTile);
-  if (vec4) {  // len % 4 == 0 and both bases 16-byte aligned
-    const int4* src = reinterpret_cast<const int4*>(plane + lo);
-    int4* t4 = reinterpret_cast<int4*>(tile);
-    for (int j = threadIdx.x; j < len / 4; j += blockDim.x) t4[j] = src[j];
-  } else {
-    for (int j = threadIdx.x; j < len; j += blockDim.x) tile[j] = plane[lo + j];
+__global__ void scatter_updates_kernel(const I* __restrict__ slots,
+                                       const int32_t* __restrict__ vals,
+                                       int64_t n, int64_t cap,
+                                       int32_t* __restrict__ out) {
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  int64_t s = -1;
+  int32_t v = 0;
+  if (i < n) {
+    s = (int64_t)slots[i];
+    v = vals[i];
   }
-  __syncthreads();
-  for (int64_t i = threadIdx.x; i < n; i += blockDim.x) {
-    const int64_t s = (int64_t)slots[i] - lo;
-    if (s >= 0 && s < len) tile[s] = vals[i];
-  }
-  __syncthreads();
-  if (vec4) {
-    int4* dst = reinterpret_cast<int4*>(out + lo);
-    const int4* t4 = reinterpret_cast<const int4*>(tile);
-    for (int j = threadIdx.x; j < len / 4; j += blockDim.x) dst[j] = t4[j];
-  } else {
-    for (int j = threadIdx.x; j < len; j += blockDim.x) out[lo + j] = tile[j];
-  }
+  // the copy has finished and its stores are visible
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+  if (s >= 0 && s < cap) out[s] = v;
+}
+
+template <typename I>
+cudaError_t launch_scatter(const I* slots, const int32_t* vals, int64_t n,
+                           int64_t cap, int32_t* out, cudaStream_t stream) {
+  const int threads = 256;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)((n + threads - 1) / threads));
+  cfg.blockDim = dim3(threads);
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, scatter_updates_kernel<I>, slots, vals, n,
+                            cap, out);
 }
 
 }  // namespace
@@ -123,33 +169,27 @@ extern "C" int deeprec_meta_scatter(void* create_steps, const void* dest,
 }
 
 // plane int32 [>= cap], slots int32/int64 [n], vals int32 [n], out int32
-// [cap]. vec4: 1 when cap % 4 == 0 and plane and out are 16-byte aligned
-// (the wrapper checks). Returns the first cudaError_t; 0 is success.
+// [cap]. vec4: 1 when plane and out are 16-byte aligned (the wrapper
+// checks); a cap that is not a multiple of 4 copies its last elements
+// singly. Returns the first cudaError_t; 0 is success.
 extern "C" int deeprec_blocked_rmw_set(const void* plane, const void* slots,
                                        int slots_are_64, const void* vals,
                                        int64_t n, int64_t cap, void* out,
                                        int vec4, void* stream) {
   if (cap == 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
-  const int smem = kTile * (int)sizeof(int32_t);  // above 48 KB: opt in
-  cudaError_t err;
-  const int64_t blocks = (cap + kTile - 1) / kTile;
-  if (slots_are_64) {
-    err = cudaFuncSetAttribute(blocked_rmw_kernel<int64_t>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               smem);
-    if (err != cudaSuccess) return (int)err;
-    blocked_rmw_kernel<int64_t><<<(unsigned)blocks, kRmwThreads, smem, st>>>(
-        (const int32_t*)plane, (const int64_t*)slots, (const int32_t*)vals,
-        n, cap, (int32_t*)out, vec4);
-  } else {
-    err = cudaFuncSetAttribute(blocked_rmw_kernel<int32_t>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               smem);
-    if (err != cudaSuccess) return (int)err;
-    blocked_rmw_kernel<int32_t><<<(unsigned)blocks, kRmwThreads, smem, st>>>(
-        (const int32_t*)plane, (const int32_t*)slots, (const int32_t*)vals,
-        n, cap, (int32_t*)out, vec4);
-  }
-  return (int)cudaGetLastError();
+  const int64_t span = (int64_t)kCopyThreads * kUnroll;  // units a block
+  const int64_t units = vec4 ? cap / 4 : cap;
+  const int64_t blocks = units > span ? (units + span - 1) / span : 1;
+  plane_copy_kernel<<<(unsigned)blocks, kCopyThreads, 0, st>>>(
+      (const int32_t*)plane, (int32_t*)out, cap, vec4);
+  if (n == 0) return (int)cudaGetLastError();
+  const cudaError_t launched =
+      slots_are_64
+          ? launch_scatter((const int64_t*)slots, (const int32_t*)vals, n,
+                           cap, (int32_t*)out, st)
+          : launch_scatter((const int32_t*)slots, (const int32_t*)vals, n,
+                           cap, (int32_t*)out, st);
+  const cudaError_t last = cudaGetLastError();  // the copy's, or this one's
+  return (int)(last != cudaSuccess ? last : launched);
 }

@@ -101,8 +101,11 @@ def fused_pooled_lookup_backward(d_pooled: torch.Tensor,
                                  slots: torch.Tensor, valid: torch.Tensor,
                                  combiner: str, n_rows: int) -> torch.Tensor:
     """``[n_rows, D]`` gradient of :func:`fused_pooled_lookup` with respect
-    to ``values``, given ``d_pooled [B, D]``. On CUDA the f32 atomics add in
-    a different order on every run: results agree to rounding."""
+    to ``values``, given ``d_pooled [B, D]``. On CUDA a zero-fill kernel
+    and the backward kernel run as one dependent pair: the kernel sums the
+    ids of a warp that share a row in registers and adds each row's sum
+    with vector atomics, which add in a different order on every run, so
+    results agree to rounding."""
     d_pooled = d_pooled.contiguous()  # autograd may hand an expanded view
     if n_rows <= 0 or d_pooled.dim() != 2 or \
             d_pooled.shape[0] != slots.shape[0]:
@@ -120,15 +123,19 @@ def fused_pooled_lookup_backward(d_pooled: torch.Tensor,
                          "float32 gradients")
     n_bags, w = slots.shape
     d = d_pooled.shape[1]
-    out = torch.zeros((n_rows, d), dtype=torch.float32,
+    # the kernel's entry zero-fills it on the stream before adding; the
+    # caching allocator's blocks are 16-byte aligned, as the fill needs
+    out = torch.empty((n_rows, d), dtype=torch.float32,
                       device=d_pooled.device)
+    vec = next(v for v in (4, 2, 1) if d % v == 0
+               and d_pooled.data_ptr() % (4 * v) == 0)
     with torch.cuda.device(d_pooled.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _build.library().deeprec_fused_pooled_lookup_bwd(
             d_pooled.data_ptr(), d, slots.data_ptr(),
             int(slots.dtype == torch.int64), slots.stride(0), slots.stride(1),
             valid.data_ptr(), valid.stride(0), valid.stride(1), n_bags, w,
-            COMBINERS.index(combiner), out.data_ptr(), n_rows, stream)
+            COMBINERS.index(combiner), out.data_ptr(), n_rows, vec, stream)
     _build.check(err, "fused_pooled_lookup_backward")
     fused_pooled_lookup_backward.launches += 1
     return out

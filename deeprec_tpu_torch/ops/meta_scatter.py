@@ -15,9 +15,10 @@ slots. It replaces the Pallas TPU kernel ``benchmarks/pallas_meta_bench.py``
 ``pallas_dma_stores``.
 
 ``blocked_rmw_set`` (K3b) is ``out = plane[:cap]`` with ``out[slots[i]] =
-vals[i]`` for ``0 <= slots[i] < cap``, computed out of place by streaming
-the plane through shared memory in tiles. It replaces ``pallas_blocked_rmw``
-of the same script and is not on the training path.
+vals[i]`` for ``0 <= slots[i] < cap``, computed out of place by two
+kernels: one streams the plane to ``out``, and its programmatic dependent
+stores the updates once the copy has landed. It replaces
+``pallas_blocked_rmw`` of the same script and is not on the training path.
 
 On a CUDA tensor each wrapper launches ``csrc/meta_scatter.cu`` (bound by
 HBM bytes; see the source note); on a CPU tensor it runs its plain PyTorch
@@ -144,8 +145,7 @@ def blocked_rmw_set(plane: torch.Tensor, slots: torch.Tensor,
     plane, slots, vals = plane.contiguous(), slots.contiguous(), \
         vals.contiguous()
     out = torch.empty((cap,), dtype=torch.int32, device=plane.device)
-    vec4 = int(cap % 4 == 0 and plane.data_ptr() % 16 == 0
-               and out.data_ptr() % 16 == 0)
+    vec4 = int(plane.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0)
     with torch.cuda.device(plane.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _build.library().deeprec_blocked_rmw_set(

@@ -138,20 +138,64 @@ def _columns(mod, combiner):
             mod.EmbeddingColumn(cat("c"), 16)]
 
 
-@pytest.mark.parametrize("combiner", ["sum", "mean", "sqrtn"])
-def test_pooling_gradient_matches_jax_vjp(combiner):
+def _criteo_columns(mod, combiner):
+    """26 width-1 columns: the training layout [26*B, 1]."""
+    return [mod.EmbeddingColumn(mod.CategoricalColumn(f"C{i}"), 16,
+                                combiner=combiner) for i in range(26)]
+
+
+def _gradient_case(rng, case, width, b):
+    """(u, flat int32 inverse [width*b]) for the pooling-gradient cases."""
+    if case == "mixed":
+        u = 200
+        return u, rng.integers(0, u, width * b).astype(np.int32)
+    if case == "criteo_skew":
+        # Criteo's skew on the [26*B, 1] layout: each column draws from a
+        # few hundred lanes with a power law, and one lane of column 0
+        # takes more than 1,000 ids, as the hottest row of a B=4096 batch
+        u = 26 * 300
+        lane = (rng.random((width, b)) ** 3 * 300).astype(np.int64)
+        inverse = lane + 300 * np.arange(width)[:, None]
+        inverse[0, :1100] = 5
+        assert np.bincount(inverse.ravel()).max() > 1000
+        return u, inverse.reshape(-1).astype(np.int32)
+    # "int16_wire": the resolver ships inverse as int16 while U <= 32,767;
+    # decode widens it to int32. Lanes reach the top of the int16 range.
+    u = 32767
+    wire = rng.integers(32000, u, width * b).astype(np.int16)
+    wire[:7] = u - 1
+    return u, wire.astype(np.int32)
+
+
+_COMBS = ["sum", "mean", "sqrtn"]
+
+
+@pytest.mark.parametrize("combiner,case", [
+    *[pytest.param(c, "mixed", id=c) for c in _COMBS],
+    *[pytest.param(c, "criteo_skew", id=f"criteo_skew-{c}") for c in _COMBS],
+    *[pytest.param(c, "int16_wire", id=f"int16_wire-{c}") for c in _COMBS],
+])
+def test_pooling_gradient_matches_jax_vjp(combiner, case):
     """d(pooled)/d(urows) through K2's autograd (its backward's plain
     version here) equals jax.vjp of the JAX collection's pooling of
-    ``urows[inverse]``, with invalid lanes and an all-invalid bag."""
+    ``urows[inverse]``, with invalid lanes and an all-invalid bag; on the
+    mixed layout (a multi-hot column among width-1 ones), on Criteo's
+    [26*B, 1] layout with a lane of > 1,000 ids, and with an inverse
+    widened from the int16 wire."""
     rng = np.random.default_rng(11)
-    b, u = 64, 200
-    jcoll = jfc.EmbeddingCollection(_columns(jfc, combiner), capacity=1024)
-    tcoll = tfc.EmbeddingCollection(_columns(tfc, combiner), capacity=1024)
+    cols = _criteo_columns if case == "criteo_skew" else _columns
+    b = 2048 if case == "criteo_skew" else 64
+    jcoll = jfc.EmbeddingCollection(cols(jfc, combiner), capacity=1024)
+    tcoll = tfc.EmbeddingCollection(cols(tfc, combiner), capacity=1024)
     width = jcoll.total_width
+    u, inverse = _gradient_case(rng, case, width, b)
     urows = rng.normal(size=(u, 16)).astype(np.float32)
-    inverse = rng.integers(0, u, width * b).astype(np.int32)
     valid = rng.random(width * b) < 0.7
-    valid[b:6 * b:b] = False  # bag 0 of the multi-hot column (rows 1-5)
+    if case == "criteo_skew":
+        valid[:1100] = True   # the hot lane's ids all count
+        valid[b + 3] = False  # bag 3 of column 1 is all-invalid
+    else:
+        valid[b:6 * b:b] = False  # bag 0 of the multi-hot column (rows 1-5)
     cots = {c.name: rng.normal(size=(b, 16)).astype(np.float32)
             for c in jcoll.columns}
 
@@ -171,8 +215,9 @@ def test_pooling_gradient_matches_jax_vjp(combiner):
         np.testing.assert_allclose(out[k].detach().numpy(),
                                    np.asarray(ref_out[k]), rtol=1e-5,
                                    atol=1e-6)
-    # each row's gradient sums ~70 scaled cotangent lanes in another
-    # order than XLA's scatter-add
+    # each row's gradient sums its scaled cotangent lanes (~70, and over
+    # 1,100 on the skew case's hot lane) in another order than XLA's
+    # scatter-add
     np.testing.assert_allclose(tr.grad.numpy(), np.asarray(ref_grad),
                                rtol=1e-5, atol=1e-6)
     assert fused_pooled_lookup_backward.launches == 0
