@@ -10,15 +10,21 @@ products and convolutions, so both sides of every comparison compute in
 full f32. Phases (any failure exits non-zero):
 
 1. builds the hand-written CUDA kernels from deeprec_tpu_torch/csrc/ (nvcc,
-   sm_90a, one process per source) and prints the build time;
+   sm_90a, one process per source) and, at the same time, the design
+   probes of deeprec_tpu_torch/probes/kernel_probe.cu, and prints the
+   build time;
 2. runs each kernel's wrapper against its plain PyTorch version at the
    shapes the main paths give it (a B=4096 Criteo batch), and times the
    kernel, the plain version and one PyTorch library call computing the
    same function with CUDA events, beside the kernel's HBM-bytes bound:
    K1 and K2 at the serving shape; K2 (both directions), K1's optimizer
-   read and K3a at the training shape of one resolved batch; K3a's
-   scatter_set and
-   K3b at the JAX benchmark's own shape (CAP 2^21, U 17,664);
+   read and K3a (lookup_meta, and the three-plane meta_scatter it
+   replaced on the path) at the training shape of one resolved batch;
+   K3a's scatter_set and K3b at the JAX benchmark's own shape (CAP 2^21,
+   U 17,664). The previous design of K2's forward (a probe variant) and
+   the three-plane K3a are timed in turns with their successors, back to
+   back and behind a PyTorch kernel as on the path, and the probe's
+   variants of K2's forward say what remains of its time;
 3. writes a full-width DLRM serving checkpoint (13 dense + 26 categorical
    columns, emb dim 16, fused adagrad columns, a 2^21-slot table holding the
    keys of 20 synthetic Criteo batches; weights and rows from seed 0);
@@ -37,7 +43,7 @@ full f32. Phases (any failure exits non-zero):
    planes bit-equal and losses and rows within tolerance, then 3 timed
    runs of 10 steps with the host half staged ahead (bench.py's default
    method) and 3 with it inline, and a torch.profiler breakdown of 3
-   steps; K1, K2, K2's backward and K3a must have launched;
+   steps; K1, K2, K2's backward and K3a (lookup_meta) must have launched;
 7. the light layout (bench.py's default, lazy init): 3 steps in lockstep
    with a CPU Trainer, then 3 timed runs of 10 steps.
 
@@ -46,6 +52,7 @@ the kernels' numbers as JSON, the line before that the training numbers.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import json
 import os
 import statistics
@@ -125,12 +132,13 @@ def bound(nbytes):
     return nbytes / HBM_BYTES_PER_S * 1e3, int(nbytes)
 
 
-def entry(name, source, replaces, err, ms, plain_ms, library_ms, nbytes):
+def entry(name, source, replaces, err, ms, plain_ms, library_ms, nbytes,
+          **extra):
     bound_ms, nbytes = bound(nbytes)
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
-            "library_ms": library_ms, "bytes": nbytes}
+            "library_ms": library_ms, "bytes": nbytes, **extra}
 
 
 def log_times(what, ms, plain_ms, library_ms, nbytes, extra=""):
@@ -157,7 +165,7 @@ def criteo_parts():
 
 
 # -- phase 2 -----------------------------------------------------------------
-def check_kernels(dev):
+def check_kernels(dev, probe):
     from deeprec_tpu_torch.data.criteo import SyntheticCriteo
     from deeprec_tpu_torch.ops.fused_lookup import (
         COMBINERS, fused_pooled_lookup, fused_pooled_lookup_plain)
@@ -235,6 +243,9 @@ def check_kernels(dev):
     log_times("K2 fused_pooled_lookup (serving shape, [26*4096, 1] sum)",
               k2_ms, k2_plain, k2_lib, k2_bytes,
               "; library: embedding_bag(mode='sum', per_sample_weights)")
+    from deeprec_tpu_torch.probes.kernel_probe import k2_forward
+    k2_turns = k2_forward(probe, urows, inv, valid,
+                          "(serving shape, [26*4096, 1] sum)")
     return [
         entry("gather_rows", "deeprec_tpu_torch/csrc/gather_rows.cu",
               "deeprec_tpu/ops/pallas_gather.py:78", k1_err, k1_ms,
@@ -242,7 +253,11 @@ def check_kernels(dev):
         entry("fused_pooled_lookup",
               "deeprec_tpu_torch/csrc/fused_pooled_lookup.cu",
               "deeprec_tpu/ops/pallas_fused_lookup.py:80", k2_err, k2_ms,
-              k2_plain, k2_lib, k2_bytes),
+              k2_plain, k2_lib, k2_bytes, previous_ms=k2_turns["old"],
+              on_path_ms=k2_turns["behind"]["new"],
+              previous_on_path_ms=k2_turns["behind"]["old"],
+              probe_ms={str(m): t for m, t in k2_turns.items()
+                        if isinstance(m, int)}),
     ]
 
 
@@ -400,19 +415,20 @@ def host_collection(metadata):
         fused_slot_init=0.1, use_native=True, **meta)
 
 
-def check_training_kernels(dev):
+def check_training_kernels(dev, probe):
     """K2 (both directions), K1's optimizer read and K3a at the training
-    shape of one resolved B=4096 batch; scatter_set and K3b at the JAX benchmark's
-    shape. Returns the kernels' JSON entries."""
+    shape of one resolved B=4096 batch; scatter_set and K3b at the JAX
+    benchmark's shape. Returns the kernels' JSON entries."""
     from deeprec_tpu_torch.data.criteo import SyntheticCriteo
     from deeprec_tpu_torch.ops.fused_lookup import (
         fused_pooled_lookup, fused_pooled_lookup_backward,
         fused_pooled_lookup_backward_plain, fused_pooled_lookup_plain)
     from deeprec_tpu_torch.ops.gather import gather_rows, gather_rows_plain
     from deeprec_tpu_torch.ops.meta_scatter import (
-        blocked_rmw_set, blocked_rmw_set_plain, meta_scatter,
-        meta_scatter_plain, scatter_set)
-    from deeprec_tpu_torch.probes.kernel_probe import window_groups
+        blocked_rmw_set, blocked_rmw_set_plain, lookup_meta,
+        lookup_meta_plain, meta_scatter, meta_scatter_plain, scatter_set)
+    from deeprec_tpu_torch.probes.kernel_probe import (behind_ms, k2_forward,
+                                                       window_groups)
 
     g = torch.Generator().manual_seed(SEED + 1)
     coll = host_collection(metadata=True)
@@ -468,6 +484,8 @@ def check_training_kernels(dev):
               slots.numel() * 4 + valid.numel() + n_real * EMB_DIM * 4
               + slots.shape[0] * EMB_DIM * 4,
               "; library: embedding_bag(mode='sum', per_sample_weights)")
+    k2_forward(probe, urows, slots, valid, "(training shape, [26*4096, 1] "
+               "sum)")
 
     # K1 at the training shape: the unique-row fetch and the optimizer's
     # read of whole fused rows (value + accumulator)
@@ -483,38 +501,102 @@ def check_training_kernels(dev):
         log_times(f"K1 gather_rows, training {what} ([{u}] x {d})", kt, pt,
                   lt, u * 4 + 2 * (n_real + 1) * d * 4)
 
-    # K3a on the path: the three metadata writes of lookup_or_create
-    cap = CAPACITY
+    # K3a on the path: lookup_or_create's metadata step (--metadata:
+    # create steps, versions, freqs, CounterFilter(1)) in one launch
+    cap, ff = CAPACITY, 1
     dest = torch.where(r.created & ~r.readonly, r.uslots, cap + 1)
-    live = (r.counts > 0) & (r.uslots != cap) & ~r.readonly
-    mdest = torch.where(live, r.uslots, cap + 1)
 
     def planes():
         return [torch.full((cap + 1,), -1, dtype=torch.int32, device=dev),
                 torch.full((cap + 1,), -1, dtype=torch.int32, device=dev),
                 torch.zeros((cap + 1,), dtype=torch.int32, device=dev)]
-    kp, pp = planes(), planes()
-    meta_scatter(kp[0], dest, kp[1], kp[2], mdest, r.counts, 3)
-    meta_scatter_plain(pp[0], dest, pp[1], pp[2], mdest, r.counts, 3, cap)
-    if not all(torch.equal(a, b) for a, b in zip(kp, pp)):
-        fail("K3a meta_scatter differs from its plain version")
-    k3a_ms = time_ms(lambda: meta_scatter(kp[0], dest, kp[1], kp[2], mdest,
-                                          r.counts, 3))
-    k3a_plain = time_ms(lambda: meta_scatter_plain(
-        pp[0], dest, pp[1], pp[2], mdest, r.counts, 3, cap))
-    d_keep, m_keep = dest[dest < cap].long(), mdest[mdest < cap].long()
-    c_keep = r.counts[mdest < cap]
+
+    def fused(p, fn=lookup_meta):
+        return fn(r.uslots, r.counts, r.readonly, dest, 3, cap, p[0], p[1],
+                  p[2], True, ff)
+    kp, pp, lp = planes(), planes(), planes()
+    adm = fused(kp)
+    adm_ref = fused(pp, lookup_meta_plain)
+    if not (all(torch.equal(a, b) for a, b in zip(kp, pp))
+            and torch.equal(adm, adm_ref)):
+        fail("K3a lookup_meta differs from its plain version")
     gs = torch.tensor(3, dtype=torch.int32, device=dev)
+
+    def torch_chain():
+        """The same function in PyTorch calls, none of which syncs: lanes
+        that do not write go to the null row, which is then reset."""
+        live = (r.counts > 0) & (r.uslots != cap) & ~r.readonly
+        m = torch.where(live, r.uslots, cap).long()
+        lp[0].index_put_((torch.where(dest < cap, dest, cap).long(),), gs)
+        lp[1].index_put_((m,), gs)
+        lp[2].index_add_(0, m, torch.where(live, r.counts, 0))
+        for plane, fill in zip(lp, (-1, -1, 0)):  # fill_: no host copy
+            plane.narrow(0, cap, 1).fill_(fill)
+        return (r.uslots != cap) & (lp[2][r.uslots] >= ff)
+    if not (torch.equal(torch_chain(), adm_ref)
+            and all(torch.equal(a, b) for a, b in zip(lp, pp))):
+        fail("K3a's library yardstick computes another function")
+
+    # what the path ran before the fused kernel: live/mdest, the
+    # three-plane kernel, the admission test
+    live = (r.counts > 0) & (r.uslots != cap) & ~r.readonly
+    mdest = torch.where(live, r.uslots, cap + 1)
+    op = planes()
+
+    def old_kernel():
+        meta_scatter(op[0], dest, op[1], op[2], mdest, r.counts, 3)
+
+    def old_path():
+        lv = (r.counts > 0) & (r.uslots != cap) & ~r.readonly
+        meta_scatter(op[0], dest, op[1], op[2],
+                     torch.where(lv, r.uslots, cap + 1), r.counts, 3)
+        return (r.uslots != cap) & (op[2][r.uslots] >= ff)
+    old_kernel()
+    if not all(torch.equal(a, b) for a, b in zip(op, pp)):
+        fail("K3a meta_scatter differs from the fused kernel's planes")
+    turns = [time_ms(old_kernel), time_ms(lambda: fused(kp)),
+             time_ms(lambda: fused(kp)), time_ms(old_kernel)]
+    k3a_ms = (turns[1] + turns[2]) / 2
+    old_ms = (turns[0] + turns[3]) / 2
+    # each behind a PyTorch kernel, as on the path
+    on_path = [behind_ms(old_kernel), behind_ms(lambda: fused(kp)),
+               behind_ms(lambda: fused(kp)), behind_ms(old_kernel)]
+    old_path_ms = time_ms(old_path)
+    k3a_plain = time_ms(lambda: fused(pp, lookup_meta_plain))
+    k3a_lib = time_ms(torch_chain)
+    m_in = mdest < cap
+    n_d, n_m = int((dest < cap).sum()), int(m_in.sum())
+    n_read = int(((r.uslots < cap) & ~m_in).sum())  # the filter's own reads
+    # lanes read (uslots, counts, dest: 4 bytes; admitted written: 1),
+    # the flag, a create step per created row, a version and a freq
+    # read-modify-write per live row, a freq read per other real row
+    k3a_bytes = 13 * u + 1 + 4 * n_d + 12 * n_m + 4 * n_read
+    log(f"K3a turns (old three-plane kernel, fused, fused, old): "
+        f"{turns[0]:.4f}, {turns[1]:.4f}, {turns[2]:.4f}, {turns[3]:.4f} ms "
+        f"back to back; behind a one-element add: "
+        + ", ".join(f"{t:.4f}" for t in on_path)
+        + f" ms; the old path (live/mdest + three-plane kernel + admission "
+        f"test) {old_path_ms:.4f} ms")
+    log_times(f"K3a lookup_meta (3 planes of {cap + 1} + filter, {u} lanes: "
+              f"{n_d} created, {n_m} live)", k3a_ms, k3a_plain, k3a_lib,
+              k3a_bytes, "; library: the same function in torch calls "
+              "(live, masked indices, index_put_ x2, index_add_, null-row "
+              "resets, the admission test)")
+    # the three-plane kernel alone, with its own yardstick (pre-filtered
+    # lanes) and bytes
+    d_keep, m_keep = dest[dest < cap].long(), mdest[m_in].long()
+    c_keep = r.counts[m_in]
 
     def three_calls():
         pp[0].index_put_((d_keep,), gs)
         pp[1].index_put_((m_keep,), gs)
         pp[2].index_add_(0, m_keep, c_keep)
-    k3a_lib = time_ms(three_calls)
-    n_d, n_m = d_keep.numel(), m_keep.numel()
-    k3a_bytes = 3 * u * 4 + (n_d + 3 * n_m) * 4
-    log_times(f"K3a meta_scatter (3 planes of {cap + 1}, {u} lanes: {n_d} "
-              f"created, {n_m} live)", k3a_ms, k3a_plain, k3a_lib, k3a_bytes,
+    ms_lib = time_ms(three_calls)
+    ms_plain = time_ms(lambda: meta_scatter_plain(
+        pp[0], dest, pp[1], pp[2], mdest, r.counts, 3, cap))
+    ms_bytes = 3 * u * 4 + (n_d + 3 * n_m) * 4
+    log_times("K3a meta_scatter, the three-plane kernel (off the path now)",
+              old_ms, ms_plain, ms_lib, ms_bytes,
               "; library: index_put_ x2 + index_add_ on pre-filtered lanes")
 
     # the JAX benchmark's question, on this card: CAP 2^21, U 17,664
@@ -559,9 +641,15 @@ def check_training_kernels(dev):
               "deeprec_tpu_torch/csrc/fused_pooled_lookup.cu",
               "deeprec_tpu/ops/pallas_fused_lookup.py:80", bwd_err, bwd_ms,
               bwd_plain, bwd_lib, bwd_bytes),
-        entry("meta_scatter", "deeprec_tpu_torch/csrc/meta_scatter.cu",
+        entry("lookup_meta", "deeprec_tpu_torch/csrc/meta_scatter.cu",
               "benchmarks/pallas_meta_bench.py:108", 0.0, k3a_ms, k3a_plain,
-              k3a_lib, k3a_bytes),
+              k3a_lib, k3a_bytes, previous_ms=old_ms,
+              previous_path_ms=old_path_ms,
+              on_path_ms=(on_path[1] + on_path[2]) / 2,
+              previous_on_path_ms=(on_path[0] + on_path[3]) / 2),
+        entry("meta_scatter", "deeprec_tpu_torch/csrc/meta_scatter.cu",
+              "benchmarks/pallas_meta_bench.py:108", 0.0, old_ms, ms_plain,
+              ms_lib, ms_bytes),
         entry("blocked_rmw_set", "deeprec_tpu_torch/csrc/meta_scatter.cu",
               "benchmarks/pallas_meta_bench.py:151", 0.0, k3b_ms, k3b_plain,
               k3b_lib, k3b_bytes),
@@ -682,12 +770,12 @@ def check_training(dev, smi):
     from deeprec_tpu_torch.ops.fused_lookup import (
         fused_pooled_lookup, fused_pooled_lookup_backward)
     from deeprec_tpu_torch.ops.gather import gather_rows
-    from deeprec_tpu_torch.ops.meta_scatter import meta_scatter
+    from deeprec_tpu_torch.ops.meta_scatter import lookup_meta
     from deeprec_tpu_torch.train import metrics
     counters = {"gather_rows": gather_rows,
                 "fused_pooled_lookup": fused_pooled_lookup,
                 "fused_pooled_lookup_backward": fused_pooled_lookup_backward,
-                "meta_scatter": meta_scatter}
+                "lookup_meta": lookup_meta}
     batches = list(SyntheticCriteo(batch_size=B, seed=7).take(68))
     out = {}
 
@@ -736,7 +824,7 @@ def check_training(dev, smi):
               "fused_pooled_lookup_backward"):
         if light[k] <= 0:
             fail(f"{k} was not launched on the light training path")
-    if light["meta_scatter"]:
+    if light["lookup_meta"]:
         fail("the light layout wrote metadata")
     log(f"light layout examples/s at B={B}, staged host half: median "
         f"{statistics.median(staged):.1f}, min {min(staged):.1f}, max "
@@ -747,15 +835,15 @@ def check_training(dev, smi):
     return {"train_metadata": launches, "train_light": light}, out
 
 
-def run(dev, smi):
-    """Phases 2-7 on ``dev``; returns the kernels' JSON entries and the
-    training numbers."""
+def run(dev, smi, probe):
+    """Phases 2-7 on ``dev`` (``probe``: the built design probes); returns
+    the kernels' JSON entries and the training numbers."""
     from deeprec_tpu_torch.data.criteo import SyntheticCriteo
     from deeprec_tpu_torch.ops.fused_lookup import fused_pooled_lookup
     from deeprec_tpu_torch.ops.gather import gather_rows
     from deeprec_tpu_torch.ops import _build
 
-    kernels = check_kernels(dev) + check_training_kernels(dev)
+    kernels = check_kernels(dev, probe) + check_training_kernels(dev, probe)
 
     _build.BUILD.mkdir(parents=True, exist_ok=True)  # git-ignored
     with tempfile.TemporaryDirectory(dir=str(_build.BUILD)) as path:
@@ -826,6 +914,7 @@ def main():
                          "the card only")
     sys.path.insert(0, REPO)
     from deeprec_tpu_torch.ops import _build
+    from deeprec_tpu_torch.probes import kernel_probe
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -838,11 +927,15 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
 
     t0 = time.perf_counter()
-    _build.library()
-    log(f"kernels built (nvcc sm_90a) and loaded in "
-        f"{time.perf_counter() - t0:.2f} s")
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        probe = pool.submit(kernel_probe.build)  # its own nvcc, alongside
+        _build.library()
+        log(f"kernels built (nvcc sm_90a) and loaded in "
+            f"{time.perf_counter() - t0:.2f} s")
+        probe = probe.result()
+    log(f"design probes built in {time.perf_counter() - t0:.2f} s")
 
-    kernels, training = run(torch.device("cuda"), smi)
+    kernels, training = run(torch.device("cuda"), smi, probe)
     log(json.dumps({"training": training, "card": smi}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

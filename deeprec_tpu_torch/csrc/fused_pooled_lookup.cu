@@ -1,5 +1,5 @@
 // K2: fused gather + pool, forward and backward (the backward is below the
-// forward kernel). For each bag b,
+// forward kernels). For each bag b,
 //   out[b, :] = scale(n_b) * sum over k with valid[b, k] of
 //               values[clamp(slots[b, k], 0, R-1), :D]
 // with scale 1 (sum), 1/max(n,1) (mean) or 1/sqrt(max(n,1)) (sqrtn), n_b
@@ -9,18 +9,49 @@
 // fused_pooled_lookup (_fused_kernel), which streams each example's rows
 // through a DMA queue into a VMEM accumulator. Like it, this kernel never
 // writes the [B*w, D] expanded rows: the pooled [B, D] is the only write.
-// It is bound by HBM bytes (valid rows read + pooled rows written). One
-// sub-warp per bag, each thread owns a float4 (or a float) of the row,
-// loops over the bag's w lanes, skips invalid lanes with a predicate (the
-// TPU kernel's argsort left-pack is not needed) and accumulates in f32.
-// No D % 128 rule, no chunk padding; slots and valid may be strided views
-// (the serving path passes inverse.view(W, B)[o:o+w].T without a copy).
+// It is bound by HBM bytes (slots and flags read, valid rows read, pooled
+// rows written); at the Criteo shapes ([26*4096, 1], D 16) the pooled
+// write is 6.8 of the 8.8 MB. No D % 128 rule, no chunk padding; slots and
+// valid may be strided views (the serving path passes
+// inverse.view(W, B)[o:o+w].T without a copy).
+//
+// Design: one warp per tile of consecutive bags, so the index loads are
+// shared. Each lane loads one (bag, lane) slot and its flag of the tile,
+// both at once, never a branch on the flag before the slot's load; the
+// flags become a warp ballot and the slots reach the row readers by
+// __shfl_sync, so one index round trip serves the whole tile. The tile's
+// output is contiguous, and lane l computes its vector units u = l, l+32,
+// ... (bag u / dv, column u % dv, in units of V), so every store
+// instruction writes 32 consecutive vectors (512 bytes in float4).
+// - w == 1 (the Criteo columns, one id a bag): a tile is 32 bags, and
+//   every combiner is the row itself or 0 (a valid count of 0 or 1 divides
+//   by 1). A lane issues kFwdLoads row loads before it stores any of them:
+//   at D 16 a lane holds 4 float4 of 4 bags in flight.
+// - w > 1 (multi-hot): a tile is 32 / w bags (one when w > 32, whose ids
+//   are then loaded 32 at a time); the lane of unit (q, c) walks the bag's
+//   ids, kFwdLoads row loads in flight, and adds the valid ones in id order
+//   in f32. Its scale comes from the ballot's popcount; sum has no scale
+//   code (a template flag).
+// What bounds it at the Criteo shapes is not the index round trips but
+// their order: the rows must arrive (two dependent loads, ~0.9 us) before
+// the 6.8 MB write (~1.7 us) can start, and a launch costs ~2 us more back
+// to back (probes/kernel_probe.cu's variants on an H100 80GB HBM3 at
+// 700 W). So both kernels are launched as programmatic dependents of the
+// work before them (griddepcontrol): their blocks are scheduled while
+// that work finishes, and each waits for it before its first access to
+// memory (out may be a block the allocator just reused).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 #include <stdlib.h>
 
+#include "launch.cuh"
+
 namespace {
+
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kFwdThreads = 256;
+constexpr int kFwdLoads = 4;  // row loads in flight per lane
 
 __device__ __forceinline__ float4 add4(float4 a, float4 b) {
   return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
@@ -39,33 +70,126 @@ template <> __device__ __forceinline__ float4 zero<float4>() {
   return make_float4(0.f, 0.f, 0.f, 0.f);
 }
 
-// V: float or float4 (the vector unit); ld and d are in units of V.
+__device__ __forceinline__ int64_t clamp_row(int64_t s, int64_t n_rows) {
+  return s < 0 ? 0 : (s >= n_rows ? n_rows - 1 : s);
+}
+
+// Unit u of a tile's output: bag u / dv, column u % dv (a shift and a mask
+// when dv is a power of two, dv_shift >= 0).
+__device__ __forceinline__ int unit_bag(int u, int dv, int dv_shift) {
+  return dv_shift >= 0 ? u >> dv_shift : u / dv;
+}
+
+// w == 1. V: float or float4 (the vector unit); ld and dv are in units of
+// V. Every combiner gives valid ? row : 0.
 template <typename V, typename I>
-__global__ void fused_pooled_lookup_kernel(
-    const V* __restrict__ values, int64_t ld, int64_t n_rows, int64_t d,
-    const I* __restrict__ slots, int64_t s_b, int64_t s_k,
+__global__ void __launch_bounds__(kFwdThreads) pooled_lookup_w1_kernel(
+    const V* __restrict__ values, int64_t ld, int64_t n_rows, int dv,
+    int dv_shift, const I* __restrict__ slots, int64_t s_b,
+    const bool* __restrict__ valid, int64_t v_b, int64_t n_bags,
+    V* __restrict__ out) {
+  launch_dependents();
+  wait_for_prerequisite();  // before any access: out may be reused memory
+  const int lane = threadIdx.x & 31;
+  const int64_t b0 = (int64_t)blockIdx.x * kFwdThreads + threadIdx.x - lane;
+  if (b0 >= n_bags) return;  // the whole warp: its tile starts past the end
+  const int64_t b = b0 + lane;
+  bool ok = false;
+  int64_t row = 0;
+  if (b < n_bags) {  // the flag and the slot in one round trip
+    ok = valid[b * v_b];
+    row = (int64_t)slots[b * s_b];
+  }
+  row = clamp_row(row, n_rows);
+  const unsigned oks = __ballot_sync(kFull, ok);
+  const int nb = n_bags - b0 < 32 ? (int)(n_bags - b0) : 32;
+  const int units = nb * dv;
+  V* tile_out = out + b0 * dv;
+  for (int base = 0; base < units; base += 32 * kFwdLoads) {  // warp-uniform
+    V x[kFwdLoads];
+#pragma unroll
+    for (int j = 0; j < kFwdLoads; ++j) {
+      const int u = base + 32 * j + lane;
+      const int q = unit_bag(u, dv, dv_shift) & 31;  // past the end: unused
+      const int64_t r = __shfl_sync(kFull, row, q);
+      x[j] = u < units && (oks >> q & 1u)
+                 ? __ldg(values + r * ld + (u - q * dv)) : zero<V>();
+    }
+#pragma unroll
+    for (int j = 0; j < kFwdLoads; ++j) {
+      const int u = base + 32 * j + lane;
+      if (u < units) tile_out[u] = x[j];
+    }
+  }
+}
+
+// w > 1 (or any w). kComb: 0 sum, 1 mean, 2 sqrtn.
+template <typename V, typename I, int kComb>
+__global__ void __launch_bounds__(kFwdThreads) pooled_lookup_kernel(
+    const V* __restrict__ values, int64_t ld, int64_t n_rows, int dv,
+    int dv_shift, const I* __restrict__ slots, int64_t s_b, int64_t s_k,
     const bool* __restrict__ valid, int64_t v_b, int64_t v_k, int64_t n_bags,
-    int64_t w, int combiner, V* __restrict__ out, int lanes) {
-  int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  int64_t b = t / lanes;
-  if (b >= n_bags) return;
-  int lane = (int)(t - b * lanes);
-  const I* bag_slots = slots + b * s_b;
-  const bool* bag_valid = valid + b * v_b;
-  for (int64_t c = lane; c < d; c += lanes) {
+    int64_t w, V* __restrict__ out) {
+  launch_dependents();
+  wait_for_prerequisite();
+  const int lane = threadIdx.x & 31;
+  const int per = w < 32 ? (int)w : 32;  // ids of a bag in one load
+  const int tile = 32 / per;             // bags of a tile
+  const int64_t b0 =
+      ((int64_t)blockIdx.x * kFwdThreads + threadIdx.x) / 32 * tile;
+  if (b0 >= n_bags) return;  // the whole warp
+  const int nb = n_bags - b0 < tile ? (int)(n_bags - b0) : tile;
+  // this lane's id of a load: bag b0 + id_bag, id k0 + id_k
+  const int id_bag = lane / per, id_k = lane - id_bag * per;
+  bool ok = false;
+  int64_t row = 0;
+  unsigned oks = 0u;
+  auto load_ids = [&](int64_t k0) {  // every lane of the warp calls
+    ok = false;
+    row = 0;
+    if (id_bag < nb && k0 + id_k < w) {
+      const int64_t bb = b0 + id_bag, k = k0 + id_k;
+      ok = valid[bb * v_b + k * v_k];
+      row = (int64_t)slots[bb * s_b + k * s_k];
+    }
+    row = clamp_row(row, n_rows);
+    oks = __ballot_sync(kFull, ok);
+  };
+  if (w <= 32) load_ids(0);  // the tile's ids, once
+  const int units = nb * dv;
+  V* tile_out = out + b0 * dv;
+  for (int base = 0; base < units; base += 32) {  // warp-uniform
+    const int u = base + lane;
+    const bool live = u < units;
+    const int q = live ? unit_bag(u, dv, dv_shift) : 0;
+    const int c = u - q * dv;
     V acc = zero<V>();
     int n = 0;
-    for (int64_t k = 0; k < w; ++k) {
-      if (!bag_valid[k * v_k]) continue;
-      int64_t s = (int64_t)bag_slots[k * s_k];
-      s = s < 0 ? 0 : (s >= n_rows ? n_rows - 1 : s);
-      acc = add_(acc, __ldg(values + s * ld + c));
-      ++n;
+    for (int64_t k0 = 0; k0 < w; k0 += 32) {  // one pass unless w > 32
+      if (w > 32) load_ids(k0);
+      const int kn = w - k0 < per ? (int)(w - k0) : per;
+      const unsigned bag_oks =
+          per == 32 ? oks : oks >> (q * per) & ((1u << per) - 1u);
+      n += __popc(bag_oks);
+      for (int k = 0; k < kn; k += kFwdLoads) {  // warp-uniform
+        V x[kFwdLoads];
+#pragma unroll
+        for (int j = 0; j < kFwdLoads; ++j) {
+          const int kk = k + j;
+          const int64_t r = __shfl_sync(kFull, row, (q * per + kk) & 31);
+          x[j] = live && kk < kn && (bag_oks >> kk & 1u)
+                     ? __ldg(values + r * ld + c) : zero<V>();
+        }
+#pragma unroll
+        for (int j = 0; j < kFwdLoads; ++j)  // in id order, as the plain sum
+          if (k + j < kn && (bag_oks >> (k + j) & 1u)) acc = add_(acc, x[j]);
+      }
     }
-    const float m = (float)(n > 1 ? n : 1);
-    if (combiner == 1) acc = div_(acc, m);
-    else if (combiner == 2) acc = div_(acc, sqrtf(m));
-    out[b * d + c] = acc;
+    if (kComb != 0) {
+      const float m = (float)(n > 1 ? n : 1);
+      acc = div_(acc, kComb == 1 ? m : sqrtf(m));
+    }
+    if (live) tile_out[u] = acc;
   }
 }
 
@@ -106,18 +230,8 @@ __global__ void fused_pooled_lookup_kernel(
 // only before its first add. The atomics add in a different order on
 // every run, so results agree with the plain version to rounding, not
 // bits.
-constexpr unsigned kFull = 0xffffffffu;
 constexpr int kChunk = 4;  // vectors of a row held in registers at a time
 constexpr int kBwdThreads = 256;
-
-__device__ __forceinline__ void launch_dependents() {
-  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
-}
-// Returns once the grid this one depends on has finished and its writes
-// are visible; at once for a grid launched without the dependency.
-__device__ __forceinline__ void wait_for_prerequisite() {
-  asm volatile("griddepcontrol.wait;" ::: "memory");
-}
 
 __device__ __forceinline__ float shfl(float v, int src) {
   return __shfl_sync(kFull, v, src);
@@ -289,29 +403,45 @@ __global__ void __launch_bounds__(kBwdThreads) fused_pooled_lookup_bwd_kernel(
   }
 }
 
+template <typename V, typename I>
+cudaError_t launch_fwd(const V* values, int64_t ld, int64_t n_rows, int64_t d,
+                       const I* slots, int64_t s_b, int64_t s_k,
+                       const bool* valid, int64_t v_b, int64_t v_k,
+                       int64_t n_bags, int64_t w, int combiner, V* out,
+                       cudaStream_t stream) {
+  const int dv = (int)d;  // in units of V
+  int dv_shift = -1;
+  if ((dv & (dv - 1)) == 0)
+    for (dv_shift = 0; (1 << dv_shift) < dv; ++dv_shift) {}
+  if (w == 1)  // one warp per 32 bags
+    return launch_dependent(pooled_lookup_w1_kernel<V, I>,
+                            (n_bags + kFwdThreads - 1) / kFwdThreads,
+                            kFwdThreads, stream, values, ld, n_rows, dv,
+                            dv_shift, slots, s_b, valid, v_b, n_bags, out);
+  const int64_t tile = w < 32 ? 32 / w : 1;  // bags of a warp
+  const int64_t warps = (n_bags + tile - 1) / tile;
+  const int64_t blocks = (warps * 32 + kFwdThreads - 1) / kFwdThreads;
+  const auto kernel = combiner == 1   ? pooled_lookup_kernel<V, I, 1>
+                      : combiner == 2 ? pooled_lookup_kernel<V, I, 2>
+                                      : pooled_lookup_kernel<V, I, 0>;
+  return launch_dependent(kernel, blocks, kFwdThreads, stream, values, ld,
+                          n_rows, dv, dv_shift, slots, s_b, s_k, valid, v_b,
+                          v_k, n_bags, w, out);
+}
+
 template <typename V>
 cudaError_t launch(const void* values, int64_t ld, int64_t n_rows, int64_t d,
                    const void* slots, int slots_are_64, int64_t s_b,
                    int64_t s_k, const void* valid, int64_t v_b, int64_t v_k,
                    int64_t n_bags, int64_t w, int combiner, void* out,
                    cudaStream_t stream) {
-  int lanes = 1;
-  while (lanes < 32 && lanes < d) lanes <<= 1;
-  const int threads = 256;
-  const int64_t blocks = (n_bags * lanes + threads - 1) / threads;
   if (slots_are_64)
-    fused_pooled_lookup_kernel<V, int64_t>
-        <<<(unsigned)blocks, threads, 0, stream>>>(
-            (const V*)values, ld, n_rows, d, (const int64_t*)slots, s_b, s_k,
-            (const bool*)valid, v_b, v_k, n_bags, w, combiner, (V*)out,
-            lanes);
-  else
-    fused_pooled_lookup_kernel<V, int32_t>
-        <<<(unsigned)blocks, threads, 0, stream>>>(
-            (const V*)values, ld, n_rows, d, (const int32_t*)slots, s_b, s_k,
-            (const bool*)valid, v_b, v_k, n_bags, w, combiner, (V*)out,
-            lanes);
-  return cudaGetLastError();
+    return launch_fwd((const V*)values, ld, n_rows, d, (const int64_t*)slots,
+                      s_b, s_k, (const bool*)valid, v_b, v_k, n_bags, w,
+                      combiner, (V*)out, stream);
+  return launch_fwd((const V*)values, ld, n_rows, d, (const int32_t*)slots,
+                    s_b, s_k, (const bool*)valid, v_b, v_k, n_bags, w,
+                    combiner, (V*)out, stream);
 }
 
 // Launches the backward as the programmatic dependent of the zero-fill
@@ -326,19 +456,11 @@ cudaError_t launch_bwd(const void* d_pooled, int64_t dv, const void* slots,
   const auto kernel = combiner != 0
                           ? fused_pooled_lookup_bwd_kernel<V, I, true>
                           : fused_pooled_lookup_bwd_kernel<V, I, false>;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((unsigned)((n_bags * w + kBwdThreads - 1) / kBwdThreads));
-  cfg.blockDim = dim3(kBwdThreads);
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  attr[0].val.programmaticStreamSerializationAllowed = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, kernel,
-                            (const V*)d_pooled, dv, (const I*)slots, s_b,
-                            s_k, (const bool*)valid, v_b, v_k, n_bags, w,
-                            combiner, (V*)d_values, n_rows, lane_major);
+  return launch_dependent(kernel, (n_bags * w + kBwdThreads - 1) / kBwdThreads,
+                          kBwdThreads, stream, (const V*)d_pooled, dv,
+                          (const I*)slots, s_b, s_k, (const bool*)valid, v_b,
+                          v_k, n_bags, w, combiner, (V*)d_values, n_rows,
+                          lane_major);
 }
 
 template <typename V>
@@ -368,8 +490,11 @@ extern "C" int deeprec_fused_pooled_lookup(
     const void* slots, int slots_are_64, int64_t s_b, int64_t s_k,
     const void* valid, int64_t v_b, int64_t v_k, int64_t n_bags, int64_t w,
     int combiner, void* out, int vec4, void* stream) {
-  if (n_bags == 0) return 0;
+  if (n_bags == 0 || d == 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
+  if (w == 0)  // no ids: every bag pools nothing
+    return (int)cudaMemsetAsync(out, 0, (size_t)(n_bags * d) * sizeof(float),
+                                st);
   if (vec4)
     return launch<float4>(values, ld / 4, n_rows, d / 4, slots, slots_are_64,
                           s_b, s_k, valid, v_b, v_k, n_bags, w, combiner, out,

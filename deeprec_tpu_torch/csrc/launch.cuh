@@ -1,0 +1,41 @@
+// Programmatic dependent launch (Hopper's griddepcontrol), shared by the
+// kernels that use it.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+// Lets the grids launched after this one as its programmatic dependents
+// start their blocks now.
+__device__ __forceinline__ void launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
+}
+
+// Returns once the grid this one depends on has finished and its writes
+// are visible; at once for a grid launched without the dependency.
+__device__ __forceinline__ void wait_for_prerequisite() {
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+}
+
+// Launches kernel on `blocks` blocks of `threads` as the programmatic
+// dependent of the work queued before it on stream: its blocks may start
+// before that work has finished, and must call wait_for_prerequisite()
+// before they touch memory that work uses.
+template <typename... K, typename... A>
+cudaError_t launch_dependent(void (*kernel)(K...), int64_t blocks,
+                             int threads, cudaStream_t stream, A... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)blocks);
+  cfg.blockDim = dim3(threads);
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, (K)args...);
+}
+
+}  // namespace

@@ -1,23 +1,44 @@
 // K3a and K3b: the EmbeddingVariable metadata writes at unique slots.
 //
-// K3a, meta_scatter (in place). For each lane i of a host-index lookup
-//   create_steps[dest[i]]  = gs
-//   versions[mdest[i]]     = gs
-//   freqs[mdest[i]]       += counts[i]
-// in one launch, one thread per lane. A lane whose index lies outside
-// [0, cap) is skipped, so row cap (the shared null row) keeps -1/-1/0.
-// Any of the three planes may be absent (a null pointer): with only one
-// plane this is scatter_set, one scalar to a plane at U slots.
-// Replaces the Pallas TPU kernel benchmarks/pallas_meta_bench.py
+// K3a replaces the Pallas TPU kernel benchmarks/pallas_meta_bench.py
 // pallas_dma_stores (_dma_kernel), which issued one DMA per slot and never
 // compiled on the TPU (Mosaic's (1024,) tiling forbids 1-element HBM
 // slices). On Hopper a 4-byte store to any address is one instruction.
 // The indices below cap are unique by construction (the resolver's slots
 // of distinct keys), so plain stores and a plain read-modify-write of the
 // freq suffice: no two threads touch one element, no atomics are needed.
-// Bound by HBM bytes: the index and count lanes read, and one 4-byte
-// element written (and, for the freq, read) per plane and lane; each
-// scattered element costs a 32-byte sector of traffic in practice.
+// A lane whose index lies outside [0, cap) is skipped, so row cap (the
+// shared null row) keeps -1/-1/0. Any plane may be absent (a null
+// pointer). Two entries, one thread per lane each:
+//
+// lookup_meta (the training path's): the whole metadata step of a
+// host-index lookup_or_create over its U unique lanes,
+//   live     = counts[i] > 0 && uslots[i] != cap && !readonly
+//   create_steps[dest[i]]  = gs
+//   versions[uslots[i]]    = gs                 where live
+//   freqs[uslots[i]]      += counts[i]          where live (add_freqs)
+//   admitted[i] = uslots[i] != cap && (no filter ||
+//                 freqs[uslots[i]] >= filter_freq, after the add)
+// Its bytes (~0.5 MB a Criteo step) take 0.0001 ms at HBM rate: what it
+// costs is the launch. So it takes over the lane arithmetic around the
+// writes (live, the masked index, the admission test), which were ten
+// more launches of the same floor, and it is launched as a programmatic
+// dependent of the work before it (griddepcontrol), so its own launch
+// overlaps that work's end; every thread waits for that work before it
+// touches memory. A lane's admission reads the freq its own add left in a
+// register; a lane that does not add (readonly, no count) reads the
+// plane, which no other lane writes at that slot.
+//
+// meta_scatter (the benchmark's function, off the training path):
+//   create_steps[dest[i]]  = gs
+//   versions[mdest[i]]     = gs
+//   freqs[mdest[i]]       += counts[i]
+// With only one plane this is scatter_set, one scalar to a plane at U
+// slots, the Pallas kernel's own function.
+//
+// Both are bound by HBM bytes: the lanes read once, and one 4-byte element
+// written (and, for the freq, read) per plane and lane; each scattered
+// element costs a 32-byte sector of traffic in practice.
 //
 // K3b, blocked_rmw_set (out of place).
 //   out = plane[:cap]; out[slots[i]] = vals[i] for 0 <= slots[i] < cap
@@ -42,6 +63,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "launch.cuh"
 
 namespace {
 
@@ -71,6 +94,39 @@ __global__ void meta_scatter_kernel(int32_t* __restrict__ create_steps,
   }
 }
 
+template <typename I>
+__global__ void lookup_meta_kernel(
+    const I* __restrict__ uslots, const int32_t* __restrict__ counts,
+    const bool* __restrict__ readonly, const I* __restrict__ dest,
+    int32_t* __restrict__ create_steps, int32_t* __restrict__ versions,
+    int32_t* __restrict__ freqs, int add_freqs, int filter,
+    int32_t filter_freq, bool* __restrict__ admitted, int32_t gs, int64_t n,
+    int64_t cap) {
+  launch_dependents();
+  // the work before this launch has finished: admitted may be memory the
+  // allocator just reused
+  wait_for_prerequisite();
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  // every load of the lane at once: the flag is one byte all lanes share
+  const int64_t s = (int64_t)uslots[i];
+  const int32_t c = counts[i];
+  const bool ro = *readonly;
+  const int64_t d = create_steps != nullptr ? (int64_t)dest[i] : -1;
+  if (d >= 0 && d < cap) create_steps[d] = gs;
+  const bool in = s >= 0 && s < cap;
+  const bool live = in && c > 0 && !ro;
+  int32_t f = 0;
+  if (live && versions != nullptr) versions[s] = gs;
+  if (live && add_freqs) {
+    f = freqs[s] + c;
+    freqs[s] = f;
+  } else if (filter && in) {
+    f = freqs[s];
+  }
+  admitted[i] = s != cap && (!filter || (in && f >= filter_freq));
+}
+
 // Copies src[0, n) to dst in units of W (int4, or int32 when unaligned):
 // the grid covers n in one pass, each thread loading its kUnroll units
 // before storing them. A thread's units lie one grid-width apart, so the
@@ -95,7 +151,7 @@ __device__ __forceinline__ void copy_units(const W* __restrict__ src,
 __global__ void __launch_bounds__(kCopyThreads) plane_copy_kernel(
     const int32_t* __restrict__ plane, int32_t* __restrict__ out, int64_t cap,
     int vec4) {
-  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
+  launch_dependents();
   if (!vec4) {
     copy_units(plane, out, cap);
     return;
@@ -119,26 +175,8 @@ __global__ void scatter_updates_kernel(const I* __restrict__ slots,
     s = (int64_t)slots[i];
     v = vals[i];
   }
-  // the copy has finished and its stores are visible
-  asm volatile("griddepcontrol.wait;" ::: "memory");
+  wait_for_prerequisite();  // the copy has finished, its stores visible
   if (s >= 0 && s < cap) out[s] = v;
-}
-
-template <typename I>
-cudaError_t launch_scatter(const I* slots, const int32_t* vals, int64_t n,
-                           int64_t cap, int32_t* out, cudaStream_t stream) {
-  const int threads = 256;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((unsigned)((n + threads - 1) / threads));
-  cfg.blockDim = dim3(threads);
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  attr[0].val.programmaticStreamSerializationAllowed = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, scatter_updates_kernel<I>, slots, vals, n,
-                            cap, out);
 }
 
 }  // namespace
@@ -168,6 +206,34 @@ extern "C" int deeprec_meta_scatter(void* create_steps, const void* dest,
   return (int)cudaGetLastError();
 }
 
+// uslots and dest int32 or int64 [n] (idx_are_64), counts int32 [n],
+// readonly one bool, the planes int32 of at least cap+1 elements (each may
+// be null; freqs is read with add_freqs or filter), admitted bool [n].
+// Returns the launch's cudaError_t; 0 is success. Never syncs.
+extern "C" int deeprec_lookup_meta(const void* uslots, const void* counts,
+                                   const void* readonly, const void* dest,
+                                   void* create_steps, void* versions,
+                                   void* freqs, int add_freqs, int filter,
+                                   int filter_freq, void* admitted,
+                                   int idx_are_64, int gs, int64_t n,
+                                   int64_t cap, void* stream) {
+  if (n == 0) return 0;
+  cudaStream_t st = (cudaStream_t)stream;
+  const int64_t blocks = (n + 255) / 256;
+  if (idx_are_64)
+    return (int)launch_dependent(
+        lookup_meta_kernel<int64_t>, blocks, 256, st, (const int64_t*)uslots,
+        (const int32_t*)counts, (const bool*)readonly, (const int64_t*)dest,
+        (int32_t*)create_steps, (int32_t*)versions, (int32_t*)freqs,
+        add_freqs, filter, (int32_t)filter_freq, (bool*)admitted,
+        (int32_t)gs, n, cap);
+  return (int)launch_dependent(
+      lookup_meta_kernel<int32_t>, blocks, 256, st, (const int32_t*)uslots,
+      (const int32_t*)counts, (const bool*)readonly, (const int32_t*)dest,
+      (int32_t*)create_steps, (int32_t*)versions, (int32_t*)freqs, add_freqs,
+      filter, (int32_t)filter_freq, (bool*)admitted, (int32_t)gs, n, cap);
+}
+
 // plane int32 [>= cap], slots int32/int64 [n], vals int32 [n], out int32
 // [cap]. vec4: 1 when plane and out are 16-byte aligned (the wrapper
 // checks); a cap that is not a multiple of 4 copies its last elements
@@ -184,12 +250,15 @@ extern "C" int deeprec_blocked_rmw_set(const void* plane, const void* slots,
   plane_copy_kernel<<<(unsigned)blocks, kCopyThreads, 0, st>>>(
       (const int32_t*)plane, (int32_t*)out, cap, vec4);
   if (n == 0) return (int)cudaGetLastError();
+  const int64_t scatter_blocks = (n + 255) / 256;
   const cudaError_t launched =
       slots_are_64
-          ? launch_scatter((const int64_t*)slots, (const int32_t*)vals, n,
-                           cap, (int32_t*)out, st)
-          : launch_scatter((const int32_t*)slots, (const int32_t*)vals, n,
-                           cap, (int32_t*)out, st);
+          ? launch_dependent(scatter_updates_kernel<int64_t>, scatter_blocks,
+                             256, st, (const int64_t*)slots,
+                             (const int32_t*)vals, n, cap, (int32_t*)out)
+          : launch_dependent(scatter_updates_kernel<int32_t>, scatter_blocks,
+                             256, st, (const int32_t*)slots,
+                             (const int32_t*)vals, n, cap, (int32_t*)out);
   const cudaError_t last = cudaGetLastError();  // the copy's, or this one's
   return (int)(last != cudaSuccess ? last : launched);
 }

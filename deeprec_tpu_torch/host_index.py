@@ -12,10 +12,11 @@ row stores stay on the device.
 What the device does with a resolved batch (:meth:`lookup_or_create`):
 eager init of created rows when the table admits by frequency or has
 ``lazy_init`` off (plain ``index_copy_``: an XLA scatter in the JAX
-package), then the metadata writes (create step, version, freq add) as ONE
-launch of kernel K3a ``ops.meta_scatter.meta_scatter`` under the
-``--metadata`` layout, and the ``admitted`` mask. It updates the stores in
-place and returns the same state.
+package), then the metadata writes (create step, version, freq add) and
+the ``admitted`` mask as ONE launch of kernel K3a
+``ops.meta_scatter.lookup_meta`` under the ``--metadata`` layout (the
+light layout, with no metadata, tests ``uslots != cap`` alone). It updates
+the stores in place and returns the same state.
 
 Not ported yet: tiered storage (``apply_promo``, demotion, the tier
 export), ``grow_state``, the checkpoint hooks and ``host_health``.
@@ -30,7 +31,7 @@ import torch
 from .config import StorageType
 from .feature_column import CollectionAux, EmbeddingCollection
 from .ops.gather import gather_rows
-from .ops.meta_scatter import meta_scatter
+from .ops.meta_scatter import lookup_meta
 from .ops.unique import UniqueResult
 from .optim.sparse import _scatter_set
 from .sparse import embedding_var as ev
@@ -241,19 +242,19 @@ class HostIndexEmbeddingCollection(EmbeddingCollection):
                 rows0 = torch.cat([rows0, pad], -1)
             _scatter_set(state.values, dest, rows0)
 
-        live = (r.counts > 0) & (r.uslots != cap) & ~r.readonly
-        mdest = torch.where(live, r.uslots, cap + 1)
         vt, ft = cfg.version_tracked, cfg.freq_tracked
-        if vt or ft:  # K3a: one launch, row cap (the null row) untouched
-            meta_scatter(state.create_steps if vt else None, dest,
-                         state.versions if vt else None,
-                         state.freqs if ft else None, mdest, r.counts,
-                         int(step))
-
-        admitted = r.uslots != cap
-        if cfg.counter_filter is not None:
-            admitted = admitted & (state.freqs[r.uslots]
-                                   >= cfg.counter_filter.filter_freq)
+        cf = cfg.counter_filter
+        if vt or ft or cf is not None:
+            # K3a: the writes and the admission test in one launch; row
+            # cap (the null row) untouched
+            admitted = lookup_meta(
+                r.uslots, r.counts, r.readonly, dest, int(step), cap,
+                create_steps=state.create_steps if vt else None,
+                versions=state.versions if vt else None, freqs=state.freqs,
+                add_freqs=ft,
+                filter_freq=None if cf is None else cf.filter_freq)
+        else:
+            admitted = r.uslots != cap
         return state, self._aux(r, admitted, r.created)
 
     @staticmethod

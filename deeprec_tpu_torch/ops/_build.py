@@ -4,8 +4,9 @@ Every ``deeprec_tpu_torch/csrc/*.cu`` is compiled by ``nvcc`` for Hopper
 (``sm_90a``), one process per source started together, and linked into
 one shared library with a plain C interface, at first use, under the
 git-ignored ``deeprec_tpu_torch/build/``. The library's name
-carries a hash of the sources and flags, so an edited kernel is rebuilt and
-an unchanged one is reused. It is loaded with ``ctypes``: pointers and the
+carries a hash of the sources, their headers (``csrc/*.cuh``) and the
+flags, so an edited kernel is rebuilt and an unchanged one is reused. It
+is loaded with ``ctypes``: pointers and the
 CUDA stream go as ``c_void_p``, sizes as ``c_int64``, and every entry
 returns ``cudaGetLastError()`` of its launch, which :func:`check` turns
 into an exception.
@@ -48,6 +49,11 @@ _SIGNATURES = {
     # create_steps, dest, versions, freqs, mdest, counts, idx_are_64, gs,
     # n, cap, stream (absent planes are NULL)
     "deeprec_meta_scatter": [_P, _P, _P, _P, _P, _P, _I, _I, _I64, _I64, _P],
+    # uslots, counts, readonly, dest, create_steps, versions, freqs,
+    # add_freqs, filter, filter_freq, admitted, idx_are_64, gs, n, cap,
+    # stream (absent planes are NULL)
+    "deeprec_lookup_meta": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _I,
+                            _I, _I64, _I64, _P],
     # plane, slots, slots_are_64, vals, n, cap, out, vec4, stream
     "deeprec_blocked_rmw_set": [_P, _P, _I, _P, _I64, _I64, _P, _I, _P],
 }
@@ -64,7 +70,7 @@ def _nvcc() -> str:
 
 
 def _library_path() -> Path:
-    sources = sorted(CSRC.glob("*.cu"))
+    sources = sorted([*CSRC.glob("*.cu"), *CSRC.glob("*.cuh")])
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in sources:
         h.update(src.name.encode())

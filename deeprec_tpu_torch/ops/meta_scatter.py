@@ -1,17 +1,30 @@
 """Kernels K3a and K3b: metadata writes at unique slots of int32 planes.
 
-``meta_scatter`` (K3a) fuses the three metadata writes of a host-index
-``lookup_or_create`` into one in-place launch::
+``lookup_meta`` (K3a on the training path) is the whole metadata step of a
+host-index ``lookup_or_create`` in one in-place launch, one thread per
+unique lane ``i``::
+
+    live = counts[i] > 0 & uslots[i] != cap & ~readonly
+    create_steps[dest[i]] = gs
+    versions[uslots[i]] = gs            where live
+    freqs[uslots[i]] += counts[i]       where live (add_freqs)
+    admitted[i] = uslots[i] != cap & freqs[uslots[i]] >= filter_freq
+
+(the last test only with a filter), and returns ``admitted``. Each write
+skips an index outside ``[0, cap)``, where ``cap`` is the planes' null row
+(their last element), so the null row keeps its fill. Any plane may be
+None.
+
+``meta_scatter`` fuses the three writes alone, with the masked index
+``mdest`` given::
 
     create_steps[dest[i]] = gs
     versions[mdest[i]] = gs
     freqs[mdest[i]] += counts[i]
 
-skipping every lane whose index lies outside ``[0, cap)``, where ``cap`` is
-the planes' null row (their last element), so the null row keeps its
-fill. Any plane may be None. ``scatter_set(plane, slots, val)`` is the same
-kernel with one plane: K3a's own function, one scalar to a plane at U
-slots. It replaces the Pallas TPU kernel ``benchmarks/pallas_meta_bench.py``
+and ``scatter_set(plane, slots, val)`` is it with one plane: K3a's own
+function, one scalar to a plane at U slots, at the JAX benchmark's shape.
+K3a replaces the Pallas TPU kernel ``benchmarks/pallas_meta_bench.py``
 ``pallas_dma_stores``.
 
 ``blocked_rmw_set`` (K3b) is ``out = plane[:cap]`` with ``out[slots[i]] =
@@ -116,6 +129,78 @@ def scatter_set(plane: torch.Tensor, slots: torch.Tensor, val: int) -> None:
     meta_scatter(None, slots, plane, None, slots, None, val)
 
 
+def lookup_meta_plain(uslots: torch.Tensor, counts: torch.Tensor,
+                      readonly: torch.Tensor, dest: torch.Tensor, gs: int,
+                      cap: int, create_steps: Optional[torch.Tensor] = None,
+                      versions: Optional[torch.Tensor] = None,
+                      freqs: Optional[torch.Tensor] = None,
+                      add_freqs: bool = False,
+                      filter_freq: Optional[int] = None) -> torch.Tensor:
+    live = (counts > 0) & (uslots != cap) & ~readonly
+    mdest = torch.where(live, uslots, cap + 1)
+    meta_scatter_plain(create_steps, dest, versions,
+                       freqs if add_freqs else None, mdest, counts, gs, cap)
+    admitted = uslots != cap
+    if filter_freq is not None:
+        admitted = admitted & (freqs[uslots] >= filter_freq)
+    return admitted
+
+
+def lookup_meta(uslots: torch.Tensor, counts: torch.Tensor,
+                readonly: torch.Tensor, dest: torch.Tensor, gs: int,
+                cap: int, create_steps: Optional[torch.Tensor] = None,
+                versions: Optional[torch.Tensor] = None,
+                freqs: Optional[torch.Tensor] = None,
+                add_freqs: bool = False,
+                filter_freq: Optional[int] = None) -> torch.Tensor:
+    """The metadata writes of a host-index lookup in place, and the ``[U]``
+    bool ``admitted`` mask (see the module docstring). ``uslots`` and
+    ``dest`` are 1-D int32/int64 of one dtype, ``counts`` int32 like them,
+    ``readonly`` a one-element bool tensor; ``uslots`` lie in ``[0, cap]``.
+    ``freqs`` is needed with ``add_freqs`` or ``filter_freq``."""
+    if uslots.dtype not in _IDX or dest.dtype != uslots.dtype or \
+            uslots.dim() != 1 or dest.shape != uslots.shape:
+        raise ValueError("uslots and dest must be 1-D int32/int64 of one "
+                         "shape and dtype")
+    if counts.dtype != torch.int32 or counts.shape != uslots.shape:
+        raise ValueError("counts must be int32 shaped like uslots")
+    if readonly.dtype != torch.bool or readonly.numel() != 1:
+        raise ValueError("readonly must be a one-element bool tensor")
+    if (add_freqs or filter_freq is not None) and freqs is None:
+        raise ValueError("add_freqs and filter_freq need the freqs plane")
+    dev = uslots.device
+    for p in (create_steps, versions, freqs):
+        _plane(p, cap + 1, dev)
+    if not dest.device == counts.device == readonly.device == dev:
+        raise ValueError("lanes and planes are on different devices")
+    if dev.type == "cpu":
+        return lookup_meta_plain(uslots, counts, readonly, dest, gs, cap,
+                                 create_steps, versions, freqs, add_freqs,
+                                 filter_freq)
+    if dev.type != "cuda":
+        raise ValueError(f"lookup_meta: unsupported device {dev}")
+    uslots, dest, counts = (t.contiguous() for t in (uslots, dest, counts))
+    readonly = readonly.contiguous()
+    admitted = torch.empty(uslots.shape, dtype=torch.bool, device=dev)
+    use_freqs = add_freqs or filter_freq is not None
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _build.library().deeprec_lookup_meta(
+            uslots.data_ptr(), counts.data_ptr(), readonly.data_ptr(),
+            dest.data_ptr(), ptr(create_steps), ptr(versions),
+            ptr(freqs) if use_freqs else None, int(add_freqs),
+            int(filter_freq is not None), int(filter_freq or 0),
+            admitted.data_ptr(), int(uslots.dtype == torch.int64), int(gs),
+            uslots.shape[0], cap, stream)
+    _build.check(err, "lookup_meta")
+    lookup_meta.launches += 1
+    return admitted
+
+
 def blocked_rmw_set_plain(plane: torch.Tensor, slots: torch.Tensor,
                           vals: torch.Tensor, cap: int) -> torch.Tensor:
     out = plane[:cap].clone()
@@ -158,5 +243,6 @@ def blocked_rmw_set(plane: torch.Tensor, slots: torch.Tensor,
 
 
 #: kernel launches (CUDA path only), read by the card smoke
+lookup_meta.launches = 0
 meta_scatter.launches = 0
 blocked_rmw_set.launches = 0

@@ -1,8 +1,31 @@
-// Design probes for K2's backward and K3b on the card: variants of each
-// kernel that keep or drop one part of its work, timed by
+// Design probes for K2 (both directions) and K3b on the card: variants of
+// each kernel that keep or drop one part of its work, timed by
 // kernel_probe.py beside the port's own kernels. Not part of the port's
 // library (ops/_build.py builds csrc/ only); kernel_probe.py builds this
 // file on its own.
+//
+// K2 forward variants (D 16 as float4, w 1, int32 or int64 slots, sum),
+// selected by probe_k2f's mode:
+//   0 the previous design: four threads a bag, each one dependent chain
+//     (flag, branch, slot, one float4 row load, store)
+//   1 an empty kernel on the port's grid (one warp per 32 bags)
+//   2 index loads only: each lane loads one bag's slot and flag
+//   3 index loads and row loads, no stores
+//   4 stores only: zeros to the output, no loads
+//   5 the port's design (a copy), 256 threads a block
+//   6 the same, 128 threads a block
+//   7 the same, 512 threads a block
+//   8 the same, 1024 threads a block
+//   9 the port's design with streaming stores (st.global.cs)
+//  10 stores only, streaming
+//  11 two tiles a warp: 8 row loads in flight per lane before any store
+//  12 the port's design launched as a programmatic dependent of whatever
+//     precedes it on the stream: griddepcontrol.wait before the first
+//     load, launch_dependents at once (256 threads a block)
+//  13 the same, 128 threads a block
+//  14 the same, 512 threads a block
+// Variants 1-4 and 10 write no output (4 and 10 write zeros): they are
+// timed, not checked.
 //
 // K2 backward variants (D 16 as float4, int32 slots, w 1, sum), selected
 // by probe_k2's mode:
@@ -280,6 +303,183 @@ __global__ void __launch_bounds__(kCopyThreads) cooperative_rmw(
     if (slots[i] >= 0 && slots[i] < cap) out[slots[i]] = vals[i];
 }
 
+// K2 forward
+template <typename I>
+__global__ void k2f_old(const float4* __restrict__ values, int64_t ld,
+                        int64_t n_rows, const I* __restrict__ slots,
+                        const bool* __restrict__ valid, int64_t n_bags,
+                        float4* __restrict__ out) {
+  const int lanes = 4, d = 4;
+  const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const int64_t b = t / lanes;
+  if (b >= n_bags) return;
+  const int c = (int)(t - b * lanes);
+  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (valid[b]) {
+    int64_t s = (int64_t)slots[b];
+    s = s < 0 ? 0 : (s >= n_rows ? n_rows - 1 : s);
+    acc = add4(acc, __ldg(values + s * ld + c));
+  }
+  out[b * d + c] = acc;
+}
+
+// kMode 1-5 of the list above; the grid is one warp per 32 bags
+template <int kMode, typename I>
+__global__ void k2f_variant(const float4* __restrict__ values, int64_t ld,
+                            int64_t n_rows, const I* __restrict__ slots,
+                            const bool* __restrict__ valid, int64_t n_bags,
+                            float4* __restrict__ out) {
+  const int lane = threadIdx.x & 31;
+  const int64_t b0 = (int64_t)blockIdx.x * blockDim.x + threadIdx.x - lane;
+  if (kMode == 1) {
+    if (out == nullptr) out[b0] = make_float4(0.f, 0.f, 0.f, 0.f);
+    return;
+  }
+  if (b0 >= n_bags) return;
+  const int nb = n_bags - b0 < 32 ? (int)(n_bags - b0) : 32;
+  const int units = nb * 4;
+  float4* tile_out = out + b0 * 4;
+  if (kMode == 4) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int u = 32 * j + lane;
+      if (u < units) tile_out[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+    return;
+  }
+  const int64_t b = b0 + lane;
+  bool ok = false;
+  int64_t row = 0;
+  if (b < n_bags) {
+    ok = valid[b];
+    row = (int64_t)slots[b];
+  }
+  row = row < 0 ? 0 : (row >= n_rows ? n_rows - 1 : row);
+  if (kMode == 2) {  // keep the loads live
+    if (ok && row == n_rows + 7) out[0] = make_float4(0.f, 0.f, 0.f, 0.f);
+    return;
+  }
+  const unsigned oks = __ballot_sync(kFull, ok);
+  float4 x[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int u = 32 * j + lane;
+    const int q = (u >> 2) & 31;
+    const int64_t r = __shfl_sync(kFull, row, q);
+    x[j] = u < units && (oks >> q & 1u) ? __ldg(values + r * ld + (u & 3))
+                                        : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  if (kMode == 3) {
+    if (x[0].x == 12345.f && x[1].y == 5.f && x[2].z == 7.f && x[3].w == 9.f)
+      out[0] = x[1];
+    return;
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int u = 32 * j + lane;
+    if (u < units) tile_out[u] = x[j];
+  }
+}
+
+// modes 5-12 with kStream (st.global.cs), kPdl (griddepcontrol) and
+// kTiles tiles of 32 bags a warp; kZeros: stores only
+template <bool kStream, bool kPdl, int kTiles, bool kZeros, typename I>
+__global__ void k2f_full(const float4* __restrict__ values, int64_t ld,
+                         int64_t n_rows, const I* __restrict__ slots,
+                         const bool* __restrict__ valid, int64_t n_bags,
+                         float4* __restrict__ out) {
+  if (kPdl) asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
+  const int lane = threadIdx.x & 31;
+  const int64_t b0 =
+      ((int64_t)blockIdx.x * blockDim.x + threadIdx.x - lane) * kTiles;
+  if (kPdl) asm volatile("griddepcontrol.wait;" ::: "memory");
+  if (b0 >= n_bags) return;
+  float4 x[4 * kTiles];
+  int units[kTiles];
+#pragma unroll
+  for (int t = 0; t < kTiles; ++t) {
+    const int64_t tb = b0 + 32 * t;
+    const int64_t left = n_bags - tb;
+    const int nb = left <= 0 ? 0 : left < 32 ? (int)left : 32;
+    units[t] = nb * 4;
+    bool ok = false;
+    int64_t row = 0;
+    if (!kZeros && lane < nb) {
+      ok = valid[tb + lane];
+      row = (int64_t)slots[tb + lane];
+    }
+    row = row < 0 ? 0 : (row >= n_rows ? n_rows - 1 : row);
+    const unsigned oks = __ballot_sync(kFull, ok);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int u = 32 * j + lane;
+      const int q = (u >> 2) & 31;
+      const int64_t r = __shfl_sync(kFull, row, q);
+      x[4 * t + j] = u < units[t] && (oks >> q & 1u)
+                         ? __ldg(values + r * ld + (u & 3))
+                         : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  }
+#pragma unroll
+  for (int t = 0; t < kTiles; ++t) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int u = 32 * j + lane;
+      float4* o = out + (b0 + 32 * t) * 4 + u;
+      if (u < units[t]) {
+        if (kStream) __stcs(o, x[4 * t + j]);
+        else *o = x[4 * t + j];
+      }
+    }
+  }
+}
+
+template <typename I>
+cudaError_t probe_k2f_typed(int mode, const float4* values, int64_t ld,
+                            int64_t n_rows, const I* slots, const bool* valid,
+                            int64_t n, float4* out, cudaStream_t st) {
+  if (mode == 0) {
+    const int64_t blocks = (n * 4 + 255) / 256;
+    k2f_old<I><<<(unsigned)blocks, 256, 0, st>>>(values, ld, n_rows, slots,
+                                                 valid, n, out);
+    return cudaGetLastError();
+  }
+  if (mode < 1 || mode > 14) return cudaErrorInvalidValue;
+  using K = void (*)(const float4*, int64_t, int64_t, const I*, const bool*,
+                     int64_t, float4*);
+  const K kernels[15] = {nullptr,
+                         k2f_variant<1, I>,
+                         k2f_variant<2, I>,
+                         k2f_variant<3, I>,
+                         k2f_variant<4, I>,
+                         k2f_variant<5, I>,
+                         k2f_variant<5, I>,
+                         k2f_variant<5, I>,
+                         k2f_variant<5, I>,
+                         k2f_full<true, false, 1, false, I>,
+                         k2f_full<true, false, 1, true, I>,
+                         k2f_full<false, false, 2, false, I>,
+                         k2f_full<false, true, 1, false, I>,
+                         k2f_full<false, true, 1, false, I>,
+                         k2f_full<false, true, 1, false, I>};
+  const int threads = mode == 6 || mode == 13   ? 128
+                      : mode == 7 || mode == 14 ? 512
+                      : mode == 8               ? 1024
+                                                : 256;
+  const int tiles = mode == 11 ? 2 : 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)((n + threads * tiles - 1) / (threads * tiles)));
+  cfg.blockDim = dim3(threads);
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = mode >= 12 ? 1 : 0;
+  return cudaLaunchKernelEx(&cfg, kernels[mode], values, ld, n_rows, slots,
+                            valid, n, out);
+}
+
 }  // namespace
 
 // dp [n, 16] f32, slots int32 [n], valid bool [n], out [n_rows, 16] f32.
@@ -357,4 +557,20 @@ extern "C" int probe_k3b(int mode, const void* plane, const void* slots,
   if (mode == 4) return (int)cudaGetLastError();
   return launch(mode != 1, scatter, scatter_blocks, 256, 0, st,
                 (const int*)slots, (const int*)vals, n, cap, (int*)out);
+}
+
+// values [n_rows, 4] float4 with row stride ld (float4 units), slots int32
+// or int64 [n] (slots_are_64), valid bool [n], out [n, 16] f32.
+extern "C" int probe_k2f(int mode, const void* values, int64_t ld,
+                         int64_t n_rows, const void* slots, int slots_are_64,
+                         const void* valid, int64_t n, void* out,
+                         void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (slots_are_64)
+    return (int)probe_k2f_typed(mode, (const float4*)values, ld, n_rows,
+                                (const int64_t*)slots, (const bool*)valid, n,
+                                (float4*)out, st);
+  return (int)probe_k2f_typed(mode, (const float4*)values, ld, n_rows,
+                              (const int32_t*)slots, (const bool*)valid, n,
+                              (float4*)out, st);
 }

@@ -1,11 +1,15 @@
-"""Design probes for K2's backward and K3b on a CUDA card.
+"""Design probes for K2 (both directions) and K3b on a CUDA card.
 
 Times the variants of ``kernel_probe.cu`` (each keeps or drops one part
 of the kernel's work; the source lists them) beside the port's own
 kernels and a PyTorch call computing the same function, at the training
 shape of one resolved B=4096 Criteo batch (106,496 ids into ~17,750
-lanes, D 16) and at K3b's benchmark shape (CAP 2^21, U 17,664). Run from
-the root of a checkout on a machine with one card:
+lanes, D 16) and at K3b's benchmark shape (CAP 2^21, U 17,664). The
+previous design of K2's forward is its variant 0: :func:`k2_forward`
+times it and the port's forward in turns (old, new, new, old), back to
+back and behind a PyTorch kernel (:func:`behind_ms`), which
+``chip_smoke.py`` also does at the serving shape. Run from the root of a
+checkout on a machine with one card:
 
     python -m deeprec_tpu_torch.probes.kernel_probe
 
@@ -42,6 +46,22 @@ K2_VARIANTS = {
     9: "zero-fill + variant 5 as its dependent (the port's design)",
     10: "zero-fill + block-sorted tiles of 1024 ids, dependent",
 }
+K2F_VARIANTS = {
+    1: "empty kernel on the port's grid (launch floor)",
+    2: "index loads only",
+    3: "index and row loads, no stores",
+    4: "stores only (zeros, no loads)",
+    5: "the port's design, 256 threads a block",
+    6: "the port's design, 128 threads a block",
+    7: "the port's design, 512 threads a block",
+    8: "the port's design, 1024 threads a block",
+    9: "the port's design, streaming stores",
+    10: "stores only, streaming",
+    11: "two tiles a warp, 8 row loads in flight a lane",
+    12: "the port's design as a programmatic dependent, 256 threads",
+    13: "the port's design as a programmatic dependent, 128 threads",
+    14: "the port's design as a programmatic dependent, 512 threads",
+}
 K3B_VARIANTS = {
     0: "copy on one-pass blocks (128) + dependent scatter (the port's design)",
     1: "copy + scatter, ordinary launches",
@@ -69,6 +89,21 @@ def time_ms(fn, samples=21, per_sample=20, warmup=5):
     return statistics.median(times)
 
 
+def behind_ms(fn):
+    """Device ms per call of ``fn`` behind a one-element PyTorch add, as on
+    the training path, where a PyTorch kernel (which never lets a
+    programmatic dependent start early) precedes each kernel: the time of
+    the pair less the add's own. Back to back, a kernel launched as a
+    programmatic dependent also overlaps its own previous call."""
+    tiny = torch.zeros(1, device="cuda")
+    alone = time_ms(lambda: tiny.add_(1))
+
+    def pair():
+        tiny.add_(1)
+        fn()
+    return time_ms(pair) - alone
+
+
 def build() -> ctypes.CDLL:
     src = SOURCE.read_bytes()
     digest = hashlib.sha256(src).hexdigest()[:16]
@@ -81,6 +116,7 @@ def build() -> ctypes.CDLL:
     p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     lib.probe_k2.argtypes = [i, p, p, p, i64, p, i64, p]
     lib.probe_k3b.argtypes = [i, p, p, p, i64, i64, p, p]
+    lib.probe_k2f.argtypes = [i, p, i64, i64, p, i, p, i64, p, p]
     return lib
 
 
@@ -121,6 +157,60 @@ def window_groups(inverse, valid, width=32):
         int(torch.unique(pos[rows == hot] // width).numel())
 
 
+def k2_forward(lib, values, slots, valid, what):
+    """K2's forward at ``[n, 1]`` bags of ``values [R, 16]`` (f32, rows
+    16-byte aligned), sum: the old kernel (variant 0) and the port's in
+    turns, then the variants. Returns ``{"old": ms, "new": ms, mode: ms}``
+    (old and new: the mean of their two turns)."""
+    from ..ops.fused_lookup import (fused_pooled_lookup,
+                                    fused_pooled_lookup_plain)
+    n = slots.shape[0]
+    s1, v1 = slots.reshape(-1).contiguous(), valid.reshape(-1).contiguous()
+    out = torch.empty(n, values.shape[1], device=values.device)
+    ref = fused_pooled_lookup_plain(values, s1.view(-1, 1), v1.view(-1, 1),
+                                    "sum")
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def run(mode):
+        err = lib.probe_k2f(mode, values.data_ptr(), values.stride(0) // 4,
+                            values.shape[0], s1.data_ptr(),
+                            int(s1.dtype == torch.int64), v1.data_ptr(), n,
+                            out.data_ptr(), stream)
+        if err:
+            raise RuntimeError(f"probe_k2f mode {mode}: CUDA error {err}")
+    for mode in (0, 5, 6, 7, 8, 9, 11, 12, 13, 14):  # give the function
+        out.fill_(float("nan"))
+        run(mode)
+        torch.cuda.synchronize()
+        if not torch.equal(out, ref):
+            raise SystemExit(f"kernel_probe: K2 forward variant {mode} is "
+                             f"wrong")
+
+    def port():
+        return fused_pooled_lookup(values, s1.view(-1, 1), v1.view(-1, 1),
+                                   "sum")
+    turns = [time_ms(lambda: run(0)), time_ms(port), time_ms(port),
+             time_ms(lambda: run(0))]
+    res = {"old": (turns[0] + turns[3]) / 2, "new": (turns[1] + turns[2]) / 2}
+    print(f"  K2 forward {what}: old kernel (variant 0) {turns[0]:.4f} / "
+          f"{turns[3]:.4f} ms, the port's {turns[1]:.4f} / {turns[2]:.4f} ms "
+          f"(turns: old, new, new, old)", flush=True)
+    for mode, label in K2F_VARIANTS.items():
+        res[mode] = time_ms(lambda: run(mode))
+        print(f"  K2 forward {what} variant {mode} {label}: "
+              f"{res[mode]:.4f} ms", flush=True)
+    res["behind"] = {"old": behind_ms(lambda: run(0)),
+                     "new": behind_ms(port)}
+    res["behind"].update({m: behind_ms(lambda: run(m))
+                          for m in (5, 12, 13, 14)})
+    print(f"  K2 forward {what} behind a one-element add (its time "
+          f"subtracted): "
+          + ", ".join(f"{'variant ' if isinstance(m, int) else ''}{m} "
+                      f"{t:.4f} ms" for m, t in res["behind"].items()),
+          flush=True)
+    return res
+
+
 def timed(port, variants, run, what):
     """Prints the port's kernel and each variant, the port timed before
     and after the variants (clocks and neighbours drift within a run)."""
@@ -149,6 +239,9 @@ def main():
     inv, valid, u = training_batch(dev)
     n = inv.shape[0]
     g = torch.Generator().manual_seed(1)
+    urows = torch.randn(u, EMB_DIM, generator=g).to(dev)
+    k2_forward(lib, urows, inv, valid, f"(training shape, [{n}, 1] into "
+               f"{u} rows)")
     dp = torch.randn(n, EMB_DIM, generator=g).to(dev)
     out = torch.empty(u, EMB_DIM, device=dev)
     slots2, valid2 = inv.view(-1, 1), valid.view(-1, 1)

@@ -127,6 +127,62 @@ def test_host_index_collection_matches_jax(layout):
     assert tc._resolver.size == jc._resolver.size  # eval mutated nothing
 
 
+META_LAYOUTS = {
+    "metadata": LAYOUTS["metadata"],   # versions, freqs, filter 1
+    "filter2": LAYOUTS["filter2"],     # a filter that holds keys out
+    "versions": dict(evict=("GlobalStepEvict", 1 << 30)),  # no filter
+    "freqs": dict(track_freq=True),    # freqs counted, no filter
+    # the filter reads a freq plane that nothing counts
+    "filter_uncounted": dict(counter_filter=("CounterFilter", 1),
+                             track_freq=False),
+}
+
+
+@pytest.mark.parametrize("layout", list(META_LAYOUTS))
+def test_lookup_meta_plain_matches_jax_lookup(layout):
+    """K3a's plain function on the port's resolved batch gives the JAX
+    lookup_or_create's metadata planes and admitted mask, bit-equal, over
+    train resolves and one eval (readonly) resolve."""
+    from deeprec_tpu_torch.ops.meta_scatter import lookup_meta_plain
+
+    def kw(mod):
+        return {k: getattr(mod, v[0])(v[1]) if isinstance(v, tuple) else v
+                for k, v in META_LAYOUTS[layout].items()}
+    common = dict(name="emb", capacity=CAP, max_unique=len(COLS) * B // 6)
+    jc = JHost([jfc.EmbeddingColumn(jfc.CategoricalColumn(n), DIM)
+                for n in COLS], **common, **kw(dr))
+    tc = THost([tfc.EmbeddingColumn(tfc.CategoricalColumn(n), DIM)
+                for n in COLS], **common, **kw(tcfg))
+    cfg = tc.config
+    vt, ft, cf = cfg.version_tracked, cfg.freq_tracked, cfg.counter_filter
+    js, ts = jc.init(), tc.init("cpu")
+    jlookup = jax.jit(jc.lookup_or_create)
+    batches = list(SyntheticCriteo(batch_size=B, seed=9).take(5))
+    for step, batch in enumerate(batches):
+        eval_step = step == 3
+        jw = jc.pack_ids_eval(batch) if eval_step else jc.pack_ids(batch)
+        r = (tc.pack_ids_eval if eval_step else tc.pack_ids)(batch,
+                                                             "cpu").decode()
+        assert bool(r.readonly) == eval_step
+        js, jaux = jlookup(js, jw, jnp.asarray(step, jnp.int32))
+        dest = torch.where(r.created & ~r.readonly, r.uslots, CAP + 1)
+        admitted = lookup_meta_plain(
+            r.uslots, r.counts, r.readonly, dest, step, CAP,
+            ts.create_steps if vt else None, ts.versions if vt else None,
+            ts.freqs, ft, None if cf is None else cf.filter_freq)
+        for f in ("freqs", "versions", "create_steps"):
+            np.testing.assert_array_equal(getattr(ts, f).numpy(),
+                                          np.asarray(getattr(js, f)), f)
+        np.testing.assert_array_equal(admitted.numpy(),
+                                      np.asarray(jaux.ev_aux.admitted))
+    if ft:
+        assert int((ts.freqs > 0).sum()) > 0
+    if vt:
+        assert int((ts.versions == 4).sum()) > 0
+    if cf is not None and cf.filter_freq > 1 and ft:
+        assert not admitted[r.uslots != CAP].all()  # the filter held some
+
+
 @pytest.mark.parametrize("entry", ["ev.create", "ht.create", "Predictor",
                                    "HostIndexEmbeddingCollection.init",
                                    "Trainer"])

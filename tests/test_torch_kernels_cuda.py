@@ -1,5 +1,6 @@
 """The hand-written CUDA kernels K1 (row gather), K2 (gather+pool, forward
-and backward), K3a (meta_scatter) and K3b (blocked_rmw_set) against their
+and backward), K3a (lookup_meta, meta_scatter) and K3b (blocked_rmw_set)
+against their
 plain PyTorch versions, on the card. A CUDA kernel has no
 CPU mode, so every test here skips without a card. This file imports no
 JAX, so it also runs on a machine without it:
@@ -15,8 +16,8 @@ from deeprec_tpu_torch.ops.fused_lookup import (
     pooled_lookup)
 from deeprec_tpu_torch.ops.gather import gather_rows, gather_rows_plain
 from deeprec_tpu_torch.ops.meta_scatter import (
-    blocked_rmw_set, blocked_rmw_set_plain, meta_scatter, meta_scatter_plain,
-    scatter_set)
+    blocked_rmw_set, blocked_rmw_set_plain, lookup_meta, lookup_meta_plain,
+    meta_scatter, meta_scatter_plain, scatter_set)
 
 pytestmark = pytest.mark.cuda
 
@@ -88,6 +89,82 @@ def test_fused_pooled_lookup_kernel_strided_slots(cuda):
     got = fused_pooled_lookup(values.to(cuda), inv.to(cuda).T,
                               val.to(cuda).T, "mean")
     torch.testing.assert_close(got.cpu(), ref, rtol=1e-5, atol=1e-6)
+
+
+# name: (bags, w, d, ld, column offset, slot dtype); offset 1 moves the
+# base off 16-byte alignment (the float path), as an ld % 4 != 0 does
+_FWD_CASES = {
+    "w1_ragged_tail": (26 * 512 + 13, 1, 16, 16, 0, torch.int64),
+    "w1_int32_fused_width": (26 * 512, 1, 16, 32, 0, torch.int32),
+    "w1_d1": (1005, 1, 1, 1, 0, torch.int32),
+    "w1_d3": (1005, 1, 3, 3, 0, torch.int64),
+    "w1_d4": (1005, 1, 4, 4, 0, torch.int32),
+    "w1_d17": (1005, 1, 17, 17, 0, torch.int64),
+    "w1_d128": (1005, 1, 128, 128, 0, torch.int32),
+    "w1_unaligned_base": (1005, 1, 16, 20, 1, torch.int64),
+    "w1_unaligned_ld": (1005, 1, 16, 18, 0, torch.int32),
+    "w1_all_invalid_run": (2000, 1, 16, 16, 0, torch.int32),
+    "w1_out_of_range": (1005, 1, 16, 16, 0, torch.int64),
+    "lane_major_w8": (300, 8, 16, 16, 0, torch.int64),
+    "w3_d3": (777, 3, 3, 3, 0, torch.int32),
+    "w5_d17": (777, 5, 17, 17, 0, torch.int64),
+    "w8_d128_unaligned": (300, 8, 128, 132, 1, torch.int32),
+    "w32_d16": (100, 32, 16, 16, 0, torch.int64),
+    "w40_d16": (100, 40, 16, 16, 0, torch.int32),   # ids loaded 32 at a time
+    "w33_d256": (50, 33, 256, 256, 0, torch.int64),  # and rows wider than
+    "w0": (64, 0, 16, 16, 0, torch.int32),           # a warp's 32 vectors
+}
+
+
+def _fwd_case(g, case):
+    """(table, values view, slots, valid, all-invalid bag rows)."""
+    bags, w, d, ld, off, idx = _FWD_CASES[case]
+    n_rows = 3000
+    table = torch.randn(n_rows, ld, generator=g)
+    lo, hi = (-1000, n_rows + 1000) if case == "w1_out_of_range" \
+        else (-2, n_rows + 2)
+    if case == "lane_major_w8":  # inv[o:o+w].T of a [W, B] inverse
+        inv = torch.randint(lo, hi, (12, bags), generator=g)
+        val = torch.rand(12, bags, generator=g) < 0.7
+        slots, valid = inv[2:2 + w].T, val[2:2 + w].T
+    else:
+        slots = torch.randint(lo, hi, (bags, w), generator=g)
+        valid = torch.rand(bags, w, generator=g) < 0.7
+    empty = torch.zeros(bags, dtype=torch.bool)
+    if w:
+        empty[0] = True
+        if case == "w1_all_invalid_run":  # whole warps' tiles and a ragged run
+            empty[64:160] = True
+            empty[1000:1037] = True
+        valid = valid & ~empty[:, None]
+    return table, (off, d), slots.to(idx), valid, empty
+
+
+@pytest.mark.parametrize("combiner", ["sum", "mean", "sqrtn"])
+@pytest.mark.parametrize("case", list(_FWD_CASES))
+def test_fused_pooled_lookup_forward_cases(cuda, combiner, case):
+    """The warp-tiled forward: the w == 1 path (ragged tails, every D and
+    vector width, unaligned views, out-of-range slots, all-invalid bags)
+    and the multi-hot path (lane-major views, w past a warp's 32 ids, rows
+    past its 32 vectors)."""
+    table, (off, d), slots, valid, empty = _fwd_case(_gen(), case)
+    ref = fused_pooled_lookup_plain(table[:, off:off + d], slots, valid,
+                                    combiner)
+    before = fused_pooled_lookup.launches
+    got = fused_pooled_lookup(table.to(cuda)[:, off:off + d], slots.to(cuda),
+                              valid.to(cuda), combiner)
+    torch.cuda.synchronize()
+    assert fused_pooled_lookup.launches == before + 1
+    # one row at w == 1: exact. Else f32 sums of up to w = 40 rows in id
+    # order against the plain version's order: two orders of k terms differ
+    # by at most ~k*eps of the summed magnitudes (40 * 6e-8 < 1e-5)
+    if slots.shape[1] <= 1:
+        assert torch.equal(got.cpu(), ref)
+    else:
+        mag = fused_pooled_lookup_plain(table[:, off:off + d].abs(), slots,
+                                        valid, combiner)
+        assert ((got.cpu() - ref).abs() <= 1e-5 * mag + 1e-7).all()
+    assert torch.count_nonzero(got[empty]) == 0
 
 
 def test_kernels_reject_bad_input_on_cuda(cuda):
@@ -230,6 +307,57 @@ def test_meta_scatter_matches_plain(cuda, idx):
     ref1 = planes[0].clone()
     meta_scatter_plain(None, dest, ref1, None, dest, None, 11, cap)
     assert torch.equal(one.cpu(), ref1)
+
+
+# name: (readonly, planes written, add_freqs, filter_freq, index dtype)
+_LOOKUP_CASES = {
+    "metadata": (False, ("create_steps", "versions"), True, 1, torch.int32),
+    "filter3": (False, ("create_steps", "versions"), True, 3, torch.int64),
+    "readonly": (True, ("create_steps", "versions"), True, 2, torch.int32),
+    "no_filter": (False, ("create_steps", "versions"), True, None,
+                  torch.int32),
+    "freqs_only": (False, (), True, None, torch.int64),
+    "versions_only": (False, ("versions",), False, None, torch.int32),
+    "filter_only": (False, (), False, 2, torch.int32),
+}
+
+
+@pytest.mark.parametrize("case", list(_LOOKUP_CASES))
+def test_lookup_meta_matches_plain(cuda, case):
+    """The fused K3a at the training shape's width (17,750 lanes): null-row
+    lanes, lanes with no count, readonly batches, one plane or none, with
+    and without the filter. Integer writes: bit-equal."""
+    readonly, written, add_freqs, filter_freq, idx = _LOOKUP_CASES[case]
+    g = _gen()
+    cap, u = 1 << 16, 17750
+    uslots = torch.randperm(cap, generator=g)[:u]
+    uslots[torch.rand(u, generator=g) < 0.1] = cap
+    counts = torch.randint(0, 4, (u,), generator=g, dtype=torch.int32)
+    created = torch.rand(u, generator=g) < 0.4
+    dest = torch.where(created & (not readonly), uslots, cap + 1)
+    planes = {k: torch.randint(-1, 5, (cap + 1,), generator=g,
+                               dtype=torch.int32)
+              for k in ("create_steps", "versions", "freqs")}
+    ro = torch.tensor(readonly)
+    use_freqs = add_freqs or filter_freq is not None
+
+    def run(planes, dev):
+        p = {k: v.clone().to(dev) for k, v in planes.items()}
+        fn = lookup_meta if dev != "cpu" else lookup_meta_plain
+        adm = fn(uslots.to(idx).to(dev), counts.to(dev), ro.to(dev),
+                 dest.to(idx).to(dev), 9, cap,
+                 *(p[k] if k in written else None
+                   for k in ("create_steps", "versions")),
+                 p["freqs"] if use_freqs else None, add_freqs, filter_freq)
+        return {k: v.cpu() for k, v in p.items()}, adm.cpu()
+    want, want_adm = run(planes, "cpu")
+    before = lookup_meta.launches
+    got, got_adm = run(planes, cuda)
+    torch.cuda.synchronize()
+    assert lookup_meta.launches == before + 1
+    for k in planes:
+        assert torch.equal(got[k], want[k]), k
+    assert torch.equal(got_adm, want_adm)
 
 
 def _rmw_case(g, case):

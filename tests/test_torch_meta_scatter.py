@@ -113,3 +113,82 @@ def test_blocked_rmw_set_plain_matches_pallas_blocked_rmw(bench):
     assert got.shape == (bench.CAP,)
     np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
     assert blocked_rmw_set.launches == 0
+
+
+LOOKUP_CASES = {  # (readonly, planes written, add_freqs, filter_freq)
+    "metadata": (False, ("create_steps", "versions"), True, 1),
+    "filter3": (False, ("create_steps", "versions"), True, 3),
+    "readonly": (True, ("create_steps", "versions"), True, 2),
+    "no_filter": (False, ("create_steps", "versions"), True, None),
+    "freqs_only": (False, (), True, None),
+    "versions_only": (False, ("versions",), False, None),
+    "filter_only": (False, (), False, 2),
+}
+
+
+def _lookup_case(seed, cap=300, u=120):
+    """Lanes of one resolve: unique slots, null-row lanes (EMPTY keys and
+    the overflow group) and lanes with no count; created rows get dest."""
+    rng = np.random.default_rng(seed)
+    uslots = rng.choice(cap, size=u, replace=False).astype(np.int32)
+    uslots[rng.random(u) < 0.15] = cap
+    counts = rng.integers(0, 4, u).astype(np.int32)
+    created = rng.random(u) < 0.4
+    planes = {"create_steps": rng.integers(-1, 5, cap + 1),
+              "versions": rng.integers(-1, 5, cap + 1),
+              "freqs": rng.integers(0, 4, cap + 1)}
+    planes = {k: v.astype(np.int32) for k, v in planes.items()}
+    planes["freqs"][cap], planes["versions"][cap] = 0, -1
+    planes["create_steps"][cap] = -1
+    return uslots, counts, created, planes
+
+
+@pytest.mark.parametrize("case", list(LOOKUP_CASES))
+def test_lookup_meta_matches_lane_loop(case):
+    """K3a's path function on a CPU tensor against a lane-by-lane loop:
+    readonly lanes write nothing, lanes with no count and null-row lanes
+    are not live, and admission reads the freq after this step's add."""
+    from deeprec_tpu_torch.ops.meta_scatter import lookup_meta
+    readonly, written, add_freqs, filter_freq = LOOKUP_CASES[case]
+    uslots, counts, created, planes = _lookup_case(7)
+    cap, gs = planes["freqs"].shape[0] - 1, 9
+    dest = np.where(created & (not readonly), uslots, cap + 1)
+    dest = dest.astype(np.int32)
+    expect = {k: v.copy() for k, v in planes.items()}
+    for i, s in enumerate(uslots):
+        if "create_steps" in written and dest[i] < cap:
+            expect["create_steps"][dest[i]] = gs
+        if counts[i] > 0 and s != cap and not readonly:
+            if "versions" in written:
+                expect["versions"][s] = gs
+            if add_freqs:
+                expect["freqs"][s] += counts[i]
+    want = (uslots != cap) & (True if filter_freq is None
+                              else expect["freqs"][uslots] >= filter_freq)
+    got = {k: torch.from_numpy(v.copy()) for k, v in planes.items()}
+    admitted = lookup_meta(
+        torch.from_numpy(uslots), torch.from_numpy(counts),
+        torch.tensor(readonly), torch.from_numpy(dest), gs, cap,
+        *(got[k] if k in written else None
+          for k in ("create_steps", "versions")),
+        got["freqs"] if add_freqs or filter_freq is not None else None,
+        add_freqs, filter_freq)
+    for k in planes:
+        np.testing.assert_array_equal(got[k].numpy(), expect[k], k)
+    np.testing.assert_array_equal(admitted.numpy(), want)
+    if case == "filter3":
+        assert 0 < admitted.sum() < (uslots != cap).sum()
+
+
+def test_lookup_meta_rejects_bad_input():
+    from deeprec_tpu_torch.ops.meta_scatter import lookup_meta
+    idx = torch.tensor([1, 2], dtype=torch.int32)
+    counts = torch.ones(2, dtype=torch.int32)
+    ro = torch.tensor(False)
+    plane = torch.zeros(5, dtype=torch.int32)
+    with pytest.raises(ValueError):  # the filter needs the freq plane
+        lookup_meta(idx, counts, ro, idx, 1, 4, filter_freq=1)
+    with pytest.raises(ValueError):  # a plane of another length
+        lookup_meta(idx, counts, ro, idx, 1, 5, versions=plane)
+    with pytest.raises(ValueError):  # dest of another dtype
+        lookup_meta(idx, counts, ro, idx.long(), 1, 4, versions=plane)
