@@ -45,7 +45,22 @@ full f32. Phases (any failure exits non-zero):
    method) and 3 with it inline, and a torch.profiler breakdown of 3
    steps; K1, K2, K2's backward and K3a (lookup_meta) must have launched;
 7. the light layout (bench.py's default, lazy init): 3 steps in lockstep
-   with a CPU Trainer, then 3 timed runs of 10 steps.
+   with a CPU Trainer, then 3 timed runs of 10 steps;
+8. the production loop (``loop``): the --metadata DLRM from a 2^16-row
+   table, 30 steps through HostStepPipeline(depth=3) on the card (pinned
+   wires copied on a side stream) with a fence every 10 steps: growth
+   (maybe_grow), a full save at the first fence and incremental saves
+   after it (CheckpointManager). An unpipelined CPU trainer runs the same
+   loop: wires bit-equal every step, losses within LOSS_ATOL, metadata
+   planes bit-equal and rows within ROW_ATOL at each fence (after which
+   the CPU trainer takes the card's rows and weights, so each window of
+   steps starts from one state), the same growths and the same key set in
+   every save, at least one growth. A
+   card Predictor serves the card's full save, then refresh()-es onto the
+   incrementals, each time within PROB_ATOL of a CPU Predictor over the
+   same directory. K1, K2, K2's backward and K3a must have launched; then
+   3 timed runs of 10 pipelined steps and 10 inline steps on the same
+   table, each stage on the host clock.
 
 The last line is {"ok": true, "device": {...}}; the line before it holds
 the kernels' numbers as JSON, the line before that the training numbers.
@@ -79,6 +94,8 @@ BWD_TOL = 1e-4
 LOSS_ATOL = 1e-4   # card vs CPU trainer per-step loss (f32, other orders)
 ROW_ATOL = 1e-4    # card vs CPU trainer table rows after the lockstep
 MAX_UNIQUE = 26 * B // 6  # bench.py's dedup width: U = 17,750 lanes
+LOOP_CAPACITY = 1 << 16  # the loop's first table: ~0.9 load by step 10
+LOOP_STEPS = 30          # the loop's lockstep run: fences after 12, 22, 30
 K3B_U = 17664      # benchmarks/pallas_meta_bench.py's own U (and CAP 2^21)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM peak (the card's power limit printed)
 
@@ -395,9 +412,10 @@ def check_http(path, gpu, cpu, table, batch):
 
 
 # -- phases 2 and 6: the training path ----------------------------------------
-def host_collection(metadata):
-    """bench.py's table: host index over 2^21 rows. ``use_native=True``
-    raises when the C++ resolver cannot be built: no Python fallback."""
+def host_collection(metadata, capacity=CAPACITY):
+    """bench.py's table: host index over 2^21 rows (or ``capacity``).
+    ``use_native=True`` raises when the C++ resolver cannot be built: no
+    Python fallback."""
     from deeprec_tpu_torch import config as cfg
     from deeprec_tpu_torch import feature_column as fc
     from deeprec_tpu_torch.data.criteo import CAT_NAMES
@@ -409,7 +427,7 @@ def host_collection(metadata):
     return HostIndexEmbeddingCollection(
         [fc.EmbeddingColumn(fc.CategoricalColumn(n), EMB_DIM)
          for n in CAT_NAMES],
-        name="emb", capacity=CAPACITY,
+        name="emb", capacity=capacity,
         initializer=cfg.Initializer("normal", scale=0.05),
         max_unique=MAX_UNIQUE, fused_slot_columns=EMB_DIM,
         fused_slot_init=0.1, use_native=True, **meta)
@@ -666,16 +684,28 @@ def seeded_model(g):
     return model
 
 
-def trainer(dev, metadata):
+def trainer(dev, metadata, capacity=CAPACITY):
     from deeprec_tpu_torch.optim.dense import Adagrad
     from deeprec_tpu_torch.optim.sparse import sparse_adagrad_fused
     from deeprec_tpu_torch.train.trainer import Trainer
     numeric, _, _ = criteo_parts()
     model = seeded_model(torch.Generator().manual_seed(SEED))
     return Trainer(model, numeric,
-                   {"emb": host_collection(metadata)},
+                   {"emb": host_collection(metadata, capacity)},
                    {"emb": sparse_adagrad_fused(0.05)}, Adagrad(0.05),
                    device=dev)
+
+
+def path_counters():
+    """The launch counters of the kernels on the training paths."""
+    from deeprec_tpu_torch.ops.fused_lookup import (
+        fused_pooled_lookup, fused_pooled_lookup_backward)
+    from deeprec_tpu_torch.ops.gather import gather_rows
+    from deeprec_tpu_torch.ops.meta_scatter import lookup_meta
+    return {"gather_rows": gather_rows,
+            "fused_pooled_lookup": fused_pooled_lookup,
+            "fused_pooled_lookup_backward": fused_pooled_lookup_backward,
+            "lookup_meta": lookup_meta}
 
 
 def lockstep(tg, tc, batches, what):
@@ -767,15 +797,8 @@ def profile_steps(tg, state, batches, step_ms):
 def check_training(dev, smi):
     """Phases 6 and 7. Returns (launches by path, training summary)."""
     from deeprec_tpu_torch.data.criteo import SyntheticCriteo
-    from deeprec_tpu_torch.ops.fused_lookup import (
-        fused_pooled_lookup, fused_pooled_lookup_backward)
-    from deeprec_tpu_torch.ops.gather import gather_rows
-    from deeprec_tpu_torch.ops.meta_scatter import lookup_meta
     from deeprec_tpu_torch.train import metrics
-    counters = {"gather_rows": gather_rows,
-                "fused_pooled_lookup": fused_pooled_lookup,
-                "fused_pooled_lookup_backward": fused_pooled_lookup_backward,
-                "lookup_meta": lookup_meta}
+    counters = path_counters()
     batches = list(SyntheticCriteo(batch_size=B, seed=7).take(68))
     out = {}
 
@@ -833,6 +856,213 @@ def check_training(dev, smi):
                     "max_drow": drow,
                     "summary": metrics.summarize(sg.metrics)}
     return {"train_metadata": launches, "train_light": light}, out
+
+
+# -- phase 8: the production loop ----------------------------------------------
+def _save_keys(path):
+    from deeprec_tpu_torch.checkpoint import format as F
+    return np.sort(F.read_table(path, "emb")["keys"])
+
+
+def _serve_pair(path, coll, held, dev, what):
+    """Card and CPU predictors over ``path`` (given the training
+    collection: they serve its device view); returns them and the worst
+    |dp| over ``held``."""
+    from deeprec_tpu_torch.serving import Predictor
+    numeric, _, _ = criteo_parts()
+    out = []
+    for d in (dev, "cpu"):
+        _, _, model = criteo_parts()
+        out.append(Predictor(model, numeric, {"emb": coll}, path, device=d))
+    return out + [_compare_predictors(*out, held, what)]
+
+
+def _compare_predictors(gpu, cpu, held, what):
+    worst = 0.0
+    for b in held:
+        p = gpu.predict(b)
+        if p.shape != (B,) or not np.isfinite(p).all():
+            fail(f"{what}: card probabilities are not finite of shape ({B},)")
+        worst = max(worst, float(np.abs(p - cpu.predict(b)).max()))
+    if not worst <= PROB_ATOL:
+        fail(f"{what}: card vs CPU probabilities differ by {worst}")
+    return worst
+
+
+def inline_stages(tg, box, batches, dev, smi):
+    """The loop's batches stepped inline on the same (grown) table, each
+    stage on the host clock: ``prepare_host``, the copies (pageable, so
+    they also wait for the device to finish the step before), the step's
+    launch."""
+    from deeprec_tpu_torch.train.pipeline import to_device
+    t = {"prepare_host": 0.0, "copies": 0.0, "step": 0.0}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for b in batches:
+        ta = time.perf_counter()
+        host = tg.prepare_host(b)
+        tb = time.perf_counter()
+        args = to_device(host, dev)
+        tc = time.perf_counter()
+        box["g"] = tg._train_step(box["g"], *args)
+        t["prepare_host"] += tb - ta
+        t["copies"] += tc - tb
+        t["step"] += time.perf_counter() - tc
+    torch.cuda.synchronize()
+    eps = len(batches) * B / (time.perf_counter() - t0)
+    ms = {k: v * 1e3 / len(batches) for k, v in t.items()}
+    log(f"loop inline on the same table: {eps:.1f} examples/s over "
+        f"{len(batches)} steps on {smi}; host ms per step: "
+        + ", ".join(f"{k} {v:.2f}" for k, v in ms.items()))
+    return {"eps": eps, "stage_ms": ms}
+
+
+def check_loop(dev, smi, tmp):
+    """Phase 8: the --metadata DLRM from a 2^16-row table through
+    HostStepPipeline(depth=3) with fences every 10 steps (growth, a full
+    save, then incrementals), in lockstep with an unpipelined CPU trainer;
+    card and CPU predictors over the card's saves, before and after a
+    refresh; then examples/s of the pipelined loop. Returns the loop's
+    launches and its summary."""
+    from deeprec_tpu_torch.checkpoint.saver import CheckpointManager
+    from deeprec_tpu_torch.data.criteo import SyntheticCriteo
+    from deeprec_tpu_torch.train import metrics
+    from deeprec_tpu_torch.train.pipeline import HostStepPipeline
+    batches = list(SyntheticCriteo(batch_size=B, seed=7).take(
+        LOOP_STEPS + 4 * 10))
+    held = list(SyntheticCriteo(batch_size=B, seed=11).take(2))
+    tg = trainer(dev, True, LOOP_CAPACITY)
+    tc = trainer("cpu", True, LOOP_CAPACITY)
+    cg, cc = tg.collections["emb"], tc.collections["emb"]
+    box = {"g": tg.init(batches[0]), "c": tc.init(batches[0]), "i": 0,
+           "dloss": 0.0, "serve": None}
+    mg = CheckpointManager(os.path.join(tmp, "card"))
+    mc = CheckpointManager(os.path.join(tmp, "cpu"))
+    caps, saves, drows = [], [], []
+
+    def step(args):
+        i = box["i"]
+        dc, catc, lc = tc.prepare_batch(batches[i])
+        if not torch.equal(args[1]["emb"].buf.cpu(), catc["emb"].buf):
+            fail(f"loop: card and CPU wires differ at step {i}")
+        g0, c0 = box["g"].metrics.loss_sum.item(), \
+            box["c"].metrics.loss_sum.item()
+        box["g"] = tg._train_step(box["g"], *args)
+        box["c"] = tc._train_step(box["c"], dc, catc, lc)
+        lg = (box["g"].metrics.loss_sum.item() - g0) / B
+        lc_ = (box["c"].metrics.loss_sum.item() - c0) / B
+        if not (np.isfinite(lg) and abs(lg - lc_) <= LOSS_ATOL):
+            fail(f"loop: step {i} loss {lg} on the card vs {lc_} on CPU")
+        box["dloss"] = max(box["dloss"], abs(lg - lc_))
+        box["i"] += 1
+
+    def fence(done):
+        if len(pipe) or box["g"].step != done or box["c"].step != done:
+            fail(f"loop: fence at {done} on an undrained pipeline")
+        eg, ec = box["g"].tables["emb"].ev, box["c"].tables["emb"].ev
+        for f in ("freqs", "versions", "create_steps"):
+            if not torch.equal(getattr(eg, f).cpu(), getattr(ec, f)):
+                fail(f"loop: {f} planes differ at step {done}")
+        drows.append((eg.values.cpu() - ec.values).abs().max().item())
+        if not drows[-1] <= ROW_ATOL:
+            fail(f"loop: rows differ by {drows[-1]} at step {done}")
+        # the next window starts from the card's state: f32 sums in
+        # another order drift ~1e-5 in 5 steps and compound (the rows of
+        # an unanchored run reached 1.06e-4 by step 30)
+        with torch.no_grad():
+            ec.values.copy_(eg.values)
+            for pc, pg in zip(tc.model.parameters(), tg.model.parameters()):
+                pc.copy_(pg)
+            for ac, ag in zip(box["c"].opt_state, box["g"].opt_state):
+                ac.copy_(ag)
+        box["g"], box["c"] = tg.maybe_grow(box["g"]), tc.maybe_grow(box["c"])
+        caps.append((done, cg.config.capacity, cc.config.capacity))
+        if caps[-1][1] != caps[-1][2]:
+            fail(f"loop: capacities differ after the fence: {caps[-1]}")
+        save = (CheckpointManager.save if not saves
+                else CheckpointManager.save_incremental)
+        pg, pc = save(mg, tg, box["g"]), save(mc, tc, box["c"])
+        kg = _save_keys(pg)
+        if not np.array_equal(kg, _save_keys(pc)):
+            fail(f"loop: the key sets of {os.path.basename(pg)} differ")
+        saves.append((os.path.basename(pg), int(kg.shape[0])))
+        if box["serve"] is None:  # serve the full save
+            box["serve"] = _serve_pair(mg.directory, cg, held, dev,
+                                       f"loop serving {saves[-1][0]}")
+
+    counters = path_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    stage_s = {"resolve": 0.0, "step": 0.0}
+
+    def resolve(b):  # the resolve stage, timed on its own thread
+        t = time.perf_counter()
+        out = tg.prepare_host(b, pin=True)
+        stage_s["resolve"] += time.perf_counter() - t
+        return out
+    pipe = HostStepPipeline(resolve, depth=3, device=dev)
+    t0 = time.perf_counter()
+    n = pipe.run(batches[:LOOP_STEPS], step, fence_every=10, on_fence=fence)
+    wall = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters.items()}
+    log(f"loop: {n} pipelined steps in lockstep with a CPU trainer in "
+        f"{wall:.1f} s; launches {launches}")
+    for k, v in launches.items():
+        if v <= 0:
+            fail(f"{k} was not launched on the loop's path")
+    if not (n == LOOP_STEPS and len(saves) == LOOP_STEPS // 10
+            and caps[-1][1] > LOOP_CAPACITY):
+        fail(f"loop: {n} steps, saves {saves}, capacities {caps}")
+
+    gpu, cpu, before = box["serve"]
+    if not (gpu.refresh() and cpu.refresh()) or gpu.step != LOOP_STEPS:
+        fail("loop: the predictors did not refresh onto the incrementals")
+    after = _compare_predictors(gpu, cpu, held, "loop serving, refreshed")
+    log(f"loop: capacities at the fences {caps}; saves {saves} (keys, card "
+        f"= CPU); max |dloss| {box['dloss']:.3g}, |drow| at the fences "
+        f"{', '.join(f'{d:.3g}' for d in drows)} (each window of 10 steps "
+        f"from the card's state); card vs CPU predictor max |dp| {before:.3g} "
+        f"on the full save, {after:.3g} after refresh() to step "
+        f"{gpu.step}")
+    del tc, cpu, gpu
+
+    # examples/s of the pipelined loop alone (no lockstep, no fences), with
+    # the host time of each stage: the resolve thread's prepare_host and
+    # the main thread's launch of the step
+    def fast(args):
+        t = time.perf_counter()
+        box["g"] = tg._train_step(box["g"], *args)
+        stage_s["step"] += time.perf_counter() - t
+    rates = []
+    stage_s["resolve"] = 0.0
+    for k in range(3):
+        chunk = batches[LOOP_STEPS + 10 * k:LOOP_STEPS + 10 * (k + 1)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pipe.run(chunk, fast)
+        torch.cuda.synchronize()
+        rates.append(10 * B / (time.perf_counter() - t0))
+    pipe.close()
+    stage_ms = {k: v * 1e3 / 30 for k, v in stage_s.items()}
+    stage_ms["wall"] = sum(10 * B / r for r in rates) * 1e3 / 30
+    summ = metrics.summarize(box["g"].metrics)
+    if not (summ["examples"] == box["g"].step * B
+            and np.isfinite(summ["loss"])):
+        fail(f"loop metrics are off: {summ}")
+    log(f"loop (metadata layout) examples/s at B={B}, pipelined "
+        f"(depth 3): median {statistics.median(rates):.1f}, min "
+        f"{min(rates):.1f}, max {max(rates):.1f} over 3 runs of 10 steps, "
+        f"on {smi}; host ms per step: resolve stage "
+        f"{stage_ms['resolve']:.2f} (its own thread), step launch "
+        f"{stage_ms['step']:.2f}, wall {stage_ms['wall']:.2f}; health "
+        f"{tg.table_health(box['g'])['emb']}")
+    inline = inline_stages(tg, box, batches[LOOP_STEPS + 30:], dev, smi)
+    return launches, {"pipelined_eps": rates, "stage_ms": stage_ms,
+                      "inline": inline, "capacities": caps,
+                      "saves": saves, "max_dloss": box["dloss"],
+                      "drow_at_fences": drows, "serve_dp": before,
+                      "serve_dp_refreshed": after,
+                      "lockstep_wall_s": wall, "summary": summ}
 
 
 def run(dev, smi, probe):
@@ -901,6 +1131,8 @@ def run(dev, smi, probe):
 
     paths, training = check_training(dev, smi)
     paths["serving"] = launches
+    with tempfile.TemporaryDirectory(dir=str(_build.BUILD)) as path:
+        paths["loop"], training["loop"] = check_loop(dev, smi, path)
     for k in kernels:  # launches on the slice's main path: --metadata
         k["launches"] = paths["train_metadata"].get(k["name"], 0)
         k["launches_by_path"] = {p: c.get(k["name"], 0)

@@ -2,7 +2,7 @@
 
 A framework-free copy of ``deeprec_tpu/checkpoint/format.py:46-194``
 (``list_saves``, ``restore_plan``, ``write_save``, ``read_dense``,
-``read_table``): the port reads and writes the same directories as
+``read_table``, ``slot_leaf_names``): the port reads and writes the same directories as
 ``deeprec_tpu.checkpoint``. One save is one directory::
 
     <dir>/full-0000000100/
@@ -27,6 +27,8 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+
+from ..utils.tree import leaves_with_paths
 
 MANIFEST = "manifest.json"
 DENSE = "dense.npz"
@@ -128,6 +130,17 @@ def read_dense(path: str) -> List:
     with np.load(os.path.join(path, DENSE)) as z:
         d = _decode_dtypes({k: z[k] for k in z.files})
         return [d[k] for k in sorted(d)]
+
+
+def slot_leaf_name(path: str) -> str:
+    return path.replace("/", "_")
+
+
+def slot_leaf_names(slot_state) -> List[Tuple[str, Any]]:
+    """Stable (name, leaf) pairs for an optimizer slot state: the names
+    the JAX package's ``slot_leaf_names`` gives the same tree."""
+    return [(slot_leaf_name(path), leaf)
+            for path, leaf in leaves_with_paths(slot_state)]
 
 
 def read_table(path: str, name: str) -> Dict[str, Any]:

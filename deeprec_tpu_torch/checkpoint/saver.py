@@ -1,22 +1,45 @@
-"""Restore side of the checkpoint saver: saved rows -> a device table.
+"""Checkpoint save and restore: full + incremental, in the JAX package's
+format.
 
-Port of ``deeprec_tpu/checkpoint/saver.py`` ``_scatter_table`` (157-203)
-and ``needed_capacity`` (219-223), for serving: optimizer slot rows,
-scalars and CBF sketches in the saved table are ignored, since serving
-never reads them. The row stores are written in place (a serving table is
-a few hundred MB at Criteo scale, so no second copy is made); callers swap
-tables under their own lock.
+Port of ``deeprec_tpu/checkpoint/saver.py``:
+- :class:`CheckpointManager` (284-560) for one process and one shard:
+  ``save``, ``save_incremental``, ``maybe_save``, ``_gc``, ``attach_aux``
+  and ``restore``. Tables go through their collection's hooks
+  (``ckpt_arrays``/``ckpt_restore``: the host-index collection, the
+  trainable table of the port). Dense leaves are written in the order of
+  the JAX tree ``(params, opt_state, step)``: the flax params, the
+  ``optax.adagrad`` accumulators, the step. So a save of the port restores
+  into the JAX ``Trainer`` and a JAX save into the port's. Host-tier
+  tables (``__tier__*``) raise ``NotImplementedError``, as tiering is not
+  ported; the multi-process part writer is not ported either.
+- ``_scatter_table`` (157-203) and ``needed_capacity`` (219-223), the
+  restore path of serving: optimizer slot rows, scalars and CBF
+  sketches in the saved table are ignored, since serving never reads
+  them. The row stores are written in place (a serving table is a few
+  hundred MB at Criteo scale, so no second copy is made); callers swap
+  tables under their own lock.
+- ``last_wins_sel`` and ``_cbf_for_shard``. (``_keys64`` has no place
+  here: the port's keys are int64 tensors throughout.)
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+import glob
+import json
+import os
+import shutil
+import time
+from typing import Any, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..config import EmbeddingVariableConfig
+from ..models.ctr import (flax_adagrad_leaves, flax_leaves,
+                          load_flax_adagrad_state, load_flax_params)
 from ..sparse import embedding_var as ev
 from ..sparse import hashtable as ht
 from ..sparse import keys as K
+from . import format as F
 
 
 def _scatter_table(state: ev.EVState, config: EmbeddingVariableConfig,
@@ -43,8 +66,210 @@ def _scatter_table(state: ev.EVState, config: EmbeddingVariableConfig,
     return state._replace(index=index)
 
 
+def last_wins_sel(keys: np.ndarray) -> np.ndarray:
+    """Indices selecting the LAST occurrence of each key in ``keys``
+    (ascending original order). Parts are ordered oldest first, so the
+    newest row wins."""
+    if keys.size == 0:
+        return np.empty(0, np.int64)
+    order = np.arange(keys.shape[0])
+    srt = np.lexsort((order, keys))
+    ks = keys[srt]
+    last = np.r_[ks[1:] != ks[:-1], True]
+    return np.sort(srt[last])
+
+
 def needed_capacity(n_rows: int, current: int, load: float = 0.6) -> int:
     cap = current
     while n_rows > load * cap:
         cap *= 2
     return cap
+
+
+def _cbf_for_shard(arrays: Dict[str, np.ndarray], s: int, num_shards: int
+                   ) -> Optional[np.ndarray]:
+    """The CBF sketch of shard ``s`` at restore: the saved block when the
+    shard count is unchanged, else the elementwise sum of all saved blocks
+    (count-min sketches over disjoint key sets sum to a sketch of the
+    union)."""
+    cbf_shards = int(arrays["cbf_shards"]) if "cbf_shards" in arrays else 0
+    blocks = [arrays[k] for k in sorted(arrays)
+              if k.startswith("cbf__shard")]
+    if "cbf" in arrays:
+        full = arrays["cbf"]
+        if cbf_shards == num_shards:
+            m = full.shape[0] // num_shards
+            return full[s * m:(s + 1) * m]
+        if cbf_shards > 1:
+            m = full.shape[0] // cbf_shards
+            return full.reshape(cbf_shards, m).sum(axis=0, dtype=full.dtype)
+        return full
+    if blocks:
+        if cbf_shards == num_shards and len(blocks) == num_shards:
+            return blocks[s]
+        return np.sum(np.stack(blocks), axis=0, dtype=blocks[0].dtype)
+    return None
+
+
+def _dense_leaves(trainer, state) -> list:
+    """``(params, opt_state, step)`` as the JAX tree flattens them."""
+    return (flax_leaves(trainer.model)
+            + flax_adagrad_leaves(trainer.model, state.opt_state)
+            + [np.asarray(state.step, np.int32)])
+
+
+def _reject_tiers(path: str, name: str) -> None:
+    if glob.glob(os.path.join(path, f"table-__tier__{name}*")):
+        raise NotImplementedError(
+            f"table {name!r} has host-tier rows: tiered checkpoints are not "
+            "ported yet")
+
+
+class CheckpointManager:
+    """Full + incremental checkpointing for a :class:`~deeprec_tpu_torch.
+    train.trainer.Trainer`: full saves every ``full_secs`` and incremental
+    saves every ``incr_secs`` through :meth:`maybe_save`, the ``keep``
+    newest full saves kept. Save only at a fence, with any
+    ``HostStepPipeline`` drained."""
+
+    def __init__(self, directory: str, full_secs: Optional[float] = None,
+                 incr_secs: Optional[float] = None, keep: int = 3):
+        self.directory = directory
+        os.makedirs(directory, exist_ok=True)
+        self.full_secs = full_secs
+        self.incr_secs = incr_secs
+        self.keep = keep
+        self._last_full_time = time.time()
+        self._last_incr_time = time.time()
+        self._aux = {}  # name -> (snapshot_fn, restore_fn)
+        saves = F.list_saves(directory)
+        self._last_save_step = saves[-1]["step"] if saves else None
+
+    # -- auxiliary run state (WorkQueue position etc.) -----------------------
+    def attach_aux(self, name: str, snapshot_fn, restore_fn) -> None:
+        """Save a JSON-able side state with every checkpoint
+        (``snapshot_fn()`` at each save) and hand the newest applied save's
+        copy to ``restore_fn`` after a restore (None: the caller applies
+        it itself)."""
+        self._aux[name] = (snapshot_fn, restore_fn)
+
+    def _write_aux(self, path: str) -> None:
+        for name, (snap, _) in self._aux.items():
+            tmp = os.path.join(path, f"aux_{name}.json.tmp")
+            with open(tmp, "w") as f:
+                json.dump(snap(), f)
+            os.replace(tmp, os.path.join(path, f"aux_{name}.json"))
+
+    def _restore_aux(self, newest_path: str) -> None:
+        for name, (_, restore_fn) in self._aux.items():
+            p = os.path.join(newest_path, f"aux_{name}.json")
+            if restore_fn is not None and os.path.exists(p):
+                with open(p) as f:
+                    restore_fn(json.load(f))
+
+    # -- save --------------------------------------------------------------
+    def _collect(self, trainer, state, since: Optional[int], evict: bool):
+        gs = int(state.step)
+        tables = {}
+        for name, coll in trainer.collections.items():
+            hook = getattr(coll, "ckpt_arrays", None)
+            if hook is None:
+                raise NotImplementedError(
+                    f"collection {name!r} has no checkpoint hooks (only the "
+                    "host-index table trains in the port)")
+            tables[name] = hook(state.tables[name], 1, since, evict, gs)
+        return tables, _dense_leaves(trainer, state)
+
+    def _write(self, kind: str, trainer, state, since, evict) -> str:
+        step = int(state.step)
+        tables, dense = self._collect(trainer, state, since, evict)
+        path = os.path.join(self.directory, F.step_dirname(kind, step))
+        manifest = {"kind": kind, "step": step,
+                    "tables": {n: int(t["keys"].shape[0])
+                               for n, t in tables.items()}}
+        if since is not None:
+            manifest["since"] = since
+        F.write_save(path, manifest, dense, tables)
+        self._write_aux(path)
+        self._last_save_step = step
+        return path
+
+    def save(self, trainer, state, evict: bool = True) -> str:
+        path = self._write("full", trainer, state, None, evict)
+        self._last_full_time = time.time()
+        self._gc()
+        return path
+
+    def save_incremental(self, trainer, state) -> str:
+        since = self._last_save_step
+        if since is None:
+            return self.save(trainer, state)
+        path = self._write("incr", trainer, state, since, False)
+        self._last_incr_time = time.time()
+        return path
+
+    def maybe_save(self, trainer, state) -> Optional[str]:
+        now = time.time()
+        if self.full_secs is not None and \
+                now - self._last_full_time >= self.full_secs:
+            return self.save(trainer, state)
+        if self.incr_secs is not None and \
+                now - self._last_incr_time >= self.incr_secs:
+            return self.save_incremental(trainer, state)
+        return None
+
+    def _gc(self):
+        saves = F.list_saves(self.directory)
+        fulls = [m for m in saves if m["kind"] == "full"]
+        if self.keep and len(fulls) > self.keep:
+            cutoff = fulls[-self.keep]["step"]  # oldest retained full
+            for m in fulls[:-self.keep]:
+                shutil.rmtree(m["path"], ignore_errors=True)
+            # incrementals at or below the oldest retained full are
+            # unreachable by any restore plan over the kept fulls
+            for m in saves:
+                if m["kind"] == "incr" and m["step"] <= cutoff:
+                    shutil.rmtree(m["path"], ignore_errors=True)
+        # superseded same-step copies, once the base directory exists (a
+        # lone .old copy is the save: list_saves recovers it)
+        names = set(os.listdir(self.directory))
+        for name in names:
+            if ".old." in name and name.split(".old.")[0] in names:
+                shutil.rmtree(os.path.join(self.directory, name),
+                              ignore_errors=True)
+
+    # -- restore -------------------------------------------------------------
+    def restore(self, trainer, state) -> Tuple[Any, bool]:
+        """Restore the latest full save and the newer incrementals into
+        ``state`` (a fresh ``Trainer.init`` state: the template) and the
+        trainer's model. Returns ``(state, restored?)``. Tables grow when
+        the restored rows need it."""
+        base, incrs = F.restore_plan(self.directory)
+        if base is None:
+            return state, False
+        saves = [base] + incrs
+        tables = {}
+        for name, coll in trainer.collections.items():
+            for m in saves:
+                _reject_tiers(m["path"], name)
+            hook = getattr(coll, "ckpt_restore", None)
+            if hook is None:
+                raise NotImplementedError(
+                    f"collection {name!r} has no checkpoint hooks")
+            parts = [F.read_table(m["path"], name) for m in saves]
+            tables[name] = hook(trainer, state.tables[name], parts, 1)
+
+        # dense: the newest save wins (every save carries all of it)
+        leaves = F.read_dense(saves[-1]["path"])
+        n = len(flax_leaves(trainer.model))
+        if len(leaves) != 2 * n + 1:
+            raise ValueError(
+                f"{len(leaves)} dense leaves; the model and its Adagrad "
+                f"state take {2 * n} and the step 1")
+        load_flax_params(trainer.model, leaves[:n])
+        opt_state = load_flax_adagrad_state(trainer.model, leaves[n:2 * n])
+        step = int(np.asarray(leaves[-1]))
+        self._last_save_step = step
+        self._restore_aux(saves[-1]["path"])
+        return state._replace(opt_state=opt_state, tables=tables,
+                              step=step), True

@@ -18,25 +18,36 @@ the ``admitted`` mask as ONE launch of kernel K3a
 light layout, with no metadata, tests ``uslots != cap`` alone). It updates
 the stores in place and returns the same state.
 
+Fence-time hooks (call them with any ``HostStepPipeline`` drained):
+growth (``needs_growth``/``grow_state``: slots never move, the stores are
+padded to twice the rows and the null row moves from ``cap`` to
+``2*cap``), ``host_health``, and the checkpoint hooks ``ckpt_arrays`` /
+``ckpt_restore`` of ``checkpoint.saver.CheckpointManager``, in the JAX
+package's 4-array format. ``device_view`` is what a ``Predictor`` serves.
+
 Not ported yet: tiered storage (``apply_promo``, demotion, the tier
-export), ``grow_state``, the checkpoint hooks and ``host_health``.
+export).
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+import dataclasses
+from typing import Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
 
+from .checkpoint import format as F
+from .checkpoint.saver import _cbf_for_shard, last_wins_sel, needed_capacity
 from .config import StorageType
 from .feature_column import CollectionAux, EmbeddingCollection
 from .ops.gather import gather_rows
 from .ops.meta_scatter import lookup_meta
 from .ops.unique import UniqueResult
-from .optim.sparse import _scatter_set
+from .optim.sparse import _scatter_set, permute_slot_state
 from .sparse import embedding_var as ev
 from .sparse import keys as K
-from .utils.native import HostIndexResolver, wire_layout
+from .utils.native import HostIndexResolver, resolve_wire_into, wire_layout
+from .utils.tree import map_leaves
 
 
 class HostEVState(NamedTuple):
@@ -92,9 +103,9 @@ class ResolvedWire:
         self.with_counts = bool(with_counts)
         self.inv16 = bool(inv16)
 
-    def to(self, device) -> "ResolvedWire":
-        return ResolvedWire(self.buf.to(device), self.u, self.n,
-                            self.with_counts, self.inv16)
+    def to(self, device, non_blocking: bool = False) -> "ResolvedWire":
+        return ResolvedWire(self.buf.to(device, non_blocking=non_blocking),
+                            self.u, self.n, self.with_counts, self.inv16)
 
     def decode(self) -> ResolvedIds:
         U, n, buf = self.u, self.n, self.buf
@@ -157,8 +168,11 @@ class HostIndexEmbeddingCollection(EmbeddingCollection):
                                       cbf.filter_freq)
         if not self.config.version_tracked:
             # light layout: the resolver records touched slots, the
-            # incremental checkpoint's delta (the saver is not ported yet)
+            # incremental checkpoint's delta
             self._resolver.track_touched(True)
+        self._last_cap_ovf = 0
+        self._sat_steps = 0   # train resolves that overflowed max_unique
+        self._max_nu = 0      # high-water unique demand
 
     # -- state ---------------------------------------------------------
     def init(self, device="cuda") -> HostEVState:
@@ -185,17 +199,24 @@ class HostIndexEmbeddingCollection(EmbeddingCollection):
                        or cfg.counter_filter is not None)
         return u_out, with_counts, u_out <= 32767
 
-    def _resolve(self, batch, readonly: bool, device=None) -> ResolvedWire:
+    def _resolve(self, batch, readonly: bool, device=None,
+                 pin: bool = False) -> ResolvedWire:
         packed = batch if isinstance(batch, np.ndarray) \
             else self.pack_ids_np(batch)
         cap = self.config.capacity
         n = packed.size
         u_out, with_counts, inv16 = self._wire_params(n)
-        buf, _, _ = self._resolver.resolve_wire(
-            packed, u_out, null_slot=cap, row_capacity=cap,
-            readonly=readonly, with_counts=with_counts, inv16=inv16)
-        wire = ResolvedWire(torch.from_numpy(buf), u_out, n, with_counts,
-                            inv16)
+        # the resolver writes the wire straight into the tensor's memory
+        # (page-locked when ``pin``, so its copy to the card can be async)
+        buf = torch.empty((wire_layout(u_out, n, with_counts, inv16)[0],),
+                          dtype=torch.uint8, pin_memory=pin)
+        nu, nov = resolve_wire_into(
+            self._resolver, packed, u_out, cap, cap, readonly, with_counts,
+            inv16, buf.numpy())
+        if not readonly:
+            self._sat_steps += int(nov > 0)
+            self._max_nu = max(self._max_nu, int(nu) + int(nov))
+        wire = ResolvedWire(buf, u_out, n, with_counts, inv16)
         return wire if device is None else wire.to(device)
 
     def pack_ids(self, batch, device="cuda") -> ResolvedWire:
@@ -204,10 +225,12 @@ class HostIndexEmbeddingCollection(EmbeddingCollection):
         ``device``."""
         return self._resolve(batch, readonly=False, device=device)
 
-    def pack_ids_host(self, batch) -> ResolvedWire:
-        """Train resolve with the wire left in host memory (for a pipeline
-        stage that copies it later). Same step-order rule."""
-        return self._resolve(batch, readonly=False)
+    def pack_ids_host(self, batch, pin: bool = False) -> ResolvedWire:
+        """Train resolve with the wire left in host memory, page-locked
+        when ``pin`` (the resolve stage of ``train.pipeline.
+        HostStepPipeline``, whose transfer stage copies it). Same
+        step-order rule."""
+        return self._resolve(batch, readonly=False, pin=pin)
 
     def pack_ids_eval(self, batch, device="cuda") -> ResolvedWire:
         """Eval resolve: find-only, no mutation."""
@@ -278,3 +301,180 @@ class HostIndexEmbeddingCollection(EmbeddingCollection):
         defaults = ev.init_rows(cfg, r.ukeys).to(rows.dtype)
         valid = ~K.is_empty(r.ukeys)
         return aux, torch.where((found | ~valid)[:, None], rows, defaults)
+
+    # -- growth and health (fence work) -----------------------------------
+    def load_factor(self) -> float:
+        return self._resolver.size / self.config.capacity
+
+    def needs_growth(self) -> bool:
+        """At 0.9 load, or when keys overflowed the row capacity since the
+        last growth (they wait, pending, for a row)."""
+        _, cap_ovf, _ = self._resolver.stats()
+        return self.load_factor() >= 0.9 or cap_ovf > self._last_cap_ovf
+
+    def grow_state(self, state: HostEVState, slot_state, opt=None):
+        """Double the rows. Slots never move, so no index rebuild: the
+        stores are padded (values and freqs 0, versions and create steps
+        -1) and the null row moves from ``cap`` to ``2*cap``. Every
+        resolve after this one passes the new ``cap`` as the null slot;
+        call it on a drained pipeline only."""
+        cap = self.config.capacity
+        new_cap = 2 * cap
+        ident = torch.arange(cap, device=state.values.device)
+        new_state = HostEVState(
+            values=ev.permute_rows(state.values, ident, new_cap),
+            freqs=ev.permute_rows(state.freqs, ident, new_cap),
+            versions=ev.permute_rows(state.versions, ident, new_cap, -1),
+            create_steps=ev.permute_rows(state.create_steps, ident, new_cap,
+                                         -1))
+        slot_state = permute_slot_state(slot_state, ident, new_cap,
+                                        fills=opt.fills if opt else None)
+        self.config = dataclasses.replace(self.config, capacity=new_cap)
+        self._last_cap_ovf = self._resolver.stats()[1]
+        return new_state, slot_state
+
+    def host_health(self) -> Dict[str, int]:
+        """The JAX package's health schema (``Trainer.table_health``)."""
+        size, cap_ovf, uniq_ovf = self._resolver.stats()
+        return {"size": size, "capacity": self.config.capacity,
+                "shards": 1,
+                "load_factor": size / self.config.capacity,
+                "overflow": cap_ovf, "dropped": 0,
+                "unique_saturated_steps": self._sat_steps,
+                "max_n_unique": self._max_nu,
+                "unique_overflow": uniq_ovf,
+                "max_unique": self.config.max_unique}
+
+    def device_view(self) -> EmbeddingCollection:
+        """A plain device-index :class:`EmbeddingCollection` over the same
+        columns and config: what a ``serving.Predictor`` serves. It
+        rebuilds its table from the checkpoint and neither needs nor
+        shares the training job's resolver."""
+        view = EmbeddingCollection.__new__(EmbeddingCollection)
+        view.__dict__.update({k: v for k, v in self.__dict__.items()
+                              if not k.startswith("_resolver")
+                              and k not in ("_last_cap_ovf", "_sat_steps",
+                                            "_max_nu")})
+        return view
+
+    # -- checkpoint hooks (checkpoint.saver.CheckpointManager) --------------
+    def ckpt_arrays(self, bundle, num_shards: int, since: Optional[int],
+                    evict: bool, global_step: Optional[int]):
+        """The 4-array compacted format: keys from the resolver in slot
+        order, rows from the stores. ``since`` selects an incremental's
+        delta: ``versions >= since`` in a version-tracked layout, the
+        resolver's touched slots in the light layout. Every save clears
+        the touched-slot window, a full one too."""
+        if num_shards != 1:
+            raise NotImplementedError("host-index tables are unsharded")
+        cfg = self.config
+        st = bundle.ev
+        n = self._resolver.size
+        keys = self._resolver.export_keys()
+        values = st.values[:n].cpu()
+        freqs, versions, create_steps = (
+            t[:n].cpu().numpy() for t in (st.freqs, st.versions,
+                                          st.create_steps))
+
+        touched = None
+        if since is not None and not cfg.version_tracked:
+            touched = self._resolver.touched_slots(clear=True)
+            touched = touched[touched < n]
+            since = None
+        live = np.ones((n,), bool)
+        if evict and cfg.evict is not None and global_step is not None:
+            live &= ~ev.cold_mask_np(cfg, values.float().numpy(), versions,
+                                     live, global_step)
+        if since is not None:
+            live &= versions >= since
+        if touched is not None:
+            sel = np.zeros((n,), bool)
+            sel[touched] = True
+            live &= sel
+        elif since is None and not cfg.version_tracked:
+            self._resolver.touched_slots(clear=True)
+        idx = np.nonzero(live)[0]
+
+        out = {"keys": keys[idx], "values": _rows(values, idx),
+               "freqs": freqs[idx], "versions": versions[idx],
+               "create_steps": create_steps[idx]}
+        if cfg.cbf_filter is not None:
+            out["cbf"] = self._resolver.cbf_export()
+            out["cbf_shards"] = np.asarray(1, np.int32)
+        for name, leaf in F.slot_leaf_names(bundle.slot):
+            if leaf.dim() >= 1 and leaf.shape[0] == cfg.capacity + 1:
+                out[f"slot__{name}"] = _rows(leaf[:n].cpu(), idx)
+            else:
+                out[f"scalar__{name}"] = leaf.cpu().numpy()
+        return out
+
+    def ckpt_restore(self, trainer, template, parts, num_shards: int):
+        """Rebuild the resolver and the stores from saved parts (oldest
+        first; the newest row of a key wins). The parts may come from any
+        save in the 4-array format, the JAX package's included. Grows the
+        capacity when the rows need it (load 0.9)."""
+        if num_shards != 1:
+            raise NotImplementedError("host-index tables are unsharded")
+        cfg = self.config
+        parts = [p for p in parts if "keys" in p]
+        all_keys = np.concatenate([p["keys"] for p in parts])
+        sel = last_wins_sel(all_keys)
+        n = sel.shape[0]
+        cap = needed_capacity(n + 8, cfg.capacity, load=0.9)
+        if cap != cfg.capacity:
+            self.config = cfg = dataclasses.replace(cfg, capacity=cap)
+            trainer.rejit()
+        width = cfg.embedding_dim + cfg.fused_slot_columns
+        sel_t = torch.from_numpy(sel)
+
+        def merged(key):
+            return torch.cat([torch.as_tensor(p[key]) for p in parts])[sel_t]
+
+        self._resolver.load_keys(all_keys[sel])
+        self._resolver.reserve(min(cap, 1 << 22))
+        if cfg.cbf_filter is not None:
+            cbf_parts = [p for p in parts
+                         if "cbf" in p or any(k.startswith("cbf__shard")
+                                              for k in p)]
+            if cbf_parts:  # the newest part's counters win
+                counters = _cbf_for_shard(cbf_parts[-1], 0, 1)
+                if (counters is not None and counters.shape[0]
+                        == cfg.cbf_filter.num_counters()):
+                    self._resolver.cbf_load(counters)
+
+        dev = template.ev.values.device
+
+        def store(col, fill, dtype, extra_shape=()):
+            out = torch.full((cap + 1,) + extra_shape, fill, dtype=dtype)
+            out[:n] = merged(col).to(dtype)
+            return out.to(dev)
+
+        st = HostEVState(
+            values=store("values", 0, getattr(torch, cfg.value_dtype),
+                         (width,)),
+            freqs=store("freqs", 0, torch.int32),
+            versions=store("versions", -1, torch.int32),
+            create_steps=store("create_steps", -1, torch.int32))
+        opt = trainer.sparse_optimizers[
+            next(k for k, c in trainer.collections.items() if c is self)]
+
+        def leaf_from_parts(path, leaf):
+            name = F.slot_leaf_name(path)
+            rk, sk = f"slot__{name}", f"scalar__{name}"
+            if all(rk in p for p in parts):
+                leaf[:n] = merged(rk).to(leaf)
+                return leaf
+            scalars = [p[sk] for p in parts if sk in p]
+            if scalars:  # the newest part that carries the leaf wins
+                return torch.as_tensor(scalars[-1]).to(leaf)
+            return leaf
+        slot = map_leaves(leaf_from_parts, opt.init(st.values))
+        return template._replace(ev=st, slot=slot)
+
+
+def _rows(t: torch.Tensor, idx: np.ndarray):
+    """Rows ``idx`` of a host tensor as a save stores them: numpy, except
+    bfloat16, which ``checkpoint.format`` writes from the tensor."""
+    if t.dtype == torch.bfloat16:
+        return t[torch.from_numpy(idx)]
+    return t.numpy()[idx]

@@ -1,6 +1,6 @@
 """CTR models (port of ``deeprec_tpu/models/ctr.py``): DLRM, and the
 functions that carry a flax-trained model's weights and its
-``optax.adagrad`` state across.
+``optax.adagrad`` state across, in both directions.
 
 Models consume ``dense [B, Dd]`` and ``emb``, a dict name -> ``[B, d]``
 pooled embeddings, and return logits ``[B]``.
@@ -70,6 +70,21 @@ def flax_leaves(module: nn.Module) -> List[np.ndarray]:
     """The module's parameters as the flax param leaves, in flatten order."""
     return [_leaf(lin, leaf).detach().cpu().numpy().copy()
             for _, lin, leaf in _flax_params(module)]
+
+
+def flax_adagrad_leaves(module: nn.Module,
+                        opt_state: Sequence[torch.Tensor]) -> List[np.ndarray]:
+    """The inverse of :func:`load_flax_adagrad_state`: the port's dense
+    Adagrad accumulators (one per ``module.parameters()`` entry) as the
+    ``sum_of_squares`` leaves of an ``optax.adagrad`` state, in the flax
+    param flatten order (kernels transposed to ``[in, out]``)."""
+    acc = {id(p): a for p, a in zip(module.parameters(), opt_state)}
+    out = []
+    for _, lin, leaf in _flax_params(module):
+        a = acc[id(lin.bias if leaf == "bias" else lin.weight)]
+        out.append((a if leaf == "bias" else a.T).detach().cpu().numpy()
+                   .copy())
+    return out
 
 
 def load_flax_params(module: nn.Module, leaves: Sequence) -> nn.Module:

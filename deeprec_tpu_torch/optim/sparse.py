@@ -1,7 +1,8 @@
 """Sparse optimizers for EmbeddingVariable rows.
 
 Port of part of ``deeprec_tpu/optim/sparse.py``: :class:`SparseOptimizer`,
-``_lr_at``, ``_dest``, ``_scatter_set`` and :func:`sparse_adagrad_fused`.
+``_lr_at``, ``_dest``, ``_scatter_set``, :func:`permute_slot_state` and
+:func:`sparse_adagrad_fused`.
 
 Semantics as there: updates apply to deduplicated rows (autograd already
 summed the gradients of repeated ids onto the unique lanes); lanes not
@@ -14,11 +15,14 @@ place and returns it.
 """
 from __future__ import annotations
 
+import itertools
 from typing import Any, Callable, NamedTuple, Union
 
 import torch
 
 from ..ops.gather import gather_rows
+from ..sparse import embedding_var as ev
+from ..utils.tree import leaves_with_paths, map_leaves
 
 Schedule = Union[float, Callable[[int], float]]
 
@@ -55,6 +59,27 @@ def _scatter_set(arr: torch.Tensor, dest: torch.Tensor,
     saved = arr[last].clone()
     arr.index_copy_(0, dest.clamp(max=last).long(), rows.to(arr.dtype))
     arr[last] = saved
+
+
+def permute_slot_state(slot_state, old_to_new: torch.Tensor, new_cap: int,
+                       fills=None):
+    """Carry optimizer slot rows through a growth or eviction rebuild
+    (``ev.permute_rows`` on every leaf with one row per slot; other leaves,
+    such as scalars, pass through). ``fills`` is the optimizer's
+    ``SparseOptimizer.fills`` tree: fresh rows take each leaf's init value,
+    so a key that later claims one starts from it (0 when None)."""
+    old_rows = int(old_to_new.shape[0]) + 1
+    fill_vals = ([leaf for _, leaf in leaves_with_paths(fills)]
+                 if fills is not None else None)
+    k = itertools.count()
+
+    def fix(_, leaf):
+        fill = fill_vals[next(k)] if fill_vals is not None else 0
+        if isinstance(leaf, torch.Tensor) and leaf.dim() >= 1 \
+                and leaf.shape[0] == old_rows:
+            return ev.permute_rows(leaf, old_to_new, new_cap, fill=fill)
+        return leaf
+    return map_leaves(fix, slot_state)
 
 
 def sparse_adagrad_fused(learning_rate: Schedule = 0.05,

@@ -15,15 +15,13 @@ ported yet.
 from __future__ import annotations
 
 import dataclasses
-import glob
-import os
 from typing import Dict, Sequence
 
 import numpy as np
 import torch
 
 from ..checkpoint import format as F
-from ..checkpoint.saver import _scatter_table, needed_capacity
+from ..checkpoint.saver import _reject_tiers, _scatter_table, needed_capacity
 from ..feature_column import (EmbeddingCollection, NumericColumn, pack_dense,
                               normalize_dense)
 from ..models.ctr import load_flax_params
@@ -41,13 +39,6 @@ def _adopt_row_layout(coll, arrays) -> None:
     extra = arrays["values"].shape[1] - cfg.embedding_dim
     if extra >= 0 and extra != cfg.fused_slot_columns:
         coll.config = dataclasses.replace(cfg, fused_slot_columns=extra)
-
-
-def _reject_tiers(manifest, name) -> None:
-    if glob.glob(os.path.join(manifest["path"], f"table-__tier__{name}*")):
-        raise NotImplementedError(
-            f"table {name!r} has host-tier rows; the tiered predictor is "
-            "not ported yet")
 
 
 class Predictor:
@@ -73,7 +64,11 @@ class Predictor:
                                "CUDA device")
         self.model = model.to(self.device).eval()
         self.numeric_columns = list(numeric_columns)
-        self.collections = dict(collections)
+        # a host-index training collection carries a resolver that serving
+        # must not share or mutate: serve its device-index view
+        self.collections = {n: (c.device_view()
+                                if hasattr(c, "device_view") else c)
+                            for n, c in collections.items()}
         self.ckpt_dir = ckpt_dir
         self.forward = forward or default_forward
         self.step = None
@@ -89,7 +84,7 @@ class Predictor:
     # -- loading -----------------------------------------------------------
     def _load_base(self, manifest):
         for name, coll in self.collections.items():
-            _reject_tiers(manifest, name)
+            _reject_tiers(manifest["path"], name)
             arrays = F.read_table(manifest["path"], name)
             _adopt_row_layout(coll, arrays)
             cap = needed_capacity(arrays["keys"].shape[0] + 8,
@@ -110,7 +105,7 @@ class Predictor:
         if manifest["step"] in self._applied_steps:
             return
         for name, coll in self.collections.items():
-            _reject_tiers(manifest, name)
+            _reject_tiers(manifest["path"], name)
             arrays = F.read_table(manifest["path"], name)
             st = self.tables[name]
             size = int(st.index.size.sum())

@@ -2,7 +2,8 @@
 
 Port of part of ``deeprec_tpu/sparse/embedding_var.py``: :class:`EVState`,
 :class:`LookupAux`, :func:`create`, the key-deterministic :func:`init_rows`,
-:func:`grow` and the training gather :func:`gather`. Row ``capacity`` of
+:func:`grow`, :func:`permute_rows`, the save-time eviction predicate
+:func:`cold_mask_np` and the training gather :func:`gather`. Row ``capacity`` of
 every store is the shared null row (zeros) that padding and failed lookups
 read.
 """
@@ -11,9 +12,10 @@ from __future__ import annotations
 import math
 from typing import NamedTuple, Tuple
 
+import numpy as np
 import torch
 
-from ..config import EmbeddingVariableConfig
+from ..config import EmbeddingVariableConfig, GlobalStepEvict, L2WeightEvict
 from ..ops.gather import gather_rows
 from ..ops.unique import UniqueResult
 from . import hashtable as ht
@@ -115,6 +117,25 @@ def permute_rows(rows: torch.Tensor, old_to_new: torch.Tensor,
                      dtype=rows.dtype, device=rows.device)
     out[old_to_new] = rows[:-1]
     return out[:new_cap + 1]
+
+
+def cold_mask_np(config: EmbeddingVariableConfig, values_np, versions_np,
+                 occupied_np, global_step: int) -> np.ndarray:
+    """The host-side eviction predicate over ``[n]`` rows (numpy): rows
+    untouched for ``steps_to_live`` steps, or whose squared L2 norm over
+    the first ``embedding_dim`` columns is under the threshold. The one
+    definition the checkpoint saver applies at save time (JAX
+    ``embedding_var.py`` ``cold_mask_np``)."""
+    pol = config.evict
+    n = occupied_np.shape[0]
+    cold = np.zeros((n,), bool)
+    if isinstance(pol, GlobalStepEvict) and pol.steps_to_live > 0:
+        cold = occupied_np & (global_step - versions_np[:n]
+                              >= pol.steps_to_live)
+    elif isinstance(pol, L2WeightEvict) and pol.l2_weight_threshold > 0:
+        v = np.asarray(values_np[:n, :config.embedding_dim], np.float64)
+        cold = occupied_np & (np.sum(v * v, -1) < pol.l2_weight_threshold)
+    return cold
 
 
 def grow(state: EVState, config: EmbeddingVariableConfig, new_capacity: int

@@ -1,9 +1,12 @@
 """Training core: one step over dynamic tables and the dense model.
 
 Port of ``deeprec_tpu/train/trainer.py``: ``TableBundle``, ``TrainState``,
-``bce_loss``, the :class:`Trainer` (``microbatches=1``), and the forward
-conventions ``default_forward`` and ``_readonly_lookup`` that serving uses
-too.
+``bce_loss``, the :class:`Trainer` (``microbatches=1``; with the fence work
+``maybe_grow``, ``table_health``, ``reset_metrics`` and a no-op
+``rejit``), and the forward conventions ``default_forward`` and
+``_readonly_lookup`` that serving uses too. ``prepare_batch`` is split
+into a host half (``prepare_host``) and the copies (``pipeline.to_device``),
+the two stages of ``train.pipeline.HostStepPipeline``.
 
 A train step, as in the JAX package: sparse lookup-or-create (no
 gradient) -> the unique rows become the differentiable leaf -> pooling,
@@ -27,6 +30,7 @@ from ..feature_column import (EmbeddingCollection, NumericColumn,
 from ..optim.dense import Adagrad
 from ..optim.sparse import SparseOptimizer
 from . import metrics as metrics_lib
+from .pipeline import to_device
 
 
 class TableBundle(NamedTuple):
@@ -105,21 +109,35 @@ class Trainer:
                           step=0)
 
     # -- batch plumbing ----------------------------------------------------
-    def prepare_batch(self, batch: Dict[str, np.ndarray], train: bool = True):
-        """Host packing and the copies to the device: dense columns, each
-        collection's ids (a host-index collection resolves here; with
-        ``train=False`` through its read-only ``pack_ids_eval``) and
-        labels."""
-        dense = (torch.from_numpy(pack_dense(self.numeric_columns, batch))
-                 .to(self.device) if self.numeric_columns else None)
+    def prepare_host(self, batch: Dict[str, np.ndarray], train: bool = True,
+                     pin: bool = False):
+        """The host half of a step's inputs, touching no device: dense
+        columns, each collection's ids (a host-index collection resolves
+        here: in step order for training; with ``train=False`` through its
+        read-only resolve) and labels, as CPU tensors, page-locked when
+        ``pin``. The resolve stage of ``train.pipeline.HostStepPipeline``
+        runs it."""
+        def host(x):
+            t = torch.from_numpy(x)
+            return t.pin_memory() if pin else t
+        dense = (host(pack_dense(self.numeric_columns, batch))
+                 if self.numeric_columns else None)
         cats = {}
         for name, coll in self.collections.items():
-            ro = None if train else getattr(coll, "pack_ids_eval", None)
-            pack = coll.pack_ids if ro is None else ro
-            cats[name] = pack(batch, self.device)
-        labels = (torch.from_numpy(np.asarray(batch["label"], np.float32))
-                  .to(self.device) if "label" in batch else None)
+            if not hasattr(coll, "pack_ids_host"):
+                cats[name] = host(coll.pack_ids_np(batch))
+            elif train:
+                cats[name] = coll.pack_ids_host(batch, pin=pin)
+            else:
+                cats[name] = coll.pack_ids_eval(batch, None)
+        labels = (host(np.asarray(batch["label"], np.float32))
+                  if "label" in batch else None)
         return dense, cats, labels
+
+    def prepare_batch(self, batch: Dict[str, np.ndarray], train: bool = True):
+        """Host packing and the copies to the device, inline:
+        :meth:`prepare_host`, then its tensors copied to the device."""
+        return to_device(self.prepare_host(batch, train), self.device)
 
     # -- the step ----------------------------------------------------------
     def _sparse_forward(self, tables, cats, step):
@@ -202,6 +220,37 @@ class Trainer:
     def eval_step(self, state: TrainState, mstate, batch):
         dense, cats, labels = self.prepare_batch(batch, train=False)
         return self._eval_step(state, mstate, dense, cats, labels)
+
+    # -- fence work (run with any HostStepPipeline drained) ------------------
+    def maybe_grow(self, state: TrainState) -> TrainState:
+        """Double every table whose collection asks for it
+        (``needs_growth``), optimizer slot rows carried along. Later
+        resolves and steps read the new capacity."""
+        tables = dict(state.tables)
+        changed = False
+        for name, coll in self.collections.items():
+            b = tables[name]
+            if hasattr(coll, "needs_growth") and coll.needs_growth():
+                new_ev, slot = coll.grow_state(
+                    b.ev, b.slot, opt=self.sparse_optimizers.get(name))
+                tables[name] = b._replace(ev=new_ev, slot=slot)
+                changed = True
+        return state._replace(tables=tables) if changed else state
+
+    def rejit(self) -> None:
+        """Nothing to rebuild: an eager step reads the new shapes itself
+        (the JAX trainer re-traces its jitted steps here)."""
+
+    def reset_metrics(self, state: TrainState) -> TrainState:
+        return state._replace(metrics=metrics_lib.create(device=self.device))
+
+    def table_health(self, state: TrainState) -> Dict[str, dict]:
+        """Operational health per host-index table (size, load, row and
+        unique-width overflow, dedup saturation), the JAX package's
+        schema."""
+        return {name: coll.host_health()
+                for name, coll in self.collections.items()
+                if hasattr(coll, "host_health")}
 
 
 def _readonly_lookup(coll: EmbeddingCollection, state, cats):

@@ -3,7 +3,9 @@
 A framework-free copy of the resolver half of ``deeprec_tpu/utils/native.py``
 (:func:`wire_layout` and :class:`HostIndexResolver`, with its pure-Python
 fallback, are copied verbatim; ``tests/test_torch_host_index.py`` holds
-them to their source). The port cannot import the JAX package.
+them to their source). The port cannot import the JAX package. Its own
+addition is :func:`resolve_wire_into`, which resolves into a caller's
+buffer (a pinned tensor's memory in the training pipeline).
 
 The C++ source stays shared. :func:`get_lib` compiles it with ``g++`` at
 first use into the git-ignored ``deeprec_tpu_torch/build/``, under a name
@@ -124,6 +126,40 @@ def wire_layout(u_out: int, n: int, with_counts: bool, inv16: bool):
     return o_tail + 16, {"slots": 0, "hi": o_hi, "lo": o_lo,
                          "counts": o_counts, "inverse": o_inv,
                          "tail": o_tail}
+
+
+def resolve_wire_into(resolver: "HostIndexResolver", keys: np.ndarray,
+                      u_out: int, null_slot: int, row_capacity: int,
+                      readonly: bool, with_counts: bool, inv16: bool,
+                      out: np.ndarray) -> Tuple[int, int]:
+    """:meth:`HostIndexResolver.resolve_wire` written straight into ``out``
+    (a C-contiguous uint8 array of ``wire_layout(...)[0]`` bytes, e.g. the
+    numpy view of a pinned tensor), so the wire needs no extra host copy.
+    Returns (n_unique, n_overflow). The Python fallback resolves into its
+    own buffer and copies it."""
+    keys = np.ascontiguousarray(keys, np.int64).reshape(-1)
+    n = keys.shape[0]
+    total, _ = wire_layout(u_out, n, with_counts, inv16)
+    if out.dtype != np.uint8 or out.shape != (total,) \
+            or not out.flags["C_CONTIGUOUS"]:
+        raise ValueError(f"out must be C-contiguous uint8 [{total}]")
+    if resolver._h is None:
+        buf, nu, nov = resolver.resolve_wire(keys, u_out, null_slot,
+                                             row_capacity, readonly,
+                                             with_counts, inv16)
+        out[:] = buf
+        return nu, nov
+    rc = int(resolver._lib.hidx_resolve_wire(
+        resolver._h, keys, n, u_out, null_slot, row_capacity,
+        1 if readonly else 0, 1 if with_counts else 0, 1 if inv16 else 0,
+        out))
+    if rc == -2:
+        raise RuntimeError("concurrent resolve detected: host-index resolves "
+                           "must run single-threaded in step order")
+    if rc < 0:
+        raise ValueError("hidx_resolve_wire failed (check capacity < 2^30 "
+                         "and u_out <= 32767 for the int16 inverse)")
+    return rc >> 32, rc & 0xFFFFFFFF
 
 
 class HostIndexResolver:

@@ -402,3 +402,37 @@ def test_blocked_rmw_set_matches_plain(cuda, case):
     assert blocked_rmw_set.launches == before + 1
     assert got.shape == (cap,)
     assert torch.equal(got.cpu(), ref)  # integer copies and stores: exact
+
+
+@pytest.mark.parametrize("depth", [1, 3])
+def test_pipeline_side_stream_copies(cuda, depth):
+    """``HostStepPipeline``'s transfer stage: pinned host buffers copied on
+    a side stream come out of ``take()`` equal to the host batch, and a
+    pipeline running ahead of a slow device step (whose inputs are freed
+    as soon as it is queued) corrupts none of them."""
+    from deeprec_tpu_torch.host_index import ResolvedWire
+    from deeprec_tpu_torch.train.pipeline import HostStepPipeline
+    g = _gen()
+    host = [torch.randn(1 << 18, generator=g) for _ in range(12)]
+    wires = [torch.randint(0, 255, (4096,), generator=g, dtype=torch.uint8)
+             for _ in host]
+
+    def resolve(i):
+        return (host[i].pin_memory(),
+                {"emb": ResolvedWire(wires[i].pin_memory(), 1, 1, False,
+                                     True)},
+                (2 * host[i]).pin_memory())
+
+    out = []
+
+    def step(args):
+        x, cats, y = args
+        assert x.is_cuda and cats["emb"].buf.is_cuda and y.is_cuda
+        torch.cuda._sleep(2_000_000)  # the device lags the host
+        out.append((x + y, cats["emb"].buf.clone()))
+    with HostStepPipeline(resolve, depth=depth, device=cuda) as pipe:
+        assert pipe.run(range(len(host)), step, fence_every=5) == len(host)
+    torch.cuda.synchronize()
+    for i, (s, w) in enumerate(out):
+        assert torch.equal(s.cpu(), 3 * host[i]), i
+        assert torch.equal(w.cpu(), wires[i]), i

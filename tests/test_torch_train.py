@@ -44,8 +44,10 @@ def _meta(mod, metadata):
 
 
 def _trainers(metadata):
+    # one hash group: the JAX side's native resolver and its Python
+    # fallback assign slots in the same order, whichever it got
     common = dict(name="emb", capacity=CAP, max_unique=len(COLS) * B // 6,
-                  fused_slot_columns=DIM, fused_slot_init=0.1)
+                  fused_slot_columns=DIM, fused_slot_init=0.1, n_groups=1)
     jcoll = JHost([jfc.EmbeddingColumn(jfc.CategoricalColumn(n), DIM)
                    for n in COLS],
                   initializer=dr.Initializer("normal", scale=0.05),
