@@ -1,13 +1,13 @@
 """Card smoke test of the PyTorch port (deeprec_tpu_torch): its serving
-path and its host-index training path.
+path, its host-index training path and its tiered storage.
 
 Run from the root of a checkout on a machine with one CUDA card:
 
     python3 chip_smoke.py
 
-It imports no JAX. Float32 throughout: TF32 is switched off for matrix
-products and convolutions, so both sides of every comparison compute in
-full f32. Phases (any failure exits non-zero):
+It imports no JAX. Float32 throughout, but for the bf16 checks: TF32 is
+switched off for matrix products and convolutions, so both sides of every
+comparison compute in full f32. Phases (any failure exits non-zero):
 
 1. builds the hand-written CUDA kernels from deeprec_tpu_torch/csrc/ (nvcc,
    sm_90a, one process per source) and, at the same time, the design
@@ -24,7 +24,11 @@ full f32. Phases (any failure exits non-zero):
    U 17,664). The previous design of K2's forward (a probe variant) and
    the three-plane K3a are timed in turns with their successors, back to
    back and behind a PyTorch kernel as on the path, and the probe's
-   variants of K2's forward say what remains of its time;
+   variants of K2's forward say what remains of its time. K2 at bf16 (both
+   directions, at the serving and the training shape) is checked against
+   its plain version (both sum in f32 and round once: one bf16 step of the
+   value apart at most, beside the f32 order term) and timed beside
+   embedding_bag / index_add_ at bf16, its bound at 2 bytes a value;
 3. writes a full-width DLRM serving checkpoint (13 dense + 26 categorical
    columns, emb dim 16, fused adagrad columns, a 2^21-slot table holding the
    keys of 20 synthetic Criteo batches; weights and rows from seed 0);
@@ -45,7 +49,11 @@ full f32. Phases (any failure exits non-zero):
    method) and 3 with it inline, and a torch.profiler breakdown of 3
    steps; K1, K2, K2's backward and K3a (lookup_meta) must have launched;
 7. the light layout (bench.py's default, lazy init): 3 steps in lockstep
-   with a CPU Trainer, then 3 timed runs of 10 steps;
+   with a CPU Trainer, then 3 timed runs of 10 steps; then a bf16 table
+   (value_dtype="bfloat16", --metadata, 2^17 rows): 3 steps in lockstep
+   with a CPU Trainer (losses within BF16_LOSS_ATOL, rows within
+   BF16_ROW_ATOL + BF16_ROW_RTOL |row|), K1, K2 (bf16), K2's backward
+   (bf16) and K3a launched;
 8. the production loop (``loop``): the --metadata DLRM from a 2^16-row
    table, 30 steps through HostStepPipeline(depth=3) on the card (pinned
    wires copied on a side stream) with a fence every 10 steps: growth
@@ -60,7 +68,23 @@ full f32. Phases (any failure exits non-zero):
    incrementals, each time within PROB_ATOL of a CPU Predictor over the
    same directory. K1, K2, K2's backward and K3a must have launched; then
    3 timed runs of 10 pipelined steps and 10 inline steps on the same
-   table, each stage on the host clock.
+   table, each stage on the host clock;
+9. tiered storage (``tier``): the --metadata DLRM on a 2^17-row host-index
+   table with StorageOption(HBM_DRAM, hbm_capacity=32768) and
+   GlobalStepEvict(8), 30 steps through HostStepPipeline(depth=3) with
+   fences after steps 12, 22 and 30 (maybe_demote, maybe_grow, a full save,
+   then incremental saves) in lockstep with an unpipelined CPU trainer: wires
+   and promo planes bit-equal every step, losses within LOSS_ATOL; at each
+   fence resolver keys, tier keys and the payloads' integer columns
+   bit-equal, rows and payload values within ROW_ATOL, rows demoted at
+   every fence and rows promoted in the run. A card TieredPredictor
+   (device_row_budget 32768) serves the saves within PROB_ATOL of a CPU
+   one and of a card Predictor, before and after refresh(); the last save
+   restores into fresh card and CPU trainers alike; two runs of 10
+   pipelined steps give examples/s and the demotion fences' times; an
+   HBM_DRAM_SSD run (dram_row_budget 4096) spills to its file store and
+   its save carries every tier row. The tier store must be the C++ one.
+   K1, K2, K2's backward and K3a must have launched.
 
 The last line is {"ok": true, "device": {...}}; the line before it holds
 the kernels' numbers as JSON, the line before that the training numbers.
@@ -97,6 +121,19 @@ MAX_UNIQUE = 26 * B // 6  # bench.py's dedup width: U = 17,750 lanes
 LOOP_CAPACITY = 1 << 16  # the loop's first table: ~0.9 load by step 10
 LOOP_STEPS = 30          # the loop's lockstep run: fences after 12, 22, 30
 K3B_U = 17664      # benchmarks/pallas_meta_bench.py's own U (and CAP 2^21)
+# bf16 kernels vs plain: both sum in f32 and round once, so the f32 sums'
+# order can move that rounding by one bf16 step: at most 2^-7 of the
+# value (8 significant bits)
+BF16_STEP = 2.0 ** -7
+BF16_LOSS_ATOL = 1e-3  # bf16 table, card vs CPU per-step loss
+# bf16 table rows: a gradient rounded one step apart on the two sides
+# moves an updated row by about one step: allow four steps, and 1e-3
+BF16_ROW_RTOL, BF16_ROW_ATOL = 2.0 ** -6, 1e-3
+TIER_CAPACITY = 1 << 17  # the tier phase's table
+TIER_HBM = 32768         # its hbm_capacity, and TieredPredictor's budget
+TIER_LIVE = 8            # GlobalStepEvict(steps_to_live) of the tier phase
+TIER_STEPS = 30          # lockstep steps; a fence every 10
+SSD_DRAM_ROWS = 4096     # the SSD run's dram_row_budget
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM peak (the card's power limit printed)
 
 
@@ -263,6 +300,38 @@ def check_kernels(dev, probe):
     from deeprec_tpu_torch.probes.kernel_probe import k2_forward
     k2_turns = k2_forward(probe, urows, inv, valid,
                           "(serving shape, [26*4096, 1] sum)")
+
+    # K2 on a bf16 table: the same bags over bf16 rows (one row a bag: the
+    # rows' bits), and a multi-hot mean summed in f32 and rounded once
+    u16 = urows.to(torch.bfloat16)
+    got16 = fused_pooled_lookup(u16, inv, valid, "sum")
+    if not torch.equal(got16.view(torch.int16),
+                       fused_pooled_lookup_plain(u16, inv, valid,
+                                                 "sum").view(torch.int16)):
+        fail("K2 at bf16 (width 1) differs from its plain version")
+    v16 = cases[1][1].to(torch.bfloat16)
+    ms_, mv_ = cases[1][2], cases[1][3]
+    got_mh = fused_pooled_lookup(v16, ms_, mv_, "mean").float()
+    ref_mh = fused_pooled_lookup_plain(v16, ms_, mv_, "mean").float()
+    mag = fused_pooled_lookup_plain(v16.float().abs(), ms_, mv_, "mean")
+    k2b_err = (got_mh - ref_mh).abs().max().item()
+    if not bool(((got_mh - ref_mh).abs() <= BF16_STEP * ref_mh.abs()
+                 + POOL_RTOL * mag).all()):
+        fail(f"K2 at bf16 (multi-hot mean) differs from its plain version "
+             f"by {k2b_err}")
+    k2b_ms = time_ms(lambda: fused_pooled_lookup(u16, inv, valid, "sum"))
+    k2b_plain = time_ms(lambda: fused_pooled_lookup_plain(u16, inv, valid,
+                                                          "sum"))
+    valid16 = valid.to(torch.bfloat16)
+    k2b_lib = time_ms(lambda: torch.nn.functional.embedding_bag(
+        inv, u16, per_sample_weights=valid16, mode="sum"))
+    k2b_bytes = (inv.numel() * inv.element_size() + valid.numel()
+                 + int(uniq.n_unique) * EMB_DIM * 2
+                 + inv.shape[0] * EMB_DIM * 2)
+    log_times("K2 fused_pooled_lookup at bf16 (serving shape, [26*4096, 1] "
+              "sum)", k2b_ms, k2b_plain, k2b_lib, k2b_bytes,
+              f"; library: embedding_bag at bf16; multi-hot mean max_abs_err "
+              f"{k2b_err:.3g}")
     return [
         entry("gather_rows", "deeprec_tpu_torch/csrc/gather_rows.cu",
               "deeprec_tpu/ops/pallas_gather.py:78", k1_err, k1_ms,
@@ -275,6 +344,10 @@ def check_kernels(dev, probe):
               previous_on_path_ms=k2_turns["behind"]["old"],
               probe_ms={str(m): t for m, t in k2_turns.items()
                         if isinstance(m, int)}),
+        entry("fused_pooled_lookup_bf16",
+              "deeprec_tpu_torch/csrc/fused_pooled_lookup.cu",
+              "deeprec_tpu/ops/pallas_fused_lookup.py:80", k2b_err, k2b_ms,
+              k2b_plain, k2b_lib, k2b_bytes),
     ]
 
 
@@ -412,10 +485,10 @@ def check_http(path, gpu, cpu, table, batch):
 
 
 # -- phases 2 and 6: the training path ----------------------------------------
-def host_collection(metadata, capacity=CAPACITY):
-    """bench.py's table: host index over 2^21 rows (or ``capacity``).
-    ``use_native=True`` raises when the C++ resolver cannot be built: no
-    Python fallback."""
+def host_collection(metadata, capacity=CAPACITY, **overrides):
+    """bench.py's table: host index over 2^21 rows (or ``capacity``), with
+    ``overrides`` of its configuration. ``use_native=True`` raises when the
+    C++ resolver cannot be built: no Python fallback."""
     from deeprec_tpu_torch import config as cfg
     from deeprec_tpu_torch import feature_column as fc
     from deeprec_tpu_torch.data.criteo import CAT_NAMES
@@ -430,7 +503,7 @@ def host_collection(metadata, capacity=CAPACITY):
         name="emb", capacity=capacity,
         initializer=cfg.Initializer("normal", scale=0.05),
         max_unique=MAX_UNIQUE, fused_slot_columns=EMB_DIM,
-        fused_slot_init=0.1, use_native=True, **meta)
+        fused_slot_init=0.1, use_native=True, **{**meta, **overrides})
 
 
 def check_training_kernels(dev, probe):
@@ -504,6 +577,50 @@ def check_training_kernels(dev, probe):
               "; library: embedding_bag(mode='sum', per_sample_weights)")
     k2_forward(probe, urows, slots, valid, "(training shape, [26*4096, 1] "
                "sum)")
+
+    # K2 at bf16, both directions at the training shape: the gradient
+    # widened to f32, added in f32, rounded once to bf16 after the adds
+    d16, u16 = d_pooled.to(torch.bfloat16), urows.to(torch.bfloat16)
+    got = fused_pooled_lookup_backward(d16, slots, valid, "sum", u).float()
+    ref = fused_pooled_lookup_backward_plain(d16, slots, valid, "sum",
+                                             u).float()
+    mag = fused_pooled_lookup_backward_plain(d16.float().abs(), slots, valid,
+                                             "sum", u)
+    bwd16_err = (got - ref).abs().max().item()
+    # one bf16 step of the value, or the f32 order term (BWD_TOL above)
+    if not bool(((got - ref).abs() <= BF16_STEP * ref.abs() + BWD_TOL * mag
+                 + 1e-7).all()):
+        fail(f"K2 backward at bf16 differs from its plain version by "
+             f"{bwd16_err}")
+    if not torch.equal(
+            fused_pooled_lookup(u16, slots, valid, "sum").view(torch.int16),
+            fused_pooled_lookup_plain(u16, slots, valid,
+                                      "sum").view(torch.int16)):
+        fail("K2 at bf16 (training shape) differs from its plain version")
+    src16 = torch.where(valid, d16, 0.0)
+    bwd16_ms = time_ms(lambda: fused_pooled_lookup_backward(
+        d16, slots, valid, "sum", u))
+    bwd16_plain = time_ms(lambda: fused_pooled_lookup_backward_plain(
+        d16, slots, valid, "sum", u))
+    bwd16_lib = time_ms(lambda: torch.zeros(
+        u, EMB_DIM, dtype=torch.bfloat16, device=dev).index_add_(0, idx,
+                                                                   src16))
+    bwd16_bytes = (d16.numel() * 2 + slots.numel() * 4 + valid.numel()
+                   + u * EMB_DIM * 2)
+    log_times("K2 fused_pooled_lookup_backward at bf16 ([26*4096, 1] sum, "
+              "D 16)", bwd16_ms, bwd16_plain, bwd16_lib, bwd16_bytes,
+              f"; library: zeros + index_add_ at bf16; max_abs_err "
+              f"{bwd16_err:.3g}")
+    fwd16_ms = time_ms(lambda: fused_pooled_lookup(u16, slots, valid, "sum"))
+    fwd16_plain = time_ms(lambda: fused_pooled_lookup_plain(u16, slots, valid,
+                                                            "sum"))
+    fwd16_lib = time_ms(lambda: torch.nn.functional.embedding_bag(
+        slots, u16, per_sample_weights=valid.to(torch.bfloat16), mode="sum"))
+    log_times("K2 fused_pooled_lookup at bf16 (training shape, [26*4096, 1] "
+              "sum)", fwd16_ms, fwd16_plain, fwd16_lib,
+              slots.numel() * 4 + valid.numel() + n_real * EMB_DIM * 2
+              + slots.shape[0] * EMB_DIM * 2,
+              "; library: embedding_bag at bf16")
 
     # K1 at the training shape: the unique-row fetch and the optimizer's
     # read of whole fused rows (value + accumulator)
@@ -659,6 +776,10 @@ def check_training_kernels(dev, probe):
               "deeprec_tpu_torch/csrc/fused_pooled_lookup.cu",
               "deeprec_tpu/ops/pallas_fused_lookup.py:80", bwd_err, bwd_ms,
               bwd_plain, bwd_lib, bwd_bytes),
+        entry("fused_pooled_lookup_backward_bf16",
+              "deeprec_tpu_torch/csrc/fused_pooled_lookup.cu",
+              "deeprec_tpu/ops/pallas_fused_lookup.py:80", bwd16_err,
+              bwd16_ms, bwd16_plain, bwd16_lib, bwd16_bytes),
         entry("lookup_meta", "deeprec_tpu_torch/csrc/meta_scatter.cu",
               "benchmarks/pallas_meta_bench.py:108", 0.0, k3a_ms, k3a_plain,
               k3a_lib, k3a_bytes, previous_ms=old_ms,
@@ -684,14 +805,14 @@ def seeded_model(g):
     return model
 
 
-def trainer(dev, metadata, capacity=CAPACITY):
+def trainer(dev, metadata, capacity=CAPACITY, **overrides):
     from deeprec_tpu_torch.optim.dense import Adagrad
     from deeprec_tpu_torch.optim.sparse import sparse_adagrad_fused
     from deeprec_tpu_torch.train.trainer import Trainer
     numeric, _, _ = criteo_parts()
     model = seeded_model(torch.Generator().manual_seed(SEED))
     return Trainer(model, numeric,
-                   {"emb": host_collection(metadata, capacity)},
+                   {"emb": host_collection(metadata, capacity, **overrides)},
                    {"emb": sparse_adagrad_fused(0.05)}, Adagrad(0.05),
                    device=dev)
 
@@ -708,10 +829,12 @@ def path_counters():
             "lookup_meta": lookup_meta}
 
 
-def lockstep(tg, tc, batches, what):
+def lockstep(tg, tc, batches, what, loss_atol=LOSS_ATOL, row_atol=ROW_ATOL,
+             row_rtol=0.0):
     """Train the card and CPU trainers on ``batches``; hold the wires (so
-    slots, keys and inverse) bit-equal and the losses within LOSS_ATOL.
-    Returns both states."""
+    slots, keys and inverse) bit-equal, the losses within ``loss_atol`` and
+    the rows within ``row_atol + row_rtol * |row|``. Returns the card's
+    state and the largest loss and row differences."""
     sg, sc = tg.init(batches[0]), tc.init(batches[0])
     worst = 0.0
     for i, b in enumerate(batches):
@@ -724,19 +847,21 @@ def lockstep(tg, tc, batches, what):
         sc = tc._train_step(sc, dc, cc, lc)
         lg_, lc_ = ((sg.metrics.loss_sum.item() - g0) / B,
                     (sc.metrics.loss_sum.item() - c0) / B)
-        if not (np.isfinite(lg_) and abs(lg_ - lc_) <= LOSS_ATOL):
+        if not (np.isfinite(lg_) and abs(lg_ - lc_) <= loss_atol):
             fail(f"{what}: step {i} loss {lg_} on the card vs {lc_} on CPU")
         worst = max(worst, abs(lg_ - lc_))
     eg, ec = sg.tables["emb"].ev, sc.tables["emb"].ev
     for f in ("freqs", "versions", "create_steps"):
         if not torch.equal(getattr(eg, f).cpu(), getattr(ec, f)):
             fail(f"{what}: {f} planes differ between card and CPU")
-    rows = (eg.values.cpu() - ec.values).abs().max().item()
-    if not rows <= ROW_ATOL:
+    diff = (eg.values.cpu().float() - ec.values.float()).abs()
+    rows = diff.max().item()
+    if not bool((diff <= row_atol + row_rtol * ec.values.float().abs()).all()):
         fail(f"{what}: table rows differ by {rows} between card and CPU")
     log(f"{what}: {len(batches)} steps in lockstep with a CPU trainer: wires "
         f"and metadata planes bit-equal, max |dloss| {worst:.3g} (limit "
-        f"{LOSS_ATOL}), max |drow| {rows:.3g} (limit {ROW_ATOL}); "
+        f"{loss_atol}), max |drow| {rows:.3g} (limit {row_atol} + "
+        f"{row_rtol} |row|); "
         f"{int((ec.freqs > 0).sum())} rows with freq > 0")
     return sg, worst, rows
 
@@ -855,7 +980,25 @@ def check_training(dev, smi):
     out["light"] = {"staged_eps": staged, "max_dloss": dloss,
                     "max_drow": drow,
                     "summary": metrics.summarize(sg.metrics)}
-    return {"train_metadata": launches, "train_light": light}, out
+    del tg, sg
+
+    # a bf16 table (value_dtype="bfloat16"), --metadata: K2 pools bf16 rows
+    tg = trainer(dev, True, TIER_CAPACITY, value_dtype="bfloat16")
+    tc = trainer("cpu", True, TIER_CAPACITY, value_dtype="bfloat16")
+    for fn in counters.values():
+        fn.launches = 0
+    sg, dloss, drow = lockstep(tg, tc, batches[:3], "bf16 table",
+                               loss_atol=BF16_LOSS_ATOL,
+                               row_atol=BF16_ROW_ATOL, row_rtol=BF16_ROW_RTOL)
+    bf16 = {k: fn.launches for k, fn in counters.items()}
+    log(f"bf16 table ({sg.step} steps) launches: {bf16}")
+    for k, v in bf16.items():
+        if v <= 0:
+            fail(f"{k} was not launched on the bf16 training path")
+    out["bf16"] = {"max_dloss": dloss, "max_drow": drow,
+                   "summary": metrics.summarize(sg.metrics)}
+    return {"train_metadata": launches, "train_light": light,
+            "train_bf16": bf16}, out
 
 
 # -- phase 8: the production loop ----------------------------------------------
@@ -1065,6 +1208,304 @@ def check_loop(dev, smi, tmp):
                       "lockstep_wall_s": wall, "summary": summ}
 
 
+# -- phase 9: tiered storage ---------------------------------------------------
+def tier_trainer(dev, storage="HBM_DRAM", ssd_path="", dram_rows=0):
+    """The --metadata DLRM on a host-index table of TIER_CAPACITY rows with
+    a host tier: hbm_capacity TIER_HBM, GlobalStepEvict(TIER_LIVE)."""
+    from deeprec_tpu_torch import config as cfg
+    return trainer(dev, True, TIER_CAPACITY,
+                   evict=cfg.GlobalStepEvict(steps_to_live=TIER_LIVE),
+                   storage=cfg.StorageOption(
+                       getattr(cfg.StorageType, storage),
+                       hbm_capacity=TIER_HBM, dram_row_budget=dram_rows,
+                       ssd_path=ssd_path))
+
+
+def _tier_rows(coll):
+    """The host tier's (keys, payload rows), sorted by key; the store must
+    be the C++ one."""
+    st = coll.tier_store
+    if st is None:
+        return np.zeros((0,), np.int64), np.zeros((0, 2 * EMB_DIM + 3),
+                                                  np.float32)
+    parts = (st.dram, st.ssd) if hasattr(st, "ssd") else (st,)
+    if any(p._h is None for p in parts):
+        fail("the host tier took the dict fallback")
+    k, r = st.export()
+    o = np.argsort(k)
+    return k[o], r[o]
+
+
+def _same_tier(cg, cc, what):
+    """The card's and the CPU's tiers: the same keys, bit-equal integer
+    columns (freq, version, create step), values within ROW_ATOL. Returns
+    (rows, max |dvalue|)."""
+    (kg, rg), (kc, rc) = _tier_rows(cg), _tier_rows(cc)
+    w = 2 * EMB_DIM  # the values block: embedding and fused accumulator
+    if not (np.array_equal(kg, kc) and np.array_equal(
+            rg[:, w:].view(np.int32), rc[:, w:].view(np.int32))):
+        fail(f"{what}: the card's and the CPU's tiers differ")
+    d = float(np.abs(rg[:, :w] - rc[:, :w]).max()) if len(kg) else 0.0
+    if not d <= ROW_ATOL:
+        fail(f"{what}: tier payloads differ by {d}")
+    return int(kg.shape[0]), d
+
+
+def _same_tables(tg, tc, sg, sc, what):
+    """Resolver keys (slot order) and metadata planes bit-equal, rows within
+    ROW_ATOL; returns max |drow|."""
+    cg, cc = tg.collections["emb"], tc.collections["emb"]
+    if not np.array_equal(cg._resolver.export_keys(),
+                          cc._resolver.export_keys()):
+        fail(f"{what}: the resolvers' keys differ")
+    eg, ec = sg.tables["emb"].ev, sc.tables["emb"].ev
+    for f in ("freqs", "versions", "create_steps"):
+        if not torch.equal(getattr(eg, f).cpu(), getattr(ec, f)):
+            fail(f"{what}: {f} planes differ")
+    d = (eg.values.cpu() - ec.values).abs().max().item()
+    if not d <= ROW_ATOL:
+        fail(f"{what}: rows differ by {d}")
+    return d
+
+
+def _serve_tiers(path, coll, held, dev):
+    """A card and a CPU TieredPredictor (device_row_budget TIER_HBM) and a
+    card Predictor over ``path``; checks them against each other and
+    returns them with the worst |dp| of each pair."""
+    from deeprec_tpu_torch.serving import Predictor, TieredPredictor
+    numeric, _, _ = criteo_parts()
+    preds = [TieredPredictor(criteo_parts()[2], numeric, {"emb": coll}, path,
+                             device_row_budget=TIER_HBM, device=d)
+             for d in (dev, "cpu")]
+    preds.append(Predictor(criteo_parts()[2], numeric, {"emb": coll}, path,
+                           device=dev))
+    if preds[0].host_rows("emb") <= 0:
+        fail("tier serving: the TieredPredictor keeps no rows on the host")
+    return preds, _compare_tiers(preds, held)
+
+
+def _compare_tiers(preds, held):
+    return (_compare_predictors(preds[0], preds[1], held,
+                                "tier serving, card vs CPU TieredPredictor"),
+            _compare_predictors(preds[0], preds[2], held,
+                                "tier serving, TieredPredictor vs Predictor"))
+
+
+def check_tier(dev, smi, tmp):
+    """Phase 9: the --metadata DLRM on a tiered table through
+    HostStepPipeline(depth=3), a fence every 10 steps (demotion, growth, a
+    full save, then incrementals), in lockstep with an unpipelined CPU
+    trainer; restore, tiered serving, an HBM_DRAM_SSD run; then examples/s
+    of the pipelined loop and the fences' times. Returns the path's
+    launches and its summary."""
+    from deeprec_tpu_torch.checkpoint import format as F
+    from deeprec_tpu_torch.checkpoint.saver import CheckpointManager
+    from deeprec_tpu_torch.data.criteo import SyntheticCriteo
+    from deeprec_tpu_torch.train import metrics
+    from deeprec_tpu_torch.train.pipeline import HostStepPipeline
+    from deeprec_tpu_torch.utils.native import get_lib
+    if get_lib() is None:
+        fail("tier: the native library did not build (dict-fallback tier)")
+    batches = list(SyntheticCriteo(batch_size=B, seed=7).take(
+        TIER_STEPS + 20))
+    held = list(SyntheticCriteo(batch_size=B, seed=11).take(2))
+    tg, tc = tier_trainer(dev), tier_trainer("cpu")
+    cg, cc = tg.collections["emb"], tc.collections["emb"]
+    box = {"g": tg.init(batches[0]), "c": tc.init(batches[0]), "i": 0,
+           "dloss": 0.0, "promoted": 0, "serve": None}
+    mg = CheckpointManager(os.path.join(tmp, "card"))
+    mc = CheckpointManager(os.path.join(tmp, "cpu"))
+    width = 2 * EMB_DIM
+    fences = []
+
+    def step(args):
+        i = box["i"]
+        dc, catc, lc = tc.prepare_batch(batches[i])
+        wg, wc = args[1]["emb"], catc["emb"]
+        if not torch.equal(wg.buf.cpu(), wc.buf):
+            fail(f"tier: card and CPU wires differ at step {i}")
+        if (wg.promo is None) != (wc.promo is None):
+            fail(f"tier: only one side promoted at step {i}")
+        if wg.promo is not None:
+            lanes, pay = (t.cpu() for t in wg.promo)
+            if not (torch.equal(lanes, wc.promo[0]) and torch.equal(
+                    pay[:, width:].view(torch.int32),
+                    wc.promo[1][:, width:].view(torch.int32))
+                    and (pay - wc.promo[1]).abs().max().item() <= ROW_ATOL):
+                fail(f"tier: the promo planes differ at step {i}")
+            box["promoted"] += int(lanes.shape[0])
+        g0, c0 = box["g"].metrics.loss_sum.item(), \
+            box["c"].metrics.loss_sum.item()
+        box["g"] = tg._train_step(box["g"], *args)
+        box["c"] = tc._train_step(box["c"], dc, catc, lc)
+        lg = (box["g"].metrics.loss_sum.item() - g0) / B
+        lc_ = (box["c"].metrics.loss_sum.item() - c0) / B
+        if not (np.isfinite(lg) and abs(lg - lc_) <= LOSS_ATOL):
+            fail(f"tier: step {i} loss {lg} on the card vs {lc_} on CPU")
+        box["dloss"] = max(box["dloss"], abs(lg - lc_))
+        box["i"] += 1
+
+    def fence(done):
+        if len(pipe) or box["g"].step != done or box["c"].step != done:
+            fail(f"tier: fence at {done} on an undrained pipeline")
+        drow = _same_tables(tg, tc, box["g"], box["c"], f"tier step {done}")
+        with torch.no_grad():  # the next window starts from the card's state
+            box["c"].tables["emb"].ev.values.copy_(
+                box["g"].tables["emb"].ev.values)
+            for pc, pg in zip(tc.model.parameters(), tg.model.parameters()):
+                pc.copy_(pg)
+            for ac, ag in zip(box["c"].opt_state, box["g"].opt_state):
+                ac.copy_(ag)
+        n_g, n_c = cg._resolver.size, cc._resolver.size
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        box["g"] = tg.maybe_demote(box["g"])
+        torch.cuda.synchronize()
+        demote_ms = (time.perf_counter() - t0) * 1e3
+        box["c"] = tc.maybe_demote(box["c"])
+        demoted = n_g - cg._resolver.size
+        if demoted <= 0 or demoted != n_c - cc._resolver.size:
+            fail(f"tier: {demoted} rows demoted on the card at step {done}, "
+                 f"{n_c - cc._resolver.size} on CPU")
+        _same_tables(tg, tc, box["g"], box["c"], f"tier step {done}, demoted")
+        tier_rows, dpay = _same_tier(cg, cc, f"tier step {done}")
+        box["g"], box["c"] = tg.maybe_grow(box["g"]), tc.maybe_grow(box["c"])
+        if cg.config.capacity != cc.config.capacity:
+            fail(f"tier: capacities differ after the fence at {done}")
+        save = (CheckpointManager.save if not fences
+                else CheckpointManager.save_incremental)
+        t0 = time.perf_counter()
+        pg = save(mg, tg, box["g"])
+        save_ms = (time.perf_counter() - t0) * 1e3
+        pc = save(mc, tc, box["c"])
+        for t in ("emb", "__tier__emb"):
+            kg = np.sort(F.read_table(pg, t)["keys"]) if t == "emb" or \
+                os.path.exists(os.path.join(pg, f"table-{t}.npz")) else None
+            kc = np.sort(F.read_table(pc, t)["keys"]) if t == "emb" or \
+                os.path.exists(os.path.join(pc, f"table-{t}.npz")) else None
+            if (kg is None) != (kc is None) or (
+                    kg is not None and not np.array_equal(kg, kc)):
+                fail(f"tier: the {t} keys of {os.path.basename(pg)} differ")
+        fences.append({"step": done, "demoted": demoted,
+                       "tier_rows": tier_rows, "resident": cg._resolver.size,
+                       "capacity": cg.config.capacity, "max_drow": drow,
+                       "max_dpayload": dpay, "demote_ms": demote_ms,
+                       "save_ms": save_ms, "save": os.path.basename(pg)})
+        log(f"tier fence at step {done}: {demoted} rows demoted "
+            f"({demote_ms:.1f} ms on the card's host clock), {tier_rows} in "
+            f"the tier, {cg._resolver.size} resident, capacity "
+            f"{cg.config.capacity}; {os.path.basename(pg)} written in "
+            f"{save_ms:.1f} ms; card = CPU (max |drow| {drow:.3g}, "
+            f"|dpayload| {dpay:.3g})")
+        if box["serve"] is None:
+            box["serve"] = _serve_tiers(mg.directory, cg, held, dev)
+
+    counters = path_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    pipe = HostStepPipeline(lambda b: tg.prepare_host(b, pin=True), depth=3,
+                            device=dev)
+    t0 = time.perf_counter()
+    n = pipe.run(batches[:TIER_STEPS], step, fence_every=10, on_fence=fence)
+    wall = time.perf_counter() - t0
+    preds, before = box["serve"]
+    if not all(p.refresh() for p in preds) or preds[0].step != TIER_STEPS:
+        fail("tier: the predictors did not refresh onto the incrementals")
+    after = _compare_tiers(preds, held)
+    launches = {k: fn.launches for k, fn in counters.items()}
+    log(f"tier: {n} pipelined steps in lockstep with a CPU trainer in "
+        f"{wall:.1f} s, {box['promoted']} rows promoted through the wire; "
+        f"launches {launches}")
+    for k, v in launches.items():
+        if v <= 0:
+            fail(f"{k} was not launched on the tier path")
+    if not (n == TIER_STEPS and len(fences) == TIER_STEPS // 10
+            and box["promoted"] > 0):
+        fail(f"tier: {n} steps, {len(fences)} fences, {box['promoted']} "
+             f"promotions")
+    log(f"tier serving (card TieredPredictor, device_row_budget {TIER_HBM}, "
+        f"{preds[0].host_rows('emb')} rows on the host after refresh): "
+        f"max |dp| vs CPU TieredPredictor {before[0]:.3g} on the full save, "
+        f"{after[0]:.3g} refreshed; vs card Predictor {before[1]:.3g}, "
+        f"{after[1]:.3g}")
+    del preds, box["serve"]
+
+    # restore the last save into fresh card and CPU trainers
+    rg, rc = tier_trainer(dev), tier_trainer("cpu")
+    sg, ok_g = CheckpointManager(mg.directory).restore(rg, rg.init(
+        batches[0]))
+    sc, ok_c = CheckpointManager(mg.directory).restore(rc, rc.init(
+        batches[0]))
+    rcg = rg.collections["emb"]
+    if not (ok_g and ok_c and sg.step == sc.step == TIER_STEPS):
+        fail("tier: the restores did not take the last save")
+    _same_tables(rg, rc, sg, sc, "tier restore")
+    _same_tier(rcg, rc.collections["emb"], "tier restore")
+    # every key of the live trainer, once: a row demoted unchanged since a
+    # save that held it on the device restores there (equal versions: the
+    # device row wins, as in the JAX package)
+    dev_keys, tier_keys = rcg._resolver.export_keys(), _tier_rows(rcg)[0]
+    live = np.union1d(cg._resolver.export_keys(), _tier_rows(cg)[0])
+    if np.intersect1d(dev_keys, tier_keys).size or not np.array_equal(
+            np.union1d(dev_keys, tier_keys), live):
+        fail("tier: the restored keys are not the live trainer's, once each")
+    del rg, rc, sg, sc
+
+    # examples/s of the pipelined loop (no lockstep), each run followed by
+    # a demotion fence on the drained pipeline
+    def fast(args):
+        box["g"] = tg._train_step(box["g"], *args)
+    rates, demote_ms = [], []
+    for k in range(2):
+        chunk = batches[TIER_STEPS + 10 * k:TIER_STEPS + 10 * (k + 1)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pipe.run(chunk, fast)
+        torch.cuda.synchronize()
+        rates.append(10 * B / (time.perf_counter() - t0))
+        t0 = time.perf_counter()
+        box["g"] = tg.maybe_demote(box["g"])
+        torch.cuda.synchronize()
+        demote_ms.append((time.perf_counter() - t0) * 1e3)
+    pipe.close()
+    summ = metrics.summarize(box["g"].metrics)
+    if not (summ["examples"] == box["g"].step * B
+            and np.isfinite(summ["loss"])):
+        fail(f"tier metrics are off: {summ}")
+    log(f"tier (metadata layout, tiered) examples/s at B={B}, pipelined "
+        f"(depth 3): {', '.join(f'{r:.1f}' for r in rates)} over 2 runs of "
+        f"10 steps, then demotion fences of "
+        f"{', '.join(f'{t:.1f}' for t in demote_ms)} ms, on {smi}")
+    del tc, box["c"]
+
+    # HBM_DRAM_SSD: a small DRAM budget spills to the file store
+    ssd_path = os.path.join(tmp, "ssd", "tier.arena")
+    ts = tier_trainer(dev, "HBM_DRAM_SSD", ssd_path, SSD_DRAM_ROWS)
+    st = ts.init(batches[0])
+    for i, b in enumerate(batches[:8]):
+        st = ts.train_step(st, b)
+        if i % 4 == 3:
+            st = ts.maybe_demote(st)
+    stack = ts.collections["emb"].tier_store
+    keys, _ = _tier_rows(ts.collections["emb"])
+    path = CheckpointManager(os.path.join(tmp, "ssd_ckpt")).save(ts, st)
+    saved = np.sort(F.read_table(path, "__tier__emb")["keys"])
+    if not (stack is not None and len(stack.ssd) > 0 and stack.ssd.path ==
+            ssd_path and os.path.exists(ssd_path)
+            and np.array_equal(saved, keys)):
+        fail("tier: the SSD run did not spill or its save lost tier rows")
+    log(f"HBM_DRAM_SSD (dram_row_budget {SSD_DRAM_ROWS}): {len(stack.dram)} "
+        f"tier rows in DRAM, {len(stack.ssd)} spilled to {ssd_path}; the "
+        f"save carries all {saved.shape[0]}")
+    return launches, {"fences": fences, "promoted": box["promoted"],
+                      "max_dloss": box["dloss"], "lockstep_wall_s": wall,
+                      "serve_dp": before, "serve_dp_refreshed": after,
+                      "pipelined_eps": rates, "demote_ms": demote_ms,
+                      "ssd": {"dram": len(stack.dram),
+                              "ssd": len(stack.ssd)},
+                      "summary": summ}
+
+
 def run(dev, smi, probe):
     """Phases 2-7 on ``dev`` (``probe``: the built design probes); returns
     the kernels' JSON entries and the training numbers."""
@@ -1133,9 +1574,16 @@ def run(dev, smi, probe):
     paths["serving"] = launches
     with tempfile.TemporaryDirectory(dir=str(_build.BUILD)) as path:
         paths["loop"], training["loop"] = check_loop(dev, smi, path)
-    for k in kernels:  # launches on the slice's main path: --metadata
-        k["launches"] = paths["train_metadata"].get(k["name"], 0)
-        k["launches_by_path"] = {p: c.get(k["name"], 0)
+    with tempfile.TemporaryDirectory(dir=str(_build.BUILD)) as path:
+        paths["tier"], training["tier"] = check_tier(dev, smi, path)
+    for k in kernels:
+        # launches on the slice's main path, --metadata (the bf16 rows: on
+        # the bf16 table's, where every K2 launch is a bf16 one)
+        name, main = k["name"], "train_metadata"
+        if name.endswith("_bf16"):
+            name, main = name[:-len("_bf16")], "train_bf16"
+        k["launches"] = paths[main].get(name, 0)
+        k["launches_by_path"] = {p: c.get(name, 0)
                                  for p, c in paths.items()}
     return kernels, training
 

@@ -9,9 +9,19 @@ Port of ``deeprec_tpu/checkpoint/saver.py``:
   trainable table of the port). Dense leaves are written in the order of
   the JAX tree ``(params, opt_state, step)``: the flax params, the
   ``optax.adagrad`` accumulators, the step. So a save of the port restores
-  into the JAX ``Trainer`` and a JAX save into the port's. Host-tier
-  tables (``__tier__*``) raise ``NotImplementedError``, as tiering is not
-  ported; the multi-process part writer is not ported either.
+  into the JAX ``Trainer`` and a JAX save into the port's. A tiered
+  table's host tier is saved too, as a ``__tier__<name>`` table of keys
+  and payload rows (every row in a full save, the rows demoted since the
+  last save in an incremental), and restored after the device rows. The
+  multi-process part writer is not ported.
+
+  Two faults of the JAX package are fixed here. The tier's since-save
+  window is cleared only once ``F.write_save`` has returned (a save that
+  fails leaves the next incremental carrying the same rows). And a key
+  whose saved tier row is newer than its saved device row is left out of
+  the restored device stores and the resolver, so it lives in one tier
+  only and its next touch promotes the saved payload (the JAX restore
+  keeps both, and training resumes from the stale device row).
 - ``_scatter_table`` (157-203) and ``needed_capacity`` (219-223), the
   restore path of serving: optimizer slot rows, scalars and CBF
   sketches in the saved table are ignored, since serving never reads
@@ -23,7 +33,6 @@ Port of ``deeprec_tpu/checkpoint/saver.py``:
 """
 from __future__ import annotations
 
-import glob
 import json
 import os
 import shutil
@@ -118,11 +127,58 @@ def _dense_leaves(trainer, state) -> list:
             + [np.asarray(state.step, np.int32)])
 
 
-def _reject_tiers(path: str, name: str) -> None:
-    if glob.glob(os.path.join(path, f"table-__tier__{name}*")):
-        raise NotImplementedError(
-            f"table {name!r} has host-tier rows: tiered checkpoints are not "
-            "ported yet")
+_ROW_ARRAYS = ("keys", "values", "freqs", "versions", "create_steps")
+
+
+def _tier_imports(coll, saves, name, parts):
+    """The tier rows a restore imports, as ``[(keys, rows)]`` in save
+    order (the JAX package's rule): a tier row is imported unless the
+    device parts hold its key at an equal or newer version. Returns them
+    and the keys imported."""
+    vcol = coll.config.embedding_dim + coll.config.fused_slot_columns + 1
+    parts = [p for p in parts if "keys" in p and len(p["keys"])]
+    if parts:
+        dk = np.concatenate([p["keys"] for p in parts])
+        dv = np.concatenate([p["versions"] for p in parts])
+        o = np.argsort(dk, kind="stable")
+        ks, vs = dk[o], dv[o]
+        starts = np.flatnonzero(np.r_[True, ks[1:] != ks[:-1]])
+        kuniq, vmax = ks[starts], np.maximum.reduceat(vs, starts)
+    else:
+        kuniq = np.zeros((0,), np.int64)
+    out = []
+    for m in saves:
+        try:
+            tp = F.read_table(m["path"], f"__tier__{name}")
+        except FileNotFoundError:
+            continue
+        tk = tp["keys"]
+        mask = np.ones((len(tk),), bool)
+        if len(kuniq):
+            tver = tp["rows"][:, vcol].copy().view(np.int32)
+            idx = np.searchsorted(kuniq, tk)
+            safe = np.minimum(idx, len(kuniq) - 1)
+            on_dev = (idx < len(kuniq)) & (kuniq[safe] == tk)
+            dev_ver = np.where(on_dev, vmax[safe], np.int32(-2**31))
+            mask = ~on_dev | (tver > dev_ver)
+        if mask.any():
+            out.append((tk[mask], tp["rows"][mask]))
+    won = (np.unique(np.concatenate([k for k, _ in out])) if out
+           else np.zeros((0,), np.int64))
+    return out, won
+
+
+def _without_keys(part, keys):
+    """A saved table part without the rows of ``keys``."""
+    if "keys" not in part or not len(keys):
+        return part
+    keep = ~np.isin(part["keys"], keys)
+    if keep.all():
+        return part
+    keep_t = torch.from_numpy(keep)  # bfloat16 rows are read as tensors
+    return {k: (v[keep_t if isinstance(v, torch.Tensor) else keep]
+                if k in _ROW_ARRAYS or k.startswith("slot__") else v)
+            for k, v in part.items()}
 
 
 class CheckpointManager:
@@ -178,6 +234,11 @@ class CheckpointManager:
                     f"collection {name!r} has no checkpoint hooks (only the "
                     "host-index table trains in the port)")
             tables[name] = hook(state.tables[name], 1, since, evict, gs)
+        # a tier's rows are training state too: a restart must not lose them
+        export_tiers = getattr(trainer, "export_tiers", None)
+        if export_tiers is not None:
+            for name, (keys, rows) in export_tiers(state, since=since).items():
+                tables[f"__tier__{name}"] = {"keys": keys, "rows": rows}
         return tables, _dense_leaves(trainer, state)
 
     def _write(self, kind: str, trainer, state, since, evict) -> str:
@@ -190,6 +251,9 @@ class CheckpointManager:
         if since is not None:
             manifest["since"] = since
         F.write_save(path, manifest, dense, tables)
+        for coll in trainer.collections.values():  # the save is durable
+            if hasattr(coll, "tier_saved"):
+                coll.tier_saved()
         self._write_aux(path)
         self._last_save_step = step
         return path
@@ -249,15 +313,20 @@ class CheckpointManager:
             return state, False
         saves = [base] + incrs
         tables = {}
+        tiers = getattr(trainer, "tiers", {})
         for name, coll in trainer.collections.items():
-            for m in saves:
-                _reject_tiers(m["path"], name)
             hook = getattr(coll, "ckpt_restore", None)
             if hook is None:
                 raise NotImplementedError(
                     f"collection {name!r} has no checkpoint hooks")
             parts = [F.read_table(m["path"], name) for m in saves]
+            imports = []
+            if name in tiers:
+                imports, won = _tier_imports(coll, saves, name, parts)
+                parts = [_without_keys(p, won) for p in parts]
             tables[name] = hook(trainer, state.tables[name], parts, 1)
+            for keys, rows in imports:  # oldest first: the newest row wins
+                trainer.import_tier(name, keys, rows)
 
         # dense: the newest save wins (every save carries all of it)
         leaves = F.read_dense(saves[-1]["path"])

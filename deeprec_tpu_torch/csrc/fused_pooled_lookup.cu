@@ -32,6 +32,14 @@
 //   ids, kFwdLoads row loads in flight, and adds the valid ones in id order
 //   in f32. Its scale comes from the ballot's popcount; sum has no scale
 //   code (a template flag).
+// bf16 rows (a bfloat16 table): the vector unit is 8 bf16 (16 bytes, one
+// uint4 load) where D and the row stride allow it, else one bf16. The
+// w == 1 path copies the row's bits, as any combiner of one row is the row.
+// The multi-hot path widens each row to f32, adds and scales in f32, and
+// rounds once (to nearest even) when it writes the bag: as the plain
+// version (torch's CPU bf16 sum accumulates in f32) and the JAX package's
+// XLA path do. The Pallas kernel accumulates in the table's dtype
+// (pallas_fused_lookup.py:72); this kernel does not copy that.
 // What bounds it at the Criteo shapes is not the index round trips but
 // their order: the rows must arrive (two dependent loads, ~0.9 us) before
 // the 6.8 MB write (~1.7 us) can start, and a launch costs ~2 us more back
@@ -41,6 +49,7 @@
 // that work finishes, and each waits for it before its first access to
 // memory (out may be a block the allocator just reused).
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 #include <stdlib.h>
@@ -70,6 +79,63 @@ template <> __device__ __forceinline__ float4 zero<float4>() {
   return make_float4(0.f, 0.f, 0.f, 0.f);
 }
 
+// bf16 <-> f32: a bf16 is the high half of an f32, so widening is a shift;
+// narrowing rounds to nearest even.
+using bf16x1 = unsigned short;  // one bf16's bits
+__device__ __forceinline__ float bf_lo(unsigned w) {
+  return __uint_as_float(w << 16);
+}
+__device__ __forceinline__ float bf_hi(unsigned w) {
+  return __uint_as_float(w & 0xffff0000u);
+}
+__device__ __forceinline__ unsigned bf_pack(float lo, float hi) {
+  return (unsigned)__bfloat16_as_ushort(__float2bfloat16_rn(lo)) |
+         (unsigned)__bfloat16_as_ushort(__float2bfloat16_rn(hi)) << 16;
+}
+template <> __device__ __forceinline__ bf16x1 zero<bf16x1>() { return 0; }
+template <> __device__ __forceinline__ uint4 zero<uint4>() {
+  return make_uint4(0u, 0u, 0u, 0u);
+}
+
+struct float8 {  // the f32 sums of 8 bf16 lanes
+  float4 a, b;
+};
+template <> __device__ __forceinline__ float8 zero<float8>() {
+  return {zero<float4>(), zero<float4>()};
+}
+__device__ __forceinline__ float8 add_(float8 x, float8 y) {
+  return {add4(x.a, y.a), add4(x.b, y.b)};
+}
+__device__ __forceinline__ float8 div_(float8 x, float d) {
+  return {div4(x.a, d), div4(x.b, d)};
+}
+
+// The accumulator of a vector unit V read from the table: V itself for
+// f32, f32 lanes for bf16 (up widens, down rounds).
+template <typename V> struct Acc {
+  using T = V;
+  static __device__ __forceinline__ T up(V v) { return v; }
+  static __device__ __forceinline__ V down(T a) { return a; }
+};
+template <> struct Acc<bf16x1> {
+  using T = float;
+  static __device__ __forceinline__ T up(bf16x1 v) { return bf_lo(v); }
+  static __device__ __forceinline__ bf16x1 down(T a) {
+    return __bfloat16_as_ushort(__float2bfloat16_rn(a));
+  }
+};
+template <> struct Acc<uint4> {  // 8 bf16
+  using T = float8;
+  static __device__ __forceinline__ T up(uint4 v) {
+    return {make_float4(bf_lo(v.x), bf_hi(v.x), bf_lo(v.y), bf_hi(v.y)),
+            make_float4(bf_lo(v.z), bf_hi(v.z), bf_lo(v.w), bf_hi(v.w))};
+  }
+  static __device__ __forceinline__ uint4 down(T a) {
+    return make_uint4(bf_pack(a.a.x, a.a.y), bf_pack(a.a.z, a.a.w),
+                      bf_pack(a.b.x, a.b.y), bf_pack(a.b.z, a.b.w));
+  }
+};
+
 __device__ __forceinline__ int64_t clamp_row(int64_t s, int64_t n_rows) {
   return s < 0 ? 0 : (s >= n_rows ? n_rows - 1 : s);
 }
@@ -80,8 +146,9 @@ __device__ __forceinline__ int unit_bag(int u, int dv, int dv_shift) {
   return dv_shift >= 0 ? u >> dv_shift : u / dv;
 }
 
-// w == 1. V: float or float4 (the vector unit); ld and dv are in units of
-// V. Every combiner gives valid ? row : 0.
+// w == 1. V: float or float4 (f32 rows), bf16x1 or uint4 (bf16 rows: 1 or
+// 8 lanes), the vector unit; ld and dv are in units of V. Every combiner
+// gives valid ? row : 0, a copy of the row's bits.
 template <typename V, typename I>
 __global__ void __launch_bounds__(kFwdThreads) pooled_lookup_w1_kernel(
     const V* __restrict__ values, int64_t ld, int64_t n_rows, int dv,
@@ -123,7 +190,8 @@ __global__ void __launch_bounds__(kFwdThreads) pooled_lookup_w1_kernel(
   }
 }
 
-// w > 1 (or any w). kComb: 0 sum, 1 mean, 2 sqrtn.
+// w > 1 (or any w). kComb: 0 sum, 1 mean, 2 sqrtn. V as above; the sums
+// and the scale are in Acc<V>::T (f32 lanes).
 template <typename V, typename I, int kComb>
 __global__ void __launch_bounds__(kFwdThreads) pooled_lookup_kernel(
     const V* __restrict__ values, int64_t ld, int64_t n_rows, int dv,
@@ -163,7 +231,7 @@ __global__ void __launch_bounds__(kFwdThreads) pooled_lookup_kernel(
     const bool live = u < units;
     const int q = live ? unit_bag(u, dv, dv_shift) : 0;
     const int c = u - q * dv;
-    V acc = zero<V>();
+    typename Acc<V>::T acc = zero<typename Acc<V>::T>();
     int n = 0;
     for (int64_t k0 = 0; k0 < w; k0 += 32) {  // one pass unless w > 32
       if (w > 32) load_ids(k0);
@@ -182,14 +250,15 @@ __global__ void __launch_bounds__(kFwdThreads) pooled_lookup_kernel(
         }
 #pragma unroll
         for (int j = 0; j < kFwdLoads; ++j)  // in id order, as the plain sum
-          if (k + j < kn && (bag_oks >> (k + j) & 1u)) acc = add_(acc, x[j]);
+          if (k + j < kn && (bag_oks >> (k + j) & 1u))
+            acc = add_(acc, Acc<V>::up(x[j]));
       }
     }
     if (kComb != 0) {
       const float m = (float)(n > 1 ? n : 1);
       acc = div_(acc, kComb == 1 ? m : sqrtf(m));
     }
-    if (live) tile_out[u] = acc;
+    if (live) tile_out[u] = Acc<V>::down(acc);
   }
 }
 
@@ -308,14 +377,43 @@ __device__ __forceinline__ void add_leaders(unsigned leaders, int lane,
   }
 }
 
-// x[j] = g[c0 + j] for the vectors of the chunk below dv; 0 past it or
-// when !load.
-template <typename V>
-__device__ __forceinline__ void load_chunk(V (&x)[kChunk], const V* g,
+// The f32 lanes of one gradient vector: an f32 vector as it is, or the
+// same number of bf16 lanes (uint2: 4, unsigned: 2, bf16x1: 1) widened.
+__device__ __forceinline__ float4 widen(float4 v) { return v; }
+__device__ __forceinline__ float2 widen(float2 v) { return v; }
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ float4 widen(uint2 v) {
+  return make_float4(bf_lo(v.x), bf_hi(v.x), bf_lo(v.y), bf_hi(v.y));
+}
+__device__ __forceinline__ float2 widen(unsigned v) {
+  return make_float2(bf_lo(v), bf_hi(v));
+}
+__device__ __forceinline__ float widen(bf16x1 v) { return bf_lo(v); }
+
+// x[j] = g[c0 + j] (widened to f32) for the vectors of the chunk below dv;
+// 0 past it or when !load.
+template <typename V, typename G>
+__device__ __forceinline__ void load_chunk(V (&x)[kChunk], const G* g,
                                            int64_t c0, int64_t dv, bool load) {
 #pragma unroll
   for (int j = 0; j < kChunk; ++j)
-    x[j] = load && c0 + j < dv ? __ldg(g + c0 + j) : zero<V>();
+    x[j] = load && c0 + j < dv ? widen(__ldg(g + c0 + j)) : zero<V>();
+}
+
+// bf16 d_values: out[i] = round(sums[i]) once every add has landed. Each
+// thread narrows 4 values (one float4 load, one 8-byte store).
+__global__ void narrow_bf16_kernel(const float* __restrict__ sums,
+                                   unsigned* __restrict__ out, int64_t n) {
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const int64_t n4 = n / 4;
+  if (i < n4) {
+    const float4 v = reinterpret_cast<const float4*>(sums)[i];
+    reinterpret_cast<uint2*>(out)[i] =
+        make_uint2(bf_pack(v.x, v.y), bf_pack(v.z, v.w));
+  }
+  if (i < n - 4 * n4)
+    reinterpret_cast<bf16x1*>(out)[4 * n4 + i] =
+        __bfloat16_as_ushort(__float2bfloat16_rn(sums[4 * n4 + i]));
 }
 
 // Zero-fills out[0, n) and lets the dependent backward launch at once.
@@ -339,11 +437,13 @@ __device__ __forceinline__ void scale_and_reduce(V (&x)[kChunk], bool ok,
   reduce_peers(peers, lane, x);
 }
 
-// V: float4, float2 or float (the vector unit); dv is d in units of V.
+// V: float4, float2 or float (the vector unit of the f32 sums); dv is d
+// in units of V. G: the gradient's vector of as many lanes, V itself (f32)
+// or bf16 bits (uint2, unsigned, bf16x1), widened as it is loaded.
 // kScaled: mean or sqrtn (combiner 1 or 2); sum has no scale code at all.
-template <typename V, typename I, bool kScaled>
+template <typename V, typename G, typename I, bool kScaled>
 __global__ void __launch_bounds__(kBwdThreads) fused_pooled_lookup_bwd_kernel(
-    const V* __restrict__ d_pooled, int64_t dv,
+    const G* __restrict__ d_pooled, int64_t dv,
     const I* __restrict__ slots, int64_t s_b, int64_t s_k,
     const bool* __restrict__ valid, int64_t v_b, int64_t v_k, int64_t n_bags,
     int64_t w, int combiner, V* __restrict__ d_values, int64_t n_rows,
@@ -367,7 +467,7 @@ __global__ void __launch_bounds__(kBwdThreads) fused_pooled_lookup_bwd_kernel(
   // together, whatever the flag says: one round trip to memory, not three
   // dependent ones.
   const bool in = t < n_ids;
-  const V* g = d_pooled + b * dv;
+  const G* g = d_pooled + b * dv;
   bool ok = false;
   int64_t row = 0;
   V x[kChunk];
@@ -446,7 +546,7 @@ cudaError_t launch(const void* values, int64_t ld, int64_t n_rows, int64_t d,
 
 // Launches the backward as the programmatic dependent of the zero-fill
 // just queued on `stream`.
-template <typename V, typename I>
+template <typename V, typename G, typename I>
 cudaError_t launch_bwd(const void* d_pooled, int64_t dv, const void* slots,
                        int64_t s_b, int64_t s_k, const void* valid,
                        int64_t v_b, int64_t v_k, int64_t n_bags, int64_t w,
@@ -454,48 +554,91 @@ cudaError_t launch_bwd(const void* d_pooled, int64_t dv, const void* slots,
                        cudaStream_t stream) {
   const int lane_major = w > 1 && llabs(s_k) > llabs(s_b);
   const auto kernel = combiner != 0
-                          ? fused_pooled_lookup_bwd_kernel<V, I, true>
-                          : fused_pooled_lookup_bwd_kernel<V, I, false>;
+                          ? fused_pooled_lookup_bwd_kernel<V, G, I, true>
+                          : fused_pooled_lookup_bwd_kernel<V, G, I, false>;
   return launch_dependent(kernel, (n_bags * w + kBwdThreads - 1) / kBwdThreads,
-                          kBwdThreads, stream, (const V*)d_pooled, dv,
+                          kBwdThreads, stream, (const G*)d_pooled, dv,
                           (const I*)slots, s_b, s_k, (const bool*)valid, v_b,
                           v_k, n_bags, w, combiner, (V*)d_values, n_rows,
                           lane_major);
 }
 
-template <typename V>
+template <typename V, typename G>
 cudaError_t launch_bwd(const void* d_pooled, int64_t dv, const void* slots,
                        int slots_are_64, int64_t s_b, int64_t s_k,
                        const void* valid, int64_t v_b, int64_t v_k,
                        int64_t n_bags, int64_t w, int combiner, void* d_values,
                        int64_t n_rows, cudaStream_t stream) {
   if (slots_are_64)
-    return launch_bwd<V, int64_t>(d_pooled, dv, slots, s_b, s_k, valid, v_b,
-                                  v_k, n_bags, w, combiner, d_values, n_rows,
-                                  stream);
-  return launch_bwd<V, int32_t>(d_pooled, dv, slots, s_b, s_k, valid, v_b,
-                                v_k, n_bags, w, combiner, d_values, n_rows,
-                                stream);
+    return launch_bwd<V, G, int64_t>(d_pooled, dv, slots, s_b, s_k, valid,
+                                     v_b, v_k, n_bags, w, combiner, d_values,
+                                     n_rows, stream);
+  return launch_bwd<V, G, int32_t>(d_pooled, dv, slots, s_b, s_k, valid, v_b,
+                                   v_k, n_bags, w, combiner, d_values, n_rows,
+                                   stream);
+}
+
+// The backward at vector width vec (4, 2 or 1 lanes) for gradients of
+// f32 (bf16 == 0) or bf16 lanes.
+cudaError_t launch_bwd_vec(const void* d_pooled, int64_t d, const void* slots,
+                           int slots_are_64, int64_t s_b, int64_t s_k,
+                           const void* valid, int64_t v_b, int64_t v_k,
+                           int64_t n_bags, int64_t w, int combiner,
+                           void* d_values, int64_t n_rows, int vec, int bf16,
+                           cudaStream_t st) {
+  if (vec == 4)
+    return bf16 ? launch_bwd<float4, uint2>(d_pooled, d / 4, slots,
+                                            slots_are_64, s_b, s_k, valid, v_b,
+                                            v_k, n_bags, w, combiner, d_values,
+                                            n_rows, st)
+                : launch_bwd<float4, float4>(d_pooled, d / 4, slots,
+                                             slots_are_64, s_b, s_k, valid,
+                                             v_b, v_k, n_bags, w, combiner,
+                                             d_values, n_rows, st);
+  if (vec == 2)
+    return bf16 ? launch_bwd<float2, unsigned>(d_pooled, d / 2, slots,
+                                               slots_are_64, s_b, s_k, valid,
+                                               v_b, v_k, n_bags, w, combiner,
+                                               d_values, n_rows, st)
+                : launch_bwd<float2, float2>(d_pooled, d / 2, slots,
+                                             slots_are_64, s_b, s_k, valid,
+                                             v_b, v_k, n_bags, w, combiner,
+                                             d_values, n_rows, st);
+  return bf16 ? launch_bwd<float, bf16x1>(d_pooled, d, slots, slots_are_64,
+                                          s_b, s_k, valid, v_b, v_k, n_bags,
+                                          w, combiner, d_values, n_rows, st)
+              : launch_bwd<float, float>(d_pooled, d, slots, slots_are_64, s_b,
+                                         s_k, valid, v_b, v_k, n_bags, w,
+                                         combiner, d_values, n_rows, st);
 }
 
 }  // namespace
 
-// f32 values [n_rows, d] with row stride ld (elements); slots [n_bags, w]
-// int32/int64 and valid [n_bags, w] bool with element strides (s_b, s_k)
-// and (v_b, v_k); out [n_bags, d] contiguous f32. combiner: 0 sum, 1 mean,
-// 2 sqrtn. vec4: 1 when d, ld and both base addresses allow float4 loads
-// (the wrapper checks). Returns the launch's cudaError_t; 0 is success.
+// values [n_rows, d] of f32 (bf16 == 0) or bf16 (bf16 == 1) with row
+// stride ld (elements); slots [n_bags, w] int32/int64 and valid [n_bags, w]
+// bool with element strides (s_b, s_k) and (v_b, v_k); out [n_bags, d]
+// contiguous, of the values' type. combiner: 0 sum, 1 mean, 2 sqrtn. vec:
+// 1 when d, ld and both base addresses allow 16-byte loads (float4, or 8
+// bf16; the wrapper checks). Returns the launch's cudaError_t; 0 is
+// success.
 extern "C" int deeprec_fused_pooled_lookup(
     const void* values, int64_t ld, int64_t n_rows, int64_t d,
     const void* slots, int slots_are_64, int64_t s_b, int64_t s_k,
     const void* valid, int64_t v_b, int64_t v_k, int64_t n_bags, int64_t w,
-    int combiner, void* out, int vec4, void* stream) {
+    int combiner, void* out, int vec, int bf16, void* stream) {
   if (n_bags == 0 || d == 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
   if (w == 0)  // no ids: every bag pools nothing
-    return (int)cudaMemsetAsync(out, 0, (size_t)(n_bags * d) * sizeof(float),
-                                st);
-  if (vec4)
+    return (int)cudaMemsetAsync(
+        out, 0, (size_t)(n_bags * d) * (bf16 ? 2 : sizeof(float)), st);
+  if (bf16 && vec)
+    return launch<uint4>(values, ld / 8, n_rows, d / 8, slots, slots_are_64,
+                         s_b, s_k, valid, v_b, v_k, n_bags, w, combiner, out,
+                         st);
+  if (bf16)
+    return launch<bf16x1>(values, ld, n_rows, d, slots, slots_are_64, s_b,
+                          s_k, valid, v_b, v_k, n_bags, w, combiner, out, st);
+  if (vec)
     return launch<float4>(values, ld / 4, n_rows, d / 4, slots, slots_are_64,
                           s_b, s_k, valid, v_b, v_k, n_bags, w, combiner, out,
                           st);
@@ -503,37 +646,33 @@ extern "C" int deeprec_fused_pooled_lookup(
                        valid, v_b, v_k, n_bags, w, combiner, out, st);
 }
 
-// d_pooled [n_bags, d] contiguous f32; slots/valid as for the forward;
-// d_values [n_rows, d] contiguous f32, 16-byte aligned (the wrapper
-// allocates it), receives the sums (zero-filled here first, on the
-// stream). vec: 4, 2 or 1, the widest vector that d and d_pooled's base
-// address allow (the wrapper checks). Returns the first cudaError_t; 0 is
-// success.
+// d_pooled [n_bags, d] contiguous, f32 (bf16_out NULL) or bf16; slots/valid
+// as for the forward; d_values [n_rows, d] contiguous f32, 16-byte aligned
+// (the wrapper allocates it), receives the sums (zero-filled here first,
+// on the stream). bf16_out: NULL, or [n_rows, d] bf16 (8-byte aligned),
+// which receives the sums rounded once after every add (bf16 atomics
+// would round at each add). vec: 4, 2 or 1, the widest vector of lanes
+// that d and d_pooled's base address allow (the wrapper checks). Returns
+// the first cudaError_t; 0 is success.
 extern "C" int deeprec_fused_pooled_lookup_bwd(
     const void* d_pooled, int64_t d, const void* slots, int slots_are_64,
     int64_t s_b, int64_t s_k, const void* valid, int64_t v_b, int64_t v_k,
     int64_t n_bags, int64_t w, int combiner, void* d_values, int64_t n_rows,
-    int vec, void* stream) {
+    int vec, void* bf16_out, void* stream) {
   const int64_t n = n_rows * d;
   if (n == 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
   const int64_t zero_blocks = (n / 4 + kBwdThreads - 1) / kBwdThreads;
-  zero_fill_kernel<<<(unsigned)(zero_blocks > 0 ? zero_blocks : 1),
-                     kBwdThreads, 0, st>>>((float*)d_values, n);
-  if (n_bags == 0 || w == 0) return (int)cudaGetLastError();
-  cudaError_t err;
-  if (vec == 4)
-    err = launch_bwd<float4>(d_pooled, d / 4, slots, slots_are_64, s_b, s_k,
-                             valid, v_b, v_k, n_bags, w, combiner, d_values,
-                             n_rows, st);
-  else if (vec == 2)
-    err = launch_bwd<float2>(d_pooled, d / 2, slots, slots_are_64, s_b, s_k,
-                             valid, v_b, v_k, n_bags, w, combiner, d_values,
-                             n_rows, st);
-  else
-    err = launch_bwd<float>(d_pooled, d, slots, slots_are_64, s_b, s_k, valid,
-                            v_b, v_k, n_bags, w, combiner, d_values, n_rows,
-                            st);
-  const cudaError_t last = cudaGetLastError();  // the fill's, or this one's
+  const unsigned fill_blocks = (unsigned)(zero_blocks > 0 ? zero_blocks : 1);
+  zero_fill_kernel<<<fill_blocks, kBwdThreads, 0, st>>>((float*)d_values, n);
+  cudaError_t err = cudaSuccess;
+  if (n_bags > 0 && w > 0)
+    err = launch_bwd_vec(d_pooled, d, slots, slots_are_64, s_b, s_k, valid,
+                         v_b, v_k, n_bags, w, combiner, d_values, n_rows, vec,
+                         bf16_out != nullptr, st);
+  if (bf16_out != nullptr && err == cudaSuccess)  // an ordinary launch: after
+    narrow_bf16_kernel<<<fill_blocks, kBwdThreads, 0, st>>>(
+        (const float*)d_values, (unsigned*)bf16_out, n);
+  const cudaError_t last = cudaGetLastError();  // the first failed launch
   return (int)(last != cudaSuccess ? last : err);
 }

@@ -25,12 +25,41 @@ padded to twice the rows and the null row moves from ``cap`` to
 ``ckpt_restore`` of ``checkpoint.saver.CheckpointManager``, in the JAX
 package's 4-array format. ``device_view`` is what a ``Predictor`` serves.
 
-Not ported yet: tiered storage (``apply_promo``, demotion, the tier
-export).
+Tiered storage (``StorageOption(HBM_DRAM)`` or ``HBM_DRAM_SSD``): a host
+tier (``utils.native.HostKV``, or a ``TierStack`` whose DRAM part spills
+to a file-backed store, under the temp dir unless ``ssd_path`` is set)
+holds the rows demoted from the device, each as one
+``sparse.tier_payload`` row (values, bit-cast metadata, optimizer slot
+rows). Demotion (``demote_cold``) runs at fences: the policy-cold and
+budget-excess rows are read with kernel K1 at full row width, copied to
+the host once, packed and upserted into the tier, and the resolver and
+every store are compacted with one permutation. Promotion rides the
+resolve wire: the resolve probes the tier for the batch's created lanes
+(``_tier_promo``), takes the hits out of it and ships their payloads as
+the wire's ``promo`` planes; ``apply_promo`` writes them into the stores
+before the batch's metadata writes. A read-only resolve patches its rows
+from the tier and changes nothing. CBF admission with tiers is rejected,
+as in the JAX package.
+
+Threads: ``_tier_promo`` runs on ``HostStepPipeline``'s resolve thread
+and takes rows out of the tier; demotion, checkpoint export and import,
+and eval resolves run on the caller's thread. The C++ store is not
+documented as thread-safe, so one lock per collection (``_tier_lock``)
+guards the tier store and the since-save key set on every path.
+
+Two faults of the JAX package are fixed here (the tests hold the intended
+behaviour): ``export_tier(since=...)`` leaves the since-save window alone
+(the saver clears it through ``tier_saved`` once the save is on disk), and
+a tiered restore leaves a key whose tier row wins out of the device stores
+and the resolver (``checkpoint.saver``), so it lives in one tier only.
 """
 from __future__ import annotations
 
 import dataclasses
+import itertools
+import os
+import tempfile
+import threading
 from typing import Dict, NamedTuple, Optional
 
 import numpy as np
@@ -38,7 +67,7 @@ import torch
 
 from .checkpoint import format as F
 from .checkpoint.saver import _cbf_for_shard, last_wins_sel, needed_capacity
-from .config import StorageType
+from .config import L2WeightEvict, StorageType
 from .feature_column import CollectionAux, EmbeddingCollection
 from .ops.gather import gather_rows
 from .ops.meta_scatter import lookup_meta
@@ -46,8 +75,12 @@ from .ops.unique import UniqueResult
 from .optim.sparse import _scatter_set, permute_slot_state
 from .sparse import embedding_var as ev
 from .sparse import keys as K
-from .utils.native import HostIndexResolver, resolve_wire_into, wire_layout
-from .utils.tree import map_leaves
+from .sparse import tier_payload as TP
+from .utils.native import (HostIndexResolver, HostKV, TierStack,
+                           resolve_wire_into, wire_layout)
+from .utils.tree import leaves_with_paths, map_leaves
+
+_arena_ids = itertools.count()  # one SSD arena file per default-path tier
 
 
 class HostEVState(NamedTuple):
@@ -91,21 +124,36 @@ class ResolvedWire:
 
     One host-to-device copy per step; :meth:`decode` slices the buffer
     with dtype views at those byte offsets, on the buffer's device.
+
+    A tiered table's wire may carry ``promo``: ``(lanes int32 [m],
+    payload float32 [m, width])``, the tier rows of the keys this resolve
+    found in the host tier, one per lane (no padding). They travel with
+    the buffer (``to`` copies them, a pinned resolve pins them), and
+    :meth:`decode` clears ``created`` on those lanes, so no init path
+    overwrites a promoted row.
     """
 
-    __slots__ = ("buf", "u", "n", "with_counts", "inv16")
+    __slots__ = ("buf", "u", "n", "with_counts", "inv16", "promo")
 
     def __init__(self, buf: torch.Tensor, u: int, n: int, with_counts: bool,
-                 inv16: bool):
+                 inv16: bool, promo=None):
         self.buf = buf  # uint8 [wire_layout(...)[0]]
         self.u = int(u)
         self.n = int(n)
         self.with_counts = bool(with_counts)
         self.inv16 = bool(inv16)
+        self.promo = promo  # None | (lanes, payload)
+
+    def tensors(self):
+        """The buffer and the promo planes."""
+        return [self.buf] + list(self.promo or ())
 
     def to(self, device, non_blocking: bool = False) -> "ResolvedWire":
+        promo = None if self.promo is None else tuple(
+            t.to(device, non_blocking=non_blocking) for t in self.promo)
         return ResolvedWire(self.buf.to(device, non_blocking=non_blocking),
-                            self.u, self.n, self.with_counts, self.inv16)
+                            self.u, self.n, self.with_counts, self.inv16,
+                            promo)
 
     def decode(self) -> ResolvedIds:
         U, n, buf = self.u, self.n, self.buf
@@ -130,11 +178,15 @@ class ResolvedWire:
         else:
             inverse = i32(off["inverse"], n)
         tail = i32(off["tail"], 4)
+        created = ((sf >> 30) & 1) == 1
+        if self.promo is not None:
+            # a promoted row is restored training state, not a fresh key
+            created[self.promo[0].long()] = False
         return ResolvedIds(
             ukeys=ukeys,
             uslots=sf & ((1 << 30) - 1),
             inverse=inverse,
-            created=((sf >> 30) & 1) == 1,
+            created=created,
             counts=counts,
             n_unique=tail[0],
             n_overflow=tail[1],
@@ -154,10 +206,16 @@ class HostIndexEmbeddingCollection(EmbeddingCollection):
                  n_groups: int = 16, use_native: Optional[bool] = None,
                  **kwargs):
         super().__init__(columns, name=name, capacity=capacity, **kwargs)
-        if self.config.storage.storage_type is not StorageType.HBM:
+        self.tier_store = None          # the host tier, made at first use
+        self._tier_since_save = set()   # keys demoted since the last save
+        self._tier_lock = threading.Lock()
+        self._tiered = self.config.storage.storage_type is not StorageType.HBM
+        if self._tiered and self.config.cbf_filter is not None:
+            # the resolver's bloom gate would deny a slot to a returning
+            # demoted key until its estimate re-crosses filter_freq
             raise NotImplementedError(
-                "host-index tiered storage is not ported to "
-                "deeprec_tpu_torch yet")
+                "host-index tiered storage with CBF admission: use "
+                "CounterFilter, or the device-index EmbeddingCollection")
         self._resolver = HostIndexResolver(n_groups=n_groups,
                                            use_native=use_native)
         self._resolver.reserve(min(capacity, 1 << 22))
@@ -176,9 +234,12 @@ class HostIndexEmbeddingCollection(EmbeddingCollection):
 
     # -- state ---------------------------------------------------------
     def init(self, device="cuda") -> HostEVState:
-        """Fresh row stores on ``device``; resets the host index (both
-        halves of the table restart together)."""
+        """Fresh row stores on ``device``; resets the host index and the
+        host tier (the halves of the table restart together)."""
         self._resolver.reset()
+        with self._tier_lock:
+            self.tier_store = None
+            self._tier_since_save = set()
         cfg = self.config
         cap = cfg.capacity
         width = cfg.embedding_dim + cfg.fused_slot_columns
@@ -216,8 +277,40 @@ class HostIndexEmbeddingCollection(EmbeddingCollection):
         if not readonly:
             self._sat_steps += int(nov > 0)
             self._max_nu = max(self._max_nu, int(nu) + int(nov))
-        wire = ResolvedWire(buf, u_out, n, with_counts, inv16)
+        promo = (self._tier_promo(buf.numpy(), u_out, readonly, pin)
+                 if self._tiered else None)
+        wire = ResolvedWire(buf, u_out, n, with_counts, inv16, promo)
         return wire if device is None else wire.to(device)
+
+    def _tier_promo(self, buf: np.ndarray, u_out: int, readonly: bool,
+                    pin: bool = False):
+        """The host half of promotion, at resolve time: the created (train)
+        or missing (read-only) lanes probe the tier; the hits become the
+        wire's promo planes ``(lanes, payload)`` and, on a train resolve,
+        leave the tier (their payload is now on its way to the device)."""
+        with self._tier_lock:
+            if self.tier_store is None or len(self.tier_store) == 0:
+                return None
+            p32 = buf[:12 * u_out].view(np.int32)
+            sf = p32[:u_out]
+            lanes = np.nonzero((sf >> 30) & 1)[0].astype(np.int32)
+            if not lanes.size:
+                return None
+            hi = p32[u_out:2 * u_out][lanes].astype(np.int64)
+            lo = p32[2 * u_out:3 * u_out][lanes].astype(np.uint32)
+            keys = (hi << 32) | lo.astype(np.int64)
+            rows, found = self.tier_store.lookup(keys)
+            if not found.any():
+                return None
+            lanes = lanes[found]
+            rows = rows[found]
+            if not readonly:
+                hit_keys = keys[found]
+                self.tier_store.erase(hit_keys)
+                self._tier_since_save.difference_update(
+                    int(k) for k in hit_keys)
+        promo = (torch.from_numpy(lanes), torch.from_numpy(rows))
+        return tuple(t.pin_memory() for t in promo) if pin else promo
 
     def pack_ids(self, batch, device="cuda") -> ResolvedWire:
         """Train resolve (find-or-insert; mutates the index: call once per
@@ -237,6 +330,38 @@ class HostIndexEmbeddingCollection(EmbeddingCollection):
         return self._resolve(batch, readonly=True, device=device)
 
     # -- device step ------------------------------------------------------
+    def apply_promo(self, state: HostEVState, slot_state, wire):
+        """Write the wire's promoted tier rows into the stores, in place:
+        values, the bit-cast freq, version and create step, and the
+        optimizer slot rows, at the promo lanes' slots (``index_copy_``
+        through ``optim.sparse._scatter_set``; an XLA scatter in the JAX
+        package). A no-op when the wire carries no promo planes. Runs
+        before :meth:`lookup_or_create`, so the batch's metadata writes
+        land on the restored row. Returns ``(state, slot_state)``."""
+        if not isinstance(wire, ResolvedWire) or wire.promo is None:
+            return state, slot_state
+        dev = state.values.device
+        lanes, payload = (t.to(dev) for t in wire.promo)
+        cap = state.capacity
+        sf = wire.buf.to(dev)[:4 * wire.u].view(torch.int32)
+        slots = (sf & ((1 << 30) - 1))[lanes.long()]
+        dest = torch.where(slots != cap, slots, cap + 1)  # cap + 1: dropped
+        spec = TP.spec(state.values.shape[1], slot_state, cap + 1)
+        dim = spec.dim
+        _scatter_set(state.values, dest, payload[:, :dim])
+        for i, plane in enumerate((state.freqs, state.versions,
+                                   state.create_steps)):
+            _scatter_set(plane, dest,
+                         TP._from_f32_bits(payload[:, dim + i], torch.int32))
+        leaves = [leaf for _, leaf in leaves_with_paths(slot_state)]
+        o = dim + 3
+        for s in spec.slot_rows:
+            part = TP._from_f32_bits(payload[:, o:o + s.width], s.dtype)
+            _scatter_set(leaves[s.index], dest,
+                         part.reshape((-1,) + s.shape))
+            o += s.width
+        return state, slot_state
+
     @staticmethod
     def _decoded(batch, device) -> ResolvedIds:
         if isinstance(batch, ResolvedWire):
@@ -300,7 +425,13 @@ class HostIndexEmbeddingCollection(EmbeddingCollection):
         rows = gather_rows(state.values, r.uslots, cfg.embedding_dim)
         defaults = ev.init_rows(cfg, r.ukeys).to(rows.dtype)
         valid = ~K.is_empty(r.ukeys)
-        return aux, torch.where((found | ~valid)[:, None], rows, defaults)
+        rows = torch.where((found | ~valid)[:, None], rows, defaults)
+        if isinstance(cats, ResolvedWire) and cats.promo is not None:
+            # keys in the host tier read their saved rows; decode already
+            # marked their lanes found, and nothing is mutated
+            lanes, payload = (t.to(dev) for t in cats.promo)
+            rows[lanes.long()] = payload[:, :cfg.embedding_dim].to(rows.dtype)
+        return aux, rows
 
     # -- growth and health (fence work) -----------------------------------
     def load_factor(self) -> float:
@@ -333,6 +464,131 @@ class HostIndexEmbeddingCollection(EmbeddingCollection):
         self._last_cap_ovf = self._resolver.stats()[1]
         return new_state, slot_state
 
+    # -- tiered storage (fence work, except promotion) ----------------------
+    def _make_tier(self, width: int):
+        st = self.config.storage
+        if st.storage_type is StorageType.HBM_DRAM_SSD:
+            path = st.ssd_path or os.path.join(
+                tempfile.gettempdir(),
+                f"deeprec_hidx_ssd_{self.config.name}_{os.getpid()}_"
+                f"{next(_arena_ids)}.arena")
+            # the payload's version column: values block, freq, version
+            vcol = self.config.embedding_dim \
+                + self.config.fused_slot_columns + 1
+            return TierStack(width, vcol, st.dram_row_budget, path)
+        return HostKV(width, 1 << 16)
+
+    def demote_cold(self, state: HostEVState, slot_state, global_step: int,
+                    opt=None):
+        """Move the policy-cold rows (``ev.cold_mask_np``) and, past
+        ``storage.hbm_capacity``, the least recently touched ones
+        (``ev.budget_cold_np``) to the host tier; compact the resolver and
+        the stores. Call at a fence only, on a drained pipeline: in-flight
+        resolves hold slot numbers this renumbers. The cold rows are read
+        on the device with kernel K1 at full row width and come to the host
+        in one copy. Returns ``(state, slot_state, n_demoted)``."""
+        cfg = self.config
+        budget = cfg.storage.hbm_capacity
+        n = self._resolver.size
+        if (cfg.evict is None and budget <= 0) or n == 0:
+            return state, slot_state, 0
+        versions = state.versions[:n].cpu().numpy()
+        freqs = state.freqs[:n].cpu().numpy()
+        occupied = np.ones((n,), bool)
+        values_np = (state.values[:n].float().cpu().numpy()
+                     if isinstance(cfg.evict, L2WeightEvict)
+                     else np.zeros((n, 1), np.float32))
+        cold = ev.cold_mask_np(cfg, values_np, versions, occupied,
+                               int(global_step))
+        cold = ev.budget_cold_np(cfg, versions, freqs, occupied, cold,
+                                 budget)
+        if not cold.any():
+            return state, slot_state, 0
+        idx = np.nonzero(cold)[0]
+        keys_cold = self._resolver.export_keys()[idx]
+
+        # the cold rows' values, create steps and slot rows, gathered on
+        # the device into one f32 block (integers bit-cast): one copy back
+        cap = cfg.capacity
+        spec = TP.spec(state.values.shape[1], slot_state, cap + 1)
+        didx = torch.from_numpy(idx).to(state.values.device)
+        leaves = [leaf for _, leaf in leaves_with_paths(slot_state)]
+        block = torch.cat(
+            [gather_rows(state.values, didx).float(),
+             TP.to_f32_bits(state.create_steps[didx])[:, None]]
+            + [TP.to_f32_bits(leaves[s.index][didx].reshape(idx.shape[0], -1))
+               for s in spec.slot_rows], 1).cpu().numpy()
+        m, o = idx.shape[0], spec.dim + 1
+        leaves_cold = list(leaves)
+        for s in spec.slot_rows:
+            part = block[:, o:o + s.width]
+            if not s.dtype.is_floating_point:
+                part = part.view(np.int32)
+            leaves_cold[s.index] = part
+            o += s.width
+        payload = TP.pack_np(spec, np.arange(m), block[:, :spec.dim],
+                             freqs[idx], versions[idx],
+                             block[:, spec.dim].view(np.int32), leaves_cold)
+        with self._tier_lock:
+            if self.tier_store is None:
+                self.tier_store = self._make_tier(spec.width)
+            if self.tier_store.dim != spec.width:
+                raise ValueError("the tier payload width changed (another "
+                                 "optimizer's slot rows?)")
+            self.tier_store.upsert(keys_cold, payload)
+            self._tier_since_save.update(int(k) for k in keys_cold)
+
+        # compact: the resolver renumbers the kept slots densely and the
+        # stores follow with one permutation (dropped rows go to cap + 1)
+        old_to_new = self._resolver.compact((~cold).astype(np.uint8))
+        o2n = np.full((cap,), cap + 1, np.int64)
+        o2n[:n] = np.where(old_to_new >= 0, old_to_new, cap + 1)
+        perm = torch.from_numpy(o2n).to(state.values.device)
+        new_state = HostEVState(
+            values=ev.permute_rows(state.values, perm, cap),
+            freqs=ev.permute_rows(state.freqs, perm, cap),
+            versions=ev.permute_rows(state.versions, perm, cap, -1),
+            create_steps=ev.permute_rows(state.create_steps, perm, cap, -1))
+        slot_state = permute_slot_state(slot_state, perm, cap,
+                                        fills=opt.fills if opt else None)
+        return new_state, slot_state, m
+
+    def export_tier(self, since=None):
+        """``(keys, payload rows)`` of the tier for a save's
+        ``__tier__<name>`` table, or None when there are none. With
+        ``since`` (an incremental save) only the rows demoted since the
+        last save. The window is left alone: the saver calls
+        :meth:`tier_saved` once the save is on disk."""
+        with self._tier_lock:
+            if self.tier_store is None or len(self.tier_store) == 0:
+                return None
+            keys, rows = self.tier_store.export()
+            if since is not None:
+                sel = np.isin(keys, np.fromiter(self._tier_since_save,
+                                                np.int64,
+                                                len(self._tier_since_save)))
+                keys, rows = keys[sel], rows[sel]
+        if not len(keys):
+            return None
+        return keys, rows
+
+    def tier_saved(self) -> None:
+        """A save holding the tier is durable: start the next window."""
+        with self._tier_lock:
+            self._tier_since_save.clear()
+
+    def import_tier(self, keys: np.ndarray, rows: np.ndarray) -> None:
+        """Restore demoted rows into the host tier (made at the restored
+        payload width)."""
+        with self._tier_lock:
+            if self.tier_store is None:
+                self.tier_store = self._make_tier(rows.shape[1])
+            self.tier_store.upsert(keys, rows)
+
+    def host_tier_rows(self) -> int:
+        with self._tier_lock:
+            return len(self.tier_store) if self.tier_store is not None else 0
+
     def host_health(self) -> Dict[str, int]:
         """The JAX package's health schema (``Trainer.table_health``)."""
         size, cap_ovf, uniq_ovf = self._resolver.stats()
@@ -353,8 +609,9 @@ class HostIndexEmbeddingCollection(EmbeddingCollection):
         view = EmbeddingCollection.__new__(EmbeddingCollection)
         view.__dict__.update({k: v for k, v in self.__dict__.items()
                               if not k.startswith("_resolver")
+                              and not k.startswith("_tier")
                               and k not in ("_last_cap_ovf", "_sat_steps",
-                                            "_max_nu")})
+                                            "_max_nu", "tier_store")})
         return view
 
     # -- checkpoint hooks (checkpoint.saver.CheckpointManager) --------------
@@ -415,6 +672,9 @@ class HostIndexEmbeddingCollection(EmbeddingCollection):
         capacity when the rows need it (load 0.9)."""
         if num_shards != 1:
             raise NotImplementedError("host-index tables are unsharded")
+        with self._tier_lock:  # the saver imports the tier after this
+            self.tier_store = None
+            self._tier_since_save = set()
         cfg = self.config
         parts = [p for p in parts if "keys" in p]
         all_keys = np.concatenate([p["keys"] for p in parts])

@@ -37,15 +37,15 @@ _SIGNATURES = {
     # unit, stream
     "deeprec_gather_rows": [_P, _I64, _I64, _P, _I, _I64, _I64, _P, _I, _P],
     # values, ld, n_rows, d, slots, slots_are_64, s_b, s_k, valid, v_b,
-    # v_k, n_bags, w, combiner, out, vec4, stream
+    # v_k, n_bags, w, combiner, out, vec, bf16, stream
     "deeprec_fused_pooled_lookup": [_P, _I64, _I64, _I64, _P, _I, _I64,
                                     _I64, _P, _I64, _I64, _I64, _I64, _I, _P,
-                                    _I, _P],
+                                    _I, _I, _P],
     # d_pooled, d, slots, slots_are_64, s_b, s_k, valid, v_b, v_k, n_bags,
-    # w, combiner, d_values, n_rows, vec, stream
+    # w, combiner, d_values, n_rows, vec, bf16_out (NULL for f32), stream
     "deeprec_fused_pooled_lookup_bwd": [_P, _I64, _P, _I, _I64, _I64, _P,
                                         _I64, _I64, _I64, _I64, _I, _P, _I64,
-                                        _I, _P],
+                                        _I, _P, _P],
     # create_steps, dest, versions, freqs, mdest, counts, idx_are_64, gs,
     # n, cap, stream (absent planes are NULL)
     "deeprec_meta_scatter": [_P, _P, _P, _P, _P, _P, _I, _I, _I64, _I64, _P],

@@ -14,7 +14,17 @@ and ``valid`` may be strided views.
 
 The backward, ``fused_pooled_lookup_backward`` (``d_values [R, D]`` from
 ``d_pooled [B, D]``), is the port's own kernel in the same source: the
-Pallas kernel has no VJP. :func:`pooled_lookup` is the differentiable
+Pallas kernel has no VJP.
+
+On the card both directions take float32 and bfloat16 (a
+``value_dtype="bfloat16"`` table) and raise for any other dtype. A bf16
+forward adds the rows in f32, applies the combiner in f32 and rounds the
+pooled row once to bf16, as :func:`fused_pooled_lookup_plain` (torch's
+CPU bf16 sum accumulates in f32) and the JAX package's XLA path do; the
+Pallas kernel's accumulator has the table's dtype, which the port does
+not copy. A bf16 backward widens ``d_pooled`` to f32 as it loads it, adds
+into an f32 buffer and rounds ``d_values`` to bf16 in one pass after the
+adds (autograd wants the dtype of ``values``). :func:`pooled_lookup` is the differentiable
 entry, a ``torch.autograd.Function`` whose forward is K2 and whose
 backward is that kernel; the collections pool through it.
 """
@@ -25,17 +35,20 @@ import torch
 from . import _build
 
 COMBINERS = ("sum", "mean", "sqrtn")
+CARD_DTYPES = (torch.float32, torch.bfloat16)  # what the CUDA kernels take
 
 
 def fused_pooled_lookup_plain(values: torch.Tensor, slots: torch.Tensor,
                               valid: torch.Tensor,
                               combiner: str) -> torch.Tensor:
-    rows = values[slots.clamp(0, values.shape[0] - 1)]          # [B, w, D]
+    """Sums and scales in f32 (bf16 rows are widened) and rounds the result
+    to the values' dtype once."""
+    rows = values[slots.clamp(0, values.shape[0] - 1)].float()  # [B, w, D]
     total = torch.where(valid[..., None], rows, 0).sum(1)
-    if combiner == "sum":
-        return total
-    n = valid.sum(1, keepdim=True).clamp_min(1).to(values.dtype)
-    return total / (n if combiner == "mean" else n.sqrt())
+    if combiner != "sum":
+        n = valid.sum(1, keepdim=True).clamp_min(1).float()
+        total = total / (n if combiner == "mean" else n.sqrt())
+    return total.to(values.dtype)
 
 
 def _check(values, slots, valid, combiner) -> None:
@@ -63,12 +76,16 @@ def fused_pooled_lookup(values: torch.Tensor, slots: torch.Tensor,
     if values.device.type != "cuda":
         raise ValueError(f"fused_pooled_lookup: unsupported device "
                          f"{values.device}")
-    if values.dtype != torch.float32:
-        raise ValueError("the CUDA fused_pooled_lookup takes float32 values")
+    if values.dtype not in CARD_DTYPES:
+        raise ValueError(f"the CUDA fused_pooled_lookup takes float32 or "
+                         f"bfloat16 values, not {values.dtype}")
     n_bags, w = slots.shape
     d, ld = values.shape[1], values.stride(0)
     out = torch.empty((n_bags, d), dtype=values.dtype, device=values.device)
-    vec4 = int(d % 4 == 0 and ld % 4 == 0 and values.data_ptr() % 16 == 0)
+    bf16 = values.dtype == torch.bfloat16
+    lanes = 8 if bf16 else 4  # of a 16-byte vector
+    vec = int(d % lanes == 0 and ld % lanes == 0
+              and values.data_ptr() % 16 == 0)
     with torch.cuda.device(values.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _build.library().deeprec_fused_pooled_lookup(
@@ -76,7 +93,7 @@ def fused_pooled_lookup(values: torch.Tensor, slots: torch.Tensor,
             int(slots.dtype == torch.int64), slots.stride(0),
             slots.stride(1), valid.data_ptr(), valid.stride(0),
             valid.stride(1), n_bags, w, COMBINERS.index(combiner),
-            out.data_ptr(), vec4, stream)
+            out.data_ptr(), vec, int(bf16), stream)
     _build.check(err, "fused_pooled_lookup")
     fused_pooled_lookup.launches += 1
     return out
@@ -86,15 +103,18 @@ def fused_pooled_lookup_backward_plain(d_pooled: torch.Tensor,
                                        slots: torch.Tensor,
                                        valid: torch.Tensor, combiner: str,
                                        n_rows: int) -> torch.Tensor:
-    g = d_pooled
+    """Adds in f32 (a bf16 gradient is widened) and rounds the sums to the
+    gradient's dtype once."""
+    g = d_pooled.float()
     if combiner != "sum":
-        n = valid.sum(1, keepdim=True).clamp_min(1).to(d_pooled.dtype)
+        n = valid.sum(1, keepdim=True).clamp_min(1).float()
         g = g / (n if combiner == "mean" else n.sqrt())
     lanes = torch.where(valid[..., None], g[:, None, :], 0)    # [B, w, D]
-    out = torch.zeros((n_rows, d_pooled.shape[1]), dtype=d_pooled.dtype,
+    out = torch.zeros((n_rows, d_pooled.shape[1]), dtype=torch.float32,
                       device=d_pooled.device)
-    return out.index_add_(0, slots.clamp(0, n_rows - 1).reshape(-1),
-                          lanes.reshape(-1, d_pooled.shape[1]))
+    out.index_add_(0, slots.clamp(0, n_rows - 1).reshape(-1),
+                   lanes.reshape(-1, d_pooled.shape[1]))
+    return out.to(d_pooled.dtype)
 
 
 def fused_pooled_lookup_backward(d_pooled: torch.Tensor,
@@ -104,8 +124,9 @@ def fused_pooled_lookup_backward(d_pooled: torch.Tensor,
     to ``values``, given ``d_pooled [B, D]``. On CUDA a zero-fill kernel
     and the backward kernel run as one dependent pair: the kernel sums the
     ids of a warp that share a row in registers and adds each row's sum
-    with vector atomics, which add in a different order on every run, so
-    results agree to rounding."""
+    with f32 vector atomics, which add in a different order on every run,
+    so results agree to rounding. A bf16 ``d_pooled`` gets bf16
+    ``d_values``, rounded from the f32 sums by a third kernel."""
     d_pooled = d_pooled.contiguous()  # autograd may hand an expanded view
     if n_rows <= 0 or d_pooled.dim() != 2 or \
             d_pooled.shape[0] != slots.shape[0]:
@@ -118,27 +139,33 @@ def fused_pooled_lookup_backward(d_pooled: torch.Tensor,
     if d_pooled.device.type != "cuda":
         raise ValueError(f"fused_pooled_lookup_backward: unsupported device "
                          f"{d_pooled.device}")
-    if d_pooled.dtype != torch.float32:
-        raise ValueError("the CUDA fused_pooled_lookup_backward takes "
-                         "float32 gradients")
+    if d_pooled.dtype not in CARD_DTYPES:
+        raise ValueError(f"the CUDA fused_pooled_lookup_backward takes "
+                         f"float32 or bfloat16 gradients, not "
+                         f"{d_pooled.dtype}")
     n_bags, w = slots.shape
     d = d_pooled.shape[1]
     # the kernel's entry zero-fills it on the stream before adding; the
     # caching allocator's blocks are 16-byte aligned, as the fill needs
     out = torch.empty((n_rows, d), dtype=torch.float32,
                       device=d_pooled.device)
+    narrow = (torch.empty((n_rows, d), dtype=torch.bfloat16,
+                          device=d_pooled.device)
+              if d_pooled.dtype == torch.bfloat16 else None)
+    es = d_pooled.element_size()
     vec = next(v for v in (4, 2, 1) if d % v == 0
-               and d_pooled.data_ptr() % (4 * v) == 0)
+               and d_pooled.data_ptr() % (es * v) == 0)
     with torch.cuda.device(d_pooled.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _build.library().deeprec_fused_pooled_lookup_bwd(
             d_pooled.data_ptr(), d, slots.data_ptr(),
             int(slots.dtype == torch.int64), slots.stride(0), slots.stride(1),
             valid.data_ptr(), valid.stride(0), valid.stride(1), n_bags, w,
-            COMBINERS.index(combiner), out.data_ptr(), n_rows, vec, stream)
+            COMBINERS.index(combiner), out.data_ptr(), n_rows, vec,
+            0 if narrow is None else narrow.data_ptr(), stream)
     _build.check(err, "fused_pooled_lookup_backward")
     fused_pooled_lookup_backward.launches += 1
-    return out
+    return out if narrow is None else narrow
 
 
 class _PooledLookup(torch.autograd.Function):

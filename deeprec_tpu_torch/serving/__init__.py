@@ -1,4 +1,5 @@
-"""Serving: the checkpoint-backed Predictor and its HTTP front end."""
-from .predictor import Predictor
+"""Serving: the checkpoint-backed Predictor, its tiered variant and the
+HTTP front end."""
+from .predictor import Predictor, TieredPredictor
 
-__all__ = ["Predictor"]
+__all__ = ["Predictor", "TieredPredictor"]

@@ -1,16 +1,24 @@
 """Serving: a read-only predictor over a checkpoint directory, with live
 incremental refresh.
 
-Port of ``deeprec_tpu/serving/predictor.py`` ``Predictor``. It restores
-every collection's saved rows into a hash index and row store on
-``device``, carries the flax-trained dense weights into the caller's torch
-module (:func:`~deeprec_tpu_torch.models.ctr.load_flax_params`), and
-answers ``predict(batch)`` with click probabilities. Lookups are
-read-only: unknown keys read their deterministic init row (the EV
-default-value semantics). :meth:`Predictor.refresh` applies newer saves
-(a new full save reloads; incrementals replay in order) without
-rebuilding the model. ``TieredPredictor`` and ``ShardedPredictor`` are not
-ported yet.
+Port of ``deeprec_tpu/serving/predictor.py`` ``Predictor`` and
+``TieredPredictor``. A :class:`Predictor` restores every collection's
+saved rows into a hash index and row store on ``device`` (a tiered save's
+``__tier__`` rows first, its device rows second), carries the
+flax-trained dense weights into the caller's torch module
+(:func:`~deeprec_tpu_torch.models.ctr.load_flax_params`), and answers
+``predict(batch)`` with click probabilities. Lookups are read-only:
+unknown keys read their deterministic init row (the EV default-value
+semantics). :meth:`Predictor.refresh` applies newer saves (a new full save
+reloads; incrementals replay in order) without rebuilding the model.
+
+:class:`TieredPredictor` serves a table larger than the device's row
+budget: the hottest ``device_row_budget`` rows (by freq, then version) go
+to the device table and the rest to a host ``HostKV``. A request's keys
+that the device table lacks are looked up in the host store; their rows
+replace the unique rows (one per unique key) before pooling, so kernel K2
+still pools through ``inverse`` and the ``[n, dim]`` expanded rows are
+never made. ``ShardedPredictor`` is not ported.
 """
 from __future__ import annotations
 
@@ -21,12 +29,13 @@ import numpy as np
 import torch
 
 from ..checkpoint import format as F
-from ..checkpoint.saver import _reject_tiers, _scatter_table, needed_capacity
+from ..checkpoint.saver import _scatter_table, last_wins_sel, needed_capacity
 from ..feature_column import (EmbeddingCollection, NumericColumn, pack_dense,
                               normalize_dense)
 from ..models.ctr import load_flax_params
 from ..sparse import embedding_var as ev
 from ..train.trainer import _readonly_lookup, default_forward
+from ..utils.native import HostKV
 
 
 def _adopt_row_layout(coll, arrays) -> None:
@@ -82,16 +91,41 @@ class Predictor:
             self._apply_save(m)
 
     # -- loading -----------------------------------------------------------
+    @staticmethod
+    def _tier_arrays(coll, manifest, name):
+        """A save's demoted rows in the device table's array format (values
+        and the bit-cast metadata; the optimizer slot rows, which serving
+        never reads, dropped), or None when the save has none."""
+        try:
+            tp = F.read_table(manifest["path"], f"__tier__{name}")
+        except FileNotFoundError:
+            return None
+        dim = coll.config.embedding_dim + coll.config.fused_slot_columns
+        rows = tp["rows"]
+        return {
+            "keys": tp["keys"],
+            "values": rows[:, :dim],
+            "freqs": rows[:, dim].copy().view(np.int32),
+            "versions": rows[:, dim + 1].copy().view(np.int32),
+            "create_steps": rows[:, dim + 2].copy().view(np.int32),
+        }
+
     def _load_base(self, manifest):
         for name, coll in self.collections.items():
-            _reject_tiers(manifest["path"], name)
             arrays = F.read_table(manifest["path"], name)
             _adopt_row_layout(coll, arrays)
-            cap = needed_capacity(arrays["keys"].shape[0] + 8,
-                                  coll.config.capacity)
+            tier = self._tier_arrays(coll, manifest, name)
+            n_rows = arrays["keys"].shape[0] + \
+                (tier["keys"].shape[0] if tier else 0)
+            cap = needed_capacity(n_rows + 8, coll.config.capacity)
             if cap != coll.config.capacity:
                 coll.config = dataclasses.replace(coll.config, capacity=cap)
             st = ev.create(coll.config, self.device)
+            # tier rows first, device rows second: a key in both was
+            # promoted and trained after its demotion, so its device row
+            # is the newer one
+            if tier is not None:
+                st = _scatter_table(st, coll.config, tier)
             self.tables[name] = _scatter_table(st, coll.config, arrays)
         self._load_dense(manifest)
         self._applied_steps.add(manifest["step"])
@@ -105,15 +139,18 @@ class Predictor:
         if manifest["step"] in self._applied_steps:
             return
         for name, coll in self.collections.items():
-            _reject_tiers(manifest["path"], name)
             arrays = F.read_table(manifest["path"], name)
+            tier = self._tier_arrays(coll, manifest, name)
             st = self.tables[name]
             size = int(st.index.size.sum())
-            cap = needed_capacity(size + arrays["keys"].shape[0],
-                                  coll.config.capacity)
+            n_new = arrays["keys"].shape[0] + \
+                (tier["keys"].shape[0] if tier else 0)
+            cap = needed_capacity(size + n_new, coll.config.capacity)
             if cap != coll.config.capacity:
                 st, _ = ev.grow(st, coll.config, cap)
                 coll.config = dataclasses.replace(coll.config, capacity=cap)
+            if tier is not None:  # tier first, device second (_load_base)
+                st = _scatter_table(st, coll.config, tier)
             self.tables[name] = _scatter_table(st, coll.config, arrays)
         self._load_dense(manifest)
         self._applied_steps.add(manifest["step"])
@@ -146,6 +183,10 @@ class Predictor:
                 for name, coll in self.collections.items()}
         return dense, cats
 
+    def _rows(self, name, coll, cats, batch):
+        """``(aux, unique rows)`` of one collection for a request."""
+        return _readonly_lookup(coll, self.tables[name], cats[name])
+
     def predict(self, batch) -> np.ndarray:
         """[B] click probabilities for a raw feature batch
         (column name -> numpy array)."""
@@ -155,9 +196,141 @@ class Predictor:
                 dense = normalize_dense(self.numeric_columns, dense)
             outputs = {}
             for name, coll in self.collections.items():
-                aux, urows = _readonly_lookup(coll, self.tables[name],
-                                              cats[name])
+                aux, urows = self._rows(name, coll, cats, batch)
                 outputs[name] = coll.embeddings_readonly(urows, aux)
             out = self.forward(self.model, dense, outputs, False)
             logits = out[0] if isinstance(out, tuple) else out
             return torch.sigmoid(logits).cpu().numpy()
+
+
+class TieredPredictor(Predictor):
+    """Serving for tables larger than the device's row budget: only the
+    hottest ``device_row_budget`` rows of each table live in its device
+    table; the cold tail stays in a host ``HostKV`` and is read per
+    request. Keys in neither store read their init row, as in
+    :class:`Predictor`. :meth:`refresh` updates device-resident keys in
+    place and upserts every other row into the host store (no promotion
+    at refresh: the hot set is ranked again at the next full load).
+    """
+
+    def __init__(self, model: torch.nn.Module,
+                 numeric_columns: Sequence[NumericColumn],
+                 collections: Dict[str, EmbeddingCollection], ckpt_dir: str,
+                 device_row_budget: int, *, device="cuda", forward=None):
+        self.device_row_budget = int(device_row_budget)
+        self.host_store: Dict[str, HostKV] = {}
+        self._device_keys: Dict[str, np.ndarray] = {}  # sorted int64
+        super().__init__(model, numeric_columns, collections, ckpt_dir,
+                         device=device, forward=forward)
+
+    # -- loading ----------------------------------------------------------
+    @staticmethod
+    def _merge_by_key(parts):
+        """Concatenate row dicts; on duplicate keys the LAST occurrence
+        wins (parts are ordered oldest-first, and within one save tier
+        rows precede device rows)."""
+        keys = np.concatenate([p["keys"] for p in parts])
+        vals = np.concatenate([_np_rows(p["values"]) for p in parts])
+        freqs = np.concatenate([p["freqs"] for p in parts])
+        vers = np.concatenate([p["versions"] for p in parts])
+        sel = last_wins_sel(keys)
+        return keys[sel], vals[sel], freqs[sel], vers[sel]
+
+    def _split_hot(self, keys, freqs, vers):
+        """Hot set = top rows by (freq, version) under the budget."""
+        n = len(keys)
+        b = self.device_row_budget
+        if n <= b:
+            return np.ones(n, bool)
+        rank = np.lexsort((vers, freqs))  # ascending coldness last
+        hot = np.zeros(n, bool)
+        hot[rank[n - b:]] = True
+        return hot
+
+    def _parts(self, coll, manifest, name, adopt=False):
+        """A save's tier rows (if any) and device rows, in merge order."""
+        arrays = F.read_table(manifest["path"], name)
+        if adopt:
+            _adopt_row_layout(coll, arrays)
+        tier = self._tier_arrays(coll, manifest, name)
+        return ([tier] if tier else []) + [arrays]
+
+    def _device_rows(self, st, coll, keys, vals, freqs, vers):
+        return _scatter_table(st, coll.config, {
+            "keys": keys, "values": vals, "freqs": freqs, "versions": vers,
+            "create_steps": vers})
+
+    def _load_base(self, manifest):
+        for name, coll in self.collections.items():
+            parts = self._parts(coll, manifest, name, adopt=True)
+            keys, vals, freqs, vers = self._merge_by_key(parts)
+            hot = self._split_hot(keys, freqs, vers)
+            cap = needed_capacity(int(hot.sum()) + 8,
+                                  min(coll.config.capacity, 256))
+            if cap != coll.config.capacity:
+                coll.config = dataclasses.replace(coll.config, capacity=cap)
+            self.tables[name] = self._device_rows(
+                ev.create(coll.config, self.device), coll, keys[hot],
+                vals[hot], freqs[hot], vers[hot])
+            self._device_keys[name] = np.sort(keys[hot])
+            kv = HostKV(vals.shape[1])
+            if (~hot).any():
+                kv.upsert(keys[~hot], vals[~hot].astype(np.float32))
+            self.host_store[name] = kv
+        self._load_dense(manifest)
+        self._applied_steps.add(manifest["step"])
+
+    def _on_device(self, name, keys):
+        dk = self._device_keys[name]
+        pos = np.searchsorted(dk, keys)
+        pos_safe = np.minimum(pos, max(len(dk) - 1, 0))
+        return (len(dk) > 0) & (pos < len(dk)) & (dk[pos_safe] == keys)
+
+    def _apply_save(self, manifest):
+        if manifest["step"] in self._applied_steps:
+            return
+        for name, coll in self.collections.items():
+            parts = self._parts(coll, manifest, name)
+            keys, vals, freqs, vers = self._merge_by_key(parts)
+            on_dev = self._on_device(name, keys)
+            if on_dev.any():
+                self.tables[name] = self._device_rows(
+                    self.tables[name], coll, keys[on_dev], vals[on_dev],
+                    freqs[on_dev], vers[on_dev])
+            if (~on_dev).any():
+                self.host_store[name].upsert(
+                    keys[~on_dev], vals[~on_dev].astype(np.float32))
+        self._load_dense(manifest)
+        self._applied_steps.add(manifest["step"])
+
+    # -- inference --------------------------------------------------------
+    def _rows(self, name, coll, cats, batch):
+        """The device table's unique rows, with the host store's rows in
+        place of those of the keys the device table lacks."""
+        aux, urows = super()._rows(name, coll, cats, batch)
+        uniq = np.unique(coll.pack_ids_np(batch))
+        need = uniq[(uniq != -1) & ~self._on_device(name, uniq)]
+        if not need.size:
+            return aux, urows
+        rows, found = self.host_store[name].lookup(need)
+        if not found.any():
+            return aux, urows
+        skeys = torch.from_numpy(need[found]).to(urows.device)  # ascending
+        srows = torch.from_numpy(
+            rows[found, :coll.config.embedding_dim]).to(urows)
+        ukeys = aux.ev_aux.uniq.ukeys
+        pos = torch.searchsorted(skeys, ukeys).clamp_(max=skeys.shape[0] - 1)
+        hit = skeys[pos] == ukeys
+        return aux, torch.where(hit[:, None], srows[pos], urows)
+
+    def host_rows(self, name: str) -> int:
+        kv = self.host_store.get(name)
+        return len(kv) if kv else 0
+
+
+def _np_rows(values) -> np.ndarray:
+    """Saved rows as float32 numpy (``checkpoint.format`` reads a bfloat16
+    table back as a tensor)."""
+    if isinstance(values, torch.Tensor):
+        return values.float().numpy()
+    return np.asarray(values, np.float32)

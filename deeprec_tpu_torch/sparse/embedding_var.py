@@ -2,8 +2,10 @@
 
 Port of part of ``deeprec_tpu/sparse/embedding_var.py``: :class:`EVState`,
 :class:`LookupAux`, :func:`create`, the key-deterministic :func:`init_rows`,
-:func:`grow`, :func:`permute_rows`, the save-time eviction predicate
-:func:`cold_mask_np` and the training gather :func:`gather`. Row ``capacity`` of
+:func:`grow`, :func:`permute_rows`, the host eviction predicate
+:func:`cold_mask_np` (save-time eviction and tier demotion), the HBM-budget
+demotion :func:`budget_cold_np` (a verbatim copy) and the training gather
+:func:`gather`. Row ``capacity`` of
 every store is the shared null row (zeros) that padding and failed lookups
 read.
 """
@@ -136,6 +138,28 @@ def cold_mask_np(config: EmbeddingVariableConfig, values_np, versions_np,
         v = np.asarray(values_np[:n, :config.embedding_dim], np.float64)
         cold = occupied_np & (np.sum(v * v, -1) < pol.l2_weight_threshold)
     return cold
+
+
+def budget_cold_np(config: EmbeddingVariableConfig, versions_np, freqs_np,
+                   occupied_np, policy_cold_np, hbm_budget: int):
+    """HBM-budget pressure demotion on top of the policy predicate: if
+    more than ``hbm_budget`` rows would stay resident, the least-recently
+    -touched of them (version ascending, freq as the tiebreak — the
+    reference's BatchCache LRU over ValuePtrs, embedding/cache.h) are
+    forced cold too. Returns the combined cold mask."""
+    import numpy as _np
+    if hbm_budget <= 0:
+        return policy_cold_np
+    live = occupied_np & ~policy_cold_np
+    excess = int(live.sum()) - int(hbm_budget)
+    if excess <= 0:
+        return policy_cold_np
+    idx = _np.nonzero(live)[0]
+    cap = occupied_np.shape[0]
+    order = _np.lexsort((freqs_np[:cap][idx], versions_np[:cap][idx]))
+    out = policy_cold_np.copy()
+    out[idx[order[:excess]]] = True
+    return out
 
 
 def grow(state: EVState, config: EmbeddingVariableConfig, new_capacity: int

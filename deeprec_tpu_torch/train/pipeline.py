@@ -56,7 +56,7 @@ def _tensors(tree) -> List[torch.Tensor]:
     if isinstance(tree, torch.Tensor):
         return [tree]
     if isinstance(tree, ResolvedWire):
-        return [tree.buf]
+        return tree.tensors()
     vals = tree.values() if isinstance(tree, dict) else tree
     return [t for v in vals for t in _tensors(v)]
 

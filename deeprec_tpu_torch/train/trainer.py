@@ -2,13 +2,16 @@
 
 Port of ``deeprec_tpu/train/trainer.py``: ``TableBundle``, ``TrainState``,
 ``bce_loss``, the :class:`Trainer` (``microbatches=1``; with the fence work
-``maybe_grow``, ``table_health``, ``reset_metrics`` and a no-op
-``rejit``), and the forward conventions ``default_forward`` and
+``maybe_grow``, ``maybe_demote``, ``table_health``, ``reset_metrics`` and a
+no-op ``rejit``, and the tier surface ``tiers``, ``export_tiers``,
+``import_tier`` and ``host_tier_rows`` that the checkpoint saver drives),
+and the forward conventions ``default_forward`` and
 ``_readonly_lookup`` that serving uses too. ``prepare_batch`` is split
 into a host half (``prepare_host``) and the copies (``pipeline.to_device``),
 the two stages of ``train.pipeline.HostStepPipeline``.
 
-A train step, as in the JAX package: sparse lookup-or-create (no
+A train step, as in the JAX package: the promotion of tier rows that rode
+the resolve wire (tiered host-index tables), sparse lookup-or-create (no
 gradient) -> the unique rows become the differentiable leaf -> pooling,
 model and BCE loss -> one ``backward()`` gives the unique rows' gradient
 and the parameters' -> per-table sparse apply -> the dense optimizer ->
@@ -143,9 +146,16 @@ class Trainer:
     def _sparse_forward(self, tables, cats, step):
         auxs = {}
         for name, coll in self.collections.items():
-            ev_state, auxs[name] = coll.lookup_or_create(tables[name].ev,
-                                                         cats[name], step)
-            tables[name] = tables[name]._replace(ev=ev_state)
+            b = tables[name]
+            promo = getattr(coll, "apply_promo", None)
+            if promo is not None:
+                # tier rows found at resolve time go back into the stores
+                # before the batch's metadata writes
+                ev_state, slot = promo(b.ev, b.slot, cats[name])
+                b = b._replace(ev=ev_state, slot=slot)
+            ev_state, auxs[name] = coll.lookup_or_create(b.ev, cats[name],
+                                                         step)
+            tables[name] = b._replace(ev=ev_state)
         return tables, auxs
 
     def _loss_and_grads(self, tables, auxs, dense, labels):
@@ -236,6 +246,51 @@ class Trainer:
                 tables[name] = b._replace(ev=new_ev, slot=slot)
                 changed = True
         return state._replace(tables=tables) if changed else state
+
+    def maybe_demote(self, state: TrainState) -> TrainState:
+        """Demote the cold rows of every tiered host-index table to its
+        host tier (``demote_cold``). Fence work, as growth is: run it on a
+        drained ``HostStepPipeline``, because demotion renumbers slots."""
+        tables = dict(state.tables)
+        changed = False
+        for name, coll in self.collections.items():
+            if not getattr(coll, "_tiered", False):
+                continue
+            b = tables[name]
+            new_ev, slot, nd = coll.demote_cold(
+                b.ev, b.slot, int(state.step),
+                opt=self.sparse_optimizers.get(name))
+            if nd:
+                tables[name] = b._replace(ev=new_ev, slot=slot)
+                changed = True
+        return state._replace(tables=tables) if changed else state
+
+    @property
+    def tiers(self) -> Dict[str, Any]:
+        """Each tiered collection's host tier store (None before its first
+        demotion or restore)."""
+        return {n: c.tier_store for n, c in self.collections.items()
+                if getattr(c, "_tiered", False)}
+
+    def export_tiers(self, state: TrainState, since=None) -> Dict[str, Any]:
+        """``name -> (keys, payload rows)`` of the tiers with rows to save
+        (``since``: only those demoted since the last save)."""
+        out = {}
+        for name, coll in self.collections.items():
+            fn = getattr(coll, "export_tier", None)
+            r = fn(since=since) if fn is not None else None
+            if r is not None:
+                out[name] = r
+        return out
+
+    def import_tier(self, name: str, keys, rows) -> None:
+        fn = getattr(self.collections.get(name), "import_tier", None)
+        if fn is not None:
+            fn(keys, rows)
+
+    def host_tier_rows(self, name: str) -> int:
+        fn = getattr(self.collections.get(name), "host_tier_rows", None)
+        return fn() if fn is not None else 0
 
     def rejit(self) -> None:
         """Nothing to rebuild: an eager step reads the new shapes itself

@@ -1,11 +1,16 @@
-"""ctypes binding of the host-index resolver (``native/deeprec_native.cc``).
+"""ctypes binding of the host runtime (``native/deeprec_native.cc``): the
+host-index resolver and the host tier stores.
 
-A framework-free copy of the resolver half of ``deeprec_tpu/utils/native.py``
-(:func:`wire_layout` and :class:`HostIndexResolver`, with its pure-Python
-fallback, are copied verbatim; ``tests/test_torch_host_index.py`` holds
-them to their source). The port cannot import the JAX package. Its own
-addition is :func:`resolve_wire_into`, which resolves into a caller's
-buffer (a pinned tensor's memory in the training pipeline).
+A framework-free copy of the resolver and tier half of
+``deeprec_tpu/utils/native.py``: :func:`wire_layout`,
+:class:`HostIndexResolver`, :class:`HostKV` (the host-DRAM row store, or a
+file-backed one: the SSD tier) and :class:`TierStack` (DRAM spilling to
+SSD) are copied verbatim, their pure-Python fallbacks included
+(``tests/test_torch_imports.py`` holds them to their source). The port
+cannot import the JAX package. Its own addition is
+:func:`resolve_wire_into`, which resolves into a caller's buffer (a pinned
+tensor's memory in the training pipeline). Neither store is documented as
+thread-safe: the host-index collection guards its tier store with a lock.
 
 The C++ source stays shared. :func:`get_lib` compiles it with ``g++`` at
 first use into the git-ignored ``deeprec_tpu_torch/build/``, under a name
@@ -39,6 +44,7 @@ _tried = False
 _i64 = ctypes.c_int64
 _p_i64 = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
 _p_i32 = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
+_p_f32 = np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS")
 _p_u8 = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
 
 
@@ -73,6 +79,26 @@ def get_lib() -> Optional[ctypes.CDLL]:
         if so is None:
             return None
         lib = ctypes.CDLL(str(so))
+        lib.hostkv_create.restype = ctypes.c_void_p
+        lib.hostkv_create.argtypes = [_i64, _i64]
+        lib.hostkv_create_disk.restype = ctypes.c_void_p
+        lib.hostkv_create_disk.argtypes = [_i64, _i64, ctypes.c_char_p]
+        lib.hostkv_is_disk.restype = _i64
+        lib.hostkv_is_disk.argtypes = [ctypes.c_void_p]
+        lib.hostkv_destroy.argtypes = [ctypes.c_void_p]
+        lib.hostkv_size.restype = _i64
+        lib.hostkv_size.argtypes = [ctypes.c_void_p]
+        lib.hostkv_dim.restype = _i64
+        lib.hostkv_dim.argtypes = [ctypes.c_void_p]
+        lib.hostkv_upsert.argtypes = [ctypes.c_void_p, _p_i64, _p_f32, _i64]
+        lib.hostkv_lookup.restype = _i64
+        lib.hostkv_lookup.argtypes = [ctypes.c_void_p, _p_i64, _p_f32, _p_u8, _i64]
+        lib.hostkv_erase.argtypes = [ctypes.c_void_p, _p_i64, _i64]
+        lib.hostkv_export.restype = _i64
+        lib.hostkv_export.argtypes = [ctypes.c_void_p, _p_i64, _p_f32, _i64]
+        lib.hostkv_export_col.restype = _i64
+        lib.hostkv_export_col.argtypes = [ctypes.c_void_p, _p_i64, _p_f32,
+                                          _i64, _i64]
         lib.hidx_create.restype = ctypes.c_void_p
         lib.hidx_create.argtypes = [_i64]
         lib.hidx_destroy.argtypes = [ctypes.c_void_p]
@@ -107,6 +133,168 @@ def get_lib() -> Optional[ctypes.CDLL]:
         lib.hidx_touched_count.argtypes = [ctypes.c_void_p]
         _lib = lib
         return _lib
+
+
+class HostKV:
+    """Host-DRAM row store: the DRAM/PMEM storage tier of multi-tier
+    embedding storage (reference StorageType{DRAM,PMEM}). Batched numpy
+    API; C++ sharded open-addressing map underneath, dict fallback."""
+
+    def __init__(self, dim: int, capacity_hint: int = 1 << 16,
+                 path: Optional[str] = None):
+        """``path``: file-backed (mmap) row arena — the SSD storage tier.
+        None keeps rows in anonymous host DRAM."""
+        self.dim = dim
+        self.path = path
+        self._lib = get_lib()
+        if self._lib is not None:
+            if path:
+                os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+                self._h = ctypes.c_void_p(self._lib.hostkv_create_disk(
+                    dim, capacity_hint, path.encode()))
+            else:
+                self._h = ctypes.c_void_p(
+                    self._lib.hostkv_create(dim, capacity_hint))
+            self._fallback = None
+        else:
+            self._h = None
+            self._fallback = {}
+
+    def __del__(self):
+        if getattr(self, "_h", None) is not None and self._lib is not None:
+            self._lib.hostkv_destroy(self._h)
+            self._h = None
+
+    def __len__(self) -> int:
+        if self._h is not None:
+            return int(self._lib.hostkv_size(self._h))
+        return len(self._fallback)
+
+    def upsert(self, keys: np.ndarray, rows: np.ndarray) -> None:
+        keys = np.ascontiguousarray(keys, np.int64)
+        rows = np.ascontiguousarray(rows, np.float32)
+        assert rows.shape == (keys.shape[0], self.dim)
+        if self._h is not None:
+            self._lib.hostkv_upsert(self._h, keys, rows, keys.shape[0])
+        else:
+            for k, r in zip(keys, rows):
+                self._fallback[int(k)] = r.copy()
+
+    def lookup(self, keys: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+        """(rows [n, dim] f32 — zeros on miss, found [n] bool)."""
+        keys = np.ascontiguousarray(keys, np.int64)
+        n = keys.shape[0]
+        rows = np.zeros((n, self.dim), np.float32)
+        found = np.zeros((n,), np.uint8)
+        if self._h is not None:
+            self._lib.hostkv_lookup(self._h, keys, rows, found, n)
+        else:
+            for i, k in enumerate(keys):
+                r = self._fallback.get(int(k))
+                if r is not None:
+                    rows[i] = r
+                    found[i] = 1
+        return rows, found.astype(bool)
+
+    def erase(self, keys: np.ndarray) -> None:
+        keys = np.ascontiguousarray(keys, np.int64)
+        if self._h is not None:
+            self._lib.hostkv_erase(self._h, keys, keys.shape[0])
+        else:
+            for k in keys:
+                self._fallback.pop(int(k), None)
+
+    def export(self) -> Tuple[np.ndarray, np.ndarray]:
+        n = len(self)
+        keys = np.zeros((n,), np.int64)
+        rows = np.zeros((n, self.dim), np.float32)
+        if self._h is not None:
+            w = int(self._lib.hostkv_export(self._h, keys, rows, n))
+            return keys[:w], rows[:w]
+        for i, (k, r) in enumerate(self._fallback.items()):
+            keys[i] = k
+            rows[i] = r
+        return keys, rows
+
+    def export_col(self, col: int) -> Tuple[np.ndarray, np.ndarray]:
+        """All live keys + one f32 row column (width-x cheaper than a full
+        export — the spill ranking only needs the version stamp)."""
+        n = len(self)
+        keys = np.zeros((n,), np.int64)
+        vals = np.zeros((n,), np.float32)
+        if self._h is not None:
+            w = int(self._lib.hostkv_export_col(self._h, keys, vals, col, n))
+            return keys[:w], vals[:w]
+        for i, (k, r) in enumerate(self._fallback.items()):
+            keys[i] = k
+            vals[i] = r[col]
+        return keys, vals
+
+
+class TierStack:
+    """DRAM -> SSD storage cascade (reference multi-tier EmbeddingVariable,
+    embedding/config.proto StorageType{DRAM,PMEM,SSD}): rows demote into
+    host DRAM first; when the DRAM tier passes ``dram_row_budget`` the
+    coldest rows (by the payload's bit-pattern version stamp) spill to a
+    file-backed store. Same batched API as :class:`HostKV`, so trainers
+    and the checkpoint saver use either interchangeably."""
+
+    def __init__(self, dim: int, version_col: int, dram_row_budget: int,
+                 ssd_path: str, capacity_hint: int = 1 << 16):
+        self.dim = dim
+        self.version_col = version_col
+        self.budget = int(dram_row_budget)
+        self.dram = HostKV(dim, capacity_hint)
+        self.ssd = HostKV(dim, capacity_hint, path=ssd_path)
+
+    def __len__(self) -> int:
+        return len(self.dram) + len(self.ssd)
+
+    def upsert(self, keys: np.ndarray, rows: np.ndarray) -> None:
+        # fresh demotions are the warmest cold rows: they enter DRAM; any
+        # SSD copy of the same key is superseded
+        self.dram.upsert(keys, rows)
+        if len(keys):
+            self.ssd.erase(keys)
+        self._maybe_spill()
+
+    def _maybe_spill(self) -> None:
+        if not self.budget or len(self.dram) <= self.budget:
+            return
+        # rank coldness from the version COLUMN alone (keys + one f32 per
+        # row instead of the full payload), select the spill set with an
+        # O(n) argpartition, and read only the spilled rows — a 10M-row
+        # DRAM budget spills without a full-tier export + sort pause
+        keys, vcol = self.dram.export_col(self.version_col)
+        vers = vcol.copy().view(np.int32)
+        keep = self.budget // 2
+        n_spill = len(keys) - keep
+        part = np.argpartition(vers, n_spill - 1)[:n_spill]
+        spill_keys = keys[part]
+        rows, found = self.dram.lookup(spill_keys)
+        self.ssd.upsert(spill_keys[found], rows[found])
+        self.dram.erase(spill_keys)
+
+    def lookup(self, keys: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+        rows, found = self.dram.lookup(keys)
+        miss = ~found
+        if miss.any() and len(self.ssd):
+            rows2, found2 = self.ssd.lookup(keys[miss])
+            rows[miss] = np.where(found2[:, None], rows2, rows[miss])
+            found = found.copy()
+            found[np.nonzero(miss)[0][found2]] = True
+        return rows, found
+
+    def erase(self, keys: np.ndarray) -> None:
+        self.dram.erase(keys)
+        self.ssd.erase(keys)
+
+    def export(self) -> Tuple[np.ndarray, np.ndarray]:
+        k1, r1 = self.dram.export()
+        k2, r2 = self.ssd.export()
+        if not len(k2):
+            return k1, r1
+        return np.concatenate([k1, k2]), np.concatenate([r1, r2])
 
 
 def wire_layout(u_out: int, n: int, with_counts: bool, inv16: bool):

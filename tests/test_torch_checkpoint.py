@@ -9,7 +9,6 @@ port's ``Predictor`` and by the JAX one (rtol 2e-4, atol 2e-5, as in
 ``test_torch_serving.py``)."""
 import json
 import os
-import shutil
 from typing import NamedTuple
 
 import numpy as np
@@ -371,16 +370,39 @@ def test_manager_keeps_saves_and_aux(tmp_path):
         tt2, ts2)[1]
 
 
-def test_tiered_save_is_rejected(tmp_path):
-    batches = list(SyntheticCriteo(batch_size=B, seed=51).take(2))
-    tt = _port_trainer("light")
-    ts = tt.train_step(tt.init(batches[0]), batches[1])
+def test_tiered_save_restores(tmp_path):
+    """A tiered table's save (its ``__tier__emb`` table beside ``emb``)
+    restores into a fresh port trainer: the same device keys, the same
+    tier keys and bit-exact tier rows."""
+    batches = list(SyntheticCriteo(batch_size=B, seed=51).take(6))
+    cfg = dict(_common(), storage=tcfg.StorageOption(
+        tcfg.StorageType.HBM_DRAM), evict=tcfg.GlobalStepEvict(2))
+
+    def trainer():
+        return TTrainer(_port_model(), [tfc.NumericColumn(
+            n, log_normalize=True) for n in DENSE_NAMES],
+            {"emb": THost([tfc.EmbeddingColumn(tfc.CategoricalColumn(n), DIM)
+                           for n in COLS], **cfg)},
+            {"emb": tsopt.sparse_adagrad_fused(0.05)}, tdense.Adagrad(0.05),
+            device="cpu")
+    tt = trainer()
+    ts = tt.init(batches[0])
+    for b in batches:
+        ts = tt.train_step(ts, b)
+    ts = tt.maybe_demote(ts)
     path = tsaver.CheckpointManager(str(tmp_path)).save(tt, ts)
-    shutil.copy(os.path.join(path, "table-emb.npz"),
-                os.path.join(path, "table-__tier__emb.npz"))
-    with pytest.raises(NotImplementedError):
-        tsaver.CheckpointManager(str(tmp_path)).restore(
-            tt, tt.init(batches[0]))
+    assert os.path.exists(os.path.join(path, "table-__tier__emb.npz"))
+    tt2 = trainer()
+    ts2, ok = tsaver.CheckpointManager(str(tmp_path)).restore(
+        tt2, tt2.init(batches[0]))
+    c, c2 = tt.collections["emb"], tt2.collections["emb"]
+    assert ok and c.host_tier_rows() == c2.host_tier_rows() > 0
+    np.testing.assert_array_equal(np.sort(c2._resolver.export_keys()),
+                                  np.sort(c._resolver.export_keys()))
+    (k, r), (k2, r2) = c.tier_store.export(), c2.tier_store.export()
+    o, o2 = np.argsort(k), np.argsort(k2)
+    np.testing.assert_array_equal(k[o], k2[o2])
+    np.testing.assert_array_equal(r[o].view(np.int32), r2[o2].view(np.int32))
 
 
 def test_bfloat16_table_through_a_save(tmp_path):

@@ -204,6 +204,7 @@ def test_lookup_meta_plain_matches_jax_lookup(layout):
 
 
 @pytest.mark.parametrize("entry", ["ev.create", "ht.create", "Predictor",
+                                   "TieredPredictor",
                                    "HostIndexEmbeddingCollection.init",
                                    "Trainer", "HostStepPipeline"])
 def test_entry_points_default_to_the_card(entry, tmp_path):
@@ -213,7 +214,7 @@ def test_entry_points_default_to_the_card(entry, tmp_path):
         pytest.skip("this checks the default on a machine without a card")
     from deeprec_tpu_torch.models.ctr import DLRM
     from deeprec_tpu_torch.optim.dense import Adagrad
-    from deeprec_tpu_torch.serving import Predictor
+    from deeprec_tpu_torch.serving import Predictor, TieredPredictor
     from deeprec_tpu_torch.sparse import embedding_var as tev
     from deeprec_tpu_torch.sparse import hashtable as tht
     from deeprec_tpu_torch.train.pipeline import HostStepPipeline
@@ -224,6 +225,8 @@ def test_entry_points_default_to_the_card(entry, tmp_path):
         "ev.create": lambda: tev.create(tc.config),
         "ht.create": lambda: tht.create(64),
         "Predictor": lambda: Predictor(model, [], {}, str(tmp_path)),
+        "TieredPredictor": lambda: TieredPredictor(model, [], {},
+                                                   str(tmp_path), 8),
         "HostIndexEmbeddingCollection.init": tc.init,
         "Trainer": lambda: Trainer(model, [], {}, {}, Adagrad()),
         "HostStepPipeline": lambda: HostStepPipeline(lambda x: x),

@@ -37,14 +37,15 @@ def test_port_imports_without_jax():
 
 
 def test_resolver_binding_copy_is_the_source():
-    """utils/native.py copies the resolver half of the JAX package's
-    binding: the wire layout, the resolver class (with its Python
-    fallback) and the hash its bloom gate uses are the same source."""
+    """utils/native.py copies the resolver and tier half of the JAX
+    package's binding: the wire layout, the resolver class (with its
+    Python fallback), the tier stores (with their dict fallback) and the
+    hash its bloom gate uses are the same source."""
     from deeprec_tpu.sparse import keys as jkeys
     from deeprec_tpu.utils import native as jnative
     from deeprec_tpu_torch.sparse import keys as tkeys
     from deeprec_tpu_torch.utils import native as tnative
-    for name in ("HostIndexResolver", "wire_layout"):
+    for name in ("HostIndexResolver", "wire_layout", "HostKV", "TierStack"):
         assert inspect.getsource(getattr(tnative, name)) == \
             inspect.getsource(getattr(jnative, name)), name
     assert inspect.getsource(tkeys.hash32_np) == \

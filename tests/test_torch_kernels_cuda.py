@@ -1,12 +1,14 @@
 """The hand-written CUDA kernels K1 (row gather), K2 (gather+pool, forward
-and backward), K3a (lookup_meta, meta_scatter) and K3b (blocked_rmw_set)
-against their
-plain PyTorch versions, on the card. A CUDA kernel has no
-CPU mode, so every test here skips without a card. This file imports no
-JAX, so it also runs on a machine without it:
+and backward, f32 and bf16), K3a (lookup_meta, meta_scatter) and K3b
+(blocked_rmw_set) against their plain PyTorch versions, on the card, and
+how far two card runs of one training stream drift apart (the backward's
+atomics add in a run-dependent order). A CUDA kernel has no CPU mode, so
+every test here skips without a card. This file imports no JAX, so it
+also runs on a machine without it:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels_cuda.py
 """
+import numpy as np
 import pytest
 import torch
 
@@ -167,14 +169,113 @@ def test_fused_pooled_lookup_forward_cases(cuda, combiner, case):
     assert torch.count_nonzero(got[empty]) == 0
 
 
+BF16_STEP = 2.0 ** -7  # one bf16 step, relative to the value, at most
+
+# bf16 rows: (bags, w, d, ld, column offset, slot dtype); offset 1 moves
+# the base off 16-byte alignment (one bf16 a load), as ld % 8 != 0 does
+_BF16_FWD_CASES = {
+    "w1_criteo": (26 * 512 + 13, 1, 16, 16, 0, torch.int64),
+    "w1_fused_width": (26 * 512, 1, 16, 32, 0, torch.int32),
+    "w1_unaligned": (1005, 1, 16, 20, 1, torch.int64),
+    "w1_d6": (1005, 1, 6, 6, 0, torch.int32),
+    "w8_fused_width": (512, 8, 16, 32, 0, torch.int64),
+    "w8_d128": (300, 8, 128, 128, 0, torch.int32),
+    "w5_d6": (300, 5, 6, 9, 0, torch.int64),
+    "w40_d16": (100, 40, 16, 16, 0, torch.int32),
+    "w0": (64, 0, 16, 16, 0, torch.int32),
+}
+
+
+@pytest.mark.parametrize("combiner", ["sum", "mean", "sqrtn"])
+@pytest.mark.parametrize("case", list(_BF16_FWD_CASES))
+def test_fused_pooled_lookup_bf16_forward(cuda, combiner, case):
+    """bf16 rows, f32 sums and scale, one rounding: as the plain version,
+    which computes the same in f32 and rounds once."""
+    bags, w, d, ld, off, idx = _BF16_FWD_CASES[case]
+    g = _gen()
+    table = torch.randn(3000, ld, generator=g).to(torch.bfloat16)
+    slots = torch.randint(-2, 3002, (bags, w), generator=g).to(idx)
+    valid = torch.rand(bags, w, generator=g) < 0.7
+    if w:
+        valid[0] = False
+    values = table[:, off:off + d]
+    ref = fused_pooled_lookup_plain(values, slots, valid, combiner)
+    before = fused_pooled_lookup.launches
+    got = fused_pooled_lookup(table.to(cuda)[:, off:off + d], slots.to(cuda),
+                              valid.to(cuda), combiner).cpu()
+    assert fused_pooled_lookup.launches == before + 1
+    assert got.dtype == torch.bfloat16
+    if w <= 1:  # one row or none: a copy of its bits
+        assert torch.equal(got.view(torch.int16), ref.view(torch.int16))
+        return
+    # the two f32 sums differ by order (~w*6e-8 of the magnitudes), which
+    # can move the one rounding by one bf16 step: at most 2^-7 of the value
+    # (8 significant bits)
+    mag = fused_pooled_lookup_plain(values.float().abs(), slots, valid,
+                                    combiner)
+    err = (got.float() - ref.float()).abs()
+    assert (err <= BF16_STEP * ref.float().abs() + 1e-5 * mag).all()
+    assert torch.count_nonzero(got[0]) == 0
+
+
+@pytest.mark.parametrize("combiner", ["sum", "mean", "sqrtn"])
+@pytest.mark.parametrize("case", ["skewed", "skewed_multihot", "skewed_d6",
+                                  "criteo_skew", "repeat_in_bag", "d128",
+                                  "strided_T", "unaligned"])
+def test_fused_pooled_lookup_bf16_backward(cuda, combiner, case):
+    """A bf16 d_pooled: f32 adds, one rounding to bf16 after them."""
+    slots, valid, d_pooled, n_rows = _bwd_case(_gen(), case)
+    d_pooled = d_pooled.to(torch.bfloat16)
+    if case == "unaligned":  # a bf16 view 2 bytes past alignment
+        flat = torch.randn(d_pooled.numel() + 1,
+                           generator=_gen()).to(torch.bfloat16)
+        d_pooled = flat[1:].view(d_pooled.shape)
+    ref = fused_pooled_lookup_backward_plain(d_pooled, slots, valid,
+                                             combiner, n_rows)
+    mag = fused_pooled_lookup_backward_plain(d_pooled.float().abs(), slots,
+                                             valid, combiner, n_rows)
+    before = fused_pooled_lookup_backward.launches
+    got = fused_pooled_lookup_backward(d_pooled.to(cuda), slots.to(cuda),
+                                       valid.to(cuda), combiner, n_rows).cpu()
+    assert fused_pooled_lookup_backward.launches == before + 1
+    assert got.dtype == torch.bfloat16
+    # both add in f32 and round once: the f32 sums differ by order (1e-4 of
+    # the magnitudes bounds it, as for f32 above), which can move the one
+    # rounding by one bf16 step (at most 2^-7 of the value)
+    err = (got.float() - ref.float()).abs()
+    assert (err <= BF16_STEP * ref.float().abs() + 1e-4 * mag + 1e-7).all()
+    assert not got.isnan().any()
+
+
+def test_pooled_lookup_bf16_autograd_on_card(cuda):
+    """A bf16 table pools and takes its gradient on the card."""
+    g = _gen()
+    values = torch.randn(500, 16, generator=g).to(torch.bfloat16)
+    slots = torch.randint(0, 500, (64, 4), generator=g)
+    valid = torch.rand(64, 4, generator=g) < 0.8
+    w = torch.randn(64, 16, generator=g).to(torch.bfloat16)
+    vc = values.to(cuda).requires_grad_(True)
+    (pooled_lookup(vc, slots.to(cuda), valid.to(cuda), "mean")
+     * w.to(cuda)).float().sum().backward()
+    vp = values.clone().requires_grad_(True)
+    (pooled_lookup(vp, slots, valid, "mean") * w).float().sum().backward()
+    assert vc.grad.dtype == torch.bfloat16
+    torch.testing.assert_close(vc.grad.cpu().float(), vp.grad.float(),
+                               rtol=BF16_STEP, atol=1e-3)
+
+
 def test_kernels_reject_bad_input_on_cuda(cuda):
     values = torch.zeros(8, 128, device=cuda)
     slots = torch.zeros(2, 3, dtype=torch.int64, device=cuda)
     valid = torch.ones(2, 3, dtype=torch.bool, device=cuda)
     with pytest.raises(ValueError):
         fused_pooled_lookup(values, slots, valid, "Sum")
-    with pytest.raises(ValueError):
-        fused_pooled_lookup(values.double(), slots, valid, "sum")
+    for dtype in (torch.float64, torch.float16):
+        with pytest.raises(ValueError, match="float32 or bfloat16"):
+            fused_pooled_lookup(values.to(dtype), slots, valid, "sum")
+        with pytest.raises(ValueError, match="float32 or bfloat16"):
+            fused_pooled_lookup_backward(values[:2].to(dtype), slots, valid,
+                                         "sum", 8)
     with pytest.raises(ValueError):
         gather_rows(values, slots[0].cpu())
 
@@ -436,3 +537,52 @@ def test_pipeline_side_stream_copies(cuda, depth):
     for i, (s, w) in enumerate(out):
         assert torch.equal(s.cpu(), 3 * host[i]), i
         assert torch.equal(w.cpu(), wires[i]), i
+
+
+def test_two_card_runs_of_one_stream(cuda):
+    """How far two card runs of one 10-step --metadata stream drift apart
+    (bench.py's DLRM at B 1024 from one seeded state): the resolves, and so
+    the wires, the metadata planes and the key sets, are bit-equal; the rows
+    differ only where K2's backward added in another order, within
+    ROW_ATOL. Prints the largest row difference."""
+    from deeprec_tpu_torch import config as cfg
+    from deeprec_tpu_torch import feature_column as fc
+    from deeprec_tpu_torch.data.criteo import (CAT_NAMES, DENSE_NAMES,
+                                               SyntheticCriteo)
+    from deeprec_tpu_torch.host_index import HostIndexEmbeddingCollection
+    from deeprec_tpu_torch.models.ctr import DLRM
+    from deeprec_tpu_torch.optim.dense import Adagrad
+    from deeprec_tpu_torch.optim.sparse import sparse_adagrad_fused
+    from deeprec_tpu_torch.train.trainer import Trainer
+    ROW_ATOL = 1e-4  # chip_smoke.py's card-vs-CPU row tolerance
+    batches = list(SyntheticCriteo(batch_size=1024, seed=7).take(10))
+
+    def run():
+        torch.manual_seed(0)
+        coll = HostIndexEmbeddingCollection(
+            [fc.EmbeddingColumn(fc.CategoricalColumn(n), 16)
+             for n in CAT_NAMES], name="emb", capacity=1 << 18,
+            initializer=cfg.Initializer("normal", scale=0.05),
+            max_unique=26 * 1024 // 6, fused_slot_columns=16,
+            fused_slot_init=0.1, counter_filter=cfg.CounterFilter(1),
+            evict=cfg.GlobalStepEvict(1 << 30))
+        tr = Trainer(DLRM(CAT_NAMES, 16, dense_dim=len(DENSE_NAMES)),
+                     [fc.NumericColumn(n, log_normalize=True)
+                      for n in DENSE_NAMES], {"emb": coll},
+                     {"emb": sparse_adagrad_fused(0.05)}, Adagrad(0.05),
+                     device=cuda)
+        st, wires = tr.init(batches[0]), []
+        for b in batches:
+            d, c, lab = tr.prepare_batch(b)
+            wires.append(c["emb"].buf.cpu())
+            st = tr._train_step(st, d, c, lab)
+        return coll._resolver.export_keys(), wires, st.tables["emb"].ev
+    k1, w1, e1 = run()
+    k2, w2, e2 = run()
+    assert np.array_equal(k1, k2)
+    assert all(torch.equal(a, b) for a, b in zip(w1, w2))
+    for f in ("freqs", "versions", "create_steps"):
+        assert torch.equal(getattr(e1, f), getattr(e2, f)), f
+    drift = (e1.values - e2.values).abs().max().item()
+    print(f"two card runs of 10 --metadata steps: max |drow| {drift:.3g}")
+    assert drift <= ROW_ATOL
