@@ -1,5 +1,5 @@
 """Card smoke test of the PyTorch port (deeprec_tpu_torch): its serving
-path, its host-index training path and its tiered storage.
+path, its host-index training path, its tiered storage and the CTR zoo.
 
 Run from the root of a checkout on a machine with one CUDA card:
 
@@ -84,7 +84,21 @@ comparison compute in full f32. Phases (any failure exits non-zero):
    pipelined steps give examples/s and the demotion fences' times; an
    HBM_DRAM_SSD run (dram_row_budget 4096) spills to its file store and
    its save carries every tier row. The tier store must be the C++ one.
-   K1, K2, K2's backward and K3a must have launched.
+   K1, K2, K2's backward and K3a must have launched;
+10. the rest of the CTR zoo (``zoo``): DCN, WDL, DeepFM and DSSM built as
+   their modelzoo/*/train.py build() does under --host_index at full width
+   (emb dim 16; Criteo tables of 2^21 rows, DSSM's of 2^19 over
+   SyntheticBehavior(4096) with a mean-pooled hist_item of 32; WDL and
+   DeepFM add a dim-1 "wide" table trained with sparse_ftrl; DCN, WDL and
+   DeepFM train "emb" with sparse_adagrad and the towers with Adagrad,
+   DSSM with sparse_adam and Adam), each: 5 steps in lockstep with a CPU
+   Trainer (wires bit-equal, losses within LOSS_ATOL, rows and slot leaves
+   within ROW_ATOL), 3 timed runs of 10 staged steps, K1, K2 and K2's
+   backward launched, and a save served by a card and a CPU Predictor
+   within PROB_ATOL. Phase 2 also holds K1, K2 and K2's backward at the
+   zoo's new shapes against their plain versions and times them: the wide
+   tables' D = 1 and DSSM's [4096, 32] mean (through its int32 inverse
+   wire).
 
 The last line is {"ok": true, "device": {...}}; the line before it holds
 the kernels' numbers as JSON, the line before that the training numbers.
@@ -134,6 +148,10 @@ TIER_HBM = 32768         # its hbm_capacity, and TieredPredictor's budget
 TIER_LIVE = 8            # GlobalStepEvict(steps_to_live) of the tier phase
 TIER_STEPS = 30          # lockstep steps; a fence every 10
 SSD_DRAM_ROWS = 4096     # the SSD run's dram_row_budget
+ZOO_MODELS = ("dcn", "wdl", "deepfm", "dssm")
+ZOO_STEPS = 5            # each zoo model's lockstep steps
+ZOO_HIST = 32            # DSSM's hist_item max_length (modelzoo/DSSM)
+ZOO_DSSM_CAPACITY = 1 << 19  # the CLI's --capacity default
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM peak (the card's power limit printed)
 
 
@@ -831,17 +849,20 @@ def path_counters():
 
 def lockstep(tg, tc, batches, what, loss_atol=LOSS_ATOL, row_atol=ROW_ATOL,
              row_rtol=0.0):
-    """Train the card and CPU trainers on ``batches``; hold the wires (so
-    slots, keys and inverse) bit-equal, the losses within ``loss_atol`` and
-    the rows within ``row_atol + row_rtol * |row|``. Returns the card's
-    state and the largest loss and row differences."""
+    """Train the card and CPU trainers on ``batches``; hold every
+    collection's wires (so slots, keys and inverse) and metadata planes
+    bit-equal, the losses within ``loss_atol`` and the rows and slot leaves
+    within ``row_atol + row_rtol * |row|``. Returns the card's state and the
+    largest loss and row differences."""
     sg, sc = tg.init(batches[0]), tc.init(batches[0])
     worst = 0.0
     for i, b in enumerate(batches):
         dg, cg, lg = tg.prepare_batch(b)
         dc, cc, lc = tc.prepare_batch(b)
-        if not torch.equal(cg["emb"].buf.cpu(), cc["emb"].buf):
-            fail(f"{what}: card and CPU resolves differ at step {i}")
+        for name in cc:
+            if not torch.equal(cg[name].buf.cpu(), cc[name].buf):
+                fail(f"{what}: card and CPU {name} resolves differ at step "
+                     f"{i}")
         g0, c0 = sg.metrics.loss_sum.item(), sc.metrics.loss_sum.item()
         sg = tg._train_step(sg, dg, cg, lg)
         sc = tc._train_step(sc, dc, cc, lc)
@@ -850,19 +871,26 @@ def lockstep(tg, tc, batches, what, loss_atol=LOSS_ATOL, row_atol=ROW_ATOL,
         if not (np.isfinite(lg_) and abs(lg_ - lc_) <= loss_atol):
             fail(f"{what}: step {i} loss {lg_} on the card vs {lc_} on CPU")
         worst = max(worst, abs(lg_ - lc_))
-    eg, ec = sg.tables["emb"].ev, sc.tables["emb"].ev
-    for f in ("freqs", "versions", "create_steps"):
-        if not torch.equal(getattr(eg, f).cpu(), getattr(ec, f)):
-            fail(f"{what}: {f} planes differ between card and CPU")
-    diff = (eg.values.cpu().float() - ec.values.float()).abs()
-    rows = diff.max().item()
-    if not bool((diff <= row_atol + row_rtol * ec.values.float().abs()).all()):
-        fail(f"{what}: table rows differ by {rows} between card and CPU")
+    rows = 0.0
+    for name in tc.collections:
+        eg, ec = sg.tables[name], sc.tables[name]
+        for f in ("freqs", "versions", "create_steps"):
+            if not torch.equal(getattr(eg.ev, f).cpu(), getattr(ec.ev, f)):
+                fail(f"{what}: {name} {f} planes differ between card and "
+                     f"CPU")
+        for leaf, a, c in [("rows", eg.ev.values, ec.ev.values)] + [
+                (f"slot {k}", eg.slot[k], ec.slot[k]) for k in ec.slot]:
+            diff = (a.cpu().float() - c.float()).abs()
+            rows = max(rows, diff.max().item())
+            if not bool((diff <= row_atol + row_rtol * c.float().abs()).all()):
+                fail(f"{what}: {name} {leaf} differ by {diff.max().item()} "
+                     f"between card and CPU")
     log(f"{what}: {len(batches)} steps in lockstep with a CPU trainer: wires "
-        f"and metadata planes bit-equal, max |dloss| {worst:.3g} (limit "
-        f"{loss_atol}), max |drow| {rows:.3g} (limit {row_atol} + "
-        f"{row_rtol} |row|); "
-        f"{int((ec.freqs > 0).sum())} rows with freq > 0")
+        f"and metadata planes of {sorted(tc.collections)} bit-equal, max "
+        f"|dloss| {worst:.3g} (limit {loss_atol}), max |drow| and |dslot| "
+        f"{rows:.3g} (limit {row_atol} + {row_rtol} |row|); "
+        f"{int((sc.tables['emb'].ev.freqs > 0).sum())} emb rows with "
+        f"freq > 0")
     return sg, worst, rows
 
 
@@ -1506,15 +1534,326 @@ def check_tier(dev, smi, tmp):
                       "summary": summ}
 
 
+# -- phase 10: the rest of the CTR zoo -------------------------------------------
+def zoo_collections(kind):
+    """The host-index collections of ``modelzoo/<kind>/train.py``'s
+    ``build()`` under --host_index at the CLI's defaults: emb dim 16, 2^21
+    rows for the Criteo models and 2^19 (``--capacity``) for DSSM,
+    ``max_unique`` = 0.25 (DSSM 0.75) of the flat ids, the C++ resolver."""
+    from deeprec_tpu_torch import config as cfg
+    from deeprec_tpu_torch import feature_column as fc
+    from deeprec_tpu_torch.data.criteo import CAT_NAMES
+    from deeprec_tpu_torch.host_index import HostIndexEmbeddingCollection
+    cat, emb = fc.CategoricalColumn, fc.EmbeddingColumn
+    if kind == "dssm":
+        cols = {"emb": [
+            emb(cat("uid"), EMB_DIM),
+            emb(cat("item", shared_embedding="item_space"), EMB_DIM),
+            emb(cat("cate"), EMB_DIM),
+            emb(cat("hist_item", max_length=ZOO_HIST,
+                    shared_embedding="item_space"), EMB_DIM,
+                combiner="mean")]}
+    else:
+        cols = {"emb": [emb(cat(n), EMB_DIM) for n in CAT_NAMES]}
+        if kind in ("wdl", "deepfm"):
+            cols["wide"] = [emb(cat(n), 1) for n in CAT_NAMES]
+    ratio, cap = (0.75, ZOO_DSSM_CAPACITY) if kind == "dssm" else \
+        (0.25, CAPACITY)
+    out = {}
+    for name, cs in cols.items():
+        width = sum(c.categorical.max_length for c in cs)
+        init = (cfg.Initializer("zeros") if name == "wide"
+                else cfg.Initializer("normal", scale=0.05))
+        out[name] = HostIndexEmbeddingCollection(
+            cs, name=name, capacity=cap, initializer=init,
+            max_unique=max(256, int(width * B * ratio)), use_native=True)
+    return out
+
+
+def zoo_model(kind):
+    """The zoo's model at full width, He-scaled weights from a numpy
+    generator seeded with SEED (the same on every call)."""
+    from deeprec_tpu_torch.data.criteo import CAT_NAMES, DENSE_NAMES
+    from deeprec_tpu_torch.models import ctr
+    nd = len(DENSE_NAMES)
+    model = {
+        "dcn": lambda: ctr.DCN(CAT_NAMES, EMB_DIM, cross_layers=3,
+                               deep_units=(1024, 512, 256), dense_dim=nd),
+        "wdl": lambda: ctr.WDL(CAT_NAMES, CAT_NAMES, EMB_DIM,
+                               deep_units=(1024, 512, 256), dense_dim=nd),
+        "deepfm": lambda: ctr.DeepFM(CAT_NAMES, CAT_NAMES, EMB_DIM,
+                                     deep_units=(400, 400, 400),
+                                     dense_dim=nd),
+        "dssm": lambda: ctr.DSSM(["uid", "hist_item"], ["item", "cate"],
+                                 EMB_DIM, tower_units=(256, 128), out_dim=64),
+    }[kind]()
+    rng = np.random.default_rng(SEED)
+    with torch.no_grad():
+        for p in model.parameters():
+            std = (2.0 / p.shape[1]) ** 0.5 if p.dim() == 2 else 0.01
+            p.copy_(torch.from_numpy(
+                rng.normal(0.0, std, tuple(p.shape)).astype(np.float32)))
+    return model
+
+
+def zoo_numeric(kind):
+    from deeprec_tpu_torch import feature_column as fc
+    from deeprec_tpu_torch.data.criteo import DENSE_NAMES
+    if kind == "dssm":
+        return []
+    return [fc.NumericColumn(n, log_normalize=True) for n in DENSE_NAMES]
+
+
+def zoo_trainer(kind, dev):
+    """The zoo's trainer: sparse_adagrad(0.05) + dense Adagrad(0.05), with
+    sparse_ftrl(0.05) on the wide table (WDL, DeepFM); DSSM:
+    sparse_adam(0.002) + dense Adam(0.002)."""
+    from deeprec_tpu_torch.optim import dense, sparse
+    from deeprec_tpu_torch.train.trainer import Trainer
+    colls = zoo_collections(kind)
+    if kind == "dssm":
+        opts, dense_opt = {"emb": sparse.sparse_adam(0.002)}, \
+            dense.Adam(0.002)
+    else:
+        opts = {"emb": sparse.sparse_adagrad(0.05)}
+        if "wide" in colls:
+            opts["wide"] = sparse.sparse_ftrl(0.05)
+        dense_opt = dense.Adagrad(0.05)
+    return Trainer(zoo_model(kind), zoo_numeric(kind), colls, opts,
+                   dense_opt, device=dev)
+
+
+def zoo_batches(kind, seed, n):
+    from deeprec_tpu_torch.data.behavior import SyntheticBehavior
+    from deeprec_tpu_torch.data.criteo import SyntheticCriteo
+    gen = (SyntheticBehavior(batch_size=B, seed=seed) if kind == "dssm"
+           else SyntheticCriteo(batch_size=B, seed=seed))
+    return list(gen.take(n))
+
+
+def check_zoo(dev, smi, tmp):
+    """Phase 10: DCN, WDL, DeepFM and DSSM as their zoo trainers build
+    them, each: ZOO_STEPS steps in lockstep with a CPU trainer, 3 timed
+    runs of 10 staged steps, K1, K2 and K2's backward launched on its path;
+    a save served by a card and a CPU Predictor. Returns the launches by
+    path and the summary."""
+    from deeprec_tpu_torch.checkpoint.saver import CheckpointManager
+    from deeprec_tpu_torch.serving import Predictor
+    from deeprec_tpu_torch.train import metrics
+    counters = path_counters()
+    paths, out = {}, {}
+    for kind in ZOO_MODELS:
+        t0 = time.perf_counter()
+        batches = zoo_batches(kind, 7, ZOO_STEPS + 30)
+        held = zoo_batches(kind, 11, 2)
+        tg, tc = zoo_trainer(kind, dev), zoo_trainer(kind, "cpu")
+        for fn in counters.values():
+            fn.launches = 0
+        sg, dloss, drow = lockstep(tg, tc, batches[:ZOO_STEPS],
+                                   f"zoo {kind}")
+        del tc
+        sg, staged = timed_runs(tg, sg, batches[ZOO_STEPS:])
+        launches = {k: fn.launches for k, fn in counters.items()}
+        paths[f"zoo_{kind}"] = launches
+        for k in ("gather_rows", "fused_pooled_lookup",
+                  "fused_pooled_lookup_backward"):
+            if launches[k] <= 0:
+                fail(f"{k} was not launched on the zoo {kind} path")
+        summ = metrics.summarize(sg.metrics)
+        if not (summ["examples"] == sg.step * B
+                and np.isfinite(summ["loss"])):
+            fail(f"zoo {kind} metrics are off: {summ}")
+
+        path = os.path.join(tmp, kind)
+        CheckpointManager(path).save(tg, sg)
+        gpu, cpu = (Predictor(zoo_model(kind), zoo_numeric(kind),
+                              tg.collections, path, device=d)
+                    for d in (dev, "cpu"))
+        dp = _compare_predictors(gpu, cpu, held, f"zoo {kind} serving")
+        inv32 = {n: not w.inv16 for n, w in tg.prepare_batch(
+            held[0], train=False)[1].items()}
+        health = {n: (h["size"], h["max_n_unique"], h["max_unique"])
+                  for n, h in tg.table_health(sg).items()}
+        log(f"zoo {kind} ({sg.step} steps) launches: {launches}; examples/s "
+            f"at B={B}, staged host half: median "
+            f"{statistics.median(staged):.1f}, min {min(staged):.1f}, max "
+            f"{max(staged):.1f} over 3 runs of 10 steps, on {smi}; card vs "
+            f"CPU Predictor over its save: max |dp| {dp:.3g}; tables (size, "
+            f"max unique, max_unique): {health}; int32 inverse wire: "
+            f"{inv32}; phase {time.perf_counter() - t0:.1f} s")
+        out[kind] = {"staged_eps": staged, "max_dloss": dloss,
+                     "max_drow": drow, "serve_dp": dp, "tables": health,
+                     "inverse_int32": inv32, "summary": summ}
+        del tg, sg, gpu, cpu
+    return paths, out
+
+
+def k2_pair(what, urows, slots, valid, combiner, d_pooled, lib_fwd,
+            lib_bwd, suffix):
+    """K2 and K2's backward at one shape against their plain versions,
+    timed beside one PyTorch call each (``lib_fwd``, ``lib_bwd``: checked
+    to compute the same function) and their HBM-bytes bound. Returns the
+    two kernels' entries."""
+    from deeprec_tpu_torch.ops.fused_lookup import (
+        fused_pooled_lookup, fused_pooled_lookup_backward,
+        fused_pooled_lookup_backward_plain, fused_pooled_lookup_plain)
+    from deeprec_tpu_torch.probes.kernel_probe import window_groups
+    u, d = urows.shape
+    ref = fused_pooled_lookup_plain(urows, slots, valid, combiner)
+    got = fused_pooled_lookup(urows, slots, valid, combiner)
+    torch.testing.assert_close(got, ref, rtol=POOL_RTOL, atol=1e-6)
+    torch.testing.assert_close(lib_fwd(), ref, rtol=POOL_RTOL, atol=1e-6)
+    fwd_err = (got - ref).abs().max().item()
+    bref = fused_pooled_lookup_backward_plain(d_pooled, slots, valid,
+                                              combiner, u)
+    bgot = fused_pooled_lookup_backward(d_pooled, slots, valid, combiner, u)
+    mag = fused_pooled_lookup_backward_plain(d_pooled.abs(), slots, valid,
+                                             combiner, u)
+    bwd_err = (bgot - bref).abs().max().item()
+    if not bool(((bgot - bref).abs() <= BWD_TOL * mag + 1e-7).all()):
+        fail(f"K2 backward {what} differs from its plain version by "
+             f"{bwd_err}")
+    if not bool(((lib_bwd() - bref).abs() <= BWD_TOL * mag + 1e-7).all()):
+        fail(f"K2 backward {what}: the library yardstick computes another "
+             f"function")
+    n_ids = slots.numel()
+    rows_read = int(torch.unique(slots[valid]).numel())
+    adds, hot, windows = window_groups(slots.reshape(-1), valid.reshape(-1))
+    fwd_bytes = (n_ids * slots.element_size() + n_ids + rows_read * d * 4
+                 + slots.shape[0] * d * 4)
+    bwd_bytes = (d_pooled.numel() * 4 + n_ids * slots.element_size() + n_ids
+                 + u * d * 4)
+    times = {}
+    for key, fn, plain, lib in (
+            ("fwd", lambda: fused_pooled_lookup(urows, slots, valid,
+                                                combiner),
+             lambda: fused_pooled_lookup_plain(urows, slots, valid,
+                                               combiner), lib_fwd),
+            ("bwd", lambda: fused_pooled_lookup_backward(
+                d_pooled, slots, valid, combiner, u),
+             lambda: fused_pooled_lookup_backward_plain(
+                 d_pooled, slots, valid, combiner, u), lib_bwd)):
+        times[key] = (time_ms(fn), time_ms(plain), time_ms(lib))
+    log_times(f"K2 fused_pooled_lookup {what}", *times["fwd"], fwd_bytes,
+              f"; max_abs_err {fwd_err:.3g}; {rows_read} rows read")
+    log_times(f"K2 fused_pooled_lookup_backward {what}", *times["bwd"],
+              bwd_bytes, f"; max_abs_err {bwd_err:.3g}; hottest lane takes "
+              f"{hot} ids from {windows} 32-id windows; {adds} row adds "
+              f"after warp grouping")
+    src = "deeprec_tpu_torch/csrc/fused_pooled_lookup.cu"
+    k2 = "deeprec_tpu/ops/pallas_fused_lookup.py:80"
+    return [entry(f"fused_pooled_lookup_{suffix}", src, k2, fwd_err,
+                  *times["fwd"], fwd_bytes, counter="fused_pooled_lookup"),
+            entry(f"fused_pooled_lookup_backward_{suffix}", src, k2, bwd_err,
+                  *times["bwd"], bwd_bytes,
+                  counter="fused_pooled_lookup_backward")]
+
+
+def k1_case(what, table, slots, suffix):
+    """K1 at one shape: bit-equal to its plain version, timed beside
+    ``index_select`` and its bound. Returns its entry."""
+    from deeprec_tpu_torch.ops.gather import gather_rows, gather_rows_plain
+    d = table.shape[1]
+    if not torch.equal(gather_rows(table, slots, d),
+                       gather_rows_plain(table, slots, d)):
+        fail(f"K1 {what} differs from its plain version")
+    kt = time_ms(lambda: gather_rows(table, slots, d))
+    pt = time_ms(lambda: gather_rows_plain(table, slots, d))
+    lt = time_ms(lambda: torch.index_select(table, 0, slots))
+    # the slots, each distinct row read once, every lane's row written
+    u = slots.shape[0]
+    nbytes = u * 4 + (torch.unique(slots).numel() + u) * d * 4
+    log_times(f"K1 gather_rows {what} ([{u}] x {d})", kt, pt, lt, nbytes,
+              "; library: torch.index_select")
+    return entry(f"gather_rows_{suffix}", "deeprec_tpu_torch/csrc/"
+                 "gather_rows.cu", "deeprec_tpu/ops/pallas_gather.py:78", 0.0,
+                 kt, pt, lt, nbytes, counter="gather_rows")
+
+
+def check_zoo_kernels(dev):
+    """K1, K2 and K2's backward at the zoo's new shapes, from one resolved
+    batch each: the wide tables' D = 1 ([26*4096, 1] bags of one f32; WDL,
+    DeepFM) and DSSM's hist_item ([4096, 32] mean, -1 padding, through its
+    int32 inverse wire; its unique-row fetch over 107,521 lanes)."""
+    import torch.nn.functional as Fn
+    g = torch.Generator().manual_seed(SEED + 2)
+    entries = []
+
+    # the wide table: one [26*B, 1] group of width-1 bags at D = 1
+    wide = zoo_collections("wdl")["wide"]
+    cap = wide.config.capacity
+    r = wide.pack_ids(zoo_batches("wdl", 7, 1)[0], dev).decode()
+    u, n_real = r.uslots.shape[0], int(r.n_unique)
+    slots = r.inverse.view(-1, 1)
+    valid = (r.uslots != cap)[r.inverse].view(-1, 1)
+    urows = torch.randn(u, 1, generator=g).to(dev)
+    d_pooled = torch.randn(slots.shape[0], 1, generator=g).to(dev)
+    idx, src = r.inverse.long(), torch.where(valid, d_pooled, 0.0)
+    log(f"wide shape: {slots.shape[0]} ids, {n_real} unique keys in {u} "
+        f"lanes, D 1")
+    entries += k2_pair(
+        f"(wide, [26*{B}, 1] sum, D 1)", urows, slots, valid, "sum",
+        d_pooled,
+        lambda: Fn.embedding_bag(slots, urows, per_sample_weights=valid.float(),
+                                 mode="sum"),
+        lambda: torch.zeros(u, 1, device=dev).index_add_(0, idx, src),
+        "d1")
+    table = torch.randn(cap + 1, 1, generator=g).to(dev)
+    entries.append(k1_case("(wide unique-row fetch, D 1)", table, r.uslots,
+                           "d1"))
+    for e in entries:
+        e["path"] = "zoo_wdl"
+
+    # DSSM: hist_item, [B, 32] mean over the wire's int32 inverse
+    coll = zoo_collections("dssm")["emb"]
+    cap = coll.config.capacity
+    wire = coll.pack_ids(zoo_batches("dssm", 7, 1)[0], dev)
+    r = wire.decode()
+    u, n_real = r.uslots.shape[0], int(r.n_unique)
+    if wire.inv16 or u <= 32767:
+        fail(f"DSSM's wire has {u} lanes and an int16 inverse")
+    o, w, comb, names = next(grp for grp in coll._pool_groups
+                             if grp[3] == ["hist_item"])
+    tw = coll.total_width
+    slots = r.inverse.view(tw, B)[o:o + w].T      # [B, 32], strided
+    valid = (r.uslots != cap)[r.inverse].view(tw, B)[o:o + w].T
+    pad = int((~valid).sum())
+    log(f"DSSM shape: {r.inverse.shape[0]} ids, {n_real} unique keys in {u} "
+        f"lanes (int32 inverse); hist_item [{B}, {w}] {comb}, {pad} padded "
+        f"lanes")
+    urows = torch.randn(u, EMB_DIM, generator=g).to(dev)
+    d_pooled = torch.randn(B, EMB_DIM, generator=g).to(dev)
+    # the library's mean: invalid lanes point at an extra padding row
+    ext = torch.cat([urows, torch.zeros(1, EMB_DIM, device=dev)])
+    lidx = torch.where(valid, slots, u).long()
+    n = valid.sum(1, keepdim=True).clamp_min(1).float()
+    bsrc = torch.where(valid[..., None], (d_pooled / n)[:, None, :],
+                       0.0).reshape(-1, EMB_DIM)
+    bidx = slots.reshape(-1).long()
+    pair = k2_pair(
+        f"(DSSM hist_item, [{B}, {w}] {comb}, D {EMB_DIM})", urows, slots,
+        valid, comb, d_pooled,
+        lambda: Fn.embedding_bag(lidx, ext, mode="mean", padding_idx=u),
+        lambda: torch.zeros(u, EMB_DIM, device=dev).index_add_(0, bidx,
+                                                               bsrc),
+        "w32_mean")
+    table = torch.randn(cap + 1, EMB_DIM, generator=g).to(dev)
+    pair.append(k1_case("(DSSM unique-row fetch)", table, r.uslots, "dssm"))
+    for e in pair:
+        e["path"] = "zoo_dssm"
+    return entries + pair
+
+
 def run(dev, smi, probe):
-    """Phases 2-7 on ``dev`` (``probe``: the built design probes); returns
+    """Phases 2-10 on ``dev`` (``probe``: the built design probes); returns
     the kernels' JSON entries and the training numbers."""
     from deeprec_tpu_torch.data.criteo import SyntheticCriteo
     from deeprec_tpu_torch.ops.fused_lookup import fused_pooled_lookup
     from deeprec_tpu_torch.ops.gather import gather_rows
     from deeprec_tpu_torch.ops import _build
 
-    kernels = check_kernels(dev, probe) + check_training_kernels(dev, probe)
+    kernels = (check_kernels(dev, probe) + check_training_kernels(dev, probe)
+               + check_zoo_kernels(dev))
 
     _build.BUILD.mkdir(parents=True, exist_ok=True)  # git-ignored
     with tempfile.TemporaryDirectory(dir=str(_build.BUILD)) as path:
@@ -1576,10 +1915,15 @@ def run(dev, smi, probe):
         paths["loop"], training["loop"] = check_loop(dev, smi, path)
     with tempfile.TemporaryDirectory(dir=str(_build.BUILD)) as path:
         paths["tier"], training["tier"] = check_tier(dev, smi, path)
+    with tempfile.TemporaryDirectory(dir=str(_build.BUILD)) as path:
+        zoo_paths, training["zoo"] = check_zoo(dev, smi, path)
+    paths.update(zoo_paths)
     for k in kernels:
         # launches on the slice's main path, --metadata (the bf16 rows: on
-        # the bf16 table's, where every K2 launch is a bf16 one)
-        name, main = k["name"], "train_metadata"
+        # the bf16 table's, where every K2 launch is a bf16 one; a zoo
+        # shape's: on the path of the model that gives it)
+        name, main = k.pop("counter", k["name"]), k.pop("path",
+                                                         "train_metadata")
         if name.endswith("_bf16"):
             name, main = name[:-len("_bf16")], "train_bf16"
         k["launches"] = paths[main].get(name, 0)

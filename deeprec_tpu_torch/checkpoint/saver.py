@@ -7,8 +7,9 @@ Port of ``deeprec_tpu/checkpoint/saver.py``:
   and ``restore``. Tables go through their collection's hooks
   (``ckpt_arrays``/``ckpt_restore``: the host-index collection, the
   trainable table of the port). Dense leaves are written in the order of
-  the JAX tree ``(params, opt_state, step)``: the flax params, the
-  ``optax.adagrad`` accumulators, the step. So a save of the port restores
+  the JAX tree ``(params, opt_state, step)``: the flax params, the optax
+  state of the trainer's dense optimizer (``optim.dense``: Adagrad's
+  accumulators, or Adam's count and moments), the step. So a save of the port restores
   into the JAX ``Trainer`` and a JAX save into the port's. A tiered
   table's host tier is saved too, as a ``__tier__<name>`` table of keys
   and payload rows (every row in a full save, the rows demoted since the
@@ -43,8 +44,7 @@ import numpy as np
 import torch
 
 from ..config import EmbeddingVariableConfig
-from ..models.ctr import (flax_adagrad_leaves, flax_leaves,
-                          load_flax_adagrad_state, load_flax_params)
+from ..models.ctr import flax_leaves, load_flax_params
 from ..sparse import embedding_var as ev
 from ..sparse import hashtable as ht
 from ..sparse import keys as K
@@ -121,9 +121,11 @@ def _cbf_for_shard(arrays: Dict[str, np.ndarray], s: int, num_shards: int
 
 
 def _dense_leaves(trainer, state) -> list:
-    """``(params, opt_state, step)`` as the JAX tree flattens them."""
+    """``(params, opt_state, step)`` as the JAX tree flattens them; the
+    trainer's dense optimizer converts its state to the optax leaves."""
     return (flax_leaves(trainer.model)
-            + flax_adagrad_leaves(trainer.model, state.opt_state)
+            + trainer.dense_optimizer.flax_state_leaves(trainer.model,
+                                                        state.opt_state)
             + [np.asarray(state.step, np.int32)])
 
 
@@ -330,13 +332,15 @@ class CheckpointManager:
 
         # dense: the newest save wins (every save carries all of it)
         leaves = F.read_dense(saves[-1]["path"])
+        opt = trainer.dense_optimizer
         n = len(flax_leaves(trainer.model))
-        if len(leaves) != 2 * n + 1:
+        k = opt.state_leaf_count(n)
+        if len(leaves) != n + k + 1:
             raise ValueError(
-                f"{len(leaves)} dense leaves; the model and its Adagrad "
-                f"state take {2 * n} and the step 1")
+                f"{len(leaves)} dense leaves; the model takes {n}, its "
+                f"{type(opt).__name__} state {k} and the step 1")
         load_flax_params(trainer.model, leaves[:n])
-        opt_state = load_flax_adagrad_state(trainer.model, leaves[n:2 * n])
+        opt_state = opt.load_flax_state(trainer.model, leaves[n:n + k])
         step = int(np.asarray(leaves[-1]))
         self._last_save_step = step
         self._restore_aux(saves[-1]["path"])

@@ -1,17 +1,33 @@
-"""Dense optimizer: the counterpart of ``optax.adagrad``.
+"""Dense optimizers: the counterparts of ``optax.adagrad`` and
+``optax.adam``, written out, each with its conversion to and from the
+leaves of the optax state tree (what a checkpoint's ``dense.npz`` holds
+after the params).
 
 ``optax.adagrad(lr)`` (``scale_by_rss`` then ``scale_by_learning_rate``)
 keeps ``acc`` starting at ``initial_accumulator_value`` (0.1), and updates
 ``acc += g^2; p += -lr * (rsqrt(acc + eps) * g)`` with ``eps = 1e-7`` and
 the rsqrt taken as 0 where ``acc`` is 0. That is not
 ``torch.optim.Adagrad`` with its defaults (acc from 0, ``g / (sqrt(acc) +
-1e-10)``), so the port writes it out.
+1e-10)``). ``optax.adam(lr)`` (``scale_by_adam`` then
+``scale_by_learning_rate``) keeps an int32 ``count`` that it bumps before
+the bias correction, ``mu`` and ``nu``, and steps ``p += -lr * mu_hat /
+(sqrt(nu_hat + eps_root) + eps)``; ``torch.optim.Adam`` rounds otherwise
+(it folds the corrections into the step size). So the port writes both
+out.
+
+The state holds one tensor per entry of ``module.parameters()`` (in that
+order) for each params-shaped leaf of the optax state;
+``flax_state_leaves``/``load_flax_state`` convert it to and from the optax
+leaves, which follow the flax param flatten order (``models.ctr``).
 """
 from __future__ import annotations
 
 from typing import List, NamedTuple, Sequence
 
+import numpy as np
 import torch
+
+from ..models.ctr import flax_state_leaves, load_flax_state
 
 
 class Adagrad(NamedTuple):
@@ -36,3 +52,88 @@ class Adagrad(NamedTuple):
             acc.add_(g * g)
             scale = torch.where(acc > 0, torch.rsqrt(acc + self.eps), 0.0)
             p.add_(scale * g, alpha=-self.learning_rate)
+
+    # -- the optax state: (ScaleByRssState(sum_of_squares), EmptyState()) --
+    @staticmethod
+    def state_leaf_count(n_params: int) -> int:
+        return n_params
+
+    @staticmethod
+    def flax_state_leaves(module: torch.nn.Module,
+                          state) -> List[np.ndarray]:
+        """The ``sum_of_squares`` leaves."""
+        return flax_state_leaves(module, state)
+
+    @staticmethod
+    def load_flax_state(module: torch.nn.Module, leaves) -> List[torch.Tensor]:
+        return load_flax_state(module, leaves, "adagrad")
+
+
+class AdamState(NamedTuple):
+    count: torch.Tensor      # int32 scalar: steps taken
+    mu: List[torch.Tensor]   # first moments, one per parameter
+    nu: List[torch.Tensor]   # second moments
+
+
+class Adam(NamedTuple):
+    learning_rate: float = 0.001
+    b1: float = 0.9
+    b2: float = 0.999
+    eps: float = 1e-8
+    eps_root: float = 0.0
+
+    def init(self, params: Sequence[torch.Tensor]) -> AdamState:
+        params = list(params)
+        dev = params[0].device if params else None
+
+        def zeros():
+            return [torch.zeros_like(p, memory_format=torch.contiguous_format)
+                    for p in params]
+        return AdamState(torch.zeros((), dtype=torch.int32, device=dev),
+                         zeros(), zeros())
+
+    @torch.no_grad()
+    def step(self, params: Sequence[torch.Tensor], state: AdamState) -> None:
+        """Update ``params`` and ``state`` in place from their ``.grad``.
+        A parameter without a gradient steps with a zero one, as optax
+        steps it (its moments decay, and the parameter moves by them)."""
+        state.count.add_(1)   # optax bumps the count before the correction
+        # 1 - b^count in f32, on the count's device (no host sync)
+        c1 = 1.0 - torch.pow(self.b1, state.count)
+        c2 = 1.0 - torch.pow(self.b2, state.count)
+        for p, mu, nu in zip(params, state.mu, state.nu):
+            g = p.grad if p.grad is not None else torch.zeros_like(p)
+            mu.copy_((1 - self.b1) * g + self.b1 * mu)
+            nu.copy_((1 - self.b2) * (g * g) + self.b2 * nu)
+            upd = (mu / c1) / (torch.sqrt(nu / c2 + self.eps_root) + self.eps)
+            p.add_(upd * -self.learning_rate)
+
+    # -- the optax state: (ScaleByAdamState(count, mu, nu), EmptyState()) --
+    @staticmethod
+    def state_leaf_count(n_params: int) -> int:
+        return 1 + 2 * n_params
+
+    @staticmethod
+    def flax_state_leaves(module: torch.nn.Module,
+                          state: AdamState) -> List[np.ndarray]:
+        """``count``, then the ``mu`` leaves, then the ``nu`` leaves."""
+        return ([np.asarray(state.count.cpu().numpy(), np.int32)]
+                + flax_state_leaves(module, state.mu)
+                + flax_state_leaves(module, state.nu))
+
+    @staticmethod
+    def load_flax_state(module: torch.nn.Module, leaves) -> AdamState:
+        leaves = list(leaves)
+        n = len(list(module.parameters()))
+        if len(leaves) < 1 + 2 * n:
+            raise ValueError(f"{len(leaves)} adam leaves for {n} parameters "
+                             f"(count, mu and nu take {1 + 2 * n})")
+        count = np.asarray(leaves[0])
+        if count.shape != () or count.dtype.kind not in "iu":
+            raise ValueError(f"the adam count leaf is {count.dtype} "
+                             f"{count.shape}, not an int32 scalar")
+        dev = next(module.parameters()).device
+        return AdamState(
+            torch.tensor(int(count), dtype=torch.int32, device=dev),
+            load_flax_state(module, leaves[1:1 + n], "adam mu"),
+            load_flax_state(module, leaves[1 + n:1 + 2 * n], "adam nu"))

@@ -22,7 +22,8 @@ no params.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, NamedTuple, Optional, Sequence
+from typing import (Any, Callable, Dict, NamedTuple, Optional, Sequence,
+                    Union)
 
 import numpy as np
 import torch
@@ -30,7 +31,7 @@ import torch.nn.functional as F
 
 from ..feature_column import (EmbeddingCollection, NumericColumn,
                               normalize_dense, pack_dense)
-from ..optim.dense import Adagrad
+from ..optim.dense import Adagrad, Adam
 from ..optim.sparse import SparseOptimizer
 from . import metrics as metrics_lib
 from .pipeline import to_device
@@ -62,15 +63,20 @@ class Trainer:
 
     ``forward(model, dense, outputs, train)`` consumes
     ``outputs[collection_name] = (emb_dict, seq_dict)`` and returns logits
-    or ``(logits, aux_loss)``. ``dense_optimizer`` is an
-    ``optim.dense.Adagrad`` (the counterpart of ``optax.adagrad``).
+    or ``(logits, aux_loss)``: ``default_forward`` routes collection
+    ``"emb"`` to the model's ``emb`` and ``"wide"`` to its ``wide=``, and
+    passes ``dense=None`` when there are no numeric columns (DSSM). Each
+    collection has its own sparse optimizer (WDL and DeepFM: Adagrad on
+    ``"emb"``, FTRL on ``"wide"``). ``dense_optimizer`` is an
+    ``optim.dense.Adagrad`` or ``Adam`` (the counterparts of
+    ``optax.adagrad`` and ``optax.adam``).
     """
 
     def __init__(self, model: torch.nn.Module,
                  numeric_columns: Sequence[NumericColumn],
                  collections: Dict[str, EmbeddingCollection],
                  sparse_optimizers: Dict[str, SparseOptimizer],
-                 dense_optimizer: Adagrad,
+                 dense_optimizer: Union[Adagrad, Adam],
                  forward: Optional[Callable] = None,
                  aux_loss_weight: float = 1.0, device="cuda"):
         self.device = torch.device(device)

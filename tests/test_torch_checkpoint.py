@@ -121,7 +121,7 @@ def _carried(layout, batch):
     js, ts = jt.init(jax.random.key(0), batch), tt.init(batch)
     tctr.load_flax_params(tt.model, [np.asarray(x) for x in
                                      jax.tree_util.tree_leaves(js.params)])
-    ts = ts._replace(opt_state=tctr.load_flax_adagrad_state(
+    ts = ts._replace(opt_state=tt.dense_optimizer.load_flax_state(
         tt.model, [np.asarray(x)
                    for x in jax.tree_util.tree_leaves(js.opt_state)]))
     return jt, tt, js, ts
@@ -304,8 +304,9 @@ def test_dense_leaves_follow_the_jax_tree():
     for g, r in zip(got, ref):
         assert g.shape == r.shape and g.dtype == r.dtype
         np.testing.assert_array_equal(g, r)
-    back = tctr.load_flax_adagrad_state(
-        tt.model, tctr.flax_adagrad_leaves(tt.model, ts.opt_state))
+    opt = tt.dense_optimizer
+    back = opt.load_flax_state(tt.model,
+                               opt.flax_state_leaves(tt.model, ts.opt_state))
     for a, c in zip(back, ts.opt_state):
         assert torch.equal(a, c)
 

@@ -24,7 +24,7 @@ leaked = sorted(m for m in sys.modules
                                        "deeprec_tpu")
                 and sys.modules[m] is not None)
 assert not leaked, leaked
-print(len(names))
+print(" ".join(names))
 """
 
 
@@ -33,7 +33,12 @@ def test_port_imports_without_jax():
                          capture_output=True, text=True, timeout=120,
                          env=dict(os.environ, PYTHONPATH=REPO))
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 30  # every module was walked
+    names = set(out.stdout.split())
+    assert len(names) >= 30  # every module was walked
+    # the zoo's modules among them
+    assert {f"deeprec_tpu_torch.{m}" for m in (
+        "models.ctr", "models.layers", "models.structured", "optim.sparse",
+        "optim.dense", "data.behavior")} <= names
 
 
 def test_resolver_binding_copy_is_the_source():

@@ -358,6 +358,59 @@ def test_fused_pooled_lookup_backward_matches_plain(cuda, combiner, case):
     assert not got.isnan().any()
 
 
+def _zoo_case(g, case):
+    """(values, slots, valid, d_pooled) at a CTR-zoo shape: the wide
+    tables' [26*4096, 1] bags at D 1 (ids skewed onto 26,624 lanes, a few
+    thousand on the hottest), or DSSM's hist_item, [4096, 32] lane-major views of a
+    [35, 4096] int32 inverse over 107,521 lanes with 4-32 valid ids a row
+    and -1 padding (its lanes read the null slot and are not valid)."""
+    if case == "wide_d1":
+        bags, u, d = 26 * 4096, 26624, 1
+        slots = (torch.rand(bags, 1, generator=g) ** 3 * u).to(torch.int32)
+        valid = torch.rand(bags, 1, generator=g) < 0.95
+    else:
+        bags, u, d = 4096, 107521, 16
+        inv = torch.randint(0, u - 1, (35, bags), generator=g)
+        lens = torch.randint(4, 33, (bags,), generator=g)
+        pad = torch.arange(32)[None, :] >= lens[:, None]    # [B, 32]
+        inv[3:35][pad.T] = u - 1
+        slots, valid = inv.to(torch.int32)[3:35].T, ~pad
+    values = torch.randn(u, d, generator=g)
+    return values, slots, valid, torch.randn(bags, d, generator=g)
+
+
+@pytest.mark.parametrize("combiner", ["sum", "mean", "sqrtn"])
+@pytest.mark.parametrize("case", ["wide_d1", "hist_w32"])
+def test_fused_pooled_lookup_zoo_shapes(cuda, combiner, case):
+    """K2 and its backward at the shapes the CTR zoo adds: D = 1 (WDL's and
+    DeepFM's wide tables) and [B, 32] with padding (DSSM's mean-pooled
+    history), each against its plain version."""
+    values, slots, valid, d_pooled = _zoo_case(_gen(), case)
+    ref = fused_pooled_lookup_plain(values, slots, valid, combiner)
+    f0, b0 = (fused_pooled_lookup.launches,
+              fused_pooled_lookup_backward.launches)
+    got = fused_pooled_lookup(values.to(cuda), slots.to(cuda),
+                              valid.to(cuda), combiner)
+    bref = fused_pooled_lookup_backward_plain(d_pooled, slots, valid,
+                                              combiner, values.shape[0])
+    bound = fused_pooled_lookup_backward_plain(d_pooled.abs(), slots, valid,
+                                               combiner, values.shape[0])
+    bgot = fused_pooled_lookup_backward(d_pooled.to(cuda), slots.to(cuda),
+                                        valid.to(cuda), combiner,
+                                        values.shape[0])
+    torch.cuda.synchronize()
+    assert fused_pooled_lookup.launches == f0 + 1
+    assert fused_pooled_lookup_backward.launches == b0 + 1
+    if slots.shape[1] == 1:  # one row a bag: a copy
+        assert torch.equal(got.cpu(), ref)
+    else:  # f32 sums of up to 32 rows in another order (see above)
+        mag = fused_pooled_lookup_plain(values.abs(), slots, valid, combiner)
+        assert ((got.cpu() - ref).abs() <= 1e-5 * mag + 1e-7).all()
+    # the backward's atomics, as in the test above; at D 1 the hottest
+    # lane's ids are scalar adds to one address
+    assert ((bgot.cpu() - bref).abs() <= 1e-4 * bound + 1e-7).all()
+
+
 def test_pooled_lookup_autograd_on_card(cuda):
     """The autograd entry runs K2 forward and K2 backward on the card."""
     g = _gen()

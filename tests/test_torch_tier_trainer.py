@@ -107,7 +107,7 @@ def carried(jt, tt, batch):
     js, ts = jt.init(jax.random.key(0), batch), tt.init(batch)
     tctr.load_flax_params(tt.model, [np.asarray(x) for x in
                                      jax.tree_util.tree_leaves(js.params)])
-    ts = ts._replace(opt_state=tctr.load_flax_adagrad_state(
+    ts = ts._replace(opt_state=tt.dense_optimizer.load_flax_state(
         tt.model, [np.asarray(x)
                    for x in jax.tree_util.tree_leaves(js.opt_state)]))
     return js, ts

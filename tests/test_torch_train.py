@@ -87,7 +87,7 @@ def test_trainer_matches_jax(metadata):
     ts = tt.init(batches[0])
     tctr.load_flax_params(tt.model, [np.asarray(x) for x in
                                      jax.tree_util.tree_leaves(js.params)])
-    ts = ts._replace(opt_state=tctr.load_flax_adagrad_state(
+    ts = ts._replace(opt_state=tt.dense_optimizer.load_flax_state(
         tt.model, [np.asarray(x)
                    for x in jax.tree_util.tree_leaves(js.opt_state)]))
 
