@@ -1,5 +1,6 @@
 """Card smoke test of the PyTorch port (deeprec_tpu_torch): its serving
-path, its host-index training path, its tiered storage and the CTR zoo.
+path, its host-index training path, its tiered storage, the CTR zoo and
+the sequence models DIN and DIEN.
 
 Run from the root of a checkout on a machine with one CUDA card:
 
@@ -92,13 +93,33 @@ comparison compute in full f32. Phases (any failure exits non-zero):
    DeepFM add a dim-1 "wide" table trained with sparse_ftrl; DCN, WDL and
    DeepFM train "emb" with sparse_adagrad and the towers with Adagrad,
    DSSM with sparse_adam and Adam), each: 5 steps in lockstep with a CPU
-   Trainer (wires bit-equal, losses within LOSS_ATOL, rows and slot leaves
-   within ROW_ATOL), 3 timed runs of 10 staged steps, K1, K2 and K2's
-   backward launched, and a save served by a card and a CPU Predictor
-   within PROB_ATOL. Phase 2 also holds K1, K2 and K2's backward at the
+   Trainer (wires bit-equal, losses within LOSS_ATOL, rows, slot leaves
+   and dense parameters within ROW_ATOL), 3 timed runs of 10 staged steps,
+   K1, K2 and K2's backward launched, and a save served by a card and a
+   CPU Predictor within PROB_ATOL, both holding the trained dense
+   parameters. Phase 2 also holds K1, K2 and K2's backward at the
    zoo's new shapes against their plain versions and times them: the wide
    tables' D = 1 and DSSM's [4096, 32] mean (through its int32 inverse
-   wire).
+   wire);
+11. the sequence models (``seq``): DIN and DIEN built as
+   modelzoo/DIN/train.py and modelzoo/DIEN/train.py build() does under
+   --host_index at the CLI's defaults (emb dim 16; item, cate and uid
+   plus the 32-long hist_item and hist_cate sharing item_space and
+   cate_space; a 2^19-row table, max_unique 0.75 of the flat ids; DIN's
+   MLP (200, 80) with Dice and attention (80, 40); DIEN's gru_units 32 and
+   its auxiliary loss through dien_forward; sparse_adam + Adam, 0.002) on
+   SyntheticBehavior(4096), each: 5 steps in lockstep with a CPU Trainer
+   (wires bit-equal, losses within LOSS_ATOL, rows, slot leaves,
+   parameters and the Dice running statistics within ROW_ATOL), 3 timed
+   runs of 10 staged steps, a torch.profiler breakdown of 3 steps, K1, K2
+   and K2's backward launched (the histories are expanded through K2 as
+   one-id bags, and their gradient through K2's backward), the null row
+   still zero, and a save served by a card and a CPU Predictor within
+   PROB_ATOL, both holding the trained parameters and statistics (one
+   function, check_models, runs phases 10 and 11). Phase 2 also
+   holds K2 and K2's backward at the expansion shape ([2*4096*32, 1] sum
+   over the int32 inverse of one resolved DIN batch) and K1 at DIN's
+   205,825 lanes against their plain versions and times them.
 
 The last line is {"ok": true, "device": {...}}; the line before it holds
 the kernels' numbers as JSON, the line before that the training numbers.
@@ -152,6 +173,9 @@ ZOO_MODELS = ("dcn", "wdl", "deepfm", "dssm")
 ZOO_STEPS = 5            # each zoo model's lockstep steps
 ZOO_HIST = 32            # DSSM's hist_item max_length (modelzoo/DSSM)
 ZOO_DSSM_CAPACITY = 1 << 19  # the CLI's --capacity default
+SEQ_MODELS = ("din", "dien")
+SEQ_STEPS = 5            # each sequence model's lockstep steps
+SEQ_HIST = 32            # modelzoo/DIN and DIEN's MAX_LEN
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM peak (the card's power limit printed)
 
 
@@ -914,7 +938,7 @@ def timed_runs(tg, state, batches, runs=3, steps=10, inline=False):
     return state, rates
 
 
-def profile_steps(tg, state, batches, step_ms):
+def profile_steps(tg, state, batches, step_ms, what="metadata"):
     """Device time by kernel over len(batches) staged steps
     (torch.profiler; only the device-side kernel and copy events are
     summed, so nothing is counted twice)."""
@@ -937,7 +961,7 @@ def profile_steps(tg, state, batches, step_ms):
                 key=dev_us, reverse=True)
     total_ms = sum(dev_us(e) for e in ka) / 1e3 / n
     launches = sum(e.count for e in ka) / n
-    log(f"profile of {n} staged metadata steps: {launches:.0f} device "
+    log(f"profile of {n} staged {what} steps: {launches:.0f} device "
         f"kernels and copies per step, busy {total_ms:.3f} ms per step = "
         f"{100 * total_ms / step_ms:.1f} % of the unprofiled median step "
         f"({step_ms:.3f} ms); idle {100 - 100 * total_ms / step_ms:.1f} %")
@@ -1631,63 +1655,6 @@ def zoo_batches(kind, seed, n):
     return list(gen.take(n))
 
 
-def check_zoo(dev, smi, tmp):
-    """Phase 10: DCN, WDL, DeepFM and DSSM as their zoo trainers build
-    them, each: ZOO_STEPS steps in lockstep with a CPU trainer, 3 timed
-    runs of 10 staged steps, K1, K2 and K2's backward launched on its path;
-    a save served by a card and a CPU Predictor. Returns the launches by
-    path and the summary."""
-    from deeprec_tpu_torch.checkpoint.saver import CheckpointManager
-    from deeprec_tpu_torch.serving import Predictor
-    from deeprec_tpu_torch.train import metrics
-    counters = path_counters()
-    paths, out = {}, {}
-    for kind in ZOO_MODELS:
-        t0 = time.perf_counter()
-        batches = zoo_batches(kind, 7, ZOO_STEPS + 30)
-        held = zoo_batches(kind, 11, 2)
-        tg, tc = zoo_trainer(kind, dev), zoo_trainer(kind, "cpu")
-        for fn in counters.values():
-            fn.launches = 0
-        sg, dloss, drow = lockstep(tg, tc, batches[:ZOO_STEPS],
-                                   f"zoo {kind}")
-        del tc
-        sg, staged = timed_runs(tg, sg, batches[ZOO_STEPS:])
-        launches = {k: fn.launches for k, fn in counters.items()}
-        paths[f"zoo_{kind}"] = launches
-        for k in ("gather_rows", "fused_pooled_lookup",
-                  "fused_pooled_lookup_backward"):
-            if launches[k] <= 0:
-                fail(f"{k} was not launched on the zoo {kind} path")
-        summ = metrics.summarize(sg.metrics)
-        if not (summ["examples"] == sg.step * B
-                and np.isfinite(summ["loss"])):
-            fail(f"zoo {kind} metrics are off: {summ}")
-
-        path = os.path.join(tmp, kind)
-        CheckpointManager(path).save(tg, sg)
-        gpu, cpu = (Predictor(zoo_model(kind), zoo_numeric(kind),
-                              tg.collections, path, device=d)
-                    for d in (dev, "cpu"))
-        dp = _compare_predictors(gpu, cpu, held, f"zoo {kind} serving")
-        inv32 = {n: not w.inv16 for n, w in tg.prepare_batch(
-            held[0], train=False)[1].items()}
-        health = {n: (h["size"], h["max_n_unique"], h["max_unique"])
-                  for n, h in tg.table_health(sg).items()}
-        log(f"zoo {kind} ({sg.step} steps) launches: {launches}; examples/s "
-            f"at B={B}, staged host half: median "
-            f"{statistics.median(staged):.1f}, min {min(staged):.1f}, max "
-            f"{max(staged):.1f} over 3 runs of 10 steps, on {smi}; card vs "
-            f"CPU Predictor over its save: max |dp| {dp:.3g}; tables (size, "
-            f"max unique, max_unique): {health}; int32 inverse wire: "
-            f"{inv32}; phase {time.perf_counter() - t0:.1f} s")
-        out[kind] = {"staged_eps": staged, "max_dloss": dloss,
-                     "max_drow": drow, "serve_dp": dp, "tables": health,
-                     "inverse_int32": inv32, "summary": summ}
-        del tg, sg, gpu, cpu
-    return paths, out
-
-
 def k2_pair(what, urows, slots, valid, combiner, d_pooled, lib_fwd,
             lib_bwd, suffix):
     """K2 and K2's backward at one shape against their plain versions,
@@ -1716,13 +1683,18 @@ def k2_pair(what, urows, slots, valid, combiner, d_pooled, lib_fwd,
     if not bool(((lib_bwd() - bref).abs() <= BWD_TOL * mag + 1e-7).all()):
         fail(f"K2 backward {what}: the library yardstick computes another "
              f"function")
-    n_ids = slots.numel()
+    # what the function needs from this run's data: every id's flag, the
+    # slot of each valid id; forward: each distinct row read once, every
+    # bag written; backward: the gradient row of each bag that holds a
+    # valid id, every row of d_values written
+    n_ids, n_valid = slots.numel(), int(valid.sum())
     rows_read = int(torch.unique(slots[valid]).numel())
+    bags_used = int(valid.any(1).sum())
     adds, hot, windows = window_groups(slots.reshape(-1), valid.reshape(-1))
-    fwd_bytes = (n_ids * slots.element_size() + n_ids + rows_read * d * 4
+    fwd_bytes = (n_valid * slots.element_size() + n_ids + rows_read * d * 4
                  + slots.shape[0] * d * 4)
-    bwd_bytes = (d_pooled.numel() * 4 + n_ids * slots.element_size() + n_ids
-                 + u * d * 4)
+    bwd_bytes = (bags_used * d_pooled.shape[1] * d_pooled.element_size()
+                 + n_valid * slots.element_size() + n_ids + u * d * 4)
     times = {}
     for key, fn, plain, lib in (
             ("fwd", lambda: fused_pooled_lookup(urows, slots, valid,
@@ -1844,8 +1816,239 @@ def check_zoo_kernels(dev):
     return entries + pair
 
 
+# -- phase 11: the sequence models --------------------------------------------
+def seq_collection():
+    """The host-index collection of ``modelzoo/DIN/train.py`` and
+    ``modelzoo/DIEN/train.py`` ``build()`` under --host_index at the CLI's
+    defaults: emb dim 16, item and cate shared with the 32-long histories
+    (item_space, cate_space), 2^19 rows, ``max_unique`` 0.75 of the 67
+    flat ids an example (205,824), the C++ resolver."""
+    from deeprec_tpu_torch import config as cfg
+    from deeprec_tpu_torch import feature_column as fc
+    from deeprec_tpu_torch.host_index import HostIndexEmbeddingCollection
+    cat, emb = fc.CategoricalColumn, fc.EmbeddingColumn
+    cols = [emb(cat("item", shared_embedding="item_space"), EMB_DIM),
+            emb(cat("cate", shared_embedding="cate_space"), EMB_DIM),
+            emb(cat("uid"), EMB_DIM),
+            fc.SequenceEmbeddingColumn(cat(
+                "hist_item", max_length=SEQ_HIST,
+                shared_embedding="item_space"), EMB_DIM),
+            fc.SequenceEmbeddingColumn(cat(
+                "hist_cate", max_length=SEQ_HIST,
+                shared_embedding="cate_space"), EMB_DIM)]
+    width = 3 + 2 * SEQ_HIST
+    return HostIndexEmbeddingCollection(
+        cols, name="emb", capacity=ZOO_DSSM_CAPACITY,
+        initializer=cfg.Initializer("normal", scale=0.05),
+        max_unique=max(256, int(width * B * 0.75)), use_native=True)
+
+
+def seq_model(kind):
+    """DIN (MLP (200, 80) with Dice, attention (80, 40)) or DIEN (the same
+    with gru_units 32) at full width, He-scaled weights from a numpy
+    generator seeded with SEED; the Dice statistics start at 0 and 1."""
+    from deeprec_tpu_torch.models import sequence
+    kw = dict(candidate_name="item", seq_name="hist_item",
+              candidate_context_names=["cate"],
+              seq_context_names=["hist_cate"], context_names=["uid"],
+              hidden_units=(200, 80), att_units=(80, 40))
+    model = (sequence.DIN(emb_dim=EMB_DIM, **kw) if kind == "din" else
+             sequence.DIEN(emb_dim=EMB_DIM, gru_units=2 * EMB_DIM, **kw))
+    rng = np.random.default_rng(SEED)
+    with torch.no_grad():
+        for p in model.parameters():
+            std = (2.0 / p.shape[1]) ** 0.5 if p.dim() == 2 else 0.01
+            p.copy_(torch.from_numpy(
+                rng.normal(0.0, std, tuple(p.shape)).astype(np.float32)))
+    return model
+
+
+def seq_forward(kind):
+    from deeprec_tpu_torch.models.sequence import dien_forward
+    return dien_forward if kind == "dien" else None
+
+
+def seq_trainer(kind, dev):
+    """sparse_adam(0.002) + dense Adam(0.002), the zoo's --optimizer adam;
+    DIEN's auxiliary loss weighted 1.0."""
+    from deeprec_tpu_torch.optim import dense, sparse
+    from deeprec_tpu_torch.train.trainer import Trainer
+    return Trainer(seq_model(kind), [], {"emb": seq_collection()},
+                   {"emb": sparse.sparse_adam(0.002)}, dense.Adam(0.002),
+                   forward=seq_forward(kind), aux_loss_weight=1.0,
+                   device=dev)
+
+
+def seq_batches(seed, n):
+    from deeprec_tpu_torch.data.behavior import SyntheticBehavior
+    return list(SyntheticBehavior(batch_size=B, max_len=SEQ_HIST,
+                                  seed=seed).take(n))
+
+
+def model_kind(kind):
+    """How the zoo and seq phases build and feed one model: its trainer
+    (given the device), a fresh model for a Predictor, its numeric
+    columns, forward hook, batch maker (seed, count) and lockstep steps.
+    ``seq``: a sequence model, whose phase also holds the null row at zero
+    (K2 zeroes a padded history lane where JAX reads that row) and profiles
+    3 staged steps."""
+    if kind in SEQ_MODELS:
+        return dict(trainer=lambda d: seq_trainer(kind, d),
+                    model=lambda: seq_model(kind), numeric=[],
+                    forward=seq_forward(kind), batches=seq_batches,
+                    steps=SEQ_STEPS, seq=True)
+    return dict(trainer=lambda d: zoo_trainer(kind, d),
+                model=lambda: zoo_model(kind), numeric=zoo_numeric(kind),
+                forward=None, batches=lambda s, n: zoo_batches(kind, s, n),
+                steps=ZOO_STEPS, seq=False)
+
+
+def check_models(dev, smi, tmp, phase, kinds):
+    """Phases 10 (``zoo``) and 11 (``seq``): each model of ``kinds`` as its
+    zoo trainer builds it: its lockstep steps with a CPU trainer, after
+    which its dense parameters and running statistics (which must have
+    moved) are within ROW_ATOL of the CPU's; 3 timed runs of 10 staged
+    steps; K1, K2 and K2's backward launched on its path; a save served by
+    a card and a CPU Predictor, both holding the trained dense leaves.
+    Returns the launches by path and the summary."""
+    from deeprec_tpu_torch.checkpoint.saver import CheckpointManager
+    from deeprec_tpu_torch.models.ctr import flax_leaf_count, flax_leaves
+    from deeprec_tpu_torch.serving import Predictor
+    from deeprec_tpu_torch.train import metrics
+    counters = path_counters()
+    paths, out = {}, {}
+    for kind in kinds:
+        spec, what = model_kind(kind), f"{phase} {kind}"
+        t0, steps = time.perf_counter(), spec["steps"]
+        batches = spec["batches"](7, steps + 30 + 3 * spec["seq"])
+        held = spec["batches"](11, 2)
+        tg, tc = spec["trainer"](dev), spec["trainer"]("cpu")
+        for fn in counters.values():
+            fn.launches = 0
+        sg, dloss, drow = lockstep(tg, tc, batches[:steps], what)
+        trained = flax_leaves(tg.model)
+        ddense = max(float(np.abs(a - c).max())
+                     for a, c in zip(trained, flax_leaves(tc.model)))
+        n_stats = flax_leaf_count(tg.model) - len(list(tg.model.parameters()))
+        if not ddense <= ROW_ATOL:
+            fail(f"{what}: dense parameters and running statistics differ "
+                 f"by {ddense} between card and CPU")
+        if n_stats and np.allclose(trained[0], 0.0):
+            fail(f"{what}: the running statistics did not move")
+        del tc
+        if spec["seq"]:
+            coll = tg.collections["emb"]
+            if bool(sg.tables["emb"].ev.values[coll.config.capacity].any()):
+                fail(f"{what}: the null row moved in training")
+        sg, staged = timed_runs(tg, sg, batches[steps:steps + 30])
+        launches = {k: fn.launches for k, fn in counters.items()}
+        paths[f"{phase}_{kind}"] = launches
+        for k in ("gather_rows", "fused_pooled_lookup",
+                  "fused_pooled_lookup_backward"):
+            if launches[k] <= 0:
+                fail(f"{k} was not launched on the {what} path")
+        med, dev_ms = statistics.median(staged), None
+        if spec["seq"]:
+            sg, dev_ms = profile_steps(tg, sg, batches[steps + 30:],
+                                       B / med * 1e3, what)
+        summ = metrics.summarize(sg.metrics)
+        if not (summ["examples"] == sg.step * B
+                and np.isfinite(summ["loss"])):
+            fail(f"{what} metrics are off: {summ}")
+
+        path = os.path.join(tmp, kind)
+        CheckpointManager(path).save(tg, sg)
+        gpu, cpu = (Predictor(spec["model"](), spec["numeric"],
+                              tg.collections, path, device=d,
+                              forward=spec["forward"])
+                    for d in (dev, "cpu"))
+        trained = flax_leaves(tg.model)
+        for p in (gpu, cpu):
+            if not all(np.array_equal(a, b) for a, b in zip(
+                    flax_leaves(p.model), trained)):
+                fail(f"{what}: a Predictor's dense leaves are not the "
+                     "trained ones")
+        dp = _compare_predictors(gpu, cpu, held, f"{what} serving")
+        inv32 = {n: not w.inv16 for n, w in tg.prepare_batch(
+            held[0], train=False)[1].items()}
+        health = {n: (h["size"], h["max_n_unique"], h["max_unique"])
+                  for n, h in tg.table_health(sg).items()}
+        log(f"{what} ({sg.step} steps) launches: {launches}; examples/s at "
+            f"B={B}, staged host half: median {med:.1f}, min "
+            f"{min(staged):.1f}, max {max(staged):.1f} over 3 runs of 10 "
+            f"steps, on {smi}; max |dparam| and |dstat| after the lockstep "
+            f"{ddense:.3g} ({n_stats} statistics); card vs CPU Predictor "
+            f"over its save: max |dp| {dp:.3g}; tables (size, max unique, "
+            f"max_unique): {health}; int32 inverse wire: {inv32}; phase "
+            f"{time.perf_counter() - t0:.1f} s")
+        out[kind] = {"staged_eps": staged, "max_dloss": dloss,
+                     "max_drow": drow, "max_ddense": ddense, "serve_dp": dp,
+                     "tables": health, "inverse_int32": inv32,
+                     "summary": summ}
+        if dev_ms is not None:
+            out[kind]["device_ms_per_step"] = dev_ms
+        del tg, sg, gpu, cpu
+    return paths, out
+
+
+def check_seq_kernels(dev):
+    """K2 and K2's backward at the history expansion of one resolved DIN
+    batch ([2*4096*32, 1] one-id sum bags over its int32 inverse, the
+    padded ids not valid), and K1 at its 205,825 lanes. K2 is timed beside
+    ``embedding_bag`` (the one library call) and ``index_select`` +
+    ``where`` (the JAX package's gather, then the mask)."""
+    import torch.nn.functional as Fn
+    from deeprec_tpu_torch.ops.fused_lookup import fused_pooled_lookup_plain
+    g = torch.Generator().manual_seed(SEED + 3)
+    coll = seq_collection()
+    cap = coll.config.capacity
+    wire = coll.pack_ids(seq_batches(7, 1)[0], dev)
+    r = wire.decode()
+    u, n_real = r.uslots.shape[0], int(r.n_unique)
+    if wire.inv16:
+        fail(f"DIN's wire has {u} lanes and an int16 inverse")
+    (o, w, _, names), = coll._seq_groups
+    n, tw = len(names), coll.total_width
+    # the collection's own layout: ids ordered [column, B, L]
+    slots = r.inverse.view(tw, B)[o:o + n * w].view(n, w, B).transpose(
+        1, 2).reshape(-1, 1)
+    valid = (r.uslots != cap)[r.inverse].view(tw, B)[o:o + n * w].view(
+        n, w, B).transpose(1, 2).reshape(-1, 1)
+    pad = int((~valid).sum())
+    log(f"DIN shape: {r.inverse.shape[0]} ids, {n_real} unique keys in {u} "
+        f"lanes (int32 inverse); {names} expanded as [{n}*{B}*{w}, 1] sum "
+        f"bags, {pad} padded lanes")
+    urows = torch.randn(u, EMB_DIM, generator=g).to(dev)
+    d_pooled = torch.randn(slots.shape[0], EMB_DIM, generator=g).to(dev)
+    idx = slots[:, 0].long()
+    src = torch.where(valid, d_pooled, 0.0)
+    pair = k2_pair(
+        f"(DIN histories, [{n}*{B}*{w}, 1] sum, D {EMB_DIM})", urows, slots,
+        valid, "sum", d_pooled,
+        lambda: Fn.embedding_bag(slots, urows,
+                                 per_sample_weights=valid.float(),
+                                 mode="sum"),
+        lambda: torch.zeros(u, EMB_DIM, device=dev).index_add_(0, idx, src),
+        "seq")
+    # the JAX package's way, two calls: gather every id, zero the padding
+    def gather_where():
+        return torch.where(valid, torch.index_select(urows, 0, slots[:, 0]),
+                           0.0)
+    if not torch.equal(gather_where(), fused_pooled_lookup_plain(
+            urows, slots, valid, "sum")):
+        fail("index_select + where computes another function")
+    pair[0]["gather_where_ms"] = time_ms(gather_where)
+    log(f"K2 at the DIN histories beside index_select + where: "
+        f"{pair[0]['ms']:.4f} vs {pair[0]['gather_where_ms']:.4f} ms")
+    table = torch.randn(cap + 1, EMB_DIM, generator=g).to(dev)
+    pair.append(k1_case("(DIN unique-row fetch)", table, r.uslots, "din"))
+    for e in pair:
+        e["path"] = "seq_din"
+    return pair
+
+
 def run(dev, smi, probe):
-    """Phases 2-10 on ``dev`` (``probe``: the built design probes); returns
+    """Phases 2-11 on ``dev`` (``probe``: the built design probes); returns
     the kernels' JSON entries and the training numbers."""
     from deeprec_tpu_torch.data.criteo import SyntheticCriteo
     from deeprec_tpu_torch.ops.fused_lookup import fused_pooled_lookup
@@ -1853,7 +2056,7 @@ def run(dev, smi, probe):
     from deeprec_tpu_torch.ops import _build
 
     kernels = (check_kernels(dev, probe) + check_training_kernels(dev, probe)
-               + check_zoo_kernels(dev))
+               + check_zoo_kernels(dev) + check_seq_kernels(dev))
 
     _build.BUILD.mkdir(parents=True, exist_ok=True)  # git-ignored
     with tempfile.TemporaryDirectory(dir=str(_build.BUILD)) as path:
@@ -1915,13 +2118,15 @@ def run(dev, smi, probe):
         paths["loop"], training["loop"] = check_loop(dev, smi, path)
     with tempfile.TemporaryDirectory(dir=str(_build.BUILD)) as path:
         paths["tier"], training["tier"] = check_tier(dev, smi, path)
-    with tempfile.TemporaryDirectory(dir=str(_build.BUILD)) as path:
-        zoo_paths, training["zoo"] = check_zoo(dev, smi, path)
-    paths.update(zoo_paths)
+    for phase, kinds in (("zoo", ZOO_MODELS), ("seq", SEQ_MODELS)):
+        with tempfile.TemporaryDirectory(dir=str(_build.BUILD)) as path:
+            phase_paths, training[phase] = check_models(dev, smi, path,
+                                                        phase, kinds)
+        paths.update(phase_paths)
     for k in kernels:
         # launches on the slice's main path, --metadata (the bf16 rows: on
-        # the bf16 table's, where every K2 launch is a bf16 one; a zoo
-        # shape's: on the path of the model that gives it)
+        # the bf16 table's, where every K2 launch is a bf16 one; a zoo or
+        # sequence shape's: on the path of the model that gives it)
         name, main = k.pop("counter", k["name"]), k.pop("path",
                                                          "train_metadata")
         if name.endswith("_bf16"):

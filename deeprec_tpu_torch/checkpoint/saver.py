@@ -7,14 +7,15 @@ Port of ``deeprec_tpu/checkpoint/saver.py``:
   and ``restore``. Tables go through their collection's hooks
   (``ckpt_arrays``/``ckpt_restore``: the host-index collection, the
   trainable table of the port). Dense leaves are written in the order of
-  the JAX tree ``(params, opt_state, step)``: the flax params, the optax
-  state of the trainer's dense optimizer (``optim.dense``: Adagrad's
-  accumulators, or Adam's count and moments), the step. So a save of the port restores
-  into the JAX ``Trainer`` and a JAX save into the port's. A tiered
-  table's host tier is saved too, as a ``__tier__<name>`` table of keys
-  and payload rows (every row in a full save, the rows demoted since the
-  last save in an incremental), and restored after the device rows. The
-  multi-process part writer is not ported.
+  the JAX tree ``(params, opt_state, step)``: the flax variables (a
+  model's running statistics first, then its params), the optax state
+  of the trainer's dense optimizer (``optim.dense``: Adagrad's
+  accumulators, or Adam's count and moments), the step. So a save of the
+  port restores into the JAX ``Trainer`` and a JAX save into the port's.
+  A tiered table's host tier is saved too, as a ``__tier__<name>`` table
+  of keys and payload rows (every row in a full save, the rows demoted
+  since the last save in an incremental), and restored after the device
+  rows. The multi-process part writer is not ported.
 
   Two faults of the JAX package are fixed here. The tier's since-save
   window is cleared only once ``F.write_save`` has returned (a save that
@@ -44,7 +45,7 @@ import numpy as np
 import torch
 
 from ..config import EmbeddingVariableConfig
-from ..models.ctr import flax_leaves, load_flax_params
+from ..models.ctr import flax_leaf_count, flax_leaves, load_flax_params
 from ..sparse import embedding_var as ev
 from ..sparse import hashtable as ht
 from ..sparse import keys as K
@@ -333,7 +334,7 @@ class CheckpointManager:
         # dense: the newest save wins (every save carries all of it)
         leaves = F.read_dense(saves[-1]["path"])
         opt = trainer.dense_optimizer
-        n = len(flax_leaves(trainer.model))
+        n = flax_leaf_count(trainer.model)
         k = opt.state_leaf_count(n)
         if len(leaves) != n + k + 1:
             raise ValueError(

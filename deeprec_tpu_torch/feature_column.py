@@ -3,8 +3,9 @@
 Port of ``deeprec_tpu/feature_column.py``: the column dataclasses,
 ``pack_dense``/``normalize_dense``, and of :class:`EmbeddingCollection` the
 serving half (``pack_ids_np``, ``readonly_rows``, ``embeddings_readonly``,
-``embeddings_from_rows``) and the trainer hooks (``gather_unique``,
-``rows_for_training``, ``embeddings``, ``apply_gradients``, ``init_slot``).
+``embeddings_from_rows``, ``sequence_embeddings_from_rows``) and the
+trainer hooks (``gather_unique``, ``rows_for_training``, ``embeddings``,
+``sequence_embeddings``, ``apply_gradients``, ``init_slot``).
 The device-index ``lookup_or_create`` is not ported: the trainable table
 is ``host_index.HostIndexEmbeddingCollection``.
 
@@ -17,6 +18,15 @@ kernel K2 straight through ``inverse``, so the ``[total_width*B, dim]``
 expanded rows are never materialised. Pooling is differentiable with
 respect to the unique rows (K2's backward kernel), which is how training
 gets its sparse gradient.
+
+Sequence columns (DIN's and DIEN's behaviour histories) are expanded, not
+pooled: ``name -> ([B, L, dim], mask [B, L])``. The JAX package gathers
+``urows[inverse]`` there; the port sends each run of adjacent sequence
+columns through K2 as one launch over ``[n_columns*B*L, 1]`` one-id bags
+(``sum``: pooling one id is a copy, and a padded id gives zeros), so the
+histories take K2 and K2's backward in both directions. The JAX package
+reads the null row at a padded position, which no training write reaches,
+so it is zeros there too.
 """
 from __future__ import annotations
 
@@ -67,7 +77,7 @@ class EmbeddingColumn:
 
 @dataclasses.dataclass(frozen=True)
 class SequenceEmbeddingColumn:
-    """Unpooled [B, L, dim] + mask. Not served by the port yet."""
+    """Unpooled: emits [B, L, dim] and a validity mask."""
 
     categorical: CategoricalColumn
     dimension: int
@@ -87,9 +97,6 @@ class EmbeddingCollection:
     def __init__(self, columns: Sequence[EmbeddingColumn], name: str = "emb",
                  capacity: int = 1 << 20,
                  initializer: Initializer = Initializer(), **ev_kwargs):
-        if any(isinstance(c, SequenceEmbeddingColumn) for c in columns):
-            raise NotImplementedError(
-                "sequence columns are not ported to deeprec_tpu_torch yet")
         dims = {c.dimension for c in columns}
         if len(dims) != 1:
             raise ValueError("columns in one collection must share a "
@@ -108,21 +115,28 @@ class EmbeddingCollection:
         for c in self.columns:
             g = c.categorical.shared_embedding or c.categorical.name
             self._salts.append(groups.setdefault(g, len(groups)))
-        self._pool_groups = self._group_columns()
+        self._pool_groups = self._group_columns(False)
+        self._seq_groups = self._group_columns(True)
 
-    def _group_columns(self) -> List[tuple]:
-        """``(first row, width, combiner, [column names])`` per pooling
-        launch: each run of adjacent width-1 columns is one launch over
-        ``[n_columns*B, 1]`` bags (pooling one id is a copy whatever the
-        combiner), each wider column one launch over ``[B, w]``."""
+    def _group_columns(self, sequence: bool) -> List[tuple]:
+        """``(first row, width, combiner, [column names])`` per K2 launch.
+        Pooled columns: each run of adjacent width-1 columns is one launch
+        over ``[n_columns*B, 1]`` bags (pooling one id is a copy whatever
+        the combiner), each wider column one launch over ``[B, w]``.
+        Sequence columns: each run of adjacent ones of one width is one
+        launch of one-id ``sum`` bags."""
         out: List[tuple] = []
         for ci, col in enumerate(self.columns):
+            if isinstance(col, SequenceEmbeddingColumn) != sequence:
+                continue
             o, w = self._offsets[ci], self._widths[ci]
-            if w == 1 and out and out[-1][1] == 1:
-                out[-1][3].append(col.name)
+            prev = out[-1] if out else None
+            if prev is not None and (w == 1 or sequence) and prev[1] == w \
+                    and prev[0] + w * len(prev[3]) == o:
+                prev[3].append(col.name)
             else:
-                out.append((o, w, "sum" if w == 1 else col.combiner,
-                            [col.name]))
+                out.append((o, w, "sum" if w == 1 or sequence
+                            else col.combiner, [col.name]))
         return out
 
     def pack_ids_np(self, batch: Dict[str, np.ndarray]) -> np.ndarray:
@@ -174,14 +188,28 @@ class EmbeddingCollection:
     def rows_for_training(self, state, aux: CollectionAux) -> torch.Tensor:
         return self.gather_unique(state.values, aux)
 
+    def _train_valid(self, aux: CollectionAux) -> torch.Tensor:
+        """Validity of each flat id in training: padding and overflow keys
+        sit on the null row."""
+        a = aux.ev_aux
+        return (a.slots != self.config.capacity)[a.uniq.inverse]
+
     def embeddings(self, urows: torch.Tensor,
                    aux: CollectionAux) -> Dict[str, torch.Tensor]:
         """Pooled per-column embeddings for training: ``name -> [B, dim]``.
-        Validity comes from the slots (padding and overflow keys sit on the
-        null row), so they add nothing and leave the mean denominators."""
-        a = aux.ev_aux
-        valid = (a.slots != self.config.capacity)[a.uniq.inverse]
-        return self.embeddings_from_rows(urows, a.uniq.inverse, valid)
+        Invalid ids (:meth:`_train_valid`) add nothing and leave the mean
+        denominators."""
+        return self.embeddings_from_rows(urows, aux.ev_aux.uniq.inverse,
+                                         self._train_valid(aux))
+
+    def sequence_embeddings(self, urows: torch.Tensor, aux: CollectionAux):
+        """``name -> ([B, L, dim], mask [B, L])`` for training, the mask
+        ``slots != capacity``. A collection without sequence columns
+        launches nothing here."""
+        if not self._seq_groups:
+            return {}
+        return self.sequence_embeddings_from_rows(
+            urows, aux.ev_aux.uniq.inverse, self._train_valid(aux))
 
     def apply_gradients(self, state, opt, slot_state, aux: CollectionAux,
                         urow_grads: torch.Tensor, step: int,
@@ -203,12 +231,14 @@ class EmbeddingCollection:
 
     def embeddings_readonly(self, urows: torch.Tensor, aux: CollectionAux):
         """(pooled dict, sequence dict) for serving: every non-padding key
-        pools, unknown ones with the default row ``readonly_rows`` gave
+        counts, unknown ones with the default row ``readonly_rows`` gave
         them; EMPTY keys (padding, the ``max_unique`` overflow group) do
-        not."""
+        not, and are masked out of the sequences."""
         uniq = aux.ev_aux.uniq
         valid = (~K.is_empty(uniq.ukeys))[uniq.inverse]
-        return self.embeddings_from_rows(urows, uniq.inverse, valid), {}
+        return (self.embeddings_from_rows(urows, uniq.inverse, valid),
+                self.sequence_embeddings_from_rows(urows, uniq.inverse,
+                                                   valid))
 
     def embeddings_from_rows(self, urows: torch.Tensor,
                              inverse: torch.Tensor,
@@ -216,7 +246,8 @@ class EmbeddingCollection:
         """Pool per column into ``name -> [B, dim]``: flat id ``i`` (layout
         ``[total_width, B]``) reads row ``urows[inverse[i]]`` when
         ``valid[i]``. One K2 launch per pooling group, differentiable with
-        respect to ``urows``."""
+        respect to ``urows``. Sequence columns are left to
+        :meth:`sequence_embeddings_from_rows`."""
         B = inverse.shape[0] // self.total_width
         inv = inverse.view(self.total_width, B)
         val = valid.view(self.total_width, B)
@@ -231,6 +262,30 @@ class EmbeddingCollection:
             else:
                 out[names[0]] = pooled_lookup(
                     urows, inv[o:o + w].T, val[o:o + w].T, combiner)
+        return out
+
+    def sequence_embeddings_from_rows(self, urows: torch.Tensor,
+                                      inverse: torch.Tensor,
+                                      valid: torch.Tensor):
+        """Expand per sequence column into ``name -> ([B, L, dim], mask
+        [B, L])``: position ``l`` of example ``b`` reads row
+        ``urows[inverse[i]]`` (``i`` its flat id) where ``valid[i]``, and
+        zeros elsewhere. One K2 launch of one-id bags per group of
+        adjacent columns, the ids ordered ``[column, B, L]`` so each
+        column's rows come out contiguous; differentiable with respect to
+        ``urows``."""
+        B = inverse.shape[0] // self.total_width
+        inv = inverse.view(self.total_width, B)
+        val = valid.view(self.total_width, B)
+        out = {}
+        for o, w, _, names in self._seq_groups:
+            n = len(names)
+            ids = inv[o:o + n * w].view(n, w, B).transpose(1, 2)
+            mask = val[o:o + n * w].view(n, w, B).transpose(1, 2)
+            mask = mask.contiguous()
+            rows = pooled_lookup(urows, ids.reshape(-1, 1),
+                                 mask.view(-1, 1), "sum")
+            out.update(zip(names, zip(rows.view(n, B, w, -1), mask)))
         return out
 
 

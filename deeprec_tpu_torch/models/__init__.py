@@ -1,1 +1,1 @@
-"""CTR models and layers."""
+"""CTR and sequence (DIN, DIEN) models and their layers."""

@@ -16,7 +16,13 @@ so the torch weight transposed, and a bias when it has one) and
 it with sorted keys at every level (``utils.tree``), the order
 ``jax.tree_util`` flattens the flax params dict in: capitals first
 (``CrossNetV2_0`` < ``MLPTower_0`` < ``head``), and lexical (``w_10`` <
-``w_2``).
+``w_2``). A model with running statistics (DIN's and DIEN's ``Dice``)
+also describes its buffers (``flax_batch_stats``); its flax variables are
+then ``{"batch_stats": ..., "params": ...}``, flattened by the same rule,
+so the statistics come first in every save. An optax state over those
+variables holds leaves for the statistics too, which never get a gradient:
+the optimizer-state carry writes them as the optimizer's initial value
+and refuses a save whose leaves are not.
 """
 from __future__ import annotations
 
@@ -221,46 +227,72 @@ def _expand(tree: dict) -> dict:
     return out
 
 
-def _flax_params(module: nn.Module) -> List[Tuple[str, nn.Parameter, bool]]:
-    """``(flax path, parameter, transposed)`` per flax param leaf, in
-    flatten order."""
+def _flax_params(module: nn.Module) -> List[Tuple[str, torch.Tensor, bool]]:
+    """``(flax path, parameter or buffer, transposed)`` per leaf of the
+    flax variables, in flatten order."""
+    tree = _expand(module.flax_tree())
+    stats = getattr(module, "flax_batch_stats", lambda: {})()
+    if stats:
+        tree = {"batch_stats": stats, "params": tree}
     return [(path, leaf.weight, True) if isinstance(leaf, _Kernel)
             else (path, leaf, False)
-            for path, leaf in leaves_with_paths(_expand(module.flax_tree()))]
+            for path, leaf in leaves_with_paths(tree)]
 
 
 def _as_flax(t: torch.Tensor, transposed: bool) -> torch.Tensor:
     return t.T if transposed else t
 
 
+def flax_leaf_count(module: nn.Module) -> int:
+    """The number of the module's flax variable leaves."""
+    return len(_flax_params(module))
+
+
 def flax_leaves(module: nn.Module) -> List[np.ndarray]:
-    """The module's parameters as the flax param leaves, in flatten order."""
+    """The module's flax variables (parameters, and running statistics
+    first when it has them) as leaves, in flatten order."""
     return [_as_flax(p, t).detach().cpu().numpy().copy()
             for _, p, t in _flax_params(module)]
 
 
-def flax_state_leaves(module: nn.Module,
-                      per_param: Sequence[torch.Tensor]) -> List[np.ndarray]:
+def flax_state_leaves(module: nn.Module, per_param: Sequence[torch.Tensor],
+                      fill: float = 0.0) -> List[np.ndarray]:
     """Per-parameter optimizer tensors (one per ``module.parameters()``
-    entry, in that order) as the leaves of a params-shaped optax state
-    tree, in the flax param flatten order (kernels transposed to
-    ``[in, out]``). The inverse of :func:`load_flax_state`."""
+    entry, in that order) as the leaves of a variables-shaped optax state
+    tree, in the flax flatten order (kernels transposed to ``[in, out]``;
+    a running statistic's leaf is ``fill``, the value an optax state keeps
+    for a leaf whose gradient is always 0). The inverse of
+    :func:`load_flax_state`."""
     by_param = {id(p): s for p, s in zip(module.parameters(), per_param)}
     return [_as_flax(by_param[id(p)], t).detach().cpu().numpy().copy()
+            if id(p) in by_param
+            else np.full(tuple(p.shape), fill, np.float32)
             for _, p, t in _flax_params(module)]
 
 
 def load_flax_state(module: nn.Module, leaves: Sequence,
-                    what: str = "optimizer state") -> List[torch.Tensor]:
-    """The leaves of a params-shaped optax state tree (flax param flatten
-    order; leaves past the parameter count are ignored) as one tensor per
+                    what: str = "optimizer state",
+                    fill: float = 0.0) -> List[torch.Tensor]:
+    """The leaves of a variables-shaped optax state tree (flax flatten
+    order; leaves past the variable count are ignored) as one tensor per
     ``module.parameters()`` entry, in that order, on the parameter's
-    device. Raises ``ValueError`` when they do not fit the model."""
+    device. Raises ``ValueError`` when they do not fit the model, or when
+    a running statistic's leaf is not ``fill`` (the optimizer never steps
+    the statistics, so it would lose that state)."""
     spec = _flax_params(module)
     if len(leaves) < len(spec):
-        raise ValueError(f"{len(leaves)} leaves for {len(spec)} parameters")
+        raise ValueError(f"{len(leaves)} leaves for {len(spec)} variables")
+    params = {id(p) for p in module.parameters()}
     by_param = {}
     for (path, p, t), value in zip(spec, leaves):
+        if id(p) not in params:
+            value = np.asarray(value)
+            if value.shape != tuple(p.shape) or not (value == fill).all():
+                raise ValueError(
+                    f"{what} leaf {path} of a running statistic is not "
+                    f"{fill} everywhere (shape {value.shape}): the "
+                    "optimizer never steps the statistics")
+            continue
         x = torch.tensor(np.asarray(value))
         x = x.T.contiguous() if t else x
         if tuple(x.shape) != tuple(p.shape):
@@ -272,13 +304,14 @@ def load_flax_state(module: nn.Module, leaves: Sequence,
 
 
 def load_flax_params(module: nn.Module, leaves: Sequence) -> nn.Module:
-    """Copy flax param leaves into ``module`` in place and return it. Takes
-    the leading leaves (a checkpoint's ``dense.npz`` continues with the
-    optimizer state and the step); raises ``ValueError`` when they do not
-    match the module's parameter structure."""
+    """Copy flax variable leaves (running statistics, then parameters)
+    into ``module`` in place and return it. Takes the leading leaves (a
+    checkpoint's ``dense.npz`` continues with the optimizer state and the
+    step); raises ``ValueError`` when they do not match the module's
+    variables."""
     spec = _flax_params(module)
     if len(leaves) < len(spec):
-        raise ValueError(f"{len(leaves)} leaves for {len(spec)} parameters")
+        raise ValueError(f"{len(leaves)} leaves for {len(spec)} variables")
     with torch.no_grad():
         for (path, p, t), value in zip(spec, leaves):
             dst = _as_flax(p, t)

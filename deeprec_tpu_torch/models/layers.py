@@ -1,13 +1,19 @@
 """Dense building blocks (port of ``deeprec_tpu/models/layers.py``):
-``MLPTower``, ``DotInteraction``, ``CrossNetV2`` and ``FMInteraction``.
+``MLPTower``, ``DotInteraction``, ``CrossNetV2``, ``FMInteraction``, and
+the sequence models' ``Dice``, ``DINAttention``, ``GRUCellP`` (also
+flax's ``AUGRUCell`` when given an attention weight), ``GRU`` and
+``AUGRU``.
 
 torch needs input widths up front, so each layer with weights takes its
 ``in_dim``. Each also describes its flax param tree (:meth:`flax_tree`):
 a dict of the names flax gives its sub-layers, whose ``nn.Linear`` leaves
-``models.ctr`` expands into ``kernel`` and ``bias``.
+``models.ctr`` expands into ``kernel`` and ``bias``. ``Dice`` keeps its
+running statistics as buffers and describes them too
+(:meth:`Dice.flax_batch_stats`: flax's ``batch_stats`` collection).
 """
 from __future__ import annotations
 
+import math
 from typing import Optional, Sequence
 
 import torch
@@ -94,3 +100,143 @@ class FMInteraction(nn.Module):
         s = feats.sum(1)
         sq_sum = (feats * feats).sum(1)
         return 0.5 * (s * s - sq_sum).sum(-1, keepdim=True)
+
+
+class Dice(nn.Module):
+    """Dice (DIN): a PReLU whose gate is a sigmoid of the batch-normalised
+    input, ``p * x + (1 - p) * alpha * x``. With ``train`` it normalises
+    with the batch's mean and population variance (``jnp.var``, ddof 0)
+    and folds them into the running ``mean`` and ``var`` buffers (momentum
+    0.99, no gradient); without it, it normalises with those buffers, so
+    eval output does not depend on the rest of the batch."""
+
+    def __init__(self, dim: int, epsilon: float = 1e-9,
+                 momentum: float = 0.99):
+        super().__init__()
+        self.epsilon, self.momentum = epsilon, momentum
+        self.alpha = nn.Parameter(torch.zeros(dim))
+        self.register_buffer("mean", torch.zeros(dim))
+        self.register_buffer("var", torch.ones(dim))
+
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        if train:
+            mean = x.mean(0)
+            var = x.var(0, unbiased=False)
+            with torch.no_grad():
+                m = self.momentum
+                self.mean.copy_(m * self.mean + (1 - m) * mean)
+                self.var.copy_(m * self.var + (1 - m) * var)
+        else:
+            mean, var = self.mean, self.var
+        p = torch.sigmoid((x - mean) * torch.rsqrt(var + self.epsilon))
+        return p * x + (1.0 - p) * self.alpha * x
+
+    def flax_tree(self) -> dict:
+        return {"alpha": self.alpha}
+
+    def flax_batch_stats(self) -> dict:
+        return {"mean": self.mean, "var": self.var}
+
+
+class DINAttention(nn.Module):
+    """DIN's local activation unit: an MLP (sigmoid hidden layers
+    ``att_i``, then ``att_out``) scores each history position ``k``
+    against the query ``q`` from ``[q, k, q - k, q * k]``; a softmax over
+    the valid positions of the scores over sqrt(d) (padding at -1e9, its
+    weight then 0) weights the history's sum -> ``[B, d]``."""
+
+    scaled = True  # scores over sqrt(d) (DINAttentionScores: unscaled)
+
+    def __init__(self, dim: int, hidden_units: Sequence[int] = (80, 40)):
+        super().__init__()
+        widths = [4 * dim, *hidden_units]
+        self.att = nn.ModuleList(
+            nn.Linear(a, b) for a, b in zip(widths[:-1], widths[1:]))
+        self.att_out = nn.Linear(widths[-1], 1)
+
+    def weights(self, query: torch.Tensor, keys: torch.Tensor,
+                mask: torch.Tensor) -> torch.Tensor:
+        """``[B, L]`` attention weights, 0 at padded positions."""
+        q = query[:, None, :].expand_as(keys)
+        x = torch.cat([q, keys, q - keys, q * keys], -1)
+        for layer in self.att:
+            x = torch.sigmoid(layer(x))
+        logits = torch.where(mask, self.att_out(x)[..., 0], -1e9)
+        if self.scaled:
+            logits = logits / math.sqrt(keys.shape[-1])
+        return torch.where(mask, torch.softmax(logits, -1), 0.0)
+
+    def forward(self, query, keys, mask) -> torch.Tensor:
+        return torch.einsum("bl,bld->bd", self.weights(query, keys, mask),
+                            keys)
+
+    def flax_tree(self) -> dict:
+        tree = {f"att_{i}": lin for i, lin in enumerate(self.att)}
+        tree["att_out"] = self.att_out
+        return tree
+
+
+class GRUCellP(nn.Module):
+    """DIEN's GRU cell. The reset gate scales ``h`` before the candidate's
+    product, ``n = tanh(W [x, r * h])``, which is not ``torch.nn.GRUCell``
+    (``tanh(W_x x + r * (W_h h))``), so the cell is written out."""
+
+    def __init__(self, in_dim: int, features: int):
+        super().__init__()
+        self.gates = nn.Linear(in_dim + features, 2 * features)
+        self.cand = nn.Linear(in_dim + features, features)
+
+    def forward(self, h, x, a=None):
+        z, r = torch.sigmoid(self.gates(torch.cat([x, h], -1))).chunk(2, -1)
+        n = torch.tanh(self.cand(torch.cat([x, r * h], -1)))
+        if a is not None:
+            z = a[..., None] * z
+        return (1.0 - z) * h + z * n
+
+    def flax_tree(self) -> dict:
+        return {"cand": self.cand, "gates": self.gates}
+
+
+class GRU(nn.Module):
+    """GRU over ``[B, L, d]``: all hidden states ``[B, L, features]``, from
+    zeros; a padded step holds the previous state. A Python loop over L
+    (``nn.scan`` in flax, whose names :meth:`flax_tree` gives)."""
+
+    def __init__(self, in_dim: int, features: int):
+        super().__init__()
+        self.features = features
+        self.cell = GRUCellP(in_dim, features)
+
+    def forward(self, xs: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        h = xs.new_zeros((xs.shape[0], self.features))
+        hs = []
+        for t in range(xs.shape[1]):
+            h = torch.where(mask[:, t, None], self.cell(h, xs[:, t]), h)
+            hs.append(h)
+        return torch.stack(hs, 1)
+
+    def flax_tree(self) -> dict:
+        return {"gru": {"GRUCellP_0": self.cell.flax_tree()}}
+
+
+class AUGRU(nn.Module):
+    """AUGRU over ``[B, L, d]`` with attention weights ``[B, L]``: the
+    last hidden state ``[B, features]``; a padded step holds the
+    previous state. Its cell is a :class:`GRUCellP` whose update gate is
+    scaled by the step's attention weight (flax's ``AUGRUCell``)."""
+
+    def __init__(self, in_dim: int, features: int):
+        super().__init__()
+        self.features = features
+        self.cell = GRUCellP(in_dim, features)
+
+    def forward(self, xs: torch.Tensor, att: torch.Tensor,
+                mask: torch.Tensor) -> torch.Tensor:
+        h = xs.new_zeros((xs.shape[0], self.features))
+        for t in range(xs.shape[1]):
+            h = torch.where(mask[:, t, None],
+                            self.cell(h, xs[:, t], att[:, t]), h)
+        return h
+
+    def flax_tree(self) -> dict:
+        return {"augru": {"AUGRUCell_0": self.cell.flax_tree()}}

@@ -18,7 +18,12 @@ out.
 The state holds one tensor per entry of ``module.parameters()`` (in that
 order) for each params-shaped leaf of the optax state;
 ``flax_state_leaves``/``load_flax_state`` convert it to and from the optax
-leaves, which follow the flax param flatten order (``models.ctr``).
+leaves, which follow the flax variables' flatten order (``models.ctr``).
+The JAX trainer runs optax over the whole variables dict, so a model with
+running statistics (DIN, DIEN) has optax leaves for them too. Their
+gradient is always 0, so they keep their initial value (Adam's moments 0,
+Adagrad's accumulator 0.1): the port steps ``parameters()`` only, writes
+that value for them in a save and refuses a save where they differ.
 """
 from __future__ import annotations
 
@@ -27,7 +32,8 @@ from typing import List, NamedTuple, Sequence
 import numpy as np
 import torch
 
-from ..models.ctr import flax_state_leaves, load_flax_state
+from ..models.ctr import (flax_leaf_count, flax_state_leaves,
+                          load_flax_state)
 
 
 class Adagrad(NamedTuple):
@@ -55,18 +61,20 @@ class Adagrad(NamedTuple):
 
     # -- the optax state: (ScaleByRssState(sum_of_squares), EmptyState()) --
     @staticmethod
-    def state_leaf_count(n_params: int) -> int:
-        return n_params
+    def state_leaf_count(n_leaves: int) -> int:
+        """Optax leaves over ``n_leaves`` flax variable leaves."""
+        return n_leaves
 
-    @staticmethod
-    def flax_state_leaves(module: torch.nn.Module,
+    def flax_state_leaves(self, module: torch.nn.Module,
                           state) -> List[np.ndarray]:
         """The ``sum_of_squares`` leaves."""
-        return flax_state_leaves(module, state)
+        return flax_state_leaves(module, state,
+                                 self.initial_accumulator_value)
 
-    @staticmethod
-    def load_flax_state(module: torch.nn.Module, leaves) -> List[torch.Tensor]:
-        return load_flax_state(module, leaves, "adagrad")
+    def load_flax_state(self, module: torch.nn.Module,
+                        leaves) -> List[torch.Tensor]:
+        return load_flax_state(module, leaves, "adagrad",
+                               self.initial_accumulator_value)
 
 
 class AdamState(NamedTuple):
@@ -110,8 +118,9 @@ class Adam(NamedTuple):
 
     # -- the optax state: (ScaleByAdamState(count, mu, nu), EmptyState()) --
     @staticmethod
-    def state_leaf_count(n_params: int) -> int:
-        return 1 + 2 * n_params
+    def state_leaf_count(n_leaves: int) -> int:
+        """Optax leaves over ``n_leaves`` flax variable leaves."""
+        return 1 + 2 * n_leaves
 
     @staticmethod
     def flax_state_leaves(module: torch.nn.Module,
@@ -124,9 +133,9 @@ class Adam(NamedTuple):
     @staticmethod
     def load_flax_state(module: torch.nn.Module, leaves) -> AdamState:
         leaves = list(leaves)
-        n = len(list(module.parameters()))
+        n = flax_leaf_count(module)
         if len(leaves) < 1 + 2 * n:
-            raise ValueError(f"{len(leaves)} adam leaves for {n} parameters "
+            raise ValueError(f"{len(leaves)} adam leaves for {n} variables "
                              f"(count, mu and nu take {1 + 2 * n})")
         count = np.asarray(leaves[0])
         if count.shape != () or count.dtype.kind not in "iu":

@@ -12,11 +12,13 @@ the two stages of ``train.pipeline.HostStepPipeline``.
 
 A train step, as in the JAX package: the promotion of tier rows that rode
 the resolve wire (tiered host-index tables), sparse lookup-or-create (no
-gradient) -> the unique rows become the differentiable leaf -> pooling,
-model and BCE loss -> one ``backward()`` gives the unique rows' gradient
-and the parameters' -> per-table sparse apply -> the dense optimizer ->
-metrics. PyTorch runs it eagerly; tables, optimizer state and parameters
-are updated in place (the JAX package donates them to a jitted step).
+gradient) -> the unique rows become the differentiable leaf -> pooling and
+sequence expansion, model (its ``Dice`` running statistics move in the
+forward) and BCE loss -> one ``backward()`` gives the unique rows'
+gradient and the parameters' -> per-table sparse apply -> the dense
+optimizer -> metrics. PyTorch runs it eagerly; tables, optimizer state
+and parameters are updated in place (the JAX package donates them to a
+jitted step).
 The model's parameters live in the module, so :class:`TrainState` holds
 no params.
 """
@@ -63,9 +65,11 @@ class Trainer:
 
     ``forward(model, dense, outputs, train)`` consumes
     ``outputs[collection_name] = (emb_dict, seq_dict)`` and returns logits
-    or ``(logits, aux_loss)``: ``default_forward`` routes collection
-    ``"emb"`` to the model's ``emb`` and ``"wide"`` to its ``wide=``, and
-    passes ``dense=None`` when there are no numeric columns (DSSM). Each
+    or ``(logits, aux_loss)`` (``models.sequence.dien_forward``; the loss
+    adds ``aux_loss_weight * aux_loss``): ``default_forward`` routes
+    collection ``"emb"`` to the model's ``emb`` and its sequences to
+    ``seq=``, ``"wide"`` to its ``wide=``, and passes ``dense=None`` when
+    there are no numeric columns (DSSM, DIN, DIEN). Each
     collection has its own sparse optimizer (WDL and DeepFM: Adagrad on
     ``"emb"``, FTRL on ``"wide"``). ``dense_optimizer`` is an
     ``optim.dense.Adagrad`` or ``Adam`` (the counterparts of
@@ -96,7 +100,10 @@ class Trainer:
         """Fresh tables, optimizer state and metrics. As in the JAX
         package, a throwaway lookup of ``sample_batch`` runs the model once
         (here it checks that the model takes the collections' outputs),
-        then ``coll.init`` resets the tables and the host index."""
+        then ``coll.init`` resets the tables and the host index. That
+        forward runs in training mode, as ``model.init`` does, and leaves
+        the model's buffers (``Dice``'s running statistics) as they were,
+        as ``model.init`` leaves its ``batch_stats``."""
         dense, cats, _ = self.prepare_batch(sample_batch)
         if dense is not None:
             dense = normalize_dense(self.numeric_columns, dense)
@@ -106,11 +113,15 @@ class Trainer:
                 st = coll.init(self.device)
                 st, aux = coll.lookup_or_create(st, cats[name], 0)
                 urows = coll.rows_for_training(st, aux)
-                outputs[name] = (coll.embeddings(urows, aux), {})
+                outputs[name] = (coll.embeddings(urows, aux),
+                                 coll.sequence_embeddings(urows, aux))
                 slot = coll.init_slot(self.sparse_optimizers[name], st)
                 tables[name] = TableBundle(ev=coll.init(self.device),
                                            slot=slot)
+            buffers = [(b, b.clone()) for b in self.model.buffers()]
             self.forward(self.model, dense, outputs, True)
+            for b, saved in buffers:
+                b.copy_(saved)
         params = list(self.model.parameters())
         return TrainState(opt_state=self.dense_optimizer.init(params),
                           tables=tables,
@@ -174,7 +185,8 @@ class Trainer:
                                                      auxs[name])
         for r in urows.values():
             r.requires_grad_(True)
-        outputs = {name: (coll.embeddings(urows[name], auxs[name]), {})
+        outputs = {name: (coll.embeddings(urows[name], auxs[name]),
+                          coll.sequence_embeddings(urows[name], auxs[name]))
                    for name, coll in self.collections.items()}
         self.model.zero_grad(set_to_none=True)
         out = self.forward(self.model, dense, outputs, True)

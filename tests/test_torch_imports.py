@@ -35,10 +35,11 @@ def test_port_imports_without_jax():
     assert out.returncode == 0, out.stderr
     names = set(out.stdout.split())
     assert len(names) >= 30  # every module was walked
-    # the zoo's modules among them
+    # the zoo's modules among them, the sequence models too
     assert {f"deeprec_tpu_torch.{m}" for m in (
-        "models.ctr", "models.layers", "models.structured", "optim.sparse",
-        "optim.dense", "data.behavior")} <= names
+        "models.ctr", "models.layers", "models.structured",
+        "models.sequence", "optim.sparse", "optim.dense",
+        "data.behavior")} <= names
 
 
 def test_resolver_binding_copy_is_the_source():

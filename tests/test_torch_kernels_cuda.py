@@ -361,9 +361,21 @@ def test_fused_pooled_lookup_backward_matches_plain(cuda, combiner, case):
 def _zoo_case(g, case):
     """(values, slots, valid, d_pooled) at a CTR-zoo shape: the wide
     tables' [26*4096, 1] bags at D 1 (ids skewed onto 26,624 lanes, a few
-    thousand on the hottest), or DSSM's hist_item, [4096, 32] lane-major views of a
+    thousand on the hottest), DSSM's hist_item, [4096, 32] lane-major views of a
     [35, 4096] int32 inverse over 107,521 lanes with 4-32 valid ids a row
-    and -1 padding (its lanes read the null slot and are not valid)."""
+    and -1 padding (its lanes read the null slot and are not valid), or
+    DIN's and DIEN's history expansion: [2*4096*32, 1] one-id bags over
+    the 205,825 lanes of an int32 inverse, 4-32 valid ids an example
+    shared by both histories, the padded ids on the null lane and not
+    valid."""
+    if case == "seq_expand":
+        bags, u, d = 2 * 4096 * 32, 205825, 16
+        lens = torch.randint(4, 33, (4096,), generator=g)
+        pad = (torch.arange(32)[None, :] >= lens[:, None]).expand(2, -1, -1)
+        slots = torch.randint(0, u - 1, (2, 4096, 32), generator=g)
+        slots = torch.where(pad, u - 1, slots).to(torch.int32)
+        return (torch.randn(u, d, generator=g), slots.reshape(-1, 1),
+                ~pad.reshape(-1, 1), torch.randn(bags, d, generator=g))
     if case == "wide_d1":
         bags, u, d = 26 * 4096, 26624, 1
         slots = (torch.rand(bags, 1, generator=g) ** 3 * u).to(torch.int32)
@@ -380,11 +392,13 @@ def _zoo_case(g, case):
 
 
 @pytest.mark.parametrize("combiner", ["sum", "mean", "sqrtn"])
-@pytest.mark.parametrize("case", ["wide_d1", "hist_w32"])
+@pytest.mark.parametrize("case", ["wide_d1", "hist_w32", "seq_expand"])
 def test_fused_pooled_lookup_zoo_shapes(cuda, combiner, case):
     """K2 and its backward at the shapes the CTR zoo adds: D = 1 (WDL's and
-    DeepFM's wide tables) and [B, 32] with padding (DSSM's mean-pooled
-    history), each against its plain version."""
+    DeepFM's wide tables), [B, 32] with padding (DSSM's mean-pooled
+    history) and one-id bags with padding (DIN's and DIEN's histories,
+    expanded with ``sum``; one id pools to a copy whatever the combiner),
+    each against its plain version."""
     values, slots, valid, d_pooled = _zoo_case(_gen(), case)
     ref = fused_pooled_lookup_plain(values, slots, valid, combiner)
     f0, b0 = (fused_pooled_lookup.launches,
@@ -639,3 +653,75 @@ def test_two_card_runs_of_one_stream(cuda):
     drift = (e1.values - e2.values).abs().max().item()
     print(f"two card runs of 10 --metadata steps: max |drow| {drift:.3g}")
     assert drift <= ROW_ATOL
+
+
+@pytest.mark.parametrize("kind", ["din", "dien"])
+def test_sequence_train_step_on_card(cuda, kind):
+    """One DIN and one DIEN train step (B 256, histories of 8, emb 8) on
+    the card against a CPU twin with the same weights: equal wires, the
+    loss, rows, Adam's slot rows, the parameters and the Dice statistics
+    within ROW_ATOL; the history expansion and its backward ran K2 and
+    K2's backward, the row fetch K1."""
+    from deeprec_tpu_torch import config as cfg
+    from deeprec_tpu_torch import feature_column as fc
+    from deeprec_tpu_torch.data.behavior import SyntheticBehavior
+    from deeprec_tpu_torch.host_index import HostIndexEmbeddingCollection
+    from deeprec_tpu_torch.models import ctr, sequence
+    from deeprec_tpu_torch.optim.dense import Adam
+    from deeprec_tpu_torch.optim.sparse import sparse_adam
+    from deeprec_tpu_torch.train.trainer import Trainer
+    ROW_ATOL = 1e-4  # chip_smoke.py's card-vs-CPU row tolerance
+    bs, hist, dim = 256, 8, 8
+    batch = next(SyntheticBehavior(batch_size=bs, max_len=hist,
+                                   seed=3).take(1))
+    kw = dict(candidate_name="item", seq_name="hist_item",
+              candidate_context_names=["cate"],
+              seq_context_names=["hist_cate"], context_names=["uid"],
+              hidden_units=(16, 8), att_units=(8, 4))
+
+    def trainer(dev):
+        cat, emb = fc.CategoricalColumn, fc.EmbeddingColumn
+        cols = [emb(cat("item", shared_embedding="item_space"), dim),
+                emb(cat("cate", shared_embedding="cate_space"), dim),
+                emb(cat("uid"), dim),
+                fc.SequenceEmbeddingColumn(cat(
+                    "hist_item", max_length=hist,
+                    shared_embedding="item_space"), dim),
+                fc.SequenceEmbeddingColumn(cat(
+                    "hist_cate", max_length=hist,
+                    shared_embedding="cate_space"), dim)]
+        coll = HostIndexEmbeddingCollection(
+            cols, name="emb", capacity=1 << 12,
+            initializer=cfg.Initializer("normal", scale=0.05),
+            max_unique=int((3 + 2 * hist) * bs * 0.75))
+        torch.manual_seed(0)
+        model = (sequence.DIN(emb_dim=dim, **kw) if kind == "din" else
+                 sequence.DIEN(emb_dim=dim, gru_units=2 * dim, **kw))
+        return Trainer(model, [], {"emb": coll}, {"emb": sparse_adam(0.002)},
+                       Adam(0.002), forward=(None if kind == "din" else
+                                             sequence.dien_forward),
+                       device=dev)
+    tg, tc = trainer(cuda), trainer("cpu")
+    ctr.load_flax_params(tc.model, ctr.flax_leaves(tg.model))
+    sg, sc = tg.init(batch), tc.init(batch)
+    counters = (gather_rows, fused_pooled_lookup,
+                fused_pooled_lookup_backward)
+    before = [f.launches for f in counters]
+    dg, cg, lg = tg.prepare_batch(batch)
+    dc, cc, lc = tc.prepare_batch(batch)
+    assert torch.equal(cg["emb"].buf.cpu(), cc["emb"].buf)
+    sg = tg._train_step(sg, dg, cg, lg)
+    sc = tc._train_step(sc, dc, cc, lc)
+    torch.cuda.synchronize()
+    # K2: the three width-1 columns and the two histories, two launches
+    assert [f.launches - b for f, b in zip(counters, before)][1:] == [2, 2]
+    assert gather_rows.launches > before[0]
+    assert abs(sg.metrics.loss_sum.item() - sc.metrics.loss_sum.item()) \
+        <= ROW_ATOL * bs
+    eg, ec = sg.tables["emb"], sc.tables["emb"]
+    for a, c in [(eg.ev.values, ec.ev.values)] + [
+            (eg.slot[k], ec.slot[k]) for k in ec.slot]:
+        assert (a.cpu() - c).abs().max().item() <= ROW_ATOL
+    for a, c in zip(ctr.flax_leaves(tg.model), ctr.flax_leaves(tc.model)):
+        assert np.abs(a - c).max() <= ROW_ATOL
+    assert not np.allclose(ctr.flax_leaves(tg.model)[0], 0.0)  # stats moved
