@@ -1,6 +1,8 @@
 """Card smoke test of the PyTorch port (deeprec_tpu_torch): its serving
-path, its host-index training path, its tiered storage, the CTR zoo and
-the sequence models DIN and DIEN.
+path, its host-index training path, its tiered storage, the CTR zoo, the
+sequence models DIN and DIEN, and the modelzoo entry points (the training
+CLI, the sparse optimizers, the bf16 towers and the server's command
+line).
 
 Run from the root of a checkout on a machine with one CUDA card:
 
@@ -86,13 +88,15 @@ comparison compute in full f32. Phases (any failure exits non-zero):
    HBM_DRAM_SSD run (dram_row_budget 4096) spills to its file store and
    its save carries every tier row. The tier store must be the C++ one.
    K1, K2, K2's backward and K3a must have launched;
-10. the rest of the CTR zoo (``zoo``): DCN, WDL, DeepFM and DSSM built as
-   their modelzoo/*/train.py build() does under --host_index at full width
-   (emb dim 16; Criteo tables of 2^21 rows, DSSM's of 2^19 over
-   SyntheticBehavior(4096) with a mean-pooled hist_item of 32; WDL and
-   DeepFM add a dim-1 "wide" table trained with sparse_ftrl; DCN, WDL and
-   DeepFM train "emb" with sparse_adagrad and the towers with Adagrad,
-   DSSM with sparse_adam and Adam), each: 5 steps in lockstep with a CPU
+10. the rest of the CTR zoo (``zoo``): DCN, WDL, DeepFM and DSSM built
+   through deeprec_tpu_torch/modelzoo/<M>/train.py build() and
+   train.cli.make_trainer under --host_index at full width (emb dim 16;
+   Criteo tables of 2^21 rows, DSSM's of 2^19 over SyntheticBehavior(4096)
+   with a mean-pooled hist_item of 32; WDL and DeepFM add a dim-1 "wide"
+   table trained with sparse_ftrl; DCN, WDL and DeepFM train "emb" with
+   sparse_adagrad and the towers with Adagrad, DSSM with sparse_adam and
+   Adam, as their --optimizer defaults say; weights drawn from --seed
+   0), each: 5 steps in lockstep with a CPU
    Trainer (wires bit-equal, losses within LOSS_ATOL, rows, slot leaves
    and dense parameters within ROW_ATOL), 3 timed runs of 10 staged steps,
    K1, K2 and K2's backward launched, and a save served by a card and a
@@ -101,8 +105,8 @@ comparison compute in full f32. Phases (any failure exits non-zero):
    zoo's new shapes against their plain versions and times them: the wide
    tables' D = 1 and DSSM's [4096, 32] mean (through its int32 inverse
    wire);
-11. the sequence models (``seq``): DIN and DIEN built as
-   modelzoo/DIN/train.py and modelzoo/DIEN/train.py build() does under
+11. the sequence models (``seq``): DIN and DIEN built through
+   deeprec_tpu_torch/modelzoo/DIN/train.py and DIEN/train.py build() under
    --host_index at the CLI's defaults (emb dim 16; item, cate and uid
    plus the 32-long hist_item and hist_cate sharing item_space and
    cate_space; a 2^19-row table, max_unique 0.75 of the flat ids; DIN's
@@ -119,7 +123,32 @@ comparison compute in full f32. Phases (any failure exits non-zero):
    function, check_models, runs phases 10 and 11). Phase 2 also
    holds K2 and K2's backward at the expansion shape ([2*4096*32, 1] sum
    over the int32 inverse of one resolved DIN batch) and K1 at DIN's
-   205,825 lanes against their plain versions and times them.
+   205,825 lanes against their plain versions and times them;
+12. the entry points: the eight sparse optimizers ported last (adam_async
+   also in its RMSProp form) and group_lasso(adagrad) (``optim``), each
+   with the dense optimizer the CLI pairs with it (SGD, SGD with
+   momentum, Adagrad, Adam) on bench.py's DLRM (the entry point's
+   weights) for 5 steps in lockstep with a CPU trainer (losses within
+   LOSS_ATOL; rows, float slot leaves and dense parameters within
+   ROW_ATOL; the int32 and 0-d slot leaves compared too; for the Adam
+   family each step starts the CPU trainer from the card's state, and
+   elements whose gradient is sign noise, at most ADAM_NOISE_SHARE of
+   them, are left out), then one sparse and one dense apply card vs CPU
+   from identical inputs within OPTIM_APPLY_RTOL; the --bf16 DLRM
+   forward, card against CPU within
+   BF16_FWD_TOL of the largest logit and closer to the CPU's bf16 logits
+   than to its f32 ones;
+   then the ``cli`` runs: every model through its entry point
+   (cli.run(build(args), args), --host_index, B 4096, emb 16, 2^21 rows,
+   the towers' full widths, 20 steps with a fence at 10), the ten
+   --optimizer choices among ten runs, --bf16 on DLRM and DCN,
+   admission and eviction (--ev_filter_freq 2 --ev_evict_steps 10) on DCN,
+   and WDL over Criteo files written from SyntheticCriteo through a
+   WorkQueue (6 steps): each run's JSON line finite, its examples/s
+   printed, K1, K2 and K2's backward launched (and K3a in the metadata
+   layout); the DLRM run with --checkpoint and incremental saves is then
+   served by server.build_server over HTTP within PROB_ATOL of a CPU
+   Predictor over the same directory.
 
 The last line is {"ok": true, "device": {...}}; the line before it holds
 the kernels' numbers as JSON, the line before that the training numbers.
@@ -171,11 +200,41 @@ TIER_STEPS = 30          # lockstep steps; a fence every 10
 SSD_DRAM_ROWS = 4096     # the SSD run's dram_row_budget
 ZOO_MODELS = ("dcn", "wdl", "deepfm", "dssm")
 ZOO_STEPS = 5            # each zoo model's lockstep steps
-ZOO_HIST = 32            # DSSM's hist_item max_length (modelzoo/DSSM)
 ZOO_DSSM_CAPACITY = 1 << 19  # the CLI's --capacity default
 SEQ_MODELS = ("din", "dien")
 SEQ_STEPS = 5            # each sequence model's lockstep steps
 SEQ_HIST = 32            # modelzoo/DIN and DIEN's MAX_LEN
+OPTIM_STEPS = 5          # each new sparse optimizer's lockstep steps
+# The Adam family in lockstep: Adam steps an element by about
+# lr*m/(sqrt(v) + eps) whatever the gradient's scale, so an element whose
+# gradient is near zero may step by up to lr one way on the card and the
+# other way on the CPU, which sum in other orders (cuBLAS against the
+# CPU's GEMMs, K2-bwd's atomics against index order), and the difference
+# then spreads through the model. So each step starts the CPU trainer
+# from the card's state, and rows and dense parameters are held within
+# ROW_ATOL except where the first moment m (the step's direction) differs
+# between card and CPU by more than ADAM_M_RTOL of the CPU's: there the
+# gradient is sign noise. At most ADAM_NOISE_SHARE of the elements Adam
+# stepped may be left out, so a wrong moment fails too. Measured (NVIDIA
+# H100 80GB HBM3, 700.00 W): the elements over 1e-4 had |g| <= 1.7e-6
+# against a largest |g| of 0.07; kept elements within 3.5e-5; at most
+# 0.38 % left out (one dense step of adam_async).
+ADAM_M_RTOL = 0.03
+ADAM_NOISE_SHARE = 0.01
+# one optimizer apply (sparse or dense), card vs CPU from identical
+# inputs: f32 arithmetic (rsqrt, pow, sqrt) that may differ by an ulp or
+# two, relative to the largest magnitude of each array
+OPTIM_APPLY_RTOL = 1e-6
+CLI_STEPS = 20           # each cli run's steps ...
+CLI_FENCE = 10           # ... with a fence at every 10
+CLI_CRITEO_STEPS = 6     # the run over Criteo files (Python reader)
+# bf16 towers, card vs CPU: cuBLAS and the CPU sum a product's terms in
+# another order, so a bf16 rounding may land one step apart (2^-8 to 2^-7
+# of the value: the logits leave the bf16 head rounded) and carry through
+# the towers' six layers: within 2^-7 of the largest logit; and the card
+# computes the bf16 function: its mean distance from the CPU's bf16
+# logits is under half their mean distance from the f32 model's
+BF16_FWD_TOL = 2.0 ** -7
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM peak (the card's power limit printed)
 
 
@@ -535,17 +594,16 @@ def host_collection(metadata, capacity=CAPACITY, **overrides):
     from deeprec_tpu_torch import feature_column as fc
     from deeprec_tpu_torch.data.criteo import CAT_NAMES
     from deeprec_tpu_torch.host_index import HostIndexEmbeddingCollection
-    meta = {}
+    kw = dict(fused_slot_columns=EMB_DIM, fused_slot_init=0.1)
     if metadata:  # bench.py --metadata
-        meta = dict(counter_filter=cfg.CounterFilter(filter_freq=1),
-                    evict=cfg.GlobalStepEvict(steps_to_live=1 << 30))
+        kw.update(counter_filter=cfg.CounterFilter(filter_freq=1),
+                  evict=cfg.GlobalStepEvict(steps_to_live=1 << 30))
     return HostIndexEmbeddingCollection(
         [fc.EmbeddingColumn(fc.CategoricalColumn(n), EMB_DIM)
          for n in CAT_NAMES],
         name="emb", capacity=capacity,
         initializer=cfg.Initializer("normal", scale=0.05),
-        max_unique=MAX_UNIQUE, fused_slot_columns=EMB_DIM,
-        fused_slot_init=0.1, use_native=True, **{**meta, **overrides})
+        max_unique=MAX_UNIQUE, use_native=True, **{**kw, **overrides})
 
 
 def check_training_kernels(dev, probe):
@@ -875,9 +933,11 @@ def lockstep(tg, tc, batches, what, loss_atol=LOSS_ATOL, row_atol=ROW_ATOL,
              row_rtol=0.0):
     """Train the card and CPU trainers on ``batches``; hold every
     collection's wires (so slots, keys and inverse) and metadata planes
-    bit-equal, the losses within ``loss_atol`` and the rows and slot leaves
-    within ``row_atol + row_rtol * |row|``. Returns the card's state and the
-    largest loss and row differences."""
+    bit-equal, the losses within ``loss_atol``, the rows and float slot
+    leaves (any tree of them) within ``row_atol + row_rtol * |row|`` and
+    integer slot leaves bit-equal. Returns the card's and the CPU's states
+    and the largest loss and row differences."""
+    from deeprec_tpu_torch.utils.tree import leaves_with_paths
     sg, sc = tg.init(batches[0]), tc.init(batches[0])
     worst = 0.0
     for i, b in enumerate(batches):
@@ -902,8 +962,14 @@ def lockstep(tg, tc, batches, what, loss_atol=LOSS_ATOL, row_atol=ROW_ATOL,
             if not torch.equal(getattr(eg.ev, f).cpu(), getattr(ec.ev, f)):
                 fail(f"{what}: {name} {f} planes differ between card and "
                      f"CPU")
-        for leaf, a, c in [("rows", eg.ev.values, ec.ev.values)] + [
-                (f"slot {k}", eg.slot[k], ec.slot[k]) for k in ec.slot]:
+        slots = [(f"slot {p}", a, c) for (p, a), (_, c) in zip(
+            leaves_with_paths(eg.slot), leaves_with_paths(ec.slot))]
+        for leaf, a, c in [("rows", eg.ev.values, ec.ev.values)] + slots:
+            if not c.dtype.is_floating_point:
+                if not torch.equal(a.cpu(), c):
+                    fail(f"{what}: {name} {leaf} differ between card and "
+                         f"CPU")
+                continue
             diff = (a.cpu().float() - c.float()).abs()
             rows = max(rows, diff.max().item())
             if not bool((diff <= row_atol + row_rtol * c.float().abs()).all()):
@@ -915,7 +981,7 @@ def lockstep(tg, tc, batches, what, loss_atol=LOSS_ATOL, row_atol=ROW_ATOL,
         f"{rows:.3g} (limit {row_atol} + {row_rtol} |row|); "
         f"{int((sc.tables['emb'].ev.freqs > 0).sum())} emb rows with "
         f"freq > 0")
-    return sg, worst, rows
+    return sg, sc, worst, rows
 
 
 def timed_runs(tg, state, batches, runs=3, steps=10, inline=False):
@@ -985,7 +1051,7 @@ def check_training(dev, smi):
     log(f"metadata trainers built in {time.perf_counter() - t0:.1f} s")
     for fn in counters.values():
         fn.launches = 0
-    sg, dloss, drow = lockstep(tg, tc, batches[:5], "metadata layout")
+    sg, _, dloss, drow = lockstep(tg, tc, batches[:5], "metadata layout")
     del tc
     sg, staged = timed_runs(tg, sg, batches[5:35])
     sg, inline = timed_runs(tg, sg, batches[35:65], inline=True)
@@ -1015,7 +1081,7 @@ def check_training(dev, smi):
     tg, tc = trainer(dev, False), trainer("cpu", False)
     for fn in counters.values():
         fn.launches = 0
-    sg, dloss, drow = lockstep(tg, tc, batches[:3], "light layout")
+    sg, _, dloss, drow = lockstep(tg, tc, batches[:3], "light layout")
     del tc
     sg, staged = timed_runs(tg, sg, batches[3:33])
     light = {k: fn.launches for k, fn in counters.items()}
@@ -1039,9 +1105,10 @@ def check_training(dev, smi):
     tc = trainer("cpu", True, TIER_CAPACITY, value_dtype="bfloat16")
     for fn in counters.values():
         fn.launches = 0
-    sg, dloss, drow = lockstep(tg, tc, batches[:3], "bf16 table",
-                               loss_atol=BF16_LOSS_ATOL,
-                               row_atol=BF16_ROW_ATOL, row_rtol=BF16_ROW_RTOL)
+    sg, _, dloss, drow = lockstep(tg, tc, batches[:3], "bf16 table",
+                                  loss_atol=BF16_LOSS_ATOL,
+                                  row_atol=BF16_ROW_ATOL,
+                                  row_rtol=BF16_ROW_RTOL)
     bf16 = {k: fn.launches for k, fn in counters.items()}
     log(f"bf16 table ({sg.step} steps) launches: {bf16}")
     for k, v in bf16.items():
@@ -1559,98 +1626,63 @@ def check_tier(dev, smi, tmp):
 
 
 # -- phase 10: the rest of the CTR zoo -------------------------------------------
-def zoo_collections(kind):
-    """The host-index collections of ``modelzoo/<kind>/train.py``'s
-    ``build()`` under --host_index at the CLI's defaults: emb dim 16, 2^21
-    rows for the Criteo models and 2^19 (``--capacity``) for DSSM,
-    ``max_unique`` = 0.25 (DSSM 0.75) of the flat ids, the C++ resolver."""
-    from deeprec_tpu_torch import config as cfg
-    from deeprec_tpu_torch import feature_column as fc
-    from deeprec_tpu_torch.data.criteo import CAT_NAMES
-    from deeprec_tpu_torch.host_index import HostIndexEmbeddingCollection
-    cat, emb = fc.CategoricalColumn, fc.EmbeddingColumn
-    if kind == "dssm":
-        cols = {"emb": [
-            emb(cat("uid"), EMB_DIM),
-            emb(cat("item", shared_embedding="item_space"), EMB_DIM),
-            emb(cat("cate"), EMB_DIM),
-            emb(cat("hist_item", max_length=ZOO_HIST,
-                    shared_embedding="item_space"), EMB_DIM,
-                combiner="mean")]}
-    else:
-        cols = {"emb": [emb(cat(n), EMB_DIM) for n in CAT_NAMES]}
-        if kind in ("wdl", "deepfm"):
-            cols["wide"] = [emb(cat(n), 1) for n in CAT_NAMES]
-    ratio, cap = (0.75, ZOO_DSSM_CAPACITY) if kind == "dssm" else \
-        (0.25, CAPACITY)
-    out = {}
-    for name, cs in cols.items():
-        width = sum(c.categorical.max_length for c in cs)
-        init = (cfg.Initializer("zeros") if name == "wide"
-                else cfg.Initializer("normal", scale=0.05))
-        out[name] = HostIndexEmbeddingCollection(
-            cs, name=name, capacity=cap, initializer=init,
-            max_unique=max(256, int(width * B * ratio)), use_native=True)
-    return out
+ZOO_ENTRY = {"dcn": "DCN", "wdl": "WDL", "deepfm": "DeepFM", "dssm": "DSSM",
+             "din": "DIN", "dien": "DIEN", "dlrm": "DLRM"}
 
 
-def zoo_model(kind):
-    """The zoo's model at full width, He-scaled weights from a numpy
-    generator seeded with SEED (the same on every call)."""
-    from deeprec_tpu_torch.data.criteo import CAT_NAMES, DENSE_NAMES
-    from deeprec_tpu_torch.models import ctr
-    nd = len(DENSE_NAMES)
-    model = {
-        "dcn": lambda: ctr.DCN(CAT_NAMES, EMB_DIM, cross_layers=3,
-                               deep_units=(1024, 512, 256), dense_dim=nd),
-        "wdl": lambda: ctr.WDL(CAT_NAMES, CAT_NAMES, EMB_DIM,
-                               deep_units=(1024, 512, 256), dense_dim=nd),
-        "deepfm": lambda: ctr.DeepFM(CAT_NAMES, CAT_NAMES, EMB_DIM,
-                                     deep_units=(400, 400, 400),
-                                     dense_dim=nd),
-        "dssm": lambda: ctr.DSSM(["uid", "hist_item"], ["item", "cate"],
-                                 EMB_DIM, tower_units=(256, 128), out_dim=64),
-    }[kind]()
-    rng = np.random.default_rng(SEED)
-    with torch.no_grad():
-        for p in model.parameters():
-            std = (2.0 / p.shape[1]) ** 0.5 if p.dim() == 2 else 0.01
-            p.copy_(torch.from_numpy(
-                rng.normal(0.0, std, tuple(p.shape)).astype(np.float32)))
-    return model
+def zoo_entry(kind, dev, extra=()):
+    """``deeprec_tpu_torch/modelzoo/<M>/train.py`` as a user runs it:
+    its module and its parser's arguments (the model's own defaults: DSSM,
+    DIN and DIEN train with adam at 0.002 and max_unique 0.75 of the flat
+    ids) under --host_index at emb dim 16 and B 4096, the Criteo models on
+    2^21 rows and the behaviour models on the CLI's default 2^19, weights
+    from seed SEED, on ``dev``, with ``extra`` flags."""
+    import importlib
+    from deeprec_tpu_torch.train import cli
+    name = ZOO_ENTRY[kind]
+    mod = importlib.import_module(f"deeprec_tpu_torch.modelzoo.{name}.train")
+    parser = mod.parser() if hasattr(mod, "parser") else \
+        cli.base_parser(name)
+    cap = CAPACITY if kind in ("dlrm", "dcn", "wdl", "deepfm") \
+        else ZOO_DSSM_CAPACITY
+    args = parser.parse_args(
+        ["--host_index", "--batch_size", str(B), "--emb_dim", str(EMB_DIM),
+         "--capacity", str(cap), "--seed", str(SEED), "--device", str(dev),
+         *extra])
+    return mod, args
 
 
-def zoo_numeric(kind):
-    from deeprec_tpu_torch import feature_column as fc
-    from deeprec_tpu_torch.data.criteo import DENSE_NAMES
-    if kind == "dssm":
-        return []
-    return [fc.NumericColumn(n, log_normalize=True) for n in DENSE_NAMES]
+def need_native(collections, what):
+    """Fail unless every collection resolves with the C++ resolver (the
+    CLI takes the Python fallback when it cannot be built)."""
+    for name, coll in collections.items():
+        if coll._resolver._h is None:
+            fail(f"{what}: collection {name} has no C++ resolver")
 
 
 def zoo_trainer(kind, dev):
-    """The zoo's trainer: sparse_adagrad(0.05) + dense Adagrad(0.05), with
-    sparse_ftrl(0.05) on the wide table (WDL, DeepFM); DSSM:
-    sparse_adam(0.002) + dense Adam(0.002)."""
-    from deeprec_tpu_torch.optim import dense, sparse
-    from deeprec_tpu_torch.train.trainer import Trainer
-    colls = zoo_collections(kind)
-    if kind == "dssm":
-        opts, dense_opt = {"emb": sparse.sparse_adam(0.002)}, \
-            dense.Adam(0.002)
-    else:
-        opts = {"emb": sparse.sparse_adagrad(0.05)}
-        if "wide" in colls:
-            opts["wide"] = sparse.sparse_ftrl(0.05)
-        dense_opt = dense.Adagrad(0.05)
-    return Trainer(zoo_model(kind), zoo_numeric(kind), colls, opts,
-                   dense_opt, device=dev)
+    """The zoo model's Trainer as the CLI makes it (``cli.make_trainer``:
+    the dedup cap, the weights drawn from --seed, the sparse and dense
+    optimizers --optimizer names: sparse_adagrad(0.05) + Adagrad(0.05),
+    sparse_ftrl(0.05) on the wide tables; DSSM, DIN, DIEN sparse_adam(0.002)
+    + Adam(0.002))."""
+    from deeprec_tpu_torch.train import cli
+    mod, args = zoo_entry(kind, dev)
+    tr = cli.make_trainer(mod.build(args), args)
+    need_native(tr.collections, f"zoo {kind}")
+    return tr
+
+
+def zoo_spec(kind, dev="cpu"):
+    mod, args = zoo_entry(kind, dev)
+    return mod.build(args)
 
 
 def zoo_batches(kind, seed, n):
     from deeprec_tpu_torch.data.behavior import SyntheticBehavior
     from deeprec_tpu_torch.data.criteo import SyntheticCriteo
-    gen = (SyntheticBehavior(batch_size=B, seed=seed) if kind == "dssm"
+    gen = (SyntheticBehavior(batch_size=B, max_len=SEQ_HIST, seed=seed)
+           if kind in ("dssm", "din", "dien")
            else SyntheticCriteo(batch_size=B, seed=seed))
     return list(gen.take(n))
 
@@ -1752,7 +1784,7 @@ def check_zoo_kernels(dev):
     entries = []
 
     # the wide table: one [26*B, 1] group of width-1 bags at D = 1
-    wide = zoo_collections("wdl")["wide"]
+    wide = zoo_trainer("wdl", dev).collections["wide"]
     cap = wide.config.capacity
     r = wide.pack_ids(zoo_batches("wdl", 7, 1)[0], dev).decode()
     u, n_real = r.uslots.shape[0], int(r.n_unique)
@@ -1777,7 +1809,7 @@ def check_zoo_kernels(dev):
         e["path"] = "zoo_wdl"
 
     # DSSM: hist_item, [B, 32] mean over the wire's int32 inverse
-    coll = zoo_collections("dssm")["emb"]
+    coll = zoo_trainer("dssm", dev).collections["emb"]
     cap = coll.config.capacity
     wire = coll.pack_ids(zoo_batches("dssm", 7, 1)[0], dev)
     r = wire.decode()
@@ -1817,90 +1849,19 @@ def check_zoo_kernels(dev):
 
 
 # -- phase 11: the sequence models --------------------------------------------
-def seq_collection():
-    """The host-index collection of ``modelzoo/DIN/train.py`` and
-    ``modelzoo/DIEN/train.py`` ``build()`` under --host_index at the CLI's
-    defaults: emb dim 16, item and cate shared with the 32-long histories
-    (item_space, cate_space), 2^19 rows, ``max_unique`` 0.75 of the 67
-    flat ids an example (205,824), the C++ resolver."""
-    from deeprec_tpu_torch import config as cfg
-    from deeprec_tpu_torch import feature_column as fc
-    from deeprec_tpu_torch.host_index import HostIndexEmbeddingCollection
-    cat, emb = fc.CategoricalColumn, fc.EmbeddingColumn
-    cols = [emb(cat("item", shared_embedding="item_space"), EMB_DIM),
-            emb(cat("cate", shared_embedding="cate_space"), EMB_DIM),
-            emb(cat("uid"), EMB_DIM),
-            fc.SequenceEmbeddingColumn(cat(
-                "hist_item", max_length=SEQ_HIST,
-                shared_embedding="item_space"), EMB_DIM),
-            fc.SequenceEmbeddingColumn(cat(
-                "hist_cate", max_length=SEQ_HIST,
-                shared_embedding="cate_space"), EMB_DIM)]
-    width = 3 + 2 * SEQ_HIST
-    return HostIndexEmbeddingCollection(
-        cols, name="emb", capacity=ZOO_DSSM_CAPACITY,
-        initializer=cfg.Initializer("normal", scale=0.05),
-        max_unique=max(256, int(width * B * 0.75)), use_native=True)
-
-
-def seq_model(kind):
-    """DIN (MLP (200, 80) with Dice, attention (80, 40)) or DIEN (the same
-    with gru_units 32) at full width, He-scaled weights from a numpy
-    generator seeded with SEED; the Dice statistics start at 0 and 1."""
-    from deeprec_tpu_torch.models import sequence
-    kw = dict(candidate_name="item", seq_name="hist_item",
-              candidate_context_names=["cate"],
-              seq_context_names=["hist_cate"], context_names=["uid"],
-              hidden_units=(200, 80), att_units=(80, 40))
-    model = (sequence.DIN(emb_dim=EMB_DIM, **kw) if kind == "din" else
-             sequence.DIEN(emb_dim=EMB_DIM, gru_units=2 * EMB_DIM, **kw))
-    rng = np.random.default_rng(SEED)
-    with torch.no_grad():
-        for p in model.parameters():
-            std = (2.0 / p.shape[1]) ** 0.5 if p.dim() == 2 else 0.01
-            p.copy_(torch.from_numpy(
-                rng.normal(0.0, std, tuple(p.shape)).astype(np.float32)))
-    return model
-
-
-def seq_forward(kind):
-    from deeprec_tpu_torch.models.sequence import dien_forward
-    return dien_forward if kind == "dien" else None
-
-
-def seq_trainer(kind, dev):
-    """sparse_adam(0.002) + dense Adam(0.002), the zoo's --optimizer adam;
-    DIEN's auxiliary loss weighted 1.0."""
-    from deeprec_tpu_torch.optim import dense, sparse
-    from deeprec_tpu_torch.train.trainer import Trainer
-    return Trainer(seq_model(kind), [], {"emb": seq_collection()},
-                   {"emb": sparse.sparse_adam(0.002)}, dense.Adam(0.002),
-                   forward=seq_forward(kind), aux_loss_weight=1.0,
-                   device=dev)
-
-
-def seq_batches(seed, n):
-    from deeprec_tpu_torch.data.behavior import SyntheticBehavior
-    return list(SyntheticBehavior(batch_size=B, max_len=SEQ_HIST,
-                                  seed=seed).take(n))
-
-
 def model_kind(kind):
     """How the zoo and seq phases build and feed one model: its trainer
     (given the device), a fresh model for a Predictor, its numeric
-    columns, forward hook, batch maker (seed, count) and lockstep steps.
-    ``seq``: a sequence model, whose phase also holds the null row at zero
-    (K2 zeroes a padded history lane where JAX reads that row) and profiles
-    3 staged steps."""
-    if kind in SEQ_MODELS:
-        return dict(trainer=lambda d: seq_trainer(kind, d),
-                    model=lambda: seq_model(kind), numeric=[],
-                    forward=seq_forward(kind), batches=seq_batches,
-                    steps=SEQ_STEPS, seq=True)
+    columns, forward hook, batch maker (seed, count) and lockstep steps,
+    all from its modelzoo entry point. ``seq``: a sequence model, whose
+    phase also holds the null row at zero (K2 zeroes a padded history lane
+    where JAX reads that row) and profiles 3 staged steps."""
+    spec, seq = zoo_spec(kind), kind in SEQ_MODELS
     return dict(trainer=lambda d: zoo_trainer(kind, d),
-                model=lambda: zoo_model(kind), numeric=zoo_numeric(kind),
-                forward=None, batches=lambda s, n: zoo_batches(kind, s, n),
-                steps=ZOO_STEPS, seq=False)
+                model=lambda: zoo_spec(kind).model,
+                numeric=spec.numeric_columns, forward=spec.forward,
+                batches=lambda s_, n: zoo_batches(kind, s_, n),
+                steps=SEQ_STEPS if seq else ZOO_STEPS, seq=seq)
 
 
 def check_models(dev, smi, tmp, phase, kinds):
@@ -1925,7 +1886,7 @@ def check_models(dev, smi, tmp, phase, kinds):
         tg, tc = spec["trainer"](dev), spec["trainer"]("cpu")
         for fn in counters.values():
             fn.launches = 0
-        sg, dloss, drow = lockstep(tg, tc, batches[:steps], what)
+        sg, _, dloss, drow = lockstep(tg, tc, batches[:steps], what)
         trained = flax_leaves(tg.model)
         ddense = max(float(np.abs(a - c).max())
                      for a, c in zip(trained, flax_leaves(tc.model)))
@@ -2000,9 +1961,9 @@ def check_seq_kernels(dev):
     import torch.nn.functional as Fn
     from deeprec_tpu_torch.ops.fused_lookup import fused_pooled_lookup_plain
     g = torch.Generator().manual_seed(SEED + 3)
-    coll = seq_collection()
+    coll = zoo_trainer("din", dev).collections["emb"]
     cap = coll.config.capacity
-    wire = coll.pack_ids(seq_batches(7, 1)[0], dev)
+    wire = coll.pack_ids(zoo_batches("din", 7, 1)[0], dev)
     r = wire.decode()
     u, n_real = r.uslots.shape[0], int(r.n_unique)
     if wire.inv16:
@@ -2047,8 +2008,466 @@ def check_seq_kernels(dev):
     return pair
 
 
+# -- phase 12: the entry points: the other optimizers, bf16, the CLI ---------
+def optim_cases():
+    """The sparse optimizers ported last and group_lasso, each with the
+    dense optimizer the CLI pairs with it (``cli.make_dense_opt``) and
+    its fused slot columns: (label, sparse, dense, fused columns). The
+    decays run a period every 2 steps, so rows catch up lazily."""
+    from deeprec_tpu_torch.optim import dense as D
+    from deeprec_tpu_torch.optim import sparse as S
+    lr = 0.05
+    return [
+        ("sgd", S.sparse_sgd(lr), D.SGD(lr), 0),
+        ("adagrad_decay", S.sparse_adagrad_decay(
+            lr, accumulator_decay_step=2), D.Adagrad(lr), 0),
+        ("adagrad_decay_v2", S.sparse_adagrad_decay_v2(
+            lr, accumulator_decay_step=2), D.Adagrad(lr), 0),
+        ("adam_fused", S.sparse_adam_fused(0.002), D.Adam(0.002),
+         2 * EMB_DIM),
+        ("adam_async", S.sparse_adam_async(0.002), D.Adam(0.002), 0),
+        ("adam_async_rmsprop", S.sparse_adam_async(
+            0.002, apply_sparse_rmsprop=True), D.Adam(0.002), 0),
+        ("momentum", S.sparse_momentum(lr), D.SGD(lr, momentum=0.9), 0),
+        ("proximal_gd", S.sparse_proximal_gradient_descent(
+            lr, l1_regularization_strength=1e-3,
+            l2_regularization_strength=1e-2), D.SGD(lr), 0),
+        ("proximal_adagrad", S.sparse_proximal_adagrad(
+            lr, l1_regularization_strength=1e-3,
+            l2_regularization_strength=1e-2), D.Adagrad(lr), 0),
+        ("group_lasso(adagrad)", S.group_lasso(S.sparse_adagrad(lr), 0.01),
+         D.Adagrad(lr), 0),
+    ]
+
+
+def optim_apply_pair(sparse, tc, sc, batch, dev):
+    """One apply of ``sparse`` on the card and on the CPU from the same
+    inputs: the CPU trainer's rows and slot leaves (copied to the card),
+    the lanes of one resolved batch (created, masked and null-row lanes
+    among them) and a gradient from a fixed generator; the current rows
+    are read through K1 on the card. Returns the largest difference of the
+    rows and float slot leaves relative to their largest magnitude;
+    integer and 0-d leaves must agree (the powers within OPTIM_APPLY_RTOL
+    too)."""
+    from deeprec_tpu_torch.utils.tree import leaves_with_paths, map_leaves
+    st = sc.tables["emb"]
+    r = tc.prepare_batch(batch)[1]["emb"].decode()
+    cap = st.ev.capacity
+    g = torch.Generator().manual_seed(SEED + 5)
+    grads = 1e-3 * torch.randn(r.uslots.shape[0], EMB_DIM, generator=g)
+    mask = r.uslots != cap
+    outs = []
+    for d in ("cpu", dev):
+        values = st.ev.values.clone().to(d)
+        slot = map_leaves(lambda _, x: x.clone().to(d), st.slot)
+        outs.append(sparse.apply(values, slot, r.uslots.to(d), grads.to(d),
+                                 mask.to(d), int(sc.step),
+                                 created=r.created.to(d)))
+    (vc, sc_), (vg, sg_) = outs
+    worst = 0.0
+    for (path, a), (_, c) in zip([("values", vg)] + leaves_with_paths(sg_),
+                                 [("values", vc)] + leaves_with_paths(sc_)):
+        a = a.cpu()
+        if not c.dtype.is_floating_point:
+            if not torch.equal(a, c):
+                fail(f"optim apply: {path} differs between card and CPU")
+            continue
+        err = ((a - c).abs().max() / c.abs().max().clamp_min(1e-30)).item()
+        worst = max(worst, err)
+        if not err <= OPTIM_APPLY_RTOL:
+            fail(f"optim apply: {path} differs by {err} of its magnitude "
+                 f"between card and CPU")
+    return worst
+
+
+def adam_lockstep(tg, tc, batches, what):
+    """:func:`lockstep` for the Adam family (dense Adam under the DLRM):
+    wires and metadata planes bit-equal, losses within LOSS_ATOL, slot
+    leaves within ROW_ATOL (integer and 0-d leaves too), but each step
+    starts the CPU trainer from the card's state (rows, slot leaves, dense
+    parameters and moments), and the rows and dense parameters are held
+    within ROW_ATOL at every element whose first moment agrees between
+    card and CPU within ADAM_M_RTOL; at most ADAM_NOISE_SHARE of the
+    elements Adam stepped (a nonzero moment on either side) may be left
+    out. Returns the states, the largest |dloss|, the largest difference
+    of a kept element and the largest share left out at a step."""
+    from deeprec_tpu_torch.utils.tree import leaves_with_paths
+
+    def moved(sg, sc):
+        """The rows and the dense parameters: lists of (card, CPU, card m,
+        CPU m)."""
+        eg, ec = sg.tables["emb"], sc.tables["emb"]
+        vg, vc = eg.ev.values, ec.ev.values
+        if vc.shape[1] > EMB_DIM:   # adam_fused: [value | m | v]
+            mg, mc = vg[:, EMB_DIM:2 * EMB_DIM], vc[:, EMB_DIM:2 * EMB_DIM]
+        else:
+            mg, mc = eg.slot["m"], ec.slot["m"]
+        return {"rows": [(vg[:, :EMB_DIM], vc[:, :EMB_DIM], mg, mc)],
+                "dense parameters": list(zip(
+                    tg.model.parameters(), tc.model.parameters(),
+                    sg.opt_state.mu, sc.opt_state.mu))}
+
+    sg, sc = tg.init(batches[0]), tc.init(batches[0])
+    dloss = dkept = share = 0.0
+    for i, b in enumerate(batches):
+        if i:
+            with torch.no_grad():   # the CPU starts from the card's state
+                for name, ec in sc.tables.items():
+                    eg = sg.tables[name]
+                    ec.ev.values.copy_(eg.ev.values)
+                    for (_, a), (_, c) in zip(leaves_with_paths(eg.slot),
+                                              leaves_with_paths(ec.slot)):
+                        c.copy_(a)
+                for pc, pg in zip(tc.model.parameters(),
+                                  tg.model.parameters()):
+                    pc.copy_(pg)
+                for (_, a), (_, c) in zip(
+                        leaves_with_paths(tuple(sg.opt_state)),
+                        leaves_with_paths(tuple(sc.opt_state))):
+                    c.copy_(a)
+        dg, cg, lg = tg.prepare_batch(b)
+        dc, cc, lc = tc.prepare_batch(b)
+        for name in cc:
+            if not torch.equal(cg[name].buf.cpu(), cc[name].buf):
+                fail(f"{what}: card and CPU {name} resolves differ at step "
+                     f"{i}")
+        g0, c0 = sg.metrics.loss_sum.item(), sc.metrics.loss_sum.item()
+        sg = tg._train_step(sg, dg, cg, lg)
+        sc = tc._train_step(sc, dc, cc, lc)
+        lg_, lc_ = ((sg.metrics.loss_sum.item() - g0) / B,
+                    (sc.metrics.loss_sum.item() - c0) / B)
+        if not (np.isfinite(lg_) and abs(lg_ - lc_) <= LOSS_ATOL):
+            fail(f"{what}: step {i} loss {lg_} on the card vs {lc_} on CPU")
+        dloss = max(dloss, abs(lg_ - lc_))
+        for group, arrays in moved(sg, sc).items():
+            left = stepped = 0
+            for a, c, ma, mc in arrays:
+                a, ma = a.detach().cpu(), ma.cpu()
+                c = c.detach()
+                noise = (ma - mc).abs() > ADAM_M_RTOL * mc.abs()
+                d = torch.where(noise, 0.0, (a - c).abs()).max().item()
+                dkept = max(dkept, d)
+                if not d <= ROW_ATOL:
+                    fail(f"{what}: step {i}: {group} whose first moment "
+                         f"agrees differ by {d} between card and CPU")
+                left += int(noise.sum())
+                stepped += int(((ma != 0) | (mc != 0)).sum())
+            share = max(share, left / max(stepped, 1))
+            if not left <= ADAM_NOISE_SHARE * stepped:
+                fail(f"{what}: step {i}: the first moments of {left} of "
+                     f"the {stepped} stepped elements of the {group} differ "
+                     f"by more than {ADAM_M_RTOL} between card and CPU")
+    for name in tc.collections:
+        eg, ec = sg.tables[name], sc.tables[name]
+        for f in ("freqs", "versions", "create_steps"):
+            if not torch.equal(getattr(eg.ev, f).cpu(), getattr(ec.ev, f)):
+                fail(f"{what}: {name} {f} planes differ between card and "
+                     f"CPU")
+        for (p, a), (_, c) in zip(leaves_with_paths(eg.slot),
+                                  leaves_with_paths(ec.slot)):
+            ok = (torch.equal(a.cpu(), c) if not c.dtype.is_floating_point
+                  else (a.cpu() - c).abs().max().item() <= ROW_ATOL)
+            if not ok:
+                fail(f"{what}: {name} slot {p} differs between card and CPU")
+    log(f"{what}: {len(batches)} steps in lockstep with a CPU trainer that "
+        f"starts each step from the card's state: wires and metadata planes "
+        f"bit-equal, max |dloss| {dloss:.3g} (limit {LOSS_ATOL}), max |d| "
+        f"of rows and dense parameters {dkept:.3g} (limit {ROW_ATOL}) with "
+        f"at most {share:.3g} of the stepped elements left out (first "
+        f"moments apart by more than {ADAM_M_RTOL}; limit "
+        f"{ADAM_NOISE_SHARE}); slot leaves within {ROW_ATOL}")
+    return sg, sc, dloss, dkept, share
+
+
+def dense_apply_pair(dense, tc, sc, dev):
+    """One step of the dense optimizer ``dense`` on the card and on the
+    CPU from the same inputs: the CPU trainer's parameters and optimizer
+    state (copied to the card) and gradients from a fixed generator.
+    Returns the largest difference of the parameters and float state
+    leaves relative to their largest magnitude; integer leaves (Adam's
+    count) must agree."""
+    from deeprec_tpu_torch.utils.tree import leaves_with_paths, map_leaves
+    g = torch.Generator().manual_seed(SEED + 6)
+    grads = [1e-2 * torch.randn(p.shape, generator=g)
+             for p in tc.model.parameters()]
+    outs = []
+    for d in ("cpu", dev):
+        params = [p.detach().clone().to(d) for p in tc.model.parameters()]
+        for p, gr in zip(params, grads):
+            p.grad = gr.to(d)
+        state = map_leaves(lambda _, x: x.clone().to(d), sc.opt_state)
+        dense.step(params, state)
+        outs.append((params, state))
+    worst = 0.0
+    for (path, a), (_, c) in zip(leaves_with_paths(outs[1]),
+                                 leaves_with_paths(outs[0])):
+        a = a.cpu()
+        if not c.dtype.is_floating_point:
+            if not torch.equal(a, c):
+                fail(f"dense apply: {path} differs between card and CPU")
+            continue
+        err = ((a - c).abs().max() / c.abs().max().clamp_min(1e-30)).item()
+        worst = max(worst, err)
+        if not err <= OPTIM_APPLY_RTOL:
+            fail(f"dense apply: {path} differs by {err} of its magnitude "
+                 f"between card and CPU")
+    return worst
+
+
+def check_optimizers(dev, smi):
+    """Each case of :func:`optim_cases` on bench.py's DLRM (a 2^21-row
+    host-index table, light layout; the weights the entry point draws,
+    ``cli.init_params`` from SEED) for OPTIM_STEPS steps in lockstep with
+    a CPU trainer (:func:`lockstep`: wires bit-equal, losses within
+    LOSS_ATOL, rows, float slot leaves and dense parameters within
+    ROW_ATOL; adagrad_decay's int32 last_period and the beta powers' 0-d
+    leaves compared too; the Adam family through :func:`adam_lockstep`),
+    then one apply of the sparse optimizer (:func:`optim_apply_pair`) and
+    one of the dense optimizer (:func:`dense_apply_pair`) on the card and
+    on the CPU from the same inputs within OPTIM_APPLY_RTOL; K1, K2 and
+    K2's backward launched. Returns the launches and the summary."""
+    from deeprec_tpu_torch.data.criteo import SyntheticCriteo
+    from deeprec_tpu_torch.models.ctr import flax_leaves
+    from deeprec_tpu_torch.train import cli
+    from deeprec_tpu_torch.train.trainer import Trainer
+    numeric, _, _ = criteo_parts()
+    counters = path_counters()
+    batches = list(SyntheticCriteo(batch_size=B, seed=7).take(
+        OPTIM_STEPS + 1))
+    for fn in counters.values():
+        fn.launches = 0
+    out, t0 = {}, time.perf_counter()
+    for label, sparse, dense, fused in optim_cases():
+        tg, tc = (Trainer(cli.init_params(criteo_parts()[2], SEED),
+                          numeric, {"emb": host_collection(
+                              False, fused_slot_columns=fused,
+                              fused_slot_init=0.0)},
+                          {"emb": sparse}, dense, device=d)
+                  for d in (dev, "cpu"))
+        if "adam" in label:
+            sg, sc, dloss, drow, left = adam_lockstep(
+                tg, tc, batches[:OPTIM_STEPS], f"optim {label}")
+            ddense = drow   # one maximum over rows and dense parameters
+        else:
+            sg, sc, dloss, drow = lockstep(tg, tc, batches[:OPTIM_STEPS],
+                                           f"optim {label}")
+            ddense, left = max(float(np.abs(a - c).max()) for a, c in zip(
+                flax_leaves(tg.model), flax_leaves(tc.model))), 0.0
+            if not ddense <= ROW_ATOL:
+                fail(f"optim {label}: dense parameters differ by {ddense}")
+        del tg, sg
+        dapply = optim_apply_pair(sparse, tc, sc, batches[OPTIM_STEPS], dev)
+        ddapply = dense_apply_pair(dense, tc, sc, dev)
+        out[label] = {"max_dloss": dloss, "max_drow": drow,
+                      "max_ddense": ddense, "left_out": left,
+                      "apply_rel_err": dapply, "dense_apply_rel_err": ddapply}
+        del tc, sc
+    launches = {k: fn.launches for k, fn in counters.items()}
+    for k in ("gather_rows", "fused_pooled_lookup",
+              "fused_pooled_lookup_backward"):
+        if launches[k] <= 0:
+            fail(f"{k} was not launched on the optimizers' path")
+    log(f"optim: {len(out)} sparse optimizers, each {OPTIM_STEPS} steps of "
+        f"bench.py's DLRM in lockstep with a CPU trainer, then one sparse "
+        f"and one dense apply card vs CPU from the same inputs: "
+        + "; ".join(f"{k} |dloss| {v['max_dloss']:.3g} |drow| "
+                    f"{v['max_drow']:.3g} |dparam| {v['max_ddense']:.3g} "
+                    f"left out {v['left_out']:.3g} apply "
+                    f"{v['apply_rel_err']:.3g} dense apply "
+                    f"{v['dense_apply_rel_err']:.3g}"
+                    for k, v in out.items())
+        + f" (limits: loss {LOSS_ATOL}, rows and parameters {ROW_ATOL}, "
+        f"left out {ADAM_NOISE_SHARE}, apply {OPTIM_APPLY_RTOL} of the "
+        f"magnitude); launches {launches}; "
+        f"{time.perf_counter() - t0:.1f} s on {smi}")
+    return launches, out
+
+
+def check_bf16_forward(dev):
+    """The --bf16 DLRM (towers in bf16, float32 parameters) built by its
+    entry point on the card and on the CPU from one seed: the logits of
+    one batch of inputs agree within BF16_FWD_TOL of their largest
+    magnitude, and on average by less than half their distance from the
+    float32 model's (so the card computes the bf16 function)."""
+    from deeprec_tpu_torch.train import cli
+    g = torch.Generator().manual_seed(SEED + 4)
+    dense = torch.randn(B, 13, generator=g)
+    emb = {f"C{i}": 0.05 * torch.randn(B, EMB_DIM, generator=g)
+           for i in range(1, 27)}
+    logits = {}
+    for d, extra in ((dev, ["--bf16"]), ("cpu", ["--bf16"]), ("cpu", [])):
+        mod, args = zoo_entry("dlrm", d, extra)
+        model = cli.init_params(mod.build(args).model, SEED).to(d)
+        with torch.no_grad():
+            logits[(str(d), bool(extra))] = model(
+                dense.to(d), {k: v.to(d) for k, v in emb.items()}).cpu()
+    card, cpu = logits[(str(dev), True)], logits[("cpu", True)]
+    f32 = logits[("cpu", False)]
+    err = (card - cpu).abs().max().item()
+    mean_err = (card - cpu).abs().mean().item()
+    scale = cpu.abs().max().item()
+    gap = (cpu - f32).abs().mean().item()
+    if not (torch.isfinite(card).all() and err <= BF16_FWD_TOL * scale
+            and mean_err < 0.5 * gap):
+        fail(f"bf16 DLRM forward: card vs CPU logits differ by {err} "
+             f"(mean {mean_err}; max |logit| {scale}, mean bf16 vs f32 "
+             f"{gap})")
+    log(f"bf16 DLRM forward at B={B}: card vs CPU max |dlogit| {err:.3g} "
+        f"(limit {BF16_FWD_TOL} x max |logit| {scale:.3g}), mean "
+        f"{mean_err:.3g}; mean |bf16 - f32| towers on the CPU {gap:.3g}")
+    return {"max_dlogit": err, "mean_dlogit": mean_err, "max_logit": scale,
+            "mean_bf16_vs_f32": gap}
+
+
+def write_criteo_files(d, n_files, rows, seed=0):
+    """Criteo TSV files made from SyntheticCriteo: label, 13 integer
+    columns, 26 hex tokens (nothing downloaded)."""
+    from deeprec_tpu_torch.data.criteo import (CAT_NAMES, DENSE_NAMES,
+                                               SyntheticCriteo)
+    paths = []
+    for f in range(n_files):
+        b = next(iter(SyntheticCriteo(batch_size=rows, seed=seed + f)))
+        cols = [b["label"].astype(np.int64).astype(str)]
+        cols += [np.round(b[n] * 100).astype(np.int64).astype(str)
+                 for n in DENSE_NAMES]
+        cols += [np.char.mod("%08x", b[n] & 0xFFFFFFFF) for n in CAT_NAMES]
+        path = os.path.join(d, f"day_{f}.tsv")
+        with open(path, "w") as fh:
+            fh.write("\n".join("\t".join(r) for r in zip(*cols)) + "\n")
+        paths.append(path)
+    return paths
+
+
+def cli_runs(tmp):
+    """The cli phase's runs: (kind, --optimizer, extra flags). Each of the
+    ten --optimizer choices once, each model at least once; --bf16 on DLRM
+    and DCN; the metadata layout (K3a) by admission and eviction on DCN
+    and by incremental saves on the DLRM that is then served; WDL from
+    Criteo files through a WorkQueue."""
+    files = write_criteo_files(tmp, 3, 2 * B)
+    return [
+        ("dlrm", "adagrad", ["--bf16"]),
+        ("dlrm", "sgd", ["--checkpoint", os.path.join(tmp, "ck"),
+                         "--incr_save_secs", "1e-9"]),
+        ("dcn", "adagrad_decay", ["--bf16"]),
+        ("dcn", "proximal_gd", ["--ev_filter_freq", "2",
+                                "--ev_evict_steps", str(CLI_STEPS // 2)]),
+        ("wdl", "momentum", []),
+        ("deepfm", "ftrl", []),
+        ("dssm", "adagrad_decay_v2", []),
+        ("din", "adam", []),
+        ("dien", "adam_async", []),
+        ("wdl", "proximal_adagrad", [
+            "--data_location", ",".join(files), "--workqueue",
+            os.path.join(tmp, "queue"), "--steps", str(CLI_CRITEO_STEPS),
+            "--log_steps", str(CLI_CRITEO_STEPS // 2)]),
+    ]
+
+
+def check_cli(dev, smi, tmp):
+    """Phase 12's ``cli`` runs: every model through its entry point
+    (``cli.run(build(args), args)``, the host-index engine, B 4096, emb
+    16, 2^21 rows, the towers' full widths, CLI_STEPS steps with a fence
+    at every CLI_FENCE) as :func:`cli_runs` lists them: each run's JSON
+    line finite and its step count right, the C++ resolver, K1, K2 and K2's
+    backward launched in every run and K3a in the metadata-layout ones.
+    Then the served DLRM: the server's builder over the run's checkpoint
+    (a full and an incremental save) answers HTTP predicts within
+    PROB_ATOL of a CPU Predictor over the same directory. Returns the
+    phase's launches and its summary."""
+    import threading as th
+    from deeprec_tpu_torch.checkpoint import format as F
+    from deeprec_tpu_torch.serving import Predictor
+    from deeprec_tpu_torch.serving.server import build_server
+    from deeprec_tpu_torch.train import cli
+    counters = path_counters()
+    total = dict.fromkeys(counters, 0)
+    out, t_phase = [], time.perf_counter()
+    for kind, opt, own in cli_runs(tmp):
+        mod, args = zoo_entry(kind, dev, [
+            "--optimizer", opt, "--steps", str(CLI_STEPS), "--log_steps",
+            str(CLI_FENCE), "--eval_steps", "2", "--capacity", str(CAPACITY),
+            *own])
+        spec = mod.build(args)
+        need_native(spec.collections, f"cli {kind}")
+        meta = any(c.config.version_tracked or c.config.freq_tracked
+                   for c in spec.collections.values())
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        res = cli.run(spec, args)
+        wall = time.perf_counter() - t0
+        launches = {k: fn.launches for k, fn in counters.items()}
+        nums = [v for v in res.values() if isinstance(v, (int, float))]
+        if not (res["steps"] == args.steps and np.isfinite(nums).all()
+                and res["examples_per_sec"] > 0
+                and 0.0 <= res["eval_auc"] <= 1.0):
+            fail(f"cli {kind} {opt}: {res}")
+        need = ["gather_rows", "fused_pooled_lookup",
+                "fused_pooled_lookup_backward"] + (["lookup_meta"]
+                                                   if meta else [])
+        for k in need:
+            if launches[k] <= 0:
+                fail(f"cli {kind} {opt}: {k} was not launched")
+        for k, v in launches.items():
+            total[k] += v
+        flags = " ".join(a for a in own if a.startswith("--"))
+        log(f"cli {ZOO_ENTRY[kind]} --optimizer {opt} {flags}: "
+            f"{res['steps']} steps, examples/s {res['examples_per_sec']} at "
+            f"B={B} (the CLI's own count: host clock over the loop, fences "
+            f"included), train loss {res['train_loss']}, eval auc "
+            f"{res['eval_auc']}; run {wall:.1f} s; launches {launches}; "
+            f"on {smi}")
+        out.append({"model": ZOO_ENTRY[kind], "optimizer": opt,
+                    "flags": flags, "result": res, "launches": launches,
+                    "wall_s": wall})
+        torch.cuda.empty_cache()
+    q = os.path.join(tmp, "queue", "claims")
+    if len(os.listdir(q)) < 2:
+        fail(f"cli: the WorkQueue claimed {os.listdir(q)}")
+
+    # train -> save -> serve: the DLRM run's checkpoint through the server
+    ck = os.path.join(tmp, "ck")
+    kinds = [m["kind"] for m in F.list_saves(ck)]
+    if "incr" not in kinds or "full" not in kinds:
+        fail(f"cli: the DLRM run saved {kinds}, not a full and an "
+             "incremental save")
+    srv, _ = build_server(["--model", "DLRM", "--ckpt_dir", ck, "--host",
+                           "127.0.0.1", "--port", "0", "--", "--host_index",
+                           "--emb_dim", str(EMB_DIM), "--capacity",
+                           str(CAPACITY)])
+    thread = th.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    spec = zoo_spec("dlrm")
+    cpu = Predictor(spec.model, spec.numeric_columns, spec.collections, ck,
+                    device="cpu")
+    worst, url = 0.0, f"http://127.0.0.1:{srv.server_address[1]}"
+    try:
+        for b in zoo_batches("dlrm", 11, 2):
+            got = _post(f"{url}/v1/predict", {"inputs": _cols(b, 0, 1024)})
+            if got["step"] != CLI_STEPS:
+                fail(f"cli serving: the server is at step {got['step']}")
+            ref = cpu.predict({k: v[:1024] for k, v in b.items()})
+            p = np.asarray(got["predictions"], np.float32)
+            if p.shape != ref.shape or not np.isfinite(p).all():
+                fail("cli serving: predictions of the wrong shape")
+            worst = max(worst, float(np.abs(p - ref).max()))
+        health = _get(f"{url}/healthz")
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        thread.join(timeout=30)
+    if not worst <= PROB_ATOL:
+        fail(f"cli serving: HTTP vs CPU Predictor differ by {worst}")
+    log(f"cli serving: the server's builder over the DLRM run's saves "
+        f"{kinds} answered 2 HTTP predicts of 1024 rows within {worst:.3g} "
+        f"of a CPU Predictor (limit {PROB_ATOL}); healthz {health}; phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return total, {"runs": out, "serve_dp": worst}
+
+
 def run(dev, smi, probe):
-    """Phases 2-11 on ``dev`` (``probe``: the built design probes); returns
+    """Phases 2-12 on ``dev`` (``probe``: the built design probes); returns
     the kernels' JSON entries and the training numbers."""
     from deeprec_tpu_torch.data.criteo import SyntheticCriteo
     from deeprec_tpu_torch.ops.fused_lookup import fused_pooled_lookup
@@ -2123,6 +2542,10 @@ def run(dev, smi, probe):
             phase_paths, training[phase] = check_models(dev, smi, path,
                                                         phase, kinds)
         paths.update(phase_paths)
+    paths["optim"], training["optim"] = check_optimizers(dev, smi)
+    training["bf16_forward"] = check_bf16_forward(dev)
+    with tempfile.TemporaryDirectory(dir=str(_build.BUILD)) as path:
+        paths["cli"], training["cli"] = check_cli(dev, smi, path)
     for k in kernels:
         # launches on the slice's main path, --metadata (the bf16 rows: on
         # the bf16 table's, where every K2 launch is a bf16 one; a zoo or

@@ -1,14 +1,20 @@
-"""Synthetic Criteo-like stream (the dense and categorical column names
-and :class:`SyntheticCriteo`).
+"""Criteo-format input: the file readers and a synthetic stream.
 
-A framework-free copy of ``deeprec_tpu/data/criteo.py:150-283``: the port
-cannot import the JAX package. ``tests/test_torch_keys.py`` checks that
-both give byte-identical batches. The file readers are not ported yet.
+A framework-free copy of ``deeprec_tpu/data/criteo.py`` (the port cannot
+import the JAX package): :func:`read_criteo` (a streaming Python reader of
+Criteo TSV: label, 13 ints, 26 hex categoricals, into fixed-size numpy
+batches), :func:`read_criteo_native` (the same through the C++
+``criteo_parse`` of the shared ``native/deeprec_native.cc``, bound in
+``utils/native.py``), their FNV-1a + splitmix64 token hash
+(:func:`_hash_token`, :func:`_mix64`: Python integers masked to 64 bits,
+bit-equal to the native hash), the column names and
+:class:`SyntheticCriteo`. ``tests/test_torch_imports.py`` holds the copy
+to its source and ``tests/test_torch_keys.py`` the batches.
 """
 from __future__ import annotations
 
 import itertools
-from typing import Dict, Optional, Sequence
+from typing import Dict, Iterator, Optional, Sequence
 
 import numpy as np
 
@@ -16,6 +22,133 @@ NUM_DENSE = 13
 NUM_CAT = 26
 DENSE_NAMES = [f"I{i}" for i in range(1, 14)]
 CAT_NAMES = [f"C{i}" for i in range(1, 27)]
+
+_M64 = (1 << 64) - 1
+
+
+def _mix64(x: int) -> int:
+    """splitmix64 finalizer — byte-for-byte the native mix64
+    (native/deeprec_native.cc:30)."""
+    x = (x + 0x9E3779B97F4A7C15) & _M64
+    x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & _M64
+    x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & _M64
+    return x ^ (x >> 31)
+
+
+def _hash_token(tok: str) -> np.int64:
+    """Stable 64-bit id for a categorical token (the reference hashes the
+    hex strings via string_to_hash_bucket; we keep full 64-bit fidelity).
+
+    IDENTICAL to the native parser's FNV-1a + splitmix hash
+    (native/deeprec_native.cc:39 hash_token), so a run may switch between
+    :func:`read_criteo` and :func:`read_criteo_native` freely — same bytes,
+    same ids (tests/test_criteo_fidelity.py fuzzes the equality)."""
+    if not tok:
+        return np.int64(-2)  # dedicated "missing" id (must not be -1 = EMPTY)
+    h = 1469598103934665603  # FNV-1a offset basis
+    for b in tok.encode():
+        h = ((h ^ b) * 1099511628211) & _M64
+    h = _mix64(h)
+    v = h - (1 << 64) if h >= (1 << 63) else h
+    return np.int64(-2 if v == -1 else v)
+
+
+def read_criteo_native(
+    path: str,
+    batch_size: int,
+    num_epochs: int = 1,
+    chunk_bytes: int = 8 << 20,
+) -> Iterator[Dict[str, np.ndarray]]:
+    """Stream batches through the native C++ parser
+    (native/deeprec_native.cc criteo_parse — the input-pipeline hot path;
+    ~20x the python reader). Falls back to :func:`read_criteo` when the
+    toolchain is unavailable; both readers produce IDENTICAL ids (shared
+    FNV-1a + splitmix hash; fuzz-checked byte-for-byte in
+    tests/test_criteo_fidelity.py), so the fallback is transparent."""
+    from ..utils.native import criteo_parse_chunk, get_lib
+    if get_lib() is None:
+        yield from read_criteo(path, batch_size, num_epochs)
+        return
+    for _epoch in range(num_epochs):
+        acc_l, acc_d, acc_c = [], [], []
+        n_acc = 0
+        with open(path, "rb") as f:
+            rest = b""
+            while True:
+                chunk = f.read(chunk_bytes)
+                if not chunk and not rest:
+                    break
+                buf = rest + chunk
+                if not chunk and buf and not buf.endswith(b"\n"):
+                    buf += b"\n"  # final unterminated line
+                labels, dense, cats, consumed = criteo_parse_chunk(
+                    buf, max_rows=1 << 20)
+                rest = buf[consumed:]
+                if labels.shape[0] == 0 and not chunk:
+                    break
+                acc_l.append(labels); acc_d.append(dense); acc_c.append(cats)
+                n_acc += labels.shape[0]
+                while n_acc >= batch_size:
+                    L = np.concatenate(acc_l); D = np.concatenate(acc_d)
+                    C = np.concatenate(acc_c)
+                    yield _pack_arrays(L[:batch_size], D[:batch_size],
+                                       C[:batch_size])
+                    acc_l, acc_d, acc_c = [L[batch_size:]], [D[batch_size:]], [C[batch_size:]]
+                    n_acc -= batch_size
+                if not chunk:
+                    break
+
+
+def _pack_arrays(labels: np.ndarray, dense: np.ndarray, cats: np.ndarray):
+    out = {"label": labels}
+    for i, nm in enumerate(DENSE_NAMES):
+        out[nm] = dense[:, i]
+    for i, nm in enumerate(CAT_NAMES):
+        out[nm] = cats[:, i]
+    return out
+
+
+def read_criteo(
+    path: str,
+    batch_size: int,
+    num_epochs: int = 1,
+    sep: str = "\t",
+    drop_remainder: bool = True,
+) -> Iterator[Dict[str, np.ndarray]]:
+    """Stream batches from a Criteo-format file.
+
+    Yields dicts: label f32 [B], I1..I13 f32 [B], C1..C26 int64 [B].
+    """
+    for _epoch in range(num_epochs):
+        labels, dense, cats = [], [], []
+        with open(path, "r") as f:
+            for line in f:
+                parts = line.rstrip("\n").split(sep)
+                if len(parts) < 1 + NUM_DENSE + NUM_CAT:
+                    parts = parts + [""] * (1 + NUM_DENSE + NUM_CAT - len(parts))
+                labels.append(float(parts[0] or 0))
+                dense.append([float(x) if x else 0.0 for x in parts[1:1 + NUM_DENSE]])
+                cats.append([_hash_token(t) for t in parts[1 + NUM_DENSE:1 + NUM_DENSE + NUM_CAT]])
+                if len(labels) == batch_size:
+                    yield _pack(labels, dense, cats)
+                    labels, dense, cats = [], [], []
+        if labels and not drop_remainder:
+            pad = batch_size - len(labels)
+            labels += [0.0] * pad
+            dense += [[0.0] * NUM_DENSE] * pad
+            cats += [[-2] * NUM_CAT] * pad
+            yield _pack(labels, dense, cats)
+
+
+def _pack(labels, dense, cats) -> Dict[str, np.ndarray]:
+    out = {"label": np.asarray(labels, np.float32)}
+    d = np.asarray(dense, np.float32)
+    c = np.asarray(cats, np.int64)
+    for i, nm in enumerate(DENSE_NAMES):
+        out[nm] = d[:, i]
+    for i, nm in enumerate(CAT_NAMES):
+        out[nm] = c[:, i]
+    return out
 
 
 class SyntheticCriteo:

@@ -6,7 +6,10 @@ Models consume ``dense [B, Dd]`` (None for DSSM, which has no numeric
 columns), ``emb``, a dict name -> ``[B, d]`` pooled embeddings, and
 ``wide``, an optional dict name -> ``[B, 1]`` wide (dim-1) embeddings, and
 return logits ``[B]``. torch needs input widths up front, so each
-constructor takes them (``emb_dim``, ``dense_dim``). Float32 compute.
+constructor takes them (``emb_dim``, ``dense_dim``). Parameters are
+float32; ``compute_dtype`` (the zoo's ``--bf16``: ``torch.bfloat16``) is
+the dtype the towers and cross layers compute in, as in the JAX models,
+whose outputs come back as float32.
 
 Each model describes its flax param tree by name (:meth:`flax_tree`):
 nested dicts of the names flax gives its sub-modules and parameters, with
@@ -59,11 +62,13 @@ class WDL(nn.Module):
 
     def __init__(self, emb_names: Sequence[str], wide_names: Sequence[str],
                  emb_dim: int, deep_units: Sequence[int] = (1024, 512, 256),
-                 dense_dim: int = 13):
+                 dense_dim: int = 13,
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.emb_names, self.wide_names = list(emb_names), list(wide_names)
         self.deep = MLPTower(dense_dim + len(self.emb_names) * emb_dim,
-                             deep_units, final_units=1)
+                             deep_units, final_units=1,
+                             compute_dtype=compute_dtype)
         if self.wide_names:
             self.wide_bias = nn.Parameter(torch.zeros(()))
         else:
@@ -90,14 +95,17 @@ class DLRM(nn.Module):
     def __init__(self, emb_names: Sequence[str], emb_dim: int,
                  bottom_units: Sequence[int] = (512, 256),
                  top_units: Sequence[int] = (1024, 1024, 512, 256),
-                 dense_dim: int = 13):
+                 dense_dim: int = 13,
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.emb_names = list(emb_names)
         n_feats = 1 + len(self.emb_names)
-        self.bottom = MLPTower(dense_dim, bottom_units, final_units=emb_dim)
+        self.bottom = MLPTower(dense_dim, bottom_units, final_units=emb_dim,
+                               compute_dtype=compute_dtype)
         self.interaction = DotInteraction()
         self.top = MLPTower(emb_dim + n_feats * (n_feats - 1) // 2,
-                            top_units, final_units=1)
+                            top_units, final_units=1,
+                            compute_dtype=compute_dtype)
 
     def forward(self, dense: torch.Tensor, emb: Dict[str, torch.Tensor],
                 wide=None, train: bool = False) -> torch.Tensor:
@@ -118,12 +126,14 @@ class DCN(nn.Module):
     def __init__(self, emb_names: Sequence[str], emb_dim: int,
                  cross_layers: int = 3, low_rank: Optional[int] = None,
                  deep_units: Sequence[int] = (1024, 512, 256),
-                 dense_dim: int = 13):
+                 dense_dim: int = 13,
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.emb_names = list(emb_names)
         d0 = dense_dim + len(self.emb_names) * emb_dim
-        self.cross = CrossNetV2(d0, cross_layers, low_rank)
-        self.deep = MLPTower(d0, deep_units)
+        self.cross = CrossNetV2(d0, cross_layers, low_rank,
+                                compute_dtype=compute_dtype)
+        self.deep = MLPTower(d0, deep_units, compute_dtype=compute_dtype)
         self.head = nn.Linear(d0 + self.deep.out_dim, 1)
 
     def forward(self, dense, emb, wide=None, train: bool = False):
@@ -143,12 +153,14 @@ class DeepFM(nn.Module):
 
     def __init__(self, emb_names: Sequence[str], wide_names: Sequence[str],
                  emb_dim: int, deep_units: Sequence[int] = (400, 400, 400),
-                 dense_dim: int = 13):
+                 dense_dim: int = 13,
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.emb_names, self.wide_names = list(emb_names), list(wide_names)
         self.fm = FMInteraction()
         self.deep = MLPTower(dense_dim + len(self.emb_names) * emb_dim,
-                             deep_units, final_units=1)
+                             deep_units, final_units=1,
+                             compute_dtype=compute_dtype)
         self.bias = nn.Parameter(torch.zeros(()))
 
     def forward(self, dense, emb, wide=None, train: bool = False):
@@ -175,7 +187,8 @@ class DSSM(nn.Module):
                  item_emb_names: Sequence[str], emb_dim: int,
                  user_dense_dim: int = 0,
                  tower_units: Sequence[int] = (256, 128), out_dim: int = 64,
-                 temperature: float = 0.05):
+                 temperature: float = 0.05,
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.user_emb_names = list(user_emb_names)
         self.item_emb_names = list(item_emb_names)
@@ -183,9 +196,10 @@ class DSSM(nn.Module):
         self.temperature = temperature
         self.user_tower = MLPTower(
             user_dense_dim + len(self.user_emb_names) * emb_dim, tower_units,
-            final_units=out_dim)
+            final_units=out_dim, compute_dtype=compute_dtype)
         self.item_tower = MLPTower(len(self.item_emb_names) * emb_dim,
-                                   tower_units, final_units=out_dim)
+                                   tower_units, final_units=out_dim,
+                                   compute_dtype=compute_dtype)
 
     def forward(self, dense, emb, wide=None, train: bool = False):
         u_in = concat_emb(emb, self.user_emb_names)

@@ -20,12 +20,30 @@ import torch
 from torch import nn
 
 
+def linear(layer: nn.Linear, x: torch.Tensor,
+          compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """``layer(x)`` as flax's ``nn.Dense(dtype=compute_dtype)`` computes
+    it: at float32 the layer itself; at another dtype the input, kernel
+    and bias are cast to it (the parameters stay float32), the product is
+    rounded to it and the bias added in it, two roundings as in flax."""
+    if compute_dtype == torch.float32:
+        return layer(x)
+    y = torch.matmul(x.to(compute_dtype), layer.weight.to(compute_dtype).T)
+    if layer.bias is not None:
+        y = y + layer.bias.to(compute_dtype)
+    return y
+
+
 class MLPTower(nn.Module):
     """Stacked Linear+ReLU; ``final_units`` adds a linear head without
-    activation (``deeprec_tpu.models.layers.MLPTower``)."""
+    activation (``deeprec_tpu.models.layers.MLPTower``). With a
+    ``compute_dtype`` other than float32 (the zoo's ``--bf16``) every
+    layer computes in it (:func:`linear`) and the output is cast back to
+    float32."""
 
     def __init__(self, in_dim: int, units: Sequence[int],
-                 final_units: Optional[int] = None):
+                 final_units: Optional[int] = None,
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         widths = [in_dim, *units]
         self.hidden = nn.ModuleList(
@@ -33,11 +51,16 @@ class MLPTower(nn.Module):
         self.head = (nn.Linear(widths[-1], final_units)
                      if final_units is not None else None)
         self.out_dim = widths[-1] if final_units is None else final_units
+        self.compute_dtype = compute_dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        cd = self.compute_dtype
+        x = x.to(cd)
         for layer in self.hidden:
-            x = torch.relu(layer(x))
-        return self.head(x) if self.head is not None else x
+            x = torch.relu(linear(layer, x, cd))
+        if self.head is not None:
+            x = linear(self.head, x, cd)
+        return x.float()
 
     def flax_tree(self) -> dict:
         tree = {f"dense_{i}": lin for i, lin in enumerate(self.hidden)}
@@ -61,12 +84,15 @@ class DotInteraction(nn.Module):
 class CrossNetV2(nn.Module):
     """DCN-v2 cross layers: ``x_{l+1} = x0 * (W x_l + b) + x_l``. With
     ``low_rank`` the product is ``U (V x_l)``: ``v_i`` without a bias, then
-    ``u_i``, as the flax layer names them."""
+    ``u_i``, as the flax layer names them. ``compute_dtype`` as in
+    :class:`MLPTower`: every product and sum in it, the output float32."""
 
     def __init__(self, in_dim: int, num_layers: int = 3,
-                 low_rank: Optional[int] = None):
+                 low_rank: Optional[int] = None,
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.low_rank = low_rank
+        self.compute_dtype = compute_dtype
         if low_rank:
             self.v = nn.ModuleList(nn.Linear(in_dim, low_rank, bias=False)
                                    for _ in range(num_layers))
@@ -77,13 +103,17 @@ class CrossNetV2(nn.Module):
                                    for _ in range(num_layers))
 
     def forward(self, x0: torch.Tensor) -> torch.Tensor:
+        cd = self.compute_dtype
+        x0 = x0.to(cd)
         x = x0
         layers = (zip(self.v, self.u) if self.low_rank
                   else ((w, None) for w in self.w))
         for first, second in layers:
-            w = first(x) if second is None else second(first(x))
+            w = linear(first, x, cd)
+            if second is not None:
+                w = linear(second, w, cd)
             x = x0 * w + x
-        return x
+        return x.float()
 
     def flax_tree(self) -> dict:
         if self.low_rank:

@@ -1,7 +1,7 @@
-"""Dense optimizers: the counterparts of ``optax.adagrad`` and
-``optax.adam``, written out, each with its conversion to and from the
-leaves of the optax state tree (what a checkpoint's ``dense.npz`` holds
-after the params).
+"""Dense optimizers: the counterparts of ``optax.sgd`` (with and without
+momentum), ``optax.adagrad`` and ``optax.adam``, written out, each with
+its conversion to and from the leaves of the optax state tree (what a
+checkpoint's ``dense.npz`` holds after the params).
 
 ``optax.adagrad(lr)`` (``scale_by_rss`` then ``scale_by_learning_rate``)
 keeps ``acc`` starting at ``initial_accumulator_value`` (0.1), and updates
@@ -27,7 +27,7 @@ that value for them in a save and refuses a save where they differ.
 """
 from __future__ import annotations
 
-from typing import List, NamedTuple, Sequence
+from typing import List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -146,3 +146,51 @@ class Adam(NamedTuple):
             torch.tensor(int(count), dtype=torch.int32, device=dev),
             load_flax_state(module, leaves[1:1 + n], "adam mu"),
             load_flax_state(module, leaves[1 + n:1 + 2 * n], "adam nu"))
+
+
+class SGD(NamedTuple):
+    """``optax.sgd(learning_rate, momentum)``: no state without momentum,
+    else one ``trace`` per parameter. A parameter without a
+    gradient steps with a zero one, as optax steps it."""
+    learning_rate: float = 0.01
+    momentum: Optional[float] = None
+
+    def init(self, params: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+        if self.momentum is None:
+            return []
+        return [torch.zeros_like(p, memory_format=torch.contiguous_format)
+                for p in params]
+
+    @torch.no_grad()
+    def step(self, params: Sequence[torch.Tensor],
+             state: Sequence[torch.Tensor]) -> None:
+        """Update ``params`` (and the traces) in place from their
+        ``.grad``."""
+        if self.momentum is None:
+            for p in params:
+                if p.grad is not None:
+                    p.add_(p.grad * -self.learning_rate)
+            return
+        for p, trace in zip(params, state):
+            g = p.grad if p.grad is not None else torch.zeros_like(p)
+            trace.copy_(g + self.momentum * trace)
+            p.add_(trace * -self.learning_rate)
+
+    # -- the optax state: (TraceState(trace), EmptyState()) with momentum,
+    # -- (EmptyState(), EmptyState()) without
+    def state_leaf_count(self, n_leaves: int) -> int:
+        """Optax leaves over ``n_leaves`` flax variable leaves."""
+        return 0 if self.momentum is None else n_leaves
+
+    def flax_state_leaves(self, module: torch.nn.Module,
+                          state) -> List[np.ndarray]:
+        """The ``trace`` leaves (none without momentum)."""
+        if self.momentum is None:
+            return []
+        return flax_state_leaves(module, state)
+
+    def load_flax_state(self, module: torch.nn.Module,
+                        leaves) -> List[torch.Tensor]:
+        if self.momentum is None:
+            return []
+        return load_flax_state(module, leaves, "sgd trace")

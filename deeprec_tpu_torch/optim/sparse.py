@@ -1,10 +1,9 @@
 """Sparse optimizers for EmbeddingVariable rows.
 
-Port of part of ``deeprec_tpu/optim/sparse.py``: :class:`SparseOptimizer`,
-``_lr_at``, ``_dest``, ``_scatter_set``, :func:`permute_slot_state`,
-:func:`sparse_adagrad`, :func:`sparse_adam`, :func:`sparse_ftrl`,
-:func:`sparse_adagrad_fused`, ``REGISTRY`` and :func:`make` (over the
-names ported so far).
+Port of ``deeprec_tpu/optim/sparse.py``: :class:`SparseOptimizer`,
+``_lr_at``, ``_dest``, ``_scatter_set``, :func:`permute_slot_state`, the
+twelve optimizers of ``REGISTRY`` (:func:`make` builds one by name) and
+the :func:`group_lasso` wrapper.
 
 Semantics as there: updates apply to deduplicated rows (autograd already
 summed the gradients of repeated ids onto the unique lanes); lanes not
@@ -16,13 +15,18 @@ created=None) -> (values, slot_state)``; here it updates ``values`` and
 the slot leaves in place and returns them. Row reads of the values and of
 each slot leaf go through kernel K1 (``gather_rows``), writes through
 :func:`_scatter_set`. Slot dicts keep the JAX names, so a save's
-``slot__<name>`` columns are the JAX package's.
+``slot__<name>`` columns are the JAX package's. A slot state may be empty
+(``sgd``, ``proximal_gd`` and the fused optimizers: ``()``), hold an int32
+row leaf (``adagrad_decay``'s ``last_period``) or 0-d leaves (the beta
+powers of ``adam_async`` and ``adam_fused``, saved as ``scalar__``
+columns; they stay device tensors, advanced in place).
 """
 from __future__ import annotations
 
 import itertools
 from typing import Any, Callable, NamedTuple, Union
 
+import numpy as np
 import torch
 
 from ..ops.gather import gather_rows
@@ -241,24 +245,321 @@ def sparse_adagrad_fused(learning_rate: Schedule = 0.05,
     return SparseOptimizer("adagrad_fused", init, apply, fills=())
 
 
+
+
+def sparse_sgd(learning_rate: Schedule = 0.01) -> SparseOptimizer:
+    """Plain SGD, no slot state: ``v -= lr*g``. As in the JAX package the
+    gradient is rounded to the table's dtype first and the difference
+    taken in f32 (its f32 learning rate promotes a bf16 row)."""
+
+    def init(values):
+        return ()
+
+    def apply(values, slot_state, slots, grads, mask, step,
+              cur_rows=None, created=None):
+        lr = _lr_at(learning_rate, step)
+        cur = (cur_rows if cur_rows is not None
+               else gather_rows(values, slots, grads.shape[-1]))
+        new = cur.float() - lr * grads.to(cur.dtype).float()
+        _scatter_set(values, _dest(slots, mask, values.shape[0]), new)
+        return values, slot_state
+
+    return SparseOptimizer("sgd", init, apply, fills=())
+
+
+def sparse_adagrad_decay(learning_rate: Schedule = 0.05,
+                         initial_accumulator_value: float = 0.1,
+                         accumulator_decay_step: int = 10000,
+                         accumulator_decay_rate: float = 0.9,
+                         accumulator_baseline: float = 1e-7
+                         ) -> SparseOptimizer:
+    """AdagradDecay: every ``accumulator_decay_step`` global steps the
+    accumulator is multiplied by ``accumulator_decay_rate``, floored at
+    ``accumulator_baseline``. Rows decay lazily: a row catches up on the
+    periods it missed since its last update, which the int32 slot leaf
+    ``last_period`` (one value per row) records. Slot leaves ``{"acc",
+    "last_period"}``; a row created this step starts from
+    ``initial_accumulator_value``."""
+    acc0 = float(initial_accumulator_value)
+
+    def init(values):
+        return {"acc": _full_f32(values, acc0),
+                "last_period": torch.zeros((values.shape[0],),
+                                           dtype=torch.int32,
+                                           device=values.device)}
+
+    def apply(values, slot_state, slots, grads, mask, step,
+              cur_rows=None, created=None):
+        lr = _lr_at(learning_rate, step)
+        dest = _dest(slots, mask, values.shape[0])
+        g = grads.float()
+        period = int(step) // accumulator_decay_step
+        # K1 copies rows of any element type: the int32 leaf as [cap+1, 1]
+        last = gather_rows(slot_state["last_period"][:, None], slots)[:, 0]
+        n = (period - last).clamp_min(0).float()
+        decay = torch.pow(accumulator_decay_rate, n)[:, None]
+        acc = gather_rows(slot_state["acc"], slots)
+        if created is not None:
+            acc = torch.where(created[:, None], acc0, acc)
+        acc = torch.clamp_min(acc * decay, accumulator_baseline) + g * g
+        new = _cur(values, slots, g, cur_rows) - lr * g * torch.rsqrt(acc)
+        _scatter_set(values, dest, new)
+        _scatter_set(slot_state["acc"], dest, acc)
+        _scatter_set(slot_state["last_period"], dest,
+                     torch.full_like(last, period))
+        return values, slot_state
+
+    return SparseOptimizer("adagrad_decay", init, apply,
+                           fills={"acc": acc0, "last_period": 0})
+
+
+def sparse_adagrad_decay_v2(learning_rate: Schedule = 0.05,
+                            initial_accumulator_value: float = 0.1,
+                            accumulator_decay_step: int = 100_000,
+                            accumulator_decay_rate: float = 0.9
+                            ) -> SparseOptimizer:
+    """AdagradDecay V2: the decay floor is the initial accumulator value
+    itself, so the effective learning rate never exceeds the initial
+    one."""
+    return sparse_adagrad_decay(
+        learning_rate, initial_accumulator_value=initial_accumulator_value,
+        accumulator_decay_step=accumulator_decay_step,
+        accumulator_decay_rate=accumulator_decay_rate,
+        accumulator_baseline=initial_accumulator_value,
+    )._replace(name="adagrad_decay_v2")
+
+
+def _adam_step(cur, g, m0, v0, b1p, b2p, lr, beta1, beta2, epsilon):
+    """The bias-corrected Adam row update from 0-d beta powers (device
+    tensors): ``(new rows, m, v)``."""
+    alpha = lr * torch.sqrt(1.0 - b2p) / (1.0 - b1p)
+    m = beta1 * m0 + (1.0 - beta1) * g
+    v = beta2 * v0 + (1.0 - beta2) * g * g
+    return cur - alpha * m / (torch.sqrt(v) + epsilon), m, v
+
+
+def _beta_powers(values, beta1, beta2):
+    return {"beta1_power": torch.tensor(beta1, dtype=torch.float32,
+                                        device=values.device),
+            "beta2_power": torch.tensor(beta2, dtype=torch.float32,
+                                        device=values.device)}
+
+
+def sparse_adam_async(learning_rate: Schedule = 0.001, beta1: float = 0.9,
+                      beta2: float = 0.999, epsilon: float = 1e-8,
+                      apply_sparse_rmsprop: bool = False
+                      ) -> SparseOptimizer:
+    """AdamAsync: slot leaves ``{"m", "v"}`` and the 0-d leaves
+    ``beta1_power`` and ``beta2_power``, which every apply advances
+    (whatever the mask) instead of deriving them from the global step.
+    With ``apply_sparse_rmsprop`` the update skips the bias correction:
+    ``v -= lr*m*rsqrt(v_slot + eps)``."""
+
+    def init(values):
+        return {"m": _full_f32(values, 0.0), "v": _full_f32(values, 0.0),
+                **_beta_powers(values, beta1, beta2)}
+
+    def apply(values, slot_state, slots, grads, mask, step,
+              cur_rows=None, created=None):
+        lr = _lr_at(learning_rate, step)
+        g = grads.float()
+        dest = _dest(slots, mask, values.shape[0])
+        cur = _cur(values, slots, g, cur_rows)
+        m0 = gather_rows(slot_state["m"], slots)
+        v0 = gather_rows(slot_state["v"], slots)
+        b1p, b2p = slot_state["beta1_power"], slot_state["beta2_power"]
+        if apply_sparse_rmsprop:
+            v = beta2 * v0 + (1.0 - beta2) * g * g
+            m = beta1 * m0 + (1.0 - beta1) * g
+            new = cur - lr * m * torch.rsqrt(v + epsilon)
+        else:
+            new, m, v = _adam_step(cur, g, m0, v0, b1p, b2p, lr, beta1,
+                                   beta2, epsilon)
+        _scatter_set(values, dest, new)
+        _scatter_set(slot_state["m"], dest, m)
+        _scatter_set(slot_state["v"], dest, v)
+        b1p.mul_(beta1)  # in place on the device, whatever the mask
+        b2p.mul_(beta2)
+        return values, slot_state
+
+    return SparseOptimizer("adam_async", init, apply,
+                           fills={"m": 0.0, "v": 0.0, "beta1_power": 0.0,
+                                  "beta2_power": 0.0})
+
+
+def sparse_adam_fused(learning_rate: Schedule = 0.001, beta1: float = 0.9,
+                      beta2: float = 0.999, epsilon: float = 1e-8
+                      ) -> SparseOptimizer:
+    """Adam with ``m`` and ``v`` in the values array's fused slot columns
+    (``[value | m | v]``; one row read through K1 and one write per step)
+    and the beta powers as 0-d leaves, as :func:`sparse_adam_async` keeps
+    them. Pair with ``EmbeddingVariableConfig(fused_slot_columns=2*dim,
+    fused_slot_init=0.0)``; lookups read only the first ``dim``
+    columns."""
+
+    def init(values):
+        return _beta_powers(values, beta1, beta2)
+
+    def apply(values, slot_state, slots, grads, mask, step,
+              cur_rows=None, created=None):
+        lr = _lr_at(learning_rate, step)
+        g = grads.float()
+        dim = g.shape[-1]
+        full = gather_rows(values, slots)      # K1: value, m and v
+        mv = full[:, dim:].float()
+        if created is not None:
+            # lazy-init rows hold zeros; their logical m0 = v0 = 0 already
+            mv = torch.where(created[:, None], 0.0, mv)
+        cur = (cur_rows if cur_rows is not None else full[:, :dim]).float()
+        b1p, b2p = slot_state["beta1_power"], slot_state["beta2_power"]
+        new, m, v = _adam_step(cur, g, mv[:, :dim], mv[:, dim:], b1p, b2p,
+                               lr, beta1, beta2, epsilon)
+        _scatter_set(values, _dest(slots, mask, values.shape[0]),
+                     torch.cat([new, m, v], -1))
+        b1p.mul_(beta1)
+        b2p.mul_(beta2)
+        return values, slot_state
+
+    return SparseOptimizer("adam_fused", init, apply,
+                           fills={"beta1_power": beta1,
+                                  "beta2_power": beta2})
+
+
+def _prox(prox, lr, l1, l2):
+    """The l1/l2 proximal operator: ``sign(p) / (1 + lr*l2) *
+    max(|p| - lr*l1, 0)`` (``lr`` a float or a per-element tensor)."""
+    return (torch.sign(prox) / (1.0 + lr * l2)
+            * torch.clamp_min(prox.abs() - lr * l1, 0.0))
+
+
+def sparse_proximal_gradient_descent(
+        learning_rate: Schedule = 0.01,
+        l1_regularization_strength: float = 0.0,
+        l2_regularization_strength: float = 0.0) -> SparseOptimizer:
+    """ProximalGradientDescent, no slot state: a gradient step, then the
+    l1/l2 proximal operator."""
+    l1 = np.float32(l1_regularization_strength)
+    l2 = np.float32(l2_regularization_strength)
+
+    def init(values):
+        return ()
+
+    def apply(values, slot_state, slots, grads, mask, step,
+              cur_rows=None, created=None):
+        # the JAX package's f32 scalar arithmetic (lr*l2, lr*l1)
+        lr = np.float32(_lr_at(learning_rate, step))
+        g = grads.float()
+        prox = _cur(values, slots, g, cur_rows) - float(lr) * g
+        new = _prox(prox, lr, l1, l2)
+        _scatter_set(values, _dest(slots, mask, values.shape[0]), new)
+        return values, slot_state
+
+    return SparseOptimizer("proximal_gd", init, apply, fills=())
+
+
+def sparse_proximal_adagrad(learning_rate: Schedule = 0.05,
+                            initial_accumulator_value: float = 0.1,
+                            l1_regularization_strength: float = 0.0,
+                            l2_regularization_strength: float = 0.0
+                            ) -> SparseOptimizer:
+    """ProximalAdagrad, slot leaf ``{"acc"}``: ``acc += g^2; lr_t = lr *
+    rsqrt(acc)``, a gradient step at ``lr_t``, then the proximal operator
+    at ``lr_t``. A row created this step starts from
+    ``initial_accumulator_value``."""
+    acc0 = float(initial_accumulator_value)
+    l1 = np.float32(l1_regularization_strength)
+    l2 = np.float32(l2_regularization_strength)
+
+    def init(values):
+        return {"acc": _full_f32(values, acc0)}
+
+    def apply(values, slot_state, slots, grads, mask, step,
+              cur_rows=None, created=None):
+        lr = _lr_at(learning_rate, step)
+        g = grads.float()
+        acc = gather_rows(slot_state["acc"], slots)
+        if created is not None:
+            acc = torch.where(created[:, None], acc0, acc)
+        acc = acc + g * g
+        lr_t = lr * torch.rsqrt(acc)
+        new = _prox(_cur(values, slots, g, cur_rows) - lr_t * g, lr_t, l1, l2)
+        dest = _dest(slots, mask, values.shape[0])
+        _scatter_set(values, dest, new)
+        _scatter_set(slot_state["acc"], dest, acc)
+        return values, slot_state
+
+    return SparseOptimizer("proximal_adagrad", init, apply,
+                           fills={"acc": acc0})
+
+
+def sparse_momentum(learning_rate: Schedule = 0.01, momentum: float = 0.9,
+                    use_nesterov: bool = False) -> SparseOptimizer:
+    """Momentum, slot leaf ``{"mom"}``: ``mom = momentum*mom + g``, then
+    ``v -= lr*mom`` (Nesterov: ``v -= lr*(g + momentum*mom)``)."""
+
+    def init(values):
+        return {"mom": _full_f32(values, 0.0)}
+
+    def apply(values, slot_state, slots, grads, mask, step,
+              cur_rows=None, created=None):
+        lr = _lr_at(learning_rate, step)
+        g = grads.float()
+        mom = momentum * gather_rows(slot_state["mom"], slots) + g
+        cur = _cur(values, slots, g, cur_rows)
+        new = (cur - lr * (g + momentum * mom) if use_nesterov
+               else cur - lr * mom)
+        dest = _dest(slots, mask, values.shape[0])
+        _scatter_set(values, dest, new)
+        _scatter_set(slot_state["mom"], dest, mom)
+        return values, slot_state
+
+    return SparseOptimizer("momentum", init, apply, fills={"mom": 0.0})
+
+
+def group_lasso(inner: SparseOptimizer, strength: float) -> SparseOptimizer:
+    """Group-lasso proximal wrapper: after ``inner``'s update each touched
+    row, read back through K1 at its full width (fused slot columns
+    included, as the JAX package reads ``values[slots]``), is scaled by
+    ``max(0, 1 - strength / max(||row||, 1e-12))``. The JAX docstring
+    speaks of ``strength*lr``; its code, ported here, takes ``strength``
+    alone. Slot state ``{"inner": inner's}``."""
+
+    def init(values):
+        return {"inner": inner.init(values)}
+
+    def apply(values, slot_state, slots, grads, mask, step,
+              cur_rows=None, created=None):
+        values, inner_state = inner.apply(values, slot_state["inner"], slots,
+                                          grads, mask, step,
+                                          cur_rows=cur_rows, created=created)
+        rows = gather_rows(values, slots).float()
+        norm = torch.sqrt((rows * rows).sum(-1, keepdim=True))
+        scale = torch.clamp_min(1.0 - strength / norm.clamp_min(1e-12), 0.0)
+        _scatter_set(values, _dest(slots, mask, values.shape[0]),
+                     rows * scale)
+        return values, {"inner": inner_state}
+
+    return SparseOptimizer(f"group_lasso({inner.name})", init, apply,
+                           fills={"inner": inner.fills})
+
+
 REGISTRY = {
+    "sgd": sparse_sgd,
     "adagrad": sparse_adagrad,
     "adagrad_fused": sparse_adagrad_fused,
+    "adagrad_decay": sparse_adagrad_decay,
+    "adagrad_decay_v2": sparse_adagrad_decay_v2,
     "adam": sparse_adam,
+    "adam_fused": sparse_adam_fused,
+    "adam_async": sparse_adam_async,
     "ftrl": sparse_ftrl,
+    "momentum": sparse_momentum,
+    "proximal_gd": sparse_proximal_gradient_descent,
+    "proximal_adagrad": sparse_proximal_adagrad,
 }
-
-# the JAX package's other sparse optimizers, still to port
-_NOT_PORTED = ("sgd", "adagrad_decay", "adagrad_decay_v2", "adam_fused",
-               "adam_async", "momentum", "proximal_gd", "proximal_adagrad")
 
 
 def make(name: str, **kwargs) -> SparseOptimizer:
-    """The sparse optimizer registered as ``name``, built with ``kwargs``.
-    Raises ``NotImplementedError`` for a JAX-package optimizer that is not
-    ported yet, ``KeyError`` for an unknown name."""
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"sparse optimizer {name!r} is not ported to deeprec_tpu_torch "
-            f"yet; ported: {sorted(REGISTRY)}")
+    """The sparse optimizer registered as ``name``, built with
+    ``kwargs``."""
     return REGISTRY[name](**kwargs)

@@ -16,7 +16,20 @@ interleave with a half-run batch. Requests run at their own batch size
 (the JAX server pads to powers of two only to bound XLA recompiles; torch
 has none). ``dynamic_batch_ms > 0`` coalesces concurrent requests with the
 same column signature into one predict call, and each caller receives
-exactly its own rows. The command-line entry point is not ported yet.
+exactly its own rows.
+
+The command line (``serving/server.py:332-385`` of the JAX package)::
+
+    python -m deeprec_tpu_torch.serving.server --model DLRM \
+        --ckpt_dir DIR [--port 8500] [--device_row_budget N] [-- ...]
+
+``--model`` names a ``deeprec_tpu_torch.modelzoo.<M>.train`` module (or a
+full module path) whose ``build(args)`` makes the model and collections;
+the remaining arguments go to the trainer CLI's parser (the model's
+widths: ``--emb_dim``, ``--bf16``, ...; ``--device cpu`` serves on the
+CPU). :func:`build_server` returns the server unstarted (port 0 picks a
+free port); :func:`main` serves forever. ``--mesh`` is refused: the
+row-sharded predictor comes with the multi-device engines (ROADMAP A8).
 """
 from __future__ import annotations
 
@@ -289,3 +302,69 @@ def make_server(predictor, host: str = "127.0.0.1", port: int = 8500,
                     pass  # transient partial save; retried next tick
         threading.Thread(target=loop, daemon=True).start()
     return srv
+
+
+def build_server(argv=None):
+    """The command line's server, built and not started: ``(server,
+    args)``. ``Predictor`` over ``--ckpt_dir``, or ``TieredPredictor``
+    with ``--device_row_budget``, on the device the trainer CLI's
+    ``--device`` names (the card by default)."""
+    import argparse
+    import importlib
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--model", required=True,
+                    help="modelzoo name (DLRM, WDL, ...) or module path")
+    ap.add_argument("--ckpt_dir", required=True)
+    ap.add_argument("--host", default="0.0.0.0")
+    ap.add_argument("--port", type=int, default=8500)
+    ap.add_argument("--refresh_secs", type=float, default=0.0)
+    ap.add_argument("--dynamic_batch_ms", type=float, default=0.0,
+                    help="coalesce concurrent predict requests for up to "
+                         "this many ms into one device call (0 = off)")
+    ap.add_argument("--max_batch", type=int, default=4096,
+                    help="row cap per coalesced device call")
+    ap.add_argument("--mesh", type=int, default=0,
+                    help="row-sharded serving: only 0 (ROADMAP A8)")
+    ap.add_argument("--device_row_budget", type=int, default=0,
+                    help="serve with the cold tail in host DRAM")
+    args, rest = ap.parse_known_args(argv)
+    if rest and rest[0] == "--":
+        rest = rest[1:]
+    if args.mesh:
+        raise NotImplementedError(
+            f"--mesh {args.mesh}: the row-sharded predictor comes with the "
+            "multi-device engines (ROADMAP A8)")
+
+    from ..train import cli as tcli
+    name = (args.model if "." in args.model
+            else f"deeprec_tpu_torch.modelzoo.{args.model}.train")
+    targs = tcli.base_parser("serving").parse_args(rest)
+    spec = importlib.import_module(name).build(targs)
+
+    from . import Predictor, TieredPredictor
+    if args.device_row_budget:
+        pred = TieredPredictor(spec.model, spec.numeric_columns,
+                               spec.collections, args.ckpt_dir,
+                               device_row_budget=args.device_row_budget,
+                               device=targs.device, forward=spec.forward)
+    else:
+        pred = Predictor(spec.model, spec.numeric_columns, spec.collections,
+                         args.ckpt_dir, device=targs.device,
+                         forward=spec.forward)
+    srv = make_server(pred, args.host, args.port, args.refresh_secs,
+                      dynamic_batch_ms=args.dynamic_batch_ms,
+                      max_batch=args.max_batch)
+    return srv, args
+
+
+def main(argv=None):
+    srv, args = build_server(argv)
+    host, port = srv.server_address[:2]
+    print(f"serving {args.model} from {args.ckpt_dir} on {host}:{port}",
+          flush=True)
+    srv.serve_forever()
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,524 @@
+"""Shared modelzoo trainer CLI.
+
+Port of ``deeprec_tpu/train/cli.py``: :class:`ModelSpec`,
+:func:`base_parser` (every JAX flag under its JAX name, plus ``--device``),
+:func:`ev_kwargs`, :func:`collection_cls`, :func:`make_sparse_opt`,
+:func:`make_dense_opt`, :func:`_check_health`, :func:`run` and the four
+stream functions. Each ``deeprec_tpu_torch/modelzoo/<model>/train.py``
+supplies a ``ModelSpec``; ``python -m deeprec_tpu_torch.modelzoo.DLRM.train
+--host_index ...`` trains it on the card (``--device cpu``: on the CPU).
+
+:func:`run` is the JAX CLI's host-index branch on one device: the
+``max_unique_ratio`` dedup cap, the plain ``Trainer``, a
+``CheckpointManager`` (``--save_secs``/``--incr_save_secs``, the WorkQueue
+position as an aux part, a restore at start), prefetch workers that pack
+numpy, ``HostStepPipeline`` (resolve thread, then copies on a side
+stream), and at each fence metrics, saves, growth, health, periodic eval
+and, for ``hbm_dram[_ssd]`` tables, demotion; then the final save, the
+held-out eval and one JSON summary line.
+
+Where it differs from the JAX CLI:
+
+* **Fences follow the step counter.** The JAX loop tests ``done %
+  log_steps == 0`` after each step, and a drain adds several steps at once,
+  so fences skip (``deeprec_tpu/train/cli.py:534,550``). Here the pipeline
+  is fed no further than the next multiple of ``--log_steps``, so it is
+  empty there and the fence runs at exactly that step.
+* **What it refuses**, each naming the roadmap item that brings it: a run
+  without ``--host_index`` (the device-index engine, A7), ``--mesh`` (the
+  multi-device engines, A8) and ``--micro_batch > 1`` (A7; the JAX package
+  crashes there with ``--host_index``, C6). None falls back to anything.
+* ``--device`` (default ``cuda``; the counterpart of ``JAX_PLATFORMS``)
+  raises when the card is missing. ``--seed`` seeds a ``torch.Generator``
+  that draws the model's initial weights (:func:`init_params`).
+* ``--profile DIR`` writes a ``torch.profiler`` trace. ``--jit_cache`` and
+  ``--exchange_dtype`` parse, for command-line parity, and do nothing:
+  they name an XLA compile cache and a mesh wire dtype.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import itertools
+import json
+import os
+import time
+from typing import Callable, Dict, Optional, Sequence
+
+import torch
+
+
+@dataclasses.dataclass
+class ModelSpec:
+    name: str
+    model: object
+    numeric_columns: Sequence
+    collections: Dict
+    sparse_optimizers: Dict          # name -> SparseOptimizer
+    train_data: Callable[[argparse.Namespace], "iter"]
+    eval_data: Callable[[argparse.Namespace], "iter"]
+    forward: Optional[Callable] = None
+    aux_loss_weight: float = 0.0
+
+
+def base_parser(desc: str) -> argparse.ArgumentParser:
+    """The JAX CLI's flags, names and defaults, and ``--device``."""
+    p = argparse.ArgumentParser(description=desc)
+    p.add_argument("--steps", type=int, default=200)
+    p.add_argument("--batch_size", type=int, default=512)
+    p.add_argument("--eval_steps", type=int, default=20)
+    p.add_argument("--eval_every", type=int, default=0,
+                   help="also eval the held-out stream every N train steps "
+                        "(0 = only at the end)")
+    p.add_argument("--learning_rate", type=float, default=0.05)
+    p.add_argument("--optimizer", default="adagrad",
+                   choices=["sgd", "adagrad", "adagrad_decay",
+                            "adagrad_decay_v2", "adam", "adam_async",
+                            "ftrl", "momentum", "proximal_gd",
+                            "proximal_adagrad"])
+    p.add_argument("--emb_dim", type=int, default=16)
+    p.add_argument("--capacity", type=int, default=1 << 19,
+                   help="dynamic-table capacity (pow2)")
+    p.add_argument("--bf16", action="store_true",
+                   help="bf16 compute in the dense towers")
+    p.add_argument("--micro_batch", type=int, default=1,
+                   help="AutoMicroBatch count: only 1 (ROADMAP A7)")
+    p.add_argument("--jit_cache", default="/tmp/deeprec_jit_cache",
+                   help="accepted for command-line parity; unused (it "
+                        "names an XLA compile cache)")
+    p.add_argument("--prefetch_depth", type=int, default=2)
+    p.add_argument("--prefetch_workers", type=int, default=2)
+    p.add_argument("--mesh", type=int, default=0,
+                   help="devices for the sharded trainer: only 0 "
+                        "(ROADMAP A8)")
+    p.add_argument("--checkpoint", default="",
+                   help="checkpoint directory (restores latest if present)")
+    p.add_argument("--save_secs", type=float, default=None)
+    p.add_argument("--incr_save_secs", type=float, default=None)
+    p.add_argument("--ev_filter_freq", type=int, default=0)
+    p.add_argument("--ev_evict_steps", type=int, default=0)
+    p.add_argument("--exchange_dtype", default=None,
+                   choices=["float32", "bfloat16"],
+                   help="accepted for command-line parity; unused (the "
+                        "--mesh exchange's wire dtype)")
+    p.add_argument("--ev_storage", default="hbm",
+                   choices=["hbm", "hbm_dram", "hbm_dram_ssd"],
+                   help="multi-tier embedding storage")
+    p.add_argument("--ev_hbm_capacity", type=int, default=0,
+                   help="device-resident row budget per table (0 = "
+                        "unbounded); excess LRU rows demote to the host "
+                        "tier at --demote_steps cadence")
+    p.add_argument("--ev_dram_budget", type=int, default=0,
+                   help="hbm_dram_ssd: host-DRAM row cap before the "
+                        "coldest rows spill to disk")
+    p.add_argument("--ev_ssd_path", default="",
+                   help="backing file for the SSD tier")
+    p.add_argument("--demote_steps", type=int, default=0,
+                   help="steps between host-tier demotion sweeps "
+                        "(0 = every ev_evict_steps/2, else every "
+                        "10*log_steps)")
+    p.add_argument("--host_index", action="store_true",
+                   help="host-index engine: the key->slot index lives in "
+                        "the C++ HostIndexResolver, pipelined with the "
+                        "device step (the only training engine of the "
+                        "port so far)")
+    p.add_argument("--max_unique_ratio", type=float, default=0.25,
+                   help="static dedup-width cap as a fraction of the flat "
+                        "id width (0 = exact dedup)")
+    p.add_argument("--data_location", default="",
+                   help="Criteo-format file(s), comma-separated (the last "
+                        "is the eval holdout); empty = synthetic stream")
+    p.add_argument("--workqueue", default="",
+                   help="WorkQueue dir for elastic file sharding")
+    p.add_argument("--profile", default="",
+                   help="torch.profiler trace dir (timeline analog)")
+    p.add_argument("--summary_dir", default="",
+                   help="JSONL summary/event dir (tf.summary analog)")
+    p.add_argument("--log_steps", type=int, default=50)
+    p.add_argument("--seed", type=int, default=42)
+    p.add_argument("--synthetic", action="store_true",
+                   help="force the synthetic stream (default when no "
+                        "--data_location)")
+    p.add_argument("--synthetic_items", type=int, default=50_000,
+                   help="item-vocab size of the synthetic behaviour stream")
+    p.add_argument("--synthetic_users", type=int, default=10_000)
+    p.add_argument("--device", default="cuda",
+                   help="torch device to train on (cuda, or cpu); never "
+                        "falls back")
+    return p
+
+
+def ev_kwargs(args) -> dict:
+    from ..config import (CounterFilter, GlobalStepEvict, StorageOption,
+                          StorageType)
+    kw = {}
+    if args.ev_filter_freq:
+        kw["counter_filter"] = CounterFilter(args.ev_filter_freq)
+    if args.ev_evict_steps:
+        kw["evict"] = GlobalStepEvict(args.ev_evict_steps)
+    if getattr(args, "incr_save_secs", None):
+        # version-delta incrementals need version stamps even on tables
+        # with no eviction policy (else the light layout skips them)
+        kw["track_version"] = True
+    if getattr(args, "ev_storage", "hbm") != "hbm":
+        kw["storage"] = StorageOption(
+            storage_type=StorageType(args.ev_storage),
+            hbm_capacity=args.ev_hbm_capacity,
+            dram_row_budget=args.ev_dram_budget,
+            ssd_path=args.ev_ssd_path)
+    return kw
+
+
+def collection_cls(args):
+    """The collection class for this run: the host-index engine with
+    ``--host_index``, else the device-index ``EmbeddingCollection``, which
+    the port serves (``Predictor``) but does not train yet: :func:`run`
+    refuses it."""
+    from ..feature_column import EmbeddingCollection
+    from ..host_index import HostIndexEmbeddingCollection
+    if getattr(args, "host_index", False):
+        return HostIndexEmbeddingCollection
+    return EmbeddingCollection
+
+
+def check_supported(args) -> None:
+    """Refuse the flags the port does not run yet, naming the ROADMAP
+    item that brings them. (A run without --host_index is refused by
+    :func:`make_trainer`, which finds a device-index collection.)"""
+    if getattr(args, "mesh", 0):
+        raise NotImplementedError(
+            f"--mesh {args.mesh}: the multi-device engines are not ported "
+            "yet (ROADMAP A8)")
+    if getattr(args, "micro_batch", 1) > 1:
+        raise NotImplementedError(
+            f"--micro_batch {args.micro_batch}: microbatching comes with "
+            "the device-index engine (ROADMAP A7); the JAX package crashes "
+            "on it with --host_index (ROADMAP C6)")
+
+
+def make_sparse_opt(args):
+    from ..optim import sparse as sopt
+    return sopt.make(args.optimizer, learning_rate=args.learning_rate)
+
+
+def make_dense_opt(args):
+    from ..optim.dense import SGD, Adagrad, Adam
+    lr = args.learning_rate
+    table = {
+        "sgd": lambda: SGD(lr),
+        "momentum": lambda: SGD(lr, momentum=0.9),
+        "adagrad": lambda: Adagrad(lr),
+        "adagrad_decay": lambda: Adagrad(lr),
+        "adam": lambda: Adam(lr),
+        "adam_async": lambda: Adam(lr),
+        "ftrl": lambda: Adagrad(lr),
+        "adagrad_decay_v2": lambda: Adagrad(lr),
+        "proximal_gd": lambda: SGD(lr),
+        "proximal_adagrad": lambda: Adagrad(lr),
+    }
+    return table[args.optimizer]()
+
+
+def init_params(model: torch.nn.Module, seed: int) -> torch.nn.Module:
+    """Draw ``model``'s initial weights as flax's defaults do, from a
+    ``torch.Generator`` seeded with ``seed``: every ``nn.Linear`` kernel
+    from ``lecun_normal`` (a normal of std ``1/sqrt(fan_in)`` truncated at
+    two deviations, rescaled as flax's ``variance_scaling``), its bias
+    zero. Other parameters (Dice's ``alpha``, the scalar biases) keep
+    their zero init. The same seed gives the same weights on any
+    device."""
+    g = torch.Generator().manual_seed(int(seed))
+    std_scale = 0.87962566103423978  # std of a unit normal cut at +-2
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, torch.nn.Linear):
+                std = (1.0 / m.in_features) ** 0.5 / std_scale
+                w = torch.empty(m.weight.shape[::-1])  # flax's [in, out]
+                torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0,
+                                            generator=g)
+                m.weight.copy_((w * std).T)
+                if m.bias is not None:
+                    m.bias.zero_()
+    return model
+
+
+def _check_health(tr, state, writer, last: dict) -> dict:
+    """Alarm on (and self-heal) the silent degradation the host-index
+    engine can show: dedup-cap saturation -> double max_unique; index
+    overflow is handled by maybe_grow. (The JAX CLI also widens a mesh's
+    exchange buckets; one device has none.)"""
+    health = tr.table_health(state)
+    for name, h in health.items():
+        prev = last.get(name, {})
+        if (h["max_unique"]
+                and h["unique_saturated_steps"] > prev.get(
+                    "unique_saturated_steps", 0)):
+            coll = tr.collections[name]
+            new_mu = coll.config.max_unique * 2
+            coll.config = dataclasses.replace(coll.config, max_unique=new_mu)
+            print(f"WARNING table {name}: dedup cap saturated "
+                  f"{h['unique_saturated_steps']} step(s) "
+                  f"(max n_unique {h['max_n_unique']}) "
+                  f"-> max_unique raised to {new_mu}")
+        if writer:
+            writer.write(int(state.step), h, table=name, phase="health")
+    return health
+
+
+def make_trainer(spec: ModelSpec, args):
+    """The run's ``Trainer`` on ``--device``: the dedup-width cap applied
+    to the collections, the model's weights drawn from ``--seed``."""
+    from .trainer import Trainer
+    check_supported(args)
+    for name, coll in spec.collections.items():
+        if not hasattr(coll, "pack_ids_host"):
+            raise NotImplementedError(
+                f"collection {name!r} is not a host-index collection: "
+                "training without --host_index needs the device-index "
+                "engine, which is not ported yet (ROADMAP A7)")
+    # static dedup-width cap: the sparse path runs at unique width
+    if args.max_unique_ratio > 0:
+        for coll in spec.collections.values():
+            if coll.config.max_unique is None:
+                flat = coll.total_width * args.batch_size
+                mu = max(256, int(flat * args.max_unique_ratio))
+                coll.config = dataclasses.replace(coll.config, max_unique=mu)
+    # (the JAX CLI's fused adagrad/adam slot columns apply to its device
+    # engine only; host-index tables keep their slot leaves)
+    init_params(spec.model, args.seed)
+    return Trainer(spec.model, spec.numeric_columns, spec.collections,
+                   spec.sparse_optimizers, make_dense_opt(args),
+                   forward=spec.forward,
+                   aux_loss_weight=spec.aux_loss_weight, device=args.device)
+
+
+def run(spec: ModelSpec, args) -> dict:
+    """Train/eval loop shared by every modelzoo trainer. Returns (and
+    prints, as the reference trainers do) the summary metrics."""
+    from ..checkpoint.saver import CheckpointManager
+    from ..config import StorageType
+    from ..data.prefetch import staged
+    from . import metrics as M
+    from .pipeline import HostStepPipeline
+
+    tr = make_trainer(spec, args)  # raises for what is not ported
+    device = tr.device
+
+    train_it = spec.train_data(args)
+    first = next(iter(train_it))
+    state = tr.init(first)
+
+    mgr = None
+    if args.checkpoint:
+        mgr = CheckpointManager(args.checkpoint, full_secs=args.save_secs,
+                                incr_secs=args.incr_save_secs)
+        q = getattr(args, "_workqueue", None)
+        if q is not None:
+            # the queue position saves with every checkpoint; its restore
+            # already ran at stream creation (criteo_train_stream)
+            mgr.attach_aux("workqueue", q.snapshot, None)
+        state, restored = mgr.restore(tr, state)
+        if restored:
+            print(f"restored from {args.checkpoint} at step {state.step}")
+
+    prof = None
+    if args.profile:
+        from torch.profiler import ProfilerActivity, profile
+        acts = [ProfilerActivity.CPU] + (
+            [ProfilerActivity.CUDA] if device.type == "cuda" else [])
+        prof = profile(activities=acts)
+        prof.start()
+    writer = None
+    if args.summary_dir:
+        from .summary import SummaryWriter
+        writer = SummaryWriter(args.summary_dir)
+
+    tiered = any(c.config.storage.storage_type is not StorageType.HBM
+                 for c in spec.collections.values())
+    demote_steps = 0
+    if tiered:
+        demote_steps = args.demote_steps or (
+            args.ev_evict_steps // 2 if args.ev_evict_steps
+            else 10 * args.log_steps)
+    pin = device.type == "cuda"
+
+    def finish(packed):
+        """The pipeline's resolve stage: step-order index mutation into
+        (pinned) host tensors; the transfer stage copies them."""
+        return tr.resolve_packed(packed, train=True, pin=pin)
+
+    def run_eval(st):
+        mstate = M.create(device=device)
+        for batch in spec.eval_data(args):
+            mstate = tr.eval_step(st, mstate, batch)
+        return M.summarize(mstate)
+
+    t0 = time.perf_counter()
+    done = 0
+    eval_secs = 0.0
+    last_health = {}
+
+    def fence_work(state, done):
+        """Everything that happens at a fence, on an empty pipeline
+        (resolver == device state): the metrics read (a device sync),
+        checkpoint timers, growth, the health watchdog, periodic eval,
+        demotion."""
+        nonlocal last_health, eval_secs
+        step = int(state.step)
+        m = M.summarize(state.metrics)
+        dt = time.perf_counter() - t0
+        eps = done * args.batch_size / dt
+        print(f"step {step}  loss={m['loss']:.5f}  auc={m['auc']:.4f}  "
+              f"({eps:.0f} ex/s)")
+        if writer:
+            writer.write(step, m, examples_per_sec=eps)
+        if mgr is not None:
+            mgr.maybe_save(tr, state)
+        grown = tr.maybe_grow(state)
+        if grown is not state:
+            print(f"table growth at step {step}: " + ", ".join(
+                f"{n}->{c.config.capacity}"
+                for n, c in tr.collections.items()))
+            state = grown
+        last_health = _check_health(tr, state, writer, last_health)
+        if args.eval_every and step % args.eval_every < args.log_steps \
+                and step >= args.eval_every:
+            te = time.perf_counter()
+            em = run_eval(state)
+            eval_secs += time.perf_counter() - te
+            print(f"eval @ step {step}: auc={em['auc']:.4f} "
+                  f"acc={em['accuracy']:.4f}")
+            if writer:
+                writer.write(step, em, phase="eval")
+        if demote_steps and (step // args.log_steps) % max(
+                demote_steps // args.log_steps, 1) == 0:
+            state = tr.maybe_demote(state)
+            rows = {n: tr.host_tier_rows(n) for n in tr.tiers}
+            if any(rows.values()):
+                print("host tier rows: " + ", ".join(
+                    f"{n}={c}" for n, c in rows.items()))
+                if writer:
+                    writer.write(step, rows, phase="tier")
+        return state
+
+    stream = itertools.chain([first], train_it)
+    log_steps = max(1, args.log_steps)
+    with staged(itertools.islice(stream, args.steps), prepare=tr.pack_np,
+                depth=args.prefetch_depth,
+                workers=args.prefetch_workers) as pf, \
+            HostStepPipeline(finish, depth=max(2, args.prefetch_depth),
+                             device=device) as pipe:
+        pf_it = iter(pf)
+        fed = state.step          # the step the last fed batch will reach
+        fence = (fed // log_steps + 1) * log_steps
+        exhausted = False
+        while True:
+            # feed no further than the next fence, so the pipeline is
+            # empty when the step counter reaches it
+            while not exhausted and len(pipe) < pipe.depth and fed < fence:
+                try:
+                    pipe.feed(next(pf_it))
+                    fed += 1
+                except StopIteration:
+                    exhausted = True
+            if not len(pipe):
+                break
+            state = tr._train_step(state, *pipe.take())
+            done += 1
+            if state.step == fence:
+                state = fence_work(state, done)
+                fence += log_steps
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    train_secs = time.perf_counter() - t0 - eval_secs
+
+    if prof is not None:
+        prof.stop()
+        os.makedirs(args.profile, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(
+            args.profile, f"{spec.name}_trace.json"))
+    if mgr is not None:
+        mgr.save(tr, state)
+
+    train_m = M.summarize(state.metrics)
+    # eval on a held-out stream (read-only lookups)
+    eval_m = run_eval(state)
+
+    out = {
+        "model": spec.name,
+        "steps": int(state.step),
+        "train_loss": round(train_m["loss"], 5),
+        "train_auc": round(train_m["auc"], 5),
+        "eval_auc": round(eval_m["auc"], 5),
+        "eval_accuracy": round(eval_m["accuracy"], 5),
+        "examples_per_sec": round(done * args.batch_size
+                                  / max(train_secs, 1e-9), 1),
+    }
+    if writer:
+        writer.write(int(state.step), eval_m, phase="eval")
+        writer.close()
+    print(json.dumps(out))
+    return out
+
+
+# -- shared data plumbing -----------------------------------------------------
+
+
+def criteo_train_stream(args):
+    from ..data.criteo import SyntheticCriteo, read_criteo
+    from ..data.work_queue import WorkQueue, input_producer
+    if args.data_location and not args.synthetic:
+        files = args.data_location.split(",")
+        if len(files) > 1:
+            files = files[:-1]  # last file is the eval holdout
+        if args.workqueue:
+            q = WorkQueue(files, path=args.workqueue, num_epochs=1000)
+            if getattr(args, "checkpoint", ""):
+                # rewind the queue to the newest checkpoint's saved claim
+                # state BEFORE any item is claimed: work done between that
+                # save and a crash is re-served, not skipped. run() then
+                # attaches the snapshot side to the manager.
+                from ..checkpoint import format as F
+                base, incrs = F.restore_plan(args.checkpoint)
+                newest = (incrs[-1] if incrs else base) if base else None
+                if newest:
+                    p = os.path.join(newest["path"], "aux_workqueue.json")
+                    if os.path.exists(p):
+                        with open(p) as f:
+                            q.restore_snapshot(json.load(f))
+            args._workqueue = q
+            return input_producer(q, read_criteo, batch_size=args.batch_size)
+
+        def gen():
+            while True:
+                for f in files:
+                    yield from read_criteo(f, args.batch_size)
+        return gen()
+    return SyntheticCriteo(batch_size=args.batch_size, seed=args.seed)
+
+
+def criteo_eval_stream(args):
+    from ..data.criteo import SyntheticCriteo, read_criteo
+    if args.data_location and not args.synthetic:
+        # holdout: with several files, the LAST is reserved for eval and
+        # excluded from training; a single file has no holdout
+        f = args.data_location.split(",")[-1]
+        return itertools.islice(read_criteo(f, args.batch_size),
+                                args.eval_steps)
+    gen = SyntheticCriteo(batch_size=args.batch_size, seed=args.seed + 999)
+    return gen.take(args.eval_steps)
+
+
+def behavior_train_stream(args):
+    from ..data.behavior import SyntheticBehavior
+    return SyntheticBehavior(batch_size=args.batch_size, seed=args.seed,
+                             n_items=args.synthetic_items,
+                             n_users=args.synthetic_users)
+
+
+def behavior_eval_stream(args):
+    from ..data.behavior import SyntheticBehavior
+    gen = SyntheticBehavior(batch_size=args.batch_size, seed=args.seed + 999,
+                            n_items=args.synthetic_items,
+                            n_users=args.synthetic_users)
+    return gen.take(args.eval_steps)

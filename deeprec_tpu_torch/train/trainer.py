@@ -33,7 +33,7 @@ import torch.nn.functional as F
 
 from ..feature_column import (EmbeddingCollection, NumericColumn,
                               normalize_dense, pack_dense)
-from ..optim.dense import Adagrad, Adam
+from ..optim.dense import SGD, Adagrad, Adam
 from ..optim.sparse import SparseOptimizer
 from . import metrics as metrics_lib
 from .pipeline import to_device
@@ -72,15 +72,16 @@ class Trainer:
     there are no numeric columns (DSSM, DIN, DIEN). Each
     collection has its own sparse optimizer (WDL and DeepFM: Adagrad on
     ``"emb"``, FTRL on ``"wide"``). ``dense_optimizer`` is an
-    ``optim.dense.Adagrad`` or ``Adam`` (the counterparts of
-    ``optax.adagrad`` and ``optax.adam``).
+    ``optim.dense.SGD``, ``Adagrad`` or ``Adam`` (the counterparts of
+    ``optax.sgd``, with or without momentum, ``optax.adagrad`` and
+    ``optax.adam``).
     """
 
     def __init__(self, model: torch.nn.Module,
                  numeric_columns: Sequence[NumericColumn],
                  collections: Dict[str, EmbeddingCollection],
                  sparse_optimizers: Dict[str, SparseOptimizer],
-                 dense_optimizer: Union[Adagrad, Adam],
+                 dense_optimizer: Union[SGD, Adagrad, Adam],
                  forward: Optional[Callable] = None,
                  aux_loss_weight: float = 1.0, device="cuda"):
         self.device = torch.device(device)
@@ -129,30 +130,45 @@ class Trainer:
                           step=0)
 
     # -- batch plumbing ----------------------------------------------------
-    def prepare_host(self, batch: Dict[str, np.ndarray], train: bool = True,
-                     pin: bool = False):
-        """The host half of a step's inputs, touching no device: dense
-        columns, each collection's ids (a host-index collection resolves
-        here: in step order for training; with ``train=False`` through its
-        read-only resolve) and labels, as CPU tensors, page-locked when
-        ``pin``. The resolve stage of ``train.pipeline.HostStepPipeline``
-        runs it."""
+    def pack_np(self, batch: Dict[str, np.ndarray]):
+        """The numpy half of a step's inputs, safe in any thread: dense
+        columns, each collection's flat ids and labels (the CLI's prefetch
+        workers run it; no resolve)."""
+        dense = (pack_dense(self.numeric_columns, batch)
+                 if self.numeric_columns else None)
+        ids = {name: coll.pack_ids_np(batch)
+               for name, coll in self.collections.items()}
+        labels = (np.asarray(batch["label"], np.float32)
+                  if "label" in batch else None)
+        return dense, ids, labels
+
+    def resolve_packed(self, packed, train: bool = True, pin: bool = False):
+        """:meth:`pack_np`'s output as a step's host inputs, touching no
+        device: a host-index collection resolves its ids here (in step
+        order for training; with ``train=False`` through its read-only
+        resolve); CPU tensors, page-locked when ``pin``."""
         def host(x):
+            if x is None:
+                return None
             t = torch.from_numpy(x)
             return t.pin_memory() if pin else t
-        dense = (host(pack_dense(self.numeric_columns, batch))
-                 if self.numeric_columns else None)
+        dense, ids, labels = packed
         cats = {}
         for name, coll in self.collections.items():
             if not hasattr(coll, "pack_ids_host"):
-                cats[name] = host(coll.pack_ids_np(batch))
+                cats[name] = host(ids[name])
             elif train:
-                cats[name] = coll.pack_ids_host(batch, pin=pin)
+                cats[name] = coll.pack_ids_host(ids[name], pin=pin)
             else:
-                cats[name] = coll.pack_ids_eval(batch, None)
-        labels = (host(np.asarray(batch["label"], np.float32))
-                  if "label" in batch else None)
-        return dense, cats, labels
+                cats[name] = coll.pack_ids_eval(ids[name], None)
+        return host(dense), cats, host(labels)
+
+    def prepare_host(self, batch: Dict[str, np.ndarray], train: bool = True,
+                     pin: bool = False):
+        """The host half of a step's inputs, touching no device
+        (:meth:`pack_np`, then :meth:`resolve_packed`). The resolve stage
+        of ``train.pipeline.HostStepPipeline`` runs it."""
+        return self.resolve_packed(self.pack_np(batch), train, pin)
 
     def prepare_batch(self, batch: Dict[str, np.ndarray], train: bool = True):
         """Host packing and the copies to the device, inline:

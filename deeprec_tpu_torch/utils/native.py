@@ -1,16 +1,18 @@
 """ctypes binding of the host runtime (``native/deeprec_native.cc``): the
-host-index resolver and the host tier stores.
+host-index resolver, the host tier stores and the Criteo parser.
 
-A framework-free copy of the resolver and tier half of
+A framework-free copy of the resolver, tier and parser parts of
 ``deeprec_tpu/utils/native.py``: :func:`wire_layout`,
 :class:`HostIndexResolver`, :class:`HostKV` (the host-DRAM row store, or a
-file-backed one: the SSD tier) and :class:`TierStack` (DRAM spilling to
-SSD) are copied verbatim, their pure-Python fallbacks included
-(``tests/test_torch_imports.py`` holds them to their source). The port
-cannot import the JAX package. Its own addition is
-:func:`resolve_wire_into`, which resolves into a caller's buffer (a pinned
-tensor's memory in the training pipeline). Neither store is documented as
-thread-safe: the host-index collection guards its tier store with a lock.
+file-backed one: the SSD tier), :class:`TierStack` (DRAM spilling to SSD)
+and :func:`criteo_parse_chunk` (the C++ Criteo TSV parser under
+``data.criteo.read_criteo_native``) are copied verbatim, their
+pure-Python fallbacks included (``tests/test_torch_imports.py`` holds
+them to their source). The port cannot import the JAX package. Its own
+addition is :func:`resolve_wire_into`, which resolves into a caller's
+buffer (a pinned tensor's memory in the training pipeline). Neither store
+is documented as thread-safe: the host-index collection guards its tier
+store with a lock.
 
 The C++ source stays shared. :func:`get_lib` compiles it with ``g++`` at
 first use into the git-ignored ``deeprec_tpu_torch/build/``, under a name
@@ -99,6 +101,10 @@ def get_lib() -> Optional[ctypes.CDLL]:
         lib.hostkv_export_col.restype = _i64
         lib.hostkv_export_col.argtypes = [ctypes.c_void_p, _p_i64, _p_f32,
                                           _i64, _i64]
+        lib.criteo_parse.restype = _i64
+        lib.criteo_parse.argtypes = [ctypes.c_char_p, _i64, _i64,
+                                     _p_f32, _p_f32, _p_i64,
+                                     ctypes.POINTER(_i64)]
         lib.hidx_create.restype = ctypes.c_void_p
         lib.hidx_create.argtypes = [_i64]
         lib.hidx_destroy.argtypes = [ctypes.c_void_p]
@@ -715,3 +721,21 @@ class HostIndexResolver:
             self._fb_touch = {int(old_to_new[s]) for s in old_touch
                               if 0 <= s < old_n and old_to_new[s] >= 0}
         return old_to_new
+
+
+def criteo_parse_chunk(buf: bytes, max_rows: int):
+    """Parse up to max_rows Criteo TSV lines from ``buf``.
+
+    Returns (labels f32[r], dense f32[r,13], cats int64[r,26], consumed
+    bytes) or None if the native lib is unavailable.
+    """
+    lib = get_lib()
+    if lib is None:
+        return None
+    labels = np.zeros((max_rows,), np.float32)
+    dense = np.zeros((max_rows, 13), np.float32)
+    cats = np.zeros((max_rows, 26), np.int64)
+    consumed = _i64(0)
+    r = int(lib.criteo_parse(buf, len(buf), max_rows, labels, dense,
+                             cats.reshape(-1), ctypes.byref(consumed)))
+    return labels[:r], dense[:r], cats[:r], int(consumed.value)

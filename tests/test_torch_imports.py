@@ -34,12 +34,18 @@ def test_port_imports_without_jax():
                          env=dict(os.environ, PYTHONPATH=REPO))
     assert out.returncode == 0, out.stderr
     names = set(out.stdout.split())
-    assert len(names) >= 30  # every module was walked
+    assert len(names) >= 40  # every module was walked
     # the zoo's modules among them, the sequence models too
     assert {f"deeprec_tpu_torch.{m}" for m in (
         "models.ctr", "models.layers", "models.structured",
         "models.sequence", "optim.sparse", "optim.dense",
         "data.behavior")} <= names
+    # the entry points: the CLI, its data plumbing, the zoo, the server
+    assert {f"deeprec_tpu_torch.{m}" for m in (
+        "train.cli", "train.summary", "data.criteo", "data.work_queue",
+        "data.prefetch", "serving.server")} <= names
+    assert {f"deeprec_tpu_torch.modelzoo.{m}.train" for m in (
+        "DLRM", "WDL", "DCN", "DeepFM", "DSSM", "DIN", "DIEN")} <= names
 
 
 def test_resolver_binding_copy_is_the_source():
@@ -51,8 +57,39 @@ def test_resolver_binding_copy_is_the_source():
     from deeprec_tpu.utils import native as jnative
     from deeprec_tpu_torch.sparse import keys as tkeys
     from deeprec_tpu_torch.utils import native as tnative
-    for name in ("HostIndexResolver", "wire_layout", "HostKV", "TierStack"):
+    for name in ("HostIndexResolver", "wire_layout", "HostKV", "TierStack",
+                 "criteo_parse_chunk"):
         assert inspect.getsource(getattr(tnative, name)) == \
             inspect.getsource(getattr(jnative, name)), name
     assert inspect.getsource(tkeys.hash32_np) == \
         inspect.getsource(jkeys.hash32_np)
+
+
+def test_entry_point_copies_are_the_source():
+    """The framework-free modules the CLI needs are verbatim copies: the
+    WorkQueue and its input producer, the summary writer and reader, the
+    Criteo readers and their token hash; the prefetcher's worker loop,
+    turnstile, consumer and close are the JAX code (only its default
+    device_put differs: the identity, not jax.device_put)."""
+    from deeprec_tpu.data import criteo as jcriteo
+    from deeprec_tpu.data import prefetch as jprefetch
+    from deeprec_tpu.data import work_queue as jwq
+    from deeprec_tpu.train import summary as jsummary
+    from deeprec_tpu_torch.data import criteo as tcriteo
+    from deeprec_tpu_torch.data import prefetch as tprefetch
+    from deeprec_tpu_torch.data import work_queue as twq
+    from deeprec_tpu_torch.train import summary as tsummary
+    pairs = [(twq, jwq, ("WorkQueue", "input_producer")),
+             (tsummary, jsummary, ("SummaryWriter", "read_events")),
+             (tcriteo, jcriteo, ("_mix64", "_hash_token", "read_criteo",
+                                 "read_criteo_native", "_pack_arrays",
+                                 "_pack", "SyntheticCriteo"))]
+    for tmod, jmod, names in pairs:
+        for name in names:
+            assert inspect.getsource(getattr(tmod, name)) == \
+                inspect.getsource(getattr(jmod, name)), name
+    for meth in ("_run", "_emit", "__next__", "close"):
+        assert inspect.getsource(getattr(tprefetch.Prefetcher, meth)) == \
+            inspect.getsource(getattr(jprefetch.Prefetcher, meth)), meth
+    assert inspect.getsource(tprefetch.staged) == \
+        inspect.getsource(jprefetch.staged)

@@ -1,9 +1,10 @@
 """Port parity for the zoo's optimizers: sparse_adagrad, sparse_ftrl and
 sparse_adam on one step over the same rows, slot rows and lanes (created,
 masked and null-row lanes among them) as the JAX package's; the sparse
-registry; and the dense Adagrad and Adam against optax.adagrad and
-optax.adam over five steps of a DCN's parameters, with their state
-carried to and from the optax leaves."""
+registry; and the dense Adagrad, Adam and SGD (plain, momentum and
+Nesterov) against optax.adagrad, optax.adam and optax.sgd over five steps
+of a DCN's parameters, with their state carried to and from the optax
+leaves. The other sparse optimizers: test_torch_sparse_optim.py."""
 import numpy as np
 import pytest
 import torch
@@ -113,17 +114,24 @@ def test_sparse_optimizer_step_matches_jax(case, cur):
 
 
 def test_sparse_registry():
-    assert set(tsopt.REGISTRY) <= set(jsopt.REGISTRY)
-    # every JAX optimizer is ported or named as still to port
-    assert set(jsopt.REGISTRY) == set(tsopt.REGISTRY) | set(tsopt._NOT_PORTED)
+    # every JAX optimizer is ported, under its JAX name
+    assert set(tsopt.REGISTRY) == set(jsopt.REGISTRY)
     assert tsopt.make("adagrad_fused").name == "adagrad_fused"
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tsopt.make("adam_async", learning_rate=0.01)
+    assert tsopt.make("adam_async", learning_rate=0.01).name == "adam_async"
     with pytest.raises(KeyError):
         tsopt.make("nope")
 
 
-@pytest.mark.parametrize("which", ["adagrad", "adam"])
+DENSE = {
+    "adagrad": (lambda: optax.adagrad(0.05), lambda: tdense.Adagrad(0.05)),
+    "adam": (lambda: optax.adam(0.002), lambda: tdense.Adam(0.002)),
+    "sgd": (lambda: optax.sgd(0.05), lambda: tdense.SGD(0.05)),
+    "momentum": (lambda: optax.sgd(0.05, momentum=0.9),
+                 lambda: tdense.SGD(0.05, momentum=0.9)),
+}
+
+
+@pytest.mark.parametrize("which", list(DENSE))
 def test_dense_optimizer_matches_optax(which):
     """Five steps of a small DCN's parameters under random gradients: the
     port's optimizer against optax's, parameters and state leaves."""
@@ -135,9 +143,7 @@ def test_dense_optimizer_matches_optax(which):
     params = jm.init(jax.random.key(0), jnp.ones((4, 2)), emb, train=False)
     tctr.load_flax_params(tm, [np.asarray(x) for x in
                                jax.tree_util.tree_leaves(params)])
-    jopt = (optax.adagrad(0.05) if which == "adagrad"
-            else optax.adam(0.002))
-    topt = tdense.Adagrad(0.05) if which == "adagrad" else tdense.Adam(0.002)
+    jopt, topt = (make() for make in DENSE[which])
     jstate = jopt.init(params)
     tparams = list(tm.parameters())
     tstate = topt.init(tparams)
