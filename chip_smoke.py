@@ -1,8 +1,8 @@
 """Card smoke test of the PyTorch port (deeprec_tpu_torch): its serving
 path, its host-index training path, its tiered storage, the CTR zoo, the
-sequence models DIN and DIEN, and the modelzoo entry points (the training
+sequence models DIN and DIEN, the modelzoo entry points (the training
 CLI, the sparse optimizers, the bf16 towers and the server's command
-line).
+line) and the device-index training engine.
 
 Run from the root of a checkout on a machine with one CUDA card:
 
@@ -144,11 +144,35 @@ comparison compute in full f32. Phases (any failure exits non-zero):
    --optimizer choices among ten runs, --bf16 on DLRM and DCN,
    admission and eviction (--ev_filter_freq 2 --ev_evict_steps 10) on DCN,
    and WDL over Criteo files written from SyntheticCriteo through a
-   WorkQueue (6 steps): each run's JSON line finite, its examples/s
-   printed, K1, K2 and K2's backward launched (and K3a in the metadata
-   layout); the DLRM run with --checkpoint and incremental saves is then
-   served by server.build_server over HTTP within PROB_ATOL of a CPU
-   Predictor over the same directory.
+   WorkQueue (6 steps), and four runs on the device-index engine (no
+   --host_index): DLRM, DIN, DLRM with --micro_batch 2 and DLRM with
+   --ev_storage hbm_dram under a row budget of CLI_TIER_HBM (demotion at
+   both fences): each run's JSON line finite, its examples/s printed, K1,
+   K2 and K2's backward launched (and K3a in the metadata layout); the
+   DLRM run with --checkpoint and incremental saves is then served by
+   server.build_server over HTTP within PROB_ATOL of a CPU Predictor over
+   the same directory;
+13. the device-index engine (``device``): the DLRM built through
+   deeprec_tpu_torch/modelzoo/DLRM/train.py build() and cli.make_trainer
+   without --host_index (B 4096, emb 16, 2^21 rows, --optimizer adagrad
+   made fused Adagrad columns, --max_unique_ratio 0.25 so 26,625 lanes,
+   --ev_filter_freq 2 --ev_evict_steps 20) on SyntheticCriteo(4096,
+   seed=7): DEVICE_STEPS steps in lockstep with a CPU trainer (key
+   planes bit-equal every step; metadata planes bit-equal, losses, rows
+   and parameters within LOSS_ATOL and ROW_ATOL), 3 timed runs of 10
+   staged steps, a torch.profiler breakdown and the host syncs of 3 steps
+   (torch's sync debug mode, by source line); K1, K2, K2's backward and
+   K3a must have launched. Then the card's full save (save-time eviction)
+   and an incremental save served by card and CPU Predictors within
+   PROB_ATOL, before and after refresh(); growth from 2^16 rows
+   (maybe_grow after each step: the same capacities and key planes card
+   and CPU, at least one growth); --micro_batch 4 in lockstep; and a
+   TieredTrainer (--ev_storage hbm_dram, 2^18 slots, hbm_capacity 32,768
+   below the live rows, a demotion fence every 3 steps) in lockstep: the
+   tiers' keys and integer columns bit-equal, their rows within ROW_ATOL,
+   rows demoted and promoted. Phase 2 also holds K1, K2, K2's backward and
+   K3a at this engine's shape (one unique_cols dedup and lookup_or_insert
+   of a B=4096 batch: int64 inverse and slots) and times them.
 
 The last line is {"ok": true, "device": {...}}; the line before it holds
 the kernels' numbers as JSON, the line before that the training numbers.
@@ -156,6 +180,8 @@ the kernels' numbers as JSON, the line before that the training numbers.
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
+import io
 import json
 import os
 import statistics
@@ -228,6 +254,20 @@ OPTIM_APPLY_RTOL = 1e-6
 CLI_STEPS = 20           # each cli run's steps ...
 CLI_FENCE = 10           # ... with a fence at every 10
 CLI_CRITEO_STEPS = 6     # the run over Criteo files (Python reader)
+CLI_TIER_HBM = 65536     # the device-index hbm_dram run's row budget
+# phase 13, the device-index engine: the DLRM's flags beside B, emb dim,
+# capacity and seed (fused Adagrad, the 0.25 dedup cap, CounterFilter(2)
+# and GlobalStepEvict(20): the metadata layout, so K3a on the path)
+DEVICE_FLAGS = ["--optimizer", "adagrad", "--max_unique_ratio", "0.25",
+                "--ev_filter_freq", "2", "--ev_evict_steps", "20"]
+DEVICE_STEPS = 5         # the main run's lockstep steps
+DEVICE_GROW_CAPACITY = 1 << 16  # the growth run's first table ...
+DEVICE_GROW_STEPS = 6    # ... grown at a fence after every step
+DEVICE_MB_STEPS = 3      # --micro_batch 4 lockstep steps
+DEVICE_TIER_CAPACITY = 1 << 18  # the TieredTrainer's table,
+DEVICE_TIER_HBM = 32768  # its hbm_capacity (below the live rows),
+DEVICE_TIER_STEPS = 9    # its lockstep steps,
+DEVICE_TIER_FENCE = 3    # a demotion fence every 3
 # bf16 towers, card vs CPU: cuBLAS and the CPU sum a product's terms in
 # another order, so a bf16 rounding may land one step apart (2^-8 to 2^-7
 # of the value: the logits leave the bf16 head rounded) and carry through
@@ -1630,11 +1670,12 @@ ZOO_ENTRY = {"dcn": "DCN", "wdl": "WDL", "deepfm": "DeepFM", "dssm": "DSSM",
              "din": "DIN", "dien": "DIEN", "dlrm": "DLRM"}
 
 
-def zoo_entry(kind, dev, extra=()):
+def zoo_entry(kind, dev, extra=(), host_index=True):
     """``deeprec_tpu_torch/modelzoo/<M>/train.py`` as a user runs it:
     its module and its parser's arguments (the model's own defaults: DSSM,
     DIN and DIEN train with adam at 0.002 and max_unique 0.75 of the flat
-    ids) under --host_index at emb dim 16 and B 4096, the Criteo models on
+    ids) under --host_index (unless ``host_index`` is false: the
+    device-index engine) at emb dim 16 and B 4096, the Criteo models on
     2^21 rows and the behaviour models on the CLI's default 2^19, weights
     from seed SEED, on ``dev``, with ``extra`` flags."""
     import importlib
@@ -1646,7 +1687,8 @@ def zoo_entry(kind, dev, extra=()):
     cap = CAPACITY if kind in ("dlrm", "dcn", "wdl", "deepfm") \
         else ZOO_DSSM_CAPACITY
     args = parser.parse_args(
-        ["--host_index", "--batch_size", str(B), "--emb_dim", str(EMB_DIM),
+        ["--host_index"] * host_index + [
+         "--batch_size", str(B), "--emb_dim", str(EMB_DIM),
          "--capacity", str(cap), "--seed", str(SEED), "--device", str(dev),
          *extra])
     return mod, args
@@ -1753,17 +1795,18 @@ def k2_pair(what, urows, slots, valid, combiner, d_pooled, lib_fwd,
                   counter="fused_pooled_lookup_backward")]
 
 
-def k1_case(what, table, slots, suffix):
-    """K1 at one shape: bit-equal to its plain version, timed beside
-    ``index_select`` and its bound. Returns its entry."""
+def k1_case(what, table, slots, suffix, d=None):
+    """K1 at one shape (``d``: the columns read, all by default):
+    bit-equal to its plain version, timed beside ``index_select`` and its
+    bound. Returns its entry."""
     from deeprec_tpu_torch.ops.gather import gather_rows, gather_rows_plain
-    d = table.shape[1]
+    d = d or table.shape[1]
     if not torch.equal(gather_rows(table, slots, d),
                        gather_rows_plain(table, slots, d)):
         fail(f"K1 {what} differs from its plain version")
     kt = time_ms(lambda: gather_rows(table, slots, d))
     pt = time_ms(lambda: gather_rows_plain(table, slots, d))
-    lt = time_ms(lambda: torch.index_select(table, 0, slots))
+    lt = time_ms(lambda: torch.index_select(table[:, :d], 0, slots))
     # the slots, each distinct row read once, every lane's row written
     u = slots.shape[0]
     nbytes = u * 4 + (torch.unique(slots).numel() + u) * d * 4
@@ -2339,13 +2382,17 @@ def write_criteo_files(d, n_files, rows, seed=0):
 
 
 def cli_runs(tmp):
-    """The cli phase's runs: (kind, --optimizer, extra flags). Each of the
-    ten --optimizer choices once, each model at least once; --bf16 on DLRM
-    and DCN; the metadata layout (K3a) by admission and eviction on DCN
-    and by incremental saves on the DLRM that is then served; WDL from
-    Criteo files through a WorkQueue."""
+    """The cli phase's runs: (kind, --optimizer, extra flags, host-index?).
+    On the host-index engine: each of the ten --optimizer choices once,
+    each model at least once; --bf16 on DLRM and DCN; the metadata layout
+    (K3a) by admission and eviction on DCN and by incremental saves on the
+    DLRM that is then served; WDL from Criteo files through a WorkQueue.
+    On the device-index engine (no --host_index): DLRM and DIN, DLRM with
+    --micro_batch 2, and DLRM with --ev_storage hbm_dram under a device row
+    budget below its live rows (demotion at every fence: K3a by the
+    version stamps tiering needs)."""
     files = write_criteo_files(tmp, 3, 2 * B)
-    return [
+    host = [
         ("dlrm", "adagrad", ["--bf16"]),
         ("dlrm", "sgd", ["--checkpoint", os.path.join(tmp, "ck"),
                          "--incr_save_secs", "1e-9"]),
@@ -2362,15 +2409,26 @@ def cli_runs(tmp):
             os.path.join(tmp, "queue"), "--steps", str(CLI_CRITEO_STEPS),
             "--log_steps", str(CLI_CRITEO_STEPS // 2)]),
     ]
+    device = [
+        ("dlrm", "adagrad", []),
+        ("din", "adam", []),
+        ("dlrm", "adagrad", ["--micro_batch", "2"]),
+        ("dlrm", "adagrad", ["--ev_storage", "hbm_dram", "--ev_hbm_capacity",
+                             str(CLI_TIER_HBM), "--demote_steps",
+                             str(CLI_FENCE)]),
+    ]
+    return [r + (True,) for r in host] + [r + (False,) for r in device]
 
 
 def check_cli(dev, smi, tmp):
     """Phase 12's ``cli`` runs: every model through its entry point
-    (``cli.run(build(args), args)``, the host-index engine, B 4096, emb
-    16, 2^21 rows, the towers' full widths, CLI_STEPS steps with a fence
-    at every CLI_FENCE) as :func:`cli_runs` lists them: each run's JSON
-    line finite and its step count right, the C++ resolver, K1, K2 and K2's
-    backward launched in every run and K3a in the metadata-layout ones.
+    (``cli.run(build(args), args)``, B 4096, emb 16, 2^21 rows, the
+    towers' full widths, CLI_STEPS steps with a fence at every CLI_FENCE)
+    on the host-index engine and four runs on the device-index engine, as
+    :func:`cli_runs` lists them: each run's JSON line finite and its step
+    count right, the C++ resolver on the host-index runs, K1, K2 and K2's
+    backward launched in every run and K3a in the metadata-layout ones,
+    and the tiered run demoting rows at its fences.
     Then the served DLRM: the server's builder over the run's checkpoint
     (a full and an incremental save) answers HTTP predicts within
     PROB_ATOL of a CPU Predictor over the same directory. Returns the
@@ -2383,20 +2441,29 @@ def check_cli(dev, smi, tmp):
     counters = path_counters()
     total = dict.fromkeys(counters, 0)
     out, t_phase = [], time.perf_counter()
-    for kind, opt, own in cli_runs(tmp):
+    for kind, opt, own, host_index in cli_runs(tmp):
         mod, args = zoo_entry(kind, dev, [
             "--optimizer", opt, "--steps", str(CLI_STEPS), "--log_steps",
             str(CLI_FENCE), "--eval_steps", "2", "--capacity", str(CAPACITY),
-            *own])
+            *own], host_index=host_index)
         spec = mod.build(args)
-        need_native(spec.collections, f"cli {kind}")
+        if host_index:
+            need_native(spec.collections, f"cli {kind}")
         meta = any(c.config.version_tracked or c.config.freq_tracked
                    for c in spec.collections.values())
         for fn in counters.values():
             fn.launches = 0
         t0 = time.perf_counter()
-        res = cli.run(spec, args)
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            res = cli.run(spec, args)
         wall = time.perf_counter() - t0
+        sys.stdout.write(printed.getvalue())
+        tier = [ln for ln in printed.getvalue().splitlines()
+                if ln.startswith("host tier rows: ")]
+        if "--ev_storage" in own and len(tier) != CLI_STEPS // CLI_FENCE:
+            fail(f"cli {kind} {' '.join(own)}: demoted at {len(tier)} of "
+                 f"{CLI_STEPS // CLI_FENCE} fences")
         launches = {k: fn.launches for k, fn in counters.items()}
         nums = [v for v in res.values() if isinstance(v, (int, float))]
         if not (res["steps"] == args.steps and np.isfinite(nums).all()
@@ -2411,7 +2478,9 @@ def check_cli(dev, smi, tmp):
                 fail(f"cli {kind} {opt}: {k} was not launched")
         for k, v in launches.items():
             total[k] += v
-        flags = " ".join(a for a in own if a.startswith("--"))
+        flags = " ".join(["--host_index" if host_index else
+                          "(device-index)"]
+                         + [a for a in own if a.startswith("--")])
         log(f"cli {ZOO_ENTRY[kind]} --optimizer {opt} {flags}: "
             f"{res['steps']} steps, examples/s {res['examples_per_sec']} at "
             f"B={B} (the CLI's own count: host clock over the loop, fences "
@@ -2466,8 +2535,413 @@ def check_cli(dev, smi, tmp):
     return total, {"runs": out, "serve_dp": worst}
 
 
+# -- phase 13: the device-index engine ---------------------------------------
+def device_entry(dev, extra=()):
+    """``deeprec_tpu_torch/modelzoo/DLRM/train.py`` without --host_index,
+    as the issue's device phase runs it: B 4096, emb dim 16, 2^21 rows,
+    --optimizer adagrad (the CLI makes it fused Adagrad columns),
+    --max_unique_ratio 0.25, --ev_filter_freq 2 --ev_evict_steps 20 (the
+    metadata layout, so kernel K3a on the path), weights from --seed, on
+    ``dev``, with ``extra`` flags."""
+    import importlib
+    from deeprec_tpu_torch.train import cli
+    mod = importlib.import_module("deeprec_tpu_torch.modelzoo.DLRM.train")
+    args = cli.base_parser("DLRM").parse_args(
+        ["--batch_size", str(B), "--emb_dim", str(EMB_DIM), "--capacity",
+         str(CAPACITY), "--seed", str(SEED), "--device", str(dev),
+         *DEVICE_FLAGS, *extra])
+    return mod, args
+
+
+def device_trainer(dev, extra=()):
+    """The device-index DLRM's trainer as the CLI makes it
+    (``cli.make_trainer``: the dedup cap, the fused Adagrad columns, a
+    TieredTrainer for --ev_storage hbm_dram, --micro_batch, the weights)."""
+    from deeprec_tpu_torch.train import cli
+    mod, args = device_entry(dev, extra)
+    tr = cli.make_trainer(mod.build(args), args)
+    if type(tr.collections["emb"]).__name__ != "EmbeddingCollection":
+        fail("the device phase did not get a device-index collection")
+    return tr
+
+
+def device_same_tables(tg, sg, tc, sc, what, compare_rows=True):
+    """Key planes, metadata planes and CBF counters bit-equal between the
+    card's and the CPU's state; rows, slot leaves and dense parameters
+    within ROW_ATOL. Returns the largest row or parameter difference."""
+    from deeprec_tpu_torch.utils.tree import leaves_with_paths
+    worst = 0.0
+    for name in tc.collections:
+        eg, ec = sg.tables[name].ev, sc.tables[name].ev
+        planes = [("keys", eg.index.keys, ec.index.keys)] + [
+            (f, getattr(eg, f), getattr(ec, f))
+            for f in ("freqs", "versions", "create_steps")]
+        if ec.cbf is not None:
+            planes.append(("cbf", eg.cbf, ec.cbf))
+        for f, a, c in planes:
+            if not torch.equal(a.cpu(), c):
+                fail(f"{what}: {name} {f} differ between card and CPU")
+        if not compare_rows:
+            continue
+        leaves = [("rows", eg.values, ec.values)] + [
+            (f"slot {p}", a, c) for (p, a), (_, c) in zip(
+                leaves_with_paths(sg.tables[name].slot),
+                leaves_with_paths(sc.tables[name].slot))]
+        for leaf, a, c in leaves:
+            d = (a.cpu().float() - c.float()).abs().max().item()
+            worst = max(worst, d)
+            if not d <= ROW_ATOL:
+                fail(f"{what}: {name} {leaf} differ by {d} between card "
+                     f"and CPU")
+    if compare_rows:
+        for (n, a), b in zip(tg.model.named_parameters(),
+                             tc.model.parameters()):
+            d = (a.detach().cpu() - b.detach()).abs().max().item()
+            worst = max(worst, d)
+            if not d <= ROW_ATOL:
+                fail(f"{what}: parameter {n} differs by {d} between card "
+                     f"and CPU")
+    return worst
+
+
+def device_lockstep(tg, tc, batches, what, fence=None):
+    """Train the card and CPU trainers on ``batches`` through
+    ``train_step`` (a TieredTrainer promotes first), the per-step loss
+    within LOSS_ATOL and the key planes bit-equal after every step;
+    ``fence(i, sg, sc)`` runs after step ``i`` on both states. Then the
+    tables and parameters (:func:`device_same_tables`). Returns the
+    states, the largest loss and row differences."""
+    sg, sc = tg.init(batches[0]), tc.init(batches[0])
+    worst = 0.0
+    for i, b in enumerate(batches):
+        g0, c0 = sg.metrics.loss_sum.item(), sc.metrics.loss_sum.item()
+        sg, sc = tg.train_step(sg, b), tc.train_step(sc, b)
+        lg = (sg.metrics.loss_sum.item() - g0) / B
+        lc = (sc.metrics.loss_sum.item() - c0) / B
+        if not (np.isfinite(lg) and abs(lg - lc) <= LOSS_ATOL):
+            fail(f"{what}: step {i} loss {lg} on the card vs {lc} on CPU")
+        worst = max(worst, abs(lg - lc))
+        if not torch.equal(sg.tables["emb"].ev.index.keys.cpu(),
+                           sc.tables["emb"].ev.index.keys):
+            fail(f"{what}: card and CPU key planes differ after step {i}")
+        if fence is not None:
+            sg, sc = fence(i, sg, sc)
+    drow = device_same_tables(tg, sg, tc, sc, what)
+    ev = sc.tables["emb"].ev
+    log(f"{what}: {len(batches)} steps in lockstep with a CPU trainer: key "
+        f"and metadata planes bit-equal every step, max |dloss| {worst:.3g} "
+        f"(limit {LOSS_ATOL}), max |drow|, |dslot| and |dparam| {drow:.3g} "
+        f"(limit {ROW_ATOL}); {int(ev.index.size)} keys in "
+        f"{ev.capacity} slots, {int((ev.freqs >= 2).sum())} admitted")
+    return sg, sc, worst, drow
+
+
+def count_syncs(fn):
+    """Run ``fn`` with torch's sync debug mode on; returns the synchronising
+    calls it made, by the line that made them."""
+    import collections
+    import warnings
+    where = collections.Counter()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    for w in caught:
+        if "synchroniz" in str(w.message):
+            where[f"{os.path.relpath(w.filename, REPO)}:{w.lineno}"] += 1
+    return where
+
+
+def check_device_kernels(dev):
+    """K1, K2, K2's backward and K3a at the device-index engine's shapes,
+    from one B=4096 batch of the device phase's DLRM: ``unique_cols`` over
+    the [26, 4096] ids (U = 26,625 lanes at --max_unique_ratio 0.25, int64
+    inverse and slots) and ``lookup_or_insert`` into its 2^21-slot index.
+    Returns the entries (path ``device``)."""
+    import torch.nn.functional as Fn
+    from deeprec_tpu_torch.data.criteo import SyntheticCriteo
+    from deeprec_tpu_torch.ops.meta_scatter import (lookup_meta,
+                                                    lookup_meta_plain)
+    from deeprec_tpu_torch.ops.unique import unique_cols
+    from deeprec_tpu_torch.sparse import hashtable as ht
+    g = torch.Generator().manual_seed(SEED + 4)
+    tr = device_trainer(dev)
+    coll = tr.collections["emb"]
+    cfg, cap = coll.config, coll.config.capacity
+    ids = torch.from_numpy(coll.pack_ids_np(
+        next(SyntheticCriteo(batch_size=B, seed=7)))).to(dev)
+    uniq = unique_cols(ids, cfg.max_unique)
+    _, uslots, created = ht.lookup_or_insert(ht.create(cap, dev), uniq.ukeys,
+                                             cfg.max_probes)
+    u, n_real = uslots.shape[0], int(uniq.n_unique)
+    slots = uniq.inverse.view(-1, 1)
+    valid = (uslots != cap)[uniq.inverse].view(-1, 1)
+    log(f"device-index shape: {uniq.inverse.shape[0]} ids, {n_real} unique "
+        f"keys ({int(uniq.n_overflow)} past the cap) in {u} lanes, int64 "
+        f"inverse and slots")
+    urows = torch.randn(u, EMB_DIM, generator=g).to(dev)
+    d_pooled = torch.randn(slots.shape[0], EMB_DIM, generator=g).to(dev)
+    idx, src = uniq.inverse, torch.where(valid, d_pooled, 0.0)
+    entries = k2_pair(
+        f"(device-index, [26*{B}, 1] sum, D {EMB_DIM}, int64 inverse)",
+        urows, slots, valid, "sum", d_pooled,
+        lambda: Fn.embedding_bag(slots, urows,
+                                 per_sample_weights=valid.float(),
+                                 mode="sum"),
+        lambda: torch.zeros(u, EMB_DIM, device=dev).index_add_(0, idx, src),
+        "device")
+    table = torch.randn(cap + 1, 2 * EMB_DIM, generator=g).to(dev)
+    entries.append(k1_case("(device-index unique-row fetch, int64 slots)",
+                           table, uslots, "device", d=EMB_DIM))
+
+    # K3a: the metadata step of lookup_or_create_unique (CounterFilter(2),
+    # GlobalStepEvict: create steps, versions, freqs, the admission test)
+    counts = uniq.counts.to(torch.int32)
+    ro = torch.zeros((1,), dtype=torch.bool, device=dev)
+    dest = torch.where(created, uslots, cap + 1)
+    ff = cfg.counter_filter.filter_freq
+
+    def planes():
+        return [torch.full((cap + 1,), -1, dtype=torch.int32, device=dev),
+                torch.full((cap + 1,), -1, dtype=torch.int32, device=dev),
+                torch.zeros((cap + 1,), dtype=torch.int32, device=dev)]
+
+    def fused(p, fn=lookup_meta):
+        return fn(uslots, counts, ro, dest, 3, cap, p[0], p[1], p[2], True,
+                  ff)
+    kp, pp, lp = planes(), planes(), planes()
+    adm, adm_ref = fused(kp), fused(pp, lookup_meta_plain)
+    if not (all(torch.equal(a, b) for a, b in zip(kp, pp))
+            and torch.equal(adm, adm_ref)):
+        fail("K3a lookup_meta (device-index shape) differs from its plain "
+             "version")
+    gs = torch.tensor(3, dtype=torch.int32, device=dev)
+
+    def torch_chain():
+        live = (counts > 0) & (uslots != cap)
+        m = torch.where(live, uslots, cap)
+        lp[0].index_put_((torch.where(dest < cap, dest, cap),), gs)
+        lp[1].index_put_((m,), gs)
+        lp[2].index_add_(0, m, torch.where(live, counts, 0))
+        for plane, fill in zip(lp, (-1, -1, 0)):
+            plane.narrow(0, cap, 1).fill_(fill)
+        return (uslots != cap) & (lp[2][uslots] >= ff)
+    if not (torch.equal(torch_chain(), adm_ref)
+            and all(torch.equal(a, b) for a, b in zip(lp, pp))):
+        fail("K3a's library yardstick (device-index shape) computes another "
+             "function")
+    k3a_ms = time_ms(lambda: fused(kp))
+    k3a_plain = time_ms(lambda: fused(pp, lookup_meta_plain))
+    k3a_lib = time_ms(torch_chain)
+    n_d = int((dest < cap).sum())
+    n_m = int(((counts > 0) & (uslots != cap)).sum())
+    n_read = int((uslots < cap).sum()) - n_m
+    # lanes read (int64 slots and dest, int32 counts), admitted written,
+    # the flag, a create step per created row, a version and a freq
+    # read-modify-write per live row, a freq read per other real row
+    k3a_bytes = 21 * u + 1 + 4 * n_d + 12 * n_m + 4 * n_read
+    log_times(f"K3a lookup_meta (device-index shape: 3 planes of {cap + 1} "
+              f"+ CounterFilter({ff}), {u} int64 lanes: {n_d} created, "
+              f"{n_m} live)", k3a_ms, k3a_plain, k3a_lib, k3a_bytes,
+              "; library: the same function in torch calls")
+    entries.append(entry("lookup_meta_device",
+                         "deeprec_tpu_torch/csrc/meta_scatter.cu",
+                         "benchmarks/pallas_meta_bench.py:108", 0.0, k3a_ms,
+                         k3a_plain, k3a_lib, k3a_bytes,
+                         counter="lookup_meta"))
+    for e in entries:
+        e["path"] = "device"
+    return entries
+
+
+def device_tiers(tr):
+    """The tier's rows sorted by key: (keys, payload)."""
+    kv = tr.tiers["emb"]
+    if kv is None or not len(kv):
+        return np.zeros((0,), np.int64), None
+    keys, rows = kv.export()
+    order = np.argsort(keys)
+    return keys[order], rows[order]
+
+
+def check_device(dev, smi, tmp):
+    """Phase 13, the device-index engine at full width (the DLRM of
+    :func:`device_entry` on SyntheticCriteo(4096, seed=7)): DEVICE_STEPS
+    steps in lockstep with a CPU trainer, 3 timed runs of 10 staged steps,
+    a torch.profiler breakdown and the host syncs of 3 steps; K1, K2, K2's
+    backward and K3a launched. Then growth from 2^16 rows, a full and an
+    incremental save served by card and CPU Predictors, --micro_batch 4
+    and a TieredTrainer (HBM_DRAM, hbm_capacity below the live rows) in
+    lockstep. Returns the main run's launches and the phase's summary."""
+    from deeprec_tpu_torch.checkpoint.saver import CheckpointManager
+    from deeprec_tpu_torch.data.criteo import SyntheticCriteo
+    from deeprec_tpu_torch.train import metrics
+    counters = path_counters()
+    batches = list(SyntheticCriteo(batch_size=B, seed=7).take(
+        DEVICE_STEPS + 33))
+    out, t_phase = {}, time.perf_counter()
+
+    # the main run: lockstep, timing, profile
+    tg, tc = device_trainer(dev), device_trainer("cpu")
+    for fn in counters.values():
+        fn.launches = 0
+    sg, sc, dloss, drow = device_lockstep(tg, tc, batches[:DEVICE_STEPS],
+                                          "device-index")
+    k = DEVICE_STEPS
+    sg, staged = timed_runs(tg, sg, batches[k:k + 30])
+    launches = {n: fn.launches for n, fn in counters.items()}
+    log(f"device-index main path ({sg.step} steps) launches: {launches}")
+    for n, v in launches.items():
+        if v <= 0:
+            fail(f"{n} was not launched on the device-index path")
+    med = statistics.median(staged)
+    sg, dev_ms = profile_steps(tg, sg, batches[k + 30:k + 33], B / med * 1e3,
+                               what="device-index")
+    items = [tg.prepare_batch(b) for b in batches[k + 30:k + 33]]
+    torch.cuda.synchronize()
+    box = {"s": sg}
+
+    def three():
+        for it in items:
+            box["s"] = tg._train_step(box["s"], *it)
+    syncs = count_syncs(three)
+    sg = box["s"]
+    per_step = sum(syncs.values()) / len(items)
+    log(f"device-index host syncs: {per_step:.1f} per step over "
+        f"{len(items)} staged steps, by line: {dict(syncs.most_common(8))}")
+    summ = metrics.summarize(sg.metrics)
+    if not (summ["examples"] == sg.step * B and np.isfinite(summ["loss"])
+            and 0.0 <= summ["auc"] <= 1.0):
+        fail(f"device-index metrics are off: {summ}")
+    log(f"device-index examples/s at B={B}, staged host half: median "
+        f"{med:.1f}, min {min(staged):.1f}, max {max(staged):.1f} over 3 "
+        f"runs of 10 steps, on {smi}")
+    health = tg.table_health(sg)["emb"]
+    log(f"device-index after {sg.step} steps: {summ}; health {health}")
+    out["main"] = {"staged_eps": staged, "device_ms_per_step": dev_ms,
+                   "host_syncs_per_step": per_step,
+                   "host_syncs_by_line": dict(syncs), "max_dloss": dloss,
+                   "max_drow": drow, "summary": summ, "health": health}
+
+    # serving: the card trainer's full save (save-time eviction of rows
+    # untouched for 20 steps), two more steps, an incremental save; card
+    # and CPU Predictors over the directory, before and after refresh()
+    held = list(SyntheticCriteo(batch_size=B, seed=11).take(2))
+    path = os.path.join(tmp, "device_ck")
+    mgr = CheckpointManager(path)
+    mgr.save(tg, sg)
+    full_step = sg.step
+    gpu, cpu, worst_full = _serve_pair(path, tg.collections["emb"], held,
+                                       dev, "device-index full save")
+    for b in batches[:2]:
+        sg = tg.train_step(sg, b)
+    mgr.save_incremental(tg, sg)
+    if not (gpu.refresh() and cpu.refresh()):
+        fail("device-index: the predictors did not refresh onto the "
+             "incremental save")
+    worst_incr = _compare_predictors(gpu, cpu, held,
+                                     "device-index incremental save")
+    log(f"device-index serving: the card's full save (step {full_step}) "
+        f"and incremental save (step {sg.step}) served by card and CPU "
+        f"Predictors: max |dp| {worst_full:.3g} and {worst_incr:.3g} (limit "
+        f"{PROB_ATOL})")
+    out["serve_dp"] = [worst_full, worst_incr]
+    del tg, tc, sg, sc, gpu, cpu
+    torch.cuda.empty_cache()
+
+    # growth from 2^16 rows, maybe_grow after every step on both
+    tg = device_trainer(dev, ["--capacity", str(DEVICE_GROW_CAPACITY)])
+    tc = device_trainer("cpu", ["--capacity", str(DEVICE_GROW_CAPACITY)])
+    caps = []
+
+    def grow(i, sg, sc):
+        sg, sc = tg.maybe_grow(sg), tc.maybe_grow(sc)
+        caps.append((sg.tables["emb"].ev.capacity,
+                     sc.tables["emb"].ev.capacity))
+        if caps[-1][0] != caps[-1][1]:
+            fail(f"device-index growth: card {caps[-1][0]} vs CPU "
+                 f"{caps[-1][1]} rows after step {i}")
+        device_same_tables(tg, sg, tc, sc, "device-index growth",
+                           compare_rows=False)
+        return sg, sc
+    sg, sc, gloss, grow_drow = device_lockstep(
+        tg, tc, batches[:DEVICE_GROW_STEPS], "device-index growth from "
+        f"{DEVICE_GROW_CAPACITY} rows", fence=grow)
+    if caps[-1][0] <= DEVICE_GROW_CAPACITY:
+        fail(f"device-index growth: no growth from {DEVICE_GROW_CAPACITY} "
+             f"rows ({caps})")
+    log(f"device-index growth: capacities after each step {caps}; key sets "
+        f"bit-equal at every fence")
+    out["growth"] = {"capacities": caps, "max_dloss": gloss,
+                     "max_drow": grow_drow}
+    del tg, tc, sg, sc
+
+    # --micro_batch 4
+    tg = device_trainer(dev, ["--micro_batch", "4"])
+    tc = device_trainer("cpu", ["--micro_batch", "4"])
+    _, _, mloss, mrow = device_lockstep(tg, tc, batches[:DEVICE_MB_STEPS],
+                                        "device-index --micro_batch 4")
+    out["micro_batch"] = {"max_dloss": mloss, "max_drow": mrow}
+    del tg, tc
+    torch.cuda.empty_cache()
+
+    # a TieredTrainer: HBM_DRAM with hbm_capacity below the live rows,
+    # demotion at a fence every DEVICE_TIER_FENCE steps, promotion before
+    # each step; the tiers bit-equal (integers) and within ROW_ATOL
+    flags = ["--capacity", str(DEVICE_TIER_CAPACITY), "--ev_storage",
+             "hbm_dram", "--ev_hbm_capacity", str(DEVICE_TIER_HBM)]
+    tg, tc = device_trainer(dev, flags), device_trainer("cpu", flags)
+    if type(tg).__name__ != "TieredTrainer":
+        fail("--ev_storage hbm_dram did not give a TieredTrainer")
+    moves = {"demoted": 0, "promoted": 0}
+    last = {"rows": 0}
+    width = 2 * EMB_DIM
+
+    def tier_fence(i, sg, sc):
+        moves["promoted"] += max(0, last["rows"] - tg.host_tier_rows("emb"))
+        if i % DEVICE_TIER_FENCE != DEVICE_TIER_FENCE - 1:
+            last["rows"] = tg.host_tier_rows("emb")
+            return sg, sc
+        before = tg.host_tier_rows("emb")
+        sg, sc = tg.maybe_demote(sg), tc.maybe_demote(sc)
+        moves["demoted"] += tg.host_tier_rows("emb") - before
+        (kg, rg), (kc, rc) = device_tiers(tg), device_tiers(tc)
+        if not np.array_equal(kg, kc) or (rg is None) != (rc is None):
+            fail(f"device-index tier: card and CPU tier keys differ after "
+                 f"step {i}")
+        if rg is not None:
+            ig = rg[:, width:width + 3].copy().view(np.int32)
+            ic = rc[:, width:width + 3].copy().view(np.int32)
+            d = float(np.abs(rg[:, :width] - rc[:, :width]).max())
+            if not (np.array_equal(ig, ic) and d <= ROW_ATOL):
+                fail(f"device-index tier: payloads differ after step {i} "
+                     f"(rows by {d})")
+        live = int(sg.tables["emb"].ev.index.size)
+        if live > DEVICE_TIER_HBM:
+            fail(f"device-index tier: {live} rows stayed on the card, over "
+                 f"the budget of {DEVICE_TIER_HBM}")
+        last["rows"] = tg.host_tier_rows("emb")
+        return sg, sc
+    sg, sc, tloss, trow = device_lockstep(
+        tg, tc, batches[:DEVICE_TIER_STEPS], "device-index TieredTrainer",
+        fence=tier_fence)
+    if not (moves["demoted"] > 0 and moves["promoted"] > 0):
+        fail(f"device-index tier: rows demoted {moves['demoted']}, promoted "
+             f"{moves['promoted']}: both must move")
+    log(f"device-index TieredTrainer (HBM_DRAM, hbm_capacity "
+        f"{DEVICE_TIER_HBM}, {DEVICE_TIER_CAPACITY} slots): {moves} rows, "
+        f"{tg.host_tier_rows('emb')} in the tier at the end, card and CPU "
+        f"tiers equal at every fence; phase {time.perf_counter() - t_phase:.1f}"
+        f" s")
+    out["tier"] = {"moves": moves, "max_dloss": tloss, "max_drow": trow}
+    return launches, out
+
+
 def run(dev, smi, probe):
-    """Phases 2-12 on ``dev`` (``probe``: the built design probes); returns
+    """Phases 2-13 on ``dev`` (``probe``: the built design probes); returns
     the kernels' JSON entries and the training numbers."""
     from deeprec_tpu_torch.data.criteo import SyntheticCriteo
     from deeprec_tpu_torch.ops.fused_lookup import fused_pooled_lookup
@@ -2475,7 +2949,8 @@ def run(dev, smi, probe):
     from deeprec_tpu_torch.ops import _build
 
     kernels = (check_kernels(dev, probe) + check_training_kernels(dev, probe)
-               + check_zoo_kernels(dev) + check_seq_kernels(dev))
+               + check_zoo_kernels(dev) + check_seq_kernels(dev)
+               + check_device_kernels(dev))
 
     _build.BUILD.mkdir(parents=True, exist_ok=True)  # git-ignored
     with tempfile.TemporaryDirectory(dir=str(_build.BUILD)) as path:
@@ -2546,6 +3021,8 @@ def run(dev, smi, probe):
     training["bf16_forward"] = check_bf16_forward(dev)
     with tempfile.TemporaryDirectory(dir=str(_build.BUILD)) as path:
         paths["cli"], training["cli"] = check_cli(dev, smi, path)
+    with tempfile.TemporaryDirectory(dir=str(_build.BUILD)) as path:
+        paths["device"], training["device"] = check_device(dev, smi, path)
     for k in kernels:
         # launches on the slice's main path, --metadata (the bf16 rows: on
         # the bf16 table's, where every K2 launch is a bf16 one; a zoo or

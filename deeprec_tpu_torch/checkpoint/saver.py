@@ -5,8 +5,10 @@ Port of ``deeprec_tpu/checkpoint/saver.py``:
 - :class:`CheckpointManager` (284-560) for one process and one shard:
   ``save``, ``save_incremental``, ``maybe_save``, ``_gc``, ``attach_aux``
   and ``restore``. Tables go through their collection's hooks
-  (``ckpt_arrays``/``ckpt_restore``: the host-index collection, the
-  trainable table of the port). Dense leaves are written in the order of
+  (``ckpt_arrays``/``ckpt_restore``); a ``ckpt_restore`` that returns None
+  (the device-index ``EmbeddingCollection``) hands its table to the
+  generic EV flow: a fresh table at the capacity the saved rows need, the
+  base and then each incremental scattered in, oldest first. Dense leaves are written in the order of
   the JAX tree ``(params, opt_state, step)``: the flax variables (a
   model's running statistics first, then its params), the optax state
   of the trainer's dense optimizer (``optim.dense``: Adagrad's
@@ -24,39 +26,103 @@ Port of ``deeprec_tpu/checkpoint/saver.py``:
   the restored device stores and the resolver, so it lives in one tier
   only and its next touch promotes the saved payload (the JAX restore
   keeps both, and training resumes from the stale device row).
-- ``_scatter_table`` (157-203) and ``needed_capacity`` (219-223), the
-  restore path of serving: optimizer slot rows, scalars and CBF
-  sketches in the saved table are ignored, since serving never reads
-  them. The row stores are written in place (a serving table is a few
-  hundred MB at Criteo scale, so no second copy is made); callers swap
-  tables under their own lock.
+- ``table_snapshot_host`` (56-150) for one shard: live rows compacted on
+  the host, save-time eviction, version-delta incrementals (a table
+  without version stamps falls back to all live rows, with the JAX
+  package's warning), slot rows and scalar leaves, and the CBF sketch
+  with ``cbf_shards``.
+- ``_scatter_table`` (157-203) and ``needed_capacity`` (219-223). The
+  serving path ignores the optimizer slot rows, scalars and CBF sketch
+  of a saved table, since serving never reads them; the training
+  restore (:func:`_scatter_train_table`) writes them too, the CBF only
+  when its shape matches the table's. The row stores are written in
+  place (a serving table is a few hundred MB at Criteo scale, so no
+  second copy is made); callers swap tables under their own lock.
 - ``last_wins_sel`` and ``_cbf_for_shard``. (``_keys64`` has no place
   here: the port's keys are int64 tensors throughout.)
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import shutil
 import time
+import warnings
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
-from ..config import EmbeddingVariableConfig
+from ..config import EmbeddingVariableConfig, L2WeightEvict
 from ..models.ctr import flax_leaf_count, flax_leaves, load_flax_params
 from ..sparse import embedding_var as ev
 from ..sparse import hashtable as ht
 from ..sparse import keys as K
+from ..utils.tree import map_leaves
 from . import format as F
 
 
-def _scatter_table(state: ev.EVState, config: EmbeddingVariableConfig,
-                   arrays: Dict[str, Any]) -> ev.EVState:
-    """Insert the saved rows ``arrays`` (keys, values, freqs, versions,
-    create_steps) into ``state``. Shared by a fresh restore and by the
-    replay of incremental saves: a key already present is overwritten."""
+def _rows(t: torch.Tensor, idx: np.ndarray):
+    """Rows ``idx`` of a tensor (on any device; only those rows come to the
+    host) as a save stores them: numpy, except bfloat16, which
+    ``checkpoint.format`` writes from the tensor."""
+    rows = t[torch.from_numpy(idx).to(t.device)].cpu()
+    return rows if rows.dtype == torch.bfloat16 else rows.numpy()
+
+
+def table_snapshot_host(config: EmbeddingVariableConfig, ev_state: ev.EVState,
+                        slot_state, num_shards: int = 1,
+                        since_step: Optional[int] = None, evict: bool = True,
+                        global_step: Optional[int] = None
+                        ) -> Dict[str, Any]:
+    """Compact the live rows of a device-index table (with ``since_step``,
+    those touched at or after it) into the save's arrays: keys, values,
+    freqs, versions, create steps, ``slot__`` rows and ``scalar__`` leaves
+    of the optimizer state, and the CBF sketch. ``evict`` applies the
+    table's eviction policy at ``global_step`` (``ev.cold_mask_np``)."""
+    if num_shards != 1:
+        raise NotImplementedError(
+            "sharded tables come with the multi-device engines (ROADMAP A8)")
+    cap = config.capacity
+    if since_step is not None and not config.version_tracked:
+        # a light-layout table has no version stamps: a version-delta
+        # selection would drop every row, so the section holds all of them
+        warnings.warn(
+            f"table {config.name!r} has no version tracking "
+            "(track_version/evict unset): incremental save falls back to "
+            "all live rows for it", stacklevel=2)
+        since_step = None
+    keys = ev_state.index.keys.cpu().numpy()
+    versions = ev_state.versions[:cap].cpu().numpy()
+    live = keys != K.EMPTY
+    if evict and config.evict is not None and global_step is not None:
+        values = (ev_state.values[:cap].float().cpu().numpy()
+                  if isinstance(config.evict, L2WeightEvict)
+                  else np.zeros((cap, 1), np.float32))
+        live &= ~ev.cold_mask_np(config, values, versions, live, global_step)
+    if since_step is not None:
+        live &= versions >= since_step
+    idx = np.nonzero(live)[0]
+    out = {"keys": keys[idx], "values": _rows(ev_state.values, idx),
+           "freqs": _rows(ev_state.freqs, idx), "versions": versions[idx],
+           "create_steps": _rows(ev_state.create_steps, idx)}
+    for name, leaf in F.slot_leaf_names(slot_state):
+        if leaf.dim() >= 1 and leaf.shape[0] == cap + 1:
+            out[f"slot__{name}"] = _rows(leaf, idx)
+        else:
+            out[f"scalar__{name}"] = leaf.cpu().numpy()
+    if ev_state.cbf is not None:
+        out["cbf_shards"] = np.asarray(1, np.int32)
+        out["cbf"] = ev_state.cbf.cpu().numpy()
+    return out
+
+
+def _insert_rows(state: ev.EVState, config: EmbeddingVariableConfig,
+                 arrays: Dict[str, Any]):
+    """Insert the saved keys and write their rows and metadata planes in
+    place. Returns the state (its new index) and the written slots and
+    the saved rows they came from."""
     dev = state.values.device
     cap = config.capacity
     keys = torch.as_tensor(arrays["keys"], dtype=torch.int64).to(dev)
@@ -64,16 +130,47 @@ def _scatter_table(state: ev.EVState, config: EmbeddingVariableConfig,
                                           config.max_probes)
     live = torch.nonzero(~K.is_empty(keys) & (slots != cap)).squeeze(1)
     dest = slots[live]
+    for name, store in (("values", state.values), ("freqs", state.freqs),
+                        ("versions", state.versions),
+                        ("create_steps", state.create_steps)):
+        store[dest] = torch.as_tensor(arrays[name]).to(dev,
+                                                       store.dtype)[live]
+    return state._replace(index=index), dest, live
 
-    def put(store: torch.Tensor, name: str) -> None:
-        rows = torch.as_tensor(arrays[name]).to(dev, store.dtype)
-        store[dest] = rows[live]
 
-    put(state.values, "values")
-    put(state.freqs, "freqs")
-    put(state.versions, "versions")
-    put(state.create_steps, "create_steps")
-    return state._replace(index=index)
+def _scatter_table(state: ev.EVState, config: EmbeddingVariableConfig,
+                   arrays: Dict[str, Any]) -> ev.EVState:
+    """Insert the saved rows ``arrays`` (keys, values, freqs, versions,
+    create_steps) into ``state``: the serving restore. Shared by a fresh
+    restore and by the replay of incremental saves: a key already present
+    is overwritten."""
+    return _insert_rows(state, config, arrays)[0]
+
+
+def _scatter_train_table(state: ev.EVState, slot_state,
+                         config: EmbeddingVariableConfig,
+                         arrays: Dict[str, Any]):
+    """:func:`_scatter_table` plus the optimizer state: ``slot__`` rows at
+    the same slots, ``scalar__`` leaves replaced, and the CBF sketch when
+    its shape matches the table's (a sketch of another shard count cannot
+    be re-routed). Returns ``(state, slot_state)``."""
+    state, dest, live = _insert_rows(state, config, arrays)
+
+    def leaf_from(path, leaf):
+        name = F.slot_leaf_name(path)
+        rk, sk = f"slot__{name}", f"scalar__{name}"
+        if rk in arrays:
+            rows = torch.as_tensor(arrays[rk]).to(leaf.device, leaf.dtype)
+            leaf[dest] = rows[live]
+        elif sk in arrays:
+            return torch.as_tensor(arrays[sk]).to(leaf.device, leaf.dtype)
+        return leaf
+    slot_state = map_leaves(leaf_from, slot_state)
+    cbf = arrays.get("cbf")
+    if state.cbf is not None and cbf is not None and \
+            tuple(cbf.shape) == tuple(state.cbf.shape):
+        state.cbf.copy_(torch.as_tensor(cbf).to(state.cbf))
+    return state, slot_state
 
 
 def last_wins_sel(keys: np.ndarray) -> np.ndarray:
@@ -184,6 +281,30 @@ def _without_keys(part, keys):
             for k, v in part.items()}
 
 
+def _restore_ev_table(trainer, name: str, template, parts):
+    """The generic EV restore of one device-index table: grow the
+    collection to the capacity the saved rows need (load 0.6), then scatter
+    the base and each incremental, oldest first, into a fresh table and
+    optimizer state on the template's device."""
+    coll = trainer.collections[name]
+    n_max = sum(p["keys"].shape[0] for p in parts if "keys" in p)
+    cap = needed_capacity(n_max + 8, coll.config.capacity)
+    if cap != coll.config.capacity:
+        coll.config = dataclasses.replace(coll.config, capacity=cap)
+        trainer.rejit()
+    opt = trainer.sparse_optimizers[name]
+    st = ev.create(coll.config, template.ev.values.device)
+    slot = opt.init(st.values)
+    for p in parts:
+        if "keys" not in p:
+            continue
+        cbf = _cbf_for_shard(p, 0, 1)
+        if cbf is not None:
+            p = dict(p, cbf=cbf)
+        st, slot = _scatter_train_table(st, slot, coll.config, p)
+    return template._replace(ev=st, slot=slot)
+
+
 class CheckpointManager:
     """Full + incremental checkpointing for a :class:`~deeprec_tpu_torch.
     train.trainer.Trainer`: full saves every ``full_secs`` and incremental
@@ -231,12 +352,8 @@ class CheckpointManager:
         gs = int(state.step)
         tables = {}
         for name, coll in trainer.collections.items():
-            hook = getattr(coll, "ckpt_arrays", None)
-            if hook is None:
-                raise NotImplementedError(
-                    f"collection {name!r} has no checkpoint hooks (only the "
-                    "host-index table trains in the port)")
-            tables[name] = hook(state.tables[name], 1, since, evict, gs)
+            tables[name] = coll.ckpt_arrays(state.tables[name], 1, since,
+                                            evict, gs)
         # a tier's rows are training state too: a restart must not lose them
         export_tiers = getattr(trainer, "export_tiers", None)
         if export_tiers is not None:
@@ -318,16 +435,16 @@ class CheckpointManager:
         tables = {}
         tiers = getattr(trainer, "tiers", {})
         for name, coll in trainer.collections.items():
-            hook = getattr(coll, "ckpt_restore", None)
-            if hook is None:
-                raise NotImplementedError(
-                    f"collection {name!r} has no checkpoint hooks")
             parts = [F.read_table(m["path"], name) for m in saves]
             imports = []
             if name in tiers:
                 imports, won = _tier_imports(coll, saves, name, parts)
                 parts = [_without_keys(p, won) for p in parts]
-            tables[name] = hook(trainer, state.tables[name], parts, 1)
+            tables[name] = coll.ckpt_restore(trainer, state.tables[name],
+                                             parts, 1)
+            if tables[name] is None:
+                tables[name] = _restore_ev_table(trainer, name,
+                                                 state.tables[name], parts)
             for keys, rows in imports:  # oldest first: the newest row wins
                 trainer.import_tier(name, keys, rows)
 

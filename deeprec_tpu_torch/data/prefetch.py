@@ -9,6 +9,9 @@ and the consumer. The JAX package's default ``device_put`` stage is
 ``jax.device_put``; here it is the identity: the host-index training loop
 copies its batches on ``train.pipeline.HostStepPipeline``'s side stream
 after the step-order resolve, as the JAX CLI passes an identity there too.
+The device-index loop and the ``Estimator`` pass a stage that copies the
+prepared (page-locked) tensors to the card with ``non_blocking=True``
+(``train.pipeline.to_device``).
 The worker loop, the turnstile, the consumer and ``close`` are the JAX
 package's code (``tests/test_torch_imports.py`` holds them to it).
 """

@@ -1,13 +1,22 @@
 """Feature columns and the coalesced embedding collection.
 
 Port of ``deeprec_tpu/feature_column.py``: the column dataclasses,
-``pack_dense``/``normalize_dense``, and of :class:`EmbeddingCollection` the
-serving half (``pack_ids_np``, ``readonly_rows``, ``embeddings_readonly``,
-``embeddings_from_rows``, ``sequence_embeddings_from_rows``) and the
-trainer hooks (``gather_unique``, ``rows_for_training``, ``embeddings``,
-``sequence_embeddings``, ``apply_gradients``, ``init_slot``).
-The device-index ``lookup_or_create`` is not ported: the trainable table
-is ``host_index.HostIndexEmbeddingCollection``.
+``pack_dense``/``normalize_dense``, and :class:`EmbeddingCollection`, the
+device-index table: its state (``init``), the packing of raw batches
+(``pack_ids_np``, ``pack_ids``, ``transform_raw_keys``, and
+``_flatten_ids`` for a raw dict on the device), ``lookup_or_create``
+(column-parallel dedup ``unique_cols`` exactly where the JAX package
+takes it: a ``[W, B]`` block of width-1 columns with distinct salt
+groups; the flat ``unique`` otherwise), the trainer hooks
+(``gather_unique``, ``rows_for_training``, ``embeddings``,
+``sequence_embeddings``, ``apply_gradients``, ``init_slot``), the serving
+half (``readonly_rows``, ``embeddings_readonly``,
+``embeddings_from_rows``, ``sequence_embeddings_from_rows``), the fence
+hooks (``load_factor``, ``needs_growth``, ``grow_state``, ``index_view``)
+and the checkpoint hooks (``ckpt_arrays`` through
+``checkpoint.saver.table_snapshot_host``; ``ckpt_restore`` returns None,
+which hands the restore to the saver's generic EV flow). The ``sharded_*``
+hooks belong to the multi-device engines (ROADMAP A8).
 
 Layout: a collection packs its columns' ids into one feature-major
 ``[total_width, B]`` int64 block, each column's ids salted with its column
@@ -39,7 +48,7 @@ import torch
 from .config import EmbeddingVariableConfig, Initializer
 from .ops.fused_lookup import pooled_lookup
 from .ops.gather import gather_rows
-from .ops.unique import unique
+from .ops.unique import unique, unique_cols
 from .sparse import embedding_var as ev
 from .sparse import hashtable as ht
 from .sparse import keys as K
@@ -115,8 +124,17 @@ class EmbeddingCollection:
         for c in self.columns:
             g = c.categorical.shared_embedding or c.categorical.name
             self._salts.append(groups.setdefault(g, len(groups)))
+        # column-parallel dedup needs every key confined to one row of the
+        # [W, B] layout: width-1 columns with pairwise-distinct salt groups
+        self._column_dedup_ok = (
+            all(w == 1 for w in self._widths)
+            and len(set(self._salts)) == len(self._salts))
         self._pool_groups = self._group_columns(False)
         self._seq_groups = self._group_columns(True)
+
+    # -- state ---------------------------------------------------------
+    def init(self, device="cuda") -> ev.EVState:
+        return ev.create(self.config, device)
 
     def _group_columns(self, sequence: bool) -> List[tuple]:
         """``(first row, width, combiner, [column names])`` per K2 launch.
@@ -139,35 +157,86 @@ class EmbeddingCollection:
                             else col.combiner, [col.name]))
         return out
 
+    def transform_raw_keys(self, column_name: str,
+                           raw: np.ndarray) -> np.ndarray:
+        """One column's raw ids in this table's key space (hash-bucket mod
+        and the column group's salt), as :meth:`pack_ids_np` maps a batch.
+        Checkpoint migration keys a per-column reference table this way."""
+        for ci, col in enumerate(self.columns):
+            if col.categorical.name == column_name:
+                return self._keys_np(ci, np.asarray(raw, np.int64))
+        raise KeyError(f"no column {column_name!r} in collection "
+                       f"{self.config.name!r}")
+
+    def _keys_np(self, ci: int, ids: np.ndarray) -> np.ndarray:
+        cc = self.columns[ci].categorical
+        empty = ids == -1
+        if cc.hash_bucket_size:
+            ids = np.where(empty, ids, ids % cc.hash_bucket_size)
+        si = self._salts[ci]
+        if si:
+            ids = np.where(empty, ids, ids ^ _salt_mask(si))
+        return ids
+
     def pack_ids_np(self, batch: Dict[str, np.ndarray]) -> np.ndarray:
         """int64 ``[total_width, B]`` with hash-bucket mod and salting
         applied, column by column (``deeprec_tpu`` ``pack_ids_np``)."""
         blocks = []
         for ci, col in enumerate(self.columns):
-            cc = col.categorical
-            raw = np.asarray(batch[cc.name], dtype=np.int64)
+            raw = np.asarray(batch[col.categorical.name], dtype=np.int64)
             if raw.ndim == 1:
                 raw = raw[:, None]
-            empty = raw == -1
-            ids = raw
-            if cc.hash_bucket_size:
-                ids = np.where(empty, ids, ids % cc.hash_bucket_size)
-            si = self._salts[ci]
-            if si:
-                c1 = np.int64((si * 0x9E3779B1) & 0x7FFFFFFF) << 32
-                c2 = np.int64((si * 0x85EBCA77) & 0x7FFFFFFF)
-                ids = np.where(empty, ids, ids ^ c1 ^ c2)
-            blocks.append(ids.T)  # [w, B]
+            blocks.append(self._keys_np(ci, raw).T)  # [w, B]
         return np.concatenate(blocks, axis=0)
+
+    def _flatten_ids(self, batch, device) -> torch.Tensor:
+        """The flat feature-major int64 keys of ``batch`` on ``device``: a
+        packed tensor flattened, or a raw per-column dict (numpy arrays or
+        tensors) mapped as :meth:`pack_ids_np` maps it, in torch."""
+        if isinstance(batch, torch.Tensor):
+            return batch.to(device).reshape(-1)
+        parts = []
+        for ci, col in enumerate(self.columns):
+            cc = col.categorical
+            ids = torch.as_tensor(batch[cc.name]).to(device, torch.int64)
+            if ids.dim() == 1:
+                ids = ids[:, None]
+            empty = K.is_empty(ids)
+            if cc.hash_bucket_size:
+                ids = torch.where(empty, ids,
+                                  torch.remainder(ids, cc.hash_bucket_size))
+            ids = _salt(ids, self._salts[ci])
+            parts.append(ids.T.reshape(-1))  # [w, B], feature-major
+        return torch.cat(parts)
+
+    def lookup_or_create(self, state: ev.EVState, batch, step: int):
+        """Find or create the batch's keys. ``batch``: a packed ``[W, B]``
+        tensor (:meth:`pack_ids`), a flat one, or a raw per-column dict.
+        A ``[W, B]`` block of width-1 columns with distinct salt groups
+        dedups column by column (``unique_cols``), anything else through
+        the flat ``unique``; both give the JAX package's order. Returns
+        ``(state, aux)``, the stores updated in place."""
+        dev = state.values.device
+        if isinstance(batch, torch.Tensor) and batch.dim() == 2 \
+                and self._column_dedup_ok:
+            uniq = unique_cols(batch.to(dev), self.config.max_unique)
+            state, aux = ev.lookup_or_create_unique(state, self.config,
+                                                    uniq, step)
+        else:
+            state, aux = ev.lookup_or_create(
+                state, self.config, self._flatten_ids(batch, dev), step)
+        return state, CollectionAux(ev_aux=aux)
 
     def pack_ids(self, batch: Dict[str, np.ndarray],
                  device="cuda") -> torch.Tensor:
         return torch.from_numpy(self.pack_ids_np(batch)).to(device)
 
-    def readonly_rows(self, state: ev.EVState, cats: torch.Tensor):
-        """``(aux, unique rows [U, dim])`` without mutation: the serving
-        path. Unknown keys read their deterministic init row."""
-        uniq = unique(cats.reshape(-1), self.config.max_unique)
+    def readonly_rows(self, state: ev.EVState, cats):
+        """``(aux, unique rows [U, dim])`` without mutation: the eval and
+        serving path (``cats``: packed ids or a raw per-column dict).
+        Unknown keys read their deterministic init row."""
+        uniq = unique(self._flatten_ids(cats, state.values.device),
+                      self.config.max_unique)
         slots, found = ht.lookup(state.index, uniq.ukeys,
                                  self.config.max_probes)
         aux = CollectionAux(ev_aux=ev.LookupAux(
@@ -229,6 +298,48 @@ class EmbeddingCollection:
     def init_slot(self, opt, state):
         return opt.init(state.values)
 
+    # -- fence hooks (growth, health) ----------------------------------
+    def load_factor(self, state) -> float:
+        return float(ev.load_factor(state)) if hasattr(state, "index") \
+            else 0.0
+
+    def needs_growth(self, state) -> bool:
+        """At 0.7 load, or once an insert has failed (index overflow)."""
+        return (self.load_factor(state) >= 0.7
+                or int(state.index.overflow.sum()) > 0)
+
+    def grow_state(self, state, slot_state, opt=None):
+        """Double the capacity: every live key is rebuilt into the new
+        index and the stores and optimizer slot rows follow it (vacated
+        slot rows take the optimizer's ``fills``). Returns ``(state,
+        slot_state)`` and moves ``self.config`` to the new capacity."""
+        from .optim.sparse import permute_slot_state
+        new_cap = self.config.capacity * 2
+        new_state, perm = ev.grow(state, self.config, new_cap)
+        slot_state = permute_slot_state(slot_state, perm, new_cap,
+                                        fills=opt.fills if opt else None)
+        self.config = dataclasses.replace(self.config, capacity=new_cap)
+        return new_state, slot_state
+
+    def index_view(self, state):
+        """The EVState that growth and health watch, or None for a table
+        without a device index."""
+        return state if isinstance(state, ev.EVState) else None
+
+    # -- checkpoint hooks (checkpoint.saver.CheckpointManager) -----------
+    def ckpt_arrays(self, bundle, num_shards: int, since: Optional[int],
+                    evict: bool, global_step: Optional[int]):
+        """The 4-array compacted format and the slot rows
+        (``checkpoint.saver.table_snapshot_host``)."""
+        from .checkpoint.saver import table_snapshot_host
+        return table_snapshot_host(self.config, bundle.ev, bundle.slot,
+                                   num_shards=num_shards, since_step=since,
+                                   evict=evict, global_step=global_step)
+
+    def ckpt_restore(self, trainer, template, parts, num_shards: int):
+        """None: the saver's generic EV flow restores this table."""
+        return None
+
     def embeddings_readonly(self, urows: torch.Tensor, aux: CollectionAux):
         """(pooled dict, sequence dict) for serving: every non-padding key
         counts, unknown ones with the default row ``readonly_rows`` gave
@@ -287,6 +398,22 @@ class EmbeddingCollection:
                                  mask.view(-1, 1), "sum")
             out.update(zip(names, zip(rows.view(n, B, w, -1), mask)))
         return out
+
+
+def _salt_mask(column_group: int) -> int:
+    """The XOR mask of a salt group: ``c1`` on the high word, ``c2`` on
+    the low (the JAX package's ``_salt`` on its two planes)."""
+    c1 = (column_group * 0x9E3779B1) & 0x7FFFFFFF
+    c2 = (column_group * 0x85EBCA77) & 0x7FFFFFFF
+    return (c1 << 32) | c2
+
+
+def _salt(ids: torch.Tensor, column_group: int) -> torch.Tensor:
+    """Mix the column group into the keys so coalesced columns never
+    share rows; EMPTY stays EMPTY."""
+    if column_group == 0:
+        return ids
+    return torch.where(K.is_empty(ids), ids, ids ^ _salt_mask(column_group))
 
 
 def pack_dense(columns: Sequence[NumericColumn],

@@ -66,7 +66,8 @@ import numpy as np
 import torch
 
 from .checkpoint import format as F
-from .checkpoint.saver import _cbf_for_shard, last_wins_sel, needed_capacity
+from .checkpoint.saver import (_cbf_for_shard, _rows, last_wins_sel,
+                               needed_capacity)
 from .config import L2WeightEvict, StorageType
 from .feature_column import CollectionAux, EmbeddingCollection
 from .ops.gather import gather_rows
@@ -434,14 +435,17 @@ class HostIndexEmbeddingCollection(EmbeddingCollection):
         return aux, rows
 
     # -- growth and health (fence work) -----------------------------------
-    def load_factor(self) -> float:
+    def load_factor(self, state) -> float:
+        """The resolver's load (``state``, the row stores, for the JAX
+        package's signature)."""
         return self._resolver.size / self.config.capacity
 
-    def needs_growth(self) -> bool:
+    def needs_growth(self, state) -> bool:
         """At 0.9 load, or when keys overflowed the row capacity since the
         last growth (they wait, pending, for a row)."""
         _, cap_ovf, _ = self._resolver.stats()
-        return self.load_factor() >= 0.9 or cap_ovf > self._last_cap_ovf
+        return self.load_factor(state) >= 0.9 or \
+            cap_ovf > self._last_cap_ovf
 
     def grow_state(self, state: HostEVState, slot_state, opt=None):
         """Double the rows. Slots never move, so no index rebuild: the
@@ -463,6 +467,10 @@ class HostIndexEmbeddingCollection(EmbeddingCollection):
         self.config = dataclasses.replace(self.config, capacity=new_cap)
         self._last_cap_ovf = self._resolver.stats()[1]
         return new_state, slot_state
+
+    def index_view(self, state):
+        """None: no device index; health comes from :meth:`host_health`."""
+        return None
 
     # -- tiered storage (fence work, except promotion) ----------------------
     def _make_tier(self, width: int):
@@ -507,28 +515,10 @@ class HostIndexEmbeddingCollection(EmbeddingCollection):
         idx = np.nonzero(cold)[0]
         keys_cold = self._resolver.export_keys()[idx]
 
-        # the cold rows' values, create steps and slot rows, gathered on
-        # the device into one f32 block (integers bit-cast): one copy back
         cap = cfg.capacity
         spec = TP.spec(state.values.shape[1], slot_state, cap + 1)
-        didx = torch.from_numpy(idx).to(state.values.device)
-        leaves = [leaf for _, leaf in leaves_with_paths(slot_state)]
-        block = torch.cat(
-            [gather_rows(state.values, didx).float(),
-             TP.to_f32_bits(state.create_steps[didx])[:, None]]
-            + [TP.to_f32_bits(leaves[s.index][didx].reshape(idx.shape[0], -1))
-               for s in spec.slot_rows], 1).cpu().numpy()
-        m, o = idx.shape[0], spec.dim + 1
-        leaves_cold = list(leaves)
-        for s in spec.slot_rows:
-            part = block[:, o:o + s.width]
-            if not s.dtype.is_floating_point:
-                part = part.view(np.int32)
-            leaves_cold[s.index] = part
-            o += s.width
-        payload = TP.pack_np(spec, np.arange(m), block[:, :spec.dim],
-                             freqs[idx], versions[idx],
-                             block[:, spec.dim].view(np.int32), leaves_cold)
+        payload = TP.gather_np(spec, state, slot_state, idx, freqs, versions)
+        m = idx.shape[0]
         with self._tier_lock:
             if self.tier_store is None:
                 self.tier_store = self._make_tier(spec.width)
@@ -731,10 +721,3 @@ class HostIndexEmbeddingCollection(EmbeddingCollection):
         slot = map_leaves(leaf_from_parts, opt.init(st.values))
         return template._replace(ev=st, slot=slot)
 
-
-def _rows(t: torch.Tensor, idx: np.ndarray):
-    """Rows ``idx`` of a host tensor as a save stores them: numpy, except
-    bfloat16, which ``checkpoint.format`` writes from the tensor."""
-    if t.dtype == torch.bfloat16:
-        return t[torch.from_numpy(idx)]
-    return t.numpy()[idx]

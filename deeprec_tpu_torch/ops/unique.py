@@ -1,7 +1,9 @@
 """Deduplication of 64-bit key batches.
 
-Port of ``deeprec_tpu/ops/unique.py`` ``unique``: a stable sort with the
-original positions as payload, then adjacent-difference segmentation.
+Port of ``deeprec_tpu/ops/unique.py`` ``unique`` and ``unique_cols``: a
+stable sort with the original positions as payload, then
+adjacent-difference segmentation (``unique_cols``: one batched sort of the
+rows of a feature-major ``[W, B]`` block).
 
 The sort key is ``ids ^ 0x80000000``: flipping bit 31 makes int64 order
 equal to the JAX package's lexicographic order over the signed int32
@@ -23,6 +25,14 @@ class UniqueResult(NamedTuple):
     counts: torch.Tensor    # [U] int64 multiplicity (0 for EMPTY groups)
     n_unique: torch.Tensor  # scalar: valid unique keys kept
     n_overflow: torch.Tensor  # scalar: distinct valid keys beyond the cap
+
+
+def _group_sizes(inverse: torch.Tensor, u_out: int) -> torch.Tensor:
+    """Members of each of the ``u_out`` groups: a scatter-add, which, unlike
+    ``torch.bincount`` on the card, needs no host sync."""
+    return torch.zeros((u_out,), dtype=torch.int64,
+                       device=inverse.device).index_add_(
+        0, inverse, torch.ones_like(inverse))
 
 
 def unique(ids: torch.Tensor, max_unique: Optional[int] = None
@@ -62,7 +72,54 @@ def unique(ids: torch.Tensor, max_unique: Optional[int] = None
     ukeys[dest] = skeys
     ukeys = ukeys[:u_out]
     valid_group = ~K.is_empty(ukeys)
-    counts = torch.bincount(inverse, minlength=u_out) * valid_group
+    counts = _group_sizes(inverse, u_out) * valid_group
+    n_unique = valid_group.sum()
+    n_overflow = (first & over & ~K.is_empty(skeys)).sum()
+    return UniqueResult(ukeys, inverse, counts, n_unique, n_overflow)
+
+
+def unique_cols(ids: torch.Tensor, max_unique: Optional[int] = None
+                ) -> UniqueResult:
+    """Column-parallel dedup of a feature-major ``[W, B]`` key batch:
+    ``W`` row sorts of width ``B`` (one batched ``torch.sort``) instead of
+    one sort of ``W*B``.
+
+    The unique keys come row-major, as in the JAX package: row 0's groups
+    in sort order, then row 1's, and so on; ``max_unique`` cuts that
+    concatenated order (not a global sort), and the groups past it collapse
+    into the EMPTY overflow group at index ``max_unique``. ``inverse``
+    indexes the flat feature-major layout (``w*B + b``). Valid only when
+    every key can appear in one row alone: width-1 columns with distinct
+    salt groups (``EmbeddingCollection`` checks, and uses :func:`unique`
+    otherwise)."""
+    W, B = ids.shape
+    n = W * B
+    dev = ids.device
+    cap = n if max_unique is None or max_unique >= n else max_unique
+    u_out = cap + 1 if cap < n else n
+
+    skeys, spos = torch.sort(ids ^ 0x80000000, dim=1, stable=True)
+    skeys = skeys ^ 0x80000000
+    first = torch.ones((W, B), dtype=torch.bool, device=dev)
+    first[:, 1:] = skeys[:, 1:] != skeys[:, :-1]
+    uid_row = torch.cumsum(first, 1) - 1
+    offsets = torch.cumsum(uid_row[:, -1] + 1, 0) - (uid_row[:, -1] + 1)
+    guid = offsets[:, None] + uid_row
+    over = guid >= cap
+
+    # inverse in the flat feature-major layout: one collision-free scatter
+    row_base = torch.arange(W, device=dev)[:, None] * B
+    inverse = torch.empty((n,), dtype=torch.int64, device=dev)
+    inverse[(row_base + spos).reshape(-1)] = \
+        torch.where(over, cap, guid).reshape(-1)
+    # group starts scatter the keys; the rest go to a trash slot
+    dest = torch.where(first & ~over, guid, u_out).reshape(-1)
+    ukeys = torch.full((u_out + 1,), K.EMPTY, dtype=torch.int64, device=dev)
+    ukeys[dest] = skeys.reshape(-1)
+    ukeys = ukeys[:u_out]
+    valid_group = ~K.is_empty(ukeys)
+    # the overflow group's count is masked out with its EMPTY key
+    counts = _group_sizes(inverse, u_out) * valid_group
     n_unique = valid_group.sum()
     n_overflow = (first & over & ~K.is_empty(skeys)).sum()
     return UniqueResult(ukeys, inverse, counts, n_unique, n_overflow)

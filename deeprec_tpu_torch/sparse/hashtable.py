@@ -145,6 +145,11 @@ def lookup_or_insert(table: HashTable, ukeys: torch.Tensor,
                      overflow=table.overflow + n_failed), slots, created
 
 
+def occupied_mask(table: HashTable) -> torch.Tensor:
+    """``[capacity]`` bool: the slots holding a key."""
+    return ~K.is_empty(table.keys)
+
+
 def rebuild(table: HashTable, keep: torch.Tensor,
             new_capacity: Optional[int] = None, max_probes: int = 32
             ) -> Tuple[HashTable, torch.Tensor]:
@@ -153,7 +158,7 @@ def rebuild(table: HashTable, keep: torch.Tensor,
     ``new_capacity + 1``, out of bounds even of the ``[new_cap+1]`` row
     stores."""
     new_cap = new_capacity or table.capacity
-    live = ~K.is_empty(table.keys) & keep
+    live = occupied_mask(table) & keep
     kkeys = torch.where(live, table.keys, K.EMPTY)
     fresh, new_slots, _ = lookup_or_insert(
         create(new_cap, table.keys.device), kkeys, max_probes)

@@ -14,9 +14,11 @@ must survive runs past 2^24 exactly.
 and :func:`pack_np` are verbatim copies (``tests/test_torch_tier_store.py``
 holds them to their source). :func:`slot_row_leaves` walks the port's slot
 trees through ``utils/tree.py`` in ``jax.tree_util``'s leaf order, and
-:func:`_from_f32_bits` is the torch inverse of :func:`_to_f32_bits`. The
-JAX module's ``scatter`` belongs to the device-index engine and is not
-ported.
+:func:`_from_f32_bits` is the torch inverse of :func:`_to_f32_bits`.
+:func:`gather_np` packs a table's rows on the device for demotion (both
+engines). :func:`scatter` is the device-index promotion (a tiered
+host-index table promotes through its resolve wire instead,
+``host_index.apply_promo``).
 """
 from __future__ import annotations
 
@@ -25,7 +27,10 @@ from typing import Any, List, NamedTuple, Tuple
 import numpy as np
 import torch
 
+from ..ops.gather import gather_rows
 from ..utils.tree import leaves_with_paths
+from . import hashtable as ht
+from . import keys as K
 
 
 class SlotLeaf(NamedTuple):
@@ -104,3 +109,57 @@ def to_f32_bits(t: torch.Tensor) -> torch.Tensor:
     if not t.dtype.is_floating_point:
         return t.to(torch.int32).contiguous().view(torch.float32)
     return t.float()
+
+
+def gather_np(spec_: PayloadSpec, state, slot_state, idx: np.ndarray,
+              freqs_np: np.ndarray, versions_np: np.ndarray) -> np.ndarray:
+    """The payload rows of slots ``idx`` of a table's stores (``state``:
+    values and create steps) and optimizer state, ``[len(idx), width]``:
+    the values (kernel K1 at the full row width), create steps and slot
+    rows gathered on the device into one float32 block (integers bit-cast)
+    and copied to the host once; ``freqs_np`` and ``versions_np`` are the
+    host copies of those planes, indexed by slot."""
+    didx = torch.from_numpy(idx).to(state.values.device)
+    leaves = [leaf for _, leaf in leaves_with_paths(slot_state)]
+    block = torch.cat(
+        [gather_rows(state.values, didx).float(),
+         to_f32_bits(state.create_steps[didx])[:, None]]
+        + [to_f32_bits(leaves[s.index][didx].reshape(idx.shape[0], -1))
+           for s in spec_.slot_rows], 1).cpu().numpy()
+    rows_np, o = list(leaves), spec_.dim + 1
+    for s in spec_.slot_rows:
+        part = block[:, o:o + s.width]
+        rows_np[s.index] = (part if s.dtype.is_floating_point
+                            else part.view(np.int32))
+        o += s.width
+    return pack_np(spec_, np.arange(idx.shape[0]), block[:, :spec_.dim],
+                   freqs_np[idx], versions_np[idx],
+                   block[:, spec_.dim].view(np.int32), rows_np)
+
+
+def scatter(bundle, cfg, spec_: PayloadSpec, keys: torch.Tensor,
+            payload: torch.Tensor):
+    """Promotion into a device-index table bundle: insert ``keys`` into
+    its index and write the payload rows into the values, the metadata
+    planes and the optimizer slot rows, in place and at full fidelity.
+    Returns ``(bundle, live)``: ``live`` marks the rows the index placed
+    (a near-full table can refuse one; its host-tier row must stay)."""
+    from ..optim.sparse import _scatter_set  # it imports embedding_var
+    st = bundle.ev
+    cap = cfg.capacity
+    dim = spec_.dim
+    index, slots, _ = ht.lookup_or_insert(st.index, keys, cfg.max_probes)
+    live = ~K.is_empty(keys) & (slots != cap)
+    dest = torch.where(live, slots, cap + 1)  # cap + 1: dropped
+    _scatter_set(st.values, dest, payload[:, :dim])
+    for i, plane in enumerate((st.freqs, st.versions, st.create_steps)):
+        _scatter_set(plane, dest, _from_f32_bits(payload[:, dim + i],
+                                                 torch.int32))
+    leaves = [leaf for _, leaf in leaves_with_paths(bundle.slot)]
+    o = dim + 3
+    for sl in spec_.slot_rows:
+        part = _from_f32_bits(payload[:, o:o + sl.width], sl.dtype)
+        _scatter_set(leaves[sl.index], dest,
+                     part.reshape((keys.shape[0],) + sl.shape))
+        o += sl.width
+    return bundle._replace(ev=st._replace(index=index)), live

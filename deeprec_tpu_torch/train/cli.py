@@ -8,14 +8,29 @@ stream functions. Each ``deeprec_tpu_torch/modelzoo/<model>/train.py``
 supplies a ``ModelSpec``; ``python -m deeprec_tpu_torch.modelzoo.DLRM.train
 --host_index ...`` trains it on the card (``--device cpu``: on the CPU).
 
-:func:`run` is the JAX CLI's host-index branch on one device: the
-``max_unique_ratio`` dedup cap, the plain ``Trainer``, a
-``CheckpointManager`` (``--save_secs``/``--incr_save_secs``, the WorkQueue
-position as an aux part, a restore at start), prefetch workers that pack
-numpy, ``HostStepPipeline`` (resolve thread, then copies on a side
-stream), and at each fence metrics, saves, growth, health, periodic eval
-and, for ``hbm_dram[_ssd]`` tables, demotion; then the final save, the
-held-out eval and one JSON summary line.
+:func:`run` is the JAX CLI on one device, both engines: the
+``max_unique_ratio`` dedup cap, a ``CheckpointManager``
+(``--save_secs``/``--incr_save_secs``, the WorkQueue position as an aux
+part, a restore at start), prefetch workers that pack numpy, and at each
+fence metrics, saves, growth, health, periodic eval and, for
+``hbm_dram[_ssd]`` tables, demotion; then the final save, the held-out
+eval and one JSON summary line.
+
+* **The device-index engine** (the default; ``collection_cls`` gives the
+  ``EmbeddingCollection``): the JAX CLI's fused slot columns (a table
+  whose optimizer is ``--optimizer adagrad`` or ``adam`` keeps the
+  accumulator, or Adam's moments, in its value rows and trains with
+  ``sparse_adagrad_fused`` / ``sparse_adam_fused``), ``--micro_batch``,
+  and ``TieredTrainer`` when ``--ev_storage`` is not ``hbm``. The prefetch
+  workers pack each batch into page-locked tensors and copy them to the
+  card in the prefetcher's ``device_put`` stage, one ``non_blocking`` copy
+  per array (the ``[W, B]`` id block of each collection among them), and
+  for a tiered run compute the tier probes; the main loop promotes the
+  probed rows, runs the step, and demotes every ``--demote_steps`` at
+  fences.
+* **The host-index engine** (``--host_index``): the plain ``Trainer``
+  and ``HostStepPipeline`` (the resolve thread, then the copies on a side
+  stream); its tables tier themselves.
 
 Where it differs from the JAX CLI:
 
@@ -24,10 +39,10 @@ Where it differs from the JAX CLI:
   so fences skip (``deeprec_tpu/train/cli.py:534,550``). Here the pipeline
   is fed no further than the next multiple of ``--log_steps``, so it is
   empty there and the fence runs at exactly that step.
-* **What it refuses**, each naming the roadmap item that brings it: a run
-  without ``--host_index`` (the device-index engine, A7), ``--mesh`` (the
-  multi-device engines, A8) and ``--micro_batch > 1`` (A7; the JAX package
-  crashes there with ``--host_index``, C6). None falls back to anything.
+* **What it refuses**, each naming the roadmap item: ``--mesh`` (the
+  multi-device engines, A8) and ``--micro_batch > 1`` with
+  ``--host_index`` (the JAX package crashes there, C6). Neither falls
+  back to anything.
 * ``--device`` (default ``cuda``; the counterpart of ``JAX_PLATFORMS``)
   raises when the card is missing. ``--seed`` seeds a ``torch.Generator``
   that draws the model's initial weights (:func:`init_params`).
@@ -82,7 +97,8 @@ def base_parser(desc: str) -> argparse.ArgumentParser:
     p.add_argument("--bf16", action="store_true",
                    help="bf16 compute in the dense towers")
     p.add_argument("--micro_batch", type=int, default=1,
-                   help="AutoMicroBatch count: only 1 (ROADMAP A7)")
+                   help="AutoMicroBatch count (device-index engine only: "
+                        "with --host_index only 1, ROADMAP C6)")
     p.add_argument("--jit_cache", default="/tmp/deeprec_jit_cache",
                    help="accepted for command-line parity; unused (it "
                         "names an XLA compile cache)")
@@ -120,8 +136,7 @@ def base_parser(desc: str) -> argparse.ArgumentParser:
     p.add_argument("--host_index", action="store_true",
                    help="host-index engine: the key->slot index lives in "
                         "the C++ HostIndexResolver, pipelined with the "
-                        "device step (the only training engine of the "
-                        "port so far)")
+                        "device step (default: the device-index engine)")
     p.add_argument("--max_unique_ratio", type=float, default=0.25,
                    help="static dedup-width cap as a fraction of the flat "
                         "id width (0 = exact dedup)")
@@ -171,9 +186,7 @@ def ev_kwargs(args) -> dict:
 
 def collection_cls(args):
     """The collection class for this run: the host-index engine with
-    ``--host_index``, else the device-index ``EmbeddingCollection``, which
-    the port serves (``Predictor``) but does not train yet: :func:`run`
-    refuses it."""
+    ``--host_index``, else the device-index ``EmbeddingCollection``."""
     from ..feature_column import EmbeddingCollection
     from ..host_index import HostIndexEmbeddingCollection
     if getattr(args, "host_index", False):
@@ -182,18 +195,17 @@ def collection_cls(args):
 
 
 def check_supported(args) -> None:
-    """Refuse the flags the port does not run yet, naming the ROADMAP
-    item that brings them. (A run without --host_index is refused by
-    :func:`make_trainer`, which finds a device-index collection.)"""
+    """Refuse what the port does not run, naming the ROADMAP item."""
     if getattr(args, "mesh", 0):
         raise NotImplementedError(
             f"--mesh {args.mesh}: the multi-device engines are not ported "
             "yet (ROADMAP A8)")
-    if getattr(args, "micro_batch", 1) > 1:
+    if getattr(args, "micro_batch", 1) > 1 and \
+            getattr(args, "host_index", False):
         raise NotImplementedError(
-            f"--micro_batch {args.micro_batch}: microbatching comes with "
-            "the device-index engine (ROADMAP A7); the JAX package crashes "
-            "on it with --host_index (ROADMAP C6)")
+            f"--micro_batch {args.micro_batch} with --host_index: a "
+            "resolved wire cannot be split into microbatches (the JAX "
+            "package crashes here, ROADMAP C6); drop --host_index")
 
 
 def make_sparse_opt(args):
@@ -265,17 +277,43 @@ def _check_health(tr, state, writer, last: dict) -> dict:
     return health
 
 
+def _fuse_slot_columns(spec: ModelSpec, args) -> None:
+    """The JAX CLI's fused slot storage: a device-index table trained by
+    the plain ``--optimizer adagrad`` (or ``adam``) keeps the accumulator
+    (Adam's m and v) in trailing columns of its value rows and trains with
+    ``sparse_adagrad_fused`` (``sparse_adam_fused``): one row write per
+    update. Host-index tables keep their slot leaves."""
+    from ..feature_column import EmbeddingCollection
+    from ..optim.sparse import sparse_adagrad_fused, sparse_adam_fused
+    if args.optimizer not in ("adagrad", "adam"):
+        return
+    for name, coll in spec.collections.items():
+        if (type(coll) is EmbeddingCollection
+                and coll.config.fused_slot_columns == 0
+                and spec.sparse_optimizers[name].name == args.optimizer):
+            dim = coll.config.embedding_dim
+            if args.optimizer == "adagrad":
+                coll.config = dataclasses.replace(
+                    coll.config, fused_slot_columns=dim, fused_slot_init=0.1)
+                spec.sparse_optimizers[name] = sparse_adagrad_fused(
+                    args.learning_rate, initial_accumulator_value=0.1)
+            else:  # adam: m and v ride in the value rows
+                coll.config = dataclasses.replace(
+                    coll.config, fused_slot_columns=2 * dim,
+                    fused_slot_init=0.0)
+                spec.sparse_optimizers[name] = sparse_adam_fused(
+                    args.learning_rate)
+
+
 def make_trainer(spec: ModelSpec, args):
-    """The run's ``Trainer`` on ``--device``: the dedup-width cap applied
-    to the collections, the model's weights drawn from ``--seed``."""
+    """The run's trainer on ``--device``: the dedup-width cap and the
+    fused slot columns applied to the collections, a ``TieredTrainer`` for
+    tiered device-index tables, ``--micro_batch`` microbatches, the
+    model's weights drawn from ``--seed``."""
+    from ..config import StorageType
+    from .tiered_trainer import TieredTrainer
     from .trainer import Trainer
     check_supported(args)
-    for name, coll in spec.collections.items():
-        if not hasattr(coll, "pack_ids_host"):
-            raise NotImplementedError(
-                f"collection {name!r} is not a host-index collection: "
-                "training without --host_index needs the device-index "
-                "engine, which is not ported yet (ROADMAP A7)")
     # static dedup-width cap: the sparse path runs at unique width
     if args.max_unique_ratio > 0:
         for coll in spec.collections.values():
@@ -283,13 +321,18 @@ def make_trainer(spec: ModelSpec, args):
                 flat = coll.total_width * args.batch_size
                 mu = max(256, int(flat * args.max_unique_ratio))
                 coll.config = dataclasses.replace(coll.config, max_unique=mu)
-    # (the JAX CLI's fused adagrad/adam slot columns apply to its device
-    # engine only; host-index tables keep their slot leaves)
+    _fuse_slot_columns(spec, args)
     init_params(spec.model, args.seed)
-    return Trainer(spec.model, spec.numeric_columns, spec.collections,
-                   spec.sparse_optimizers, make_dense_opt(args),
-                   forward=spec.forward,
-                   aux_loss_weight=spec.aux_loss_weight, device=args.device)
+    # a tiered device-index table needs the TieredTrainer; host-index
+    # tables tier themselves
+    device_tiered = any(c.config.storage.storage_type is not StorageType.HBM
+                        and not hasattr(c, "demote_cold")
+                        for c in spec.collections.values())
+    cls = TieredTrainer if device_tiered else Trainer
+    return cls(spec.model, spec.numeric_columns, spec.collections,
+               spec.sparse_optimizers, make_dense_opt(args),
+               forward=spec.forward, aux_loss_weight=spec.aux_loss_weight,
+               microbatches=args.micro_batch, device=args.device)
 
 
 def run(spec: ModelSpec, args) -> dict:
@@ -297,12 +340,12 @@ def run(spec: ModelSpec, args) -> dict:
     prints, as the reference trainers do) the summary metrics."""
     from ..checkpoint.saver import CheckpointManager
     from ..config import StorageType
-    from ..data.prefetch import staged
     from . import metrics as M
-    from .pipeline import HostStepPipeline
 
     tr = make_trainer(spec, args)  # raises for what is not ported
     device = tr.device
+    host_index = any(hasattr(c, "pack_ids_host")
+                     for c in tr.collections.values())
 
     train_it = spec.train_data(args)
     first = next(iter(train_it))
@@ -340,12 +383,6 @@ def run(spec: ModelSpec, args) -> dict:
         demote_steps = args.demote_steps or (
             args.ev_evict_steps // 2 if args.ev_evict_steps
             else 10 * args.log_steps)
-    pin = device.type == "cuda"
-
-    def finish(packed):
-        """The pipeline's resolve stage: step-order index mutation into
-        (pinned) host tensors; the transfer stage copies them."""
-        return tr.resolve_packed(packed, train=True, pin=pin)
 
     def run_eval(st):
         mstate = M.create(device=device)
@@ -354,13 +391,13 @@ def run(spec: ModelSpec, args) -> dict:
         return M.summarize(mstate)
 
     t0 = time.perf_counter()
-    done = 0
     eval_secs = 0.0
     last_health = {}
 
     def fence_work(state, done):
-        """Everything that happens at a fence, on an empty pipeline
-        (resolver == device state): the metrics read (a device sync),
+        """Everything that happens at a fence (the host-index loop's on an
+        empty pipeline: resolver == device state), after ``done`` steps of
+        this run: the metrics read (a device sync),
         checkpoint timers, growth, the health watchdog, periodic eval,
         demotion."""
         nonlocal last_health, eval_secs
@@ -401,33 +438,15 @@ def run(spec: ModelSpec, args) -> dict:
                     writer.write(step, rows, phase="tier")
         return state
 
-    stream = itertools.chain([first], train_it)
+    stream = itertools.islice(itertools.chain([first], train_it),
+                              args.steps)
     log_steps = max(1, args.log_steps)
-    with staged(itertools.islice(stream, args.steps), prepare=tr.pack_np,
-                depth=args.prefetch_depth,
-                workers=args.prefetch_workers) as pf, \
-            HostStepPipeline(finish, depth=max(2, args.prefetch_depth),
-                             device=device) as pipe:
-        pf_it = iter(pf)
-        fed = state.step          # the step the last fed batch will reach
-        fence = (fed // log_steps + 1) * log_steps
-        exhausted = False
-        while True:
-            # feed no further than the next fence, so the pipeline is
-            # empty when the step counter reaches it
-            while not exhausted and len(pipe) < pipe.depth and fed < fence:
-                try:
-                    pipe.feed(next(pf_it))
-                    fed += 1
-                except StopIteration:
-                    exhausted = True
-            if not len(pipe):
-                break
-            state = tr._train_step(state, *pipe.take())
-            done += 1
-            if state.step == fence:
-                state = fence_work(state, done)
-                fence += log_steps
+    if host_index:
+        state, done = _host_index_loop(tr, state, stream, args, log_steps,
+                                       fence_work)
+    else:
+        state, done = _device_index_loop(tr, state, stream, args, log_steps,
+                                         fence_work)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     train_secs = time.perf_counter() - t0 - eval_secs
@@ -459,6 +478,84 @@ def run(spec: ModelSpec, args) -> dict:
         writer.close()
     print(json.dumps(out))
     return out
+
+
+def _host_index_loop(tr, state, stream, args, log_steps, fence_work):
+    """The host-index loop: prefetch workers pack numpy, a
+    ``HostStepPipeline`` resolves in step order and copies on a side
+    stream, the main thread launches steps. The pipeline is fed no further
+    than the next multiple of ``log_steps``, so it is empty when the step
+    counter reaches a fence. Returns the state and the steps run."""
+    from ..data.prefetch import staged
+    from .pipeline import HostStepPipeline
+    pin = tr.device.type == "cuda"
+
+    def finish(packed):
+        """The pipeline's resolve stage: step-order index mutation into
+        (pinned) host tensors; the transfer stage copies them."""
+        return tr.resolve_packed(packed, train=True, pin=pin)
+    done = 0
+    with staged(stream, prepare=tr.pack_np, depth=args.prefetch_depth,
+                workers=args.prefetch_workers) as pf, \
+            HostStepPipeline(finish, depth=max(2, args.prefetch_depth),
+                             device=tr.device) as pipe:
+        pf_it = iter(pf)
+        fed = state.step          # the step the last fed batch will reach
+        fence = (fed // log_steps + 1) * log_steps
+        exhausted = False
+        while True:
+            while not exhausted and len(pipe) < pipe.depth and fed < fence:
+                try:
+                    pipe.feed(next(pf_it))
+                    fed += 1
+                except StopIteration:
+                    exhausted = True
+            if not len(pipe):
+                break
+            state = tr._train_step(state, *pipe.take())
+            done += 1
+            if state.step == fence:
+                state = fence_work(state, done)
+                fence += log_steps
+    return state, done
+
+
+def _device_index_loop(tr, state, stream, args, log_steps, fence_work):
+    """The device-index loop: prefetch workers pack each batch into
+    (page-locked, on the card) host tensors and copy them to the device
+    asynchronously, computing the tier probes of a ``TieredTrainer``
+    beside it; the main thread promotes the probed tier rows, launches the
+    step and runs the fence work at every multiple of ``log_steps``.
+    Returns the state and the steps run."""
+    from ..data.prefetch import staged
+    from .pipeline import to_device
+    pin = tr.device.type == "cuda"
+
+    def put(host):
+        return to_device(host, tr.device, non_blocking=pin)
+    tiered = hasattr(tr, "promote_packed")
+    if tiered:
+        def prepare(b):
+            return tr.prepare_host(b, pin=pin), tr.prepare_probe(b)
+
+        def device_put(item):
+            return put(item[0]), item[1]  # the probes stay on the host
+    else:
+        def prepare(b):
+            return tr.prepare_host(b, pin=pin)
+        device_put = put
+    done = 0
+    with staged(stream, prepare=prepare, depth=args.prefetch_depth,
+                workers=args.prefetch_workers, device_put=device_put) as pf:
+        for item in pf:
+            if tiered:
+                item, probe = item
+                state = tr.promote_packed(state, probe)
+            state = tr._train_step(state, *item)
+            done += 1
+            if state.step % log_steps == 0:
+                state = fence_work(state, done)
+    return state, done
 
 
 # -- shared data plumbing -----------------------------------------------------

@@ -1,12 +1,16 @@
 """Training core: one step over dynamic tables and the dense model.
 
-Port of ``deeprec_tpu/train/trainer.py``: ``TableBundle``, ``TrainState``,
-``bce_loss``, the :class:`Trainer` (``microbatches=1``; with the fence work
-``maybe_grow``, ``maybe_demote``, ``table_health``, ``reset_metrics`` and a
-no-op ``rejit``, and the tier surface ``tiers``, ``export_tiers``,
-``import_tier`` and ``host_tier_rows`` that the checkpoint saver drives),
-and the forward conventions ``default_forward`` and
-``_readonly_lookup`` that serving uses too. ``prepare_batch`` is split
+Port of ``deeprec_tpu/train/trainer.py``: ``TableBundle`` (with the
+health counters of a device-index table), ``TrainState``, ``bce_loss``,
+``_bump_health``, ``_mb_split``, the :class:`Trainer` over either engine
+(device-index ``EmbeddingCollection``s and host-index ones; with
+``microbatches``, the fence work ``maybe_grow``, ``maybe_demote``,
+``table_health``, ``reset_metrics`` and a no-op ``rejit``, and the tier
+surface ``tiers``, ``export_tiers``, ``import_tier`` and
+``host_tier_rows`` that the checkpoint saver drives), and the forward
+conventions ``default_forward`` and ``_readonly_lookup`` that serving uses
+too. ``prewarm_grow`` compiles XLA ahead of a growth; an eager step has
+nothing to compile, so it has no counterpart. ``prepare_batch`` is split
 into a host half (``prepare_host``) and the copies (``pipeline.to_device``),
 the two stages of ``train.pipeline.HostStepPipeline``.
 
@@ -21,6 +25,16 @@ and parameters are updated in place (the JAX package donates them to a
 jitted step).
 The model's parameters live in the module, so :class:`TrainState` holds
 no params.
+
+With ``microbatches=k`` (the JAX package's ``lax.scan`` over AutoMicroBatch
+slices) the batch splits into ``k`` contiguous slices. Each runs the
+sparse lookup, the forward and backward and its own sparse apply, all at
+the same step; the parameters' gradients and the loss are averaged over
+the ``k`` and the dense optimizer steps once. Every slice starts from the
+model's buffers as they were before the step (the JAX package applies
+``state.params`` to each) and the last slice's buffer update is kept.
+Host-index wires cannot be split: that engine takes ``microbatches=1``
+(the JAX package crashes there, ROADMAP C6).
 """
 from __future__ import annotations
 
@@ -35,13 +49,18 @@ from ..feature_column import (EmbeddingCollection, NumericColumn,
                               normalize_dense, pack_dense)
 from ..optim.dense import SGD, Adagrad, Adam
 from ..optim.sparse import SparseOptimizer
+from ..sparse import embedding_var as ev
 from . import metrics as metrics_lib
 from .pipeline import to_device
 
 
 class TableBundle(NamedTuple):
-    ev: Any     # the collection's state (host_index.HostEVState)
+    ev: Any     # the collection's state (EVState, host_index.HostEVState)
     slot: Any   # the sparse optimizer's slot state
+    # int32 [3] health counters of an EVState table (None for others):
+    # [0] exchange-bucket drops (multi-device runs; 0 here), [1] steps
+    # whose dedup saturated max_unique, [2] high-water unique demand
+    health: Any = None
 
 
 class TrainState(NamedTuple):
@@ -59,6 +78,25 @@ def bce_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
                       - (1.0 - labels) * F.logsigmoid(-logits))
 
 
+def _bump_health(health, aux):
+    """Accumulate ``TableBundle.health`` from one lookup's aux, on the
+    device: saturation is a step whose dedup overflowed ``max_unique``
+    (distinct valid keys routed to the null group), demand ``n_unique +
+    n_overflow``."""
+    if health is None:
+        return None
+    uniq = aux.ev_aux.uniq
+    nu = (uniq.n_unique + uniq.n_overflow).to(torch.int32)
+    return torch.stack([health[0],
+                        health[1] + (uniq.n_overflow > 0).to(torch.int32),
+                        torch.maximum(health[2], nu)])
+
+
+def _mb_split(x: Optional[torch.Tensor], k: int):
+    """``k`` contiguous slices of ``x``'s batch axis (None stays None)."""
+    return [None] * k if x is None else list(x.chunk(k))
+
+
 class Trainer:
     """Bundles model, feature columns and optimizers into train and eval
     steps on ``device`` (the card by default).
@@ -74,7 +112,7 @@ class Trainer:
     ``"emb"``, FTRL on ``"wide"``). ``dense_optimizer`` is an
     ``optim.dense.SGD``, ``Adagrad`` or ``Adam`` (the counterparts of
     ``optax.sgd``, with or without momentum, ``optax.adagrad`` and
-    ``optax.adam``).
+    ``optax.adam``). ``microbatches``: see the module docstring.
     """
 
     def __init__(self, model: torch.nn.Module,
@@ -83,7 +121,8 @@ class Trainer:
                  sparse_optimizers: Dict[str, SparseOptimizer],
                  dense_optimizer: Union[SGD, Adagrad, Adam],
                  forward: Optional[Callable] = None,
-                 aux_loss_weight: float = 1.0, device="cuda"):
+                 aux_loss_weight: float = 1.0, microbatches: int = 1,
+                 device="cuda"):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Trainer(device='cuda') but torch sees no "
@@ -95,6 +134,12 @@ class Trainer:
         self.dense_optimizer = dense_optimizer
         self.forward = forward or default_forward
         self.aux_loss_weight = aux_loss_weight
+        if microbatches > 1 and any(hasattr(c, "pack_ids_host")
+                                    for c in collections.values()):
+            raise NotImplementedError(
+                "microbatches > 1 on a host-index table: its resolved wire "
+                "cannot be split (the JAX package crashes here, ROADMAP C6)")
+        self.microbatches = microbatches
 
     # -- init ------------------------------------------------------------
     def init(self, sample_batch) -> TrainState:
@@ -117,8 +162,11 @@ class Trainer:
                 outputs[name] = (coll.embeddings(urows, aux),
                                  coll.sequence_embeddings(urows, aux))
                 slot = coll.init_slot(self.sparse_optimizers[name], st)
+                health = (torch.zeros((3,), dtype=torch.int32,
+                                      device=self.device)
+                          if isinstance(st, ev.EVState) else None)
                 tables[name] = TableBundle(ev=coll.init(self.device),
-                                           slot=slot)
+                                           slot=slot, health=health)
             buffers = [(b, b.clone()) for b in self.model.buffers()]
             self.forward(self.model, dense, outputs, True)
             for b, saved in buffers:
@@ -188,7 +236,8 @@ class Trainer:
                 b = b._replace(ev=ev_state, slot=slot)
             ev_state, auxs[name] = coll.lookup_or_create(b.ev, cats[name],
                                                          step)
-            tables[name] = b._replace(ev=ev_state)
+            tables[name] = b._replace(
+                ev=ev_state, health=_bump_health(b.health, auxs[name]))
         return tables, auxs
 
     def _loss_and_grads(self, tables, auxs, dense, labels):
@@ -230,16 +279,49 @@ class Trainer:
         step = state.step
         if dense is not None:
             dense = normalize_dense(self.numeric_columns, dense)
-        tables, auxs = self._sparse_forward(dict(state.tables), cats, step)
-        loss, logits, gu, urows = self._loss_and_grads(tables, auxs, dense,
-                                                       labels)
-        tables = self._apply_sparse(tables, auxs, gu, step, urows)
-        self.dense_optimizer.step(list(self.model.parameters()),
-                                  state.opt_state)
+        params = list(self.model.parameters())
+        if self.microbatches == 1:
+            tables, auxs = self._sparse_forward(dict(state.tables), cats,
+                                                step)
+            loss, logits, gu, urows = self._loss_and_grads(
+                tables, auxs, dense, labels)
+            tables = self._apply_sparse(tables, auxs, gu, step, urows)
+        else:
+            tables, loss, logits = self._microbatched(
+                dict(state.tables), params, dense, cats, labels, step)
+        self.dense_optimizer.step(params, state.opt_state)
         m = metrics_lib.update(state.metrics, logits,
                                labels.reshape(logits.shape), loss)
         return TrainState(opt_state=state.opt_state, tables=tables,
                           metrics=m, step=step + 1)
+
+    def _microbatched(self, tables, params, dense, cats, labels, step):
+        """The step over ``microbatches`` contiguous slices: sparse work
+        per slice, the parameters' gradients left averaged in ``.grad``.
+        Returns the tables, the mean loss and the logits in batch order."""
+        k = self.microbatches
+        buffers = [(b, b.clone()) for b in self.model.buffers()]
+        grads = [None] * len(params)
+        losses, logits = [], []
+        mb_cats = {n: c.chunk(k, -1) for n, c in cats.items()}
+        for i, (d, l) in enumerate(zip(_mb_split(dense, k),
+                                       _mb_split(labels, k))):
+            with torch.no_grad():  # each slice sees the step's statistics
+                for b, saved in buffers:
+                    b.copy_(saved)
+            tables, auxs = self._sparse_forward(
+                tables, {n: c[i] for n, c in mb_cats.items()}, step)
+            loss, lg, gu, urows = self._loss_and_grads(tables, auxs, d, l)
+            tables = self._apply_sparse(tables, auxs, gu, step, urows)
+            for j, p in enumerate(params):
+                if p.grad is not None:
+                    grads[j] = p.grad if grads[j] is None \
+                        else grads[j] + p.grad
+            losses.append(loss)
+            logits.append(lg)
+        for p, g in zip(params, grads):
+            p.grad = None if g is None else g / k
+        return tables, torch.stack(losses).mean(), torch.cat(logits)
 
     @torch.no_grad()
     def _eval_step(self, state: TrainState, mstate, dense, cats, labels):
@@ -268,13 +350,15 @@ class Trainer:
     # -- fence work (run with any HostStepPipeline drained) ------------------
     def maybe_grow(self, state: TrainState) -> TrainState:
         """Double every table whose collection asks for it
-        (``needs_growth``), optimizer slot rows carried along. Later
-        resolves and steps read the new capacity."""
+        (``needs_growth(state)``: a device-index table at 0.7 load or after
+        an index overflow, a host-index one at 0.9 or after a row
+        overflow), optimizer slot rows carried along. Later resolves and
+        steps read the new capacity."""
         tables = dict(state.tables)
         changed = False
         for name, coll in self.collections.items():
             b = tables[name]
-            if hasattr(coll, "needs_growth") and coll.needs_growth():
+            if coll.needs_growth(b.ev):
                 new_ev, slot = coll.grow_state(
                     b.ev, b.slot, opt=self.sparse_optimizers.get(name))
                 tables[name] = b._replace(ev=new_ev, slot=slot)
@@ -334,12 +418,32 @@ class Trainer:
         return state._replace(metrics=metrics_lib.create(device=self.device))
 
     def table_health(self, state: TrainState) -> Dict[str, dict]:
-        """Operational health per host-index table (size, load, row and
-        unique-width overflow, dedup saturation), the JAX package's
-        schema."""
-        return {name: coll.host_health()
-                for name, coll in self.collections.items()
-                if hasattr(coll, "host_health")}
+        """Operational health per dynamic table, the JAX package's schema:
+        size, load, index overflow, exchange drops (0 on one device), dedup
+        saturation and the unique high-water mark. A device-index table
+        reads its index and its health counters; a host-index one its
+        resolver (``host_health``)."""
+        out = {}
+        for name, coll in self.collections.items():
+            b = state.tables[name]
+            view = coll.index_view(b.ev)
+            if view is None:
+                if hasattr(coll, "host_health"):
+                    out[name] = coll.host_health()
+                continue
+            size = int(view.index.size.sum())
+            cap = coll.config.capacity
+            h = (b.health.tolist() if b.health is not None else [0, 0, 0])
+            out[name] = {
+                "size": size, "capacity": cap, "shards": 1,
+                "load_factor": size / cap,
+                "overflow": int(view.index.overflow.sum()),
+                "dropped": int(h[0]),
+                "unique_saturated_steps": int(h[1]),
+                "max_n_unique": int(h[2]),
+                "max_unique": coll.config.max_unique,
+            }
+        return out
 
 
 def _readonly_lookup(coll: EmbeddingCollection, state, cats):

@@ -1,10 +1,13 @@
 """The port's modelzoo entry points on the CPU: each of the seven models
-trains through ``train.cli.run`` with ``--host_index --device cpu``; the
-CLI refuses what the port does not run yet, naming the ROADMAP item;
+trains through ``train.cli.run`` with ``--host_index --device cpu`` and
+on the device-index engine (no ``--host_index``), which also runs
+``--micro_batch 2`` and ``--ev_storage hbm_dram``; the CLI refuses what
+the port does not run, naming the ROADMAP item;
 fences fall on every multiple of ``--log_steps``; ``--checkpoint``
 resumes the step count and ``--workqueue`` the queue position; a JAX CLI
-save continues in the port's CLI as it continues in the JAX CLI; and the
-server's builder answers an HTTP predict as the port's Predictor does."""
+save continues in the port's CLI as it continues in the JAX CLI, and a
+port CLI save in the JAX CLI, on both engines; and the server's builder
+answers an HTTP predict as the port's Predictor does."""
 import importlib
 import json
 import os
@@ -39,6 +42,7 @@ SMALL = ["--batch_size", "32", "--emb_dim", "4", "--capacity", "8192",
          "--synthetic_users", "50", "--prefetch_depth", "2",
          "--prefetch_workers", "2", "--log_steps", "100", "--host_index",
          "--jit_cache", ""]
+DEVICE_INDEX = [a for a in SMALL if a != "--host_index"]
 
 
 def _port(name, argv):
@@ -86,12 +90,44 @@ def test_cli_refuses_what_is_not_ported(flags, item):
         _run("DLRM", SMALL + ["--steps", "1"] + flags)
 
 
-def test_cli_refuses_the_device_index_engine():
-    argv = [a for a in SMALL if a != "--host_index"] + ["--steps", "1"]
+@pytest.mark.parametrize("name", MODELS)
+def test_model_trains_on_the_device_index_engine(name):
+    """No --host_index: the device-index engine (the default optimizer,
+    adagrad or adam, puts its slots in fused value columns)."""
+    mod, args = _port(name, DEVICE_INDEX + ["--steps", "2"])
+    spec = mod.build(args)
+    out = cli.run(spec, args)
+    assert out["model"] == name and out["steps"] == 2
+    assert 0.0 < out["train_loss"] < 10.0
+    assert np.isfinite([out["train_auc"], out["eval_auc"]]).all()
+    emb = spec.collections["emb"]
+    assert type(emb).__name__ == "EmbeddingCollection"
+    assert emb.config.fused_slot_columns == \
+        {"adagrad": 1, "adam": 2}[args.optimizer] * args.emb_dim
+
+
+def test_device_index_micro_batch_trains():
+    mod, args = _port("DLRM", DEVICE_INDEX + ["--steps", "3",
+                                              "--micro_batch", "2"])
+    out = cli.run(mod.build(args), args)
+    assert out["steps"] == 3 and 0.0 < out["train_loss"] < 10.0
+
+
+def test_device_index_hbm_dram_demotes(capsys):
+    """--ev_storage hbm_dram with a device row budget below the live rows:
+    the TieredTrainer demotes at every fence, and the summary is finite."""
+    argv = DEVICE_INDEX + ["--steps", "6", "--ev_storage", "hbm_dram",
+                           "--ev_hbm_capacity", "200", "--demote_steps",
+                           "2"]
+    i = argv.index("--log_steps")
+    argv[i + 1] = "2"
     mod, args = _port("DLRM", argv)
-    spec = mod.build(args)   # a serving build is fine without it ...
-    with pytest.raises(NotImplementedError, match="A7"):
-        cli.run(spec, args)  # ... training is not
+    out = cli.run(mod.build(args), args)
+    assert out["steps"] == 6 and np.isfinite(out["train_loss"])
+    tiers = [ln for ln in capsys.readouterr().out.splitlines()
+             if ln.startswith("host tier rows: emb=")]
+    assert len(tiers) == 3 and all(int(ln.split("=")[1]) > 0
+                                   for ln in tiers)
 
 
 def test_cli_device_defaults_to_the_card(monkeypatch):
@@ -228,15 +264,15 @@ def _assert_same_saves(pa, pb):
     return sa["step"]
 
 
-def _continue_in_both(name, optimizer, first, tmp_path):
+def _continue_in_both(name, optimizer, first, tmp_path, engine=SMALL):
     """``first`` ("jax" or "port") trains 4 steps into A, A is copied to
     B; the JAX CLI continues 4 steps in A (or B when the port went
-    first), the port's CLI in the other. Returns (dir A, dir B, the
-    package that continued in A)."""
+    first), the port's CLI in the other. ``engine``: the flags with or
+    without --host_index. Returns (dir A, dir B)."""
     from deeprec_tpu.train import cli as jcli
     # every flag a zoo __main__ sets a default for is given here, so the
     # JAX base parser and the port's model parser read the same run
-    argv = SMALL + ["--steps", "4", "--optimizer", optimizer,
+    argv = engine + ["--steps", "4", "--optimizer", optimizer,
                     "--learning_rate", "0.01", "--max_unique_ratio", "0",
                     "--prefetch_workers", "1"]
     a, b = str(tmp_path / "a"), str(tmp_path / "b")
@@ -267,6 +303,16 @@ def test_port_cli_continues_a_jax_cli_save(name, tmp_path):
     ("DCN", "sgd")])  # an empty slot state, optax.sgd without state
 def test_jax_cli_continues_a_port_cli_save(name, optimizer, tmp_path):
     a, b = _continue_in_both(name, optimizer, "port", tmp_path)
+    assert _assert_same_saves(a, b) == 8
+
+
+@pytest.mark.parametrize("first", ["jax", "port"])
+def test_device_index_cli_saves_continue_both_ways(first, tmp_path):
+    """The device-index engine: DLRM with --optimizer adagrad (both CLIs
+    rewrite it to fused accumulator columns), a save of either CLI
+    continued in the other."""
+    a, b = _continue_in_both("DLRM", "adagrad", first, tmp_path,
+                             engine=DEVICE_INDEX)
     assert _assert_same_saves(a, b) == 8
 
 

@@ -46,6 +46,10 @@ def test_port_imports_without_jax():
         "data.prefetch", "serving.server")} <= names
     assert {f"deeprec_tpu_torch.modelzoo.{m}.train" for m in (
         "DLRM", "WDL", "DCN", "DeepFM", "DSSM", "DIN", "DIEN")} <= names
+    # the device-index engine's own modules
+    assert {f"deeprec_tpu_torch.{m}" for m in (
+        "ops.segment", "sparse.tiered", "train.tiered_trainer",
+        "train.estimator")} <= names
 
 
 def test_resolver_binding_copy_is_the_source():

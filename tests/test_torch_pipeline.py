@@ -193,7 +193,7 @@ def test_collection_growth_matches_jax(layout):
         assert np.asarray(jw.buf).tobytes() == tw.buf.numpy().tobytes()
         js, _ = jlookup(js, jw, jnp.asarray(step, jnp.int32))
         ts, _ = tc.lookup_or_create(ts, tw, step)
-        assert tc.needs_growth() == jc.needs_growth(js)
+        assert tc.needs_growth(ts) == jc.needs_growth(js)
         if jc.needs_growth(js):
             js, _ = jc.grow_state(js, (), opt=opt_j)
             ts, slot = tc.grow_state(ts, (), opt=opt_t)
@@ -201,7 +201,7 @@ def test_collection_growth_matches_jax(layout):
             grown += 1
         assert ts.capacity == js.capacity == tc.config.capacity
         assert tc.host_health() == jc.host_health()
-        assert tc.load_factor() == jc.load_factor(js)
+        assert tc.load_factor(ts) == jc.load_factor(js)
     assert grown >= 2
     h = tc.host_health()
     assert h["capacity"] > CAP and h["unique_saturated_steps"] > 0
