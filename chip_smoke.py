@@ -2,7 +2,9 @@
 path, its host-index training path, its tiered storage, the CTR zoo, the
 sequence models DIN and DIEN, the modelzoo entry points (the training
 CLI, the sparse optimizers, the bf16 towers and the server's command
-line) and the device-index training engine.
+line), the device-index training engine, the variant tables
+(multi-hash, adaptive, dynamic dimension, hash table) and the migration of
+DeepRec checkpoints.
 
 Run from the root of a checkout on a machine with one CUDA card:
 
@@ -172,7 +174,38 @@ comparison compute in full f32. Phases (any failure exits non-zero):
    tiers' keys and integer columns bit-equal, their rows within ROW_ATOL,
    rows demoted and promoted. Phase 2 also holds K1, K2, K2's backward and
    K3a at this engine's shape (one unique_cols dedup and lookup_or_insert
-   of a B=4096 batch: int64 inverse and slots) and times them.
+   of a B=4096 batch: int64 inverse and slots) and times them. The host
+   syncs it counts no longer include the metrics' histograms or
+   normalize_dense (both stay on the device);
+14. the variant tables (``variants``): bench.py's DLRM (seeded weights)
+   over feature_column_variants' MultiHashCollection (the JAX default
+   sub-tables 2^16 and 2^12, add), AdaptiveCollection (2^14 buckets,
+   CounterFilter(2), 2^20 rows), DynamicDimCollection (2 blocks of 8, the
+   second from 20 lookups, 2^20 rows) and HashTableCollection (CBF(2)
+   admission, 2^20 rows), sparse Adagrad(0.5, initial accumulator 0.01)
+   and dense Adagrad(0.05), on SyntheticCriteo(4096, seed=7): each 5 steps
+   in lockstep with a CPU trainer that starts each step from the card's
+   float state (integer state bit-equal every step: index
+   keys, id planes, next_id, freqs, versions, CBF; losses, rows, slot
+   leaves and parameters within LOSS_ATOL and ROW_ATOL), 3 timed runs of
+   10 staged steps, a card save restored by a CPU trainer (the same saved
+   arrays) and an eval step on both (AUC and loss within EVAL_ATOL);
+   multi-hash mult and
+   concat 3 lockstep steps each. K1, K2 and K2's backward launch on every
+   run, K3a on adaptive and dynamic dimension. Phase 2 also holds K1 at
+   the multi-hash sub-table fetch, K2 (both ways) at the multi-hash
+   pooling (one row per flat id), and K1, K2 (both ways) and K3a at the
+   flat dedup of the tables with an index (26*4096 lanes) and times them;
+15. DeepRec checkpoint migration (``migrate``): the committed bundle of
+   tests/torch_fixtures/deeprec_bundle through checkpoint.migrate's scan,
+   import_tables into a card and a CPU device-index DLRM trainer (2^21
+   rows, CounterFilter(2), sparse Adagrad, whose acc slot the bundle's
+   Adagrad EV fills) and import_dense of the bottom MLP: imported rows
+   bit-equal card and CPU and equal to the fixture script's arrays; the
+   offline CLI run as ``python -m deeprec_tpu_torch.checkpoint.migrate``
+   writes what _main writes; then 3 steps in lockstep over batches that
+   reuse the imported keys and 3 timed runs of 10 staged steps. K1, K2,
+   K2's backward and K3a launch.
 
 The last line is {"ok": true, "device": {...}}; the line before it holds
 the kernels' numbers as JSON, the line before that the training numbers.
@@ -268,6 +301,15 @@ DEVICE_TIER_CAPACITY = 1 << 18  # the TieredTrainer's table,
 DEVICE_TIER_HBM = 32768  # its hbm_capacity (below the live rows),
 DEVICE_TIER_STEPS = 9    # its lockstep steps,
 DEVICE_TIER_FENCE = 3    # a demotion fence every 3
+VARIANT_CAPACITY = 1 << 20  # phase 14: the variant tables with an index
+VARIANT_STEPS = 5        # each variant's lockstep steps ...
+VARIANT_MODE_STEPS = 3   # ... multi-hash mult and concat's
+MIGRATE_STEPS = 3        # phase 15: lockstep steps after the import
+# an eval step's AUC and loss, card vs CPU: the AUC is a histogram of 1024
+# bins, and a probability within rounding of a bin edge lands on the other
+# side on the other device, each such example moving the AUC by about
+# 1e-6 at B 4096 (one did so, 1.4e-6, in a card run of phase 14)
+EVAL_ATOL = 1e-5
 # bf16 towers, card vs CPU: cuBLAS and the CPU sum a product's terms in
 # another order, so a bf16 rounding may land one step apart (2^-8 to 2^-7
 # of the value: the logits leave the bf16 head rounded) and carry through
@@ -656,8 +698,8 @@ def check_training_kernels(dev, probe):
         fused_pooled_lookup_backward_plain, fused_pooled_lookup_plain)
     from deeprec_tpu_torch.ops.gather import gather_rows, gather_rows_plain
     from deeprec_tpu_torch.ops.meta_scatter import (
-        blocked_rmw_set, blocked_rmw_set_plain, lookup_meta,
-        lookup_meta_plain, meta_scatter, meta_scatter_plain, scatter_set)
+        blocked_rmw_set, blocked_rmw_set_plain, meta_scatter,
+        meta_scatter_plain, scatter_set)
     from deeprec_tpu_torch.probes.kernel_probe import (behind_ms, k2_forward,
                                                        window_groups)
 
@@ -777,86 +819,53 @@ def check_training_kernels(dev, probe):
                   lt, u * 4 + 2 * (n_real + 1) * d * 4)
 
     # K3a on the path: lookup_or_create's metadata step (--metadata:
-    # create steps, versions, freqs, CounterFilter(1)) in one launch
+    # create steps, versions, freqs, CounterFilter(1)) in one launch,
+    # timed in turns with the three-plane kernel the path ran before it
     cap, ff = CAPACITY, 1
     dest = torch.where(r.created & ~r.readonly, r.uslots, cap + 1)
-
-    def planes():
-        return [torch.full((cap + 1,), -1, dtype=torch.int32, device=dev),
-                torch.full((cap + 1,), -1, dtype=torch.int32, device=dev),
-                torch.zeros((cap + 1,), dtype=torch.int32, device=dev)]
-
-    def fused(p, fn=lookup_meta):
-        return fn(r.uslots, r.counts, r.readonly, dest, 3, cap, p[0], p[1],
-                  p[2], True, ff)
-    kp, pp, lp = planes(), planes(), planes()
-    adm = fused(kp)
-    adm_ref = fused(pp, lookup_meta_plain)
-    if not (all(torch.equal(a, b) for a, b in zip(kp, pp))
-            and torch.equal(adm, adm_ref)):
-        fail("K3a lookup_meta differs from its plain version")
-    gs = torch.tensor(3, dtype=torch.int32, device=dev)
-
-    def torch_chain():
-        """The same function in PyTorch calls, none of which syncs: lanes
-        that do not write go to the null row, which is then reset."""
-        live = (r.counts > 0) & (r.uslots != cap) & ~r.readonly
-        m = torch.where(live, r.uslots, cap).long()
-        lp[0].index_put_((torch.where(dest < cap, dest, cap).long(),), gs)
-        lp[1].index_put_((m,), gs)
-        lp[2].index_add_(0, m, torch.where(live, r.counts, 0))
-        for plane, fill in zip(lp, (-1, -1, 0)):  # fill_: no host copy
-            plane.narrow(0, cap, 1).fill_(fill)
-        return (r.uslots != cap) & (lp[2][r.uslots] >= ff)
-    if not (torch.equal(torch_chain(), adm_ref)
-            and all(torch.equal(a, b) for a, b in zip(lp, pp))):
-        fail("K3a's library yardstick computes another function")
-
-    # what the path ran before the fused kernel: live/mdest, the
-    # three-plane kernel, the admission test
     live = (r.counts > 0) & (r.uslots != cap) & ~r.readonly
     mdest = torch.where(live, r.uslots, cap + 1)
-    op = planes()
+    op = [torch.full((cap + 1,), v, dtype=torch.int32, device=dev)
+          for v in (-1, -1, 0)]
 
     def old_kernel():
         meta_scatter(op[0], dest, op[1], op[2], mdest, r.counts, 3)
 
     def old_path():
+        # what the path ran before the fused kernel: live/mdest, the
+        # three-plane kernel, the admission test
         lv = (r.counts > 0) & (r.uslots != cap) & ~r.readonly
         meta_scatter(op[0], dest, op[1], op[2],
                      torch.where(lv, r.uslots, cap + 1), r.counts, 3)
         return (r.uslots != cap) & (op[2][r.uslots] >= ff)
-    old_kernel()
-    if not all(torch.equal(a, b) for a, b in zip(op, pp)):
-        fail("K3a meta_scatter differs from the fused kernel's planes")
-    turns = [time_ms(old_kernel), time_ms(lambda: fused(kp)),
-             time_ms(lambda: fused(kp)), time_ms(old_kernel)]
-    k3a_ms = (turns[1] + turns[2]) / 2
-    old_ms = (turns[0] + turns[3]) / 2
-    # each behind a PyTorch kernel, as on the path
-    on_path = [behind_ms(old_kernel), behind_ms(lambda: fused(kp)),
-               behind_ms(lambda: fused(kp)), behind_ms(old_kernel)]
-    old_path_ms = time_ms(old_path)
-    k3a_plain = time_ms(lambda: fused(pp, lookup_meta_plain))
-    k3a_lib = time_ms(torch_chain)
-    m_in = mdest < cap
+
+    def k3a_turns(fused, kp, pp):
+        old_kernel()
+        if not all(torch.equal(a, b) for a, b in zip(op, pp)):
+            fail("K3a meta_scatter differs from the fused kernel's planes")
+        turns = [time_ms(old_kernel), time_ms(lambda: fused(kp)),
+                 time_ms(lambda: fused(kp)), time_ms(old_kernel)]
+        # each behind a PyTorch kernel, as on the path
+        on_path = [behind_ms(old_kernel), behind_ms(lambda: fused(kp)),
+                   behind_ms(lambda: fused(kp)), behind_ms(old_kernel)]
+        old_path_ms = time_ms(old_path)
+        log(f"K3a turns (old three-plane kernel, fused, fused, old): "
+            f"{turns[0]:.4f}, {turns[1]:.4f}, {turns[2]:.4f}, "
+            f"{turns[3]:.4f} ms back to back; behind a one-element add: "
+            + ", ".join(f"{t:.4f}" for t in on_path)
+            + f" ms; the old path (live/mdest + three-plane kernel + "
+            f"admission test) {old_path_ms:.4f} ms")
+        return (turns[1] + turns[2]) / 2, dict(
+            previous_ms=(turns[0] + turns[3]) / 2,
+            previous_path_ms=old_path_ms,
+            on_path_ms=(on_path[1] + on_path[2]) / 2,
+            previous_on_path_ms=(on_path[0] + on_path[3]) / 2)
+    k3a, pp = k3a_case(f"(training shape, planes of {cap + 1})", "",
+                       r.uslots, r.counts, r.readonly, dest, cap, ff,
+                       timing=k3a_turns)
+    old_ms, m_in = k3a["previous_ms"], mdest < cap
     n_d, n_m = int((dest < cap).sum()), int(m_in.sum())
-    n_read = int(((r.uslots < cap) & ~m_in).sum())  # the filter's own reads
-    # lanes read (uslots, counts, dest: 4 bytes; admitted written: 1),
-    # the flag, a create step per created row, a version and a freq
-    # read-modify-write per live row, a freq read per other real row
-    k3a_bytes = 13 * u + 1 + 4 * n_d + 12 * n_m + 4 * n_read
-    log(f"K3a turns (old three-plane kernel, fused, fused, old): "
-        f"{turns[0]:.4f}, {turns[1]:.4f}, {turns[2]:.4f}, {turns[3]:.4f} ms "
-        f"back to back; behind a one-element add: "
-        + ", ".join(f"{t:.4f}" for t in on_path)
-        + f" ms; the old path (live/mdest + three-plane kernel + admission "
-        f"test) {old_path_ms:.4f} ms")
-    log_times(f"K3a lookup_meta (3 planes of {cap + 1} + filter, {u} lanes: "
-              f"{n_d} created, {n_m} live)", k3a_ms, k3a_plain, k3a_lib,
-              k3a_bytes, "; library: the same function in torch calls "
-              "(live, masked indices, index_put_ x2, index_add_, null-row "
-              "resets, the admission test)")
+    gs = torch.tensor(3, dtype=torch.int32, device=dev)
     # the three-plane kernel alone, with its own yardstick (pre-filtered
     # lanes) and bytes
     d_keep, m_keep = dest[dest < cap].long(), mdest[m_in].long()
@@ -920,12 +929,7 @@ def check_training_kernels(dev, probe):
               "deeprec_tpu_torch/csrc/fused_pooled_lookup.cu",
               "deeprec_tpu/ops/pallas_fused_lookup.py:80", bwd16_err,
               bwd16_ms, bwd16_plain, bwd16_lib, bwd16_bytes),
-        entry("lookup_meta", "deeprec_tpu_torch/csrc/meta_scatter.cu",
-              "benchmarks/pallas_meta_bench.py:108", 0.0, k3a_ms, k3a_plain,
-              k3a_lib, k3a_bytes, previous_ms=old_ms,
-              previous_path_ms=old_path_ms,
-              on_path_ms=(on_path[1] + on_path[2]) / 2,
-              previous_on_path_ms=(on_path[0] + on_path[3]) / 2),
+        k3a,
         entry("meta_scatter", "deeprec_tpu_torch/csrc/meta_scatter.cu",
               "benchmarks/pallas_meta_bench.py:108", 0.0, old_ms, ms_plain,
               ms_lib, ms_bytes),
@@ -1809,12 +1813,94 @@ def k1_case(what, table, slots, suffix, d=None):
     lt = time_ms(lambda: torch.index_select(table[:, :d], 0, slots))
     # the slots, each distinct row read once, every lane's row written
     u = slots.shape[0]
-    nbytes = u * 4 + (torch.unique(slots).numel() + u) * d * 4
+    nbytes = (u * slots.element_size()
+              + (torch.unique(slots).numel() + u) * d * 4)
     log_times(f"K1 gather_rows {what} ([{u}] x {d})", kt, pt, lt, nbytes,
               "; library: torch.index_select")
     return entry(f"gather_rows_{suffix}", "deeprec_tpu_torch/csrc/"
                  "gather_rows.cu", "deeprec_tpu/ops/pallas_gather.py:78", 0.0,
                  kt, pt, lt, nbytes, counter="gather_rows")
+
+
+def k3a_case(what, suffix, uslots, counts, readonly, dest, cap, ff,
+             planes=("create", "version", "freq"), timing=None):
+    """K3a (lookup_meta) at one shape with the planes its path passes
+    (``planes``, of the create-step, version and freq planes; the freqs
+    always, for the admission test at ``ff``): bit-equal to its plain
+    version, its library yardstick checked to compute the same function,
+    both timed beside it, and its bound from the bytes this run's lanes
+    need. ``timing(fused, kp, pp)``, where given, times the kernel
+    instead (``fused(kp)`` launches it; ``pp`` holds the plain version's
+    planes after one call) and returns its ms and more entry keys. Returns
+    the entry and ``pp``."""
+    from deeprec_tpu_torch.ops.meta_scatter import (lookup_meta,
+                                                    lookup_meta_plain)
+    dev = uslots.device
+    fills = [(k in planes, v) for k, v in (("create", -1), ("version", -1),
+                                           ("freq", 0))]
+
+    def make():
+        return [torch.full((cap + 1,), v, dtype=torch.int32, device=dev)
+                if on else None for on, v in fills]
+
+    def same(a, b):
+        return all(x is None or torch.equal(x, y) for x, y in zip(a, b))
+
+    def fused(p, fn=lookup_meta):
+        return fn(uslots, counts, readonly, dest, 3, cap, *p, True, ff)
+    kp, pp, lp = make(), make(), make()
+    adm, adm_ref = fused(kp), fused(pp, lookup_meta_plain)
+    if not (same(kp, pp) and torch.equal(adm, adm_ref)):
+        fail(f"K3a lookup_meta {what} differs from its plain version")
+    gs = torch.tensor(3, dtype=torch.int32, device=dev)
+
+    def torch_chain():
+        """The same function in PyTorch calls, none of which syncs: lanes
+        that do not write go to the null row, which is then reset."""
+        live = (counts > 0) & (uslots != cap) & ~readonly
+        m = torch.where(live, uslots, cap).long()
+        if lp[0] is not None:
+            lp[0].index_put_((torch.where(dest < cap, dest, cap).long(),),
+                             gs)
+        if lp[1] is not None:
+            lp[1].index_put_((m,), gs)
+        lp[2].index_add_(0, m, torch.where(live, counts, 0))
+        for plane, (_, fill) in zip(lp, fills):  # fill_: no host copy
+            if plane is not None:
+                plane.narrow(0, cap, 1).fill_(fill)
+        return (uslots != cap) & (lp[2][uslots] >= ff)
+    if not (torch.equal(torch_chain(), adm_ref) and same(lp, pp)):
+        fail(f"K3a's library yardstick {what} computes another function")
+    ms, extra = ((time_ms(lambda: fused(kp)), {}) if timing is None
+                 else timing(fused, kp, pp))
+    plain_ms = time_ms(lambda: fused(pp, lookup_meta_plain))
+    lib_ms = time_ms(torch_chain)
+    # what this run's lanes need: each lane's slot and count read and its
+    # admitted flag written, its dest read only where the create-step
+    # plane is passed (the kernel loads it nowhere else); the readonly
+    # flag; a create step written per created row, a version written per
+    # live row where versions are kept, a freq read and written per live
+    # row, a freq read per other real row (the admission test)
+    u, creates, versions = uslots.shape[0], kp[0] is not None, \
+        kp[1] is not None
+    live = (counts > 0) & (uslots != cap) & ~readonly
+    n_m = int(live.sum())
+    n_read = int((uslots < cap).sum()) - n_m
+    n_d = int((dest < cap).sum()) if creates else 0
+    lane = (uslots.element_size() + 4 + 1
+            + (dest.element_size() if creates else 0))
+    nbytes = (lane * u + 1 + 4 * n_d + (4 * n_m if versions else 0)
+              + 8 * n_m + 4 * n_read)
+    log_times(f"K3a lookup_meta {what} ({u} {uslots.dtype} lanes, planes "
+              f"{', '.join(k for k in ('create', 'version', 'freq') if k in planes)}"
+              f" + CounterFilter({ff}): {n_d} created, {n_m} live)", ms,
+              plain_ms, lib_ms, nbytes, "; library: the same function in "
+              "torch calls (live, masked indices, index_put_ per written "
+              "plane, index_add_, null-row resets, the admission test)")
+    return entry(f"lookup_meta{suffix}", "deeprec_tpu_torch/csrc/"
+                 "meta_scatter.cu", "benchmarks/pallas_meta_bench.py:108",
+                 0.0, ms, plain_ms, lib_ms, nbytes, counter="lookup_meta",
+                 **extra), pp
 
 
 def check_zoo_kernels(dev):
@@ -2127,8 +2213,9 @@ def adam_lockstep(tg, tc, batches, what):
     """:func:`lockstep` for the Adam family (dense Adam under the DLRM):
     wires and metadata planes bit-equal, losses within LOSS_ATOL, slot
     leaves within ROW_ATOL (integer and 0-d leaves too), but each step
-    starts the CPU trainer from the card's state (rows, slot leaves, dense
-    parameters and moments), and the rows and dense parameters are held
+    starts the CPU trainer from the card's float state
+    (:func:`float_leaves`: rows, slot leaves, dense parameters and
+    moments), and the rows and dense parameters are held
     within ROW_ATOL at every element whose first moment agrees between
     card and CPU within ADAM_M_RTOL; at most ADAM_NOISE_SHARE of the
     elements Adam stepped (a nonzero moment on either side) may be left
@@ -2155,18 +2242,7 @@ def adam_lockstep(tg, tc, batches, what):
     for i, b in enumerate(batches):
         if i:
             with torch.no_grad():   # the CPU starts from the card's state
-                for name, ec in sc.tables.items():
-                    eg = sg.tables[name]
-                    ec.ev.values.copy_(eg.ev.values)
-                    for (_, a), (_, c) in zip(leaves_with_paths(eg.slot),
-                                              leaves_with_paths(ec.slot)):
-                        c.copy_(a)
-                for pc, pg in zip(tc.model.parameters(),
-                                  tg.model.parameters()):
-                    pc.copy_(pg)
-                for (_, a), (_, c) in zip(
-                        leaves_with_paths(tuple(sg.opt_state)),
-                        leaves_with_paths(tuple(sc.opt_state))):
+                for a, c in zip(float_leaves(tg, sg), float_leaves(tc, sc)):
                     c.copy_(a)
         dg, cg, lg = tg.prepare_batch(b)
         dc, cc, lc = tc.prepare_batch(b)
@@ -2663,8 +2739,6 @@ def check_device_kernels(dev):
     Returns the entries (path ``device``)."""
     import torch.nn.functional as Fn
     from deeprec_tpu_torch.data.criteo import SyntheticCriteo
-    from deeprec_tpu_torch.ops.meta_scatter import (lookup_meta,
-                                                    lookup_meta_plain)
     from deeprec_tpu_torch.ops.unique import unique_cols
     from deeprec_tpu_torch.sparse import hashtable as ht
     g = torch.Generator().manual_seed(SEED + 4)
@@ -2699,59 +2773,12 @@ def check_device_kernels(dev):
 
     # K3a: the metadata step of lookup_or_create_unique (CounterFilter(2),
     # GlobalStepEvict: create steps, versions, freqs, the admission test)
-    counts = uniq.counts.to(torch.int32)
-    ro = torch.zeros((1,), dtype=torch.bool, device=dev)
-    dest = torch.where(created, uslots, cap + 1)
-    ff = cfg.counter_filter.filter_freq
-
-    def planes():
-        return [torch.full((cap + 1,), -1, dtype=torch.int32, device=dev),
-                torch.full((cap + 1,), -1, dtype=torch.int32, device=dev),
-                torch.zeros((cap + 1,), dtype=torch.int32, device=dev)]
-
-    def fused(p, fn=lookup_meta):
-        return fn(uslots, counts, ro, dest, 3, cap, p[0], p[1], p[2], True,
-                  ff)
-    kp, pp, lp = planes(), planes(), planes()
-    adm, adm_ref = fused(kp), fused(pp, lookup_meta_plain)
-    if not (all(torch.equal(a, b) for a, b in zip(kp, pp))
-            and torch.equal(adm, adm_ref)):
-        fail("K3a lookup_meta (device-index shape) differs from its plain "
-             "version")
-    gs = torch.tensor(3, dtype=torch.int32, device=dev)
-
-    def torch_chain():
-        live = (counts > 0) & (uslots != cap)
-        m = torch.where(live, uslots, cap)
-        lp[0].index_put_((torch.where(dest < cap, dest, cap),), gs)
-        lp[1].index_put_((m,), gs)
-        lp[2].index_add_(0, m, torch.where(live, counts, 0))
-        for plane, fill in zip(lp, (-1, -1, 0)):
-            plane.narrow(0, cap, 1).fill_(fill)
-        return (uslots != cap) & (lp[2][uslots] >= ff)
-    if not (torch.equal(torch_chain(), adm_ref)
-            and all(torch.equal(a, b) for a, b in zip(lp, pp))):
-        fail("K3a's library yardstick (device-index shape) computes another "
-             "function")
-    k3a_ms = time_ms(lambda: fused(kp))
-    k3a_plain = time_ms(lambda: fused(pp, lookup_meta_plain))
-    k3a_lib = time_ms(torch_chain)
-    n_d = int((dest < cap).sum())
-    n_m = int(((counts > 0) & (uslots != cap)).sum())
-    n_read = int((uslots < cap).sum()) - n_m
-    # lanes read (int64 slots and dest, int32 counts), admitted written,
-    # the flag, a create step per created row, a version and a freq
-    # read-modify-write per live row, a freq read per other real row
-    k3a_bytes = 21 * u + 1 + 4 * n_d + 12 * n_m + 4 * n_read
-    log_times(f"K3a lookup_meta (device-index shape: 3 planes of {cap + 1} "
-              f"+ CounterFilter({ff}), {u} int64 lanes: {n_d} created, "
-              f"{n_m} live)", k3a_ms, k3a_plain, k3a_lib, k3a_bytes,
-              "; library: the same function in torch calls")
-    entries.append(entry("lookup_meta_device",
-                         "deeprec_tpu_torch/csrc/meta_scatter.cu",
-                         "benchmarks/pallas_meta_bench.py:108", 0.0, k3a_ms,
-                         k3a_plain, k3a_lib, k3a_bytes,
-                         counter="lookup_meta"))
+    entries.append(k3a_case(
+        f"(device-index shape, planes of {cap + 1})", "_device", uslots,
+        uniq.counts.to(torch.int32),
+        torch.zeros((1,), dtype=torch.bool, device=dev),
+        torch.where(created, uslots, cap + 1), cap,
+        cfg.counter_filter.filter_freq)[0])
     for e in entries:
         e["path"] = "device"
     return entries
@@ -2940,8 +2967,510 @@ def check_device(dev, smi, tmp):
     return launches, out
 
 
+# -- phase 14: the variant collections ---------------------------------------
+VARIANT_KINDS = ("multihash", "adaptive", "dyndim", "hashtable")
+
+
+def variant_collection(kind, combiner="add"):
+    """The phase's table of ``kind`` over the 26 Criteo columns at emb dim
+    16: multi-hash at the JAX default sizes (2^16, 2^12), adaptive (2^14
+    buckets, CounterFilter(2)), dynamic dimension (2 blocks of 8, the second
+    from 20 lookups), hash table (CBF(2) admission); 2^20 rows where a
+    table has an index."""
+    from deeprec_tpu_torch import config as cfg
+    from deeprec_tpu_torch import feature_column as fc
+    from deeprec_tpu_torch import feature_column_variants as fv
+    from deeprec_tpu_torch.data.criteo import CAT_NAMES
+    from deeprec_tpu_torch.sparse.dynamicdim import DynamicDimConfig
+    cols = [fc.EmbeddingColumn(fc.CategoricalColumn(n), EMB_DIM)
+            for n in CAT_NAMES]
+    init = cfg.Initializer("normal", scale=0.05)
+    if kind == "multihash":
+        return fv.MultiHashCollection(cols, name="emb",
+                                      table_sizes=(1 << 16, 1 << 12),
+                                      combiner_op=combiner)
+    if kind == "adaptive":
+        return fv.AdaptiveCollection(cols, name="emb", buckets=1 << 14,
+                                     counter_filter=cfg.CounterFilter(2),
+                                     capacity=VARIANT_CAPACITY,
+                                     initializer=init)
+    if kind == "dyndim":
+        return fv.DynamicDimCollection(
+            cols, name="emb", dynamic_dim=DynamicDimConfig(2, 8, (0, 20)),
+            capacity=VARIANT_CAPACITY, initializer=init)
+    return fv.HashTableCollection(
+        cols, name="emb", capacity=VARIANT_CAPACITY, initializer=init,
+        admit=cfg.CBFFilter(filter_freq=2, max_element_size=1 << 20))
+
+
+def variant_trainer(kind, dev, combiner="add"):
+    """bench.py's DLRM (seeded weights) over a variant table, sparse
+    Adagrad(0.5, initial accumulator 0.01) and dense Adagrad(0.05). (Dense
+    Adam, as the JAX package's small variant tests use, is not held here:
+    its first step moves every parameter by its rate times the sign of the
+    gradient, and gradients at rounding level take other signs on the card
+    and the CPU.)"""
+    from deeprec_tpu_torch.optim.dense import Adagrad
+    from deeprec_tpu_torch.optim.sparse import sparse_adagrad
+    from deeprec_tpu_torch.train.trainer import Trainer
+    numeric, _, _ = criteo_parts()
+    model = seeded_model(torch.Generator().manual_seed(SEED))
+    return Trainer(model, numeric, {"emb": variant_collection(kind,
+                                                              combiner)},
+                   {"emb": sparse_adagrad(0.5,
+                                          initial_accumulator_value=0.01)},
+                   Adagrad(0.05), device=dev)
+
+
+def state_same(tg, sg, tc, sc, what, floats=True):
+    """Every integer leaf of the tables' states and slot states bit-equal
+    between the card and the CPU (index keys, id planes, counters, freqs,
+    versions, CBF); with ``floats``, every float leaf and the dense
+    parameters within ROW_ATOL. Returns the largest float difference."""
+    from deeprec_tpu_torch.utils.tree import leaves_with_paths
+    worst = 0.0
+    for name in tc.collections:
+        bg, bc = sg.tables[name], sc.tables[name]
+        for (p, a), (_, c) in zip(leaves_with_paths((bg.ev, bg.slot)),
+                                  leaves_with_paths((bc.ev, bc.slot))):
+            if not c.dtype.is_floating_point:
+                if not torch.equal(a.cpu(), c):
+                    fail(f"{what}: {name}{p} differ between card and CPU")
+            elif floats:
+                d = (a.cpu().float() - c.float()).abs().max().item()
+                worst = max(worst, d)
+                if not d <= ROW_ATOL:
+                    fail(f"{what}: {name}{p} differ by {d} between card "
+                         "and CPU")
+    if floats:
+        for (n, a), b in zip(tg.model.named_parameters(),
+                             tc.model.parameters()):
+            d = (a.detach().cpu() - b.detach()).abs().max().item()
+            worst = max(worst, d)
+            if not d <= ROW_ATOL:
+                fail(f"{what}: parameter {n} differs by {d} between card "
+                     "and CPU")
+    return worst
+
+
+def float_leaves(tr, st):
+    """The float state a step updates: table and slot leaves, parameters,
+    the dense optimizer's state."""
+    from deeprec_tpu_torch.utils.tree import leaves_with_paths
+    leaves = [x for b in st.tables.values()
+              for _, x in leaves_with_paths((b.ev, b.slot))]
+    leaves += list(tr.model.parameters())
+    leaves += [x for _, x in leaves_with_paths(st.opt_state)]
+    return [x for x in leaves if x.dtype.is_floating_point]
+
+
+def state_lockstep(tg, tc, batches, what, sg=None, sc=None):
+    """Train the card and CPU trainers on ``batches`` through
+    ``train_step``, the CPU trainer starting each step from the card's
+    float state (rows, slot leaves, parameters, dense optimizer state): a
+    table trained by sparse Adagrad at rate 0.5 over an initial
+    accumulator of 0.01 multiplies the rounding of a gradient by up to
+    0.5 / sqrt(0.01) = 5 a step, so states running free part step by step.
+    After every step: the loss within LOSS_ATOL, the integer state (never
+    copied) bit-equal, the float state within ROW_ATOL
+    (:func:`state_same`). Returns the states, the largest loss and row
+    differences."""
+    sg = tg.init(batches[0]) if sg is None else sg
+    sc = tc.init(batches[0]) if sc is None else sc
+    worst = drow = 0.0
+    for i, b in enumerate(batches):
+        with torch.no_grad():
+            for a, c in zip(float_leaves(tg, sg), float_leaves(tc, sc)):
+                c.copy_(a)
+        g0, c0 = sg.metrics.loss_sum.item(), sc.metrics.loss_sum.item()
+        sg, sc = tg.train_step(sg, b), tc.train_step(sc, b)
+        lg = (sg.metrics.loss_sum.item() - g0) / B
+        lc = (sc.metrics.loss_sum.item() - c0) / B
+        if not (np.isfinite(lg) and abs(lg - lc) <= LOSS_ATOL):
+            fail(f"{what}: step {i} loss {lg} on the card vs {lc} on CPU")
+        worst = max(worst, abs(lg - lc))
+        drow = max(drow, state_same(tg, sg, tc, sc, f"{what} step {i}"))
+    log(f"{what}: {len(batches)} steps in lockstep with a CPU trainer that "
+        f"starts each step from the card's float state: integer state "
+        f"bit-equal every step, max |dloss| {worst:.3g} (limit "
+        f"{LOSS_ATOL}), max |drow|, |dslot| and |dparam| after a step "
+        f"{drow:.3g} (limit {ROW_ATOL})")
+    return sg, sc, worst, drow
+
+
+def saved_arrays(coll, bundle, step):
+    """A table's checkpoint arrays as numpy, rows ordered by key."""
+    arrays = coll.ckpt_arrays(bundle, 1, None, False, step)
+    if "keys" not in arrays:
+        return arrays
+    n, order = arrays["keys"].shape[0], np.argsort(arrays["keys"])
+    return {k: (np.asarray(v)[order] if np.ndim(v) and len(v) == n
+                and not k.startswith(("cbf", "static__")) else np.asarray(v))
+            for k, v in arrays.items()}
+
+
+def check_variant_kernels(dev):
+    """K1, K2, K2's backward and K3a at the variant tables' shapes, from one
+    B=4096 batch: the multi-hash sub-table fetch ([26*4096] int64 rows of
+    the 2^16-row table 0) and pooling (K2 both ways over arange(26*4096):
+    one row per flat id) and, for the tables with an index, the flat dedup
+    (``unique`` without a cap, so U = 26*4096 lanes): K2 both ways over its
+    int64 inverse, K1 at its slots from a 2^20-row table, K3a
+    (lookup_meta, CounterFilter(2)) at its lanes. Returns the entries
+    (path ``variants``)."""
+    import torch.nn.functional as Fn
+    from deeprec_tpu_torch.data.criteo import SyntheticCriteo
+    from deeprec_tpu_torch.ops.unique import unique
+    from deeprec_tpu_torch.sparse import hashtable as ht
+    from deeprec_tpu_torch.sparse import multihash as mh
+    g = torch.Generator().manual_seed(SEED + 5)
+    coll = variant_collection("multihash")
+    ids = torch.from_numpy(coll.pack_ids_np(
+        next(SyntheticCriteo(batch_size=B, seed=7)))).to(dev).reshape(-1)
+    sub0 = mh.sub_indices(coll.mh_config, ids)[0]
+    t0 = torch.randn(coll.mh_config.table_sizes[0] + 1, EMB_DIM,
+                     generator=g).to(dev)
+    entries = [k1_case("(multi-hash sub-table 0 of 65,537 rows, int64)", t0,
+                       sub0, "multihash")]
+    # multi-hash pooling: its rows are per flat id, so K2 reads them
+    # through arange(n) (every row once) and its backward adds one
+    # gradient row to each
+    n = ids.shape[0]
+    mslots = torch.arange(n, device=dev).view(-1, 1)
+    mvalid = (ids != -1).view(-1, 1)
+    murows = torch.randn(n, EMB_DIM, generator=g).to(dev)
+    md = torch.randn(n, EMB_DIM, generator=g).to(dev)
+    entries += k2_pair(
+        f"(multi-hash, [26*{B}, 1] sum over arange({n}))", murows, mslots,
+        mvalid, "sum", md,
+        lambda: Fn.embedding_bag(mslots, murows,
+                                 per_sample_weights=mvalid.float(),
+                                 mode="sum"),
+        lambda: torch.zeros(n, EMB_DIM, device=dev).index_add_(
+            0, mslots.view(-1), torch.where(mvalid, md, 0.0)),
+        "multihash")
+    cap = VARIANT_CAPACITY
+    uniq = unique(ids)
+    _, uslots, created = ht.lookup_or_insert(ht.create(cap, dev), uniq.ukeys)
+    u, n_real = uslots.shape[0], int(uniq.n_unique)
+    log(f"variant flat-dedup shape: {ids.shape[0]} ids, {n_real} unique keys "
+        f"in {u} lanes, int64 inverse and slots")
+    slots = uniq.inverse.view(-1, 1)
+    valid = (uslots != cap)[uniq.inverse].view(-1, 1)
+    urows = torch.randn(u, EMB_DIM, generator=g).to(dev)
+    d_pooled = torch.randn(slots.shape[0], EMB_DIM, generator=g).to(dev)
+    idx, src = uniq.inverse, torch.where(valid, d_pooled, 0.0)
+    entries += k2_pair(
+        f"(variants, [26*{B}, 1] sum over a flat dedup of {u} lanes)",
+        urows, slots, valid, "sum", d_pooled,
+        lambda: Fn.embedding_bag(slots, urows,
+                                 per_sample_weights=valid.float(),
+                                 mode="sum"),
+        lambda: torch.zeros(u, EMB_DIM, device=dev).index_add_(0, idx, src),
+        "variants")
+    table = torch.randn(cap + 1, EMB_DIM, generator=g).to(dev)
+    entries.append(k1_case(f"(variant row fetch, {u} int64 lanes of a 2^20 "
+                           "table)", table, uslots, "variants"))
+    # the adaptive and dynamic-dimension tables' metadata step: no
+    # eviction, so no create steps or versions; freqs and the admission
+    # test
+    entries.append(k3a_case(
+        f"(variant shape, the freq plane of {cap + 1})", "_variants", uslots,
+        uniq.counts.to(torch.int32),
+        torch.zeros((1,), dtype=torch.bool, device=dev),
+        torch.where(created, uslots, cap + 1), cap, 2, planes=("freq",))[0])
+    for e in entries:
+        e["path"] = "variants"
+    return entries
+
+
+def check_variants(dev, smi, tmp):
+    """Phase 14, the variant collections at full width (bench.py's DLRM,
+    B 4096, 26 Criteo columns at emb dim 16, sparse Adagrad(0.5, initial
+    accumulator 0.01), dense Adagrad(0.05), SyntheticCriteo(4096, seed=7)):
+    multi-hash (add; then mult and concat), adaptive, dynamic dimension and
+    hash table, each VARIANT_STEPS steps in lockstep with a CPU trainer, 3
+    timed runs of 10 staged steps, the host syncs of one more step, a card
+    save restored by a CPU trainer
+    (tables equal) and one eval step on both (AUC and loss within
+    EVAL_ATOL). K1, K2 and
+    K2's backward launch on every run, K3a on adaptive and dynamic
+    dimension. Returns the launches summed over the runs and the phase's
+    numbers."""
+    from deeprec_tpu_torch.checkpoint.saver import CheckpointManager
+    from deeprec_tpu_torch.data.criteo import SyntheticCriteo
+    from deeprec_tpu_torch.train import metrics
+    counters = path_counters()
+    batches = list(SyntheticCriteo(batch_size=B, seed=7).take(
+        VARIANT_STEPS + 31))
+    held = next(SyntheticCriteo(batch_size=B, seed=11))
+    total = {n: 0 for n in counters}
+    out, t_phase = {}, time.perf_counter()
+    runs = [(k, "add", VARIANT_STEPS, True) for k in VARIANT_KINDS]
+    runs += [("multihash", c, VARIANT_MODE_STEPS, False)
+             for c in ("mult", "concat")]
+    for kind, combiner, steps, full in runs:
+        what = f"variants {kind}" + (f" {combiner}" if kind == "multihash"
+                                     else "")
+        tg = variant_trainer(kind, dev, combiner)
+        tc = variant_trainer(kind, "cpu", combiner)
+        for fn in counters.values():
+            fn.launches = 0
+        sg, sc, dloss, drow = state_lockstep(tg, tc, batches[:steps], what)
+        res = {"max_dloss": dloss, "max_drow": drow}
+        if full:
+            sg, staged = timed_runs(tg, sg, batches[steps:steps + 30])
+            res["staged_eps"] = staged
+            log(f"{what} examples/s at B={B}, staged host half: median "
+                f"{statistics.median(staged):.1f}, min {min(staged):.1f}, "
+                f"max {max(staged):.1f} over 3 runs of 10 steps, on {smi}")
+            # the host syncs of one staged step: neither the metrics nor
+            # the dynamic-dimension mask may sync (the hash table's probe
+            # loop does: ROADMAP C7)
+            item = tg.prepare_batch(batches[steps + 30])
+            torch.cuda.synchronize()
+            box = {"s": sg}
+
+            def one():
+                box["s"] = tg._train_step(box["s"], *item)
+            syncs = count_syncs(one)
+            sg = box["s"]
+            res["host_syncs_by_line"] = dict(syncs)
+            log(f"{what} host syncs in one staged step: "
+                f"{sum(syncs.values())}, by line: {dict(syncs)}")
+            for line in syncs:
+                if line.startswith(("deeprec_tpu_torch/train/metrics.py",
+                                    "deeprec_tpu_torch/sparse/dynamicdim")):
+                    fail(f"{what}: {line} syncs with the host")
+        launches = {n: fn.launches for n, fn in counters.items()}
+        need = ["gather_rows", "fused_pooled_lookup",
+                "fused_pooled_lookup_backward"]
+        if kind in ("adaptive", "dyndim"):
+            need.append("lookup_meta")
+        for n in need:
+            if launches[n] <= 0:
+                fail(f"{n} was not launched on the {what} path")
+        for n, v in launches.items():
+            total[n] += v
+        res["launches"] = launches
+        log(f"{what} launches ({sg.step} steps): {launches}")
+        if full:
+            # a card save restored by a fresh CPU trainer: the same tables;
+            # one eval step on both
+            path = os.path.join(tmp, f"variant_{kind}")
+            CheckpointManager(path).save(tg, sg)
+            tr2 = variant_trainer(kind, "cpu")
+            sr, ok = CheckpointManager(path).restore(tr2, tr2.init(held))
+            if not ok or sr.step != sg.step:
+                fail(f"{what}: the card's save did not restore on the CPU")
+            a = saved_arrays(tg.collections["emb"], sg.tables["emb"],
+                             sg.step)
+            c = saved_arrays(tr2.collections["emb"], sr.tables["emb"],
+                             sr.step)
+            if sorted(a) != sorted(c) or not all(
+                    np.array_equal(np.asarray(a[k]), np.asarray(c[k]))
+                    for k in a):
+                fail(f"{what}: the CPU restore of the card's save holds "
+                     "other tables")
+            mg = metrics.summarize(tg.eval_step(
+                sg, metrics.create(device=dev), held))
+            mc = metrics.summarize(tr2.eval_step(
+                sr, metrics.create(device="cpu"), held))
+            if not (abs(mg["auc"] - mc["auc"]) <= EVAL_ATOL
+                    and abs(mg["loss"] - mc["loss"]) <= EVAL_ATOL
+                    and 0.0 < mg["auc"] < 1.0):
+                fail(f"{what}: eval AUC {mg['auc']} and loss {mg['loss']} "
+                     f"on the card vs {mc['auc']} and {mc['loss']} on a "
+                     "CPU restore of its save")
+            res["eval"] = {"card": mg, "cpu_restore": mc}
+            res["health"] = tg.table_health(sg).get("emb")
+            log(f"{what}: a card save restored by a CPU trainer (tables "
+                f"equal: {sorted(a)[:6]}...), eval AUC {mg['auc']!r} and "
+                f"loss {mg['loss']!r} on the card, {mc['auc']!r} and "
+                f"{mc['loss']!r} on the CPU (limit {EVAL_ATOL}); health "
+                f"{res['health']}")
+        out[what] = res
+        del tg, tc, sg, sc
+        torch.cuda.empty_cache()
+    log(f"variants: launches over the phase {total}; phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return total, out
+
+
+def migrate_trainer(dev):
+    """bench.py's DLRM (seeded weights) on a device-index table of 2^21
+    rows (CounterFilter(2), so kernel K3a on the path), sparse
+    Adagrad(0.05, initial accumulator 0.1), whose ``acc`` slot the bundle's
+    Adagrad EV fills, and dense Adagrad(0.05)."""
+    from deeprec_tpu_torch import config as cfg
+    from deeprec_tpu_torch import feature_column as fc
+    from deeprec_tpu_torch.data.criteo import CAT_NAMES
+    from deeprec_tpu_torch.optim.dense import Adagrad
+    from deeprec_tpu_torch.optim.sparse import sparse_adagrad
+    from deeprec_tpu_torch.train.trainer import Trainer
+    numeric, _, _ = criteo_parts()
+    coll = fc.EmbeddingCollection(
+        [fc.EmbeddingColumn(fc.CategoricalColumn(n), EMB_DIM)
+         for n in CAT_NAMES], name="emb", capacity=CAPACITY,
+        initializer=cfg.Initializer("normal", scale=0.05),
+        counter_filter=cfg.CounterFilter(2))
+    return Trainer(seeded_model(torch.Generator().manual_seed(SEED)),
+                   numeric, {"emb": coll},
+                   {"emb": sparse_adagrad(0.05,
+                                          initial_accumulator_value=0.1)},
+                   Adagrad(0.05), device=dev)
+
+
+def fixture_script():
+    """tests/torch_fixtures/make_bundle.py, loaded by its path (a ``tests``
+    package installed elsewhere would shadow the repo's directory)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "make_bundle", os.path.join(REPO, "tests", "torch_fixtures",
+                                    "make_bundle.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def check_migrate(dev, smi, tmp):
+    """Phase 15, DeepRec checkpoint migration: the committed DeepRec-shaped
+    bundle (tests/torch_fixtures/deeprec_bundle: 26 per-column EV quads of
+    128 keys at dim 16, C1 partitioned and with an Adagrad slot EV missing
+    keys, the DLRM's bottom MLP, global_step, a string) through ``scan``,
+    ``import_tables`` into a card and a CPU device-index trainer and
+    ``import_dense`` onto the DLRM: the imported keys, values, versions,
+    freqs and slot rows bit-equal card and CPU and equal to the arrays the
+    fixture's script draws; the offline CLI (``python -m
+    deeprec_tpu_torch.checkpoint.migrate``) writes what ``_main`` writes;
+    then MIGRATE_STEPS steps in lockstep over batches that reuse the
+    imported keys, and 3 timed runs of 10 staged steps. K1, K2, K2's
+    backward and K3a launch."""
+    from deeprec_tpu_torch.checkpoint import migrate
+    from deeprec_tpu_torch.checkpoint.saver import table_snapshot_host
+    from deeprec_tpu_torch.data.criteo import SyntheticCriteo
+    mb = fixture_script()
+    t_phase = time.perf_counter()
+    prefix = mb.PREFIX
+    fx = mb.fixture_arrays()
+    cat = migrate.scan(migrate.BundleReader(prefix))
+    if not (len(cat.evs) == mb.N_COLUMNS and cat.skipped == ["ckpt/path"]
+            and sorted(cat.evs[mb.ev_name(1)].slots) == ["Adagrad"]
+            and len(cat.evs[mb.ev_name(1)].parts) == 2):
+        fail(f"migrate: scan catalogued {len(cat.evs)} EVs, skipped "
+             f"{cat.skipped}")
+    name_map = {"emb": {f"C{c}": mb.ev_name(c)
+                        for c in range(1, mb.N_COLUMNS + 1)}}
+    pairs = []  # (trainer, state, report): the card's, then the CPU's
+    for d in (dev, "cpu"):
+        tr = migrate_trainer(d)
+        st = tr.init(next(SyntheticCriteo(batch_size=B, seed=7)))
+        st, rep = migrate.import_tables(tr, st, prefix, name_map,
+                                        validate=True)
+        _, missing = migrate.import_dense(tr.model, prefix,
+                                          dict(mb.bottom_names()))
+        if missing:
+            fail(f"migrate: import_dense missed {missing}")
+        pairs.append((tr, st, rep))
+    (tg, sg, rep), (tc, sc, rep_cpu) = pairs
+    if rep != rep_cpu or rep["imported"]["emb"]["rows"] != \
+            mb.N_COLUMNS * mb.N_KEYS or rep["slots"]["emb"] != \
+            ["Adagrad->acc"] or rep["unmatched_evs"]:
+        fail(f"migrate: import reports {rep} (card) vs {rep_cpu}")
+    coll = tc.collections["emb"]
+    snaps = [table_snapshot_host(coll.config, s.tables["emb"].ev,
+                                 s.tables["emb"].slot, evict=False)
+             for s in (sg, sc)]
+    for k in snaps[1]:
+        if not np.array_equal(np.asarray(snaps[0][k]),
+                              np.asarray(snaps[1][k])):
+            fail(f"migrate: imported {k} differ between card and CPU")
+    # every imported row holds the fixture's arrays (keys in the table's
+    # salted space; the acc slot from C1's Adagrad EV, else its fill)
+    snap = snaps[1]
+    row_of = {int(k): i for i, k in enumerate(snap["keys"])}
+    slot_by_key = dict(zip(fx["slot"]["keys"].tolist(),
+                           fx["slot"]["values"]))
+    for c, ev in fx["evs"].items():
+        keys = coll.transform_raw_keys(f"C{c}", ev["keys"])
+        idx = np.array([row_of[int(k)] for k in keys])
+        acc = np.stack([slot_by_key.get(int(r), np.full(EMB_DIM, 0.1,
+                                                        np.float32))
+                        if c == 1 else np.full(EMB_DIM, 0.1, np.float32)
+                        for r in ev["keys"]])
+        if not (np.array_equal(snap["values"][idx], ev["values"])
+                and np.array_equal(snap["versions"][idx], ev["versions"])
+                and np.array_equal(snap["freqs"][idx], ev["freqs"])
+                and np.array_equal(snap["create_steps"][idx],
+                                   ev["versions"])
+                and np.array_equal(snap["slot__['acc']"][idx], acc)):
+            fail(f"migrate: column C{c}'s imported rows are not the "
+                 "fixture's")
+    w = {n: p.detach().cpu() for n, p in tg.model.bottom.named_parameters()}
+    want = fx["dense"]["dlrm/bottom_mlp/dense_0/kernel"]
+    if not (np.array_equal(w["hidden.0.weight"].numpy().T, want)
+            and all(torch.equal(w[n], p.detach()) for n, p in
+                    tc.model.bottom.named_parameters())):
+        fail("migrate: the bottom MLP is not the bundle's")
+    # the offline CLI, in a process of its own, writes what _main writes
+    outs = [os.path.join(tmp, "migrated_cli"), os.path.join(tmp, "migrated")]
+    subprocess.run([sys.executable, "-m",
+                    "deeprec_tpu_torch.checkpoint.migrate", "--prefix",
+                    prefix, "--out", outs[0], "--validate"], check=True,
+                   cwd=REPO, capture_output=True, timeout=300)
+    with contextlib.redirect_stdout(io.StringIO()):
+        migrate._main(["--prefix", prefix, "--out", outs[1]])
+    files = sorted(os.listdir(outs[1]))
+    if sorted(os.listdir(outs[0])) != files or len(files) != \
+            mb.N_COLUMNS + 2:
+        fail(f"migrate: the offline CLI wrote {files}")
+    for f in files:
+        a, b = (os.path.join(o, f) for o in outs)
+        if f.endswith(".json"):
+            with open(a) as fa, open(b) as fb:
+                same = json.load(fa) == json.load(fb)
+        else:
+            with np.load(a) as za, np.load(b) as zb:
+                same = sorted(za.files) == sorted(zb.files) and all(
+                    np.array_equal(za[k], zb[k]) for k in za.files)
+        if not same:
+            fail(f"migrate: the offline CLI's {f} differs from _main's")
+
+    # training from the imported state: half of each column's ids are
+    # imported keys
+    rng = np.random.default_rng(SEED)
+    batches = []
+    for b in SyntheticCriteo(batch_size=B, seed=7).take(MIGRATE_STEPS + 30):
+        b = dict(b)
+        for c, ev in fx["evs"].items():
+            col = np.array(b[f"C{c}"], np.int64)
+            pick = rng.random(B) < 0.5
+            col[pick] = rng.choice(ev["keys"], int(pick.sum()))
+            b[f"C{c}"] = col
+        batches.append(b)
+    counters = path_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    sg, sc, dloss, drow = state_lockstep(tg, tc, batches[:MIGRATE_STEPS],
+                                         "migrate", sg, sc)
+    sg, staged = timed_runs(tg, sg, batches[MIGRATE_STEPS:])
+    launches = {n: fn.launches for n, fn in counters.items()}
+    for n, v in launches.items():
+        if v <= 0:
+            fail(f"{n} was not launched on the migrate path")
+    log(f"migrate: {rep['imported']['emb']['rows']} rows of "
+        f"{len(rep['imported']['emb']['evs'])} EVs imported, slots "
+        f"{rep['slots']['emb']}, card = CPU = fixture; launches {launches}; "
+        f"examples/s at B={B}, staged: median "
+        f"{statistics.median(staged):.1f}, min {min(staged):.1f}, max "
+        f"{max(staged):.1f} over 3 runs of 10 steps, on {smi}; phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return launches, {"report": rep, "max_dloss": dloss, "max_drow": drow,
+                      "staged_eps": staged}
+
+
 def run(dev, smi, probe):
-    """Phases 2-13 on ``dev`` (``probe``: the built design probes); returns
+    """Phases 2-15 on ``dev`` (``probe``: the built design probes); returns
     the kernels' JSON entries and the training numbers."""
     from deeprec_tpu_torch.data.criteo import SyntheticCriteo
     from deeprec_tpu_torch.ops.fused_lookup import fused_pooled_lookup
@@ -2950,7 +3479,7 @@ def run(dev, smi, probe):
 
     kernels = (check_kernels(dev, probe) + check_training_kernels(dev, probe)
                + check_zoo_kernels(dev) + check_seq_kernels(dev)
-               + check_device_kernels(dev))
+               + check_device_kernels(dev) + check_variant_kernels(dev))
 
     _build.BUILD.mkdir(parents=True, exist_ok=True)  # git-ignored
     with tempfile.TemporaryDirectory(dir=str(_build.BUILD)) as path:
@@ -3023,6 +3552,11 @@ def run(dev, smi, probe):
         paths["cli"], training["cli"] = check_cli(dev, smi, path)
     with tempfile.TemporaryDirectory(dir=str(_build.BUILD)) as path:
         paths["device"], training["device"] = check_device(dev, smi, path)
+    with tempfile.TemporaryDirectory(dir=str(_build.BUILD)) as path:
+        paths["variants"], training["variants"] = check_variants(dev, smi,
+                                                                 path)
+    with tempfile.TemporaryDirectory(dir=str(_build.BUILD)) as path:
+        paths["migrate"], training["migrate"] = check_migrate(dev, smi, path)
     for k in kernels:
         # launches on the slice's main path, --metadata (the bf16 rows: on
         # the bf16 table's, where every K2 launch is a bf16 one; a zoo or

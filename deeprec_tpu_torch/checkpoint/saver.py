@@ -366,8 +366,8 @@ class CheckpointManager:
         tables, dense = self._collect(trainer, state, since, evict)
         path = os.path.join(self.directory, F.step_dirname(kind, step))
         manifest = {"kind": kind, "step": step,
-                    "tables": {n: int(t["keys"].shape[0])
-                               for n, t in tables.items()}}
+                    "tables": {n: int(t["keys"].shape[0]) if "keys" in t
+                               else -1 for n, t in tables.items()}}
         if since is not None:
             manifest["since"] = since
         F.write_save(path, manifest, dense, tables)

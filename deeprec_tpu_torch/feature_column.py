@@ -40,6 +40,7 @@ so it is zeros there too.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Dict, List, NamedTuple, Optional, Sequence
 
 import numpy as np
@@ -431,11 +432,22 @@ def pack_dense(columns: Sequence[NumericColumn],
 
 def normalize_dense(columns: Sequence[NumericColumn],
                     raw: torch.Tensor) -> torch.Tensor:
-    """Per-column normalisation; column layout as :func:`pack_dense`."""
+    """Per-column normalisation; column layout as :func:`pack_dense`. The
+    ``log_normalize`` mask is built once per column list and device and
+    kept there, so a call copies nothing to the device."""
+    mask = _log_mask(tuple(columns), raw.device)
+    if mask is None:
+        return raw
+    logged = torch.log1p(torch.clamp_min(raw, 0.0))
+    return torch.where(mask, logged, raw)
+
+
+@functools.lru_cache(maxsize=64)
+def _log_mask(columns: tuple, device: torch.device):
+    """``[1, D]`` bool of the ``log_normalize`` columns on ``device``, or
+    None when no column takes the log."""
     mask = np.concatenate([np.full(col.shape, col.log_normalize, bool)
                            for col in columns])
     if not mask.any():
-        return raw
-    logged = torch.log1p(torch.clamp_min(raw, 0.0))
-    return torch.where(torch.from_numpy(mask).to(raw.device)[None, :],
-                       logged, raw)
+        return None
+    return torch.from_numpy(mask).to(device)[None, :]

@@ -1,9 +1,10 @@
 """Deduplication of 64-bit key batches.
 
-Port of ``deeprec_tpu/ops/unique.py`` ``unique`` and ``unique_cols``: a
-stable sort with the original positions as payload, then
-adjacent-difference segmentation (``unique_cols``: one batched sort of the
-rows of a feature-major ``[W, B]`` block).
+Port of ``deeprec_tpu/ops/unique.py`` ``unique``, ``unique_cols`` and
+``unique_int32``: a stable sort with the original positions as payload,
+then adjacent-difference segmentation (``unique_cols``: one batched sort of
+the rows of a feature-major ``[W, B]`` block; ``unique_int32``: one plane
+of small indices, the multi-hash sub-indices and the adaptive buckets).
 
 The sort key is ``ids ^ 0x80000000``: flipping bit 31 makes int64 order
 equal to the JAX package's lexicographic order over the signed int32
@@ -33,6 +34,30 @@ def _group_sizes(inverse: torch.Tensor, u_out: int) -> torch.Tensor:
     return torch.zeros((u_out,), dtype=torch.int64,
                        device=inverse.device).index_add_(
         0, inverse, torch.ones_like(inverse))
+
+
+INT32_MAX = torch.iinfo(torch.int32).max
+
+
+def unique_int32(idx: torch.Tensor):
+    """Dedup a 1-D batch of non-negative indices below 2^31 (static
+    tables' rows). Returns ``(uidx, inverse, counts)``, all of length
+    ``n``: ``uidx`` int32, the distinct values ascending, padded at the
+    tail with INT32_MAX (callers mask with ``uidx < size``); ``inverse``
+    int64, each input's position in ``uidx``; ``counts`` int64, each
+    group's size (0 in the padding). The values are the JAX package's; no
+    host sync."""
+    n = idx.shape[0]
+    sidx, order = torch.sort(idx.to(torch.int32), stable=True)
+    first = torch.ones(n, dtype=torch.bool, device=idx.device)
+    first[1:] = sidx[1:] != sidx[:-1]
+    uid_sorted = torch.cumsum(first, 0) - 1
+    inverse = torch.empty_like(uid_sorted)
+    inverse[order] = uid_sorted
+    uidx = torch.full((n + 1,), INT32_MAX, dtype=torch.int32,
+                      device=idx.device)
+    uidx[torch.where(first, uid_sorted, n)] = sidx  # non-starts: trash
+    return uidx[:n], inverse, _group_sizes(inverse, n)
 
 
 def unique(ids: torch.Tensor, max_unique: Optional[int] = None

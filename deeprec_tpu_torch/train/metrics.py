@@ -3,8 +3,11 @@
 AUC is a device-resident histogram of positive and negative counts over
 fixed probability bins, finalised by trapezoidal integration (the
 thresholded estimator of ``tf.metrics.auc`` with ``nbins + 1``
-thresholds). The histogram is a ``torch.bincount`` with weights; the JAX
-package's one-hot matmul is a TPU workaround and stays behind.
+thresholds). The histograms are scatter-adds of the label weights into
+``[nbins]`` zeros on the device: unlike a weighted ``torch.bincount`` on
+the card, they need no host sync, and 0/1 weights sum exactly in f32
+(below 2^24 a bin) in any order. The JAX package's one-hot matmul is a TPU
+workaround and stays behind.
 """
 from __future__ import annotations
 
@@ -27,6 +30,13 @@ def create(nbins: int = 1024, device="cuda") -> MetricState:
     return MetricState(z((nbins,)), z((nbins,)), z(), z(), z())
 
 
+def _histogram(idx: torch.Tensor, weights: torch.Tensor,
+               nbins: int) -> torch.Tensor:
+    """``weights`` summed per bin ``idx``, ``[nbins]`` float32."""
+    return torch.zeros((nbins,), dtype=torch.float32,
+                       device=idx.device).index_add_(0, idx, weights)
+
+
 def update(state: MetricState, logits: torch.Tensor, labels: torch.Tensor,
            loss: Optional[torch.Tensor] = None) -> MetricState:
     nbins = state.pos_hist.shape[0]
@@ -34,10 +44,8 @@ def update(state: MetricState, logits: torch.Tensor, labels: torch.Tensor,
     p = torch.sigmoid(logits)
     labels = labels.float()
     idx = torch.clamp((p * nbins).to(torch.int64), 0, nbins - 1)
-    pos = state.pos_hist + torch.bincount(idx, weights=labels,
-                                          minlength=nbins)
-    neg = state.neg_hist + torch.bincount(idx, weights=1.0 - labels,
-                                          minlength=nbins)
+    pos = state.pos_hist + _histogram(idx, labels, nbins)
+    neg = state.neg_hist + _histogram(idx, 1.0 - labels, nbins)
     correct = state.correct + ((p >= 0.5) == (labels >= 0.5)).sum()
     n = float(logits.shape[0])
     loss_sum = state.loss_sum + (loss.detach() * n if loss is not None

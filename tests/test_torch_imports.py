@@ -50,6 +50,11 @@ def test_port_imports_without_jax():
     assert {f"deeprec_tpu_torch.{m}" for m in (
         "ops.segment", "sparse.tiered", "train.tiered_trainer",
         "train.estimator")} <= names
+    # the variant tables, the reference-name API and checkpoint migration
+    assert {f"deeprec_tpu_torch.{m}" for m in (
+        "sparse.multihash", "sparse.dynamicdim", "sparse.adaptive",
+        "sparse.hash_table_api", "feature_column_variants", "api",
+        "checkpoint.bundle_reader", "checkpoint.migrate")} <= names
 
 
 def test_resolver_binding_copy_is_the_source():
