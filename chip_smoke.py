@@ -3,8 +3,9 @@ path, its host-index training path, its tiered storage, the CTR zoo, the
 sequence models DIN and DIEN, the modelzoo entry points (the training
 CLI, the sparse optimizers, the bf16 towers and the server's command
 line), the device-index training engine, the variant tables
-(multi-hash, adaptive, dynamic dimension, hash table) and the migration of
-DeepRec checkpoints.
+(multi-hash, adaptive, dynamic dimension, hash table), the migration of
+DeepRec checkpoints and the device-index mesh engine (ShardedTrainer,
+multi-shard saves, ShardedPredictor).
 
 Run from the root of a checkout on a machine with one CUDA card:
 
@@ -205,7 +206,32 @@ comparison compute in full f32. Phases (any failure exits non-zero):
    offline CLI run as ``python -m deeprec_tpu_torch.checkpoint.migrate``
    writes what _main writes; then 3 steps in lockstep over batches that
    reuse the imported keys and 3 timed runs of 10 staged steps. K1, K2,
-   K2's backward and K3a launch.
+   K2's backward and K3a launch;
+16. the mesh engine on one rank (``mesh1``): the device phase's DLRM
+   through cli.make_trainer with --mesh 1, a ShardedTrainer on a world-1
+   NCCL group, 30 steps in lockstep with a CPU twin on a gloo group of
+   the same process (every step's loss within LOSS_ATOL and key planes
+   bit-equal; metadata planes bit-equal and rows, slot leaves and
+   parameters within ROW_ATOL at every 10-step fence, after which the
+   twin takes the card's float state); K1, K2, K2's backward and K3a
+   launched; 5 steps with exact dedup against the one-device trainer
+   (the same key -> row map); 3 timed runs of 10 staged steps, the
+   all_to_all time in the step (CUDA events) and alone at the step's
+   widths;
+17. the mesh engine on four ranks (``mesh4``): this script started 4
+   times (``--mesh4-rank R JOB``), every rank on the one card (NCCL takes
+   one rank a card) over gloo (over NCCL, rank r on card r, where torch
+   sees four cards), 1,024 examples a rank of each B=4096
+   batch, each rank in lockstep with a CPU twin on a second gloo group
+   for 20 steps, K1, K2, K2's backward and K3a launched on every rank,
+   3 timed runs of 5 staged steps and the gloo all_to_all's time; then a
+   full save of the 4 shards (one part file each) served by the
+   one-device Predictor on the card, a 4-rank ShardedPredictor and a
+   2-rank one (a reshard), all within PROB_ATOL on 5 held batches. A rank
+   that fails, or a phase past MESH4_TIMEOUT_S, fails the smoke. Phase 2
+   also holds K1 and K3a at the owner's shapes of this phase (the S*C
+   received lanes, the owner's unique width with the summed
+   multiplicities as counts) and times them.
 
 The last line is {"ok": true, "device": {...}}; the line before it holds
 the kernels' numbers as JSON, the line before that the training numbers.
@@ -305,6 +331,11 @@ VARIANT_CAPACITY = 1 << 20  # phase 14: the variant tables with an index
 VARIANT_STEPS = 5        # each variant's lockstep steps ...
 VARIANT_MODE_STEPS = 3   # ... multi-hash mult and concat's
 MIGRATE_STEPS = 3        # phase 15: lockstep steps after the import
+MESH_STEPS = 30          # phase 16 (mesh1): lockstep steps ...
+MESH_FENCE = 10          # ... the CPU twin re-anchored every 10
+MESH4_RANKS = 4          # phase 17 (mesh4): rank processes on the card,
+MESH4_STEPS = 20         # their lockstep steps,
+MESH4_TIMEOUT_S = 300    # and the phase's limit
 # an eval step's AUC and loss, card vs CPU: the AUC is a histogram of 1024
 # bins, and a probability within rounding of a bin edge lands on the other
 # side on the other device, each such example moving the AUC by about
@@ -3469,8 +3500,469 @@ def check_migrate(dev, smi, tmp):
                       "staged_eps": staged}
 
 
+# -- phases 16 and 17: the mesh engine ----------------------------------------
+def mesh_trainer(dev, axis, extra=()):
+    """The device phase's DLRM (:func:`device_entry`) as ``--mesh S``
+    makes it: ``cli.make_trainer`` over ``axis`` (``S`` its ranks), so a
+    ``ShardedTrainer`` with this rank's shard of the 2^21-row table."""
+    from deeprec_tpu_torch.train import cli
+    mod, args = device_entry(dev, ["--mesh", str(axis.size), *extra])
+    tr = cli.make_trainer(mod.build(args), args, mesh=axis)
+    if type(tr).__name__ != "ShardedTrainer":
+        fail("--mesh did not give a ShardedTrainer")
+    return tr
+
+
+def anchor(tg, sg, tc, sc):
+    """The CPU twin takes the card's float state (rows, slot leaves,
+    parameters, buffers, the dense optimizer's state), so the next window
+    of steps starts from one state."""
+    from deeprec_tpu_torch.utils.tree import leaves_with_paths
+    pairs = [(sc.tables[n].ev.values, sg.tables[n].ev.values)
+             for n in tc.collections]
+    for n in tc.collections:
+        pairs += [(c, g) for (_, c), (_, g) in zip(
+            leaves_with_paths(sc.tables[n].slot),
+            leaves_with_paths(sg.tables[n].slot))]
+    pairs += list(zip(tc.model.parameters(), tg.model.parameters()))
+    pairs += list(zip(tc.model.buffers(), tg.model.buffers()))
+    pairs += [(c, g) for (_, c), (_, g) in zip(
+        leaves_with_paths(sc.opt_state), leaves_with_paths(sg.opt_state))]
+    with torch.no_grad():
+        for c, g in pairs:
+            c.copy_(g)
+
+
+def mesh_lockstep(tg, tc, batches, what):
+    """Train the card's and the CPU twin's mesh trainers on ``batches``
+    (global batches of B; each rank keeps its slice): every step's loss
+    within LOSS_ATOL and this rank's key planes bit-equal; at every
+    MESH_FENCE steps the metadata planes bit-equal and rows, slot leaves
+    and parameters within ROW_ATOL (:func:`device_same_tables`), after
+    which the twin takes the card's float state (:func:`anchor`; the card
+    adds K2's backward atomics in another order, ROADMAP C3). Returns the
+    states, the largest loss and row differences."""
+    sg, sc = tg.init(batches[0]), tc.init(batches[0])
+    dloss = drow = 0.0
+    for i, b in enumerate(batches):
+        g0, c0 = sg.metrics.loss_sum.item(), sc.metrics.loss_sum.item()
+        sg, sc = tg.train_step(sg, b), tc.train_step(sc, b)
+        lg = (sg.metrics.loss_sum.item() - g0) / B
+        lc = (sc.metrics.loss_sum.item() - c0) / B
+        if not (np.isfinite(lg) and abs(lg - lc) <= LOSS_ATOL):
+            fail(f"{what}: step {i} loss {lg} on the card vs {lc} on CPU")
+        dloss = max(dloss, abs(lg - lc))
+        if not torch.equal(sg.tables["emb"].ev.index.keys.cpu(),
+                           sc.tables["emb"].ev.index.keys):
+            fail(f"{what}: card and CPU key planes differ after step {i}")
+        if (i + 1) % MESH_FENCE == 0 or i + 1 == len(batches):
+            drow = max(drow, device_same_tables(tg, sg, tc, sc, what))
+            anchor(tg, sg, tc, sc)
+    return sg, sc, dloss, drow
+
+
+class A2ATimer:
+    """Wraps ``axis.all_to_all`` (an instance attribute shadows the
+    method): each call's host time, and its time on the card's current
+    stream between CUDA events (the collective's wait joins that
+    stream)."""
+
+    def __init__(self, axis):
+        self.axis, self.host_s, self.events = axis, [], []
+
+    def __enter__(self):
+        orig = type(self.axis).all_to_all
+
+        def timed(x):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            t = time.perf_counter()
+            a.record()
+            out = orig(self.axis, x)
+            b.record()
+            self.host_s.append(time.perf_counter() - t)
+            self.events.append((a, b))
+            return out
+        self.axis.all_to_all = timed
+        return self
+
+    def __exit__(self, *exc):
+        del self.axis.all_to_all
+        torch.cuda.synchronize()
+
+    def per_step_ms(self, steps):
+        """(card ms, host ms) of the exchanges per step."""
+        card = sum(a.elapsed_time(b) for a, b in self.events)
+        return card / steps, sum(self.host_s) * 1e3 / steps
+
+
+def timed_mesh_steps(tg, state, batches, axis, runs=3, steps=10):
+    """examples/s (global B a step) of ``runs`` runs of ``steps`` staged
+    steps (:func:`timed_runs`), then the all_to_all time of ``steps`` more
+    steps (:class:`A2ATimer`). Returns the state, the rates, the a2a card
+    ms and host ms per step and the number of exchanges a step."""
+    state, rates = timed_runs(tg, state, batches[:runs * steps], runs, steps)
+    items = [tg.prepare_batch(b) for b in
+             batches[runs * steps:(runs + 1) * steps]]
+    torch.cuda.synchronize()
+    with A2ATimer(axis) as t:
+        for it in items:
+            state = tg._train_step(state, *it)
+    card_ms, host_ms = t.per_step_ms(len(items))
+    return state, rates, card_ms, host_ms, len(t.events) / len(items)
+
+
+def key_rows(state):
+    """``key -> row`` of table emb on this rank (numpy)."""
+    ev = state.tables["emb"].ev
+    keys = ev.index.keys.cpu().numpy()
+    live = keys != -1
+    return dict(zip(keys[live].tolist(),
+                    ev.values[:-1][torch.from_numpy(live).to(
+                        ev.values.device)].cpu().numpy()))
+
+
+def check_mesh_kernels(dev):
+    """K1 and K3a at the owner's shapes of the mesh4 phase (4 ranks, 1,024
+    examples each, the device phase's DLRM): the exchange of one B=4096
+    batch is built here as the ranks build it, for owner rank 0 — each
+    requester's unique_cols dedup, its buckets of C lanes (slack 2), the
+    S*C lanes owner 0 receives. K3a (lookup_meta, CounterFilter(2)) and
+    K1's unique-row fetch at the owner's unique width, with the summed
+    multiplicities (``freq_counts``) as counts; K1's read-only fetch at
+    the S*C received lanes (the eval and serving exchange)."""
+    from deeprec_tpu_torch.data.criteo import SyntheticCriteo
+    from deeprec_tpu_torch.ops.segment import segment_sum
+    from deeprec_tpu_torch.ops.unique import unique, unique_cols
+    from deeprec_tpu_torch.parallel import sharded
+    from deeprec_tpu_torch.sparse import hashtable as ht
+    S = MESH4_RANKS
+    g = torch.Generator().manual_seed(SEED + 5)
+    coll = device_trainer("cpu").collections["emb"]
+    cfg, cap = coll.config, coll.config.capacity
+    ids = torch.from_numpy(coll.pack_ids_np(
+        next(SyntheticCriteo(batch_size=B, seed=7)))).to(dev)
+    b = B // S
+    n_local = ids.shape[0] * b
+    C = max(int(np.ceil(min(n_local, cfg.max_unique + 1) * 2.0 / S / 8.0)
+                * 8), 8)  # ShardedTrainer._bucket_cap at slack 2
+    recv, rcounts = [], []
+    for r in range(S):
+        uniq = unique_cols(ids[:, r * b:(r + 1) * b].contiguous(),
+                           cfg.max_unique)
+        _, _, _, dest = sharded._route(uniq, S, C)
+        recv.append(sharded._send(uniq.ukeys, dest, S * C, -1)[:C])
+        rcounts.append(sharded._send(uniq.counts.to(torch.int32), dest,
+                                     S * C, 0)[:C])
+    recv, rcounts = torch.cat(recv), torch.cat(rcounts)
+    ru = unique(recv, cfg.max_unique)
+    freq = segment_sum(rcounts, ru.inverse, ru.ukeys.shape[0])
+    index, uslots, created = ht.lookup_or_insert(ht.create(cap, dev),
+                                                 ru.ukeys, cfg.max_probes)
+    rslots, _ = ht.lookup(index, recv, cfg.max_probes)
+    log(f"mesh4 owner shape: {S} requesters x C {C} lanes = {S * C} "
+        f"received ids, {int(ru.n_unique)} unique ({int(ru.n_overflow)} "
+        f"past the cap) in {ru.ukeys.shape[0]} lanes, counts summed over "
+        f"requesters up to {int(freq.max())}")
+    table = torch.randn(cap + 1, 2 * EMB_DIM, generator=g).to(dev)
+    entries = [
+        k1_case("(mesh4 owner unique-row fetch, int64 slots)", table,
+                uslots, "mesh4_owner", d=EMB_DIM),
+        k1_case("(mesh4 owner read-only fetch of the S*C received lanes)",
+                table, rslots, "mesh4_readonly", d=EMB_DIM),
+        k3a_case(f"(mesh4 owner shape, freq_counts, planes of {cap + 1})",
+                 "_mesh4_owner", uslots, freq,
+                 torch.zeros((1,), dtype=torch.bool, device=dev),
+                 torch.where(created, uslots, cap + 1), cap,
+                 cfg.counter_filter.filter_freq)[0]]
+    for e in entries:
+        e["path"] = "mesh4"
+    return entries
+
+
+def check_mesh1(dev, smi):
+    """Phase 16: a world-1 NCCL ShardedTrainer on the card (the device
+    phase's DLRM through ``cli.make_trainer`` with ``--mesh 1``), MESH_STEPS
+    steps in lockstep with a CPU twin on a gloo group of the same process
+    (:func:`mesh_lockstep`); K1, K2, K2's backward and K3a launched; after
+    5 more steps the same key -> row map as the one-device device-index
+    Trainer (both with exact dedup); 3 timed runs of 10 staged steps and
+    the NCCL all_to_all time a step. Returns the launches and the phase's
+    summary."""
+    import torch.distributed as dist
+    from deeprec_tpu_torch.data.criteo import SyntheticCriteo
+    from deeprec_tpu_torch.parallel import make_mesh, multihost
+    t_phase = time.perf_counter()
+    multihost.initialize(f"127.0.0.1:{free_port()}", 1, 0, backend="nccl")
+    try:
+        nccl = make_mesh(1, device=dev)
+        gloo = make_mesh(1, group=dist.new_group([0], backend="gloo"),
+                         device="cpu")
+        batches = list(SyntheticCriteo(batch_size=B, seed=7).take(
+            MESH_STEPS + 40))
+        tg, tc = mesh_trainer(dev, nccl), mesh_trainer("cpu", gloo)
+        counters = path_counters()
+        for fn in counters.values():
+            fn.launches = 0
+        sg, sc, dloss, drow = mesh_lockstep(tg, tc, batches[:MESH_STEPS],
+                                            "mesh1")
+        launches = {n: fn.launches for n, fn in counters.items()}
+        log(f"mesh1 (NCCL, 1 rank) main path ({MESH_STEPS} steps) "
+            f"launches: {launches}")
+        for n, v in launches.items():
+            if v <= 0:
+                fail(f"{n} was not launched on the mesh1 path")
+        del tc, sc
+        # the one-device engine's key -> row map after the same 5 steps,
+        # with exact dedup: under a binding max_unique the owner's dedup
+        # of the S*C received lanes also holds the EMPTY group, so it
+        # keeps one key fewer than one device (the JAX engine does too)
+        exact = ["--max_unique_ratio", "0"]
+        tm, t1 = mesh_trainer(dev, nccl, exact), device_trainer(dev, exact)
+        sm, s1 = tm.init(batches[0]), t1.init(batches[0])
+        dloss1 = 0.0
+        for b in batches[:5]:
+            m0, o0 = sm.metrics.loss_sum.item(), s1.metrics.loss_sum.item()
+            sm, s1 = tm.train_step(sm, b), t1.train_step(s1, b)
+            dloss1 = max(dloss1, abs(sm.metrics.loss_sum.item() - m0
+                                     - s1.metrics.loss_sum.item() + o0) / B)
+        mesh, one = key_rows(sm), key_rows(s1)
+        if sorted(one) != sorted(mesh):
+            fail("mesh1: the key set differs from the one-device trainer's")
+        drow1 = max(float(np.abs(mesh[k] - one[k]).max()) for k in one)
+        if not (drow1 <= ROW_ATOL and dloss1 <= LOSS_ATOL):
+            fail(f"mesh1: rows differ from the one-device trainer's by "
+                 f"{drow1}, losses by {dloss1}")
+        del tm, sm, t1, s1
+        torch.cuda.empty_cache()
+        sg, rates, a2a_ms, a2a_host, n_a2a = timed_mesh_steps(
+            tg, sg, batches[MESH_STEPS:], nccl)
+        # the collective alone, back to back at the step's widths: the
+        # ids of one step's buckets and its rows (the events above also
+        # hold the host's launch gaps, the device idling between)
+        C = tg._bucket_cap(tg.collections["emb"], 26 * B)
+        alone = {}
+        for what, buf in (("ids", torch.zeros((1, C), dtype=torch.int64,
+                                              device=dev)),
+                          ("rows", torch.zeros((1, C, EMB_DIM),
+                                               device=dev))):
+            nbytes = 2 * buf.numel() * buf.element_size()
+            alone[what] = {"ms": time_ms(lambda: nccl.all_to_all(buf)),
+                           "bytes": nbytes, "bound_ms": bound(nbytes)[0]}
+        summ = _metrics_summary(sg)
+        log(f"mesh1: {MESH_STEPS} steps in lockstep with a gloo CPU twin: "
+            f"max |dloss| {dloss:.3g}, max |drow| {drow:.3g} at the fences "
+            f"(each window of {MESH_FENCE} from the card's state); after 5 "
+            f"exact-dedup steps {len(one)} keys as on one device, rows "
+            f"within {drow1:.3g}, losses within {dloss1:.3g}; staged "
+            f"examples/s at B={B}: median "
+            f"{statistics.median(rates):.1f}, min {min(rates):.1f}, max "
+            f"{max(rates):.1f} over 3 runs of 10 steps; NCCL all_to_all "
+            f"{a2a_ms:.4f} ms a step between CUDA events in the step "
+            f"({n_a2a:.0f} calls, host {a2a_host:.4f} ms); alone, back to "
+            f"back at the step's {C}-lane buckets: " + ", ".join(
+                f"{k} {v['ms']:.4f} ms (bound {v['bound_ms']:.4f}, "
+                f"{v['bytes']} bytes in and out)" for k, v in alone.items())
+            + f"; phase {time.perf_counter() - t_phase:.1f} s, on {smi}")
+        return launches, {"staged_eps": rates, "a2a_ms_per_step": a2a_ms,
+                          "a2a_host_ms_per_step": a2a_host,
+                          "a2a_calls_per_step": n_a2a, "a2a_alone": alone,
+                          "max_dloss": dloss,
+                          "max_drow": drow, "one_device_drow": drow1,
+                          "one_device_dloss": dloss1,
+                          "summary": summ,
+                          "health": tg.table_health(sg)["emb"]}
+    finally:
+        dist.destroy_process_group()
+
+
+def _metrics_summary(state):
+    from deeprec_tpu_torch.train import metrics
+    summ = metrics.summarize(state.metrics)
+    if not (summ["examples"] == state.step * B and np.isfinite(summ["loss"])
+            and 0.0 <= summ["auc"] <= 1.0):
+        fail(f"mesh metrics are off: {summ}")
+    return summ
+
+
+def free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def mesh4_rank(job_path, rank):
+    """One of phase 17's ranks (``python3 chip_smoke.py --mesh4-rank R
+    JOB``): joins a gloo group of MESH4_RANKS processes, all on cuda:0
+    (NCCL takes one rank a card), and a second gloo group for its CPU
+    twin; trains MESH4_STEPS steps in lockstep (:func:`mesh_lockstep`),
+    times staged steps and the gloo all_to_all, writes a full save of the
+    4 shards, serves it with a 4-rank ShardedPredictor and, on ranks 0
+    and 1, a 2-rank one (a reshard); pickles its numbers for the
+    parent."""
+    import pickle
+    import torch.distributed as dist
+    from deeprec_tpu_torch.checkpoint.saver import CheckpointManager
+    from deeprec_tpu_torch.data.criteo import SyntheticCriteo
+    from deeprec_tpu_torch.ops import _build
+    from deeprec_tpu_torch.parallel import make_mesh, multihost
+    from deeprec_tpu_torch.serving import ShardedPredictor
+    with open(job_path, "rb") as f:
+        job = pickle.load(f)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(job["devices"][rank])
+    torch.cuda.set_device(dev)
+    # the host's cores shared out: the ranks' CPU twins and gloo run there
+    torch.set_num_threads(max(1, (os.cpu_count() or 8) // MESH4_RANKS))
+    _build.library()  # the parent built it
+    multihost.initialize(job["addr"], MESH4_RANKS, rank,
+                         backend=job["backend"], timeout_s=MESH4_TIMEOUT_S)
+    try:
+        card = make_mesh(MESH4_RANKS, device=dev)
+        twin = make_mesh(MESH4_RANKS, group=dist.new_group(backend="gloo"),
+                         device="cpu")
+        pair = dist.new_group([0, 1], backend=job["backend"])
+        batches = list(SyntheticCriteo(batch_size=B, seed=7).take(
+            MESH4_STEPS + 20))
+        tg, tc = mesh_trainer(dev, card), mesh_trainer("cpu", twin)
+        counters = path_counters()
+        for fn in counters.values():
+            fn.launches = 0
+        sg, sc, dloss, drow = mesh_lockstep(tg, tc, batches[:MESH4_STEPS],
+                                            f"mesh4 rank {rank}")
+        out = {"launches": {n: fn.launches for n, fn in counters.items()},
+               "max_dloss": dloss, "max_drow": drow,
+               "health": tg.table_health(sg)["emb"]}
+        del tc, sc
+        sg, out["staged_eps"], out["a2a_ms_per_step"], \
+            out["a2a_host_ms_per_step"], out["a2a_calls_per_step"] = \
+            timed_mesh_steps(tg, sg, batches[MESH4_STEPS:], card, runs=3,
+                             steps=5)
+        out["summary"] = _metrics_summary(sg)
+        CheckpointManager(job["ckpt"]).save(tg, sg)
+        del tg, sg
+        torch.cuda.empty_cache()
+        held = list(SyntheticCriteo(batch_size=B, seed=11).take(5))
+        numeric, coll, model = criteo_parts()
+        p4 = ShardedPredictor(model, numeric, {"emb": coll}, job["ckpt"],
+                              mesh=card)
+        out["probs4"] = [p4.predict(b) for b in held]
+        del p4
+        if rank < 2:
+            numeric, coll, model = criteo_parts()
+            p2 = ShardedPredictor(model, numeric, {"emb": coll},
+                                  job["ckpt"], mesh=make_mesh(
+                                      2, group=pair, device=dev))
+            out["probs2"] = [p2.predict(b) for b in held]
+        card.barrier()
+        with open(f"{job_path}.out{rank}", "wb") as f:
+            pickle.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def check_mesh4(dev, smi, tmp):
+    """Phase 17: MESH4_RANKS rank processes (:func:`mesh4_rank`), each in
+    lockstep with its CPU twin: on one card over gloo (NCCL takes one
+    rank a card), or over NCCL with rank r on card r where torch sees
+    MESH4_RANKS cards; a child that fails or outlives MESH4_TIMEOUT_S
+    fails the smoke. Their save is
+    served by the one-device Predictor on the card, and the ranks'
+    4-rank and 2-rank ShardedPredictors agree with it within PROB_ATOL on
+    5 held batches. Returns the launches summed over the ranks (each
+    rank's must be above 0) and the phase's summary."""
+    import pickle
+    from deeprec_tpu_torch.data.criteo import SyntheticCriteo
+    t_phase = time.perf_counter()
+    backend = "nccl" if torch.cuda.device_count() >= MESH4_RANKS else "gloo"
+    job = os.path.join(tmp, "mesh4.pkl")
+    ckpt = os.path.join(tmp, "mesh4_ck")
+    with open(job, "wb") as f:
+        pickle.dump({"addr": f"127.0.0.1:{free_port()}", "ckpt": ckpt,
+                     "backend": backend,  # NCCL takes one rank a card
+                     "devices": [f"cuda:{r if backend == 'nccl' else 0}"
+                                 for r in range(MESH4_RANKS)]}, f)
+    procs = []
+    for r in range(MESH4_RANKS):
+        log_f = open(os.path.join(tmp, f"mesh4_rank{r}.log"), "w+")
+        procs.append((subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--mesh4-rank",
+             str(r), job], cwd=REPO, stdout=log_f,
+            stderr=subprocess.STDOUT), log_f))
+    deadline = time.monotonic() + MESH4_TIMEOUT_S
+    try:
+        for p, _ in procs:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p, _ in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    outs = []
+    for r, (p, log_f) in enumerate(procs):
+        log_f.seek(0)
+        text = log_f.read()
+        log_f.close()
+        if p.returncode != 0:
+            fail(f"mesh4 rank {r} exited {p.returncode}:\n{text[-6000:]}")
+        with open(f"{job}.out{r}", "rb") as f:
+            outs.append(pickle.load(f))
+    launches = {}
+    for r, o in enumerate(outs):
+        for n, v in o["launches"].items():
+            if v <= 0:
+                fail(f"{n} was not launched on mesh4 rank {r}'s path")
+            launches[n] = launches.get(n, 0) + v
+    cards = MESH4_RANKS if backend == "nccl" else 1
+    log(f"mesh4 ({backend}, {MESH4_RANKS} ranks on {cards} card(s)) main path "
+        f"({MESH4_STEPS} steps) launches summed over the ranks: {launches}")
+    held = list(SyntheticCriteo(batch_size=B, seed=11).take(5))
+    one = predictor(ckpt, dev)
+    worst = {"4 ranks": 0.0, "2 ranks": 0.0}
+    for i, b in enumerate(held):
+        p1 = one.predict(b)
+        for what, key in (("4 ranks", "probs4"), ("2 ranks", "probs2")):
+            p = outs[0][key][i]
+            if p.shape != (B,) or not np.isfinite(p).all():
+                fail(f"mesh4 {what} ShardedPredictor: probabilities are not "
+                     f"finite of shape ({B},)")
+            worst[what] = max(worst[what], float(np.abs(p - p1).max()))
+        for o in outs[1:]:  # every rank returns the whole batch
+            if not np.array_equal(o["probs4"][i], outs[0]["probs4"][i]):
+                fail("mesh4: the ranks' ShardedPredictors disagree")
+    if not max(worst.values()) <= PROB_ATOL:
+        fail(f"mesh4: sharded vs one-device probabilities differ: {worst}")
+    o = outs[0]
+    rates = o["staged_eps"]
+    log(f"mesh4: {MESH4_STEPS} steps in lockstep with gloo CPU twins: max "
+        f"|dloss| {max(x['max_dloss'] for x in outs):.3g}, max |drow| "
+        f"{max(x['max_drow'] for x in outs):.3g}; staged examples/s at "
+        f"B={B} ({B // MESH4_RANKS} a rank): median "
+        f"{statistics.median(rates):.1f}, min {min(rates):.1f}, max "
+        f"{max(rates):.1f} over 3 runs of 5 steps; "
+        f"{backend} all_to_all {o['a2a_host_ms_per_step']:.3f} ms a step on "
+        f"rank 0's clock ({o['a2a_ms_per_step']:.3f} ms between its "
+        f"stream's events, {o['a2a_calls_per_step']:.0f} calls); the "
+        f"4-shard save served by the one-device Predictor, a 4-rank and a "
+        f"2-rank ShardedPredictor: max |dp| {worst} (limit {PROB_ATOL}); "
+        f"health {o['health']}; phase {time.perf_counter() - t_phase:.1f} s,"
+        f" on {smi}")
+    return launches, {
+        "staged_eps": rates, "a2a_ms_per_step": o["a2a_ms_per_step"],
+        "a2a_host_ms_per_step": o["a2a_host_ms_per_step"],
+        "a2a_calls_per_step": o["a2a_calls_per_step"],
+        "max_dloss": max(x["max_dloss"] for x in outs),
+        "max_drow": max(x["max_drow"] for x in outs), "serve_dp": worst,
+        "backend": backend,
+        "summary": o["summary"], "health": o["health"]}
+
+
 def run(dev, smi, probe):
-    """Phases 2-15 on ``dev`` (``probe``: the built design probes); returns
+    """Phases 2-17 on ``dev`` (``probe``: the built design probes); returns
     the kernels' JSON entries and the training numbers."""
     from deeprec_tpu_torch.data.criteo import SyntheticCriteo
     from deeprec_tpu_torch.ops.fused_lookup import fused_pooled_lookup
@@ -3479,7 +3971,8 @@ def run(dev, smi, probe):
 
     kernels = (check_kernels(dev, probe) + check_training_kernels(dev, probe)
                + check_zoo_kernels(dev) + check_seq_kernels(dev)
-               + check_device_kernels(dev) + check_variant_kernels(dev))
+               + check_device_kernels(dev) + check_variant_kernels(dev)
+               + check_mesh_kernels(dev))
 
     _build.BUILD.mkdir(parents=True, exist_ok=True)  # git-ignored
     with tempfile.TemporaryDirectory(dir=str(_build.BUILD)) as path:
@@ -3557,6 +4050,9 @@ def run(dev, smi, probe):
                                                                  path)
     with tempfile.TemporaryDirectory(dir=str(_build.BUILD)) as path:
         paths["migrate"], training["migrate"] = check_migrate(dev, smi, path)
+    paths["mesh1"], training["mesh1"] = check_mesh1(dev, smi)
+    with tempfile.TemporaryDirectory(dir=str(_build.BUILD)) as path:
+        paths["mesh4"], training["mesh4"] = check_mesh4(dev, smi, path)
     for k in kernels:
         # launches on the slice's main path, --metadata (the bf16 rows: on
         # the bf16 table's, where every K2 launch is a bf16 one; a zoo or
@@ -3576,6 +4072,9 @@ def main():
         raise SystemExit("chip_smoke: no CUDA device; this smoke runs on "
                          "the card only")
     sys.path.insert(0, REPO)
+    if sys.argv[1:2] == ["--mesh4-rank"]:  # one of phase 17's ranks
+        mesh4_rank(sys.argv[3], int(sys.argv[2]))
+        return
     from deeprec_tpu_torch.ops import _build
     from deeprec_tpu_torch.probes import kernel_probe
 

@@ -1,9 +1,10 @@
 """On-disk checkpoint layout, shared with the JAX package.
 
 A framework-free copy of ``deeprec_tpu/checkpoint/format.py:46-194``
-(``list_saves``, ``restore_plan``, ``write_save``, ``read_dense``,
-``read_table``, ``slot_leaf_names``): the port reads and writes the same directories as
-``deeprec_tpu.checkpoint``. One save is one directory::
+(``list_saves``, ``restore_plan``, ``write_save`` with its multi-rank
+part files, ``read_dense``, ``read_table``, ``slot_leaf_names``): the
+port reads and writes the same directories as ``deeprec_tpu.checkpoint``.
+One save is one directory::
 
     <dir>/full-0000000100/
         manifest.json          # kind/step/tables/time/parts
@@ -11,6 +12,9 @@ A framework-free copy of ``deeprec_tpu/checkpoint/format.py:46-194``
         table-<name>.npz       # keys int64[n], values [n,d], versions[n],
                                # freqs[n], create_steps[n], slot rows
     <dir>/incr-0000000130/     # same shape, delta rows only
+
+A save of ``S`` ranks holds ``table-<name>.part<k>.npz``, one per rank,
+in place of ``table-<name>.npz``.
 
 npz has no bfloat16: such arrays travel as uint16 bit patterns under a
 ``__bf16raw`` name suffix. Here they decode to ``torch.bfloat16`` tensors
@@ -77,29 +81,43 @@ def restore_plan(directory: str) -> Tuple[Optional[Dict], List[Dict]]:
 
 
 def write_save(path: str, manifest: Dict[str, Any], dense_leaves: List,
-               tables: Dict[str, Dict[str, Any]]) -> None:
+               tables: Dict[str, Dict[str, Any]],
+               part: Optional[int] = None, n_parts: int = 1,
+               barrier=None) -> None:
     """Write one save atomically enough: into ``<path>.tmp``, manifest
     last, then rename. A re-save of an existing step first renames the old
     directory aside; :func:`list_saves` recovers that ``.old.*`` copy if a
     crash lands between the two renames, and it is deleted once the new
-    manifest is in place. (The JAX writer's multi-process part files are
-    not ported.)"""
+    manifest is in place.
+
+    A multi-rank save (``part``/``n_parts``/``barrier`` set): every rank
+    writes its shard's rows as ``table-<name>.part<k>.npz``; after the
+    ``barrier`` confirms every part is on disk, part 0 writes the dense
+    leaves and the manifest and renames; a second barrier holds every rank
+    until the save is in place. :func:`read_table` merges the parts."""
     tmp = path + ".tmp"
     os.makedirs(tmp, exist_ok=True)
+    suffix = "" if part is None else f".part{part:03d}"
     for name, arrays in tables.items():
-        np.savez(os.path.join(tmp, f"table-{name}.npz"),
+        np.savez(os.path.join(tmp, f"table-{name}{suffix}.npz"),
                  **_encode_dtypes(arrays))
-    np.savez(os.path.join(tmp, DENSE), **_encode_dtypes(
-        {f"d{i:05d}": leaf for i, leaf in enumerate(dense_leaves)}))
-    with open(os.path.join(tmp, MANIFEST), "w") as f:
-        json.dump(dict(manifest, time=time.time(), parts=1), f)
-    old = None
-    if os.path.isdir(path):
-        old = path + f".old.{os.getpid()}"
-        os.rename(path, old)
-    os.rename(tmp, path)
-    if old is not None and os.path.isfile(os.path.join(path, MANIFEST)):
-        shutil.rmtree(old, ignore_errors=True)
+    if barrier is not None:
+        barrier()
+    if part in (None, 0):
+        np.savez(os.path.join(tmp, DENSE), **_encode_dtypes(
+            {f"d{i:05d}": leaf for i, leaf in enumerate(dense_leaves)}))
+        with open(os.path.join(tmp, MANIFEST), "w") as f:
+            json.dump(dict(manifest, time=time.time(),
+                           parts=1 if part is None else n_parts), f)
+        old = None
+        if os.path.isdir(path):
+            old = path + f".old.{os.getpid()}"
+            os.rename(path, old)
+        os.rename(tmp, path)
+        if old is not None and os.path.isfile(os.path.join(path, MANIFEST)):
+            shutil.rmtree(old, ignore_errors=True)
+    if barrier is not None:
+        barrier()
 
 
 def _encode_dtypes(arrays: Dict[str, Any]) -> Dict[str, np.ndarray]:

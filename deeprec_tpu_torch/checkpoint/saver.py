@@ -2,9 +2,10 @@
 format.
 
 Port of ``deeprec_tpu/checkpoint/saver.py``:
-- :class:`CheckpointManager` (284-560) for one process and one shard:
-  ``save``, ``save_incremental``, ``maybe_save``, ``_gc``, ``attach_aux``
-  and ``restore``. Tables go through their collection's hooks
+- :class:`CheckpointManager` (284-560): ``save``, ``save_incremental``,
+  ``maybe_save``, ``_gc``, ``attach_aux`` and ``restore``, for a
+  ``Trainer`` and for a ``parallel.ShardedTrainer``. Tables go through
+  their collection's hooks
   (``ckpt_arrays``/``ckpt_restore``); a ``ckpt_restore`` that returns None
   (the device-index ``EmbeddingCollection``) hands its table to the
   generic EV flow: a fresh table at the capacity the saved rows need, the
@@ -17,7 +18,13 @@ Port of ``deeprec_tpu/checkpoint/saver.py``:
   A tiered table's host tier is saved too, as a ``__tier__<name>`` table
   of keys and payload rows (every row in a full save, the rows demoted
   since the last save in an incremental), and restored after the device
-  rows. The multi-process part writer is not ported.
+  rows. Under a ``ShardedTrainer`` every rank saves its own shard as one
+  part file (``F.write_save`` with ``part``/``n_parts``/``barrier``, the
+  JAX ``_mp`` writer), and rank 0 writes the dense leaves, the manifest
+  and the aux parts and collects old saves; a restore at any rank count
+  reads every part, routes the rows with :func:`route_to_shards` and keeps
+  its own shard, at a capacity every rank computes alike from the saved
+  row count (``needed_capacity`` of ``ceil(n / S) + 8``).
 
   Two faults of the JAX package are fixed here. The tier's since-save
   window is cleared only once ``F.write_save`` has returned (a save that
@@ -26,11 +33,12 @@ Port of ``deeprec_tpu/checkpoint/saver.py``:
   the restored device stores and the resolver, so it lives in one tier
   only and its next touch promotes the saved payload (the JAX restore
   keeps both, and training resumes from the stale device row).
-- ``table_snapshot_host`` (56-150) for one shard: live rows compacted on
-  the host, save-time eviction, version-delta incrementals (a table
-  without version stamps falls back to all live rows, with the JAX
-  package's warning), slot rows and scalar leaves, and the CBF sketch
-  with ``cbf_shards``.
+- ``table_snapshot_host`` (56-150) for one shard, the table's own or
+  this rank's: live rows compacted on the host, save-time eviction,
+  version-delta incrementals (a table without version stamps falls back
+  to all live rows, with the JAX package's warning), slot rows and scalar
+  leaves, and the CBF sketch with ``cbf_shards`` (a rank's block as
+  ``cbf__shard<k>``, as the JAX multi-process writer names it).
 - ``_scatter_table`` (157-203) and ``needed_capacity`` (219-223). The
   serving path ignores the optimizer slot rows, scalars and CBF sketch
   of a saved table, since serving never reads them; the training
@@ -38,8 +46,9 @@ Port of ``deeprec_tpu/checkpoint/saver.py``:
   when its shape matches the table's. The row stores are written in
   place (a serving table is a few hundred MB at Criteo scale, so no
   second copy is made); callers swap tables under their own lock.
-- ``last_wins_sel`` and ``_cbf_for_shard``. (``_keys64`` has no place
-  here: the port's keys are int64 tensors throughout.)
+- ``last_wins_sel``, ``_cbf_for_shard`` and ``route_to_shards``
+  (253-281). (``_keys64`` has no place here: the port's keys are int64
+  tensors throughout.)
 """
 from __future__ import annotations
 
@@ -49,7 +58,7 @@ import os
 import shutil
 import time
 import warnings
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -74,16 +83,15 @@ def _rows(t: torch.Tensor, idx: np.ndarray):
 def table_snapshot_host(config: EmbeddingVariableConfig, ev_state: ev.EVState,
                         slot_state, num_shards: int = 1,
                         since_step: Optional[int] = None, evict: bool = True,
-                        global_step: Optional[int] = None
+                        global_step: Optional[int] = None, shard: int = 0
                         ) -> Dict[str, Any]:
     """Compact the live rows of a device-index table (with ``since_step``,
     those touched at or after it) into the save's arrays: keys, values,
     freqs, versions, create steps, ``slot__`` rows and ``scalar__`` leaves
     of the optimizer state, and the CBF sketch. ``evict`` applies the
-    table's eviction policy at ``global_step`` (``ev.cold_mask_np``)."""
-    if num_shards != 1:
-        raise NotImplementedError(
-            "sharded tables come with the multi-device engines (ROADMAP A8)")
+    table's eviction policy at ``global_step`` (``ev.cold_mask_np``).
+    With ``num_shards`` > 1, ``ev_state`` is shard ``shard`` of the table
+    (one rank's part of the save)."""
     cap = config.capacity
     if since_step is not None and not config.version_tracked:
         # a light-layout table has no version stamps: a version-delta
@@ -113,8 +121,9 @@ def table_snapshot_host(config: EmbeddingVariableConfig, ev_state: ev.EVState,
         else:
             out[f"scalar__{name}"] = leaf.cpu().numpy()
     if ev_state.cbf is not None:
-        out["cbf_shards"] = np.asarray(1, np.int32)
-        out["cbf"] = ev_state.cbf.cpu().numpy()
+        out["cbf_shards"] = np.asarray(num_shards, np.int32)
+        key = "cbf" if num_shards == 1 else f"cbf__shard{shard:03d}"
+        out[key] = ev_state.cbf.cpu().numpy()
     return out
 
 
@@ -218,6 +227,43 @@ def _cbf_for_shard(arrays: Dict[str, np.ndarray], s: int, num_shards: int
     return None
 
 
+def route_to_shards(arrays: Dict[str, Any], num_shards: int
+                    ) -> List[Dict[str, Any]]:
+    """Split a table's saved rows by the owner hash of training
+    (``parallel.sharded.owner_of_np``), one dict per shard of a restore at
+    ``num_shards``; each shard takes its CBF block (:func:`_cbf_for_shard`:
+    the saved block at the same shard count, else the union of every
+    block)."""
+    from ..parallel.sharded import owner_of_np
+    keys = np.asarray(arrays["keys"])
+    own = owner_of_np(keys, num_shards)
+    skip = {k for k in arrays if k.startswith("cbf")}
+    rows = {k for k, v in arrays.items()
+            if k not in skip and getattr(v, "ndim", 0) >= 1
+            and v.shape[0] == keys.shape[0]}
+    cbf_shards = int(arrays["cbf_shards"]) if "cbf_shards" in arrays else 0
+    union = (_cbf_for_shard(arrays, 0, num_shards)
+             if cbf_shards != num_shards else None)
+    out = []
+    for s in range(num_shards):
+        sel = np.nonzero(own == s)[0]
+        shard = {k: (_take(arrays[k], sel) if k in rows else arrays[k])
+                 for k in arrays if k not in skip}
+        cbf = union if union is not None else _cbf_for_shard(arrays, s,
+                                                             num_shards)
+        if cbf is not None:
+            shard["cbf"] = cbf
+        out.append(shard)
+    return out
+
+
+def _take(rows, idx: np.ndarray):
+    """Rows ``idx`` of a saved array (numpy, or a bfloat16 tensor)."""
+    if isinstance(rows, torch.Tensor):
+        return rows[torch.from_numpy(idx)]
+    return rows[idx]
+
+
 def _dense_leaves(trainer, state) -> list:
     """``(params, opt_state, step)`` as the JAX tree flattens them; the
     trainer's dense optimizer converts its state to the optax leaves."""
@@ -283,12 +329,15 @@ def _without_keys(part, keys):
 
 def _restore_ev_table(trainer, name: str, template, parts):
     """The generic EV restore of one device-index table: grow the
-    collection to the capacity the saved rows need (load 0.6), then scatter
-    the base and each incremental, oldest first, into a fresh table and
-    optimizer state on the template's device."""
+    collection to the capacity the saved rows need (load 0.6; under a
+    ``ShardedTrainer`` of ``S`` ranks, ``ceil(n / S) + 8`` rows a shard),
+    then scatter the base and each incremental, oldest first, into a fresh
+    table and optimizer state on the template's device. A rank keeps the
+    rows :func:`route_to_shards` gives its shard."""
     coll = trainer.collections[name]
+    S, rank = getattr(trainer, "S", 1), getattr(trainer, "rank", 0)
     n_max = sum(p["keys"].shape[0] for p in parts if "keys" in p)
-    cap = needed_capacity(n_max + 8, coll.config.capacity)
+    cap = needed_capacity(int(np.ceil(n_max / S)) + 8, coll.config.capacity)
     if cap != coll.config.capacity:
         coll.config = dataclasses.replace(coll.config, capacity=cap)
         trainer.rejit()
@@ -298,19 +347,20 @@ def _restore_ev_table(trainer, name: str, template, parts):
     for p in parts:
         if "keys" not in p:
             continue
-        cbf = _cbf_for_shard(p, 0, 1)
-        if cbf is not None:
-            p = dict(p, cbf=cbf)
+        p = route_to_shards(p, S)[rank]
         st, slot = _scatter_train_table(st, slot, coll.config, p)
     return template._replace(ev=st, slot=slot)
 
 
 class CheckpointManager:
     """Full + incremental checkpointing for a :class:`~deeprec_tpu_torch.
-    train.trainer.Trainer`: full saves every ``full_secs`` and incremental
-    saves every ``incr_secs`` through :meth:`maybe_save`, the ``keep``
-    newest full saves kept. Save only at a fence, with any
-    ``HostStepPipeline`` drained."""
+    train.trainer.Trainer` or a :class:`~deeprec_tpu_torch.parallel.
+    ShardedTrainer`: full saves every ``full_secs`` and incremental saves
+    every ``incr_secs`` through :meth:`maybe_save`, the ``keep`` newest full
+    saves kept. Save only at a fence, with any ``HostStepPipeline``
+    drained. Under a ``ShardedTrainer`` every rank calls every method, with
+    one directory that all ranks share (:meth:`maybe_save` decides on rank
+    0's clock, broadcast)."""
 
     def __init__(self, directory: str, full_secs: Optional[float] = None,
                  incr_secs: Optional[float] = None, keep: int = 3):
@@ -333,7 +383,9 @@ class CheckpointManager:
         it itself)."""
         self._aux[name] = (snapshot_fn, restore_fn)
 
-    def _write_aux(self, path: str) -> None:
+    def _write_aux(self, path: str, trainer) -> None:
+        if getattr(trainer, "rank", 0) != 0:
+            return
         for name, (snap, _) in self._aux.items():
             tmp = os.path.join(path, f"aux_{name}.json.tmp")
             with open(tmp, "w") as f:
@@ -350,10 +402,12 @@ class CheckpointManager:
     # -- save --------------------------------------------------------------
     def _collect(self, trainer, state, since: Optional[int], evict: bool):
         gs = int(state.step)
+        S = getattr(trainer, "S", 1)
+        shard = {"shard": trainer.rank} if S > 1 else {}
         tables = {}
         for name, coll in trainer.collections.items():
-            tables[name] = coll.ckpt_arrays(state.tables[name], 1, since,
-                                            evict, gs)
+            tables[name] = coll.ckpt_arrays(state.tables[name], S, since,
+                                            evict, gs, **shard)
         # a tier's rows are training state too: a restart must not lose them
         export_tiers = getattr(trainer, "export_tiers", None)
         if export_tiers is not None:
@@ -370,18 +424,23 @@ class CheckpointManager:
                                else -1 for n, t in tables.items()}}
         if since is not None:
             manifest["since"] = since
-        F.write_save(path, manifest, dense, tables)
+        parts = {}
+        if getattr(trainer, "S", 1) > 1:  # one part file per rank
+            parts = dict(part=trainer.rank, n_parts=trainer.S,
+                         barrier=trainer.axis.barrier)
+        F.write_save(path, manifest, dense, tables, **parts)
         for coll in trainer.collections.values():  # the save is durable
             if hasattr(coll, "tier_saved"):
                 coll.tier_saved()
-        self._write_aux(path)
+        self._write_aux(path, trainer)
         self._last_save_step = step
         return path
 
     def save(self, trainer, state, evict: bool = True) -> str:
         path = self._write("full", trainer, state, None, evict)
         self._last_full_time = time.time()
-        self._gc()
+        if getattr(trainer, "rank", 0) == 0:
+            self._gc()
         return path
 
     def save_incremental(self, trainer, state) -> str:
@@ -394,11 +453,18 @@ class CheckpointManager:
 
     def maybe_save(self, trainer, state) -> Optional[str]:
         now = time.time()
-        if self.full_secs is not None and \
-                now - self._last_full_time >= self.full_secs:
+        full = self.full_secs is not None and \
+            now - self._last_full_time >= self.full_secs
+        incr = self.incr_secs is not None and \
+            now - self._last_incr_time >= self.incr_secs
+        if getattr(trainer, "S", 1) > 1:  # rank 0's clocks decide
+            flags = torch.tensor([full, incr], dtype=torch.uint8,
+                                 device=trainer.device)
+            trainer.axis.broadcast_([flags])
+            full, incr = bool(flags[0]), bool(flags[1])
+        if full:
             return self.save(trainer, state)
-        if self.incr_secs is not None and \
-                now - self._last_incr_time >= self.incr_secs:
+        if incr:
             return self.save_incremental(trainer, state)
         return None
 
@@ -427,8 +493,13 @@ class CheckpointManager:
         """Restore the latest full save and the newer incrementals into
         ``state`` (a fresh ``Trainer.init`` state: the template) and the
         trainer's model. Returns ``(state, restored?)``. Tables grow when
-        the restored rows need it."""
+        the restored rows need it. Under a ``ShardedTrainer`` every rank
+        restores the saves that rank 0 lists (a save landing meanwhile
+        must reach all ranks or none)."""
         base, incrs = F.restore_plan(self.directory)
+        if getattr(trainer, "S", 1) > 1:
+            from ..parallel.multihost import broadcast_object
+            base, incrs = broadcast_object((base, incrs), trainer.axis)
         if base is None:
             return state, False
         saves = [base] + incrs
@@ -462,5 +533,7 @@ class CheckpointManager:
         step = int(np.asarray(leaves[-1]))
         self._last_save_step = step
         self._restore_aux(saves[-1]["path"])
+        if getattr(trainer, "S", 1) > 1:  # no rank starts before all read
+            trainer.axis.barrier()
         return state._replace(opt_state=opt_state, tables=tables,
                               step=step), True

@@ -15,8 +15,12 @@ half (``readonly_rows``, ``embeddings_readonly``,
 hooks (``load_factor``, ``needs_growth``, ``grow_state``, ``index_view``)
 and the checkpoint hooks (``ckpt_arrays`` through
 ``checkpoint.saver.table_snapshot_host``; ``ckpt_restore`` returns None,
-which hands the restore to the saver's generic EV flow). The ``sharded_*``
-hooks belong to the multi-device engines (ROADMAP A8).
+which hands the restore to the saver's generic EV flow), and the
+``sharded_*`` hooks that ``parallel.trainer.ShardedTrainer`` and
+``serving.ShardedPredictor`` drive (``parallel/sharded.py``: the owner
+exchange). The JAX package's ``sharded_*_spec`` and
+``sharded_slot_example`` hooks are ``shard_map`` plumbing and have no
+counterpart: each rank holds its own shard.
 
 Layout: a collection packs its columns' ids into one feature-major
 ``[total_width, B]`` int64 block, each column's ids salted with its column
@@ -329,17 +333,119 @@ class EmbeddingCollection:
 
     # -- checkpoint hooks (checkpoint.saver.CheckpointManager) -----------
     def ckpt_arrays(self, bundle, num_shards: int, since: Optional[int],
-                    evict: bool, global_step: Optional[int]):
+                    evict: bool, global_step: Optional[int], shard: int = 0):
         """The 4-array compacted format and the slot rows
-        (``checkpoint.saver.table_snapshot_host``)."""
+        (``checkpoint.saver.table_snapshot_host``) of the table, or of this
+        rank's ``shard`` of ``num_shards``."""
         from .checkpoint.saver import table_snapshot_host
         return table_snapshot_host(self.config, bundle.ev, bundle.slot,
                                    num_shards=num_shards, since_step=since,
-                                   evict=evict, global_step=global_step)
+                                   evict=evict, global_step=global_step,
+                                   shard=shard)
 
     def ckpt_restore(self, trainer, template, parts, num_shards: int):
         """None: the saver's generic EV flow restores this table."""
         return None
+
+    # -- sharded hooks (parallel.trainer.ShardedTrainer) -----------------
+    # Each rank holds one row shard of the table; a step runs the owner
+    # exchange of parallel/sharded.py. Variant collections override the
+    # subset that differs.
+
+    def sharded_pack(self, batch: Dict[str, np.ndarray], num_shards: int,
+                     rank: int) -> np.ndarray:
+        """This rank's ``[W, B/S]`` slice of the packed global batch: the
+        examples ``[rank*B/S, (rank+1)*B/S)``, the JAX ``P(None, axis)``
+        split."""
+        ids = self.pack_ids_np(batch)
+        b = ids.shape[1] // num_shards
+        return np.ascontiguousarray(ids[:, rank * b:(rank + 1) * b])
+
+    def sharded_init_local(self, opt, device="cuda"):
+        """This rank's fresh shard at the full capacity, its optimizer
+        state and its health counters."""
+        from .train.trainer import TableBundle
+        st = ev.create(self.config, device)
+        return TableBundle(ev=st, slot=self.init_slot(opt, st),
+                           health=torch.zeros((3,), dtype=torch.int32,
+                                              device=device))
+
+    def sharded_lookup_or_create(self, state, ids2d, step, axis, bucket_cap):
+        """Lookup-or-create of this rank's ``[W, B_local]`` ids over the
+        mesh; ``state`` is this rank's shard. Returns ``(state, aux)``."""
+        from .parallel import sharded
+        return sharded.exchange_lookup_or_create(self, state, ids2d, step,
+                                                 axis, bucket_cap)
+
+    def table_index(self, state):
+        """The hash index the owner's read-only lookup probes."""
+        return state.index
+
+    def sharded_owner_lookup(self, state, uniq, step, freq_counts):
+        """Owner-side lookup-or-create of the received (deduped) keys."""
+        return ev.lookup_or_create_unique(state, self.config, uniq, step,
+                                          freq_counts=freq_counts)
+
+    def owner_readonly_rows(self, state, slots, found, keys):
+        """Owner-side eval rows of received keys through K1; unknown keys
+        read their deterministic init row."""
+        rows = gather_rows(state.values, slots, self.config.embedding_dim)
+        defaults = ev.init_rows(self.config, keys).to(rows.dtype)
+        valid = ~K.is_empty(keys)
+        return torch.where((found | ~valid)[:, None], rows, defaults)
+
+    def sharded_rows(self, state, aux):
+        """The differentiable leaf of the sharded lookup: the owner's rows
+        per received lane, ``[S*C, dim]``."""
+        from .parallel import sharded
+        return sharded.gather_owner_rows(state.values, aux, self.config)
+
+    def sharded_rows_back(self, urows, aux, axis, bucket_cap):
+        """``(row_u [U, dim], inverse [N_local], valid_flat [N_local])`` for
+        :meth:`embeddings_from_rows`; differentiable in ``urows`` (the
+        reverse exchange in ``config.exchange_dtype``)."""
+        from .parallel import sharded
+        row_u, valid_u = sharded.rows_back(
+            urows, aux, axis, bucket_cap,
+            wire_dtype=self.config.exchange_dtype)
+        inv = aux.local_uniq.inverse
+        return row_u, inv, valid_u[inv]
+
+    def sharded_apply_gradients(self, state, opt, slot_state, aux, d_urows,
+                                step, axis, num_shards):
+        """Owner-side sparse apply of :meth:`sharded_rows`' cotangent."""
+        from .parallel import sharded
+        return sharded.apply_gradients_sharded(self, state, opt, slot_state,
+                                               aux, d_urows, step)
+
+    def sharded_readonly(self, state, ids2d, axis, bucket_cap):
+        """The eval exchange: ``(row_u, inverse, valid_flat)``, nothing
+        mutated."""
+        from .parallel import sharded
+        return sharded.exchange_lookup_readonly(
+            self, state, ids2d, axis, bucket_cap,
+            wire_dtype=self.config.exchange_dtype)
+
+    def sharded_health(self, health, aux):
+        """This rank's health counters after one exchange: bucket drops,
+        steps whose local or owner dedup saturated, the unique high-water
+        mark of either."""
+        if health is None:
+            return None
+        ov_l, ov_r = aux.local_uniq.n_overflow, aux.recv_uniq.n_overflow
+        nu = torch.maximum(aux.local_uniq.n_unique + ov_l,
+                           aux.recv_uniq.n_unique + ov_r).to(torch.int32)
+        sat = ((ov_l > 0) | (ov_r > 0)).to(torch.int32)
+        return torch.stack([health[0] + aux.n_dropped, health[1] + sat,
+                            torch.maximum(health[2], nu)])
+
+    def sharded_grow_local(self, bundle, new_cap, fills):
+        """This rank's shard rebuilt at ``new_cap`` slots, the optimizer's
+        slot rows permuted along (vacated rows take ``fills``)."""
+        from .optim.sparse import permute_slot_state
+        new_ev, perm = ev.grow(bundle.ev, self.config, new_cap)
+        slot = permute_slot_state(bundle.slot, perm, new_cap, fills=fills)
+        return bundle._replace(ev=new_ev, slot=slot)
 
     def embeddings_readonly(self, urows: torch.Tensor, aux: CollectionAux):
         """(pooled dict, sequence dict) for serving: every non-padding key

@@ -1,7 +1,7 @@
-"""Serving: the checkpoint-backed Predictor, its tiered variant and the
-HTTP front end (``make_server``, imported lazily so the predictors stay
+"""Serving: the checkpoint-backed Predictor, its tiered and row-sharded
+variants and the HTTP front end (``make_server``, imported lazily so the predictors stay
 importable without the server)."""
-from .predictor import Predictor, TieredPredictor
+from .predictor import Predictor, ShardedPredictor, TieredPredictor
 
 
 def make_server(predictor, host="127.0.0.1", port=8500, refresh_secs=0.0):
@@ -11,4 +11,5 @@ def make_server(predictor, host="127.0.0.1", port=8500, refresh_secs=0.0):
     return _mk(predictor, host=host, port=port, refresh_secs=refresh_secs)
 
 
-__all__ = ["Predictor", "TieredPredictor", "make_server"]
+__all__ = ["Predictor", "ShardedPredictor", "TieredPredictor",
+           "make_server"]

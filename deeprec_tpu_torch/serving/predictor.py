@@ -18,7 +18,16 @@ to the device table and the rest to a host ``HostKV``. A request's keys
 that the device table lacks are looked up in the host store; their rows
 replace the unique rows (one per unique key) before pooling, so kernel K2
 still pools through ``inverse`` and the ``[n, dim]`` expanded rows are
-never made. ``ShardedPredictor`` is not ported.
+never made.
+
+:class:`ShardedPredictor` serves a table row-sharded over the ranks of a
+``torch.distributed`` group (``parallel.make_mesh``): each rank restores
+its own shard of a save written at any shard count (the owner-hash
+routing of training, ``checkpoint.saver.route_to_shards``), and every
+rank calls ``predict`` with the same request, serves its slice through
+the read-only owner exchange (kernels K1 and K2) and returns the whole
+batch's probabilities. It serves device-index tables; the variant
+tables' sharded hooks come with ROADMAP A8.
 """
 from __future__ import annotations
 
@@ -29,11 +38,13 @@ import numpy as np
 import torch
 
 from ..checkpoint import format as F
-from ..checkpoint.saver import _scatter_table, last_wins_sel, needed_capacity
+from ..checkpoint.saver import (_scatter_table, last_wins_sel,
+                                needed_capacity, route_to_shards)
 from ..feature_column import (EmbeddingCollection, NumericColumn, pack_dense,
                               normalize_dense)
 from ..models.ctr import load_flax_params
 from ..sparse import embedding_var as ev
+from ..sparse import keys as K
 from ..train.trainer import _readonly_lookup, default_forward
 from ..utils.native import HostKV
 
@@ -83,7 +94,7 @@ class Predictor:
         self.step = None
         self.tables: Dict[str, ev.EVState] = {}
         self._applied_steps: set = set()
-        base, incrs = F.restore_plan(ckpt_dir)
+        base, incrs = self._restore_plan()
         if base is None:
             raise FileNotFoundError(f"no full checkpoint in {ckpt_dir}")
         self._load_base(base)
@@ -91,6 +102,11 @@ class Predictor:
             self._apply_save(m)
 
     # -- loading -----------------------------------------------------------
+    def _restore_plan(self):
+        """(the full save to load, the incrementals after it), as
+        ``checkpoint.format.restore_plan`` lists the directory."""
+        return F.restore_plan(self.ckpt_dir)
+
     @staticmethod
     def _tier_arrays(coll, manifest, name):
         """A save's demoted rows in the device table's array format (values
@@ -160,7 +176,7 @@ class Predictor:
         """Apply any new saves in the directory. A newer FULL save reloads
         the base; newer incrementals replay in order. Returns True if the
         serving state changed."""
-        base, incrs = F.restore_plan(self.ckpt_dir)
+        base, incrs = self._restore_plan()
         changed = False
         if base and base["step"] not in self._applied_steps:
             self.tables.clear()
@@ -326,6 +342,155 @@ class TieredPredictor(Predictor):
     def host_rows(self, name: str) -> int:
         kv = self.host_store.get(name)
         return len(kv) if kv else 0
+
+
+class ShardedPredictor(Predictor):
+    """Serving for tables larger than one card: the checkpoint is restored
+    row-sharded over the ranks of ``mesh`` (a ``parallel.multihost.Axis``;
+    the default group when None) and each request runs the read-only
+    all-to-all exchange, the serving counterpart of training's.
+
+    Every rank constructs it, and calls :meth:`predict` and
+    :meth:`refresh`, together. ``predict(batch)`` takes the same full
+    batch on every rank, pads it to a multiple of the rank count, serves
+    this rank's slice and returns the ``[B]`` probabilities of the whole
+    batch (an ``all_gather``). A request whose ids overflow an owner's
+    bucket widens ``bucket_slack`` on every rank and is served again.
+    """
+
+    def __init__(self, model: torch.nn.Module,
+                 numeric_columns: Sequence[NumericColumn],
+                 collections: Dict[str, EmbeddingCollection], ckpt_dir: str,
+                 mesh=None, *, device=None, forward=None,
+                 bucket_slack: float = 2.0):
+        from ..parallel.multihost import make_mesh
+        self.mesh = self.axis = mesh or make_mesh()
+        self.S, self.rank = self.axis.size, self.axis.rank
+        self.bucket_slack = bucket_slack
+        for name, coll in collections.items():
+            if type(getattr(coll, "device_view", lambda: coll)()) \
+                    is not EmbeddingCollection:
+                raise NotImplementedError(
+                    f"table {name!r}: the variant tables' sharded serving "
+                    "comes with ROADMAP A8")
+        super().__init__(model, numeric_columns, collections, ckpt_dir,
+                         device=device or self.axis.device, forward=forward)
+
+    # -- loading: every rank keeps its own shard ----------------------------
+    def _restore_plan(self):
+        """Rank 0's listing of the directory, on every rank. A save that
+        lands while the ranks list it could reach some ranks and not
+        others; loading and replaying run collectives, so every rank
+        applies exactly the saves rank 0 saw (their manifests carry the
+        paths to read)."""
+        from ..parallel.multihost import broadcast_object
+        return broadcast_object(
+            F.restore_plan(self.ckpt_dir) if self.rank == 0 else None,
+            self.axis)
+
+    def _my_rows(self, arrays):
+        return None if arrays is None else \
+            route_to_shards(arrays, self.S)[self.rank]
+
+    def _load_base(self, manifest):
+        for name, coll in self.collections.items():
+            arrays = F.read_table(manifest["path"], name)
+            _adopt_row_layout(coll, arrays)
+            tier = self._tier_arrays(coll, manifest, name)
+            n_rows = arrays["keys"].shape[0] + \
+                (tier["keys"].shape[0] if tier else 0)
+            cap = needed_capacity(int(np.ceil(n_rows / self.S)) + 8,
+                                  coll.config.capacity)
+            if cap != coll.config.capacity:
+                coll.config = dataclasses.replace(coll.config, capacity=cap)
+            st = ev.create(coll.config, self.device)
+            if tier is not None:  # tier first, device second (Predictor)
+                st = _scatter_table(st, coll.config, self._my_rows(tier))
+            self.tables[name] = _scatter_table(st, coll.config,
+                                               self._my_rows(arrays))
+        self._load_dense(manifest)
+        self._applied_steps.add(manifest["step"])
+
+    def _apply_save(self, manifest):
+        from ..parallel.multihost import all_max
+        if manifest["step"] in self._applied_steps:
+            return
+        for name, coll in self.collections.items():
+            arrays = F.read_table(manifest["path"], name)
+            tier = self._tier_arrays(coll, manifest, name)
+            st = self.tables[name]
+            # the fullest shard sizes every shard: one capacity on all ranks
+            size = all_max(int(st.index.size.sum()), self.axis)
+            n_new = arrays["keys"].shape[0] + \
+                (tier["keys"].shape[0] if tier else 0)
+            cap = needed_capacity(size + n_new, coll.config.capacity)
+            if cap != coll.config.capacity:
+                st, _ = ev.grow(st, coll.config, cap)
+                coll.config = dataclasses.replace(coll.config, capacity=cap)
+            if tier is not None:
+                st = _scatter_table(st, coll.config, self._my_rows(tier))
+            self.tables[name] = _scatter_table(st, coll.config,
+                                               self._my_rows(arrays))
+        self._load_dense(manifest)
+        self._applied_steps.add(manifest["step"])
+
+    # -- inference -----------------------------------------------------------
+    def _bucket_cap(self, n_flat: int) -> int:
+        """The JAX ShardedPredictor's bucket width: ``slack * n / S`` (at
+        least 8), rounded up to a power of two."""
+        cap = max(int(self.bucket_slack * n_flat) // max(self.S, 1), 8)
+        return 1 << (cap - 1).bit_length()
+
+    def predict(self, batch) -> np.ndarray:
+        """``[B]`` click probabilities of the whole ``batch`` (the same on
+        every rank)."""
+        from ..parallel import sharded
+        first = next(iter(batch.values()))
+        B = np.asarray(first).shape[0]
+        b = -(-B // self.S)  # the batch padded to S * b examples
+        sl = slice(self.rank * b, (self.rank + 1) * b)
+
+        def pad(x, fill, axis=0):
+            width = [(0, 0)] * x.ndim
+            width[axis] = (0, b * self.S - B)
+            return np.pad(x, width, constant_values=fill)
+        dense = None
+        if self.numeric_columns:
+            dense = torch.from_numpy(np.ascontiguousarray(
+                pad(pack_dense(self.numeric_columns, batch), 0)[sl]))
+            dense = dense.to(self.device)
+        ids = {name: torch.from_numpy(np.ascontiguousarray(
+                   pad(coll.pack_ids_np(batch), -1, 1)[:, sl])).to(
+                       self.device)
+               for name, coll in self.collections.items()}
+        with torch.inference_mode():
+            if dense is not None:
+                dense = normalize_dense(self.numeric_columns, dense)
+            outputs, dropped = {}, 0
+            for name, coll in self.collections.items():
+                flat = ids[name].reshape(-1)
+                row_u, inv, valid = sharded.exchange_lookup_readonly(
+                    coll, self.tables[name], flat, self.axis,
+                    self._bucket_cap(flat.shape[0]))
+                # unrouted real ids were dropped by a full owner bucket
+                dropped = dropped + (~valid & ~K.is_empty(flat)).sum()
+                outputs[name] = (
+                    coll.embeddings_from_rows(row_u, inv, valid),
+                    coll.sequence_embeddings_from_rows(row_u, inv, valid))
+            out = self.forward(self.model, dense, outputs, False)
+            logits = out[0] if isinstance(out, tuple) else out
+            probs = self.axis.all_gather(torch.sigmoid(logits))
+            dropped = int(self.axis.psum(torch.as_tensor(
+                dropped, device=self.device).reshape(1)).item())
+        if dropped > 0:
+            import warnings
+            self.bucket_slack *= 2.0
+            warnings.warn(
+                f"ShardedPredictor: {dropped} ids overflowed owner buckets; "
+                f"bucket_slack raised to {self.bucket_slack} and the request "
+                "served again")
+            return self.predict(batch)
+        return probs[:B].cpu().numpy()
 
 
 def _np_rows(values) -> np.ndarray:

@@ -28,8 +28,9 @@ full module path) whose ``build(args)`` makes the model and collections;
 the remaining arguments go to the trainer CLI's parser (the model's
 widths: ``--emb_dim``, ``--bf16``, ...; ``--device cpu`` serves on the
 CPU). :func:`build_server` returns the server unstarted (port 0 picks a
-free port); :func:`main` serves forever. ``--mesh`` is refused: the
-row-sharded predictor comes with the multi-device engines (ROADMAP A8).
+free port); :func:`main` serves forever. ``--mesh`` is refused: HTTP
+over a ``ShardedPredictor`` (rank 0 serves and broadcasts each request)
+comes with ROADMAP A8.
 """
 from __future__ import annotations
 
@@ -325,7 +326,9 @@ def build_server(argv=None):
     ap.add_argument("--max_batch", type=int, default=4096,
                     help="row cap per coalesced device call")
     ap.add_argument("--mesh", type=int, default=0,
-                    help="row-sharded serving: only 0 (ROADMAP A8)")
+                    help="row-sharded serving over HTTP: only 0 (ROADMAP "
+                         "A8; serving.ShardedPredictor serves a mesh "
+                         "from Python)")
     ap.add_argument("--device_row_budget", type=int, default=0,
                     help="serve with the cold tail in host DRAM")
     args, rest = ap.parse_known_args(argv)
@@ -333,8 +336,10 @@ def build_server(argv=None):
         rest = rest[1:]
     if args.mesh:
         raise NotImplementedError(
-            f"--mesh {args.mesh}: the row-sharded predictor comes with the "
-            "multi-device engines (ROADMAP A8)")
+            f"--mesh {args.mesh}: the HTTP server over a ShardedPredictor "
+            "(rank 0 serves and broadcasts each request) comes with "
+            "ROADMAP A8; serving.ShardedPredictor serves a mesh from "
+            "Python")
 
     from ..train import cli as tcli
     name = (args.model if "." in args.model

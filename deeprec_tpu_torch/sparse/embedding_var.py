@@ -147,7 +147,8 @@ def lookup_or_create(state: EVState, config: EmbeddingVariableConfig,
 
 
 def lookup_or_create_unique(state: EVState, config: EmbeddingVariableConfig,
-                            uniq: UniqueResult, global_step: int
+                            uniq: UniqueResult, global_step: int,
+                            freq_counts: Optional[torch.Tensor] = None
                             ) -> Tuple[EVState, LookupAux]:
     """Admit and insert deduplicated keys, initialise created rows where
     the table filters (or has ``lazy_init`` off), write the metadata and
@@ -158,11 +159,15 @@ def lookup_or_create_unique(state: EVState, config: EmbeddingVariableConfig,
     filter the reference passes unique_with_counts' counts to
     ``AddFreq``). With a CBF, keys whose post-bump estimate is below the
     filter's count never claim a slot: their counts live in the sketch.
-    The JAX package's ``freq_counts`` override belongs to the sharded
-    exchange and is not ported (ROADMAP A8)."""
+    ``freq_counts`` (``[U]``) overrides the per-key increment: the owner
+    of a sharded exchange passes the requesters' summed multiplicities
+    there (its own dedup's counts would count requesting ranks, not id
+    occurrences); they reach K3a as its counts."""
     from ..optim.sparse import _scatter_set  # it imports this module
     cap = state.capacity
-    ukeys, counts = uniq.ukeys, uniq.counts.to(torch.int32)
+    ukeys = uniq.ukeys
+    counts = (uniq.counts if freq_counts is None else freq_counts
+              ).to(torch.int32)
 
     cbf = state.cbf
     gated = ukeys

@@ -8,7 +8,8 @@ stream functions. Each ``deeprec_tpu_torch/modelzoo/<model>/train.py``
 supplies a ``ModelSpec``; ``python -m deeprec_tpu_torch.modelzoo.DLRM.train
 --host_index ...`` trains it on the card (``--device cpu``: on the CPU).
 
-:func:`run` is the JAX CLI on one device, both engines: the
+:func:`run` is the JAX CLI, both engines on one device and the
+device-index engine on a mesh (``--mesh N``): the
 ``max_unique_ratio`` dedup cap, a ``CheckpointManager``
 (``--save_secs``/``--incr_save_secs``, the WorkQueue position as an aux
 part, a restore at start), prefetch workers that pack numpy, and at each
@@ -31,6 +32,15 @@ eval and one JSON summary line.
 * **The host-index engine** (``--host_index``): the plain ``Trainer``
   and ``HostStepPipeline`` (the resolve thread, then the copies on a side
   stream); its tables tier themselves.
+* **The mesh** (``--mesh N``, the device-index engine): one process per
+  rank, started by ``torchrun --nproc_per_node N`` (its environment names
+  the group) or by hand with ``--coordinator HOST:PORT --process_id R``
+  on each rank; ``parallel.ShardedTrainer`` over a process group (NCCL
+  with ``--device cuda``, gloo with ``--device cpu``), each rank on
+  ``cuda:<local rank>`` (or the CPU) with its row shard of every table. Every rank reads the same stream and keeps its slice of each
+  batch; rank 0 alone prints, writes summaries and the save's manifest
+  (every rank writes its shard's part). ``--exchange_dtype bfloat16``
+  puts the exchanged rows and gradients on a bf16 wire.
 
 Where it differs from the JAX CLI:
 
@@ -39,21 +49,27 @@ Where it differs from the JAX CLI:
   so fences skip (``deeprec_tpu/train/cli.py:534,550``). Here the pipeline
   is fed no further than the next multiple of ``--log_steps``, so it is
   empty there and the fence runs at exactly that step.
-* **What it refuses**, each naming the roadmap item: ``--mesh`` (the
-  multi-device engines, A8) and ``--micro_batch > 1`` with
-  ``--host_index`` (the JAX package crashes there, C6). Neither falls
-  back to anything.
+* **What it refuses**, each naming the roadmap item: ``--mesh`` with
+  ``--host_index`` (the host-sharded engine) or with a tiered
+  ``--ev_storage`` (``TieredShardedTrainer``), both A8, and
+  ``--micro_batch > 1`` with ``--host_index`` (the JAX package crashes
+  there, C6). None falls back to anything.
 * ``--device`` (default ``cuda``; the counterpart of ``JAX_PLATFORMS``)
   raises when the card is missing. ``--seed`` seeds a ``torch.Generator``
   that draws the model's initial weights (:func:`init_params`).
-* ``--profile DIR`` writes a ``torch.profiler`` trace. ``--jit_cache`` and
-  ``--exchange_dtype`` parse, for command-line parity, and do nothing:
-  they name an XLA compile cache and a mesh wire dtype.
+* ``--profile DIR`` writes a ``torch.profiler`` trace. ``--jit_cache``
+  parses, for command-line parity, and does nothing: it names an XLA
+  compile cache.
+
+``python -m deeprec_tpu_torch.train.cli --model M [flags]`` runs the zoo
+model ``M`` (default DLRM) as ``deeprec_tpu_torch/modelzoo/M/train.py``
+does.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import importlib
 import itertools
 import json
 import os
@@ -105,8 +121,14 @@ def base_parser(desc: str) -> argparse.ArgumentParser:
     p.add_argument("--prefetch_depth", type=int, default=2)
     p.add_argument("--prefetch_workers", type=int, default=2)
     p.add_argument("--mesh", type=int, default=0,
-                   help="devices for the sharded trainer: only 0 "
-                        "(ROADMAP A8)")
+                   help="ranks of the sharded trainer (device-index "
+                        "engine; one process each, under torchrun or with "
+                        "--coordinator)")
+    p.add_argument("--coordinator", default="",
+                   help="host:port of the --mesh group's rendezvous "
+                        "(default: torchrun's environment)")
+    p.add_argument("--process_id", type=int, default=None,
+                   help="this process's rank with --coordinator")
     p.add_argument("--checkpoint", default="",
                    help="checkpoint directory (restores latest if present)")
     p.add_argument("--save_secs", type=float, default=None)
@@ -115,8 +137,7 @@ def base_parser(desc: str) -> argparse.ArgumentParser:
     p.add_argument("--ev_evict_steps", type=int, default=0)
     p.add_argument("--exchange_dtype", default=None,
                    choices=["float32", "bfloat16"],
-                   help="accepted for command-line parity; unused (the "
-                        "--mesh exchange's wire dtype)")
+                   help="wire dtype of the --mesh row exchange")
     p.add_argument("--ev_storage", default="hbm",
                    choices=["hbm", "hbm_dram", "hbm_dram_ssd"],
                    help="multi-tier embedding storage")
@@ -171,6 +192,8 @@ def ev_kwargs(args) -> dict:
         kw["counter_filter"] = CounterFilter(args.ev_filter_freq)
     if args.ev_evict_steps:
         kw["evict"] = GlobalStepEvict(args.ev_evict_steps)
+    if getattr(args, "exchange_dtype", None) not in (None, "float32"):
+        kw["exchange_dtype"] = args.exchange_dtype
     if getattr(args, "incr_save_secs", None):
         # version-delta incrementals need version stamps even on tables
         # with no eviction policy (else the light layout skips them)
@@ -196,10 +219,17 @@ def collection_cls(args):
 
 def check_supported(args) -> None:
     """Refuse what the port does not run, naming the ROADMAP item."""
-    if getattr(args, "mesh", 0):
+    if getattr(args, "mesh", 0) and getattr(args, "host_index", False):
         raise NotImplementedError(
-            f"--mesh {args.mesh}: the multi-device engines are not ported "
-            "yet (ROADMAP A8)")
+            f"--mesh {args.mesh} with --host_index: the host-sharded "
+            "engine is not ported yet (ROADMAP A8); drop --host_index for "
+            "the device-index mesh")
+    if getattr(args, "mesh", 0) and \
+            getattr(args, "ev_storage", "hbm") != "hbm":
+        raise NotImplementedError(
+            f"--mesh {args.mesh} with --ev_storage {args.ev_storage}: "
+            "tiered tables on the mesh (TieredShardedTrainer) are not "
+            "ported yet (ROADMAP A8)")
     if getattr(args, "micro_batch", 1) > 1 and \
             getattr(args, "host_index", False):
         raise NotImplementedError(
@@ -254,21 +284,28 @@ def init_params(model: torch.nn.Module, seed: int) -> torch.nn.Module:
     return model
 
 
-def _check_health(tr, state, writer, last: dict) -> dict:
-    """Alarm on (and self-heal) the silent degradation the host-index
-    engine can show: dedup-cap saturation -> double max_unique; index
-    overflow is handled by maybe_grow. (The JAX CLI also widens a mesh's
-    exchange buckets; one device has none.)"""
+def _check_health(tr, state, writer, last: dict, say=print) -> dict:
+    """Alarm on (and self-heal) the silent degradation modes: a mesh's
+    exchange-bucket drops -> widen the buckets; dedup-cap saturation ->
+    double max_unique; index overflow is handled by maybe_grow. On a mesh
+    the health is global, so every rank takes the same remedy."""
     health = tr.table_health(state)
     for name, h in health.items():
         prev = last.get(name, {})
+        if h["dropped"] > prev.get("dropped", 0):
+            msg = (f"WARNING table {name}: {h['dropped']} unique ids "
+                   f"dropped by exchange buckets (cumulative)")
+            if hasattr(tr, "raise_bucket_slack"):
+                msg += (" -> bucket_slack raised to "
+                        f"{tr.raise_bucket_slack():.2f}")
+            say(msg)
         if (h["max_unique"]
                 and h["unique_saturated_steps"] > prev.get(
                     "unique_saturated_steps", 0)):
             coll = tr.collections[name]
             new_mu = coll.config.max_unique * 2
             coll.config = dataclasses.replace(coll.config, max_unique=new_mu)
-            print(f"WARNING table {name}: dedup cap saturated "
+            say(f"WARNING table {name}: dedup cap saturated "
                   f"{h['unique_saturated_steps']} step(s) "
                   f"(max n_unique {h['max_n_unique']}) "
                   f"-> max_unique raised to {new_mu}")
@@ -305,11 +342,33 @@ def _fuse_slot_columns(spec: ModelSpec, args) -> None:
                     args.learning_rate)
 
 
-def make_trainer(spec: ModelSpec, args):
+def make_mesh(args):
+    """Join the ``--mesh`` group (torchrun's environment, or
+    ``--coordinator`` and ``--process_id``) and return this rank's axis on
+    ``--device`` (``cuda`` means ``cuda:<local rank>``)."""
+    from ..parallel import multihost
+    device = torch.device(args.device)
+    backend = "nccl" if device.type == "cuda" else "gloo"
+    if args.coordinator:
+        multihost.initialize(args.coordinator, args.mesh, args.process_id,
+                             backend=backend)
+    else:
+        multihost.initialize(backend=backend)
+    if device.type == "cuda" and device.index is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("--device cuda but torch sees no CUDA device")
+        device = torch.device("cuda", multihost.local_rank()
+                              % torch.cuda.device_count())
+    return multihost.make_mesh(args.mesh, device=device)
+
+
+def make_trainer(spec: ModelSpec, args, mesh=None):
     """The run's trainer on ``--device``: the dedup-width cap and the
-    fused slot columns applied to the collections, a ``TieredTrainer`` for
-    tiered device-index tables, ``--micro_batch`` microbatches, the
-    model's weights drawn from ``--seed``."""
+    fused slot columns applied to the collections, a ``ShardedTrainer``
+    for ``--mesh`` (on the axis ``mesh``, or joining the group
+    :func:`make_mesh` names), a ``TieredTrainer`` for tiered device-index
+    tables, ``--micro_batch`` microbatches, the model's weights drawn from
+    ``--seed``."""
     from ..config import StorageType
     from .tiered_trainer import TieredTrainer
     from .trainer import Trainer
@@ -323,6 +382,15 @@ def make_trainer(spec: ModelSpec, args):
                 coll.config = dataclasses.replace(coll.config, max_unique=mu)
     _fuse_slot_columns(spec, args)
     init_params(spec.model, args.seed)
+    if args.mesh:
+        from ..parallel import ShardedTrainer
+        return ShardedTrainer(spec.model, spec.numeric_columns,
+                              spec.collections, spec.sparse_optimizers,
+                              make_dense_opt(args),
+                              mesh=mesh or make_mesh(args),
+                              forward=spec.forward,
+                              aux_loss_weight=spec.aux_loss_weight,
+                              microbatches=args.micro_batch)
     # a tiered device-index table needs the TieredTrainer; host-index
     # tables tier themselves
     device_tiered = any(c.config.storage.storage_type is not StorageType.HBM
@@ -338,12 +406,19 @@ def make_trainer(spec: ModelSpec, args):
 def run(spec: ModelSpec, args) -> dict:
     """Train/eval loop shared by every modelzoo trainer. Returns (and
     prints, as the reference trainers do) the summary metrics."""
+    import torch.distributed as dist
     from ..checkpoint.saver import CheckpointManager
     from ..config import StorageType
     from . import metrics as M
 
+    owns_group = bool(args.mesh) and not dist.is_initialized()
     tr = make_trainer(spec, args)  # raises for what is not ported
     device = tr.device
+    lead = getattr(tr, "rank", 0) == 0  # on a mesh rank 0 alone reports
+
+    def say(*a):
+        if lead:
+            print(*a, flush=True)
     host_index = any(hasattr(c, "pack_ids_host")
                      for c in tr.collections.values())
 
@@ -362,17 +437,17 @@ def run(spec: ModelSpec, args) -> dict:
             mgr.attach_aux("workqueue", q.snapshot, None)
         state, restored = mgr.restore(tr, state)
         if restored:
-            print(f"restored from {args.checkpoint} at step {state.step}")
+            say(f"restored from {args.checkpoint} at step {state.step}")
 
     prof = None
-    if args.profile:
+    if args.profile and lead:
         from torch.profiler import ProfilerActivity, profile
         acts = [ProfilerActivity.CPU] + (
             [ProfilerActivity.CUDA] if device.type == "cuda" else [])
         prof = profile(activities=acts)
         prof.start()
     writer = None
-    if args.summary_dir:
+    if args.summary_dir and lead:
         from .summary import SummaryWriter
         writer = SummaryWriter(args.summary_dir)
 
@@ -405,26 +480,26 @@ def run(spec: ModelSpec, args) -> dict:
         m = M.summarize(state.metrics)
         dt = time.perf_counter() - t0
         eps = done * args.batch_size / dt
-        print(f"step {step}  loss={m['loss']:.5f}  auc={m['auc']:.4f}  "
-              f"({eps:.0f} ex/s)")
+        say(f"step {step}  loss={m['loss']:.5f}  auc={m['auc']:.4f}  "
+            f"({eps:.0f} ex/s)")
         if writer:
             writer.write(step, m, examples_per_sec=eps)
         if mgr is not None:
             mgr.maybe_save(tr, state)
         grown = tr.maybe_grow(state)
         if grown is not state:
-            print(f"table growth at step {step}: " + ", ".join(
+            say(f"table growth at step {step}: " + ", ".join(
                 f"{n}->{c.config.capacity}"
                 for n, c in tr.collections.items()))
             state = grown
-        last_health = _check_health(tr, state, writer, last_health)
+        last_health = _check_health(tr, state, writer, last_health, say)
         if args.eval_every and step % args.eval_every < args.log_steps \
                 and step >= args.eval_every:
             te = time.perf_counter()
             em = run_eval(state)
             eval_secs += time.perf_counter() - te
-            print(f"eval @ step {step}: auc={em['auc']:.4f} "
-                  f"acc={em['accuracy']:.4f}")
+            say(f"eval @ step {step}: auc={em['auc']:.4f} "
+                f"acc={em['accuracy']:.4f}")
             if writer:
                 writer.write(step, em, phase="eval")
         if demote_steps and (step // args.log_steps) % max(
@@ -432,7 +507,7 @@ def run(spec: ModelSpec, args) -> dict:
             state = tr.maybe_demote(state)
             rows = {n: tr.host_tier_rows(n) for n in tr.tiers}
             if any(rows.values()):
-                print("host tier rows: " + ", ".join(
+                say("host tier rows: " + ", ".join(
                     f"{n}={c}" for n, c in rows.items()))
                 if writer:
                     writer.write(step, rows, phase="tier")
@@ -476,7 +551,9 @@ def run(spec: ModelSpec, args) -> dict:
     if writer:
         writer.write(int(state.step), eval_m, phase="eval")
         writer.close()
-    print(json.dumps(out))
+    say(json.dumps(out))
+    if owns_group:
+        dist.destroy_process_group()
     return out
 
 
@@ -561,6 +638,19 @@ def _device_index_loop(tr, state, stream, args, log_steps, fence_work):
 # -- shared data plumbing -----------------------------------------------------
 
 
+def main(argv=None) -> dict:
+    """``--model M`` (default DLRM) and its flags: the zoo model's run."""
+    pre = argparse.ArgumentParser(add_help=False)
+    pre.add_argument("--model", default="DLRM")
+    ns, rest = pre.parse_known_args(argv)
+    mod = importlib.import_module(
+        f"deeprec_tpu_torch.modelzoo.{ns.model}.train")
+    parser = mod.parser() if hasattr(mod, "parser") else \
+        base_parser(ns.model)
+    args = parser.parse_args(rest)
+    return run(mod.build(args), args)
+
+
 def criteo_train_stream(args):
     from ..data.criteo import SyntheticCriteo, read_criteo
     from ..data.work_queue import WorkQueue, input_producer
@@ -619,3 +709,7 @@ def behavior_eval_stream(args):
                             n_items=args.synthetic_items,
                             n_users=args.synthetic_users)
     return gen.take(args.eval_steps)
+
+
+if __name__ == "__main__":
+    main()

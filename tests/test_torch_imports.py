@@ -55,6 +55,10 @@ def test_port_imports_without_jax():
         "sparse.multihash", "sparse.dynamicdim", "sparse.adaptive",
         "sparse.hash_table_api", "feature_column_variants", "api",
         "checkpoint.bundle_reader", "checkpoint.migrate")} <= names
+    # the mesh engine: neither jax nor deeprec_tpu under parallel/
+    assert {f"deeprec_tpu_torch.{m}" for m in (
+        "parallel", "parallel.multihost", "parallel.sharded",
+        "parallel.trainer")} <= names
 
 
 def test_resolver_binding_copy_is_the_source():

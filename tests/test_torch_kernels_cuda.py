@@ -2,7 +2,8 @@
 and backward, f32 and bf16), K3a (lookup_meta, meta_scatter) and K3b
 (blocked_rmw_set) against their plain PyTorch versions, on the card, and
 how far two card runs of one training stream drift apart (the backward's
-atomics add in a run-dependent order). A CUDA kernel has no CPU mode, so
+atomics add in a run-dependent order), and the mesh engine's step on a
+world-1 NCCL group against a CPU twin on gloo. A CUDA kernel has no CPU mode, so
 every test here skips without a card. This file imports no JAX, so it
 also runs on a machine without it:
 
@@ -725,3 +726,52 @@ def test_sequence_train_step_on_card(cuda, kind):
     for a, c in zip(ctr.flax_leaves(tg.model), ctr.flax_leaves(tc.model)):
         assert np.abs(a - c).max() <= ROW_ATOL
     assert not np.allclose(ctr.flax_leaves(tg.model)[0], 0.0)  # stats moved
+
+
+def test_nccl_exchange_step_matches_a_gloo_cpu_step(cuda):
+    """The mesh engine's step on a world-1 NCCL group on the card equals
+    the same step of a CPU twin on a gloo group of the same process: key
+    planes and metadata bit-equal, losses and rows within the smoke's
+    card-vs-CPU tolerance; K1, K2, K2's backward and K3a launched."""
+    import socket
+    import torch.distributed as dist
+    from deeprec_tpu_torch.data.criteo import SyntheticCriteo
+    from deeprec_tpu_torch.models import ctr
+    from deeprec_tpu_torch.parallel import make_mesh, multihost
+    from torch_mesh_worker import build
+    ROW_ATOL = 1e-4  # chip_smoke.py's card-vs-CPU row tolerance
+    spec = dict(cols=[(f"C{i}", 1, "mean") for i in range(1, 9)], dim=8,
+                capacity=1 << 14, numeric=[f"I{i}" for i in range(1, 5)],
+                fused=True, filter_freq=2, evict_steps=1 << 20,
+                max_unique=8 * 512 // 4)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    multihost.initialize(f"127.0.0.1:{port}", 1, 0, backend="nccl",
+                         timeout_s=60)
+    try:
+        card = make_mesh(1, device=cuda)
+        cpu = make_mesh(1, group=dist.new_group([0], backend="gloo"),
+                        device="cpu")
+        tg, tc = build(spec, card), build(spec, cpu)
+        ctr.load_flax_params(tc.model, ctr.flax_leaves(tg.model))
+        batches = list(SyntheticCriteo(batch_size=512, seed=3).take(3))
+        sg, sc = tg.init(batches[0]), tc.init(batches[0])
+        counters = (gather_rows, fused_pooled_lookup,
+                    fused_pooled_lookup_backward, lookup_meta)
+        before = [f.launches for f in counters]
+        for b in batches:
+            sg, sc = tg.train_step(sg, b), tc.train_step(sc, b)
+        torch.cuda.synchronize()
+        assert all(f.launches > n for f, n in zip(counters, before))
+        assert abs(sg.metrics.loss_sum.item() - sc.metrics.loss_sum.item()) \
+            <= ROW_ATOL * 512 * len(batches)
+        eg, ec = sg.tables["emb"].ev, sc.tables["emb"].ev
+        for a, c in ((eg.index.keys, ec.index.keys), (eg.freqs, ec.freqs),
+                     (eg.versions, ec.versions),
+                     (eg.create_steps, ec.create_steps)):
+            assert torch.equal(a.cpu(), c)
+        assert (eg.values.cpu() - ec.values).abs().max().item() <= ROW_ATOL
+        assert tg.table_health(sg) == tc.table_health(sc)
+    finally:
+        dist.destroy_process_group()
