@@ -4,8 +4,9 @@ sequence models DIN and DIEN, the modelzoo entry points (the training
 CLI, the sparse optimizers, the bf16 towers and the server's command
 line), the device-index training engine, the variant tables
 (multi-hash, adaptive, dynamic dimension, hash table), the migration of
-DeepRec checkpoints and the device-index mesh engine (ShardedTrainer,
-multi-shard saves, ShardedPredictor).
+DeepRec checkpoints and the multi-device engines (the device-index and
+host-sharded ShardedTrainer, multi-shard saves, ShardedPredictor,
+TieredShardedTrainer, DistributedHashTable and the server's --mesh).
 
 Run from the root of a checkout on a machine with one CUDA card:
 
@@ -227,11 +228,49 @@ comparison compute in full f32. Phases (any failure exits non-zero):
    3 timed runs of 5 staged steps and the gloo all_to_all's time; then a
    full save of the 4 shards (one part file each) served by the
    one-device Predictor on the card, a 4-rank ShardedPredictor and a
-   2-rank one (a reshard), all within PROB_ATOL on 5 held batches. A rank
-   that fails, or a phase past MESH4_TIMEOUT_S, fails the smoke. Phase 2
-   also holds K1 and K3a at the owner's shapes of this phase (the S*C
-   received lanes, the owner's unique width with the summed
-   multiplicities as counts) and times them.
+   2-rank one (a reshard), all within PROB_ATOL on 5 held batches. Then,
+   on the same ranks, the host-sharded engine (the --metadata DLRM of
+   phase 18 with --mesh 4): each rank resolves its slice, the buckets
+   cross the host exchange (TCP), HSMESH4_STEPS steps in lockstep with
+   CPU twins (wires bit-equal every step, rows at fences), K1, K2, K2's
+   backward and K3a launched on every rank, 3 timed runs of 5 staged
+   steps with the host exchange's ms a step and exchange_late_steps; its
+   4-part save served by the one-device device-index Predictor and a
+   2-rank ShardedPredictor within PROB_ATOL. A rank that fails, or a
+   phase past MESH4_TIMEOUT_S, fails the smoke. Phase 2 also holds K1 and
+   K3a at the owner's shapes of this phase (the S*C received lanes, the
+   owner's unique width with the summed multiplicities as counts), and K1,
+   K2, K2's backward and K3a at the host-sharded owner's and requester's
+   shapes, and times them;
+18. the host-sharded engine on one rank (``hsmesh1``): bench.py's DLRM
+   (fused Adagrad columns, 2^21 rows, the 0.25 dedup cap) through
+   cli.make_trainer with --mesh 1 --host_index on a world-1 NCCL group,
+   HS_STEPS --metadata steps (CounterFilter(2), GlobalStepEvict(20)) and
+   HS_LIGHT_STEPS light steps in lockstep with a gloo CPU twin (wires
+   bit-equal every step; the resolver's keys, metadata planes, rows, slot
+   rows and parameters at every 10-step fence, after which the twin takes
+   the card's float state); K1, K2, K2's backward and K3a launched;
+   HS_EXACT_STEPS exact-dedup steps against the one-device host-index
+   Trainer (the same key -> slot map and rows); staged examples/s beside
+   the one-device engine's in the same call;
+19. TieredShardedTrainer (``tiermesh``), this script started twice
+   (``--mesh2-rank R JOB``, gloo on the card): the device phase's DLRM
+   with --mesh 2 --ev_storage hbm_dram (2^18 slots a shard,
+   hbm_capacity 32,768 over the mesh) in lockstep with CPU twins for
+   TIERMESH_STEPS steps, demotion every TIERMESH_FENCE (tiers bit-equal in
+   their integer columns, rows within ROW_ATOL, each shard within its
+   share), promotion inside the steps; the 2-rank save restores into a
+   one-device TieredTrainer on the card, every saved key in one tier;
+20. DistributedHashTable (``dht``) on the same two ranks: DHT_STEPS steps
+   of gen_ids and apply_cotangent over each rank's half of a batch's 26
+   columns beside CPU twins (ids bit-equal, rows within ROW_ATOL), K1
+   launched (phase 2 times it at this shape);
+21. the server's --mesh 2 (``servemesh``) on the same two ranks over the
+   mesh4 phase's save: rank 0 answers SERVE_BATCHES HTTP predicts of
+   B rows within PROB_ATOL of the one-device Predictor, refuses a request
+   without a column (400, nothing broadcast) and refreshes; closing its
+   server stops rank 1. A rank that fails, or phases past
+   MESH2_TIMEOUT_S, fail the smoke.
 
 The last line is {"ok": true, "device": {...}}; the line before it holds
 the kernels' numbers as JSON, the line before that the training numbers.
@@ -336,6 +375,19 @@ MESH_FENCE = 10          # ... the CPU twin re-anchored every 10
 MESH4_RANKS = 4          # phase 17 (mesh4): rank processes on the card,
 MESH4_STEPS = 20         # their lockstep steps,
 MESH4_TIMEOUT_S = 300    # and the phase's limit
+HS_STEPS = 30            # phase 18 (hsmesh1): --metadata lockstep steps,
+HS_LIGHT_STEPS = 10      # the light layout's,
+HS_EXACT_STEPS = 5       # and the exact-dedup steps beside one device
+HSMESH4_STEPS = 10       # phase 17's host-sharded lockstep steps a rank
+MESH2_RANKS = 2          # phases 19-21 (tiermesh, dht, servemesh): ranks
+MESH2_TIMEOUT_S = 300    # on the card, and their limit
+TIERMESH_CAPACITY = 1 << 18  # tiermesh: each shard's slots,
+TIERMESH_HBM = 32768     # the table's hbm_capacity (half a shard),
+TIERMESH_STEPS = 9       # lockstep steps,
+TIERMESH_FENCE = 3       # a demotion fence every 3
+DHT_CAPACITY = 1 << 19   # dht: each partition's ids,
+DHT_STEPS = 5            # its training steps
+SERVE_BATCHES = 3        # servemesh: HTTP predicts of B rows
 # an eval step's AUC and loss, card vs CPU: the AUC is a histogram of 1024
 # bins, and a probability within rounding of a bin edge lands on the other
 # side on the other device, each such example moving the AUC by about
@@ -3813,10 +3865,11 @@ def mesh4_rank(job_path, rank):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device(job["devices"][rank])
-    torch.cuda.set_device(dev)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+        _build.library()  # the parent built it
     # the host's cores shared out: the ranks' CPU twins and gloo run there
     torch.set_num_threads(max(1, (os.cpu_count() or 8) // MESH4_RANKS))
-    _build.library()  # the parent built it
     multihost.initialize(job["addr"], MESH4_RANKS, rank,
                          backend=job["backend"], timeout_s=MESH4_TIMEOUT_S)
     try:
@@ -3825,7 +3878,7 @@ def mesh4_rank(job_path, rank):
                          device="cpu")
         pair = dist.new_group([0, 1], backend=job["backend"])
         batches = list(SyntheticCriteo(batch_size=B, seed=7).take(
-            MESH4_STEPS + 20))
+            max(MESH4_STEPS, HSMESH4_STEPS) + 20))
         tg, tc = mesh_trainer(dev, card), mesh_trainer("cpu", twin)
         counters = path_counters()
         for fn in counters.values():
@@ -3856,6 +3909,37 @@ def mesh4_rank(job_path, rank):
                                   job["ckpt"], mesh=make_mesh(
                                       2, group=pair, device=dev))
             out["probs2"] = [p2.predict(b) for b in held]
+            del p2
+        torch.cuda.empty_cache()
+        # the host-sharded engine on the same ranks: each rank resolves its
+        # slice, the buckets cross the host exchange, every rank against
+        # its CPU twin (whose exchange is a second TCP mesh)
+        hg, hc = hs_trainer(dev, card), hs_trainer("cpu", twin)
+        for fn in counters.values():
+            fn.launches = 0
+        shg, shc, hloss, hrow = hs_lockstep(
+            hg, hc, batches[:HSMESH4_STEPS],
+            f"mesh4 host-sharded rank {rank}", fence=5)
+        hs = {"launches": {n: fn.launches for n, fn in counters.items()},
+              "max_dloss": hloss, "max_drow": hrow}
+        del hc, shc
+        with HXTimer(hg.collections["emb"]) as hx:
+            shg, hs["staged_eps"] = timed_runs(
+                hg, shg, batches[HSMESH4_STEPS:HSMESH4_STEPS + 15], runs=3,
+                steps=5)
+        hs["exchange_ms"] = hx.ms()
+        hs["health"] = hg.table_health(shg)["emb"]
+        hs["summary"] = _metrics_summary(shg)
+        CheckpointManager(job["hs_ckpt"]).save(hg, shg)
+        del hg, shg
+        torch.cuda.empty_cache()
+        if rank < 2:  # the host-sharded save at 2 ranks (a reshard)
+            numeric, coll, model = criteo_parts()
+            p2 = ShardedPredictor(model, numeric, {"emb": coll},
+                                  job["hs_ckpt"], mesh=make_mesh(
+                                      2, group=pair, device=dev))
+            hs["probs2"] = [p2.predict(b) for b in held]
+        out["hs"] = hs
         card.barrier()
         with open(f"{job_path}.out{rank}", "wb") as f:
             pickle.dump(out, f)
@@ -3871,8 +3955,10 @@ def check_mesh4(dev, smi, tmp):
     fails the smoke. Their save is
     served by the one-device Predictor on the card, and the ranks'
     4-rank and 2-rank ShardedPredictors agree with it within PROB_ATOL on
-    5 held batches. Returns the launches summed over the ranks (each
-    rank's must be above 0) and the phase's summary."""
+    5 held batches. Then the host-sharded engine on the same ranks, its
+    save served by the one-device Predictor and at 2 ranks. Returns the
+    launches by path (``mesh4``, ``mesh4_hs``), summed over the ranks
+    (each rank's must be above 0), and the phase's summary."""
     import pickle
     from deeprec_tpu_torch.data.criteo import SyntheticCriteo
     t_phase = time.perf_counter()
@@ -3881,36 +3967,13 @@ def check_mesh4(dev, smi, tmp):
     ckpt = os.path.join(tmp, "mesh4_ck")
     with open(job, "wb") as f:
         pickle.dump({"addr": f"127.0.0.1:{free_port()}", "ckpt": ckpt,
+                     "hs_ckpt": os.path.join(tmp, "mesh4_hs_ck"),
                      "backend": backend,  # NCCL takes one rank a card
                      "devices": [f"cuda:{r if backend == 'nccl' else 0}"
+                                 if dev.type == "cuda" else "cpu"
                                  for r in range(MESH4_RANKS)]}, f)
-    procs = []
-    for r in range(MESH4_RANKS):
-        log_f = open(os.path.join(tmp, f"mesh4_rank{r}.log"), "w+")
-        procs.append((subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), "--mesh4-rank",
-             str(r), job], cwd=REPO, stdout=log_f,
-            stderr=subprocess.STDOUT), log_f))
-    deadline = time.monotonic() + MESH4_TIMEOUT_S
-    try:
-        for p, _ in procs:
-            p.wait(timeout=max(1.0, deadline - time.monotonic()))
-    except subprocess.TimeoutExpired:
-        pass
-    finally:
-        for p, _ in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    outs = []
-    for r, (p, log_f) in enumerate(procs):
-        log_f.seek(0)
-        text = log_f.read()
-        log_f.close()
-        if p.returncode != 0:
-            fail(f"mesh4 rank {r} exited {p.returncode}:\n{text[-6000:]}")
-        with open(f"{job}.out{r}", "rb") as f:
-            outs.append(pickle.load(f))
+    outs = spawn_ranks("--mesh4-rank", MESH4_RANKS, job, tmp,
+                       MESH4_TIMEOUT_S, "mesh4")
     launches = {}
     for r, o in enumerate(outs):
         for n, v in o["launches"].items():
@@ -3936,6 +3999,42 @@ def check_mesh4(dev, smi, tmp):
                 fail("mesh4: the ranks' ShardedPredictors disagree")
     if not max(worst.values()) <= PROB_ATOL:
         fail(f"mesh4: sharded vs one-device probabilities differ: {worst}")
+    # the host-sharded engine: launches on every rank, and its 4-part save
+    # served by the one-device device-index Predictor and a 2-rank
+    # ShardedPredictor alike (the cross-engine contract)
+    hs_launches = {}
+    for r, o in enumerate(outs):
+        for n, v in o["hs"]["launches"].items():
+            if v <= 0:
+                fail(f"{n} was not launched on mesh4 rank {r}'s "
+                     f"host-sharded path")
+            hs_launches[n] = hs_launches.get(n, 0) + v
+    one = predictor(os.path.join(tmp, "mesh4_hs_ck"), dev)
+    hs_dp = 0.0
+    for i, b in enumerate(held):
+        p = outs[0]["hs"]["probs2"][i]
+        if p.shape != (B,) or not np.isfinite(p).all():
+            fail("mesh4 host-sharded save: 2-rank probabilities are not "
+                 f"finite of shape ({B},)")
+        hs_dp = max(hs_dp, float(np.abs(p - one.predict(b)).max()))
+    del one
+    if not hs_dp <= PROB_ATOL:
+        fail(f"mesh4: the host-sharded save served at 2 ranks differs from "
+             f"the one-device Predictor by {hs_dp}")
+    h = outs[0]["hs"]
+    log(f"mesh4 host-sharded ({backend}, {MESH4_RANKS} ranks): launches "
+        f"summed over the ranks {hs_launches}; {HSMESH4_STEPS} steps in "
+        f"lockstep with gloo CPU twins (wires bit-equal every step): max "
+        f"|dloss| {max(x['hs']['max_dloss'] for x in outs):.3g}, max |drow| "
+        f"{max(x['hs']['max_drow'] for x in outs):.3g}; staged examples/s "
+        f"median {statistics.median(h['staged_eps']):.1f} (min "
+        f"{min(h['staged_eps']):.1f}, max {max(h['staged_eps']):.1f}) over "
+        f"3 runs of 5 steps; host exchange "
+        f"{max(x['hs']['exchange_ms'] for x in outs):.3f} ms a step (the "
+        f"slowest rank, host clock, in the staged resolves), "
+        f"exchange_late_steps {h['health']['exchange_late_steps']}; its "
+        f"4-part save served at 2 ranks within {hs_dp:.3g} of the "
+        f"one-device device-index Predictor")
     o = outs[0]
     rates = o["staged_eps"]
     log(f"mesh4: {MESH4_STEPS} steps in lockstep with gloo CPU twins: max "
@@ -3951,7 +4050,14 @@ def check_mesh4(dev, smi, tmp):
         f"2-rank ShardedPredictor: max |dp| {worst} (limit {PROB_ATOL}); "
         f"health {o['health']}; phase {time.perf_counter() - t_phase:.1f} s,"
         f" on {smi}")
-    return launches, {
+    return {"mesh4": launches, "mesh4_hs": hs_launches}, {
+        "host_sharded": {
+            "staged_eps": h["staged_eps"],
+            "exchange_ms": max(x["hs"]["exchange_ms"] for x in outs),
+            "late_steps": h["health"]["exchange_late_steps"],
+            "max_dloss": max(x["hs"]["max_dloss"] for x in outs),
+            "max_drow": max(x["hs"]["max_drow"] for x in outs),
+            "serve_dp": hs_dp, "health": h["health"]},
         "staged_eps": rates, "a2a_ms_per_step": o["a2a_ms_per_step"],
         "a2a_host_ms_per_step": o["a2a_host_ms_per_step"],
         "a2a_calls_per_step": o["a2a_calls_per_step"],
@@ -3961,8 +4067,716 @@ def check_mesh4(dev, smi, tmp):
         "summary": o["summary"], "health": o["health"]}
 
 
+# -- phase 18 and the host-sharded half of 17: the host-sharded engine --------
+def hs_trainer(dev, axis=None, metadata=True, extra=()):
+    """bench.py's DLRM on the host-index engine as the CLI builds it:
+    ``deeprec_tpu_torch/modelzoo/DLRM/train.py`` with --host_index (B 4096,
+    emb dim 16, 2^21 rows, --max_unique_ratio 0.25; --metadata adds
+    --ev_filter_freq 2 --ev_evict_steps 20), its table in fused Adagrad
+    columns trained by ``sparse_adagrad_fused`` (bench.py's optimizer),
+    through ``cli.make_trainer``: with ``--mesh S`` over ``axis`` a
+    ``ShardedTrainer`` over a ``HostShardedCollection``, else the
+    one-device ``Trainer``."""
+    import dataclasses
+    import importlib
+    from deeprec_tpu_torch.optim.sparse import sparse_adagrad_fused
+    from deeprec_tpu_torch.train import cli
+    mod = importlib.import_module("deeprec_tpu_torch.modelzoo.DLRM.train")
+    flags = ["--batch_size", str(B), "--emb_dim", str(EMB_DIM), "--capacity",
+             str(CAPACITY), "--seed", str(SEED), "--device", str(dev),
+             "--optimizer", "adagrad", "--max_unique_ratio", "0.25",
+             "--host_index"]
+    if metadata:
+        flags += ["--ev_filter_freq", "2", "--ev_evict_steps", "20"]
+    if axis is not None:
+        flags += ["--mesh", str(axis.size)]
+    args = cli.base_parser("DLRM").parse_args(flags + list(extra))
+    spec = mod.build(args)
+    coll = spec.collections["emb"]
+    coll.config = dataclasses.replace(coll.config, fused_slot_columns=EMB_DIM,
+                                      fused_slot_init=0.1)
+    spec.sparse_optimizers["emb"] = sparse_adagrad_fused(
+        args.learning_rate, initial_accumulator_value=0.1)
+    need_native(spec.collections, "the host-sharded phase")
+    tr = cli.make_trainer(spec, args, mesh=axis)
+    want = "HostShardedCollection" if axis is not None else \
+        "HostIndexEmbeddingCollection"
+    if type(tr.collections["emb"]).__name__ != want:
+        fail(f"--host_index{' --mesh' if axis is not None else ''} did not "
+             f"give a {want}")
+    return tr
+
+
+def hs_same_tables(tg, sg, tc, sc, what):
+    """This rank's shard, card against CPU: the resolver's keys (slot
+    order), the metadata planes bit-equal; rows, slot rows and parameters
+    within ROW_ATOL. Returns the largest float difference."""
+    from deeprec_tpu_torch.utils.tree import leaves_with_paths
+    cg, cc = tg.collections["emb"], tc.collections["emb"]
+    kg, kc = cg._resolver.export_keys(), cc._resolver.export_keys()
+    if not np.array_equal(kg, kc):
+        fail(f"{what}: card and CPU resolvers hold other keys")
+    n = kg.shape[0]
+    eg, ec = sg.tables["emb"].ev, sc.tables["emb"].ev
+    for f in ("freqs", "versions", "create_steps"):
+        if not torch.equal(getattr(eg, f)[:n].cpu(), getattr(ec, f)[:n]):
+            fail(f"{what}: {f} planes differ between card and CPU")
+    worst = 0.0
+    pairs = [("rows", eg.values[:n], ec.values[:n])] + [
+        (f"slot {p}", a[:n] if a.dim() else a, c[:n] if c.dim() else c)
+        for (p, a), (_, c) in zip(leaves_with_paths(sg.tables["emb"].slot),
+                                  leaves_with_paths(sc.tables["emb"].slot))]
+    pairs += [(f"parameter {k}", a.detach(), b.detach()) for (k, a), b in
+              zip(tg.model.named_parameters(), tc.model.parameters())]
+    for leaf, a, c in pairs:
+        d = (a.cpu().float() - c.float()).abs().max().item() if a.numel() \
+            else 0.0
+        worst = max(worst, d)
+        if not d <= ROW_ATOL:
+            fail(f"{what}: {leaf} differ by {d} between card and CPU")
+    return worst
+
+
+def hs_lockstep(tg, tc, batches, what, fence=MESH_FENCE):
+    """Train the card's and the CPU twin's host-sharded trainers on
+    ``batches``: every step's wires (this rank's resolved exchange)
+    bit-equal and loss within LOSS_ATOL; at every ``fence`` steps the
+    shards as :func:`hs_same_tables` says, after which the twin takes the
+    card's float state (:func:`anchor`). Returns the states and the
+    largest loss and row differences."""
+    sg, sc = tg.init(batches[0]), tc.init(batches[0])
+    dloss = drow = 0.0
+    for i, b in enumerate(batches):
+        dg, cg, lg = tg.prepare_batch(b)
+        dc, cc, lc = tc.prepare_batch(b)
+        if not torch.equal(cg["emb"].buf.cpu(), cc["emb"].buf):
+            fail(f"{what}: card and CPU wires differ at step {i}")
+        g0, c0 = sg.metrics.loss_sum.item(), sc.metrics.loss_sum.item()
+        sg, sc = tg._train_step(sg, dg, cg, lg), tc._train_step(sc, dc, cc,
+                                                                lc)
+        lg_ = (sg.metrics.loss_sum.item() - g0) / B
+        lc_ = (sc.metrics.loss_sum.item() - c0) / B
+        if not (np.isfinite(lg_) and abs(lg_ - lc_) <= LOSS_ATOL):
+            fail(f"{what}: step {i} loss {lg_} on the card vs {lc_} on CPU")
+        dloss = max(dloss, abs(lg_ - lc_))
+        if (i + 1) % fence == 0 or i + 1 == len(batches):
+            drow = max(drow, hs_same_tables(tg, sg, tc, sc, what))
+            anchor(tg, sg, tc, sc)
+    return sg, sc, dloss, drow
+
+
+class HXTimer:
+    """Wraps a host-sharded collection's host exchange: each step's
+    exchange time on the host clock (the resolve's wait for its peers'
+    frames included)."""
+
+    def __init__(self, coll):
+        self.hx, self.secs = coll._hx, []
+
+    def __enter__(self):
+        orig = type(self.hx).all_to_all
+
+        def timed(blobs):
+            t = time.perf_counter()
+            out = orig(self.hx, blobs)
+            self.secs.append(time.perf_counter() - t)
+            return out
+        self.hx.all_to_all = timed
+        return self
+
+    def __exit__(self, *exc):
+        del self.hx.all_to_all
+
+    def ms(self):
+        return sum(self.secs) * 1e3 / max(len(self.secs), 1)
+
+
+def hs_owner_shape(coll, S):
+    """The host-sharded exchange of one B=4096 batch over ``S`` ranks, as
+    the ranks resolve it, for requester and owner rank 0: each rank's
+    requester dedup and buckets (slack 2), the S*C lanes owner 0 receives
+    and its resolve into a fresh 2^21-row shard. Returns rank 0's
+    ``(inv_local, u_idx, owner keys, owner slots, owner created, owner
+    counts, C)``."""
+    from deeprec_tpu_torch.data.criteo import SyntheticCriteo
+    from deeprec_tpu_torch.parallel.sharded import (_bucket_positions,
+                                                    owner_of_np)
+    from deeprec_tpu_torch.utils.native import HostIndexResolver
+    cfg = coll.config
+    ids = coll.pack_ids_np(next(SyntheticCriteo(batch_size=B, seed=7)))
+    b = B // S
+    nl = ids.shape[0] * b
+    uc = cfg.max_unique + 1
+    C = max(int(np.ceil(min(nl, uc) * 2.0 / S / 8.0) * 8), 8)
+    recv_k, recv_c = [], []
+    for r in range(S):
+        dedup = HostIndexResolver(use_native=True)
+        uk, _, inv, _, ct, _, _ = dedup.resolve(
+            ids[:, r * b:(r + 1) * b].reshape(-1), uc, 0, 0)
+        own = owner_of_np(uk, S)
+        pos = _bucket_positions(torch.from_numpy(own)).numpy()
+        routed = (uk != -1) & (own < S) & (pos < C)
+        keys = np.full((S, C), -1, np.int64)
+        counts = np.zeros((S, C), np.int32)
+        keys[own[routed], pos[routed]] = uk[routed]
+        counts[own[routed], pos[routed]] = ct[routed]
+        recv_k.append(keys[0])
+        recv_c.append(counts[0])
+        if r == 0:
+            inv0 = inv
+            uidx0 = np.where(routed, own * C + pos, -1)
+    owner = HostIndexResolver(use_native=True)
+    rk, rs, rinv, rcr, _, _, _ = owner.resolve(
+        np.concatenate(recv_k), uc, cfg.capacity, cfg.capacity)
+    freq = np.bincount(rinv, weights=np.concatenate(recv_c),
+                       minlength=uc)[:uc].astype(np.int32)
+    return inv0, uidx0, rk, rs, rcr.astype(bool), freq, C
+
+
+def check_hs_kernels(dev):
+    """K1, K2, K2's backward and K3a at the host-sharded engine's owner
+    shapes of phase 17 (4 ranks, 1,024 examples each, the --metadata DLRM
+    of :func:`hs_trainer`), from one B=4096 batch resolved here as the
+    ranks resolve it (:func:`hs_owner_shape`): K3a (lookup_meta,
+    CounterFilter(2)) at owner 0's lanes with the summed multiplicities,
+    K1's fetch of its rows at the host-assigned slots (int32), K2 and its
+    backward pooling rank 0's unbucketed rows through its int32 inverse;
+    then K1 at the DHT phase's shape (a partition's rows at the owner's
+    ids of one rank's half of a batch). Returns the entries (paths
+    ``mesh4_hs`` and ``dht``)."""
+    import torch.nn.functional as Fn
+    S = MESH4_RANKS
+    g = torch.Generator().manual_seed(SEED + 6)
+    coll = hs_trainer("cpu").collections["emb"]
+    cap = coll.config.capacity
+    inv, uidx, rk, rs, created, freq, C = hs_owner_shape(coll, S)
+    u = uidx.shape[0]
+    log(f"host-sharded owner shape: {S} requesters x C {C} lanes, owner 0 "
+        f"holds {int((rk != -1).sum())} unique keys in {rk.shape[0]} lanes "
+        f"({int(created.sum())} created), counts up to {int(freq.max())}; "
+        f"requester 0: {inv.shape[0]} ids over {u} lanes, "
+        f"{int((uidx >= 0).sum())} routed")
+    uslots = torch.from_numpy(rs).to(dev)
+    counts = torch.from_numpy(freq).to(dev)
+    cr = torch.from_numpy(created).to(dev)
+    entries = [k3a_case(
+        f"(host-sharded owner, planes of {cap + 1})", "_mesh4_hs", uslots,
+        counts, torch.zeros((1,), dtype=torch.bool, device=dev),
+        torch.where(cr, uslots, cap + 1), cap, 2)[0]]
+    table = torch.randn(cap + 1, 2 * EMB_DIM, generator=g).to(dev)
+    entries.append(k1_case("(host-sharded owner rows at host slots, int32)",
+                           table, uslots, "mesh4_hs", d=EMB_DIM))
+    slots = torch.from_numpy(inv).to(dev).view(-1, 1)
+    routed = torch.from_numpy(uidx >= 0).to(dev)
+    valid = routed[slots.view(-1).long()].view(-1, 1)
+    urows = torch.randn(u, EMB_DIM, generator=g).to(dev)
+    d_pooled = torch.randn(slots.shape[0], EMB_DIM, generator=g).to(dev)
+    idx = slots.view(-1).long()
+    src = torch.where(valid, d_pooled, 0.0)
+    entries += k2_pair(
+        f"(host-sharded requester, [26*{B // S}, 1] sum, D {EMB_DIM}, int32 "
+        f"inverse)", urows, slots, valid, "sum", d_pooled,
+        lambda: Fn.embedding_bag(slots.long(), urows,
+                                 per_sample_weights=valid.float(),
+                                 mode="sum"),
+        lambda: torch.zeros(u, EMB_DIM, device=dev).index_add_(0, idx, src),
+        "mesh4_hs")
+    for e in entries:
+        e["path"] = "mesh4_hs"
+    # the DHT phase: owner 0's ids for its received keys of one batch
+    from deeprec_tpu_torch.data.criteo import SyntheticCriteo
+    ids = coll.pack_ids_np(next(SyntheticCriteo(batch_size=B, seed=7)))
+    keys = np.unique(ids[:, :B // MESH2_RANKS])
+    from deeprec_tpu_torch.parallel.sharded import owner_of_np
+    mine = keys[owner_of_np(keys, MESH2_RANKS) == 0]
+    uids = torch.arange(mine.shape[0], dtype=torch.int32, device=dev)
+    rows = torch.randn(DHT_CAPACITY + 1, EMB_DIM, generator=g).to(dev)
+    e = k1_case(f"(DHT partition rows at {mine.shape[0]} owner ids)", rows,
+                uids, "dht")
+    e["path"] = "dht"
+    return entries + [e]
+
+
+def check_hsmesh1(dev, smi):
+    """Phase 18: the host-sharded engine as one NCCL rank, built through
+    ``cli.make_trainer`` with ``--mesh 1 --host_index``
+    (:func:`hs_trainer`): HS_STEPS --metadata steps and HS_LIGHT_STEPS
+    light steps in lockstep with a CPU twin on a gloo group of the same
+    process (:func:`hs_lockstep`); K1, K2, K2's backward and K3a launched;
+    HS_EXACT_STEPS exact-dedup steps against the one-device host-index
+    Trainer (the same key -> slot map, rows and losses); staged examples/s
+    beside the one-device host-index engine's in the same call. Returns
+    the launches and the phase's summary."""
+    import torch.distributed as dist
+    from deeprec_tpu_torch.data.criteo import SyntheticCriteo
+    from deeprec_tpu_torch.parallel import make_mesh, multihost
+    t_phase = time.perf_counter()
+    multihost.initialize(f"127.0.0.1:{free_port()}", 1, 0, backend="nccl")
+    try:
+        nccl = make_mesh(1, device=dev)
+        gloo = make_mesh(1, group=dist.new_group([0], backend="gloo"),
+                         device="cpu")
+        batches = list(SyntheticCriteo(batch_size=B, seed=7).take(
+            HS_STEPS + 60))
+        tg, tc = hs_trainer(dev, nccl), hs_trainer("cpu", gloo)
+        counters = path_counters()
+        for fn in counters.values():
+            fn.launches = 0
+        sg, sc, dloss, drow = hs_lockstep(tg, tc, batches[:HS_STEPS],
+                                          "hsmesh1 --metadata")
+        launches = {n: fn.launches for n, fn in counters.items()}
+        log(f"hsmesh1 (NCCL, 1 rank) main path ({HS_STEPS} --metadata "
+            f"steps) launches: {launches}")
+        for n, v in launches.items():
+            if v <= 0:
+                fail(f"{n} was not launched on the hsmesh1 path")
+        summ = _metrics_summary(sg)
+        health = tg.table_health(sg)["emb"]
+        del tc, sc
+        lg, lc = (hs_trainer(dev, nccl, metadata=False),
+                  hs_trainer("cpu", gloo, metadata=False))
+        _, _, lloss, lrow = hs_lockstep(lg, lc, batches[:HS_LIGHT_STEPS],
+                                        "hsmesh1 light")
+        del lg, lc
+        # the one-device host-index engine with exact dedup: the same key
+        # -> slot map (the resolver's keys in slot order) and rows
+        exact = ["--max_unique_ratio", "0"]
+        tm, t1 = hs_trainer(dev, nccl, extra=exact), hs_trainer(dev,
+                                                               extra=exact)
+        sm, s1 = tm.init(batches[0]), t1.init(batches[0])
+        dloss1 = 0.0
+        for b in batches[:HS_EXACT_STEPS]:
+            m0, o0 = sm.metrics.loss_sum.item(), s1.metrics.loss_sum.item()
+            sm, s1 = tm.train_step(sm, b), t1.train_step(s1, b)
+            dloss1 = max(dloss1, abs(sm.metrics.loss_sum.item() - m0
+                                     - s1.metrics.loss_sum.item() + o0) / B)
+        km = tm.collections["emb"]._resolver.export_keys()
+        k1 = t1.collections["emb"]._resolver.export_keys()
+        if not np.array_equal(km, k1):
+            fail("hsmesh1: the key -> slot map differs from the one-device "
+                 "host-index trainer's")
+        n = k1.shape[0]
+        drow1 = (sm.tables["emb"].ev.values[:n]
+                 - s1.tables["emb"].ev.values[:n]).abs().max().item()
+        if not (drow1 <= ROW_ATOL and dloss1 <= LOSS_ATOL):
+            fail(f"hsmesh1: rows differ from the one-device trainer's by "
+                 f"{drow1}, losses by {dloss1}")
+        del tm, sm
+        torch.cuda.empty_cache()
+        # staged rates, the mesh and one device in turns in this call
+        rest = batches[HS_STEPS:]
+        sg, rates = timed_runs(tg, sg, rest[:30])
+        s1, rates1 = timed_runs(t1, s1, rest[30:60])
+        log(f"hsmesh1: {HS_STEPS} --metadata steps in lockstep with a gloo "
+            f"CPU twin (wires bit-equal every step): max |dloss| "
+            f"{dloss:.3g}, max |drow| {drow:.3g} at the fences (each window "
+            f"of {MESH_FENCE} from the card's state); light layout "
+            f"{HS_LIGHT_STEPS} steps: max |dloss| {lloss:.3g}, |drow| "
+            f"{lrow:.3g}; after {HS_EXACT_STEPS} exact-dedup steps {n} keys "
+            f"in the one-device trainer's slots, rows within {drow1:.3g}, "
+            f"losses within {dloss1:.3g}; staged examples/s at B={B}: mesh "
+            f"median {statistics.median(rates):.1f} (min {min(rates):.1f}, "
+            f"max {max(rates):.1f}), one-device host-index median "
+            f"{statistics.median(rates1):.1f} (min {min(rates1):.1f}, max "
+            f"{max(rates1):.1f}) over 3 runs of 10 steps each; health "
+            f"{health}; phase {time.perf_counter() - t_phase:.1f} s, on "
+            f"{smi}")
+        return launches, {"staged_eps": rates, "one_device_staged_eps":
+                          rates1, "max_dloss": dloss, "max_drow": drow,
+                          "light_max_dloss": lloss, "light_max_drow": lrow,
+                          "one_device_drow": drow1,
+                          "one_device_dloss": dloss1, "summary": summ,
+                          "health": health}
+    finally:
+        dist.destroy_process_group()
+
+
+# -- phases 19-21: tiermesh, dht and servemesh on two ranks -------------------
+def tiermesh_trainer(dev, axis):
+    """The device phase's DLRM as ``--mesh 2 --ev_storage hbm_dram
+    --ev_hbm_capacity TIERMESH_HBM --capacity TIERMESH_CAPACITY`` makes it
+    through ``cli.make_trainer``: a TieredShardedTrainer."""
+    from deeprec_tpu_torch.train import cli
+    mod, args = device_entry(dev, [
+        "--mesh", str(axis.size), "--capacity", str(TIERMESH_CAPACITY),
+        "--ev_storage", "hbm_dram", "--ev_hbm_capacity", str(TIERMESH_HBM)])
+    tr = cli.make_trainer(mod.build(args), args, mesh=axis)
+    if type(tr).__name__ != "TieredShardedTrainer":
+        fail("--mesh with --ev_storage hbm_dram did not give a "
+             "TieredShardedTrainer")
+    return tr
+
+
+def mesh2_tiermesh(dev, card, twin, batches, ckpt):
+    """Phase 19 on this rank: TIERMESH_STEPS steps of the card's and the
+    CPU twin's TieredShardedTrainers in lockstep (:func:`device_lockstep`,
+    promotion inside each step), demotion every TIERMESH_FENCE steps: the
+    tiers' keys and integer payload columns bit-equal, their rows within
+    ROW_ATOL, this shard within its share of the budget; then a full save
+    of both shards (and tiers) to ``ckpt``."""
+    from deeprec_tpu_torch.checkpoint.saver import CheckpointManager
+    tg, tc = tiermesh_trainer(dev, card), tiermesh_trainer("cpu", twin)
+    share = TIERMESH_HBM // card.size
+    moves = {"demoted": 0, "promoted": 0}
+    last = {"rows": 0}
+    width = 2 * EMB_DIM
+
+    def fence(i, sg, sc):
+        moves["promoted"] += max(0, last["rows"] - tg.host_tier_rows("emb"))
+        if i % TIERMESH_FENCE == TIERMESH_FENCE - 1:
+            before = tg.host_tier_rows("emb")
+            sg, sc = tg.maybe_demote(sg), tc.maybe_demote(sc)
+            moves["demoted"] += tg.host_tier_rows("emb") - before
+            (kg, rg), (kc, rc) = device_tiers(tg), device_tiers(tc)
+            if not np.array_equal(kg, kc) or (rg is None) != (rc is None):
+                fail(f"tiermesh: card and CPU tier keys differ after step {i}")
+            if rg is not None:
+                ig = rg[:, width:width + 3].copy().view(np.int32)
+                ic = rc[:, width:width + 3].copy().view(np.int32)
+                d = float(np.abs(rg[:, :width] - rc[:, :width]).max())
+                if not (np.array_equal(ig, ic) and d <= ROW_ATOL):
+                    fail(f"tiermesh: payloads differ after step {i} (rows "
+                         f"by {d})")
+            live = int(sg.tables["emb"].ev.index.size)
+            if live > share:
+                fail(f"tiermesh: {live} rows stayed in a shard, over its "
+                     f"share {share} of the budget")
+        last["rows"] = tg.host_tier_rows("emb")
+        return sg, sc
+    counters = path_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    sg, sc, dloss, drow = device_lockstep(
+        tg, tc, batches[:TIERMESH_STEPS], f"tiermesh rank {card.rank}",
+        fence=fence)
+    launches = {n: fn.launches for n, fn in counters.items()}
+    del tc, sc
+    CheckpointManager(ckpt).save(tg, sg, evict=False)
+    keys = sg.tables["emb"].ev.index.keys.cpu().numpy()
+    tier_keys, _ = device_tiers(tg)
+    return launches, {"moves": moves, "max_dloss": dloss, "max_drow": drow,
+                      "tier_rows": tg.host_tier_rows("emb"),
+                      "device_keys": keys[keys != -1], "tier_keys": tier_keys}
+
+
+def mesh2_dht(dev, card, twin, batches):
+    """Phase 20 on this rank: DistributedHashTable steps at 2 ranks on the
+    card beside a CPU twin on the second gloo group: each step's keys
+    (this rank's half of a B=4096 batch's 26 columns) get their global
+    ids, rows and a seeded cotangent's sparse Adagrad update
+    (``apply_cotangent``): ids and validity bit-equal to the twin's, rows
+    within ROW_ATOL; the health, a growth check and a save's key set."""
+    from deeprec_tpu_torch.optim import sparse as sopt
+    from deeprec_tpu_torch.parallel import DistributedHashTable
+    from deeprec_tpu_torch.sparse import keys as K
+    coll = criteo_parts()[1]
+    tables = {}
+    for where, axis in ((dev, card), ("cpu", twin)):
+        dht = DistributedHashTable(axis, capacity_per_shard=DHT_CAPACITY,
+                                   dim=EMB_DIM, bucket_cap=26 * B // 2)
+        opt = sopt.sparse_adagrad(0.05)
+        st = dht.init()
+        tables[where] = [dht, opt, st, dht.init_slot(opt, st)]
+    g = torch.Generator().manual_seed(SEED + 7 + card.rank)
+    counters = path_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    drow, t_card = 0.0, []
+    for i, b in enumerate(batches[:DHT_STEPS]):
+        ids = coll.pack_ids_np(b)
+        half = B // card.size
+        keys = torch.from_numpy(np.ascontiguousarray(
+            ids[:, card.rank * half:(card.rank + 1) * half]).reshape(-1))
+        ct = torch.randn(keys.shape[0], EMB_DIM, generator=g)
+        out = {}
+        for where, box in tables.items():
+            dht, opt, st, slot = box
+            if where == dev:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            st, gid = dht.gen_ids(st, keys)
+            st, slot, rows, valid = dht.apply_cotangent(
+                st, opt, slot, keys, ct, i)
+            if where == dev:
+                torch.cuda.synchronize()
+                t_card.append(time.perf_counter() - t0)
+            box[2:] = [st, slot]
+            out[where] = (gid.cpu(), rows.cpu(), valid.cpu())
+        (gg, rg, vg), (gc, rc, vc) = out[dev], out["cpu"]
+        if not (torch.equal(gg, gc) and torch.equal(vg, vc)):
+            fail(f"dht rank {card.rank}: card and CPU ids differ at step {i}")
+        if not bool((gg[~K.is_empty(keys)] >= 0).all()):
+            fail(f"dht rank {card.rank}: a key got no id at step {i}")
+        drow = max(drow, (rg - rc).abs().max().item())
+    launches = {n: fn.launches for n, fn in counters.items()}
+    dht, _, st, _ = tables[dev]
+    dc, _, sc, _ = tables["cpu"]
+    d = (st.table.rows.cpu() - sc.table.rows).abs().max().item()
+    drow = max(drow, d)
+    if not drow <= ROW_ATOL:
+        fail(f"dht rank {card.rank}: rows differ by {drow} card vs CPU")
+    health = dht.health(st)
+    if health != dc.health(sc):
+        fail("dht: card and CPU health differ")
+    grown = dht.maybe_grow(st)
+    saved = dht.checkpoint_arrays(st)
+    return launches, {"max_drow": drow, "health": health,
+                      "grew": grown is not st,
+                      "step_ms": [1e3 * t for t in t_card],
+                      "saved_keys": int(saved["keys"].shape[0])}
+
+
+def mesh2_servemesh(dev, ckpt, held):
+    """Phase 21 on this rank: ``serving.server --mesh 2`` over the mesh4
+    phase's save (every rank builds it; rank 0 serves HTTP): SERVE_BATCHES
+    predicts of B rows, one request without a column the model reads (a
+    400 on rank 0, nothing broadcast), a refresh; closing rank 0's server
+    stops rank 1. Returns this rank's launches and rank 0's replies."""
+    from deeprec_tpu_torch.serving.server import RankLoop, build_server
+    counters = path_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    srv, _ = build_server([
+        "--model", "DLRM", "--ckpt_dir", ckpt, "--host", "127.0.0.1",
+        "--port", "0", "--mesh", str(MESH2_RANKS), "--", "--emb_dim",
+        str(EMB_DIM), "--capacity", str(CAPACITY), "--device", str(dev)])
+    if isinstance(srv, RankLoop):
+        srv.serve_forever()
+        return {n: fn.launches for n, fn in counters.items()}, \
+            {"calls": srv.calls}
+    t = threading.Thread(target=srv.serve_forever, daemon=True)
+    t.start()
+    url = f"http://127.0.0.1:{srv.server_address[1]}"
+    replies, lat = [], []
+    try:
+        for b in held[:SERVE_BATCHES]:
+            body = {"inputs": {k: v.tolist() for k, v in b.items()
+                               if k != "label"}}
+            t0 = time.perf_counter()
+            replies.append(_post(f"{url}/v1/predict", body))
+            lat.append((time.perf_counter() - t0) * 1e3)
+        bad = {"inputs": {k: v.tolist() for k, v in held[0].items()
+                          if k not in ("label", "C7")}}
+        req = urllib.request.Request(
+            f"{url}/v1/predict", data=json.dumps(bad).encode(),
+            headers={"Content-Type": "application/json"})
+        try:
+            urllib.request.urlopen(req, timeout=60)
+            fail("servemesh: a request without column C7 was answered")
+        except urllib.error.HTTPError as e:
+            if e.code != 400:
+                fail(f"servemesh: the malformed request got {e.code}")
+        refreshed = _post(f"{url}/refresh", {})
+    finally:
+        srv.shutdown()
+        srv.server_close()
+    return ({n: fn.launches for n, fn in counters.items()},
+            {"predictions": [np.asarray(r["predictions"]) for r in replies],
+             "steps": [r["step"] for r in replies], "refresh": refreshed,
+             "latency_ms": lat})
+
+
+def mesh2_rank(job_path, rank):
+    """One rank of phases 19-21 (``python3 chip_smoke.py --mesh2-rank R
+    JOB``): joins a gloo group of MESH2_RANKS processes on cuda:0 and a
+    second gloo group for the CPU twins, runs tiermesh, dht and servemesh
+    in turn and pickles their numbers for the parent."""
+    import pickle
+    import torch.distributed as dist
+    from deeprec_tpu_torch.data.criteo import SyntheticCriteo
+    from deeprec_tpu_torch.ops import _build
+    from deeprec_tpu_torch.parallel import make_mesh, multihost
+    with open(job_path, "rb") as f:
+        job = pickle.load(f)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(job["device"])
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+        _build.library()  # the parent built it
+    torch.set_num_threads(max(1, (os.cpu_count() or 8) // MESH2_RANKS))
+    multihost.initialize(job["addr"], MESH2_RANKS, rank, backend="gloo",
+                         timeout_s=MESH2_TIMEOUT_S)
+    try:
+        card = make_mesh(MESH2_RANKS, device=dev)
+        twin = make_mesh(MESH2_RANKS, group=dist.new_group(backend="gloo"),
+                         device="cpu")
+        batches = list(SyntheticCriteo(batch_size=B, seed=7).take(
+            TIERMESH_STEPS))
+        out = {}
+        t0 = time.perf_counter()
+        out["tiermesh"] = mesh2_tiermesh(dev, card, twin, batches,
+                                         job["tier_ckpt"])
+        out["tiermesh_s"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        out["dht"] = mesh2_dht(dev, card, twin, batches)
+        out["dht_s"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        held = list(SyntheticCriteo(batch_size=B, seed=11).take(
+            SERVE_BATCHES))
+        t0 = time.perf_counter()
+        out["servemesh"] = mesh2_servemesh(dev, job["serve_ckpt"], held)
+        out["servemesh_s"] = time.perf_counter() - t0
+        card.barrier()
+        with open(f"{job_path}.out{rank}", "wb") as f:
+            pickle.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn_ranks(flag, n, job, tmp, timeout_s, what):
+    """Start this script ``n`` times as ``flag R job``; wait at most
+    ``timeout_s``; a rank that fails (or outlives it) fails the smoke.
+    Returns the ranks' pickled results."""
+    import pickle
+    procs = []
+    for r in range(n):
+        log_f = open(os.path.join(tmp, f"{what}_rank{r}.log"), "w+")
+        procs.append((subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), flag, str(r), job],
+            cwd=REPO, stdout=log_f, stderr=subprocess.STDOUT), log_f))
+    deadline = time.monotonic() + timeout_s
+    try:
+        for p, _ in procs:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p, _ in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    outs = []
+    for r, (p, log_f) in enumerate(procs):
+        log_f.seek(0)
+        text = log_f.read()
+        log_f.close()
+        if p.returncode != 0:
+            fail(f"{what} rank {r} exited {p.returncode}:\n{text[-6000:]}")
+        with open(f"{job}.out{r}", "rb") as f:
+            outs.append(pickle.load(f))
+    return outs
+
+
+def check_mesh2(dev, smi, tmp, serve_ckpt):
+    """Phases 19-21 in MESH2_RANKS rank processes (:func:`mesh2_rank`) on
+    the card over gloo. tiermesh: each rank's lockstep held; rows demoted
+    and promoted; the 2-rank save (device rows and tiers) restores into a
+    one-device TieredTrainer on the card with every saved key in one tier.
+    dht: ids bit-equal and rows within ROW_ATOL card vs CPU on each rank.
+    servemesh: rank 0's HTTP answers within PROB_ATOL of the one-device
+    Predictor over the same save, the malformed request refused, rank 1
+    served every call. K1, K2, K2's backward and K3a launch on tiermesh,
+    K1 on dht, K1 and K2 on servemesh. Returns the launches by path
+    (summed over the ranks) and the phases' summaries."""
+    import pickle
+    from deeprec_tpu_torch.checkpoint.saver import CheckpointManager
+    from deeprec_tpu_torch.data.criteo import SyntheticCriteo
+    t_phase = time.perf_counter()
+    job = os.path.join(tmp, "mesh2.pkl")
+    tier_ckpt = os.path.join(tmp, "tiermesh_ck")
+    with open(job, "wb") as f:
+        pickle.dump({"addr": f"127.0.0.1:{free_port()}",
+                     "device": "cuda:0" if dev.type == "cuda" else "cpu",
+                     "tier_ckpt": tier_ckpt, "serve_ckpt": serve_ckpt}, f)
+    outs = spawn_ranks("--mesh2-rank", MESH2_RANKS, job, tmp,
+                       MESH2_TIMEOUT_S, "mesh2")
+    need = {"tiermesh": ("gather_rows", "fused_pooled_lookup",
+                         "fused_pooled_lookup_backward", "lookup_meta"),
+            "dht": ("gather_rows",),
+            "servemesh": ("gather_rows", "fused_pooled_lookup")}
+    paths = {}
+    for phase, names in need.items():
+        paths[phase] = {}
+        for r, o in enumerate(outs):
+            for n, v in o[phase][0].items():
+                if n in names and v <= 0:
+                    fail(f"{n} was not launched on rank {r}'s {phase} path")
+                paths[phase][n] = paths[phase].get(n, 0) + v
+        log(f"{phase} (gloo, {MESH2_RANKS} ranks on the card) main path "
+            f"launches summed over the ranks: {paths[phase]}")
+    # tiermesh: both ranks moved rows; the save restores at 1 rank
+    tiers = [o["tiermesh"][1] for o in outs]
+    moves = {k: sum(t["moves"][k] for t in tiers)
+             for k in ("demoted", "promoted")}
+    if not (moves["demoted"] > 0 and moves["promoted"] > 0):
+        fail(f"tiermesh: rows demoted {moves['demoted']}, promoted "
+             f"{moves['promoted']}: both must move")
+    saved_dev = np.concatenate([t["device_keys"] for t in tiers])
+    saved_tier = np.concatenate([t["tier_keys"] for t in tiers])
+    tr = device_trainer(dev, ["--capacity", str(TIERMESH_CAPACITY),
+                              "--ev_storage", "hbm_dram", "--ev_hbm_capacity",
+                              str(TIERMESH_HBM)])
+    batch = next(SyntheticCriteo(batch_size=B, seed=7))
+    st, ok = CheckpointManager(tier_ckpt).restore(tr, tr.init(batch))
+    if not ok or st.step != TIERMESH_STEPS:
+        fail("tiermesh: the 2-rank save did not restore at 1 rank")
+    keys = st.tables["emb"].ev.index.keys.cpu().numpy()
+    keys = keys[keys != -1]
+    tier_keys, _ = device_tiers(tr)
+    if np.intersect1d(keys, tier_keys).size:
+        fail("tiermesh: a restored key lives in both tiers")
+    if not np.array_equal(np.sort(np.concatenate([keys, tier_keys])),
+                          np.sort(np.concatenate([saved_dev, saved_tier]))):
+        fail("tiermesh: the restore at 1 rank lost or added keys")
+    del tr, st
+    torch.cuda.empty_cache()
+    # dht: every rank in lockstep with its twin; the health is global
+    dhts = [o["dht"][1] for o in outs]
+    if any(d["health"] != dhts[0]["health"] for d in dhts):
+        fail("dht: the ranks report other health")
+    # servemesh: rank 0's answers against the one-device Predictor
+    serve = outs[0]["servemesh"][1]
+    if outs[1]["servemesh"][1]["calls"] != SERVE_BATCHES + 1:
+        fail(f"servemesh: rank 1 served {outs[1]['servemesh'][1]['calls']} "
+             f"calls, not {SERVE_BATCHES} predicts and a refresh")
+    one = predictor(serve_ckpt, dev)
+    held = list(SyntheticCriteo(batch_size=B, seed=11).take(SERVE_BATCHES))
+    worst = 0.0
+    for b, p in zip(held, serve["predictions"]):
+        if p.shape != (B,) or not np.isfinite(p).all():
+            fail("servemesh: predictions are not finite of shape (B,)")
+        worst = max(worst, float(np.abs(p - one.predict(b)).max()))
+    if not worst <= PROB_ATOL:
+        fail(f"servemesh: HTTP answers differ from the one-device Predictor "
+             f"by {worst}")
+    del one
+    t = [o["tiermesh"][1] for o in outs]
+    log(f"tiermesh: {TIERMESH_STEPS} steps in lockstep with gloo CPU twins "
+        f"on {MESH2_RANKS} ranks: max |dloss| "
+        f"{max(x['max_dloss'] for x in t):.3g}, max |drow| "
+        f"{max(x['max_drow'] for x in t):.3g}; rows {moves}, "
+        f"{sum(x['tier_rows'] for x in t)} in the tiers at the save; the "
+        f"save restored at 1 rank with {keys.size} device and "
+        f"{tier_keys.size} tier keys, each in one tier; "
+        f"{max(o['tiermesh_s'] for o in outs):.1f} s")
+    log(f"dht: {DHT_STEPS} steps of gen_ids + apply_cotangent (sparse "
+        f"Adagrad) at {MESH2_RANKS} ranks, {26 * B // MESH2_RANKS} keys a "
+        f"rank: ids bit-equal to the CPU twins', max |drow| "
+        f"{max(d['max_drow'] for d in dhts):.3g}; health {dhts[0]['health']}"
+        f"; step ms on rank 0's clock (2 all_to_alls of keys, 1 of ids, the "
+        f"rows and their reverse, the twin's excluded) "
+        f"{[round(x, 2) for x in dhts[0]['step_ms']]}; "
+        f"{max(o['dht_s'] for o in outs):.1f} s")
+    log(f"servemesh: --mesh {MESH2_RANKS} answered {SERVE_BATCHES} predicts "
+        f"of B={B} within {worst:.3g} of the one-device Predictor (limit "
+        f"{PROB_ATOL}), a request without C7 refused (400) before any "
+        f"broadcast, refresh {serve['refresh']}; request ms (host clock, "
+        f"JSON both ways) {[round(x, 1) for x in serve['latency_ms']]}; "
+        f"{max(o['servemesh_s'] for o in outs):.1f} s; phases 19-21 "
+        f"{time.perf_counter() - t_phase:.1f} s, on {smi}")
+    return paths, {
+        "tiermesh": {"moves": moves,
+                     "max_dloss": max(x["max_dloss"] for x in t),
+                     "max_drow": max(x["max_drow"] for x in t)},
+        "dht": {"max_drow": max(d["max_drow"] for d in dhts),
+                "health": dhts[0]["health"], "step_ms": dhts[0]["step_ms"]},
+        "servemesh": {"max_dp": worst, "latency_ms": serve["latency_ms"]}}
+
+
 def run(dev, smi, probe):
-    """Phases 2-17 on ``dev`` (``probe``: the built design probes); returns
+    """Phases 2-21 on ``dev`` (``probe``: the built design probes); returns
     the kernels' JSON entries and the training numbers."""
     from deeprec_tpu_torch.data.criteo import SyntheticCriteo
     from deeprec_tpu_torch.ops.fused_lookup import fused_pooled_lookup
@@ -3972,7 +4786,7 @@ def run(dev, smi, probe):
     kernels = (check_kernels(dev, probe) + check_training_kernels(dev, probe)
                + check_zoo_kernels(dev) + check_seq_kernels(dev)
                + check_device_kernels(dev) + check_variant_kernels(dev)
-               + check_mesh_kernels(dev))
+               + check_mesh_kernels(dev) + check_hs_kernels(dev))
 
     _build.BUILD.mkdir(parents=True, exist_ok=True)  # git-ignored
     with tempfile.TemporaryDirectory(dir=str(_build.BUILD)) as path:
@@ -4051,8 +4865,14 @@ def run(dev, smi, probe):
     with tempfile.TemporaryDirectory(dir=str(_build.BUILD)) as path:
         paths["migrate"], training["migrate"] = check_migrate(dev, smi, path)
     paths["mesh1"], training["mesh1"] = check_mesh1(dev, smi)
+    paths["hsmesh1"], training["hsmesh1"] = check_hsmesh1(dev, smi)
     with tempfile.TemporaryDirectory(dir=str(_build.BUILD)) as path:
-        paths["mesh4"], training["mesh4"] = check_mesh4(dev, smi, path)
+        p, training["mesh4"] = check_mesh4(dev, smi, path)
+        paths.update(p)
+        p, mesh2 = check_mesh2(dev, smi, path,
+                               os.path.join(path, "mesh4_ck"))
+        paths.update(p)
+        training.update(mesh2)
     for k in kernels:
         # launches on the slice's main path, --metadata (the bf16 rows: on
         # the bf16 table's, where every K2 launch is a bf16 one; a zoo or
@@ -4074,6 +4894,9 @@ def main():
     sys.path.insert(0, REPO)
     if sys.argv[1:2] == ["--mesh4-rank"]:  # one of phase 17's ranks
         mesh4_rank(sys.argv[3], int(sys.argv[2]))
+        return
+    if sys.argv[1:2] == ["--mesh2-rank"]:  # one of phases 19-21's ranks
+        mesh2_rank(sys.argv[3], int(sys.argv[2]))
         return
     from deeprec_tpu_torch.ops import _build
     from deeprec_tpu_torch.probes import kernel_probe

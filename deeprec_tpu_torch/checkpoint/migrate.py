@@ -12,9 +12,12 @@ and loads them into live trainer state:
 * :func:`load_ev_arrays` materialises one EV group in the table-array
   schema (keys/values/versions/freqs and slot rows re-aligned to the
   primary's key order).
-* :func:`import_tables` inserts the rows into a ``Trainer`` state of one
-  device (growing capacity as needed) through the saver's training
-  restore (``saver._scatter_train_table``) on the table's device.
+* :func:`import_tables` inserts the rows into a ``Trainer`` state, or
+  into this rank's shard of a ``parallel.ShardedTrainer`` state (the rows
+  the owner hash routes here, ``saver.route_to_shards``; every rank takes
+  ``ceil(n / S) + 8`` rows' capacity), growing capacity as needed, through
+  the saver's training restore (``saver._scatter_train_table``) on the
+  table's device.
 * :func:`import_dense` copies dense tensors into a model's parameters by
   the JAX tree-path names of its flax variables (``models.ctr``'s carry),
   kernels transposed from ``[in, out]`` to torch's ``[out, in]``.
@@ -24,8 +27,7 @@ and loads them into live trainer state:
 
 ``scan``, ``load_ev_arrays``, the slot tables and the offline CLI are the
 JAX package's numpy code, held to their source by
-``tests/test_torch_migrate.py``. The multi-shard import (``route_to_shards``
-over a mesh) comes with the multi-device engines (ROADMAP A8).
+``tests/test_torch_migrate.py``.
 
 Semantics notes (as in the JAX package):
 * ``create_steps``: the reference does not checkpoint creation steps;
@@ -232,15 +234,13 @@ def import_tables(
     imported row counts, matched slots, and the collections/EVs left
     untouched. Tables that are not EV tables (host-index, multi-hash,
     adaptive, hash-table) are reported unmatched, as in the JAX package.
-    One device only: a trainer with more shards raises.
+    Under a ``ShardedTrainer`` every rank calls it with its own state
+    and keeps its shard's rows.
     """
     from . import saver as SV
     from ..sparse import embedding_var as ev
 
-    if getattr(trainer, "S", 1) != 1:
-        raise NotImplementedError(
-            "importing into sharded tables comes with the multi-device "
-            "engines (ROADMAP A8)")
+    S, rank = getattr(trainer, "S", 1), getattr(trainer, "rank", 0)
     reader = BundleReader(prefix)
     catalog = scan(reader)
     name_map = dict(name_map or {})
@@ -318,12 +318,14 @@ def import_tables(
         report["slots"][name] = matched_slots
 
         # capacity, then scatter through the shared restore machinery
-        cap = SV.needed_capacity(n + 8, coll.config.capacity)
+        cap = SV.needed_capacity(int(np.ceil(n / S)) + 8,
+                                 coll.config.capacity)
         if cap != coll.config.capacity:
             coll.config = dataclasses.replace(coll.config, capacity=cap)
         st = ev.create(coll.config, state.tables[name].ev.values.device)
         slot = opt.init(st.values)
-        st, slot = SV._scatter_train_table(st, slot, coll.config, arrays)
+        st, slot = SV._scatter_train_table(
+            st, slot, coll.config, SV.route_to_shards(arrays, S)[rank])
         new_tables[name] = state.tables[name]._replace(ev=st, slot=slot)
         report["imported"][name] = {"evs": ev_names, "rows": int(n)}
 

@@ -419,9 +419,17 @@ class CheckpointManager:
         step = int(state.step)
         tables, dense = self._collect(trainer, state, since, evict)
         path = os.path.join(self.directory, F.step_dirname(kind, step))
-        manifest = {"kind": kind, "step": step,
-                    "tables": {n: int(t["keys"].shape[0]) if "keys" in t
-                               else -1 for n, t in tables.items()}}
+        counts = {n: int(t["keys"].shape[0]) if "keys" in t else -1
+                  for n, t in tables.items()}
+        if getattr(trainer, "S", 1) > 1:  # the rows of every rank's part
+            from ..parallel.multihost import _host_group_tensor
+            # every rank has these (a tier table only where it is not empty)
+            names = [n for n in sorted(trainer.collections) if counts[n] >= 0]
+            total = trainer.axis.psum(_host_group_tensor(
+                trainer.axis, np.asarray([counts[n] for n in names],
+                                         np.int64))).tolist()
+            counts.update(zip(names, total))
+        manifest = {"kind": kind, "step": step, "tables": counts}
         if since is not None:
             manifest["since"] = since
         parts = {}

@@ -1,15 +1,30 @@
 """Variant embedding collections: multi-hash, adaptive, hash-table and
 dynamic-dimension.
 
-Port of the one-device half of ``deeprec_tpu/feature_column_variants.py``:
+Port of ``deeprec_tpu/feature_column_variants.py``:
 each class subclasses :class:`~.feature_column.EmbeddingCollection` and
 overrides the trainer hooks (``init``, ``init_slot``, ``lookup_or_create``,
 ``rows_for_training``, ``embeddings``, ``sequence_embeddings``,
 ``apply_gradients``, ``readonly_rows``), the fence hooks (``needs_growth``,
 ``grow_state``, ``load_factor``, ``index_view``/``table_index``) and the
-checkpoint hooks (``ckpt_arrays``/``ckpt_restore``) for one shard, so the
-port's ``Trainer`` and ``CheckpointManager`` run them unchanged. Their
-saves are the JAX package's, both ways:
+checkpoint hooks (``ckpt_arrays``/``ckpt_restore``), so the port's
+``Trainer`` and ``CheckpointManager`` run them unchanged, and the
+``sharded_*`` hooks of ``parallel.ShardedTrainer``:
+
+* multi-hash: the sub-tables are replicated on every rank; the lookup is
+  local and the update all-gathers every rank's ids and cotangents and
+  applies the one global update on each (replicas stay bit-identical);
+* adaptive: the EV half rides the owner exchange (the owner seeds a key's
+  row from its static bucket when it crosses the admission threshold);
+  the static table is replicated, its gradient summed over the ranks;
+* hash table: the owner exchange, ids allocated in each rank's own id
+  space; whether the owner admitted a key returns beside its row;
+* dynamic dimension: the owner exchange, the block mask applied where the
+  frequencies live (the owner).
+
+Their saves are the JAX package's, both ways, at any shard count (a
+multi-rank save writes one part per rank; a restore routes the rows by
+the owner hash):
 
 * multi-hash: ``__dense__`` and ``leaf__NNNN`` arrays, the sub-tables
   ``[size_i, sub_dim]`` and then the optimizer's slot leaves, in the JAX
@@ -23,8 +38,7 @@ saves are the JAX package's, both ways:
 Pooling goes through kernel K2 (``embeddings_from_rows``) straight from
 the rows each hook returns, through ``inverse`` (adaptive, hash table) or
 ``arange(n)`` (multi-hash, whose rows are per flat id already), so no
-``[n, dim]`` expansion is built; the rows come through K1. The ``sharded_*``
-hooks belong to the multi-device engines (ROADMAP A8).
+``[n, dim]`` expansion is built; the rows come through K1.
 """
 from __future__ import annotations
 
@@ -37,6 +51,7 @@ import torch
 
 from .config import CBFFilter
 from .feature_column import CollectionAux, EmbeddingCollection
+from .ops.gather import gather_rows
 from .ops.unique import unique
 from .sparse import adaptive as ad
 from .sparse import dynamicdim as dd_mod
@@ -55,13 +70,6 @@ class FlatAux(NamedTuple):
     valid: torch.Tensor
 
 
-def _one_shard(num_shards: int) -> None:
-    if num_shards != 1:
-        raise NotImplementedError(
-            "sharded variant tables come with the multi-device engines "
-            "(ROADMAP A8)")
-
-
 def _from_leaves(template, leaves):
     """``template``'s tree with its leaves replaced, in flatten order, by
     ``leaves`` (numpy or tensors), each on its template leaf's device and
@@ -77,10 +85,11 @@ class _DenseCkptMixin:
     ``leaf__NNNN`` arrays in the JAX flatten order, and the last save wins
     at restore. The collection gives the state's leaves in their JAX
     shapes (:meth:`dense_state_leaves`) and rebuilds a state from them
-    (:meth:`dense_state_from`)."""
+    (:meth:`dense_state_from`). On a mesh the state is replicated, so the
+    save is the same at every shard count."""
 
-    def ckpt_arrays(self, bundle, num_shards, since, evict, global_step):
-        _one_shard(num_shards)
+    def ckpt_arrays(self, bundle, num_shards, since, evict, global_step,
+                    shard: int = 0):
         leaves = self.dense_state_leaves(bundle.ev) + [
             leaf for _, leaf in leaves_with_paths(bundle.slot)]
         arrays = {"__dense__": np.asarray(1, np.int32)}
@@ -89,8 +98,7 @@ class _DenseCkptMixin:
         return arrays
 
     def ckpt_restore(self, trainer, template, parts, num_shards):
-        _one_shard(num_shards)
-        last = parts[-1]
+        last = parts[-1]  # replicated: every rank's part is the same
         n_state = len(self.dense_state_leaves(template.ev))
         n = n_state + len(leaves_with_paths(template.slot))
         leaves = [last[f"leaf__{i:04d}"] for i in range(n)]
@@ -159,6 +167,36 @@ class MultiHashCollection(_DenseCkptMixin, EmbeddingCollection):
 
     def load_factor(self, state):
         return 0.0
+
+    # -- sharded hooks: replicated sub-tables, all-gathered update ----------
+    def sharded_init_local(self, opt, device="cuda"):
+        from .train.trainer import TableBundle
+        st = self.init(device)  # drawn from the config's seed: replicas agree
+        return TableBundle(ev=st, slot=self.init_slot(opt, st), health=None)
+
+    def sharded_lookup_or_create(self, state, ids2d, step, axis, bucket_cap):
+        return self.lookup_or_create(state, ids2d, step)
+
+    def sharded_health(self, health, aux):
+        return health
+
+    def sharded_rows(self, state, aux):
+        return self.rows_for_training(state, aux)
+
+    def sharded_rows_back(self, urows, aux, axis, bucket_cap):
+        return urows, self._flat_inverse(aux), aux.ev_aux.valid
+
+    def sharded_apply_gradients(self, state, opt, slot_state, aux, d_urows,
+                                step, axis, num_shards):
+        """Every rank's ids and cotangents, all-gathered, and the one
+        global-batch update applied on each rank."""
+        return mh.apply_gradients(state, self.mh_config, opt, slot_state,
+                                  axis.all_gather(aux.ev_aux.flat),
+                                  axis.all_gather(d_urows), step)
+
+    def sharded_readonly(self, state, ids2d, axis, bucket_cap):
+        aux, rows = self.readonly_rows(state, ids2d)
+        return rows, self._flat_inverse(aux), aux.ev_aux.valid
 
     # -- checkpoint: the sub-tables in their JAX shapes ---------------------
     def dense_state_leaves(self, state):
@@ -258,14 +296,101 @@ class AdaptiveCollection(EmbeddingCollection):
     def table_index(self, state):
         return state.ev.index
 
+    # -- sharded hooks: the EV half rides the owner exchange; the static
+    #    table is replicated, its dense gradient summed over the ranks
+    def sharded_init_local(self, opt, device="cuda"):
+        from .train.trainer import TableBundle
+        st = self.init(device)  # the static table's draw is seeded
+        return TableBundle(ev=st, slot=self.init_slot(opt, st),
+                           health=torch.zeros((3,), dtype=torch.int32,
+                                              device=device))
+
+    def sharded_owner_lookup(self, state, uniq, step, freq_counts):
+        """The owner's EV lookup, and the warm seeding of a key that
+        crosses the admission threshold (counted over every requester)
+        from its static bucket."""
+        from .optim.sparse import _scatter_set
+        ev_state, aux = ev.lookup_or_create_unique(
+            state.ev, self.config, uniq, step, freq_counts=freq_counts)
+        b = ad.bucket_of(uniq.ukeys, state.static.shape[0] - 1)
+        if self.config.counter_filter is not None:
+            prev = ev_state.freqs[aux.slots] - freq_counts
+            newly = aux.admitted & (
+                prev < self.config.counter_filter.filter_freq)
+        else:
+            newly = aux.created
+        dest = torch.where(newly, aux.slots, self.config.capacity + 1)
+        _scatter_set(ev_state.values, dest,
+                     state.static[b].to(ev_state.values.dtype))
+        return state._replace(ev=ev_state), aux
+
+    def sharded_rows(self, state, aux):
+        return ad.gather_from(state.ev.values, state.static, self.config,
+                              aux.recv_aux)[aux.recv_uniq.inverse]
+
+    def owner_readonly_rows(self, state, slots, found, keys):
+        thr = (self.config.counter_filter.filter_freq
+               if self.config.counter_filter is not None else 0)
+        admitted = found & (state.ev.freqs[slots] >= thr)
+        b = ad.bucket_of(keys, state.static.shape[0] - 1)
+        ev_rows = gather_rows(state.ev.values, slots, self.config.embedding_dim)
+        return torch.where(admitted[:, None], ev_rows,
+                           state.static[b].to(ev_rows.dtype))
+
+    def sharded_apply_gradients(self, state, opt, slot_state, aux, d_urows,
+                                step, axis, num_shards):
+        """Admitted keys: the owner's EV apply. Tail keys: their summed
+        bucket gradients, dense over the static table, summed over the
+        ranks, and the same apply on every rank."""
+        from .ops.segment import segment_sum
+        from .ops.unique import unique_int32
+        a = aux.recv_aux
+        gu = segment_sum(d_urows, aux.recv_uniq.inverse,
+                         aux.recv_uniq.ukeys.shape[0])
+        cur = ev.gather(state.ev.values, a, self.config)
+        _, ev_slot = opt.apply(state.ev.values, slot_state["ev"], a.slots,
+                               gu, a.admitted, step, cur_rows=cur,
+                               created=a.created)
+        buckets = state.static.shape[0] - 1
+        tail = ~a.admitted & ~K.is_empty(a.uniq.ukeys)
+        b = torch.where(tail, ad.bucket_of(a.uniq.ukeys, buckets), buckets)
+        ub, inv, _ = unique_int32(b)
+        gb = segment_sum(torch.where(tail[:, None], gu, 0.0), inv,
+                         ub.shape[0])
+        dest = torch.where(ub < buckets, ub, buckets + 1).long()
+        dense = torch.zeros((buckets + 2,) + tuple(state.static.shape[1:]),
+                            dtype=state.static.dtype,
+                            device=state.static.device)
+        dense.index_add_(0, dest, gb.to(dense.dtype))
+        touched = torch.zeros((buckets + 2,), dtype=torch.int32,
+                              device=dense.device)
+        touched[dest] = 1
+        dense = axis.psum(dense[:buckets + 1])
+        touched = axis.psum(touched[:buckets + 1]) > 0
+        _, st_slot = opt.apply(state.static, slot_state["static"],
+                               torch.arange(buckets + 1,
+                                            device=dense.device),
+                               dense, touched, step)
+        return state, {"ev": ev_slot, "static": st_slot}
+
+    def sharded_grow_local(self, bundle, new_cap, fills):
+        from .optim.sparse import permute_slot_state
+        new_ev, perm = ev.grow(bundle.ev.ev, self.config, new_cap)
+        ev_slot = permute_slot_state(bundle.slot["ev"], perm, new_cap,
+                                     fills=fills)
+        return bundle._replace(ev=bundle.ev._replace(ev=new_ev),
+                               slot={"ev": ev_slot,
+                                     "static": bundle.slot["static"]})
+
     # -- checkpoint: the EV half in the 4-array format; the static half as
     #    dense leaves, last save wins
-    def ckpt_arrays(self, bundle, num_shards, since, evict, global_step):
+    def ckpt_arrays(self, bundle, num_shards, since, evict, global_step,
+                    shard: int = 0):
         from .checkpoint.saver import table_snapshot_host
         out = table_snapshot_host(self.config, bundle.ev.ev,
                                   bundle.slot["ev"], num_shards=num_shards,
                                   since_step=since, evict=evict,
-                                  global_step=global_step)
+                                  global_step=global_step, shard=shard)
         out["static__table"] = bundle.ev.static.cpu().numpy()
         for i, (_, leaf) in enumerate(leaves_with_paths(
                 bundle.slot["static"])):
@@ -273,24 +398,26 @@ class AdaptiveCollection(EmbeddingCollection):
         return out
 
     def ckpt_restore(self, trainer, template, parts, num_shards):
+        """The EV half routed to this shard (every shard of a trainer with
+        ``S`` ranks takes ``ceil(n / S) + 8`` rows' capacity), the static
+        half from the newest save."""
         from .checkpoint import saver as SV
-        _one_shard(num_shards)
+        S, rank = getattr(trainer, "S", 1), getattr(trainer, "rank", 0)
         name = next(n for n, c in trainer.collections.items() if c is self)
         opt = trainer.sparse_optimizers[name]
         ev_parts = [{k: v for k, v in p.items()
                      if not k.startswith("static__")} for p in parts]
         n_max = sum(p["keys"].shape[0] for p in ev_parts)
-        cap = SV.needed_capacity(n_max + 8, self.config.capacity)
+        cap = SV.needed_capacity(int(np.ceil(n_max / S)) + 8,
+                                 self.config.capacity)
         if cap != self.config.capacity:
             self.config = dataclasses.replace(self.config, capacity=cap)
             trainer.rejit()
         st = ev.create(self.config, template.ev.static.device)
         slot = opt.init(st.values)
         for p in ev_parts:
-            cbf = SV._cbf_for_shard(p, 0, 1)
-            if cbf is not None:
-                p = dict(p, cbf=cbf)
-            st, slot = SV._scatter_train_table(st, slot, self.config, p)
+            st, slot = SV._scatter_train_table(
+                st, slot, self.config, SV.route_to_shards(p, S)[rank])
         last = parts[-1]
         static = torch.as_tensor(last["static__table"]).to(
             template.ev.static.device, template.ev.static.dtype)
@@ -394,8 +521,17 @@ class HashTableCollection(EmbeddingCollection):
                 or int(state.alloc.index.overflow.sum()) > 0)
 
     def grow_state(self, state, slot_state, opt=None):
+        new_cap = self.config.capacity * 2
+        state, slot_state = self._grown(state, slot_state, new_cap,
+                                        opt.fills if opt else None)
+        self.config = dataclasses.replace(self.config, capacity=new_cap)
+        return state, slot_state
+
+    def _grown(self, state, slot_state, new_cap: int, fills):
+        """``(state, slot_state)`` at ``new_cap`` rows: the live keys
+        re-inserted into a fresh index with their ids, the row stores and
+        slot rows extended (vacated slot rows take ``fills``)."""
         cap = self.config.capacity
-        new_cap = cap * 2
         fresh = hta.create(new_cap, None, state.table.rows.device)
         index, slots, _ = ht_mod.lookup_or_insert(
             fresh.index, state.alloc.index.keys, self.config.max_probes)
@@ -405,7 +541,6 @@ class HashTableCollection(EmbeddingCollection):
                                    next_id=state.alloc.next_id,
                                    cbf=state.alloc.cbf)
         table = hta.grow(state.table, new_cap)
-        fills = opt.fills if opt else None
         fill_vals = ([leaf for _, leaf in leaves_with_paths(fills)]
                      if fills is not None else None)
         leaf_no = itertools.count()
@@ -418,9 +553,8 @@ class HashTableCollection(EmbeddingCollection):
                 rows[:cap] = leaf[:-1]
                 return rows
             return leaf
-        slot_state = map_leaves(grow_leaf, slot_state)
-        self.config = dataclasses.replace(self.config, capacity=new_cap)
-        return HTState(alloc=alloc, table=table), slot_state
+        return (HTState(alloc=alloc, table=table),
+                map_leaves(grow_leaf, slot_state))
 
     def load_factor(self, state):
         return int(state.alloc.next_id) / self.config.capacity
@@ -431,12 +565,73 @@ class HashTableCollection(EmbeddingCollection):
     def table_index(self, state):
         return state.alloc.index
 
+    # -- sharded hooks: the owner exchange, ids in each rank's own space
+    #    (the reference's DistributedHashTable partitions); only rows and
+    #    the owner's admission verdict travel back
+    def sharded_init_local(self, opt, device="cuda"):
+        from .train.trainer import TableBundle
+        st = self.init(device)
+        return TableBundle(ev=st, slot=self.init_slot(opt, st),
+                           health=torch.zeros((3,), dtype=torch.int32,
+                                              device=device))
+
+    def sharded_owner_lookup(self, state, uniq, step, freq_counts):
+        alloc, uids, created = hta.gen_ids_unique(
+            state.alloc, uniq.ukeys, freq_counts, self.admit,
+            self.config.max_probes)
+        table = hta.scatter(state.table,
+                            torch.where(created & (uids >= 0), uids, -1),
+                            ev.init_rows(self.config, uniq.ukeys))
+        return (HTState(alloc=alloc, table=table),
+                HTAux(uniq=uniq, uids=uids, created=created))
+
+    def sharded_rows(self, state, aux):
+        return hta.gather(state.table,
+                          aux.recv_aux.uids)[aux.recv_uniq.inverse]
+
+    def sharded_rows_back(self, urows, aux, axis, bucket_cap):
+        """The rows back as usual; a key's validity also takes the owner's
+        admission verdict (id -1), returned over one more int plane: the
+        one-device ``uids >= 0`` mask."""
+        row_u, inv, valid = super().sharded_rows_back(urows, aux, axis,
+                                                      bucket_cap)
+        vflag = (aux.recv_aux.uids >= 0).to(
+            torch.int32)[aux.recv_uniq.inverse]
+        back = axis.all_to_all(vflag.view(axis.size, bucket_cap)).view(-1)
+        u_idx = torch.where(aux.routed, aux.owner * bucket_cap + aux.pos, 0)
+        v_u = (back[u_idx] > 0) & aux.routed
+        return row_u, inv, valid & v_u[inv]
+
+    def sharded_apply_gradients(self, state, opt, slot_state, aux, d_urows,
+                                step, axis, num_shards):
+        from .ops.segment import segment_sum
+        grads_u = segment_sum(d_urows, aux.recv_uniq.inverse,
+                              aux.recv_uniq.ukeys.shape[0])
+        table, slot_state = hta.apply_sparse(state.table, opt, slot_state,
+                                             aux.recv_aux.uids, grads_u,
+                                             step)
+        return state._replace(table=table), slot_state
+
+    def owner_readonly_rows(self, state, slots, found, keys):
+        cap = self.config.capacity
+        uids = torch.where(found, state.alloc.ids[slots.clamp(max=cap - 1)],
+                           -1)
+        rows = hta.gather(state.table, uids)
+        init = ev.init_rows(self.config, keys).to(rows.dtype)
+        return torch.where((uids >= 0)[:, None], rows, init)
+
+    def sharded_grow_local(self, bundle, new_cap, fills):
+        st, slot = self._grown(bundle.ev, bundle.slot, new_cap, fills)
+        return bundle._replace(ev=st, slot=slot)
+
     # -- checkpoint: per-key {key, row, slot rows}; ids are internal and are
     #    re-allocated at restore
-    def ckpt_arrays(self, bundle, num_shards, since, evict, global_step):
+    def ckpt_arrays(self, bundle, num_shards, since, evict, global_step,
+                    shard: int = 0):
+        """This shard's live keys, rows and slot rows, and its CBF (one
+        block ``cbf__shardNNN`` of ``num_shards`` on a mesh)."""
         from .checkpoint.saver import _rows
         from .checkpoint import format as F
-        _one_shard(num_shards)
         cap1 = self.config.capacity + 1
         st = bundle.ev
         keys = st.alloc.index.keys.cpu().numpy()
@@ -449,8 +644,9 @@ class HashTableCollection(EmbeddingCollection):
             if leaf.dim() >= 1 and leaf.shape[0] == cap1:
                 out[f"slot__{nm}"] = _rows(leaf, uid)
         if st.alloc.cbf is not None:
-            out["cbf_shards"] = np.asarray(1, np.int32)
-            out["cbf"] = st.alloc.cbf.cpu().numpy()
+            out["cbf_shards"] = np.asarray(num_shards, np.int32)
+            key = "cbf" if num_shards == 1 else f"cbf__shard{shard:03d}"
+            out[key] = st.alloc.cbf.cpu().numpy()
         return out
 
     def _restore_one_shard(self, arrays, opt, device):
@@ -481,8 +677,10 @@ class HashTableCollection(EmbeddingCollection):
         return HTState(alloc=alloc, table=st.table), slot
 
     def ckpt_restore(self, trainer, template, parts, num_shards):
+        """The merged parts (the newest row of a key wins) routed to this
+        shard of the trainer's ``S``; ids re-allocate."""
         from .checkpoint import saver as SV
-        _one_shard(num_shards)
+        S, rank = getattr(trainer, "S", 1), getattr(trainer, "rank", 0)
         name = next(n for n, c in trainer.collections.items() if c is self)
         opt = trainer.sparse_optimizers[name]
         # merge the parts, the newest occurrence of a key winning; the CBF
@@ -493,16 +691,14 @@ class HashTableCollection(EmbeddingCollection):
                   if k != "__ht__" and not k.startswith("cbf")}
         merged.update({k: v for k, v in parts[-1].items()
                        if k.startswith("cbf")})
-        cap = SV.needed_capacity(merged["keys"].shape[0] + 8,
-                                 self.config.capacity)
+        cap = SV.needed_capacity(
+            int(np.ceil(merged["keys"].shape[0] / S)) + 8,
+            self.config.capacity)
         if cap != self.config.capacity:
             self.config = dataclasses.replace(self.config, capacity=cap)
             trainer.rejit()
-        cbf = SV._cbf_for_shard(merged, 0, 1)
-        if cbf is not None:
-            merged = dict(merged, cbf=cbf)
-        st, slot = self._restore_one_shard(merged, opt,
-                                           template.ev.table.rows.device)
+        st, slot = self._restore_one_shard(SV.route_to_shards(merged, S)[rank],
+                                           opt, template.ev.table.rows.device)
         return template._replace(ev=st, slot=slot)
 
 
@@ -538,3 +734,25 @@ class DynamicDimCollection(EmbeddingCollection):
         aux, rows = super().readonly_rows(state, cats)
         return aux, rows * dd_mod.block_mask(
             self.dd, state.freqs[aux.ev_aux.slots])
+
+    # -- sharded hooks: the owner exchange; the block mask applies on the
+    #    owner, where the frequencies are counted over every requester
+    def sharded_rows(self, state, aux):
+        a = aux.recv_aux
+        rows = ev.gather(state.values, a, self.config)
+        rows = rows * dd_mod.block_mask(self.dd, state.freqs[a.slots])
+        return rows[aux.recv_uniq.inverse]
+
+    def sharded_apply_gradients(self, state, opt, slot_state, aux, d_urows,
+                                step, axis, num_shards):
+        # the masked rows already zero the inactive blocks' cotangents;
+        # re-mask as the JAX engine does
+        a = aux.recv_aux
+        mask = dd_mod.block_mask(self.dd, state.freqs[a.slots])
+        return super().sharded_apply_gradients(
+            state, opt, slot_state, aux, d_urows * mask[aux.recv_uniq.inverse],
+            step, axis, num_shards)
+
+    def owner_readonly_rows(self, state, slots, found, keys):
+        rows = super().owner_readonly_rows(state, slots, found, keys)
+        return rows * dd_mod.block_mask(self.dd, state.freqs[slots])

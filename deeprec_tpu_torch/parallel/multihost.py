@@ -20,7 +20,16 @@ a ``psum`` or :func:`broadcast_object` first.
 or read process-spanning arrays of one global view, and here each rank
 keeps only its own shard (a save writes one part file per rank; a
 restore routes the saved rows and keeps its own). ``local_shard_range``
-is ``(rank, rank + 1)``.
+is ``(rank, rank + 1)``; :func:`shard_ranges` gathers every rank's range
+once, when a host-side engine forms, and refuses a layout that is not one
+shard per rank in rank order (the JAX host-sharded engine assumed it).
+
+:func:`initialize` keeps the rendezvous it joined, whether it came as an
+argument, from torchrun's environment or as a file store, and
+:func:`advertise_host` derives from it the address a host
+socket of this process is reached at (the JAX bucket exchange read only
+``COORDINATOR_ADDRESS`` and advertised 127.0.0.1 when the coordinator
+came as an argument). :func:`store` is the group's c10d key-value store.
 
 Usage on every rank of a job::
 
@@ -37,11 +46,14 @@ from __future__ import annotations
 
 import datetime
 import os
-from typing import List, Optional, Sequence
+import socket
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.distributed as dist
+
+_RENDEZVOUS: Optional[str] = None  # the init method initialize() joined
 
 
 def initialize(coordinator_address: Optional[str] = None,
@@ -53,6 +65,7 @@ def initialize(coordinator_address: Optional[str] = None,
     ``host:port`` (``tcp://``), or an init-method URL such as
     ``file:///shared/path``. Without a coordinator the torchrun
     environment variables apply. A no-op when a default group exists."""
+    global _RENDEZVOUS
     if dist.is_initialized():
         return
     timeout = datetime.timedelta(seconds=timeout_s)
@@ -65,6 +78,8 @@ def initialize(coordinator_address: Optional[str] = None,
                 f"(missing {', '.join(missing)})")
         dist.init_process_group(backend, init_method="env://",
                                 timeout=timeout)
+        _RENDEZVOUS = (f"tcp://{os.environ['MASTER_ADDR']}:"
+                       f"{os.environ['MASTER_PORT']}")
         return
     if num_processes is None or process_id is None:
         raise ValueError("a coordinator address needs num_processes and "
@@ -74,6 +89,34 @@ def initialize(coordinator_address: Optional[str] = None,
     dist.init_process_group(backend, init_method=url,
                             world_size=int(num_processes),
                             rank=int(process_id), timeout=timeout)
+    _RENDEZVOUS = url
+
+
+def store():
+    """The default group's c10d key-value store (the rendezvous's own
+    TCP or file store)."""
+    if not dist.is_initialized():
+        raise RuntimeError("no process group: call multihost.initialize "
+                           "first")
+    return dist.distributed_c10d._get_default_store()
+
+
+def advertise_host(rendezvous_url: Optional[str] = None) -> str:
+    """The address other ranks reach a socket of this process at: the
+    local end of a route to the rendezvous host (a UDP ``connect`` sends
+    nothing), 127.0.0.1 when the rendezvous is on this host or is a file
+    store (one host, or a shared file system whose hosts must then be
+    given a ``tcp://`` rendezvous instead)."""
+    url = rendezvous_url if rendezvous_url is not None else _RENDEZVOUS
+    if not url or not url.startswith("tcp://"):
+        return "127.0.0.1"
+    host, _, port = url[len("tcp://"):].rpartition(":")
+    host = host.strip("[]")
+    if host in ("localhost", "127.0.0.1", "::1", ""):
+        return "127.0.0.1"
+    with socket.socket(socket.AF_INET, socket.SOCK_DGRAM) as s:
+        s.connect((host, int(port or 1)))
+        return s.getsockname()[0]
 
 
 def local_rank() -> int:
@@ -229,6 +272,24 @@ def allgather_varlen(x: np.ndarray, axis: Axis, fill=-1) -> np.ndarray:
 def local_shard_range(axis: Axis):
     """``(lo, hi)`` table-shard ids this rank owns: its own, one."""
     return axis.rank, axis.rank + 1
+
+
+def shard_ranges(axis: Axis) -> List[Tuple[int, int]]:
+    """Every rank's :func:`local_shard_range`, in rank order (one
+    collective). Raises unless rank ``q`` owns exactly shard ``q``: the
+    host-side engines index peer blocks by these ranges and hold one
+    shard per rank."""
+    mine = np.asarray(local_shard_range(axis), np.int64)
+    if axis.size == 1:
+        got = [tuple(int(v) for v in mine)]
+    else:
+        g = axis.all_gather(_host_group_tensor(axis, mine[None])).cpu()
+        got = [tuple(int(v) for v in row) for row in g.numpy()]
+    want = [(q, q + 1) for q in range(axis.size)]
+    if got != want:
+        raise ValueError(f"shard ranges {got} over {axis.size} ranks: each "
+                         "rank must own one shard, rank q shard q")
+    return got
 
 
 def psum_all(tensors: List[torch.Tensor], axis: Axis) -> List[torch.Tensor]:

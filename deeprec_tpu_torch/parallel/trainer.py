@@ -25,9 +25,14 @@ any shard overflowed, and ``table_health`` (which the CLI's watchdog reads
 before it widens the buckets or the dedup cap) sums or maxes every rank's
 counters. Every rank must call every public method, in the same order.
 
-The device-index ``EmbeddingCollection`` runs here. The host-index
-collections, tiered tables (``TieredShardedTrainer``) and the variant
-tables' sharded hooks are not ported (ROADMAP A8); they raise.
+The device-index ``EmbeddingCollection``, the variant collections
+(``feature_column_variants``) and the host-sharded
+``parallel.host_sharded.HostShardedCollection`` run here; tiered tables
+run under ``parallel.tiered.TieredShardedTrainer``. A host-sharded
+collection resolves its whole exchange on the host: :meth:`pack_np` cuts
+this rank's slice (numpy only), :meth:`resolve_packed` resolves it in step
+order (the host bucket exchange included) at the bucket width the trainer
+gives it, as the JAX trainer's ``prepare_batch`` passes it.
 """
 from __future__ import annotations
 
@@ -45,7 +50,7 @@ from ..train import metrics as metrics_lib
 from ..train.pipeline import to_device
 from ..train.trainer import (Trainer, TrainState, _mb_split, bce_loss,
                              default_forward)
-from .multihost import Axis, make_mesh, psum_all
+from .multihost import Axis, all_max, make_mesh, psum_all
 
 
 class ShardedTrainer:
@@ -54,6 +59,7 @@ class ShardedTrainer:
     ``mesh.device``."""
 
     _PARAMS_INIT_CAP = 4096  # throwaway-table capacity of the params init
+    _tiers_ok = False        # TieredShardedTrainer takes tiered tables
 
     def __init__(self, model: torch.nn.Module,
                  numeric_columns: Sequence[NumericColumn],
@@ -70,16 +76,16 @@ class ShardedTrainer:
             raise RuntimeError("ShardedTrainer on cuda but torch sees no "
                                "CUDA device")
         for name, coll in collections.items():
-            if type(coll) is not EmbeddingCollection:
-                raise NotImplementedError(
-                    f"table {name!r}: only the device-index "
-                    "EmbeddingCollection is sharded; host-index and "
-                    f"variant tables ({type(coll).__name__}) come with "
-                    "ROADMAP A8")
-            if coll.config.storage.storage_type is not StorageType.HBM:
-                raise NotImplementedError(
-                    f"table {name!r}: tiered storage on the mesh "
-                    "(TieredShardedTrainer) comes with ROADMAP A8")
+            if hasattr(coll, "pack_ids_host") and \
+                    not hasattr(coll, "sharded_resolve"):
+                raise ValueError(
+                    f"table {name!r}: a one-card host-index collection on a "
+                    "mesh; use parallel.host_sharded.HostShardedCollection")
+            if coll.config.storage.storage_type is not StorageType.HBM \
+                    and not self._tiers_ok:
+                raise ValueError(
+                    f"table {name!r}: tiered storage on the mesh runs under "
+                    "parallel.tiered.TieredShardedTrainer")
         self.model = model.to(self.device)
         self.numeric_columns = list(numeric_columns)
         self.collections = collections
@@ -88,7 +94,16 @@ class ShardedTrainer:
         self.forward = forward or default_forward
         self.bucket_slack = bucket_slack
         self.aux_loss_weight = aux_loss_weight
+        if microbatches > 1 and any(hasattr(c, "sharded_resolve")
+                                    for c in collections.values()):
+            raise ValueError(
+                "microbatches > 1 on a host-sharded table: its resolved "
+                "wire cannot be split (the JAX CLI takes the device-index "
+                "engine here)")
         self.microbatches = microbatches
+        for coll in collections.values():
+            if hasattr(coll, "bind_mesh"):  # the host-sharded engine forms
+                coll.bind_mesh(self.axis)
 
     def rejit(self) -> None:
         """Nothing to rebuild: an eager step reads new shapes itself."""
@@ -138,24 +153,44 @@ class ShardedTrainer:
         b = n // self.S
         return slice(self.rank * b, (self.rank + 1) * b)
 
-    def prepare_host(self, batch: Dict[str, np.ndarray], train: bool = True,
-                     pin: bool = False):
-        """This rank's slice of the global ``batch`` as host tensors:
-        dense ``[B/S, D]``, each collection's ``[W, B/S]`` ids, labels."""
+    def pack_np(self, batch: Dict[str, np.ndarray]):
+        """This rank's slice of the global ``batch`` as numpy, safe in any
+        thread (no resolve): dense ``[B/S, D]``, each collection's
+        ``[W, B/S]`` ids, labels."""
         sl = self._local_slice(batch)
+        dense = (pack_dense(self.numeric_columns, batch)[sl]
+                 if self.numeric_columns else None)
+        ids = {name: coll.sharded_pack(batch, self.S, self.rank)
+               for name, coll in self.collections.items()}
+        labels = (np.asarray(batch["label"], np.float32)[sl]
+                  if "label" in batch else None)
+        return dense, ids, labels
 
+    def resolve_packed(self, packed, train: bool = True, pin: bool = False):
+        """:meth:`pack_np`'s output as host tensors (page-locked when
+        ``pin``). A host-sharded collection resolves its exchange here at
+        the trainer's bucket width: every rank in step order."""
         def host(x):
             if x is None:
                 return None
             t = torch.from_numpy(np.ascontiguousarray(x))
             return t.pin_memory() if pin else t
-        dense = (pack_dense(self.numeric_columns, batch)[sl]
-                 if self.numeric_columns else None)
-        cats = {name: host(coll.sharded_pack(batch, self.S, self.rank))
-                for name, coll in self.collections.items()}
-        labels = (np.asarray(batch["label"], np.float32)[sl]
-                  if "label" in batch else None)
+        dense, ids, labels = packed
+        cats = {}
+        for name, coll in self.collections.items():
+            if hasattr(coll, "sharded_resolve"):
+                cats[name] = coll.sharded_resolve(
+                    ids[name], self._bucket_cap(coll, ids[name].size),
+                    train=train, pin=pin)
+            else:
+                cats[name] = host(ids[name])
         return host(dense), cats, host(labels)
+
+    def prepare_host(self, batch: Dict[str, np.ndarray], train: bool = True,
+                     pin: bool = False):
+        """This rank's slice of the global ``batch`` as host tensors:
+        :meth:`pack_np`, then :meth:`resolve_packed`."""
+        return self.resolve_packed(self.pack_np(batch), train, pin)
 
     def prepare_batch(self, batch: Dict[str, np.ndarray], train: bool = True):
         return to_device(self.prepare_host(batch, train), self.device)
@@ -170,12 +205,19 @@ class ShardedTrainer:
         c = int(np.ceil(u * self.bucket_slack / self.S / 8.0) * 8)
         return max(c, 8)
 
+    def _cap_of(self, coll, cats) -> int:
+        """The bucket width of one collection's step inputs: a resolved
+        wire carries its own."""
+        cap = getattr(cats, "bucket_cap", None)
+        return cap if cap is not None else self._bucket_cap(coll,
+                                                            cats.numel())
+
     # -- the step ------------------------------------------------------------
     def _sparse_forward(self, tables, cats, step):
         auxs, caps = {}, {}
         for name, coll in self.collections.items():
             ids2d = cats[name]
-            caps[name] = self._bucket_cap(coll, ids2d.numel())
+            caps[name] = self._cap_of(coll, ids2d)
             b = tables[name]
             ev_state, auxs[name] = coll.sharded_lookup_or_create(
                 b.ev, ids2d, step, self.axis, caps[name])
@@ -285,8 +327,9 @@ class ShardedTrainer:
                                          in zip(mstate, delta)])
 
     @torch.no_grad()
-    def _eval_step(self, state: TrainState, mstate, dense, cats, labels):
-        """Read-only exchange: unknown keys read their init row."""
+    def _eval_logits(self, state: TrainState, dense, cats):
+        """This rank's logits through the read-only exchange: unknown keys
+        read their init row, nothing is written."""
         if dense is not None:
             dense = normalize_dense(self.numeric_columns, dense)
         outputs = {}
@@ -294,12 +337,15 @@ class ShardedTrainer:
             ids2d = cats[name]
             row_u, inv, valid = coll.sharded_readonly(
                 state.tables[name].ev, ids2d, self.axis,
-                self._bucket_cap(coll, ids2d.numel()))
+                self._cap_of(coll, ids2d))
             outputs[name] = (coll.embeddings_from_rows(row_u, inv, valid),
                              coll.sequence_embeddings_from_rows(row_u, inv,
                                                                 valid))
         out = self.forward(self.model, dense, outputs, False)
-        logits = out[0] if isinstance(out, tuple) else out
+        return out[0] if isinstance(out, tuple) else out
+
+    def _eval_step(self, state: TrainState, mstate, dense, cats, labels):
+        logits = self._eval_logits(state, dense, cats)
         return self._add_metrics(mstate, logits, labels,
                                  bce_loss(logits, labels))
 
@@ -311,18 +357,27 @@ class ShardedTrainer:
         return self._eval_step(state, mstate,
                                *self.prepare_batch(batch, train=False))
 
+    def predict(self, state: TrainState, batch) -> np.ndarray:
+        """The global ``batch``'s ``[B]`` probabilities on every rank: each
+        serves its slice, then one ``all_gather``."""
+        dense, cats, _ = self.prepare_batch(batch, train=False)
+        probs = torch.sigmoid(self._eval_logits(state, dense, cats))
+        return self.axis.all_gather(probs.reshape(-1)).cpu().numpy()
+
     def reset_metrics(self, state: TrainState) -> TrainState:
         return state._replace(metrics=metrics_lib.create(device=self.device))
 
     # -- fence work: collectives, every rank calls them together -------------
-    def _global_counters(self, bundle):
+    def _global_counters(self, coll, bundle):
         """``(sizes summed, overflow summed, drops summed, largest shard,
         saturated steps max, unique high-water max)`` over the ranks."""
-        ix = bundle.ev.index
-        h = bundle.health.long()
+        ix = coll.index_view(bundle.ev).index
+        h = (bundle.health.long() if bundle.health is not None else
+             torch.zeros((3,), dtype=torch.long, device=self.device))
         summed = self.axis.psum(torch.stack(
-            [ix.size.sum(), ix.overflow.sum(), h[0]]))
-        maxed = self.axis.pmax(torch.stack([ix.size.sum(), h[1], h[2]]))
+            [ix.size.sum().long(), ix.overflow.sum().long(), h[0]]))
+        maxed = self.axis.pmax(torch.stack([ix.size.sum().long(), h[1],
+                                            h[2]]))
         return summed.tolist() + maxed.tolist()
 
     def table_health(self, state: TrainState) -> Dict[str, dict]:
@@ -331,8 +386,13 @@ class ShardedTrainer:
         saturated steps and unique high-water mark of the worst rank."""
         out = {}
         for name, coll in self.collections.items():
+            if hasattr(coll, "sharded_host_health"):
+                out[name] = coll.sharded_host_health(self.axis)
+                continue
+            if coll.index_view(state.tables[name].ev) is None:
+                continue  # no dynamic index (multi-hash)
             size, over, drops, top, sat, nu = self._global_counters(
-                state.tables[name])
+                coll, state.tables[name])
             cap = coll.config.capacity
             out[name] = {
                 "size": int(size), "capacity": cap, "shards": self.S,
@@ -351,14 +411,25 @@ class ShardedTrainer:
         tables = dict(state.tables)
         changed = False
         for name, coll in self.collections.items():
-            _, over, _, top, _, _ = self._global_counters(tables[name])
             cfg = coll.config
-            if top / cfg.capacity < threshold and over == 0:
-                continue
+            if hasattr(coll, "sharded_needs_growth"):
+                # host resolvers: near full (0.9) on any rank, or keys
+                # waiting for a row
+                if not all_max(int(coll.sharded_needs_growth()), self.axis):
+                    continue
+            elif coll.index_view(tables[name].ev) is None:
+                continue  # no index: nothing grows
+            else:
+                _, over, _, top, _, _ = self._global_counters(coll,
+                                                              tables[name])
+                if top / cfg.capacity < threshold and over == 0:
+                    continue
             new_cap = cfg.capacity * 2
             tables[name] = coll.sharded_grow_local(
                 tables[name], new_cap, self.sparse_optimizers[name].fills)
             coll.config = dataclasses.replace(cfg, capacity=new_cap)
+            if hasattr(coll, "note_grown"):
+                coll.note_grown()
             changed = True
         return state._replace(tables=tables) if changed else state
 

@@ -26,8 +26,9 @@ its own shard of a save written at any shard count (the owner-hash
 routing of training, ``checkpoint.saver.route_to_shards``), and every
 rank calls ``predict`` with the same request, serves its slice through
 the read-only owner exchange (kernels K1 and K2) and returns the whole
-batch's probabilities. It serves device-index tables; the variant
-tables' sharded hooks come with ROADMAP A8.
+batch's probabilities. It serves EV tables (a device-index or
+host-index training job's saves), as the JAX ``ShardedPredictor`` does;
+the variant tables serve through the one-device ``Predictor``.
 """
 from __future__ import annotations
 
@@ -370,9 +371,11 @@ class ShardedPredictor(Predictor):
         for name, coll in collections.items():
             if type(getattr(coll, "device_view", lambda: coll)()) \
                     is not EmbeddingCollection:
-                raise NotImplementedError(
-                    f"table {name!r}: the variant tables' sharded serving "
-                    "comes with ROADMAP A8")
+                raise ValueError(
+                    f"table {name!r}: ShardedPredictor serves EV tables, as "
+                    "the JAX package's does; serve a variant table "
+                    f"({type(coll).__name__}) with the one-device "
+                    "Predictor")
         super().__init__(model, numeric_columns, collections, ckpt_dir,
                          device=device or self.axis.device, forward=forward)
 

@@ -28,9 +28,18 @@ full module path) whose ``build(args)`` makes the model and collections;
 the remaining arguments go to the trainer CLI's parser (the model's
 widths: ``--emb_dim``, ``--bf16``, ...; ``--device cpu`` serves on the
 CPU). :func:`build_server` returns the server unstarted (port 0 picks a
-free port); :func:`main` serves forever. ``--mesh`` is refused: HTTP
-over a ``ShardedPredictor`` (rank 0 serves and broadcasts each request)
-comes with ROADMAP A8.
+free port); :func:`main` serves forever.
+
+``--mesh N`` serves a save row-sharded over N ranks, one process each
+(``torchrun --nproc_per_node N``, or the trainer CLI's ``--coordinator``
+and ``--process_id`` after ``--``): every rank restores its shard into a
+``ShardedPredictor``. Rank 0 serves HTTP; for each request that passes
+its checks it broadcasts the batch (:class:`MeshPredictor`) and every
+rank runs ``predict`` together, rank 0 answering; ``/refresh`` applies
+rank 0's listing of the saves on every rank. The other ranks follow in
+:class:`RankLoop` until rank 0's server shuts down, which tells them to
+stop. A malformed request is rejected on rank 0 before anything is
+broadcast, so no rank waits for a collective that never comes.
 """
 from __future__ import annotations
 
@@ -280,6 +289,77 @@ class _Handler(BaseHTTPRequestHandler):
         pass
 
 
+class MeshPredictor:
+    """Rank 0's face of a ``ShardedPredictor``: each call is broadcast to
+    the other ranks' :class:`RankLoop` first, then run here, so every rank
+    enters the same collectives. A request is checked before the broadcast
+    (each column the model reads present, one batch size)."""
+
+    def __init__(self, predictor):
+        self.predictor = predictor
+        self.tables = predictor.tables  # this rank's shard (/healthz)
+        names = [c.name for c in predictor.numeric_columns]
+        for coll in predictor.collections.values():
+            names += [c.categorical.name for c in coll.columns]
+        self._needs = names
+
+    @property
+    def step(self):
+        return getattr(self.predictor, "step", None)
+
+    def _send(self, msg):
+        from ..parallel.multihost import broadcast_object
+        broadcast_object(msg, self.predictor.axis)
+
+    def predict(self, batch):
+        missing = [n for n in self._needs if n not in batch]
+        if missing:
+            raise ValueError(f"missing columns {missing}")
+        sizes = {len(v) for v in batch.values()}
+        if len(sizes) != 1 or 0 in sizes:
+            raise ValueError(f"column batch sizes {sorted(sizes)}")
+        self._send(("predict", batch))
+        return self.predictor.predict(batch)
+
+    def refresh(self):
+        self._send(("refresh", None))
+        return self.predictor.refresh()
+
+    def stop(self):
+        self._send(("stop", None))
+
+
+class RankLoop:
+    """A rank other than 0 of a ``--mesh`` server: it runs rank 0's
+    broadcast calls on its ``ShardedPredictor`` until told to stop. Its
+    :meth:`serve_forever` stands where rank 0's server's does."""
+
+    def __init__(self, predictor):
+        self.predictor = predictor
+        self.calls = 0
+
+    def serve_forever(self):
+        from ..parallel.multihost import broadcast_object
+        while True:
+            kind, batch = broadcast_object(None, self.predictor.axis)
+            if kind == "stop":
+                return
+            self.calls += 1
+            try:
+                if kind == "predict":
+                    self.predictor.predict(batch)
+                else:
+                    self.predictor.refresh()
+            except Exception:  # rank 0 meets the same error and answers
+                pass
+
+    def shutdown(self):
+        pass
+
+    def server_close(self):
+        pass
+
+
 def make_server(predictor, host: str = "127.0.0.1", port: int = 8500,
                 refresh_secs: float = 0.0, dynamic_batch_ms: float = 0.0,
                 max_batch: int = 4096):
@@ -293,6 +373,15 @@ def make_server(predictor, host: str = "127.0.0.1", port: int = 8500,
     handler = type("Handler", (_Handler,), {"service": service})
     srv = ThreadingHTTPServer((host, port), handler)
     srv.service = service
+    if isinstance(predictor, MeshPredictor):
+        # the other ranks stop when rank 0's server is closed
+        close = srv.server_close
+
+        def server_close():
+            close()
+            with service._lock:
+                predictor.stop()
+        srv.server_close = server_close
     if refresh_secs > 0:
         def loop():
             while not getattr(srv, "_BaseServer__shutdown_request", False):
@@ -309,7 +398,10 @@ def build_server(argv=None):
     """The command line's server, built and not started: ``(server,
     args)``. ``Predictor`` over ``--ckpt_dir``, or ``TieredPredictor``
     with ``--device_row_budget``, on the device the trainer CLI's
-    ``--device`` names (the card by default)."""
+    ``--device`` names (the card by default). With ``--mesh`` every rank
+    calls it: rank 0 gets the HTTP server over a :class:`MeshPredictor`,
+    the others a :class:`RankLoop`; closing rank 0's server
+    (``server_close``) stops them."""
     import argparse
     import importlib
 
@@ -326,29 +418,33 @@ def build_server(argv=None):
     ap.add_argument("--max_batch", type=int, default=4096,
                     help="row cap per coalesced device call")
     ap.add_argument("--mesh", type=int, default=0,
-                    help="row-sharded serving over HTTP: only 0 (ROADMAP "
-                         "A8; serving.ShardedPredictor serves a mesh "
-                         "from Python)")
+                    help="serve row-sharded over N ranks, one process "
+                         "each; rank 0 serves HTTP")
     ap.add_argument("--device_row_budget", type=int, default=0,
                     help="serve with the cold tail in host DRAM")
     args, rest = ap.parse_known_args(argv)
     if rest and rest[0] == "--":
         rest = rest[1:]
-    if args.mesh:
-        raise NotImplementedError(
-            f"--mesh {args.mesh}: the HTTP server over a ShardedPredictor "
-            "(rank 0 serves and broadcasts each request) comes with "
-            "ROADMAP A8; serving.ShardedPredictor serves a mesh from "
-            "Python")
-
     from ..train import cli as tcli
     name = (args.model if "." in args.model
             else f"deeprec_tpu_torch.modelzoo.{args.model}.train")
     targs = tcli.base_parser("serving").parse_args(rest)
     spec = importlib.import_module(name).build(targs)
 
-    from . import Predictor, TieredPredictor
-    if args.device_row_budget:
+    from . import Predictor, ShardedPredictor, TieredPredictor
+    if args.mesh:
+        if args.device_row_budget:
+            raise ValueError("--mesh with --device_row_budget: the sharded "
+                             "server keeps every row on the devices")
+        targs.mesh = args.mesh
+        pred = ShardedPredictor(spec.model, spec.numeric_columns,
+                                spec.collections, args.ckpt_dir,
+                                mesh=tcli.make_mesh(targs),
+                                forward=spec.forward)
+        if pred.rank != 0:
+            return RankLoop(pred), args
+        pred = MeshPredictor(pred)
+    elif args.device_row_budget:
         pred = TieredPredictor(spec.model, spec.numeric_columns,
                                spec.collections, args.ckpt_dir,
                                device_row_budget=args.device_row_budget,
@@ -365,10 +461,16 @@ def build_server(argv=None):
 
 def main(argv=None):
     srv, args = build_server(argv)
+    if isinstance(srv, RankLoop):
+        srv.serve_forever()
+        return
     host, port = srv.server_address[:2]
     print(f"serving {args.model} from {args.ckpt_dir} on {host}:{port}",
           flush=True)
-    srv.serve_forever()
+    try:
+        srv.serve_forever()
+    finally:
+        srv.server_close()
 
 
 if __name__ == "__main__":

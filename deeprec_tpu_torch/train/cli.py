@@ -9,7 +9,7 @@ supplies a ``ModelSpec``; ``python -m deeprec_tpu_torch.modelzoo.DLRM.train
 --host_index ...`` trains it on the card (``--device cpu``: on the CPU).
 
 :func:`run` is the JAX CLI, both engines on one device and the
-device-index engine on a mesh (``--mesh N``): the
+mesh engines (``--mesh N``): the
 ``max_unique_ratio`` dedup cap, a ``CheckpointManager``
 (``--save_secs``/``--incr_save_secs``, the WorkQueue position as an aux
 part, a restore at start), prefetch workers that pack numpy, and at each
@@ -32,15 +32,23 @@ eval and one JSON summary line.
 * **The host-index engine** (``--host_index``): the plain ``Trainer``
   and ``HostStepPipeline`` (the resolve thread, then the copies on a side
   stream); its tables tier themselves.
-* **The mesh** (``--mesh N``, the device-index engine): one process per
-  rank, started by ``torchrun --nproc_per_node N`` (its environment names
-  the group) or by hand with ``--coordinator HOST:PORT --process_id R``
-  on each rank; ``parallel.ShardedTrainer`` over a process group (NCCL
-  with ``--device cuda``, gloo with ``--device cpu``), each rank on
-  ``cuda:<local rank>`` (or the CPU) with its row shard of every table. Every rank reads the same stream and keeps its slice of each
-  batch; rank 0 alone prints, writes summaries and the save's manifest
-  (every rank writes its shard's part). ``--exchange_dtype bfloat16``
-  puts the exchanged rows and gradients on a bf16 wire.
+* **The mesh** (``--mesh N``): one process per rank, started by
+  ``torchrun --nproc_per_node N`` (its environment names the group) or by
+  hand with ``--coordinator HOST:PORT --process_id R`` on each rank;
+  ``parallel.ShardedTrainer`` over a process group (NCCL with ``--device
+  cuda``, gloo with ``--device cpu``), each rank on ``cuda:<local rank>``
+  (or the CPU) with its row shard of every table. Every rank reads the
+  same stream and keeps its slice of each batch; rank 0 alone prints,
+  writes summaries and the save's manifest (every rank writes its shard's
+  part). ``--exchange_dtype bfloat16`` puts the exchanged rows and
+  gradients on a bf16 wire. With ``--host_index`` the tables are
+  ``parallel.host_sharded.HostShardedCollection``s (the host-sharded
+  engine: the pipeline's resolve thread runs each step's host bucket
+  exchange); with a tiered ``--ev_storage`` the trainer is
+  ``parallel.tiered.TieredShardedTrainer``. As in the JAX CLI,
+  ``--host_index`` on a mesh with a tiered ``--ev_storage`` or with
+  ``--micro_batch > 1`` prints a note and takes the device-index
+  engine.
 
 Where it differs from the JAX CLI:
 
@@ -49,11 +57,8 @@ Where it differs from the JAX CLI:
   so fences skip (``deeprec_tpu/train/cli.py:534,550``). Here the pipeline
   is fed no further than the next multiple of ``--log_steps``, so it is
   empty there and the fence runs at exactly that step.
-* **What it refuses**, each naming the roadmap item: ``--mesh`` with
-  ``--host_index`` (the host-sharded engine) or with a tiered
-  ``--ev_storage`` (``TieredShardedTrainer``), both A8, and
-  ``--micro_batch > 1`` with ``--host_index`` (the JAX package crashes
-  there, C6). None falls back to anything.
+* **What it refuses**: ``--micro_batch > 1`` with ``--host_index`` on
+  one device (the JAX package crashes there, ROADMAP C6).
 * ``--device`` (default ``cuda``; the counterpart of ``JAX_PLATFORMS``)
   raises when the card is missing. ``--seed`` seeds a ``torch.Generator``
   that draws the model's initial weights (:func:`init_params`).
@@ -208,30 +213,35 @@ def ev_kwargs(args) -> dict:
 
 
 def collection_cls(args):
-    """The collection class for this run: the host-index engine with
-    ``--host_index``, else the device-index ``EmbeddingCollection``."""
+    """The collection class for this run: with ``--host_index`` the
+    host-index engine (``HostShardedCollection`` on a mesh), else the
+    device-index ``EmbeddingCollection``. On a mesh with a tiered
+    ``--ev_storage`` or ``--micro_batch > 1`` the host-sharded engine does
+    not run: a note, and the device-index engine, as in the JAX CLI."""
     from ..feature_column import EmbeddingCollection
     from ..host_index import HostIndexEmbeddingCollection
-    if getattr(args, "host_index", False):
+    if not getattr(args, "host_index", False):
+        return EmbeddingCollection
+    if not getattr(args, "mesh", 0):
         return HostIndexEmbeddingCollection
-    return EmbeddingCollection
+    reasons = []
+    if getattr(args, "ev_storage", "hbm") != "hbm":
+        reasons.append(f"--mesh with --ev_storage {args.ev_storage}")
+    if getattr(args, "micro_batch", 1) > 1:
+        reasons.append("--mesh with --micro_batch")
+    if reasons:
+        print(f"NOTE: --host_index unsupported with {', '.join(reasons)}; "
+              "using the device-index engine", flush=True)
+        return EmbeddingCollection
+    from ..parallel.host_sharded import HostShardedCollection
+    return HostShardedCollection
 
 
 def check_supported(args) -> None:
-    """Refuse what the port does not run, naming the ROADMAP item."""
-    if getattr(args, "mesh", 0) and getattr(args, "host_index", False):
-        raise NotImplementedError(
-            f"--mesh {args.mesh} with --host_index: the host-sharded "
-            "engine is not ported yet (ROADMAP A8); drop --host_index for "
-            "the device-index mesh")
-    if getattr(args, "mesh", 0) and \
-            getattr(args, "ev_storage", "hbm") != "hbm":
-        raise NotImplementedError(
-            f"--mesh {args.mesh} with --ev_storage {args.ev_storage}: "
-            "tiered tables on the mesh (TieredShardedTrainer) are not "
-            "ported yet (ROADMAP A8)")
+    """Refuse what the port does not run."""
     if getattr(args, "micro_batch", 1) > 1 and \
-            getattr(args, "host_index", False):
+            getattr(args, "host_index", False) and \
+            not getattr(args, "mesh", 0):
         raise NotImplementedError(
             f"--micro_batch {args.micro_batch} with --host_index: a "
             "resolved wire cannot be split into microbatches (the JAX "
@@ -365,9 +375,9 @@ def make_mesh(args):
 def make_trainer(spec: ModelSpec, args, mesh=None):
     """The run's trainer on ``--device``: the dedup-width cap and the
     fused slot columns applied to the collections, a ``ShardedTrainer``
-    for ``--mesh`` (on the axis ``mesh``, or joining the group
-    :func:`make_mesh` names), a ``TieredTrainer`` for tiered device-index
-    tables, ``--micro_batch`` microbatches, the model's weights drawn from
+    (``TieredShardedTrainer`` for tiered tables) for ``--mesh`` (on the
+    axis ``mesh``, or joining the group :func:`make_mesh` names), a
+    ``TieredTrainer`` for tiered device-index tables, ``--micro_batch`` microbatches, the model's weights drawn from
     ``--seed``."""
     from ..config import StorageType
     from .tiered_trainer import TieredTrainer
@@ -382,15 +392,16 @@ def make_trainer(spec: ModelSpec, args, mesh=None):
                 coll.config = dataclasses.replace(coll.config, max_unique=mu)
     _fuse_slot_columns(spec, args)
     init_params(spec.model, args.seed)
+    tiered = any(c.config.storage.storage_type is not StorageType.HBM
+                 for c in spec.collections.values())
     if args.mesh:
-        from ..parallel import ShardedTrainer
-        return ShardedTrainer(spec.model, spec.numeric_columns,
-                              spec.collections, spec.sparse_optimizers,
-                              make_dense_opt(args),
-                              mesh=mesh or make_mesh(args),
-                              forward=spec.forward,
-                              aux_loss_weight=spec.aux_loss_weight,
-                              microbatches=args.micro_batch)
+        from ..parallel import ShardedTrainer, TieredShardedTrainer
+        cls = TieredShardedTrainer if tiered else ShardedTrainer
+        return cls(spec.model, spec.numeric_columns, spec.collections,
+                   spec.sparse_optimizers, make_dense_opt(args),
+                   mesh=mesh or make_mesh(args), forward=spec.forward,
+                   aux_loss_weight=spec.aux_loss_weight,
+                   microbatches=args.micro_batch)
     # a tiered device-index table needs the TieredTrainer; host-index
     # tables tier themselves
     device_tiered = any(c.config.storage.storage_type is not StorageType.HBM

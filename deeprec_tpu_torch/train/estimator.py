@@ -9,8 +9,14 @@ the metrics, and hand a final save to serving
 half of each batch (``Trainer.prepare_host``: packing, and a host-index
 table's resolve, in step order on the one worker) in a prefetch worker
 (``data.prefetch.staged``), which also copies it to the device, page-locked
-and asynchronous on the card. The multi-device trainer (``mesh=``) is not
-ported (ROADMAP A8).
+and asynchronous on the card.
+
+``mesh=`` (a ``parallel.multihost.Axis``, from ``parallel.make_mesh``)
+puts a ``parallel.ShardedTrainer`` behind the same workflow, as the JAX
+``Estimator(mesh=)`` does: every rank constructs the estimator and calls
+each method together with the same input stream; saves go through the
+multi-rank part writer (one part per rank), and ``predict`` yields the
+whole batch's probabilities on every rank.
 """
 from __future__ import annotations
 
@@ -21,7 +27,7 @@ from typing import Callable, Optional
 class Estimator:
     """train / evaluate / predict over ``model_dir``; the other arguments
     are the :class:`~.trainer.Trainer`'s (``device``: the card unless the
-    caller names the CPU)."""
+    caller names the CPU; on a mesh the axis's device)."""
 
     def __init__(self, model, numeric_columns, collections,
                  sparse_optimizers, dense_optimizer, model_dir: str,
@@ -31,13 +37,18 @@ class Estimator:
                  mesh=None, log_steps: int = 100, device="cuda"):
         from ..checkpoint.saver import CheckpointManager
         from .trainer import Trainer
+        args = (model, numeric_columns, collections, sparse_optimizers,
+                dense_optimizer)
         if mesh is not None:
-            raise NotImplementedError(
-                "Estimator(mesh=...): the multi-device trainer is not ported "
-                "yet (ROADMAP A8)")
-        self.trainer = Trainer(model, numeric_columns, collections,
-                               sparse_optimizers, dense_optimizer,
-                               forward=forward, device=device)
+            from ..parallel import ShardedTrainer
+            from ..parallel.multihost import Axis
+            if not isinstance(mesh, Axis):
+                raise TypeError(
+                    f"mesh={type(mesh).__name__}: Estimator(mesh=) takes "
+                    "the parallel.multihost.Axis of parallel.make_mesh")
+            self.trainer = ShardedTrainer(*args, mesh=mesh, forward=forward)
+        else:
+            self.trainer = Trainer(*args, forward=forward, device=device)
         self.model_dir = model_dir
         self.mgr = CheckpointManager(model_dir, full_secs=save_secs,
                                      incr_secs=incr_save_secs)
@@ -105,6 +116,9 @@ class Estimator:
         tr = self.trainer
         for batch in input_fn():
             state = self._ensure_state(batch)
+            if hasattr(tr, "predict"):  # the mesh: every rank, whole batch
+                yield tr.predict(state, batch)
+                continue
             dense, cats, _ = tr.prepare_batch(batch, train=False)
             with torch.no_grad():
                 if dense is not None:

@@ -35,15 +35,14 @@ from typing import Any, Callable, Iterable, List, NamedTuple, Optional
 
 import torch
 
-from ..host_index import ResolvedWire
-
 
 def to_device(tree, device, non_blocking: bool = False):
-    """Copy every tensor (and wire) of a tuple/list/dict tree to
-    ``device``."""
+    """Copy every tensor (and wire: an object with ``to`` and
+    ``tensors``, ``host_index.ResolvedWire`` or ``parallel.host_sharded.
+    HostShardedWire``) of a tuple/list/dict tree to ``device``."""
     if tree is None:
         return None
-    if isinstance(tree, (torch.Tensor, ResolvedWire)):
+    if isinstance(tree, torch.Tensor) or hasattr(tree, "tensors"):
         return tree.to(device, non_blocking=non_blocking)
     if isinstance(tree, dict):
         return {k: to_device(v, device, non_blocking) for k, v in tree.items()}
@@ -55,7 +54,7 @@ def _tensors(tree) -> List[torch.Tensor]:
         return []
     if isinstance(tree, torch.Tensor):
         return [tree]
-    if isinstance(tree, ResolvedWire):
+    if hasattr(tree, "tensors"):  # a resolved wire
         return tree.tensors()
     vals = tree.values() if isinstance(tree, dict) else tree
     return [t for v in vals for t in _tensors(v)]

@@ -38,10 +38,9 @@ def ids_of(*vals):
 
 
 def test_top_level_exports_match_jax():
-    """Everything ``deeprec_tpu/__init__.py`` exports, but the
-    multi-device ``HostShardedCollection`` (ROADMAP A8)."""
+    """Everything ``deeprec_tpu/__init__.py`` exports."""
     names = {n for n in dir(dr) if not n.startswith("_")}
-    skip = {"HostShardedCollection", "api", "feature_column", "host_index",
+    skip = {"api", "feature_column", "host_index",
             "parallel", "ops", "sparse", "checkpoint", "data", "models",
             "optim", "serving", "train", "utils", "feature_column_variants"}
     missing = {n for n in names - skip if not hasattr(tr, n)}

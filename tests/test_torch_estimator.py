@@ -6,7 +6,8 @@ restores the JAX save at first use) in the other. Both directories then
 hold the same saves (by key: integer columns bit-equal, floats within
 ROW_ATOL), evaluate to the same metrics and predict the same
 probabilities, and the port's final save restores into a fresh port
-Estimator at step 6. ``mesh=`` is refused, naming ROADMAP A8."""
+Estimator at step 6. ``mesh=`` takes the port's ``multihost.Axis`` only
+(``tests/test_torch_mesh_engines.py`` runs the mesh)."""
 import shutil
 
 import numpy as np
@@ -89,8 +90,11 @@ def test_estimator_matches_jax(tmp_path):
 
 
 def test_estimator_refuses_a_mesh(tmp_path):
+    """``mesh=`` takes the port's ``multihost.Axis``; anything else (a JAX
+    ``Mesh``, say) is refused before a trainer is built. The mesh itself
+    runs: ``tests/test_torch_mesh_engines.py``."""
     _, tm = _models()
-    with pytest.raises(NotImplementedError, match="A8"):
+    with pytest.raises(TypeError, match="multihost.Axis"):
         TEstimator(tm, [], {"emb": _coll(tfc, tcfg, "light")},
                    {"emb": tsopt.sparse_adagrad(0.05)}, tdense.Adagrad(0.05),
                    str(tmp_path), mesh=object(), device="cpu")

@@ -59,6 +59,11 @@ def test_port_imports_without_jax():
     assert {f"deeprec_tpu_torch.{m}" for m in (
         "parallel", "parallel.multihost", "parallel.sharded",
         "parallel.trainer")} <= names
+    # the host-sharded engine and its host exchange, the tiered mesh, the
+    # sharded hash table
+    assert {f"deeprec_tpu_torch.{m}" for m in (
+        "parallel.host_sharded", "parallel.host_exchange",
+        "parallel.tiered", "parallel.hash_table")} <= names
 
 
 def test_resolver_binding_copy_is_the_source():

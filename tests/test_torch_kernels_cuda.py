@@ -775,3 +775,100 @@ def test_nccl_exchange_step_matches_a_gloo_cpu_step(cuda):
         assert tg.table_health(sg) == tc.table_health(sc)
     finally:
         dist.destroy_process_group()
+
+
+def test_host_sharded_step_matches_a_gloo_cpu_step(cuda):
+    """The host-sharded engine's step on a world-1 NCCL group on the card
+    equals the step of a CPU twin on a gloo group of the same process:
+    the resolved wires and metadata bit-equal, losses and rows within the
+    smoke's card-vs-CPU tolerance; K1, K2, K2's backward and K3a
+    launched."""
+    import socket
+    import torch.distributed as dist
+    from deeprec_tpu_torch.data.criteo import SyntheticCriteo
+    from deeprec_tpu_torch.models import ctr
+    from deeprec_tpu_torch.parallel import make_mesh, multihost
+    from torch_mesh_worker import build
+    ROW_ATOL = 1e-4  # chip_smoke.py's card-vs-CPU row tolerance
+    spec = dict(cols=[(f"C{i}", 1, "mean") for i in range(1, 9)], dim=8,
+                capacity=1 << 14, numeric=[f"I{i}" for i in range(1, 5)],
+                fused=True, filter_freq=2, evict_steps=1 << 20,
+                max_unique=8 * 512 // 4, engine="hs")
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    multihost.initialize(f"127.0.0.1:{port}", 1, 0, backend="nccl",
+                         timeout_s=60)
+    try:
+        card = make_mesh(1, device=cuda)
+        cpu = make_mesh(1, group=dist.new_group([0], backend="gloo"),
+                        device="cpu")
+        tg, tc = build(spec, card), build(spec, cpu)
+        ctr.load_flax_params(tc.model, ctr.flax_leaves(tg.model))
+        batches = list(SyntheticCriteo(batch_size=512, seed=3).take(3))
+        sg, sc = tg.init(batches[0]), tc.init(batches[0])
+        counters = (gather_rows, fused_pooled_lookup,
+                    fused_pooled_lookup_backward, lookup_meta)
+        before = [f.launches for f in counters]
+        for b in batches:
+            dg, cg, lg = tg.prepare_batch(b)
+            dc, cc, lc = tc.prepare_batch(b)
+            assert torch.equal(cg["emb"].buf.cpu(), cc["emb"].buf)
+            sg, sc = tg._train_step(sg, dg, cg, lg), tc._train_step(
+                sc, dc, cc, lc)
+        torch.cuda.synchronize()
+        assert all(f.launches > n for f, n in zip(counters, before))
+        assert abs(sg.metrics.loss_sum.item() - sc.metrics.loss_sum.item()) \
+            <= ROW_ATOL * 512 * len(batches)
+        n = tc.collections["emb"]._resolver.size
+        eg, ec = sg.tables["emb"].ev, sc.tables["emb"].ev
+        for a, c in ((eg.freqs, ec.freqs), (eg.versions, ec.versions),
+                     (eg.create_steps, ec.create_steps)):
+            assert torch.equal(a[:n].cpu(), c[:n])
+        assert (eg.values[:n].cpu() - ec.values[:n]).abs().max().item() \
+            <= ROW_ATOL
+        assert tg.table_health(sg) == tc.table_health(sc)
+    finally:
+        dist.destroy_process_group()
+
+
+def test_distributed_hash_table_on_card_matches_cpu(cuda):
+    """DistributedHashTable on a world-1 NCCL group on the card: the ids,
+    rows and trained rows of a CPU twin on gloo (K1 reads the rows)."""
+    import socket
+    import torch.distributed as dist
+    from deeprec_tpu_torch.optim import sparse as sopt
+    from deeprec_tpu_torch.parallel import DistributedHashTable, multihost
+    from deeprec_tpu_torch.parallel import make_mesh
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    multihost.initialize(f"127.0.0.1:{port}", 1, 0, backend="nccl",
+                         timeout_s=60)
+    try:
+        out = []
+        g = torch.Generator().manual_seed(5)
+        keys = torch.randint(0, 5000, (4096,), generator=g)
+        ct = torch.randn(4096, 8, generator=g)
+        for axis in (make_mesh(1, device=cuda),
+                     make_mesh(1, group=dist.new_group([0], backend="gloo"),
+                               device="cpu")):
+            dht = DistributedHashTable(axis, capacity_per_shard=1 << 14,
+                                       dim=8, bucket_cap=4096)
+            opt = sopt.sparse_adagrad(0.05)
+            st = dht.init()
+            slot = dht.init_slot(opt, st)
+            before = gather_rows.launches
+            st, ids = dht.gen_ids(st, keys)
+            st, slot, rows, valid = dht.apply_cotangent(st, opt, slot, keys,
+                                                        ct, 0)
+            if axis.device.type == "cuda":
+                assert gather_rows.launches > before
+            out.append((ids.cpu(), rows.cpu(), valid.cpu(),
+                        st.table.rows.cpu()))
+        (ig, rg, vg, tg), (ic, rc, vc, tc) = out
+        assert torch.equal(ig, ic) and torch.equal(vg, vc)
+        assert (rg - rc).abs().max().item() <= 1e-6
+        assert (tg - tc).abs().max().item() <= 1e-5
+    finally:
+        dist.destroy_process_group()

@@ -25,12 +25,16 @@ import optax
 
 import deeprec_tpu as dr
 from deeprec_tpu import feature_column as jfc
+from deeprec_tpu import feature_column_variants as jfv
 from deeprec_tpu.data.criteo import CAT_NAMES, DENSE_NAMES, SyntheticCriteo
+from deeprec_tpu.host_index import HostIndexEmbeddingCollection as JHostIndex
 from deeprec_tpu.models import ctr as jctr
 from deeprec_tpu.models import sequence as jseq
 from deeprec_tpu.optim import sparse as jsopt
+from deeprec_tpu.parallel.host_sharded import HostShardedCollection as JHS
 from deeprec_tpu.parallel.trainer import ShardedTrainer as JSharded
 from deeprec_tpu.parallel.trainer import make_mesh as jmesh
+from deeprec_tpu.sparse import dynamicdim as jdd
 from deeprec_tpu.sparse import keys as jkeys
 from deeprec_tpu.train.trainer import Trainer as JTrainer
 
@@ -44,6 +48,12 @@ ROW_ATOL = 2e-5    # rows and fused slot columns after the steps
 WIDE = [(n, 1, "mean") for n in CAT_NAMES[:4]]
 SPEC = dict(cols=WIDE + [("M1", 3, "mean")], dim=DIM, capacity=1 << 9,
             numeric=list(DENSE_NAMES[:4]), fused=True)
+JAX_ENGINES = {"host": JHostIndex, "hs": JHS,  # spec["engine"] classes
+               "multihash": jfv.MultiHashCollection,
+               "adaptive": jfv.AdaptiveCollection,
+               "hashtable": jfv.HashTableCollection,
+               "dyndim": jfv.DynamicDimCollection,
+               "dyndim_config": jdd.DynamicDimConfig}
 
 
 def batches(seed, n, bs=B, vocab=60, multi_hot=True):
@@ -66,7 +76,7 @@ def jax_trainer(spec, S=None):
     """The JAX twin of ``torch_mesh_worker.build(spec)``: a
     ``ShardedTrainer`` on the first ``S`` virtual devices, or a one-device
     ``Trainer``."""
-    coll, model = W.parts(spec, (dr, jfc, jctr, jseq))
+    coll, model = W.parts(spec, (dr, jfc, jctr, jseq, JAX_ENGINES))
     opt = (jsopt.sparse_adagrad_fused(0.05) if spec.get("fused")
            else jsopt.sparse_adagrad(0.05))
     kw = dict(model=model,

@@ -205,10 +205,25 @@ def test_cli_mesh_trains_under_torchrun_and_jax_restores(tmp_path):
 
 
 def test_cli_mesh_refuses_what_is_not_ported():
+    """Every engine runs on a mesh now: ``--host_index`` takes the
+    host-sharded collection, unless a tiered ``--ev_storage`` or
+    ``--micro_batch > 1`` sends it to the device-index engine with a note
+    (the JAX CLI's rule); only ``--micro_batch > 1`` with ``--host_index``
+    on one device is refused (ROADMAP C6)."""
     import argparse
+    from deeprec_tpu_torch.feature_column import EmbeddingCollection
+    from deeprec_tpu_torch.parallel.host_sharded import HostShardedCollection
     from deeprec_tpu_torch.train import cli as tcli
-    for flags in (dict(host_index=True, ev_storage="hbm"),
-                  dict(host_index=False, ev_storage="hbm_dram")):
-        with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-            tcli.check_supported(argparse.Namespace(mesh=2, micro_batch=1,
-                                                    **flags))
+
+    def ns(**kw):
+        return argparse.Namespace(**dict(dict(
+            mesh=2, micro_batch=1, host_index=True, ev_storage="hbm"), **kw))
+    for args, cls in ((ns(), HostShardedCollection),
+                      (ns(ev_storage="hbm_dram"), EmbeddingCollection),
+                      (ns(micro_batch=2), EmbeddingCollection),
+                      (ns(host_index=False, ev_storage="hbm_dram"),
+                       EmbeddingCollection)):
+        tcli.check_supported(args)
+        assert tcli.collection_cls(args) is cls
+    with pytest.raises(NotImplementedError, match="C6"):
+        tcli.check_supported(ns(mesh=0, micro_batch=2))
