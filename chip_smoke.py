@@ -24,14 +24,18 @@ comparison compute in full f32. Phases (any failure exits non-zero):
    shapes the main paths give it (a B=4096 Criteo batch), and times the
    kernel, the plain version and one PyTorch library call computing the
    same function with CUDA events, beside the kernel's HBM-bytes bound:
-   K1 and K2 at the serving shape; K2 (both directions), K1's optimizer
-   read and K3a (lookup_meta, and the three-plane meta_scatter it
-   replaced on the path) at the training shape of one resolved batch;
-   K3a's scatter_set and K3b at the JAX benchmark's own shape (CAP 2^21,
-   U 17,664). The previous design of K2's forward (a probe variant) and
-   the three-plane K3a are timed in turns with their successors, back to
-   back and behind a PyTorch kernel as on the path, and the probe's
-   variants of K2's forward say what remains of its time. K2 at bf16 (both
+   K1 and K2 at the serving shape; K2 (both directions), K1's unique-row
+   fetch and optimizer read and K3a (lookup_meta, and the three-plane
+   meta_scatter it replaced on the path) at the training shape of one
+   resolved batch; K3a's scatter_set and K3b at the JAX benchmark's own
+   shape (CAP 2^21, U 17,664). The previous designs of K1 and of K2's
+   forward (probe variants 0) and the three-plane K3a are timed in turns
+   with their successors (old, new, new, old), back to back and behind a
+   PyTorch kernel as on the path, K1 at every shape it is checked at; the
+   K1 -> K2 pair of the serving path is timed with either K1 the same
+   way; and the probe's variants of K1 and of K2's forward (each checked
+   bit-equal where it writes the output) say what remains of their
+   time. K2 at bf16 (both
    directions, at the serving and the training shape) is checked against
    its plain version (both sum in f32 and round once: one bf16 step of the
    value apart at most, beside the f32 order term) and timed beside
@@ -491,6 +495,7 @@ def check_kernels(dev, probe):
         COMBINERS, fused_pooled_lookup, fused_pooled_lookup_plain)
     from deeprec_tpu_torch.ops.gather import gather_rows, gather_rows_plain
     from deeprec_tpu_torch.ops.unique import unique
+    from deeprec_tpu_torch.probes.kernel_probe import k1_k2_pair, k1_turns
 
     g = torch.Generator(device="cpu").manual_seed(SEED)
     # the serving path's shapes: the unique keys of one B=4096 batch
@@ -509,7 +514,11 @@ def check_kernels(dev, probe):
     k1_err = (got - ref).abs().max().item()
     if k1_err != 0:
         fail(f"K1 differs from its plain version by {k1_err}")
-    k1_ms = time_ms(lambda: gather_rows(table, slots, EMB_DIM))
+    # the previous design (probe variant 0) and the port's in turns, and the
+    # probe's variants
+    k1 = k1_turns(probe, table, slots, EMB_DIM, "(serving shape)",
+                  variants=True)
+    k1_ms = k1["new"]
     k1_plain = time_ms(lambda: gather_rows_plain(table, slots, EMB_DIM))
     log(f"K1 gather_rows: kernel {k1_ms:.4f} ms, plain {k1_plain:.4f} ms "
         f"(device); host clock per call: kernel "
@@ -566,6 +575,9 @@ def check_kernels(dev, probe):
     from deeprec_tpu_torch.probes.kernel_probe import k2_forward
     k2_turns = k2_forward(probe, urows, inv, valid,
                           "(serving shape, [26*4096, 1] sum)")
+    # the serving path's order: K1, then K2 on K1's rows
+    pair = k1_k2_pair(probe, table, slots, EMB_DIM, inv, valid,
+                      "(serving shape, [26*4096, 1] sum)")
 
     # K2 on a bf16 table: the same bags over bf16 rows (one row a bag: the
     # rows' bits), and a multi-hot mean summed in f32 and rounded once
@@ -601,7 +613,13 @@ def check_kernels(dev, probe):
     return [
         entry("gather_rows", "deeprec_tpu_torch/csrc/gather_rows.cu",
               "deeprec_tpu/ops/pallas_gather.py:78", k1_err, k1_ms,
-              k1_plain, k1_lib, k1_bytes),
+              k1_plain, k1_lib, k1_bytes, **k1_extra(k1),
+              probe_ms={str(m): t for m, t in k1.items()
+                        if isinstance(m, int)},
+              probe_on_path_ms={str(m): t for m, t in k1["behind"].items()},
+              k1_k2_pair_ms=pair["new"], previous_k1_k2_pair_ms=pair["old"],
+              k1_k2_pair_on_path_ms=pair["new_behind"],
+              previous_k1_k2_pair_on_path_ms=pair["old_behind"]),
         entry("fused_pooled_lookup",
               "deeprec_tpu_torch/csrc/fused_pooled_lookup.cu",
               "deeprec_tpu/ops/pallas_fused_lookup.py:80", k2_err, k2_ms,
@@ -779,7 +797,6 @@ def check_training_kernels(dev, probe):
     from deeprec_tpu_torch.ops.fused_lookup import (
         fused_pooled_lookup, fused_pooled_lookup_backward,
         fused_pooled_lookup_backward_plain, fused_pooled_lookup_plain)
-    from deeprec_tpu_torch.ops.gather import gather_rows, gather_rows_plain
     from deeprec_tpu_torch.ops.meta_scatter import (
         blocked_rmw_set, blocked_rmw_set_plain, meta_scatter,
         meta_scatter_plain, scatter_set)
@@ -890,16 +907,10 @@ def check_training_kernels(dev, probe):
     # K1 at the training shape: the unique-row fetch and the optimizer's
     # read of whole fused rows (value + accumulator)
     table = torch.randn(CAPACITY + 1, 2 * EMB_DIM, generator=g).to(dev)
-    for what, d in (("unique-row fetch", EMB_DIM),
-                    ("optimizer row read", 2 * EMB_DIM)):
-        if not torch.equal(gather_rows(table, r.uslots, d),
-                           gather_rows_plain(table, r.uslots, d)):
-            fail(f"K1 ({what}) differs from its plain version")
-        kt = time_ms(lambda: gather_rows(table, r.uslots, d))
-        pt = time_ms(lambda: gather_rows_plain(table, r.uslots, d))
-        lt = time_ms(lambda: torch.index_select(table[:, :d], 0, r.uslots))
-        log_times(f"K1 gather_rows, training {what} ([{u}] x {d})", kt, pt,
-                  lt, u * 4 + 2 * (n_real + 1) * d * 4)
+    k1_entries = [k1_case(f"(training {what})", table, r.uslots, suffix, d)
+                  for what, suffix, d in (
+                      ("unique-row fetch", "train_fetch", EMB_DIM),
+                      ("optimizer row read", "optim_read", 2 * EMB_DIM))]
 
     # K3a on the path: lookup_or_create's metadata step (--metadata:
     # create steps, versions, freqs, CounterFilter(1)) in one launch,
@@ -1003,7 +1014,7 @@ def check_training_kernels(dev, probe):
               f"; library: torch.index_put out of place; the in-place "
               f"index_put_ (no copy of the plane, another function) "
               f"{k3b_inplace:.4f} ms")
-    return [
+    return k1_entries + [
         entry("fused_pooled_lookup_backward",
               "deeprec_tpu_torch/csrc/fused_pooled_lookup.cu",
               "deeprec_tpu/ops/pallas_fused_lookup.py:80", bwd_err, bwd_ms,
@@ -1882,16 +1893,28 @@ def k2_pair(what, urows, slots, valid, combiner, d_pooled, lib_fwd,
                   counter="fused_pooled_lookup_backward")]
 
 
+def k1_extra(turns):
+    """The entry's keys for K1's turns against the previous design."""
+    return dict(previous_ms=turns["old"], on_path_ms=turns["new_behind"],
+                previous_on_path_ms=turns["old_behind"],
+                turns_ms=turns["turns"],
+                on_path_turns_ms=turns["behind_turns"])
+
+
 def k1_case(what, table, slots, suffix, d=None):
     """K1 at one shape (``d``: the columns read, all by default):
-    bit-equal to its plain version, timed beside ``index_select`` and its
-    bound. Returns its entry."""
+    bit-equal to its plain version, timed in turns with the previous design
+    (back to back and behind a one-element add) and beside
+    ``index_select`` and its bound. Returns its entry."""
     from deeprec_tpu_torch.ops.gather import gather_rows, gather_rows_plain
+    from deeprec_tpu_torch.probes import kernel_probe
     d = d or table.shape[1]
     if not torch.equal(gather_rows(table, slots, d),
                        gather_rows_plain(table, slots, d)):
         fail(f"K1 {what} differs from its plain version")
-    kt = time_ms(lambda: gather_rows(table, slots, d))
+    turns = kernel_probe.k1_turns(kernel_probe.build(), table, slots, d,
+                                  what)
+    kt = turns["new"]
     pt = time_ms(lambda: gather_rows_plain(table, slots, d))
     lt = time_ms(lambda: torch.index_select(table[:, :d], 0, slots))
     # the slots, each distinct row read once, every lane's row written
@@ -1899,10 +1922,12 @@ def k1_case(what, table, slots, suffix, d=None):
     nbytes = (u * slots.element_size()
               + (torch.unique(slots).numel() + u) * d * 4)
     log_times(f"K1 gather_rows {what} ([{u}] x {d})", kt, pt, lt, nbytes,
-              "; library: torch.index_select")
+              f"; library: torch.index_select; on path "
+              f"{turns['new_behind']:.4f} ms; the previous design "
+              f"{turns['old']:.4f} ms, on path {turns['old_behind']:.4f} ms")
     return entry(f"gather_rows_{suffix}", "deeprec_tpu_torch/csrc/"
                  "gather_rows.cu", "deeprec_tpu/ops/pallas_gather.py:78", 0.0,
-                 kt, pt, lt, nbytes, counter="gather_rows")
+                 kt, pt, lt, nbytes, counter="gather_rows", **k1_extra(turns))
 
 
 def k3a_case(what, suffix, uslots, counts, readonly, dest, cap, ff,

@@ -4,7 +4,9 @@
 :d_out]``. It replaces the Pallas TPU kernel
 ``deeprec_tpu/ops/pallas_gather.py`` ``gather_rows``. On a CUDA tensor it
 launches the hand-written kernel ``csrc/gather_rows.cu`` (bound by HBM
-bytes: rows read + rows written); on a CPU tensor it runs
+bytes at large row counts, by the launch and one round trip of the slot
+and row loads at small ones; several rows in flight a thread, one wave
+of blocks, a programmatic dependent launch); on a CPU tensor it runs
 :func:`gather_rows_plain`, the plain PyTorch version the tests and the
 card smoke compare the kernel with. ``values`` may be a view with a row
 stride wider than ``d_out`` (the serving table keeps fused optimizer
@@ -58,6 +60,8 @@ def gather_rows(values: torch.Tensor, slots: torch.Tensor,
     slots = slots.contiguous()
     n = slots.shape[0]
     out = torch.empty((n, d_out), dtype=values.dtype, device=values.device)
+    if n == 0:  # no rows: nothing to launch
+        return out
     es = values.element_size()
     row_bytes, ld_bytes = d_out * es, values.stride(0) * es
     unit = _unit(row_bytes, ld_bytes, values.data_ptr(), out.data_ptr())

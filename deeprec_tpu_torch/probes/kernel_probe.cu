@@ -1,4 +1,4 @@
-// Design probes for K2 (both directions) and K3b on the card: variants of
+// Design probes for K1, K2 (both directions) and K3b on the card: variants of
 // each kernel that keep or drop one part of its work, timed by
 // kernel_probe.py beside the port's own kernels. Not part of the port's
 // library (ops/_build.py builds csrc/ only); kernel_probe.py builds this
@@ -53,6 +53,24 @@
 //   2 copy on one block per SM, striding, then the dependent scatter
 //   3 one cooperative launch: copy, grid barrier, scatter
 //   4 the copy alone
+//
+// K1 variants (16- or 4-byte units, int32 or int64 slots), selected by
+// probe_k1's mode; the port's design is csrc/gather_rows.cu, included
+// below:
+//   0 the previous design: one vector unit a thread behind its own slot
+//     load, a grid of n * lanes / 256 blocks, an ordinary launch
+//   1 an empty kernel on the port's grid, as a dependent (the launch floor)
+//   2 slot loads only: the port's tiles, slots loaded, clamped, shuffled
+//   3 the port's design as an ordinary launch (no programmatic dependency)
+//   4 bulk asynchronous copies (16-byte units only): each row one
+//     cp.async.bulk global->shared completed on an mbarrier, then the
+//     block's contiguous tile of 128 rows one cp.async.bulk shared->global;
+//     one wave of resident blocks striding over the tiles, as a dependent
+//   5-8 the port's design at 1, 2, 4 or 8 rows a thread (its grid rule,
+//     one wave at most, for that row count; the port takes 1, 2 or 4)
+// Variants 1 and 2 write no output: they are timed, not checked.
+#include "../csrc/gather_rows.cu"
+
 #include <cooperative_groups.h>
 #include <cub/block/block_radix_sort.cuh>
 #include <cuda_runtime.h>
@@ -480,7 +498,223 @@ cudaError_t probe_k2f_typed(int mode, const float4* values, int64_t ld,
                             valid, n, out);
 }
 
+// K1
+template <typename U, typename I>
+__global__ void k1_old(const U* __restrict__ values, int64_t ld_units,
+                       int64_t n_rows, const I* __restrict__ slots, int64_t n,
+                       int64_t row_units, U* __restrict__ out, int lanes) {
+  int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  int64_t i = t / lanes;
+  if (i >= n) return;
+  int lane = (int)(t - i * lanes);
+  int64_t s = (int64_t)slots[i];
+  s = s < 0 ? 0 : (s >= n_rows ? n_rows - 1 : s);
+  const U* src = values + s * ld_units;
+  U* dst = out + i * row_units;
+  for (int64_t c = lane; c < row_units; c += lanes) dst[c] = __ldg(src + c);
+}
+
+// variant 1 (kSlots false) and 2 (kSlots true), on the port's parameters
+template <typename U, typename I, int kRows, bool kSlots>
+__global__ void __launch_bounds__(k1::kThreads) k1_part(
+    const U* __restrict__ values, int64_t ld, int64_t n_rows,
+    const I* __restrict__ slots, int64_t n, int row_units,
+    U* __restrict__ out, int lanes_log2) {
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
+  if (!kSlots) {
+    if (out == nullptr) out[0] = values[0];
+    return;
+  }
+  const int lane = threadIdx.x & 31;
+  const int sub = lane >> lanes_log2;
+  const int g_log2 = 5 - lanes_log2;
+  int tile_log2 = g_log2;
+  for (int r = kRows; r > 1; r >>= 1) ++tile_log2;
+  const int64_t step = ((int64_t)gridDim.x * k1::kWarps) << tile_log2;
+  int64_t acc = 0;
+  for (int64_t t0 = ((int64_t)blockIdx.x * k1::kWarps + (threadIdx.x >> 5))
+                    << tile_log2;
+       t0 < n; t0 += step) {
+    const int left = n - t0 < (1 << tile_log2) ? (int)(n - t0)
+                                               : 1 << tile_log2;
+    I s[kRows];
+#pragma unroll
+    for (int k = 0; k < kRows; ++k) {
+      const int j = (k << 5) + lane;
+      s[k] = j < left ? (I)k1::clamp_slot(slots[t0 + j], n_rows) : (I)0;
+    }
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      const int k = (r << g_log2) >> 5;
+      I v = s[0];
+#pragma unroll
+      for (int q = 1; q < kRows; ++q) v = q == k ? s[q] : v;
+      acc += __shfl_sync(kFull, v, (((r << g_log2) + sub) & 31));
+    }
+  }
+  if (acc == n_rows * 1000003 + 7) out[0] = values[0];  // keep them live
+}
+
+constexpr int kBulkRows = 128;  // rows of a block tile
+
+template <typename I>
+__global__ void __launch_bounds__(kBulkRows) k1_bulk(
+    const char* __restrict__ values, int64_t ld_bytes, int64_t n_rows,
+    const I* __restrict__ slots, int64_t n, int row_bytes,
+    char* __restrict__ out) {
+  extern __shared__ __align__(128) char tile[];  // kBulkRows * row_bytes
+  __shared__ __align__(8) uint64_t bar;
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+  const unsigned bar_s = (unsigned)__cvta_generic_to_shared(&bar);
+  const unsigned tile_s = (unsigned)__cvta_generic_to_shared(tile);
+  if (threadIdx.x == 0) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(bar_s)
+                 : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  unsigned phase = 0;
+  bool first = true;
+  for (int64_t t0 = (int64_t)blockIdx.x * kBulkRows; t0 < n;
+       t0 += (int64_t)gridDim.x * kBulkRows) {
+    const int rows = n - t0 < kBulkRows ? (int)(n - t0) : kBulkRows;
+    if (threadIdx.x == 0) {
+      // the previous tile's store has read the buffer
+      asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+      asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+                   ::"r"(bar_s), "r"(rows * row_bytes)
+                   : "memory");
+    }
+    __syncthreads();
+    if ((int)threadIdx.x < rows) {
+      const int64_t s = k1::clamp_slot(slots[t0 + threadIdx.x], n_rows);
+      asm volatile(
+          "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+          " [%0], [%1], %2, [%3];" ::"r"(tile_s + threadIdx.x * row_bytes),
+          "l"(values + s * ld_bytes), "r"(row_bytes), "r"(bar_s)
+          : "memory");
+    }
+    if (first) asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
+    first = false;
+    asm volatile(
+        "{\n .reg .pred p;\n WAIT:\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+        " @!p bra WAIT;\n}" ::"r"(bar_s),
+        "r"(phase)
+        : "memory");
+    phase ^= 1u;
+    if (threadIdx.x == 0) {
+      asm volatile(
+          "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;" ::"l"(
+              out + t0 * row_bytes),
+          "r"(tile_s), "r"(rows * row_bytes)
+          : "memory");
+      asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+    }
+  }
+  if (threadIdx.x == 0)
+    asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
+}
+
+template <typename I>
+cudaError_t k1_bulk_launch(const void* values, int64_t ld_bytes,
+                           int64_t n_rows, const I* slots, int64_t n,
+                           int64_t row_bytes, void* out, cudaStream_t st) {
+  if (row_bytes % 16 || ld_bytes % 16 || row_bytes > 256)  // 32 KB a tile
+    return cudaErrorInvalidValue;
+  const int smem = kBulkRows * (int)row_bytes;
+  int per_sm = 0;
+  cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, k1_bulk<I>, kBulkRows, smem);
+  if (e != cudaSuccess) return e;
+  const int64_t tiles = (n + kBulkRows - 1) / kBulkRows;
+  const int64_t wave = (int64_t)k1::card().sms * per_sm;
+  return launch(true, k1_bulk<I>, (int)(tiles < wave ? tiles : wave),
+                kBulkRows, smem, st, (const char*)values, ld_bytes, n_rows,
+                slots, n, (int)row_bytes, (char*)out);
+}
+
+template <typename U, typename I, int kRows>
+cudaError_t k1_rows(int mode, const k1::Plan& p, const U* values, int64_t ld,
+                    int64_t n_rows, const I* slots, int64_t n, int row_units,
+                    U* out, cudaStream_t st) {
+  const auto kernel = mode == 1   ? k1_part<U, I, kRows, false>
+                      : mode == 2 ? k1_part<U, I, kRows, true>
+                                  : k1::gather_rows_kernel<U, I, kRows>;
+  return launch(mode != 3, kernel, (int)p.blocks, k1::kThreads, 0, st, values,
+                ld, n_rows, slots, n, row_units, out, p.lanes_log2);
+}
+
+template <typename U, typename I>
+cudaError_t k1_variant(int mode, const void* values, int64_t ld_bytes,
+                       int64_t n_rows, const void* slots, int64_t n,
+                       int64_t row_bytes, void* out, cudaStream_t st) {
+  const int64_t row_units = row_bytes / (int64_t)sizeof(U);
+  const int64_t ld = ld_bytes / (int64_t)sizeof(U);
+  const U* v = (const U*)values;
+  const I* s = (const I*)slots;
+  U* o = (U*)out;
+  if (mode == 0) {
+    int lanes = 1;
+    while (lanes < 32 && lanes < row_units) lanes <<= 1;
+    const int64_t blocks = (n * lanes + 255) / 256;
+    k1_old<U, I><<<(unsigned)blocks, 256, 0, st>>>(v, ld, n_rows, s, n,
+                                                   row_units, o, lanes);
+    return cudaGetLastError();
+  }
+  if (mode == 4)
+    return k1_bulk_launch<I>(values, ld_bytes, n_rows, s, n, row_bytes, out,
+                             st);
+  if (mode < 1 || mode > 8) return cudaErrorInvalidValue;
+  k1::Plan p = k1::plan_for<U, I>(n, row_units);
+  const int g_log2 = 5 - p.lanes_log2;
+  if (mode >= 5) p.rows = 1 << (mode - 5);
+  if (mode == 5) p.blocks = k1::grid_blocks<U, I, 1>(n, g_log2);
+  if (mode == 6) p.blocks = k1::grid_blocks<U, I, 2>(n, g_log2);
+  if (mode == 7) p.blocks = k1::grid_blocks<U, I, 4>(n, g_log2);
+  if (mode == 8) p.blocks = k1::grid_blocks<U, I, 8>(n, g_log2);
+  const int m = mode >= 5 ? 0 : mode;
+  const int ru = (int)row_units;
+  switch (p.rows) {
+    case 1: return k1_rows<U, I, 1>(m, p, v, ld, n_rows, s, n, ru, o, st);
+    case 2: return k1_rows<U, I, 2>(m, p, v, ld, n_rows, s, n, ru, o, st);
+    case 4: return k1_rows<U, I, 4>(m, p, v, ld, n_rows, s, n, ru, o, st);
+    default: return k1_rows<U, I, 8>(m, p, v, ld, n_rows, s, n, ru, o, st);
+  }
+}
+
+template <typename U>
+cudaError_t k1_unit(int mode, const void* values, int64_t ld_bytes,
+                    int64_t n_rows, const void* slots, int slots_are_64,
+                    int64_t n, int64_t row_bytes, void* out, cudaStream_t st) {
+  return slots_are_64 ? k1_variant<U, int64_t>(mode, values, ld_bytes, n_rows,
+                                               slots, n, row_bytes, out, st)
+                      : k1_variant<U, int32_t>(mode, values, ld_bytes, n_rows,
+                                               slots, n, row_bytes, out, st);
+}
+
 }  // namespace
+
+// deeprec_gather_rows's arguments after the mode (unit: the vector unit in
+// bytes, as the wrapper picks it: 16 or 4 at the shapes probed; variant 4
+// needs 16).
+extern "C" int probe_k1(int mode, const void* values, int64_t ld_bytes,
+                        int64_t n_rows, const void* slots, int slots_are_64,
+                        int64_t n, int64_t row_bytes, void* out, int unit,
+                        void* stream) {
+  if (n == 0) return 0;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (mode == 4 && unit != 16) return (int)cudaErrorInvalidValue;
+  switch (unit) {
+    case 16: return (int)k1_unit<uint4>(mode, values, ld_bytes, n_rows, slots,
+                                        slots_are_64, n, row_bytes, out, st);
+    case 4: return (int)k1_unit<uint32_t>(mode, values, ld_bytes, n_rows,
+                                          slots, slots_are_64, n, row_bytes,
+                                          out, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
 
 // dp [n, 16] f32, slots int32 [n], valid bool [n], out [n_rows, 16] f32.
 extern "C" int probe_k2(int mode, const void* dp, const void* slots,

@@ -1,26 +1,30 @@
-"""Design probes for K2 (both directions) and K3b on a CUDA card.
+"""Design probes for K1, K2 (both directions) and K3b on a CUDA card.
 
 Times the variants of ``kernel_probe.cu`` (each keeps or drops one part
 of the kernel's work; the source lists them) beside the port's own
-kernels and a PyTorch call computing the same function, at the training
-shape of one resolved B=4096 Criteo batch (106,496 ids into ~17,750
-lanes, D 16) and at K3b's benchmark shape (CAP 2^21, U 17,664). The
-previous design of K2's forward is its variant 0: :func:`k2_forward`
-times it and the port's forward in turns (old, new, new, old), back to
-back and behind a PyTorch kernel (:func:`behind_ms`), which
-``chip_smoke.py`` also does at the serving shape. Run from the root of a
-checkout on a machine with one card:
+kernels and a PyTorch call computing the same function: K1 at the
+serving, DIN, device-index and DHT shapes (:func:`k1_turns`, and the
+K1 -> K2 pair of the serving path, :func:`k1_k2_pair`), K2 and K3b at the
+training shape of one resolved B=4096 Criteo batch (106,496 ids into
+~17,750 lanes, D 16) and at K3b's benchmark shape (CAP 2^21, U 17,664).
+The previous design of K1 and of K2's forward is each one's variant 0:
+:func:`k1_turns` and :func:`k2_forward` time it and the port's kernel in
+turns (old, new, new, old), back to back and behind a PyTorch kernel
+(:func:`behind_ms`), which ``chip_smoke.py`` also does at its shapes.
+Run from the root of a checkout on a machine with one card:
 
     python -m deeprec_tpu_torch.probes.kernel_probe
 
-It builds ``kernel_probe.cu`` with nvcc into the git-ignored build
-directory, prints one line per variant (device ms per call: the median
-of 21 CUDA-event samples of 20 back-to-back calls behind a sleep kernel,
-L2 warm) and the card's name and power limit.
+It builds ``kernel_probe.cu`` (which includes ``csrc/gather_rows.cu``)
+with nvcc into the git-ignored build directory, prints one line per
+variant (device ms per call: the median of 21 CUDA-event samples of 20
+back-to-back calls behind a sleep kernel, L2 warm) and the card's name
+and power limit.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import statistics
 import subprocess
@@ -62,6 +66,29 @@ K2F_VARIANTS = {
     13: "the port's design as a programmatic dependent, 128 threads",
     14: "the port's design as a programmatic dependent, 512 threads",
 }
+K1_VARIANTS = {
+    0: "the previous design (a unit a thread behind its slot load, "
+       "n*lanes/256 blocks, ordinary launch)",
+    1: "empty kernel on the port's grid, dependent (launch floor)",
+    2: "slot loads only (the port's tiles and grid)",
+    3: "the port's design as an ordinary launch",
+    4: "bulk asynchronous copies (cp.async.bulk, mbarrier), dependent",
+    5: "the port's design, 1 row a thread",
+    6: "the port's design, 2 rows a thread",
+    7: "the port's design, 4 rows a thread",
+    8: "the port's design, 8 rows a thread",
+}
+K1_CHECKED = (0, 3, 4, 5, 6, 7, 8)  # the variants that write the output
+# (what, n slots, table rows addressed, d, slot dtype), as chip_smoke.py
+# checks them
+K1_SHAPES = [
+    ("serving", 106_496, CAPACITY, EMB_DIM, torch.int64),
+    ("DIN", 205_825, 1 << 19, EMB_DIM, torch.int64),
+    ("device index", 26_625, CAPACITY, EMB_DIM, torch.int64),
+    ("optimizer read", 17_750, CAPACITY, 2 * EMB_DIM, torch.int32),
+    ("DHT", 5_195, 1 << 19, EMB_DIM, torch.int64),
+    ("D 1", 26_625, CAPACITY, 1, torch.int32),
+]
 K3B_VARIANTS = {
     0: "copy on one-pass blocks (128) + dependent scatter (the port's design)",
     1: "copy + scatter, ordinary launches",
@@ -89,23 +116,28 @@ def time_ms(fn, samples=21, per_sample=20, warmup=5):
     return statistics.median(times)
 
 
-def behind_ms(fn):
+def behind_ms(fn, samples=21, alone=None):
     """Device ms per call of ``fn`` behind a one-element PyTorch add, as on
     the training path, where a PyTorch kernel (which never lets a
     programmatic dependent start early) precedes each kernel: the time of
-    the pair less the add's own. Back to back, a kernel launched as a
-    programmatic dependent also overlaps its own previous call."""
+    the pair less the add's own (``alone``, when the caller has it).
+    Back to back, a kernel launched as a programmatic dependent also
+    overlaps its own previous call."""
     tiny = torch.zeros(1, device="cuda")
-    alone = time_ms(lambda: tiny.add_(1))
+    if alone is None:
+        alone = time_ms(lambda: tiny.add_(1), samples)
 
     def pair():
         tiny.add_(1)
         fn()
-    return time_ms(pair) - alone
+    return time_ms(pair, samples) - alone
 
 
+@functools.cache
 def build() -> ctypes.CDLL:
-    src = SOURCE.read_bytes()
+    """The probe library (built once a process)."""
+    src = b"".join(f.read_bytes() for f in (
+        SOURCE, _build.CSRC / "gather_rows.cu", _build.CSRC / "launch.cuh"))
     digest = hashlib.sha256(src).hexdigest()[:16]
     path = _build.BUILD / f"kernel_probe_{digest}.so"
     if not path.exists():
@@ -117,7 +149,120 @@ def build() -> ctypes.CDLL:
     lib.probe_k2.argtypes = [i, p, p, p, i64, p, i64, p]
     lib.probe_k3b.argtypes = [i, p, p, p, i64, i64, p, p]
     lib.probe_k2f.argtypes = [i, p, i64, i64, p, i, p, i64, p, p]
+    lib.probe_k1.argtypes = [i, p, i64, i64, p, i, i64, i64, p, i, p]
     return lib
+
+
+def k1_runner(lib, values, slots, d, out):
+    """(run(mode), unit): launches K1 probe variant ``mode`` on the
+    arguments the port's wrapper would pass, writing ``out``."""
+    from ..ops.gather import _unit
+    es = values.element_size()
+    row_bytes, ld_bytes = d * es, values.stride(0) * es
+    unit = _unit(row_bytes, ld_bytes, values.data_ptr(), out.data_ptr())
+    args = (values.data_ptr(), ld_bytes, values.shape[0], slots.data_ptr(),
+            int(slots.dtype == torch.int64), slots.shape[0], row_bytes,
+            out.data_ptr(), unit)
+
+    def run(mode):
+        err = lib.probe_k1(mode, *args,
+                           torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"probe_k1 mode {mode}: CUDA error {err}")
+    return run, unit
+
+
+def _bits(t):
+    return t.contiguous().view(torch.uint8)
+
+
+def k1_turns(lib, values, slots, d, what, variants=False, samples=11):
+    """K1 at one shape: each complete probe variant (the previous design,
+    and with ``variants`` the others) checked bit-equal to the plain
+    version, then the previous design (variant 0) and the port's kernel in
+    turns (old, new, new, old), back to back and behind a one-element add;
+    with ``variants`` each variant timed too. Returns :func:`in_turns`'s
+    dict with ``mode: ms`` and ``"behind": {mode: ms}`` added."""
+    from ..ops.gather import gather_rows, gather_rows_plain
+    ref = gather_rows_plain(values, slots, d)
+    out = torch.empty_like(ref)
+    run, unit = k1_runner(lib, values, slots, d, out)
+    modes = [m for m in (K1_CHECKED if variants else (0,))
+             if m != 4 or unit == 16]
+    for mode in modes:
+        _bits(out).fill_(0xFF)  # f32 NaN: a unit left unwritten shows
+        run(mode)
+        torch.cuda.synchronize()
+        if not torch.equal(_bits(out), _bits(ref)):
+            raise SystemExit(f"kernel_probe: K1 variant {mode} is wrong "
+                             f"{what}")
+
+    res = in_turns(lambda: run(0), lambda: gather_rows(values, slots, d),
+                   f"K1 {what}", "old = the previous design", samples)
+    res["behind"] = {}
+    if variants:
+        for mode, label in K1_VARIANTS.items():
+            if mode == 4 and unit != 16:
+                continue
+            res[mode] = time_ms(lambda: run(mode), samples)
+            if mode in (3, 4, 5, 6, 7, 8):
+                res["behind"][mode] = behind_ms(lambda: run(mode), samples,
+                                                res["alone"])
+            on = res["behind"].get(mode)
+            print(f"  K1 {what} variant {mode} {label}: {res[mode]:.4f} ms"
+                  + ("" if on is None else f"; behind the add {on:.4f} ms"),
+                  flush=True)
+    return res
+
+
+def k1_k2_pair(lib, values, slots, d, inv, valid, what, samples=11):
+    """K1 then K2's forward on K1's rows (``[n, 1]`` one-id bags, sum), as
+    the serving and host-index training paths run them: with the previous K1
+    (probe variant 0) and with the port's, in turns (old, new, new, old),
+    back to back and behind a one-element add. Both pairs are checked
+    bit-equal to the plain versions first. Returns :func:`in_turns`'s
+    dict."""
+    from ..ops.fused_lookup import (fused_pooled_lookup,
+                                    fused_pooled_lookup_plain)
+    from ..ops.gather import gather_rows, gather_rows_plain
+    rows = torch.empty(slots.shape[0], d, dtype=values.dtype,
+                       device=values.device)
+    run, _ = k1_runner(lib, values, slots, d, rows)
+    ref = fused_pooled_lookup_plain(gather_rows_plain(values, slots, d), inv,
+                                    valid, "sum")
+
+    def old():
+        run(0)
+        return fused_pooled_lookup(rows, inv, valid, "sum")
+
+    def new():
+        return fused_pooled_lookup(gather_rows(values, slots, d), inv, valid,
+                                   "sum")
+    for name, fn in (("old", old), ("new", new)):
+        if not torch.equal(_bits(fn()), _bits(ref)):
+            raise SystemExit(f"kernel_probe: the {name} K1 -> K2 pair is "
+                             f"wrong {what}")
+    return in_turns(old, new, f"K1 -> K2 pair {what}", "old K1", samples)
+
+
+def in_turns(old, new, what, old_name, samples):
+    """``old`` and ``new`` timed in turns (old, new, new, old), back to
+    back and behind a one-element add; prints them. Returns ``{"old",
+    "new", "old_behind", "new_behind": ms (the mean of two turns),
+    "turns", "behind_turns": [4 ms], "alone": the add's own ms}``."""
+    tiny = torch.zeros(1, device="cuda")
+    alone = time_ms(lambda: tiny.add_(1), samples)
+    turns = [time_ms(f, samples) for f in (old, new, new, old)]
+    behind = [behind_ms(f, samples, alone) for f in (old, new, new, old)]
+    print(f"  {what}: turns ({old_name}, new, new, old) "
+          + ", ".join(f"{t:.4f}" for t in turns) + " ms back to back; "
+          + ", ".join(f"{t:.4f}" for t in behind)
+          + " ms behind a one-element add", flush=True)
+    return {"old": (turns[0] + turns[3]) / 2,
+            "new": (turns[1] + turns[2]) / 2,
+            "old_behind": (behind[0] + behind[3]) / 2,
+            "new_behind": (behind[1] + behind[2]) / 2,
+            "turns": turns, "behind_turns": behind, "alone": alone}
 
 
 def training_batch(dev):
@@ -222,6 +367,22 @@ def timed(port, variants, run, what):
           f"{time_ms(port):.4f} ms after", flush=True)
 
 
+def k1_shapes(lib, dev, g):
+    """K1's turns and variants at :data:`K1_SHAPES`: uniform random slots
+    into a 32-wide table (the fused value + accumulator rows), the first d
+    columns read; the K1 -> K2 pair at the serving shape."""
+    table = torch.randn(CAPACITY + 1, 2 * EMB_DIM, generator=g).to(dev)
+    for what, n, rows, d, idx in K1_SHAPES:
+        slots = torch.randint(0, rows, (n,), generator=g).to(idx).to(dev)
+        k1_turns(lib, table, slots, d, f"({what}, [{n}] x {d} of {rows} "
+                 f"rows)", variants=True, samples=21)
+        if what == "serving":
+            inv = torch.randint(0, n, (26 * B, 1), generator=g).to(dev)
+            valid = (torch.rand(26 * B, 1, generator=g) < 0.97).to(dev)
+            k1_k2_pair(lib, table, slots, d, inv, valid,
+                       "(serving shape, [26*4096, 1] sum)", samples=21)
+
+
 def main():
     from ..ops.fused_lookup import (fused_pooled_lookup_backward,
                                     fused_pooled_lookup_backward_plain)
@@ -236,9 +397,11 @@ def main():
     lib = build()
     stream = torch.cuda.current_stream().cuda_stream
 
+    g = torch.Generator().manual_seed(1)
+    k1_shapes(lib, dev, g)
+
     inv, valid, u = training_batch(dev)
     n = inv.shape[0]
-    g = torch.Generator().manual_seed(1)
     urows = torch.randn(u, EMB_DIM, generator=g).to(dev)
     k2_forward(lib, urows, inv, valid, f"(training shape, [{n}, 1] into "
                f"{u} rows)")

@@ -36,24 +36,118 @@ def _gen():
     return torch.Generator().manual_seed(0)
 
 
-@pytest.mark.parametrize("rows,cols,d_out,dtype,idx", [
-    (4097, 32, 16, torch.float32, torch.int64),   # fused-width table
-    (1000, 16, 16, torch.float32, torch.int32),
-    (333, 7, 5, torch.float32, torch.int64),      # unaligned: scalar loads
-    (512, 128, 128, torch.float32, torch.int32),
-    (300, 24, 24, torch.bfloat16, torch.int64),
-])
-def test_gather_rows_kernel_matches_plain(cuda, rows, cols, d_out, dtype,
-                                          idx):
+_F32, _I32, _I64 = torch.float32, torch.int32, torch.int64
+# name: (rows, cols, d_out, dtype, slot dtype, n, slots); slots "mixed":
+# uniform over [-3, rows + 3), "out": every one below 0 or past the end,
+# "view": mixed, the table passed as the strided view values[:, :d_out].
+# The vector unit is the widest of 16, 8, 4, 2, 1 bytes dividing the row,
+# the row stride and the base addresses; a row is row bytes / unit units.
+_K1_CASES = {
+    "fused_width": (4097, 32, 16, _F32, _I64, 2000, "mixed"),
+    "d16": (1000, 16, 16, _F32, _I32, 2000, "mixed"),
+    "unaligned": (333, 7, 5, _F32, _I64, 2000, "mixed"),  # unit 4
+    "d128": (512, 128, 128, _F32, _I32, 2000, "mixed"),
+    "bf16": (300, 24, 24, torch.bfloat16, _I64, 2000, "mixed"),
+    "n0": (1000, 16, 16, _F32, _I64, 0, "mixed"),
+    "n1": (1000, 16, 16, _F32, _I32, 1, "mixed"),
+    "n_ragged": (1000, 16, 16, _F32, _I64, 1573, "mixed"),  # odd n
+    "grid_stride": (1 << 16, 16, 16, _F32, _I32, (1 << 20) + 7, "mixed"),
+    "unit1": (1000, 7, 7, torch.uint8, _I64, 2000, "mixed"),
+    "unit2": (1000, 3, 3, torch.int16, _I32, 2000, "mixed"),
+    "unit8_3_units": (1000, 6, 6, _F32, _I64, 2000, "mixed"),
+    "unit16_3_units": (1000, 12, 12, _F32, _I32, 2000, "mixed"),
+    "unit16_5_units": (1000, 20, 20, _F32, _I64, 2000, "mixed"),
+    "unit16_33_units": (1000, 132, 132, _F32, _I32, 2000, "mixed"),
+    "strided_view": (1000, 40, 24, _F32, _I64, 2000, "view"),
+    "out_of_range_int32": (500, 16, 16, _F32, _I32, 2000, "out"),
+    "out_of_range_int64": (500, 32, 16, _F32, _I64, 2000, "out"),
+    "one_row_table": (1, 16, 16, _F32, _I64, 2000, "mixed"),
+}
+
+
+@pytest.mark.parametrize("case", list(_K1_CASES))
+def test_gather_rows_kernel_matches_plain(cuda, case):
+    rows, cols, d_out, dtype, idx, n, kind = _K1_CASES[case]
     g = _gen()
-    values = torch.randn(rows, cols, generator=g).to(dtype)
-    slots = torch.randint(-3, rows + 3, (2000,), generator=g).to(idx)
+    values = (torch.randn(rows, cols, generator=g) * 50).to(dtype)
+    if kind == "out":
+        far = torch.randint(1, 1 << 30, (n,), generator=g)
+        slots = torch.where(torch.arange(n) % 2 == 0, -far, rows - 1 + far)
+    else:
+        slots = torch.randint(-3, rows + 3, (n,), generator=g)
+    slots = slots.to(idx)
     ref = gather_rows_plain(values, slots, d_out)
+    table = values.to(cuda)
     before = gather_rows.launches
-    got = gather_rows(values.to(cuda), slots.to(cuda), d_out)
+    if kind == "view":
+        got = gather_rows(table[:, :d_out], slots.to(cuda))
+    else:
+        got = gather_rows(table, slots.to(cuda), d_out)
     torch.cuda.synchronize()
-    assert gather_rows.launches == before + 1
+    assert gather_rows.launches == before + (n > 0)
+    assert got.shape == (n, d_out) and got.dtype == dtype
     assert torch.equal(got.cpu(), ref)  # a copy: exact
+
+
+def test_gather_rows_kernel_past_2_31_bytes(cuda):
+    """A [2^25 + 16, 16] f32 table (2 GiB + 1 KiB): rows past 2^31 bytes
+    need the 64-bit row offset."""
+    rows = (1 << 25) + 16
+    values = torch.arange(rows * 16, dtype=torch.int32,
+                          device=cuda).view(rows, 16).view(torch.float32)
+    g = _gen()
+    slots = torch.cat([
+        torch.randint(rows - 64, rows + 8, (3000,), generator=g),
+        torch.randint(0, rows, (1000,), generator=g)])
+    slots = slots.to(cuda)
+    got = gather_rows(values, slots)
+    ref = gather_rows_plain(values, slots, 16)
+    assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
+    assert int(got.view(torch.int32)[:, 0].max()) >= (1 << 31) // 4
+
+
+def test_gather_rows_sees_writes_queued_before_it(cuda):
+    """K1 is a programmatic dependent: its blocks may be scheduled while
+    the work before it runs, so it must wait before it reads. A PyTorch
+    in-place write to values (a 256 MB pass), then one to slots, queued
+    right before it: it reads what they wrote."""
+    rows = 1 << 22
+    values = torch.arange(rows * 16, dtype=torch.float32,
+                          device=cuda).view(rows, 16)
+    g = _gen()
+    slots = torch.randint(0, rows, (1 << 22,), generator=g).to(cuda)
+    fresh = torch.randint(0, rows, (1 << 22,), generator=g).to(cuda)
+    torch.cuda.synchronize()
+    for i in range(3):
+        values.mul_(-1.5)  # right before K1
+        got_v = gather_rows(values, slots)
+        # plain reads queued after K1 see the state K1 should have seen
+        ref_v = gather_rows_plain(values, slots, 16)
+        slots.copy_(fresh if i % 2 == 0 else fresh.flip(0))  # right before
+        got_s = gather_rows(values, slots)
+        ref_s = gather_rows_plain(values, slots, 16)
+        torch.cuda.synchronize()
+        assert torch.equal(got_v, ref_v)
+        assert torch.equal(got_s, ref_s)
+
+
+def test_k2_reads_the_rows_of_the_k1_before_it(cuda):
+    """K2's forward launched right after K1 on K1's output, as the serving
+    and host-index training paths run them: K1 lets K2's blocks be
+    scheduled during its tail, and K2 must still read K1's rows."""
+    g = _gen()
+    table = torch.randn((1 << 20) + 1, 32, generator=g).to(cuda)
+    inv = torch.randint(0, 106_496, (26 * 4096, 1), generator=g).to(cuda)
+    valid = (torch.rand(26 * 4096, 1, generator=g) < 0.97).to(cuda)
+    for _ in range(3):
+        slots = torch.randint(-2, (1 << 20) + 3, (106_496,),
+                              generator=g).to(cuda)
+        got = fused_pooled_lookup(gather_rows(table, slots, 16), inv, valid,
+                                  "sum")
+        torch.cuda.synchronize()
+        ref = fused_pooled_lookup_plain(gather_rows_plain(table, slots, 16),
+                                        inv, valid, "sum")
+        assert torch.equal(got, ref)  # one row a bag: the row's bits
 
 
 @pytest.mark.parametrize("combiner", ["sum", "mean", "sqrtn"])
