@@ -39,14 +39,23 @@ comparison compute in full f32. Phases (any failure exits non-zero):
    directions, at the serving and the training shape) is checked against
    its plain version (both sum in f32 and round once: one bf16 step of the
    value apart at most, beside the f32 order term) and timed beside
-   embedding_bag / index_add_ at bf16, its bound at 2 bytes a value;
+   embedding_bag / index_add_ at bf16, its bound at 2 bytes a value. K4
+   and K5, the hash index's lookup and lookup_or_insert, are held
+   bit-equal to their plain versions (hashtable.lookup_plain,
+   lookup_or_insert_plain) on the same card tensors and timed back to back
+   and behind a one-element add beside them and their bound (no PyTorch
+   call computes either): K5 at the device-index shape (26,625 lanes into
+   2^21 slots, first step and steady), at growth's rebuild (2^16 -> 2^17),
+   at the variants' flat dedup and at the mesh4 owner's lanes, K4 at the
+   serving dedup and at the mesh4 owner's 53,248 read-only lanes;
 3. writes a full-width DLRM serving checkpoint (13 dense + 26 categorical
    columns, emb dim 16, fused adagrad columns, a 2^21-slot table holding the
    keys of 20 synthetic Criteo batches; weights and rows from seed 0);
 4. serves 5 held-out B=4096 batches with Predictor(device="cuda") and with
    Predictor(device="cpu") (the plain versions) and holds the card's
    probabilities to the CPU's; the kernels' launch counts over this run
-   must be above 0; prints the p50 predict latency;
+   (K1, K2, K4) must be above 0; prints the p50 predict latency; no host
+   sync of one predict may come from the hash table's modules;
 5. serves HTTP over the card's predictor (predict, healthz, a dynamically
    batched pair), writes an incremental save, /refresh-es and checks the
    changed predictions against a CPU predictor refreshed the same way;
@@ -168,9 +177,10 @@ comparison compute in full f32. Phases (any failure exits non-zero):
    seed=7): DEVICE_STEPS steps in lockstep with a CPU trainer (key
    planes bit-equal every step; metadata planes bit-equal, losses, rows
    and parameters within LOSS_ATOL and ROW_ATOL), 3 timed runs of 10
-   staged steps, a torch.profiler breakdown and the host syncs of 3 steps
-   (torch's sync debug mode, by source line); K1, K2, K2's backward and
-   K3a must have launched. Then the card's full save (save-time eviction)
+   staged steps, an eval step, a torch.profiler breakdown and the host
+   syncs of 3 steps (torch's sync debug mode, by source line; none may
+   come from the hash table's modules); K1, K2, K2's backward, K3a, K4
+   and K5 must have launched. Then the card's full save (save-time eviction)
    and an incremental save served by card and CPU Predictors within
    PROB_ATOL, before and after refresh(); growth from 2^16 rows
    (maybe_grow after each step: the same capacities and key planes card
@@ -198,7 +208,9 @@ comparison compute in full f32. Phases (any failure exits non-zero):
    arrays) and an eval step on both (AUC and loss within EVAL_ATOL);
    multi-hash mult and
    concat 3 lockstep steps each. K1, K2 and K2's backward launch on every
-   run, K3a on adaptive and dynamic dimension. Phase 2 also holds K1 at
+   run, K3a on adaptive and dynamic dimension, K5 and K4 on the tables
+   with an index; no host sync of a staged step may come from the metrics,
+   the dynamic-dimension mask or the hash table. Phase 2 also holds K1 at
    the multi-hash sub-table fetch, K2 (both ways) at the multi-hash
    pooling (one row per flat id), and K1, K2 (both ways) and K3a at the
    flat dedup of the tables with an index (26*4096 lanes) and times them;
@@ -218,17 +230,19 @@ comparison compute in full f32. Phases (any failure exits non-zero):
    the same process (every step's loss within LOSS_ATOL and key planes
    bit-equal; metadata planes bit-equal and rows, slot leaves and
    parameters within ROW_ATOL at every 10-step fence, after which the
-   twin takes the card's float state); K1, K2, K2's backward and K3a
-   launched; 5 steps with exact dedup against the one-device trainer
-   (the same key -> row map); 3 timed runs of 10 staged steps, the
-   all_to_all time in the step (CUDA events) and alone at the step's
-   widths;
+   twin takes the card's float state) and an eval step; K1, K2, K2's
+   backward, K3a, K5 and K4 launched; 5 steps with exact dedup against
+   the one-device trainer (the same key -> row map); 3 timed runs of 10
+   staged steps, the all_to_all time in the step (CUDA events) and alone
+   at the step's widths; the host syncs of one staged step (none from
+   the hash table's modules);
 17. the mesh engine on four ranks (``mesh4``): this script started 4
    times (``--mesh4-rank R JOB``), every rank on the one card (NCCL takes
    one rank a card) over gloo (over NCCL, rank r on card r, where torch
    sees four cards), 1,024 examples a rank of each B=4096
    batch, each rank in lockstep with a CPU twin on a second gloo group
-   for 20 steps, K1, K2, K2's backward and K3a launched on every rank,
+   for 20 steps, K1, K2, K2's backward, K3a and K5 launched on every rank
+   (K4 in the 4-rank ShardedPredictor's predicts),
    3 timed runs of 5 staged steps and the gloo all_to_all's time; then a
    full save of the 4 shards (one part file each) served by the
    one-device Predictor on the card, a 4-rank ShardedPredictor and a
@@ -1055,16 +1069,24 @@ def trainer(dev, metadata, capacity=CAPACITY, **overrides):
                    device=dev)
 
 
-def path_counters():
-    """The launch counters of the kernels on the training paths."""
+def path_counters(index=False):
+    """The launch counters of the kernels on the training paths; ``index``
+    adds the hash index's K4 and K5 (the paths that key a table on the
+    card)."""
     from deeprec_tpu_torch.ops.fused_lookup import (
         fused_pooled_lookup, fused_pooled_lookup_backward)
     from deeprec_tpu_torch.ops.gather import gather_rows
+    from deeprec_tpu_torch.ops.hash_probe import (hash_lookup,
+                                                  hash_lookup_or_insert)
     from deeprec_tpu_torch.ops.meta_scatter import lookup_meta
-    return {"gather_rows": gather_rows,
-            "fused_pooled_lookup": fused_pooled_lookup,
-            "fused_pooled_lookup_backward": fused_pooled_lookup_backward,
-            "lookup_meta": lookup_meta}
+    out = {"gather_rows": gather_rows,
+           "fused_pooled_lookup": fused_pooled_lookup,
+           "fused_pooled_lookup_backward": fused_pooled_lookup_backward,
+           "lookup_meta": lookup_meta}
+    if index:
+        out.update(hash_lookup=hash_lookup,
+                   hash_lookup_or_insert=hash_lookup_or_insert)
+    return out
 
 
 def lockstep(tg, tc, batches, what, loss_atol=LOSS_ATOL, row_atol=ROW_ATOL,
@@ -2011,6 +2033,102 @@ def k3a_case(what, suffix, uslots, counts, readonly, dest, cap, ff,
                  **extra), pp
 
 
+def hash_buckets(table, keys, max_probes, slots=None):
+    """Distinct buckets a probe of ``keys`` must read in this run's data:
+    for a lookup (``slots`` None) each valid key's buckets up to a match or
+    a bucket with an empty lane; for an insert (``slots``: its result) up
+    to the bucket of the slot it found or claimed, and for a failed key
+    its home bucket alone (a lower bound)."""
+    from deeprec_tpu_torch.sparse import hashtable as ht
+    cap = table.capacity
+    w, bmask, home, step = ht._geometry(keys, cap)
+    planes = table.keys.view(-1, w)
+    done = keys == -1
+    final = None if slots is None else torch.where(slots != cap, slots // w,
+                                                   -1)
+    seen = []
+    for o in range(max_probes):
+        if bool(done.all()):
+            break
+        b = (home + o * step) & bmask
+        seen.append(b[~done])
+        if final is None:
+            kw = planes[b]
+            done = done | (kw == keys[:, None]).any(-1) | (kw == -1).any(-1)
+        else:
+            done = done | (b == final) | (final < 0)
+    return int(torch.unique(torch.cat(seen)).numel()) if seen else 0, w
+
+
+def hash_case(kind, what, table, keys, suffix, max_probes=32):
+    """K4 (``kind`` "lookup") or K5 ("insert") at one shape: bit-equal to
+    its plain version on the same card tensors, timed back to back and on
+    path (behind a one-element add, ``kernel_probe.behind_ms``) beside the
+    plain version and its bound from the bytes this run's keys need. No
+    one PyTorch call computes either. Returns its entry."""
+    from deeprec_tpu_torch.probes.kernel_probe import behind_ms
+    from deeprec_tpu_torch.sparse import hashtable as ht
+    if kind == "lookup":
+        def fn():
+            return ht.lookup(table, keys, max_probes)
+
+        def plain():
+            return ht.lookup_plain(table, keys, max_probes)
+    else:
+        def fn():
+            return ht.lookup_or_insert(table, keys, max_probes)
+
+        def plain():
+            return ht.lookup_or_insert_plain(table, keys, max_probes)
+
+    def flat(out):
+        return [t for x in out for t in (x if isinstance(x, tuple) else (x,))]
+    got, ref = flat(fn()), flat(plain())
+    if not all(torch.equal(a, b) for a, b in zip(got, ref)):
+        fail(f"{'K4' if kind == 'lookup' else 'K5'} {what} differs from its "
+             f"plain version")
+    ms, on_path = time_ms(fn), behind_ms(fn)
+    plain_ms = time_ms(plain, samples=5, per_sample=5, warmup=2)
+    n, cap = keys.shape[0], table.capacity
+    slots = ref[0] if kind == "lookup" else ref[3]
+    buckets, w = hash_buckets(table, keys, max_probes,
+                              None if kind == "lookup" else slots)
+    # the keys read, the buckets probed, the slots and flags written; an
+    # insert also writes each created key, and size and overflow
+    probe_bytes = 8 * n + 8 * w * buckets + 9 * n
+    extra = {"lanes": n, "capacity": cap, "buckets_read": buckets}
+    if kind == "lookup":
+        nbytes = probe_bytes
+        name, counter, loop = "hash_lookup", "hash_lookup", 147
+        found = int(ref[1].sum())
+        note = f"{found} found"
+        extra["found"] = found
+    else:
+        created = int(ref[4].sum())
+        probe_bytes += 8 * created + 32
+        # the new key plane: the input read once, the output written once
+        # (the probes' reads and the created keys' writes are inside them)
+        nbytes = 16 * cap + 17 * n + 32
+        name, counter, loop = ("hash_lookup_or_insert",
+                               "hash_lookup_or_insert", 231)
+        note = (f"{created} created, {int(ref[2]) - int(table.overflow)} "
+                f"failed")
+        extra.update(created=created,
+                     probe_bound_ms=bound(probe_bytes)[0],
+                     probe_bytes=probe_bytes)
+    log_times(f"{'K4' if kind == 'lookup' else 'K5'} {name} {what} ({n} "
+              f"lanes, {cap} slots: {note}; {buckets} buckets read)", ms,
+              plain_ms, None, nbytes,
+              f"; on path {on_path:.4f} ms" + (
+                  "" if kind == "lookup" else
+                  f"; bound without the plane copy "
+                  f"{extra['probe_bound_ms']:.4f} ms ({probe_bytes} bytes)"))
+    return entry(f"{name}_{suffix}", "deeprec_tpu_torch/csrc/hash_table.cu",
+                 f"deeprec_tpu/sparse/hashtable.py:{loop}", 0.0, ms,
+                 plain_ms, None, nbytes, counter=counter, on_path_ms=on_path,
+                 **extra)
+
+
 def check_zoo_kernels(dev):
     """K1, K2 and K2's backward at the zoo's new shapes, from one resolved
     batch each: the wide tables' D = 1 ([26*4096, 1] bags of one f32; WDL,
@@ -2822,29 +2940,63 @@ def device_lockstep(tg, tc, batches, what, fence=None):
 
 def count_syncs(fn):
     """Run ``fn`` with torch's sync debug mode on; returns the synchronising
-    calls it made, by the line that made them."""
+    calls it made, by the line that made them. A sync raised in torch's
+    own Python code is counted as ``torch's line < the innermost line of
+    this repository on the stack``, the caller that reached it. The one
+    that turning the mode on raises itself, the first time a process does
+    (torch 2.11: ``torch/cuda/__init__.py:1270``), is not ``fn``'s and is
+    left out."""
     import collections
+    import traceback
     import warnings
     where = collections.Counter()
-    with warnings.catch_warnings(record=True) as caught:
+    ours = REPO + os.sep
+
+    def show(message, category, filename, lineno, file=None, line=None):
+        if "synchroniz" not in str(message):
+            return
+        site = f"{os.path.relpath(filename, REPO)}:{lineno}"
+        if not os.path.abspath(filename).startswith(ours):
+            for fr in reversed(traceback.extract_stack()[:-1]):
+                if os.path.abspath(fr.filename).startswith(ours):
+                    if "set_sync_debug_mode" in (fr.line or ""):
+                        return  # the switch below, not fn
+                    site += (f" < {os.path.relpath(fr.filename, REPO)}:"
+                             f"{fr.lineno}")
+                    break
+        where[site] += 1
+    with warnings.catch_warnings():
         warnings.simplefilter("always")
+        warnings.showwarning = show  # called where the warning is raised
         torch.cuda.set_sync_debug_mode("warn")
         try:
             fn()
         finally:
             torch.cuda.set_sync_debug_mode(0)
-    for w in caught:
-        if "synchroniz" in str(w.message):
-            where[f"{os.path.relpath(w.filename, REPO)}:{w.lineno}"] += 1
     return where
+
+
+HASH_MODULES = ("deeprec_tpu_torch/sparse/hashtable.py",
+                "deeprec_tpu_torch/ops/hash_probe.py")
+
+
+def no_hash_syncs(syncs, what):
+    """Fail if any of ``syncs`` (:func:`count_syncs`) was made in, or
+    reached from, the hash table's modules."""
+    bad = {k: v for k, v in syncs.items()
+           if any(m in k for m in HASH_MODULES)}
+    if bad:
+        fail(f"{what}: the hash table syncs with the host: {bad}")
 
 
 def check_device_kernels(dev):
     """K1, K2, K2's backward and K3a at the device-index engine's shapes,
     from one B=4096 batch of the device phase's DLRM: ``unique_cols`` over
     the [26, 4096] ids (U = 26,625 lanes at --max_unique_ratio 0.25, int64
-    inverse and slots) and ``lookup_or_insert`` into its 2^21-slot index.
-    Returns the entries (path ``device``)."""
+    inverse and slots) and ``lookup_or_insert`` into its 2^21-slot index;
+    K5 at that insert, first step and steady, and at growth's rebuild of a
+    2^16-slot index at 0.7 load into 2^17 slots. Returns the entries (path
+    ``device``)."""
     import torch.nn.functional as Fn
     from deeprec_tpu_torch.data.criteo import SyntheticCriteo
     from deeprec_tpu_torch.ops.unique import unique_cols
@@ -2856,8 +3008,8 @@ def check_device_kernels(dev):
     ids = torch.from_numpy(coll.pack_ids_np(
         next(SyntheticCriteo(batch_size=B, seed=7)))).to(dev)
     uniq = unique_cols(ids, cfg.max_unique)
-    _, uslots, created = ht.lookup_or_insert(ht.create(cap, dev), uniq.ukeys,
-                                             cfg.max_probes)
+    index, uslots, created = ht.lookup_or_insert(ht.create(cap, dev),
+                                                 uniq.ukeys, cfg.max_probes)
     u, n_real = uslots.shape[0], int(uniq.n_unique)
     slots = uniq.inverse.view(-1, 1)
     valid = (uslots != cap)[uniq.inverse].view(-1, 1)
@@ -2887,6 +3039,27 @@ def check_device_kernels(dev):
         torch.zeros((1,), dtype=torch.bool, device=dev),
         torch.where(created, uslots, cap + 1), cap,
         cfg.counter_filter.filter_freq)[0])
+
+    # K5: the step's lookup_or_insert, first (every key created) and
+    # steady (every key found in the first round); growth's rebuild of a
+    # 2^16-slot table at the 0.7 load that triggers it into 2^17 slots
+    entries.append(hash_case("insert", "(device-index first step)",
+                             ht.create(cap, dev), uniq.ukeys, "device_first",
+                             cfg.max_probes))
+    entries.append(hash_case("insert", "(device-index steady step)", index,
+                             uniq.ukeys, "device_steady", cfg.max_probes))
+    small = ht.create(DEVICE_GROW_CAPACITY, dev)
+    for b in SyntheticCriteo(batch_size=B, seed=7):
+        bu = unique_cols(torch.from_numpy(coll.pack_ids_np(b)).to(dev),
+                         cfg.max_unique)
+        small, _, _ = ht.lookup_or_insert(small, bu.ukeys, cfg.max_probes)
+        if int(small.size) >= 0.7 * DEVICE_GROW_CAPACITY:
+            break
+    entries.append(hash_case(
+        "insert", f"(growth rebuild: {int(small.size)} keys of a "
+        f"{DEVICE_GROW_CAPACITY}-slot plane)",
+        ht.create(2 * DEVICE_GROW_CAPACITY, dev), small.keys, "growth",
+        cfg.max_probes))
     for e in entries:
         e["path"] = "device"
     return entries
@@ -2906,20 +3079,22 @@ def check_device(dev, smi, tmp):
     """Phase 13, the device-index engine at full width (the DLRM of
     :func:`device_entry` on SyntheticCriteo(4096, seed=7)): DEVICE_STEPS
     steps in lockstep with a CPU trainer, 3 timed runs of 10 staged steps,
-    a torch.profiler breakdown and the host syncs of 3 steps; K1, K2, K2's
-    backward and K3a launched. Then growth from 2^16 rows, a full and an
+    an eval step, a torch.profiler breakdown and the host syncs of 3 steps
+    (none from the hash table); K1, K2, K2's backward, K3a, K4 and K5
+    launched. Then growth from 2^16 rows, a full and an
     incremental save served by card and CPU Predictors, --micro_batch 4
     and a TieredTrainer (HBM_DRAM, hbm_capacity below the live rows) in
     lockstep. Returns the main run's launches and the phase's summary."""
     from deeprec_tpu_torch.checkpoint.saver import CheckpointManager
     from deeprec_tpu_torch.data.criteo import SyntheticCriteo
     from deeprec_tpu_torch.train import metrics
-    counters = path_counters()
+    counters = path_counters(index=True)
     batches = list(SyntheticCriteo(batch_size=B, seed=7).take(
         DEVICE_STEPS + 33))
+    held = list(SyntheticCriteo(batch_size=B, seed=11).take(2))
     out, t_phase = {}, time.perf_counter()
 
-    # the main run: lockstep, timing, profile
+    # the main run: lockstep, timing, one eval step, profile
     tg, tc = device_trainer(dev), device_trainer("cpu")
     for fn in counters.values():
         fn.launches = 0
@@ -2927,6 +3102,9 @@ def check_device(dev, smi, tmp):
                                           "device-index")
     k = DEVICE_STEPS
     sg, staged = timed_runs(tg, sg, batches[k:k + 30])
+    # eval: the read-only lookup (K4), as a held-out evaluation runs it
+    ev = metrics.summarize(tg.eval_step(sg, metrics.create(device=dev),
+                                        held[0]))
     launches = {n: fn.launches for n, fn in counters.items()}
     log(f"device-index main path ({sg.step} steps) launches: {launches}")
     for n, v in launches.items():
@@ -2947,6 +3125,7 @@ def check_device(dev, smi, tmp):
     per_step = sum(syncs.values()) / len(items)
     log(f"device-index host syncs: {per_step:.1f} per step over "
         f"{len(items)} staged steps, by line: {dict(syncs.most_common(8))}")
+    no_hash_syncs(syncs, "device-index step")
     summ = metrics.summarize(sg.metrics)
     if not (summ["examples"] == sg.step * B and np.isfinite(summ["loss"])
             and 0.0 <= summ["auc"] <= 1.0):
@@ -2955,16 +3134,19 @@ def check_device(dev, smi, tmp):
         f"{med:.1f}, min {min(staged):.1f}, max {max(staged):.1f} over 3 "
         f"runs of 10 steps, on {smi}")
     health = tg.table_health(sg)["emb"]
-    log(f"device-index after {sg.step} steps: {summ}; health {health}")
+    log(f"device-index after {sg.step} steps: {summ}; health {health}; "
+        f"an eval step on a held batch: {ev}")
+    if not 0.0 < ev["auc"] < 1.0:
+        fail(f"device-index eval step: {ev}")
     out["main"] = {"staged_eps": staged, "device_ms_per_step": dev_ms,
                    "host_syncs_per_step": per_step,
                    "host_syncs_by_line": dict(syncs), "max_dloss": dloss,
-                   "max_drow": drow, "summary": summ, "health": health}
+                   "max_drow": drow, "summary": summ, "health": health,
+                   "eval": ev}
 
     # serving: the card trainer's full save (save-time eviction of rows
     # untouched for 20 steps), two more steps, an incremental save; card
     # and CPU Predictors over the directory, before and after refresh()
-    held = list(SyntheticCriteo(batch_size=B, seed=11).take(2))
     path = os.path.join(tmp, "device_ck")
     mgr = CheckpointManager(path)
     mgr.save(tg, sg)
@@ -3224,8 +3406,8 @@ def check_variant_kernels(dev):
     one row per flat id) and, for the tables with an index, the flat dedup
     (``unique`` without a cap, so U = 26*4096 lanes): K2 both ways over its
     int64 inverse, K1 at its slots from a 2^20-row table, K3a
-    (lookup_meta, CounterFilter(2)) at its lanes. Returns the entries
-    (path ``variants``)."""
+    (lookup_meta, CounterFilter(2)) at its lanes, K5 inserting them into a
+    fresh 2^20-slot index. Returns the entries (path ``variants``)."""
     import torch.nn.functional as Fn
     from deeprec_tpu_torch.data.criteo import SyntheticCriteo
     from deeprec_tpu_torch.ops.unique import unique
@@ -3260,6 +3442,8 @@ def check_variant_kernels(dev):
     cap = VARIANT_CAPACITY
     uniq = unique(ids)
     _, uslots, created = ht.lookup_or_insert(ht.create(cap, dev), uniq.ukeys)
+    entries.append(hash_case("insert", "(variants' flat dedup, first step)",
+                             ht.create(cap, dev), uniq.ukeys, "variants"))
     u, n_real = uslots.shape[0], int(uniq.n_unique)
     log(f"variant flat-dedup shape: {ids.shape[0]} ids, {n_real} unique keys "
         f"in {u} lanes, int64 inverse and slots")
@@ -3308,7 +3492,7 @@ def check_variants(dev, smi, tmp):
     from deeprec_tpu_torch.checkpoint.saver import CheckpointManager
     from deeprec_tpu_torch.data.criteo import SyntheticCriteo
     from deeprec_tpu_torch.train import metrics
-    counters = path_counters()
+    counters = path_counters(index=True)
     batches = list(SyntheticCriteo(batch_size=B, seed=7).take(
         VARIANT_STEPS + 31))
     held = next(SyntheticCriteo(batch_size=B, seed=11))
@@ -3332,9 +3516,8 @@ def check_variants(dev, smi, tmp):
             log(f"{what} examples/s at B={B}, staged host half: median "
                 f"{statistics.median(staged):.1f}, min {min(staged):.1f}, "
                 f"max {max(staged):.1f} over 3 runs of 10 steps, on {smi}")
-            # the host syncs of one staged step: neither the metrics nor
-            # the dynamic-dimension mask may sync (the hash table's probe
-            # loop does: ROADMAP C7)
+            # the host syncs of one staged step: neither the metrics, nor
+            # the dynamic-dimension mask, nor the hash table may sync
             item = tg.prepare_batch(batches[steps + 30])
             torch.cuda.synchronize()
             box = {"s": sg}
@@ -3347,21 +3530,11 @@ def check_variants(dev, smi, tmp):
             log(f"{what} host syncs in one staged step: "
                 f"{sum(syncs.values())}, by line: {dict(syncs)}")
             for line in syncs:
-                if line.startswith(("deeprec_tpu_torch/train/metrics.py",
-                                    "deeprec_tpu_torch/sparse/dynamicdim")):
+                if any(m in line for m in (
+                        "deeprec_tpu_torch/train/metrics.py",
+                        "deeprec_tpu_torch/sparse/dynamicdim")):
                     fail(f"{what}: {line} syncs with the host")
-        launches = {n: fn.launches for n, fn in counters.items()}
-        need = ["gather_rows", "fused_pooled_lookup",
-                "fused_pooled_lookup_backward"]
-        if kind in ("adaptive", "dyndim"):
-            need.append("lookup_meta")
-        for n in need:
-            if launches[n] <= 0:
-                fail(f"{n} was not launched on the {what} path")
-        for n, v in launches.items():
-            total[n] += v
-        res["launches"] = launches
-        log(f"{what} launches ({sg.step} steps): {launches}")
+            no_hash_syncs(syncs, what)
         if full:
             # a card save restored by a fresh CPU trainer: the same tables;
             # one eval step on both
@@ -3397,6 +3570,21 @@ def check_variants(dev, smi, tmp):
                 f"loss {mg['loss']!r} on the card, {mc['auc']!r} and "
                 f"{mc['loss']!r} on the CPU (limit {EVAL_ATOL}); health "
                 f"{res['health']}")
+        # the run's launches: its steps, and its save and eval step
+        launches = {n: fn.launches for n, fn in counters.items()}
+        need = ["gather_rows", "fused_pooled_lookup",
+                "fused_pooled_lookup_backward"]
+        if kind in ("adaptive", "dyndim"):
+            need.append("lookup_meta")
+        if kind != "multihash":  # the tables with an index
+            need += ["hash_lookup_or_insert", "hash_lookup"]
+        for n in need:
+            if launches[n] <= 0:
+                fail(f"{n} was not launched on the {what} path")
+        for n, v in launches.items():
+            total[n] += v
+        res["launches"] = launches
+        log(f"{what} launches ({sg.step} steps): {launches}")
         out[what] = res
         del tg, tc, sg, sc
         torch.cuda.empty_cache()
@@ -3707,7 +3895,9 @@ def check_mesh_kernels(dev):
     S*C lanes owner 0 receives. K3a (lookup_meta, CounterFilter(2)) and
     K1's unique-row fetch at the owner's unique width, with the summed
     multiplicities (``freq_counts``) as counts; K1's read-only fetch at
-    the S*C received lanes (the eval and serving exchange)."""
+    the S*C received lanes (the eval and serving exchange); K5 inserting
+    the owner's unique lanes into a fresh index, and K4 looking the S*C
+    received lanes up in it."""
     from deeprec_tpu_torch.data.criteo import SyntheticCriteo
     from deeprec_tpu_torch.ops.segment import segment_sum
     from deeprec_tpu_torch.ops.unique import unique, unique_cols
@@ -3737,6 +3927,11 @@ def check_mesh_kernels(dev):
     index, uslots, created = ht.lookup_or_insert(ht.create(cap, dev),
                                                  ru.ukeys, cfg.max_probes)
     rslots, _ = ht.lookup(index, recv, cfg.max_probes)
+    hash_entries = [
+        hash_case("insert", "(mesh4 owner, first step)", ht.create(cap, dev),
+                  ru.ukeys, "mesh4_owner", cfg.max_probes),
+        hash_case("lookup", "(mesh4 owner's read-only S*C received lanes)",
+                  index, recv, "mesh4_readonly", cfg.max_probes)]
     log(f"mesh4 owner shape: {S} requesters x C {C} lanes = {S * C} "
         f"received ids, {int(ru.n_unique)} unique ({int(ru.n_overflow)} "
         f"past the cap) in {ru.ukeys.shape[0]} lanes, counts summed over "
@@ -3751,7 +3946,7 @@ def check_mesh_kernels(dev):
                  "_mesh4_owner", uslots, freq,
                  torch.zeros((1,), dtype=torch.bool, device=dev),
                  torch.where(created, uslots, cap + 1), cap,
-                 cfg.counter_filter.filter_freq)[0]]
+                 cfg.counter_filter.filter_freq)[0]] + hash_entries
     for e in entries:
         e["path"] = "mesh4"
     return entries
@@ -3761,14 +3956,16 @@ def check_mesh1(dev, smi):
     """Phase 16: a world-1 NCCL ShardedTrainer on the card (the device
     phase's DLRM through ``cli.make_trainer`` with ``--mesh 1``), MESH_STEPS
     steps in lockstep with a CPU twin on a gloo group of the same process
-    (:func:`mesh_lockstep`); K1, K2, K2's backward and K3a launched; after
-    5 more steps the same key -> row map as the one-device device-index
-    Trainer (both with exact dedup); 3 timed runs of 10 staged steps and
-    the NCCL all_to_all time a step. Returns the launches and the phase's
-    summary."""
+    (:func:`mesh_lockstep`) and an eval step; K1, K2, K2's backward, K3a,
+    K5 and K4 launched; after 5 more steps the same key -> row map as the
+    one-device device-index Trainer (both with exact dedup); 3 timed runs
+    of 10 staged steps, the NCCL all_to_all time a step and the host syncs
+    of one staged step (none from the hash table). Returns the launches
+    and the phase's summary."""
     import torch.distributed as dist
     from deeprec_tpu_torch.data.criteo import SyntheticCriteo
     from deeprec_tpu_torch.parallel import make_mesh, multihost
+    from deeprec_tpu_torch.train import metrics
     t_phase = time.perf_counter()
     multihost.initialize(f"127.0.0.1:{free_port()}", 1, 0, backend="nccl")
     try:
@@ -3778,14 +3975,17 @@ def check_mesh1(dev, smi):
         batches = list(SyntheticCriteo(batch_size=B, seed=7).take(
             MESH_STEPS + 40))
         tg, tc = mesh_trainer(dev, nccl), mesh_trainer("cpu", gloo)
-        counters = path_counters()
+        counters = path_counters(index=True)
         for fn in counters.values():
             fn.launches = 0
         sg, sc, dloss, drow = mesh_lockstep(tg, tc, batches[:MESH_STEPS],
                                             "mesh1")
+        # an eval step: the owner's read-only lookup (K4)
+        ev = metrics.summarize(tg.eval_step(sg, metrics.create(device=dev),
+                                            batches[-1]))
         launches = {n: fn.launches for n, fn in counters.items()}
-        log(f"mesh1 (NCCL, 1 rank) main path ({MESH_STEPS} steps) "
-            f"launches: {launches}")
+        log(f"mesh1 (NCCL, 1 rank) main path ({MESH_STEPS} steps and an "
+            f"eval step: {ev}) launches: {launches}")
         for n, v in launches.items():
             if v <= 0:
                 fail(f"{n} was not launched on the mesh1 path")
@@ -3814,6 +4014,18 @@ def check_mesh1(dev, smi):
         torch.cuda.empty_cache()
         sg, rates, a2a_ms, a2a_host, n_a2a = timed_mesh_steps(
             tg, sg, batches[MESH_STEPS:], nccl)
+        # the host syncs of one staged owner step
+        item = tg.prepare_batch(batches[-2])
+        torch.cuda.synchronize()
+        box = {"s": sg}
+
+        def owner_step():
+            box["s"] = tg._train_step(box["s"], *item)
+        syncs = count_syncs(owner_step)
+        sg = box["s"]
+        log(f"mesh1 host syncs in one staged step: {sum(syncs.values())}, "
+            f"by line: {dict(syncs)}")
+        no_hash_syncs(syncs, "mesh1 step")
         # the collective alone, back to back at the step's widths: the
         # ids of one step's buckets and its rows (the events above also
         # hold the host's launch gaps, the device idling between)
@@ -3842,6 +4054,7 @@ def check_mesh1(dev, smi):
                 f"{v['bytes']} bytes in and out)" for k, v in alone.items())
             + f"; phase {time.perf_counter() - t_phase:.1f} s, on {smi}")
         return launches, {"staged_eps": rates, "a2a_ms_per_step": a2a_ms,
+                          "host_syncs_by_line": dict(syncs), "eval": ev,
                           "a2a_host_ms_per_step": a2a_host,
                           "a2a_calls_per_step": n_a2a, "a2a_alone": alone,
                           "max_dloss": dloss,
@@ -3905,12 +4118,14 @@ def mesh4_rank(job_path, rank):
         batches = list(SyntheticCriteo(batch_size=B, seed=7).take(
             max(MESH4_STEPS, HSMESH4_STEPS) + 20))
         tg, tc = mesh_trainer(dev, card), mesh_trainer("cpu", twin)
-        counters = path_counters()
+        counters = path_counters(index=True)
         for fn in counters.values():
             fn.launches = 0
         sg, sc, dloss, drow = mesh_lockstep(tg, tc, batches[:MESH4_STEPS],
                                             f"mesh4 rank {rank}")
-        out = {"launches": {n: fn.launches for n, fn in counters.items()},
+        # K4's count is the 4-rank ShardedPredictor's (below)
+        out = {"launches": {n: fn.launches for n, fn in counters.items()
+                            if n != "hash_lookup"},
                "max_dloss": dloss, "max_drow": drow,
                "health": tg.table_health(sg)["emb"]}
         del tc, sc
@@ -3926,7 +4141,9 @@ def mesh4_rank(job_path, rank):
         numeric, coll, model = criteo_parts()
         p4 = ShardedPredictor(model, numeric, {"emb": coll}, job["ckpt"],
                               mesh=card)
+        counters["hash_lookup"].launches = 0
         out["probs4"] = [p4.predict(b) for b in held]
+        out["launches"]["hash_lookup"] = counters["hash_lookup"].launches
         del p4
         if rank < 2:
             numeric, coll, model = criteo_parts()
@@ -3940,6 +4157,7 @@ def mesh4_rank(job_path, rank):
         # slice, the buckets cross the host exchange, every rank against
         # its CPU twin (whose exchange is a second TCP mesh)
         hg, hc = hs_trainer(dev, card), hs_trainer("cpu", twin)
+        counters = path_counters()  # no hash index on the card here
         for fn in counters.values():
             fn.launches = 0
         shg, shc, hloss, hrow = hs_lockstep(
@@ -4806,6 +5024,7 @@ def run(dev, smi, probe):
     from deeprec_tpu_torch.data.criteo import SyntheticCriteo
     from deeprec_tpu_torch.ops.fused_lookup import fused_pooled_lookup
     from deeprec_tpu_torch.ops.gather import gather_rows
+    from deeprec_tpu_torch.ops.hash_probe import hash_lookup
     from deeprec_tpu_torch.ops import _build
 
     kernels = (check_kernels(dev, probe) + check_training_kernels(dev, probe)
@@ -4826,11 +5045,11 @@ def run(dev, smi, probe):
         cpu = predictor(path, "cpu")
 
         held = list(SyntheticCriteo(batch_size=B, seed=11).take(5))
-        gather_rows.launches = 0
-        fused_pooled_lookup.launches = 0
+        serving = (gather_rows, fused_pooled_lookup, hash_lookup)
+        for fn in serving:
+            fn.launches = 0
         probs = [gpu.predict(b) for b in held]
-        launches = {"gather_rows": gather_rows.launches,
-                    "fused_pooled_lookup": fused_pooled_lookup.launches}
+        launches = {fn.__name__: fn.launches for fn in serving}
         log(f"serving path (5 predicts at B={B}) launches: {launches}")
         for k, v in launches.items():
             if v <= 0:
@@ -4844,6 +5063,12 @@ def run(dev, smi, probe):
             f"table (served their default rows)")
         if unseen == 0:
             fail("no unseen keys: the default-row path did not run")
+        # K4 at the serving dedup, against the served table's index
+        k4 = hash_case("lookup", "(serving dedup of a B=4096 batch)",
+                       gpu.tables["emb"].index, aux.ev_aux.uniq.ukeys,
+                       "serving", coll.config.max_probes)
+        k4["path"] = "serving"
+        kernels.append(k4)
         worst = 0.0
         for b, p in zip(held, probs):
             if p.shape != (B,) or not np.isfinite(p).all() or \
@@ -4863,6 +5088,10 @@ def run(dev, smi, probe):
         p50 = statistics.median(lat[5:])
         log(f"predict latency at B={B}: p50 {p50:.3f} ms (20 calls after 5 "
             f"warm-up, host clock) on {smi}")
+        syncs = count_syncs(lambda: gpu.predict(held[0]))
+        log(f"host syncs of one predict (device-index readonly_rows): "
+            f"{dict(syncs)}")
+        no_hash_syncs(syncs, "device-index predict")
 
         check_http(path, gpu, cpu, table, held[1])
         del gpu, cpu

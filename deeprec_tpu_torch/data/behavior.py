@@ -6,8 +6,9 @@ cannot import the JAX package. ``tests/test_torch_zoo_models.py`` checks that
 both give byte-identical batches and that the copy is the source. Each
 example is (user, candidate item, its category, the click history,
 label): ``uid``, ``item``, ``cate`` int64 ``[B]``; ``hist_item`` and
-``hist_cate`` int64 ``[B, L]``, -1 padded; ``label`` f32 ``[B]``. The
-oracle AUC helpers are not ported.
+``hist_cate`` int64 ``[B, L]``, -1 padded; ``label`` f32 ``[B]``.
+:func:`oracle_auc` and :func:`_rank_auc` (numpy) are copies of
+``behavior.py:125-156`` too.
 """
 from __future__ import annotations
 
@@ -103,3 +104,37 @@ class SyntheticBehavior:
 
     def take(self, n: int):
         return itertools.islice(self, n)
+
+
+def oracle_auc(n_batches: int = 50, **gen_kwargs) -> float:
+    """Bayes-optimal AUC of the behaviour stream: rank by the generator's
+    noiseless logit (the label noise is additive pre-sigmoid, so this is
+    the achievable ceiling any model is measured against — the
+    '% of achievable lift' denominator, like the Criteo-stream oracle
+    docs/Performance.md uses for DCN). benchmarks/behavior_oracle.py adds
+    the feature-observable variants."""
+    gen_kwargs.setdefault("batch_size", 4096)
+    gen = SyntheticBehavior(emit_clean_logit=True, **gen_kwargs)
+    scores, labels = [], []
+    for b in gen.take(n_batches):
+        scores.append(b["_clean_logit"])
+        labels.append(b["label"])
+    return _rank_auc(np.concatenate(scores), np.concatenate(labels))
+
+
+def _rank_auc(s: np.ndarray, y: np.ndarray) -> float:
+    """Exact (tie-corrected, rank-based) AUC of scores s against labels y."""
+    order = np.argsort(s, kind="stable")
+    ranks = np.empty(len(s), np.float64)
+    ranks[order] = np.arange(1, len(s) + 1)
+    # tie-correct via average ranks on sorted groups
+    s_sorted = s[order]
+    starts = np.flatnonzero(np.r_[True, s_sorted[1:] != s_sorted[:-1]])
+    ends = np.r_[starts[1:], len(s)]
+    for a, e in zip(starts, ends):
+        if e - a > 1:
+            ranks[order[a:e]] = (a + 1 + e) / 2.0
+    pos = y > 0.5
+    n_pos, n_neg = int(pos.sum()), int((~pos).sum())
+    return float((ranks[pos].sum() - n_pos * (n_pos + 1) / 2.0)
+                 / (n_pos * n_neg))

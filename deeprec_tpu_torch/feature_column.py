@@ -45,7 +45,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Dict, List, NamedTuple, Optional, Sequence
+from typing import Any, Dict, List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -521,6 +521,24 @@ def _salt(ids: torch.Tensor, column_group: int) -> torch.Tensor:
     if column_group == 0:
         return ids
     return torch.where(K.is_empty(ids), ids, ids ^ _salt_mask(column_group))
+
+
+def dense_features(columns: Sequence[NumericColumn], batch: Dict[str, Any],
+                   device="cuda") -> torch.Tensor:
+    """Concatenate numeric columns -> ``[B, sum(shape)]`` float32 on
+    ``device``, ``log1p(max(x, 0))`` where a column has ``log_normalize``
+    (the training paths split this into :func:`pack_dense` on the host and
+    :func:`normalize_dense` on the device)."""
+    parts = []
+    for col in columns:
+        x = torch.as_tensor(batch[col.name], dtype=torch.float32,
+                            device=device)
+        if x.dim() == 1:
+            x = x[:, None]
+        if col.log_normalize:
+            x = torch.log1p(torch.clamp_min(x, 0.0))
+        parts.append(x)
+    return torch.cat(parts, dim=-1)
 
 
 def pack_dense(columns: Sequence[NumericColumn],

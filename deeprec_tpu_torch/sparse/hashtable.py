@@ -8,6 +8,14 @@ a scatter-min of their rank. Inserting the same keys in the same order
 gives bit-equal slots and key planes to the JAX table
 (``tests/test_torch_hashtable.py``). The key plane is one int64 tensor.
 
+:func:`lookup` and :func:`lookup_or_insert` dispatch on the device: a CPU
+tensor runs the plain versions here (:func:`lookup_plain`,
+:func:`lookup_or_insert_plain`: Python loops over the JAX rounds, each
+asking the host whether a key is left), a CUDA tensor launches the
+hand-written kernels K4 and K5 (``ops/hash_probe.py``), which run the same
+rounds on the card without a host round trip, as the JAX table's
+device loops do; any other device raises.
+
 Invariants (as in the JAX table): capacity is a power of two; an insert
 fills the earliest bucket in probe order with an empty slot, so a bucket
 with an empty slot and no match proves absence; every stored key lives
@@ -21,6 +29,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from ..ops import hash_probe
 from . import keys as K
 
 WINDOW = 16
@@ -56,10 +65,28 @@ def _geometry(keys: torch.Tensor, cap: int):
     return w, bmask, home, step
 
 
+def _device_type(table: HashTable, keys: torch.Tensor) -> str:
+    """``"cpu"`` or ``"cuda"``, where the table and the keys both lie."""
+    if keys.device != table.keys.device:
+        raise ValueError(f"keys on {keys.device}, table on "
+                         f"{table.keys.device}")
+    if keys.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"hash table: unsupported device {keys.device}")
+    return keys.device.type
+
+
 def lookup(table: HashTable, keys: torch.Tensor, max_probes: int = 32
            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(slots, found)`` for a batch of keys; ``slots[i] == capacity`` (the
     null row) when not found. EMPTY keys are never found."""
+    if _device_type(table, keys) == "cpu":
+        return lookup_plain(table, keys, max_probes)
+    return hash_probe.hash_lookup(table.keys, keys, max_probes)
+
+
+def lookup_plain(table: HashTable, keys: torch.Tensor, max_probes: int = 32
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain version of :func:`lookup` (any device)."""
     cap = table.capacity
     w, bmask, home, step = _geometry(keys, cap)
     planes = table.keys.view(-1, w)
@@ -88,6 +115,17 @@ def lookup_or_insert(table: HashTable, ukeys: torch.Tensor,
     """Find-or-claim slots for a batch of **deduplicated** keys. EMPTY keys
     are padding and map to the null slot. Returns ``(table, slots,
     created)``; the input table is left as it was."""
+    if _device_type(table, ukeys) == "cpu":
+        return lookup_or_insert_plain(table, ukeys, max_probes)
+    keys, size, overflow, slots, created = hash_probe.hash_lookup_or_insert(
+        table.keys, table.size, table.overflow, ukeys, max_probes)
+    return HashTable(keys=keys, size=size, overflow=overflow), slots, created
+
+
+def lookup_or_insert_plain(table: HashTable, ukeys: torch.Tensor,
+                           max_probes: int = 32
+                           ) -> Tuple[HashTable, torch.Tensor, torch.Tensor]:
+    """The plain version of :func:`lookup_or_insert` (any device)."""
     cap = table.capacity
     n = ukeys.shape[0]
     dev = ukeys.device

@@ -13,6 +13,8 @@ from deeprec_tpu_torch.ops.unique import unique as tunique
 from deeprec_tpu_torch.sparse import hashtable as TH
 from deeprec_tpu_torch.sparse import keys as TK
 
+import torch_hash_cases as HC
+
 torch.set_num_threads(1)
 
 
@@ -104,3 +106,72 @@ def test_unique_matches_jax(max_unique):
     np.testing.assert_array_equal(ukeys[t.inverse.numpy()][kept], ids[kept])
     if max_unique is not None and max_unique < 60:
         assert int(t.n_overflow) > 0  # the cap really bites
+
+
+@pytest.mark.parametrize("case", list(HC.CONTENTION))
+def test_contention_bit_equal(case):
+    """Keys that share a home bucket, so that claims collide, losers retry,
+    full buckets advance and both bounds bite: slots, created, key planes,
+    size and overflow bit-equal to the JAX table after every batch, and a
+    lookup of every key (stored, failed, absent, EMPTY) too."""
+    cap, max_probes, sizes, spread = HC.CONTENTION[case]
+    jt, tt = JH.create(cap), TH.create(cap, "cpu")
+    seen = []
+    for keys in HC.batches(cap, len(case), sizes, spread):
+        jt, tt = _insert_both(jt, tt, keys, max_probes)
+        seen.append(keys)
+    probe = np.concatenate(seen + [HC.colliding_keys(cap, 5, 99)])
+    js, jf = JH.lookup(jt, JK.from_numpy(probe), max_probes)
+    ts, tf = TH.lookup(tt, torch.from_numpy(probe), max_probes)
+    np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+    np.testing.assert_array_equal(tf.numpy(), np.asarray(jf))
+    if sum(sizes) > cap or max_probes < 4:
+        assert int(tt.overflow) > 0  # the bounds really bite
+
+
+def test_max_probes_one_bit_equal():
+    """max_probes = 1 at a load where home buckets fill: keys that find
+    their home bucket full fail at once, lookups stop after one bucket."""
+    rng = np.random.default_rng(11)
+    jt, tt = JH.create(128), TH.create(128, "cpu")
+    for n in (100, 60):
+        jt, tt = _insert_both(jt, tt, _distinct_keys(rng, n), 1)
+    assert int(tt.overflow) > 0
+    probe = _distinct_keys(rng, 40)
+    js, jf = JH.lookup(jt, JK.from_numpy(probe), 1)
+    ts, tf = TH.lookup(tt, torch.from_numpy(probe), 1)
+    np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+    np.testing.assert_array_equal(tf.numpy(), np.asarray(jf))
+
+
+def test_cpu_tensors_run_the_plain_versions(monkeypatch):
+    """On CPU tensors lookup and lookup_or_insert are their plain versions
+    and never reach the kernels' wrappers."""
+    from deeprec_tpu_torch.ops import hash_probe
+
+    def refuse(*a, **k):
+        raise AssertionError("a CPU tensor reached a kernel wrapper")
+    monkeypatch.setattr(hash_probe, "hash_lookup", refuse)
+    monkeypatch.setattr(hash_probe, "hash_lookup_or_insert", refuse)
+    keys = torch.from_numpy(_distinct_keys(np.random.default_rng(2), 50))
+    t0 = TH.create(64, "cpu")
+    got, ref = TH.lookup_or_insert(t0, keys), TH.lookup_or_insert_plain(
+        t0, keys)
+    for a, b in zip([*got[0], *got[1:]], [*ref[0], *ref[1:]]):
+        assert torch.equal(a, b)
+    assert bool(TK.is_empty(t0.keys).all())  # the input table as it was
+    for a, b in zip(TH.lookup(got[0], keys), TH.lookup_plain(got[0], keys)):
+        assert torch.equal(a, b)
+
+
+def test_other_devices_raise():
+    """A table or keys on a device that is neither CPU nor CUDA raise, and
+    so do keys on another device than the table."""
+    meta = TH.create(16, "meta")
+    keys = torch.zeros((4,), dtype=torch.int64, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        TH.lookup(meta, keys)
+    with pytest.raises(ValueError, match="unsupported device"):
+        TH.lookup_or_insert(meta, keys)
+    with pytest.raises(ValueError, match="table on"):
+        TH.lookup(TH.create(16, "cpu"), keys)

@@ -1,6 +1,7 @@
 """The hand-written CUDA kernels K1 (row gather), K2 (gather+pool, forward
-and backward, f32 and bf16), K3a (lookup_meta, meta_scatter) and K3b
-(blocked_rmw_set) against their plain PyTorch versions, on the card, and
+and backward, f32 and bf16), K3a (lookup_meta, meta_scatter), K3b
+(blocked_rmw_set), K4 and K5 (the hash index's lookup and
+lookup_or_insert) against their plain PyTorch versions, on the card, and
 how far two card runs of one training stream drift apart (the backward's
 atomics add in a run-dependent order), and the mesh engine's step on a
 world-1 NCCL group against a CPU twin on gloo. A CUDA kernel has no CPU mode, so
@@ -21,6 +22,10 @@ from deeprec_tpu_torch.ops.gather import gather_rows, gather_rows_plain
 from deeprec_tpu_torch.ops.meta_scatter import (
     blocked_rmw_set, blocked_rmw_set_plain, lookup_meta, lookup_meta_plain,
     meta_scatter, meta_scatter_plain, scatter_set)
+from deeprec_tpu_torch.ops.hash_probe import (hash_lookup,
+                                              hash_lookup_or_insert)
+from deeprec_tpu_torch.sparse import hashtable as TH
+import torch_hash_cases as HC
 
 pytestmark = pytest.mark.cuda
 
@@ -966,3 +971,199 @@ def test_distributed_hash_table_on_card_matches_cpu(cuda):
         assert (tg - tc).abs().max().item() <= 1e-5
     finally:
         dist.destroy_process_group()
+
+
+# -- K4 (hash_lookup) and K5 (hash_lookup_or_insert) --------------------------
+def _same_table(a, b):
+    return (torch.equal(a.keys.cpu(), b.keys.cpu())
+            and torch.equal(a.size.cpu(), b.size.cpu())
+            and torch.equal(a.overflow.cpu(), b.overflow.cpu()))
+
+
+def _insert_matches_plain(table, keys, max_probes=32):
+    """K5 (through hashtable.lookup_or_insert) against the plain version
+    on the same card tensors: key plane, size, overflow, slots and created
+    bit-equal, one launch (none for no keys), the input table as it was.
+    Returns the kernel's table and slots."""
+    before_keys = table.keys.clone()
+    ref = TH.lookup_or_insert_plain(table, keys, max_probes)
+    n0 = hash_lookup_or_insert.launches
+    got = TH.lookup_or_insert(table, keys, max_probes)
+    torch.cuda.synchronize()
+    assert hash_lookup_or_insert.launches == n0 + (keys.shape[0] > 0)
+    assert _same_table(got[0], ref[0])
+    assert torch.equal(got[1], ref[1]) and torch.equal(got[2], ref[2])
+    assert got[1].dtype == torch.int64 and got[2].dtype == torch.bool
+    assert torch.equal(table.keys, before_keys)
+    return got[0], got[1]
+
+
+def _lookup_matches_plain(table, keys, max_probes=32):
+    ref = TH.lookup_plain(table, keys, max_probes)
+    n0 = hash_lookup.launches
+    got = TH.lookup(table, keys, max_probes)
+    torch.cuda.synchronize()
+    assert hash_lookup.launches == n0 + (keys.shape[0] > 0)
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+    return got
+
+
+def _random_keys(n, seed, n_empty=0, dev="cuda"):
+    """n distinct int64 keys (no EMPTY) and n_empty EMPTY lanes, shuffled."""
+    rng = np.random.default_rng(seed)
+    ks = np.unique(rng.integers(-2 ** 62, 2 ** 62, n + n // 8 + 16))
+    ks = ks[ks != -1][:n]
+    out = np.concatenate([ks, np.full(n_empty, -1, np.int64)])
+    rng.shuffle(out)
+    return torch.from_numpy(out).to(dev)
+
+
+@pytest.mark.parametrize("case", list(HC.CONTENTION))
+def test_hash_kernels_contention(cuda, case):
+    """The CPU contention cases: colliding claims, retries, full buckets,
+    both bounds; K4 then looks every key up."""
+    cap, max_probes, sizes, spread = HC.CONTENTION[case]
+    table, seen = TH.create(cap, cuda), []
+    for keys in HC.batches(cap, len(case), sizes, spread):
+        keys = torch.from_numpy(keys).to(cuda)
+        table, _ = _insert_matches_plain(table, keys, max_probes)
+        seen.append(keys)
+    probe = torch.cat(seen + [torch.from_numpy(
+        HC.colliding_keys(cap, 5, 99)).to(cuda)])
+    _lookup_matches_plain(table, probe, max_probes)
+
+
+@pytest.mark.parametrize("cap", [1, 2, 4])
+def test_hash_kernels_tiny_tables(cuda, cap):
+    """Tables of fewer slots than a bucket: one bucket of cap lanes."""
+    table = TH.create(cap, cuda)
+    for seed in range(3):
+        table, _ = _insert_matches_plain(table, _random_keys(3, seed, 1))
+    _lookup_matches_plain(table, _random_keys(6, 0, 2))
+
+
+@pytest.mark.parametrize("max_probes", [0, 1])
+def test_hash_kernels_short_probe_bounds(cuda, max_probes):
+    table = TH.create(256, cuda)
+    for seed in range(2):
+        table, _ = _insert_matches_plain(table, _random_keys(150, seed, 5),
+                                         max_probes)
+    _lookup_matches_plain(table, _random_keys(300, 0, 5), max_probes)
+
+
+def test_hash_kernels_device_index_shape(cuda):
+    """The device-index engine's shape: 26,625 lanes (a few EMPTY) into
+    2^21 slots, first step (all created) and steady (all found in the
+    first round); K4 over them and over absent keys."""
+    keys = _random_keys(26_000, 7, 625)
+    table, slots = _insert_matches_plain(TH.create(1 << 21, cuda), keys)
+    assert int(table.size) == 26_000 and int(table.overflow) == 0
+    again, slots2 = _insert_matches_plain(table, keys)
+    assert torch.equal(slots2, slots) and torch.equal(again.keys, table.keys)
+    _lookup_matches_plain(table, torch.cat([keys, _random_keys(5000, 8)]))
+
+
+def test_hash_kernels_rebuild_growth(cuda):
+    """rebuild from 2^16 to 2^17 slots (growth: K5 re-inserts the old
+    plane's 2^16 lanes), against the plain rebuild on the CPU."""
+    table = TH.create(1 << 16, cuda)
+    for seed in range(4):  # ~0.8 load
+        table, _ = _insert_matches_plain(table, _random_keys(13_000, seed))
+    keep = torch.rand(1 << 16, generator=_gen()).to(cuda) < 0.9
+    n0 = hash_lookup_or_insert.launches
+    got, gmap = TH.rebuild(table, keep, 1 << 17)
+    torch.cuda.synchronize()
+    assert hash_lookup_or_insert.launches == n0 + 1
+    cpu = TH.HashTable(*(t.cpu() for t in table))
+    ref, rmap = TH.rebuild(cpu, keep.cpu(), 1 << 17)
+    assert _same_table(got, ref) and torch.equal(gmap.cpu(), rmap)
+
+
+def test_hash_kernels_no_keys(cuda):
+    """n = 0: no launch, empty outputs, the table as it was."""
+    table, _ = _insert_matches_plain(TH.create(64, cuda),
+                                     _random_keys(20, 1))
+    empty = torch.zeros((0,), dtype=torch.int64, device=cuda)
+    n4, n5 = hash_lookup.launches, hash_lookup_or_insert.launches
+    t2, slots, created = TH.lookup_or_insert(table, empty)
+    s4, f4 = TH.lookup(table, empty)
+    assert (hash_lookup.launches, hash_lookup_or_insert.launches) == (n4, n5)
+    assert slots.shape == created.shape == s4.shape == f4.shape == (0,)
+    assert _same_table(t2, table) and t2.keys is not table.keys
+
+
+def test_hash_kernels_beyond_one_wave(cuda):
+    """2^20 + 5 lanes, several times the keys a resident wave of
+    half-warps takes at once: the grid-stride loops."""
+    keys = _random_keys((1 << 20) + 2, 3, 3)
+    table, _ = _insert_matches_plain(TH.create(1 << 21, cuda), keys)
+    table, _ = _insert_matches_plain(table, torch.cat(
+        [keys[: 1 << 19], _random_keys(1 << 18, 4)]))
+    _lookup_matches_plain(table, torch.cat([keys, _random_keys(1 << 18, 5)]))
+
+
+def test_hash_insert_twice_is_identical(cuda):
+    """Two launches from one input table under contention (a table near
+    full) give identical planes, slots and counts."""
+    base, _ = _insert_matches_plain(TH.create(1 << 12, cuda),
+                                    _random_keys(3000, 1))
+    keys = _random_keys(2000, 2, 7)
+    a = TH.lookup_or_insert(base, keys)
+    b = TH.lookup_or_insert(base, keys)
+    assert _same_table(a[0], b[0])
+    assert torch.equal(a[1], b[1]) and torch.equal(a[2], b[2])
+    assert int(a[0].overflow) > 0
+
+
+def test_hash_insert_sees_writes_queued_before_it(cuda):
+    """K5 reads the key plane and the keys as the work queued right before
+    it on the stream left them: a long kernel, then PyTorch writes of the
+    plane (keys stored there) and of the key batch, then K5."""
+    table, _ = _insert_matches_plain(TH.create(1 << 16, cuda),
+                                     _random_keys(20_000, 1))
+    for i in range(3):
+        keys = _random_keys(8000, 10 + i, 3)
+        free = torch.nonzero(table.keys == -1).squeeze(1)[:2000]
+        planted = keys[:2000].clone()
+        planted[planted == -1] = 12345 + i
+        batch = torch.zeros_like(keys)
+        torch.cuda.synchronize()
+        torch.cuda._sleep(50_000_000)
+        table.keys.index_put_((free,), planted)  # keys stored off-path
+        batch.copy_(keys)
+        got = TH.lookup_or_insert(table, batch)
+        torch.cuda.synchronize()
+        ref = TH.lookup_or_insert_plain(table, keys)
+        assert _same_table(got[0], ref[0])
+        assert torch.equal(got[1], ref[1]) and torch.equal(got[2], ref[2])
+        table = got[0]
+
+
+def test_k3a_and_k1_read_the_slots_of_the_k5_before_them(cuda):
+    """K3a and K1 are programmatic dependents launched right after K5 on
+    its slots, as lookup_or_create_unique and gather run them: they must
+    see every slot K5 wrote."""
+    cap = 1 << 21
+    table = TH.create(cap, cuda)
+    values = torch.randn(cap + 1, 32, generator=_gen()).to(cuda)
+    freqs = torch.zeros(cap + 1, dtype=torch.int32, device=cuda)
+    ro = torch.zeros((1,), dtype=torch.bool, device=cuda)
+    for i in range(3):
+        keys = _random_keys(26_625, 20 + i // 2, 64)  # steps 1-2 repeat
+        counts = torch.ones(keys.shape, dtype=torch.int32, device=cuda)
+        ref_freqs = freqs.clone()
+        new, slots, created = TH.lookup_or_insert(table, keys)
+        dest = torch.where(created, slots, cap + 1)
+        adm = lookup_meta(slots, counts, ro, dest, 3, cap, freqs=freqs,
+                          add_freqs=True, filter_freq=2)
+        rows = gather_rows(values, slots, 16)
+        torch.cuda.synchronize()
+        _, rslots, rcreated = TH.lookup_or_insert_plain(table, keys)
+        radm = lookup_meta_plain(rslots, counts, ro,
+                                 torch.where(rcreated, rslots, cap + 1), 3,
+                                 cap, freqs=ref_freqs, add_freqs=True,
+                                 filter_freq=2)
+        assert torch.equal(slots, rslots)
+        assert torch.equal(adm, radm) and torch.equal(freqs, ref_freqs)
+        assert torch.equal(rows, gather_rows_plain(values, rslots, 16))
+        table = new
