@@ -40,14 +40,19 @@ comparison compute in full f32. Phases (any failure exits non-zero):
    its plain version (both sum in f32 and round once: one bf16 step of the
    value apart at most, beside the f32 order term) and timed beside
    embedding_bag / index_add_ at bf16, its bound at 2 bytes a value. K4
-   and K5, the hash index's lookup and lookup_or_insert, are held
-   bit-equal to their plain versions (hashtable.lookup_plain,
-   lookup_or_insert_plain) on the same card tensors and timed back to back
-   and behind a one-element add beside them and their bound (no PyTorch
-   call computes either): K5 at the device-index shape (26,625 lanes into
-   2^21 slots, first step and steady), at growth's rebuild (2^16 -> 2^17),
-   at the variants' flat dedup and at the mesh4 owner's lanes, K4 at the
-   serving dedup and at the mesh4 owner's 53,248 read-only lanes;
+   and K5, the hash index's lookup and lookup_or_insert_ (in place; the
+   functional lookup_or_insert too), are held bit-equal to their plain
+   versions (hashtable.lookup_plain, lookup_or_insert_plain) on the same
+   card tensors, K5's arbitration words all zero after every call, and
+   timed in turns with their previous designs (the design probe's K4 and
+   K5 variants 0: old, new, new, old), back to back (an insert that
+   changes the table: a call at a time on a fresh copy) and behind a
+   one-element add, beside the plain versions, the functional form's
+   clone of the table and their bound (no PyTorch call computes either):
+   K5 at the device-index shape (26,625 lanes into 2^21 slots, first step
+   and steady), at growth's rebuild (2^16 -> 2^17), at the variants' flat
+   dedup and at the mesh4 owner's lanes, K4 at the serving dedup and at
+   the mesh4 owner's 53,248 read-only lanes;
 3. writes a full-width DLRM serving checkpoint (13 dense + 26 categorical
    columns, emb dim 16, fused adagrad columns, a 2^21-slot table holding the
    keys of 20 synthetic Criteo batches; weights and rows from seed 0);
@@ -177,7 +182,8 @@ comparison compute in full f32. Phases (any failure exits non-zero):
    seed=7): DEVICE_STEPS steps in lockstep with a CPU trainer (key
    planes bit-equal every step; metadata planes bit-equal, losses, rows
    and parameters within LOSS_ATOL and ROW_ATOL), 3 timed runs of 10
-   staged steps, an eval step, a torch.profiler breakdown and the host
+   staged steps, an eval step, a torch.profiler breakdown (at most 425
+   device kernels and copies a step) and the host
    syncs of 3 steps (torch's sync debug mode, by source line; none may
    come from the hash table's modules); K1, K2, K2's backward, K3a, K4
    and K5 must have launched. Then the card's full save (save-time eviction)
@@ -1077,7 +1083,7 @@ def path_counters(index=False):
         fused_pooled_lookup, fused_pooled_lookup_backward)
     from deeprec_tpu_torch.ops.gather import gather_rows
     from deeprec_tpu_torch.ops.hash_probe import (hash_lookup,
-                                                  hash_lookup_or_insert)
+                                                  hash_lookup_or_insert_)
     from deeprec_tpu_torch.ops.meta_scatter import lookup_meta
     out = {"gather_rows": gather_rows,
            "fused_pooled_lookup": fused_pooled_lookup,
@@ -1085,7 +1091,7 @@ def path_counters(index=False):
            "lookup_meta": lookup_meta}
     if index:
         out.update(hash_lookup=hash_lookup,
-                   hash_lookup_or_insert=hash_lookup_or_insert)
+                   hash_lookup_or_insert=hash_lookup_or_insert_)
     return out
 
 
@@ -1164,10 +1170,12 @@ def timed_runs(tg, state, batches, runs=3, steps=10, inline=False):
     return state, rates
 
 
-def profile_steps(tg, state, batches, step_ms, what="metadata"):
+def profile_steps(tg, state, batches, step_ms, what="metadata",
+                  max_launches=None):
     """Device time by kernel over len(batches) staged steps
     (torch.profiler; only the device-side kernel and copy events are
-    summed, so nothing is counted twice)."""
+    summed, so nothing is counted twice). Fails where ``max_launches`` is
+    given and the device kernels and copies a step exceed it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     items = [tg.prepare_batch(b) for b in batches]
@@ -1194,6 +1202,9 @@ def profile_steps(tg, state, batches, step_ms, what="metadata"):
     for e in ka[:20]:
         log(f"  {dev_us(e) / 1e3 / n:8.4f} ms/step {e.count / n:6.1f} "
             f"calls/step  {e.key[:100]}")
+    if max_launches is not None and launches > max_launches:
+        fail(f"{what}: {launches:.0f} device kernels and copies a step, "
+             f"above {max_launches}")
     return state, total_ms
 
 
@@ -2062,71 +2073,81 @@ def hash_buckets(table, keys, max_probes, slots=None):
 
 def hash_case(kind, what, table, keys, suffix, max_probes=32):
     """K4 (``kind`` "lookup") or K5 ("insert") at one shape: bit-equal to
-    its plain version on the same card tensors, timed back to back and on
-    path (behind a one-element add, ``kernel_probe.behind_ms``) beside the
-    plain version and its bound from the bytes this run's keys need. No
-    one PyTorch call computes either. Returns its entry."""
-    from deeprec_tpu_torch.probes.kernel_probe import behind_ms
+    its plain version on the same card tensors, then its previous design
+    and the port's kernel in turns (``kernel_probe.k4_turns`` and
+    ``k5_turns``, which hold K5 in both forms to the plain version, its
+    arbitration words all zero after each call: back to back, or for an
+    insert that changes the table a call at a time on a fresh copy, and
+    behind a one-element add), beside the plain version and its bound from
+    the bytes this run's keys need. K5's functional form's clone of the
+    table gets a line of its own. No one PyTorch call computes either.
+    Returns its entry."""
+    from deeprec_tpu_torch.probes import kernel_probe
     from deeprec_tpu_torch.sparse import hashtable as ht
+    lib = kernel_probe.build()
+    name = "K4" if kind == "lookup" else "K5"
     if kind == "lookup":
-        def fn():
-            return ht.lookup(table, keys, max_probes)
-
+        ref = ht.lookup_plain(table, keys, max_probes)
+        got = ht.lookup(table, keys, max_probes)
+        if not all(torch.equal(a, b) for a, b in zip(got, ref)):
+            fail(f"K4 {what} differs from its plain version")
+        turns = kernel_probe.k4_turns(lib, table, keys, max_probes, what)
+    else:
+        ref = ht.lookup_or_insert_plain(table, keys, max_probes)
+        turns = kernel_probe.k5_turns(lib, table, keys, max_probes, what)
+    ms, on_path = turns["new"], turns["new_behind"]
+    if kind == "lookup":
         def plain():
             return ht.lookup_plain(table, keys, max_probes)
     else:
-        def fn():
-            return ht.lookup_or_insert(table, keys, max_probes)
-
         def plain():
             return ht.lookup_or_insert_plain(table, keys, max_probes)
-
-    def flat(out):
-        return [t for x in out for t in (x if isinstance(x, tuple) else (x,))]
-    got, ref = flat(fn()), flat(plain())
-    if not all(torch.equal(a, b) for a, b in zip(got, ref)):
-        fail(f"{'K4' if kind == 'lookup' else 'K5'} {what} differs from its "
-             f"plain version")
-    ms, on_path = time_ms(fn), behind_ms(fn)
     plain_ms = time_ms(plain, samples=5, per_sample=5, warmup=2)
     n, cap = keys.shape[0], table.capacity
-    slots = ref[0] if kind == "lookup" else ref[3]
+    slots = ref[0] if kind == "lookup" else ref[1]
     buckets, w = hash_buckets(table, keys, max_probes,
                               None if kind == "lookup" else slots)
     # the keys read, the buckets probed, the slots and flags written; an
     # insert also writes each created key, and size and overflow
-    probe_bytes = 8 * n + 8 * w * buckets + 9 * n
-    extra = {"lanes": n, "capacity": cap, "buckets_read": buckets}
+    nbytes = 8 * n + 8 * w * buckets + 9 * n
+    extra = {"lanes": n, "capacity": cap, "buckets_read": buckets,
+             "previous_ms": turns["old"], "on_path_ms": on_path,
+             "previous_on_path_ms": turns["old_behind"],
+             "turns": turns["turns"], "behind_turns": turns["behind_turns"]}
     if kind == "lookup":
-        nbytes = probe_bytes
-        name, counter, loop = "hash_lookup", "hash_lookup", 147
+        counter, loop = "hash_lookup", 147
         found = int(ref[1].sum())
         note = f"{found} found"
-        extra["found"] = found
+        extra.update(found=found, variants={
+            str(m): turns[m] for m in kernel_probe.K4_VARIANTS})
     else:
-        created = int(ref[4].sum())
-        probe_bytes += 8 * created + 32
-        # the new key plane: the input read once, the output written once
-        # (the probes' reads and the created keys' writes are inside them)
-        nbytes = 16 * cap + 17 * n + 32
-        name, counter, loop = ("hash_lookup_or_insert",
-                               "hash_lookup_or_insert", 231)
-        note = (f"{created} created, {int(ref[2]) - int(table.overflow)} "
-                f"failed")
-        extra.update(created=created,
-                     probe_bound_ms=bound(probe_bytes)[0],
-                     probe_bytes=probe_bytes)
-    log_times(f"{'K4' if kind == 'lookup' else 'K5'} {name} {what} ({n} "
-              f"lanes, {cap} slots: {note}; {buckets} buckets read)", ms,
-              plain_ms, None, nbytes,
-              f"; on path {on_path:.4f} ms" + (
-                  "" if kind == "lookup" else
-                  f"; bound without the plane copy "
-                  f"{extra['probe_bound_ms']:.4f} ms ({probe_bytes} bytes)"))
-    return entry(f"{name}_{suffix}", "deeprec_tpu_torch/csrc/hash_table.cu",
+        created = int(ref[2].sum())
+        nbytes += 8 * created + 32
+        counter, loop = "hash_lookup_or_insert", 231
+        failed = int(ref[0].overflow) - int(table.overflow)
+        note = f"{created} created, {failed} failed"
+        extra.update(created=created, steady=turns["steady"],
+                     clone_ms=turns["clone_ms"],
+                     variants={str(m): turns[m]
+                               for m in list(kernel_probe.K5_VARIANTS)[1:]},
+                     # the previous design's: its new plane read and written
+                     bound_with_copy_ms=bound(16 * cap + 17 * n + 32)[0])
+    timing = ("back to back" if kind == "lookup" or turns["steady"]
+              else "a call at a time on a fresh table")
+    log_times(f"{name} {counter} {what} ({n} lanes, {cap} slots: {note}; "
+              f"{buckets} buckets read)", ms, plain_ms, None, nbytes,
+              f"; {timing}; on path {on_path:.4f} ms; the previous design "
+              f"{turns['old']:.4f} ms, on path {turns['old_behind']:.4f} ms")
+    if kind == "insert":
+        log(f"K5 {what}: the functional form's clone of the {cap}-slot "
+            f"table {turns['clone_ms']:.4f} ms (back to back), beside the "
+            f"in-place kernel's {ms:.4f} ms; the previous design's bound "
+            f"with its plane copy {extra['bound_with_copy_ms']:.4f} ms")
+    entry_name = "hash_lookup" if kind == "lookup" else "hash_lookup_or_insert"
+    return entry(f"{entry_name}_{suffix}",
+                 "deeprec_tpu_torch/csrc/hash_table.cu",
                  f"deeprec_tpu/sparse/hashtable.py:{loop}", 0.0, ms,
-                 plain_ms, None, nbytes, counter=counter, on_path_ms=on_path,
-                 **extra)
+                 plain_ms, None, nbytes, counter=counter, **extra)
 
 
 def check_zoo_kernels(dev):
@@ -3111,8 +3132,9 @@ def check_device(dev, smi, tmp):
         if v <= 0:
             fail(f"{n} was not launched on the device-index path")
     med = statistics.median(staged)
+    # the step's kernels and copies: 425 before the in-place insert
     sg, dev_ms = profile_steps(tg, sg, batches[k + 30:k + 33], B / med * 1e3,
-                               what="device-index")
+                               what="device-index", max_launches=425)
     items = [tg.prepare_batch(b) for b in batches[k + 30:k + 33]]
     torch.cuda.synchronize()
     box = {"s": sg}

@@ -129,14 +129,14 @@ def table_snapshot_host(config: EmbeddingVariableConfig, ev_state: ev.EVState,
 
 def _insert_rows(state: ev.EVState, config: EmbeddingVariableConfig,
                  arrays: Dict[str, Any]):
-    """Insert the saved keys and write their rows and metadata planes in
-    place. Returns the state (its new index) and the written slots and
-    the saved rows they came from."""
+    """Insert the saved keys into the state's index and write their rows
+    and metadata planes, all in place. Returns the state and the written
+    slots and the saved rows they came from."""
     dev = state.values.device
     cap = config.capacity
     keys = torch.as_tensor(arrays["keys"], dtype=torch.int64).to(dev)
-    index, slots, _ = ht.lookup_or_insert(state.index, keys,
-                                          config.max_probes)
+    index, slots, _ = ht.lookup_or_insert_(state.index, keys,
+                                           config.max_probes)
     live = torch.nonzero(~K.is_empty(keys) & (slots != cap)).squeeze(1)
     dest = slots[live]
     for name, store in (("values", state.values), ("freqs", state.freqs),

@@ -533,7 +533,7 @@ class HashTableCollection(EmbeddingCollection):
         slot rows extended (vacated slot rows take ``fills``)."""
         cap = self.config.capacity
         fresh = hta.create(new_cap, None, state.table.rows.device)
-        index, slots, _ = ht_mod.lookup_or_insert(
+        index, slots, _ = ht_mod.lookup_or_insert_(
             fresh.index, state.alloc.index.keys, self.config.max_probes)
         ids_plane = hta._set_ids(fresh.ids, slots, slots < new_cap,
                                  state.alloc.ids)

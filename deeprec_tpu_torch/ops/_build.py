@@ -58,10 +58,10 @@ _SIGNATURES = {
     "deeprec_blocked_rmw_set": [_P, _P, _I, _P, _I64, _I64, _P, _I, _P],
     # plane, cap, keys, n, max_probes, slots, found, stream
     "deeprec_hash_lookup": [_P, _I64, _P, _I64, _I, _P, _P, _P],
-    # plane_in, plane, cap, ukeys, n, max_probes, size_in, overflow_in,
-    # size, overflow, slots, created, scratch, stream
-    "deeprec_hash_lookup_or_insert": [_P, _P, _I64, _P, _I64, _I, _P, _P,
-                                      _P, _P, _P, _P, _P, _P],
+    # plane, cap, ukeys, n, max_probes, size, overflow, slots, created,
+    # key scratch, arbitration words, stream
+    "deeprec_hash_lookup_or_insert": [_P, _I64, _P, _I64, _I, _P, _P, _P,
+                                      _P, _P, _P, _P],
 }
 
 

@@ -1,27 +1,34 @@
 """Kernels K4 and K5: the hash index's probe loops on the card.
 
-``hash_lookup`` (K4) and ``hash_lookup_or_insert`` (K5) launch
+``hash_lookup`` (K4) and ``hash_lookup_or_insert_`` (K5) launch
 ``csrc/hash_table.cu`` for ``sparse/hashtable.py``'s ``lookup`` and
-``lookup_or_insert`` on CUDA tensors. They have no Pallas counterpart: the
-JAX package runs both loops as device loops
+``lookup_or_insert_`` on CUDA tensors. They have no Pallas counterpart:
+the JAX package runs both loops as device loops
 (``deeprec_tpu/sparse/hashtable.py:147,231``), and so do these kernels, so
 no step, eval or predict waits on the host inside the hash table. Their
 plain versions are ``hashtable.lookup_plain`` and
-``hashtable.lookup_or_insert_plain`` (the Python loops they replace, bit
-for bit); ``hashtable.lookup`` and ``lookup_or_insert`` take those for a
+``hashtable.lookup_or_insert_plain_`` (the Python loops they replace, bit
+for bit); ``hashtable.lookup`` and ``lookup_or_insert_`` take those for a
 CPU tensor and these wrappers for a CUDA one. Each wrapper allocates its
 outputs and scratch, launches one kernel on the current stream and never
 synchronises; a build or launch failure raises.
+
+K5 writes the key plane, ``size`` and ``overflow`` in place. Its
+arbitration words (one a slot) come from :func:`arbitration_words`: one
+buffer per device, capacity and stream, zeroed once when it is made; the
+kernel leaves it all zero again, so no call zeroes it.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Dict, Tuple
 
 import torch
 
 from . import _build
 
-WINDOW = 16  # sparse/hashtable.py's bucket width
+_COUNT_WORDS = 8  # after the [cap] words: the kernel's counts (5), padding
+
+_ARB: Dict[Tuple[torch.device, int, int], torch.Tensor] = {}
 
 
 def _check(plane: torch.Tensor, keys: torch.Tensor, max_probes: int) -> None:
@@ -40,6 +47,22 @@ def _check(plane: torch.Tensor, keys: torch.Tensor, max_probes: int) -> None:
         raise ValueError(f"capacity {cap} is not a power of two <= 2^31")
     if keys.shape[0] >= 2 ** 31 or not 0 <= max_probes < 2 ** 30:
         raise ValueError("too many keys or probes for the kernels")
+
+
+def arbitration_words(device: torch.device, cap: int) -> torch.Tensor:
+    """K5's arbitration words for a ``cap``-slot plane on ``device`` and
+    its current stream: int32 ``[cap + 8]``, zeroed when first made, all
+    zero between calls. Two inserts in flight on different streams never
+    share one."""
+    stream = torch.cuda.current_stream(device)
+    key = (device, cap, stream.cuda_stream)
+    words = _ARB.get(key)
+    if words is None:
+        with torch.cuda.stream(stream):
+            words = torch.zeros((cap + _COUNT_WORDS,), dtype=torch.int32,
+                                device=device)
+        _ARB[key] = words
+    return words
 
 
 def hash_lookup(plane: torch.Tensor, keys: torch.Tensor, max_probes: int
@@ -64,14 +87,15 @@ def hash_lookup(plane: torch.Tensor, keys: torch.Tensor, max_probes: int
     return slots, found
 
 
-def hash_lookup_or_insert(plane: torch.Tensor, size: torch.Tensor,
-                          overflow: torch.Tensor, ukeys: torch.Tensor,
-                          max_probes: int):
+def hash_lookup_or_insert_(plane: torch.Tensor, size: torch.Tensor,
+                           overflow: torch.Tensor, ukeys: torch.Tensor,
+                           max_probes: int
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K5: find-or-claim slots for deduplicated ``ukeys``, as
-    ``hashtable.lookup_or_insert_plain`` does. Returns ``(plane, size,
-    overflow, slots, created)``: a new key plane (the input stays as it
-    was), ``size`` and ``overflow`` advanced by the created and the failed
-    keys, int64 ``slots`` and bool ``created``."""
+    ``hashtable.lookup_or_insert_plain_`` does, in place: the created keys
+    are written into ``plane``, and ``size`` and ``overflow`` advance by
+    the created and the failed keys. Returns int64 ``slots`` and bool
+    ``created``."""
     _check(plane, ukeys, max_probes)
     for t in (size, overflow):
         if t.shape != (1,) or t.dtype != torch.int64 or \
@@ -82,27 +106,22 @@ def hash_lookup_or_insert(plane: torch.Tensor, size: torch.Tensor,
     n, cap, dev = ukeys.shape[0], plane.shape[0], plane.device
     slots = torch.empty((n,), dtype=torch.int64, device=dev)
     created = torch.empty((n,), dtype=torch.bool, device=dev)
-    if n == 0:  # nothing to launch; the table as it was, in new tensors
-        return plane.clone(), size.clone(), overflow.clone(), slots, created
-    out = torch.empty_like(plane)
-    new_size, new_overflow = torch.empty_like(size), torch.empty_like(size)
-    # per key: state, probe offset, claimed slot; per slot: the claim's
-    # arbitration word; per round: the keys left (the kernel fills it all)
-    rounds = max_probes + min(WINDOW, cap)
-    scratch = torch.empty((3 * n + cap + rounds,), dtype=torch.int32,
-                          device=dev)
+    if n == 0:  # nothing to launch
+        return slots, created
+    # per key: its state word and claimed slot (the kernel sets them)
+    scratch = torch.empty((2 * n,), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
+        arb = arbitration_words(dev, cap)
         stream = torch.cuda.current_stream().cuda_stream
         err = _build.library().deeprec_hash_lookup_or_insert(
-            plane.data_ptr(), out.data_ptr(), cap, ukeys.data_ptr(), n,
-            max_probes, size.data_ptr(), overflow.data_ptr(),
-            new_size.data_ptr(), new_overflow.data_ptr(), slots.data_ptr(),
-            created.data_ptr(), scratch.data_ptr(), stream)
-    _build.check(err, "hash_lookup_or_insert")
-    hash_lookup_or_insert.launches += 1
-    return out, new_size, new_overflow, slots, created
+            plane.data_ptr(), cap, ukeys.data_ptr(), n, max_probes,
+            size.data_ptr(), overflow.data_ptr(), slots.data_ptr(),
+            created.data_ptr(), scratch.data_ptr(), arb.data_ptr(), stream)
+    _build.check(err, "hash_lookup_or_insert_")
+    hash_lookup_or_insert_.launches += 1
+    return slots, created
 
 
 #: kernel launches, read by the card smoke
 hash_lookup.launches = 0
-hash_lookup_or_insert.launches = 0
+hash_lookup_or_insert_.launches = 0

@@ -211,8 +211,8 @@ class DistributedHashTable:
         new_cap = self.cap * 2
         a = state.alloc
         fresh = hta.create(new_cap, None, self.device)
-        index, slots, _ = ht.lookup_or_insert(fresh.index, a.index.keys,
-                                              self.max_probes)
+        index, slots, _ = ht.lookup_or_insert_(fresh.index, a.index.keys,
+                                               self.max_probes)
         ids = hta._set_ids(fresh.ids, slots, slots < new_cap, a.ids)
         self.cap = new_cap
         self._init_cfg = dataclasses.replace(self._init_cfg,

@@ -69,7 +69,29 @@
 //   5-8 the port's design at 1, 2, 4 or 8 rows a thread (its grid rule,
 //     one wave at most, for that row count; the port takes 1, 2 or 4)
 // Variants 1 and 2 write no output: they are timed, not checked.
+//
+// K4 variants (the hash index's lookup), selected by probe_k4's mode; the
+// port's kernels are csrc/hash_table.cu, included below:
+//   0 the previous design: a key a half-warp, its probes in series, an
+//     ordinary launch on n * 16 threads (one wave at most)
+//   1 the port's kernel at 4 keys a half-warp, dependent launch
+//   2 the same at 8 keys a half-warp
+//   3 the same at 16 keys a half-warp (a key a lane)
+//   4 the port's kernel (its keys a half-warp) as an ordinary launch
+// K5 variants (lookup_or_insert), selected by probe_k5's mode:
+//   0 the previous design: the plane copied out of place and the
+//     arbitration words zeroed by the kernel each call, a barrier after
+//     that, then two a round; per-key state in global memory read through
+//     L2; every resident block
+//   1 the port's kernel (in place) on every resident block, not a grid
+//     sized to the keys
+//   2 an empty cooperative kernel on the port's grid crossing one grid
+//     barrier (the floor of a steady step's launch and barrier)
+//   3-6 the port's kernel at 2, 4, 8 or 16 keys a half-warp
+// K4 variants 5 and 6: the port's kernel at 2 and 1 keys a half-warp,
+// dependent launch.
 #include "../csrc/gather_rows.cu"
+#include "../csrc/hash_table.cu"
 
 #include <cooperative_groups.h>
 #include <cub/block/block_radix_sort.cuh>
@@ -695,6 +717,270 @@ cudaError_t k1_unit(int mode, const void* values, int64_t ld_bytes,
 }
 
 }  // namespace
+
+namespace {
+namespace ht_old {
+
+using ht::block_sum;
+using ht::bucket_base;
+using ht::kEmpty;
+using ht::kThreads;
+using ht::ld_l2;
+using ht::ld_nc;
+using ht::probe_masks;
+constexpr int kDone = 0, kPending = 1, kWant = 2;
+
+// K4's previous design: (slots, found) for n keys; one half-warp a key.
+__global__ void __launch_bounds__(kThreads) lookup_kernel(
+    const int64_t* __restrict__ plane, int64_t cap, int w, uint32_t bmask,
+    const int64_t* __restrict__ keys, int64_t n, int max_probes,
+    int64_t* __restrict__ slots, bool* __restrict__ found) {
+  const int l = threadIdx.x & 15;
+  const int64_t halves = (int64_t)gridDim.x * (kThreads / 16);
+  for (int64_t i = ((int64_t)blockIdx.x * kThreads + threadIdx.x) >> 4;
+       i < n; i += halves) {  // the same i on the half's 16 lanes
+    const int64_t key = keys[i];
+    int64_t slot = cap;
+    if (key != kEmpty) {  // EMPTY keys are never found
+      for (int off = 0; off < max_probes; ++off) {
+        const int64_t base = bucket_base(key, off, w, bmask);
+        const int64_t kw = l < w ? ld_nc(plane + base + l) : 0;
+        unsigned match, empty;
+        probe_masks(kw, key, w, &match, &empty);
+        if (match) {
+          slot = base + __ffs(match) - 1;
+          break;
+        }
+        if (empty) break;  // a bucket with an empty lane proves absence
+      }
+    }
+    if (l == 0) {
+      slots[i] = slot;
+      found[i] = slot != cap;
+    }
+  }
+}
+
+// K5's previous design. scratch (int32): state [n], off [n], target [n]
+// (the claimed slot), arb [cap] (the arbitration words), pending
+// [max_rounds] (the count of keys left after each round); the kernel
+// initialises all of it.
+__global__ void __launch_bounds__(kThreads) lookup_or_insert_kernel(
+    const int64_t* __restrict__ plane_in, int64_t* plane, int64_t cap, int w,
+    uint32_t bmask, const int64_t* __restrict__ ukeys, int64_t n,
+    int max_probes, int max_rounds, const int64_t* __restrict__ size_in,
+    const int64_t* __restrict__ overflow_in, int64_t* size,
+    int64_t* overflow, int64_t* slots, bool* created, int32_t* scratch) {
+  cg::grid_group grid = cg::this_grid();
+  int32_t* state = scratch;
+  int32_t* off = state + n;
+  int32_t* target = off + n;
+  uint32_t* arb = reinterpret_cast<uint32_t*>(target + n);
+  uint32_t* pending = arb + cap;
+  const int64_t tid = (int64_t)blockIdx.x * kThreads + threadIdx.x;
+  const int64_t threads = (int64_t)gridDim.x * kThreads;
+  const int l = threadIdx.x & 15;
+
+  // the plane's copy, zeroed arbitration words and counts, each key's state
+  for (int64_t j = tid; j < cap; j += threads) {
+    plane[j] = plane_in[j];
+    arb[j] = 0;
+  }
+  for (int64_t j = tid; j < max_rounds; j += threads) pending[j] = 0;
+  if (tid == 0) {
+    *size = *size_in;
+    *overflow = *overflow_in;
+  }
+  for (int64_t i = tid; i < n; i += threads) {
+    state[i] = ukeys[i] != kEmpty ? kPending : kDone;
+    off[i] = 0;
+    slots[i] = cap;
+    created[i] = false;
+  }
+  unsigned long long made = 0;  // the keys this thread's lanes created
+  grid.sync();
+
+  for (int r = 0; r < max_rounds; ++r) {
+    // read, hit, claim, advance: one half-warp a key
+    for (int64_t i = tid >> 4; i < n; i += threads >> 4) {
+      if (__ldcg(state + i) != kPending) continue;  // the same on the half
+      const int64_t key = ukeys[i];
+      const int o = __ldcg(off + i);
+      const int64_t base = bucket_base(key, o, w, bmask);
+      const int64_t kw = l < w ? ld_l2(plane + base + l) : 0;
+      unsigned match, empty;
+      probe_masks(kw, key, w, &match, &empty);
+      if (l == 0) {
+        if (match) {  // a key stored before this call (keys are unique)
+          slots[i] = base + __ffs(match) - 1;
+          state[i] = kDone;
+        } else if (empty) {  // the first empty lane; the lowest rank wins
+          const int64_t t = base + __ffs(empty) - 1;
+          target[i] = (int32_t)t;
+          atomicMax(arb + t, ~(uint32_t)i);
+          state[i] = kWant;
+        } else {  // a full bucket: the next one next round
+          off[i] = o + 1;
+        }
+      }
+    }
+    grid.sync();
+    // commit: one thread a key
+    unsigned long long left = 0;
+    for (int64_t i = tid; i < n; i += threads) {
+      int s = __ldcg(state + i);
+      if (s == kDone) continue;
+      if (s == kWant) {
+        const int32_t t = __ldcg(target + i);
+        if (__ldcg(arb + t) == ~(uint32_t)i) {
+          plane[t] = ukeys[i];
+          slots[i] = t;
+          created[i] = true;
+          state[i] = kDone;
+          ++made;
+          continue;
+        }
+        s = kPending;  // lost: the same bucket next round
+      }
+      // past the probe bound a key can neither match nor claim
+      if (__ldcg(off + i) >= max_probes) s = kDone;
+      else ++left;
+      state[i] = s;
+    }
+    const unsigned long long sum = block_sum(left);
+    if (threadIdx.x == 0 && sum) atomicAdd(pending + r, (uint32_t)sum);
+    grid.sync();
+    if (__ldcg(pending + r) == 0) break;  // the same in every thread
+  }
+
+  // size += created, overflow += the valid keys left without a slot
+  unsigned long long failed = 0;
+  for (int64_t i = tid; i < n; i += threads)
+    failed += ukeys[i] != kEmpty && ld_l2(slots + i) == cap;
+  const unsigned long long m = block_sum(made);
+  const unsigned long long f = block_sum(failed);
+  if (threadIdx.x == 0) {
+    if (m) atomicAdd(reinterpret_cast<unsigned long long*>(size), m);
+    if (f) atomicAdd(reinterpret_cast<unsigned long long*>(overflow), f);
+  }
+}
+
+
+// One grid barrier, nothing else (K5 variant 2).
+__global__ void __launch_bounds__(kThreads) barrier_only() {
+  cg::this_grid().sync();
+}
+
+}  // namespace ht_old
+
+// K4 as probe mode `mode` (see the top of the file).
+cudaError_t probe_k4_launch(int mode, const void* plane, int64_t cap,
+                            const void* keys, int64_t n, int max_probes,
+                            void* slots, void* found, cudaStream_t st) {
+  switch (mode) {
+    case 0: {
+      int w;
+      uint32_t bmask;
+      ht::geometry(cap, &w, &bmask);
+      static int per_sm = 0;
+      const int64_t wave =
+          (int64_t)ht::sm_count() *
+          ht::resident_blocks(ht_old::lookup_kernel, &per_sm);
+      int64_t blocks = (n * 16 + kThreads - 1) / kThreads;
+      if (wave > 0 && blocks > wave) blocks = wave;
+      ht_old::lookup_kernel<<<(unsigned)blocks, kThreads, 0, st>>>(
+          (const int64_t*)plane, cap, w, bmask, (const int64_t*)keys, n,
+          max_probes, (int64_t*)slots, (bool*)found);
+      return cudaGetLastError();
+    }
+    case 1:
+      return ht::launch_lookup<4>(plane, cap, keys, n, max_probes, slots,
+                                  found, st, true);
+    case 2:
+      return ht::launch_lookup<8>(plane, cap, keys, n, max_probes, slots,
+                                  found, st, true);
+    case 3:
+      return ht::launch_lookup<16>(plane, cap, keys, n, max_probes, slots,
+                                   found, st, true);
+    case 4:
+      return ht::launch_lookup<ht::kLookupRun>(plane, cap, keys, n,
+                                               max_probes, slots, found, st,
+                                               false);
+    case 5:
+      return ht::launch_lookup<2>(plane, cap, keys, n, max_probes, slots,
+                                  found, st, true);
+    case 6:
+      return ht::launch_lookup<1>(plane, cap, keys, n, max_probes, slots,
+                                  found, st, true);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+
+// K4 probe variants: deeprec_hash_lookup's arguments after the mode.
+extern "C" int probe_k4(int mode, const void* plane, int64_t cap,
+                        const void* keys, int64_t n, int max_probes,
+                        void* slots, void* found, void* stream) {
+  if (n == 0) return 0;
+  return (int)probe_k4_launch(mode, plane, cap, keys, n, max_probes, slots,
+                              found, (cudaStream_t)stream);
+}
+
+// K5 probe variants. Mode 0 (the previous design) reads plane_in, size_in
+// and overflow_in and writes plane, size and overflow (a new table);
+// scratch: int32 [3 n + cap + max_probes + w]. Modes 1 and 3-6 (the port's
+// kernel) work in place on plane, size and overflow; scratch: int32 [2 n];
+// arb: deeprec_hash_lookup_or_insert's arbitration words.
+extern "C" int probe_k5(int mode, const void* plane_in, void* plane,
+                        int64_t cap, const void* ukeys, int64_t n,
+                        int max_probes, const void* size_in,
+                        const void* overflow_in, void* size, void* overflow,
+                        void* slots, void* created, void* scratch, void* arb,
+                        void* stream) {
+  if (n == 0) return 0;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (mode == 1)
+    return (int)ht::launch_insert<ht::kInsertRun>(
+        plane, cap, ukeys, n, max_probes, size, overflow, slots, created,
+        scratch, arb, st, true);
+  if (mode == 2)
+    return (int)ht::launch_cooperative(
+        ht_old::barrier_only, ht::insert_blocks<ht::kInsertRun>(n, false),
+        st);
+  if (mode >= 3 && mode <= 6) {
+    const auto run = mode == 3   ? ht::launch_insert<2>
+                     : mode == 4 ? ht::launch_insert<4>
+                     : mode == 5 ? ht::launch_insert<8>
+                                 : ht::launch_insert<16>;
+    return (int)run(plane, cap, ukeys, n, max_probes, size, overflow, slots,
+                    created, scratch, arb, st, false);
+  }
+  if (mode != 0) return (int)cudaErrorInvalidValue;
+  int w;
+  uint32_t bmask;
+  ht::geometry(cap, &w, &bmask);
+  static int per_sm = 0;
+  const int64_t blocks =
+      (int64_t)ht::sm_count() *
+      ht::resident_blocks(ht_old::lookup_or_insert_kernel, &per_sm);
+  if (blocks <= 0) return (int)cudaErrorInvalidConfiguration;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)blocks);
+  cfg.blockDim = dim3(kThreads);
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeCooperative;
+  attr[0].val.cooperative = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return (int)cudaLaunchKernelEx(
+      &cfg, ht_old::lookup_or_insert_kernel, (const int64_t*)plane_in,
+      (int64_t*)plane, cap, w, bmask, (const int64_t*)ukeys, n, max_probes,
+      max_probes + w, (const int64_t*)size_in, (const int64_t*)overflow_in,
+      (int64_t*)size, (int64_t*)overflow, (int64_t*)slots, (bool*)created,
+      (int32_t*)scratch);
+}
 
 // deeprec_gather_rows's arguments after the mode (unit: the vector unit in
 // bytes, as the wrapper picks it: 16 or 4 at the shapes probed; variant 4

@@ -1,4 +1,5 @@
-"""Design probes for K1, K2 (both directions) and K3b on a CUDA card.
+"""Design probes for K1, K2 (both directions), K3b, K4 and K5 on a CUDA
+card.
 
 Times the variants of ``kernel_probe.cu`` (each keeps or drops one part
 of the kernel's work; the source lists them) beside the port's own
@@ -10,12 +11,15 @@ training shape of one resolved B=4096 Criteo batch (106,496 ids into
 The previous design of K1 and of K2's forward is each one's variant 0:
 :func:`k1_turns` and :func:`k2_forward` time it and the port's kernel in
 turns (old, new, new, old), back to back and behind a PyTorch kernel
-(:func:`behind_ms`), which ``chip_smoke.py`` also does at its shapes.
+(:func:`behind_ms`), which ``chip_smoke.py`` also does at its shapes; so
+are the previous designs of the hash index's K4 and K5 (:func:`k4_turns`,
+:func:`k5_turns`, which ``chip_smoke.py`` runs at every K4 and K5 shape).
 Run from the root of a checkout on a machine with one card:
 
     python -m deeprec_tpu_torch.probes.kernel_probe
 
-It builds ``kernel_probe.cu`` (which includes ``csrc/gather_rows.cu``)
+It builds ``kernel_probe.cu`` (which includes ``csrc/gather_rows.cu`` and
+``csrc/hash_table.cu``)
 with nvcc into the git-ignored build directory, prints one line per
 variant (device ms per call: the median of 21 CUDA-event samples of 20
 back-to-back calls behind a sleep kernel, L2 warm) and the card's name
@@ -89,6 +93,27 @@ K1_SHAPES = [
     ("DHT", 5_195, 1 << 19, EMB_DIM, torch.int64),
     ("D 1", 26_625, CAPACITY, 1, torch.int32),
 ]
+K4_VARIANTS = {
+    0: "the previous design (a key a half-warp, probes in series, "
+       "ordinary launch)",
+    1: "4 keys a half-warp, dependent launch",
+    2: "8 keys a half-warp, dependent launch",
+    3: "16 keys a half-warp (a key a lane), dependent launch",
+    4: "the port's run length as an ordinary launch",
+    5: "2 keys a half-warp, dependent launch",
+    6: "1 key a half-warp, dependent launch",
+}
+K5_VARIANTS = {
+    0: "the previous design (plane copied out of place, words zeroed each "
+       "call, three barriers on a steady step)",
+    1: "the port's kernel on every resident block",
+    2: "an empty cooperative kernel on the port's grid, one grid barrier",
+    3: "the port's kernel at 2 keys a half-warp",
+    4: "the port's kernel at 4 keys a half-warp",
+    5: "the port's kernel at 8 keys a half-warp",
+    6: "the port's kernel at 16 keys a half-warp (a key a lane)",
+}
+K5_CHECKED = (0, 1, 3, 4, 5, 6)  # the variants that insert
 K3B_VARIANTS = {
     0: "copy on one-pass blocks (128) + dependent scatter (the port's design)",
     1: "copy + scatter, ordinary launches",
@@ -137,7 +162,8 @@ def behind_ms(fn, samples=21, alone=None):
 def build() -> ctypes.CDLL:
     """The probe library (built once a process)."""
     src = b"".join(f.read_bytes() for f in (
-        SOURCE, _build.CSRC / "gather_rows.cu", _build.CSRC / "launch.cuh"))
+        SOURCE, _build.CSRC / "gather_rows.cu", _build.CSRC / "hash_table.cu",
+        _build.CSRC / "launch.cuh"))
     digest = hashlib.sha256(src).hexdigest()[:16]
     path = _build.BUILD / f"kernel_probe_{digest}.so"
     if not path.exists():
@@ -150,6 +176,9 @@ def build() -> ctypes.CDLL:
     lib.probe_k3b.argtypes = [i, p, p, p, i64, i64, p, p]
     lib.probe_k2f.argtypes = [i, p, i64, i64, p, i, p, i64, p, p]
     lib.probe_k1.argtypes = [i, p, i64, i64, p, i, i64, i64, p, i, p]
+    lib.probe_k4.argtypes = [i, p, i64, p, i64, i, p, p, p]
+    lib.probe_k5.argtypes = [i, p, p, i64, p, i64, i, p, p, p, p, p, p, p,
+                             p, p]
     return lib
 
 
@@ -263,6 +292,187 @@ def in_turns(old, new, what, old_name, samples):
             "old_behind": (behind[0] + behind[3]) / 2,
             "new_behind": (behind[1] + behind[2]) / 2,
             "turns": turns, "behind_turns": behind, "alone": alone}
+
+
+def call_ms(fn, reset, samples=21, behind=False):
+    """Device ms of one call of ``fn`` (the median over ``samples``), each
+    sample timed alone between CUDA events after ``reset()`` (outside the
+    events) and a sleep kernel that holds the stream while the host
+    enqueues: for a call that changes its inputs (an insert into a table),
+    which ``reset`` restores. ``behind``: behind a one-element add, the
+    add's own time (timed the same way) subtracted."""
+    tiny = torch.zeros(1, device="cuda")
+
+    def one(f):
+        times = []
+        for _ in range(samples + 2):  # the first two warm up
+            reset()
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(2_000_000)
+            a.record()
+            if behind:
+                tiny.add_(1)
+            f()
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b))
+        return statistics.median(times[2:])
+    alone = one(lambda: None) if behind else 0.0
+    return one(fn) - alone
+
+
+def k4_turns(lib, table, keys, max_probes, what, samples=21):
+    """K4 at one shape: every probe variant checked bit-equal to the plain
+    lookup and timed; the previous design (variant 0) and the port's
+    kernel in turns (old, new, new, old), back to back and behind a
+    one-element add. Returns :func:`in_turns`'s dict with ``mode: ms``."""
+    from ..sparse import hashtable as ht
+    ref = ht.lookup_plain(table, keys, max_probes)
+    n, cap = keys.shape[0], table.capacity
+    slots = torch.empty(n, dtype=torch.int64, device=keys.device)
+    found = torch.empty(n, dtype=torch.bool, device=keys.device)
+
+    def run(mode):
+        err = lib.probe_k4(mode, table.keys.data_ptr(), cap, keys.data_ptr(),
+                           n, max_probes, slots.data_ptr(), found.data_ptr(),
+                           torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"probe_k4 mode {mode}: CUDA error {err}")
+    for mode in K4_VARIANTS:
+        slots.fill_(-7)
+        run(mode)
+        torch.cuda.synchronize()
+        if not (torch.equal(slots, ref[0]) and torch.equal(found, ref[1])):
+            raise SystemExit(f"kernel_probe: K4 variant {mode} is wrong "
+                             f"{what}")
+    res = in_turns(lambda: run(0),
+                   lambda: ht.lookup(table, keys, max_probes), f"K4 {what}",
+                   "old = the previous design", samples)
+    for mode, label in K4_VARIANTS.items():
+        res[mode] = time_ms(lambda: run(mode), samples)
+        res.setdefault("behind", {})[mode] = behind_ms(
+            lambda: run(mode), samples, res["alone"])
+        print(f"  K4 {what} variant {mode} {label}: {res[mode]:.4f} ms; "
+              f"behind the add {res['behind'][mode]:.4f} ms", flush=True)
+    return res
+
+
+def k5_turns(lib, table, keys, max_probes, what, samples=21):
+    """K5 at one shape, ``table`` the index before the insert (left as it
+    was): the previous design (variant 0: a new plane, the input read) and
+    the port's in-place kernel each checked bit-equal to the plain insert,
+    the arbitration words all zero after every call; then both in turns
+    (old, new, new, old), alone and behind a one-element add. Where every
+    key is already stored (a steady step: the insert changes nothing) the
+    calls run back to back (:func:`time_ms`); otherwise each call is timed
+    alone on a fresh copy of ``table`` made outside the events
+    (:func:`call_ms`). Also times the functional form's clone of the table
+    and the port's kernel on every resident block (variant 1). Returns
+    :func:`in_turns`'s keys, ``steady``, ``clone_ms`` and ``1``."""
+    from ..ops import hash_probe
+    from ..sparse import hashtable as ht
+    ref_t, ref_slots, ref_created = ht.lookup_or_insert_plain(
+        table, keys, max_probes)
+    # a steady step: the insert leaves the table as it was
+    steady = all(torch.equal(a, b) for a, b in zip(ref_t, table))
+    before = ht.clone(table)
+    n, cap, dev = keys.shape[0], table.capacity, keys.device
+    work = ht.clone(table)  # the new kernel's table
+    out = ht.clone(table)   # the old kernel's output table
+    slots = torch.empty(n, dtype=torch.int64, device=dev)
+    created = torch.empty(n, dtype=torch.bool, device=dev)
+    w = min(ht.WINDOW, cap)
+    old_scratch = torch.empty(3 * n + cap + max_probes + w,
+                              dtype=torch.int32, device=dev)
+    arb = hash_probe.arbitration_words(dev, cap)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def reset():
+        for a, b in zip(work, table):
+            a.copy_(b)
+
+    def run(mode):
+        kst = torch.empty(2 * n, dtype=torch.int32, device=dev)
+        err = lib.probe_k5(mode, table.keys.data_ptr(),
+                           (out if mode == 0 else work).keys.data_ptr(), cap,
+                           keys.data_ptr(), n, max_probes,
+                           table.size.data_ptr(), table.overflow.data_ptr(),
+                           (out if mode == 0 else work).size.data_ptr(),
+                           (out if mode == 0 else work).overflow.data_ptr(),
+                           slots.data_ptr(), created.data_ptr(),
+                           (old_scratch if mode == 0 else kst).data_ptr(),
+                           arb.data_ptr(), stream)
+        if err:
+            raise RuntimeError(f"probe_k5 mode {mode}: CUDA error {err}")
+
+    def port():
+        return ht.lookup_or_insert_(work, keys, max_probes)
+
+    def check(name, got_t, got_slots, got_created):
+        torch.cuda.synchronize()
+        same = (all(torch.equal(a, b) for a, b in zip(got_t, ref_t))
+                and torch.equal(got_slots, ref_slots)
+                and torch.equal(got_created, ref_created))
+        if not same:
+            raise SystemExit(f"kernel_probe: K5 {name} is wrong {what}")
+        if bool(arb.any()):
+            raise SystemExit(f"kernel_probe: K5 {name} left arbitration "
+                             f"words set {what}")
+    for mode in K5_CHECKED:
+        reset()
+        run(mode)
+        check(f"variant {mode}", out if mode == 0 else work, slots, created)
+    reset()
+    _, s, c = port()
+    check("(the port's kernel)", work, s, c)
+    check("(the functional form)", *ht.lookup_or_insert(table, keys,
+                                                         max_probes))
+    if not all(torch.equal(a, b) for a, b in zip(table, before)):
+        raise SystemExit(f"kernel_probe: K5's functional form wrote its "
+                         f"input {what}")
+
+    if steady:
+        res = in_turns(lambda: run(0), port, f"K5 {what}",
+                       "old = the previous design", samples)
+        for mode in list(K5_VARIANTS)[1:]:
+            res[mode] = time_ms(lambda: run(mode), samples)
+            res.setdefault("behind", {})[mode] = behind_ms(
+                lambda: run(mode), samples, res["alone"])
+        res["lookup_ms"] = time_ms(lambda: ht.lookup(table, keys,
+                                                     max_probes), samples)
+    else:
+        turns = [call_ms(f, reset, samples) for f in
+                 (lambda: run(0), port, port, lambda: run(0))]
+        behind = [call_ms(f, reset, samples, behind=True) for f in
+                  (lambda: run(0), port, port, lambda: run(0))]
+        print(f"  K5 {what}: turns (old = the previous design, new, new, "
+              f"old) " + ", ".join(f"{t:.4f}" for t in turns)
+              + " ms a call alone on a fresh table; "
+              + ", ".join(f"{t:.4f}" for t in behind)
+              + " ms behind a one-element add", flush=True)
+        res = {"old": (turns[0] + turns[3]) / 2,
+               "new": (turns[1] + turns[2]) / 2,
+               "old_behind": (behind[0] + behind[3]) / 2,
+               "new_behind": (behind[1] + behind[2]) / 2,
+               "turns": turns, "behind_turns": behind}
+        for mode in list(K5_VARIANTS)[1:]:
+            res[mode] = call_ms(lambda: run(mode), reset, samples)
+            res.setdefault("behind", {})[mode] = call_ms(
+                lambda: run(mode), reset, samples, behind=True)
+    reset()
+    check("(after the timing)", *port())
+    res["steady"] = steady
+    res["clone_ms"] = time_ms(lambda: ht.clone(table), samples)
+    for mode in list(K5_VARIANTS)[1:]:
+        print(f"  K5 {what} variant {mode} {K5_VARIANTS[mode]}: "
+              f"{res[mode]:.4f} ms; behind the add "
+              f"{res['behind'][mode]:.4f} ms", flush=True)
+    print(f"  K5 {what}: the functional form's clone of the table "
+          f"{res['clone_ms']:.4f} ms"
+          + (f"; K4's lookup of the same keys {res['lookup_ms']:.4f} ms"
+             if steady else ""), flush=True)
+    return res
 
 
 def training_batch(dev):

@@ -18,10 +18,13 @@ and failed lookups read.
 The metadata writes of a lookup (create step, version, frequency) and its
 CounterFilter admission test are one launch of kernel K3a
 (``ops.meta_scatter.lookup_meta``), as on the host-index engine; a table
-in the light layout (no filter, no eviction) writes none. The hash probes,
-the CBF counters and the row scatters are XLA ops in the JAX package and
-plain PyTorch here. The stores are updated in place; the index is a new
-key plane (``hashtable.lookup_or_insert`` leaves its input as it was).
+in the light layout (no filter, no eviction) writes none. The hash probes
+are kernels K4 and K5 on the card (``hashtable.lookup`` and
+``lookup_or_insert_``), the JAX table's device loops; the CBF counters and
+the row scatters are XLA ops in the JAX package and plain PyTorch here.
+The stores and the index are updated in place (the JAX step donates its
+state): a lookup-or-create writes its created keys into the index it is
+given, so a caller keeps only the state it returns.
 """
 from __future__ import annotations
 
@@ -152,8 +155,8 @@ def lookup_or_create_unique(state: EVState, config: EmbeddingVariableConfig,
                             ) -> Tuple[EVState, LookupAux]:
     """Admit and insert deduplicated keys, initialise created rows where
     the table filters (or has ``lazy_init`` off), write the metadata and
-    test admission. Returns the new state (stores updated in place) and
-    the aux that :func:`gather` and the sparse optimizer read.
+    test admission. Returns the new state (stores and index updated in
+    place) and the aux that :func:`gather` and the sparse optimizer read.
 
     Frequencies advance by each key's multiplicity in the batch (with a
     filter the reference passes unique_with_counts' counts to
@@ -176,8 +179,8 @@ def lookup_or_create_unique(state: EVState, config: EmbeddingVariableConfig,
                                           counts)
         gated = torch.where(est >= config.cbf_filter.filter_freq, ukeys,
                             K.EMPTY)
-    index, slots, created = ht.lookup_or_insert(state.index, gated,
-                                                config.max_probes)
+    index, slots, created = ht.lookup_or_insert_(state.index, gated,
+                                                 config.max_probes)
 
     # created rows: filtered tables write their init now (a key not yet
     # admitted keeps serving its frozen init across steps); filter-less
@@ -415,8 +418,8 @@ def import_snapshot(config: EmbeddingVariableConfig, keys: torch.Tensor,
     ``create_steps`` defaults to ``versions``."""
     from ..optim.sparse import _scatter_set  # it imports this module
     state = create(config, keys.device)
-    index, slots, _ = ht.lookup_or_insert(state.index, keys,
-                                          config.max_probes)
+    index, slots, _ = ht.lookup_or_insert_(state.index, keys,
+                                           config.max_probes)
     cap = state.capacity
     live = ~K.is_empty(keys) & (slots != cap)
     dest = torch.where(live, slots, cap + 1)

@@ -13,9 +13,9 @@ indexed by those ids; several stores can share one key space):
   last row the null row; growth is a copy. Its row reads go through kernel
   K1 (``ops.gather``).
 
-The index and the id plane are new tensors after an insert (as
-``hashtable.lookup_or_insert`` returns its key plane); the CBF counters
-and a Tensible's rows are updated in place.
+An insert updates the index in place (``hashtable.lookup_or_insert_``)
+and returns a new id plane; the CBF counters and a Tensible's rows are
+updated in place. A caller keeps only the state an insert returns.
 """
 from __future__ import annotations
 
@@ -74,8 +74,8 @@ def gen_ids_unique(state: HashTableState, ukeys: torch.Tensor,
         cbf, est = ev_mod._cbf_bump_and_estimate(cbf, admit, ukeys,
                                                  counts.to(torch.int32))
         gated = torch.where(est >= admit.filter_freq, ukeys, K.EMPTY)
-    index, slots, created = ht.lookup_or_insert(state.index, gated,
-                                                max_probes)
+    index, slots, created = ht.lookup_or_insert_(state.index, gated,
+                                                 max_probes)
     order = torch.cumsum(created, 0, dtype=torch.int32) - 1
     ids_plane = _set_ids(state.ids, slots, created, state.next_id + order)
     n_created = created.sum(dtype=torch.int32)
@@ -104,10 +104,10 @@ def reinsert(state: HashTableState, keys: torch.Tensor, max_probes: int = 32):
     (``HashTableDirectRestoreOp``): keys go into the index and dense ids
     re-allocate compacted in scan order, so ``next_id`` (the count of live
     keys) never hands out an id a restored key owns. Returns ``(index,
-    ids_plane, next_id, live, new_ids)``; callers write their rows at
-    ``new_ids`` where ``live``."""
+    ids_plane, next_id, live, new_ids)``, ``index`` the state's, updated
+    in place; callers write their rows at ``new_ids`` where ``live``."""
     cap = state.ids.shape[0]
-    index, slots, _ = ht.lookup_or_insert(state.index, keys, max_probes)
+    index, slots, _ = ht.lookup_or_insert_(state.index, keys, max_probes)
     live = ~K.is_empty(keys) & (slots != cap)
     new_ids = torch.where(live, torch.cumsum(live, 0, dtype=torch.int32) - 1,
                           -1)

@@ -8,13 +8,20 @@ a scatter-min of their rank. Inserting the same keys in the same order
 gives bit-equal slots and key planes to the JAX table
 (``tests/test_torch_hashtable.py``). The key plane is one int64 tensor.
 
-:func:`lookup` and :func:`lookup_or_insert` dispatch on the device: a CPU
+:func:`lookup` and :func:`lookup_or_insert_` dispatch on the device: a CPU
 tensor runs the plain versions here (:func:`lookup_plain`,
-:func:`lookup_or_insert_plain`: Python loops over the JAX rounds, each
+:func:`lookup_or_insert_plain_`: Python loops over the JAX rounds, each
 asking the host whether a key is left), a CUDA tensor launches the
 hand-written kernels K4 and K5 (``ops/hash_probe.py``), which run the same
 rounds on the card without a host round trip, as the JAX table's
 device loops do; any other device raises.
+
+An insert updates the table in place: :func:`lookup_or_insert_` writes the
+created keys into ``table.keys`` and advances ``table.size`` and
+``table.overflow``, as the JAX step, which donates its state, lets XLA
+do; its callers give up the index they pass. :func:`lookup_or_insert` is
+the functional form (a clone of the table, then the in-place insert) for
+a caller that keeps its input.
 
 Invariants (as in the JAX table): capacity is a power of two; an insert
 fills the earliest bucket in probe order with an empty slot, so a bucket
@@ -109,23 +116,39 @@ def lookup_plain(table: HashTable, keys: torch.Tensor, max_probes: int = 32
     return slots, found
 
 
+def clone(table: HashTable) -> HashTable:
+    """A copy of ``table`` in new tensors."""
+    return HashTable(*(t.clone() for t in table))
+
+
+def lookup_or_insert_(table: HashTable, ukeys: torch.Tensor,
+                      max_probes: int = 32
+                      ) -> Tuple[HashTable, torch.Tensor, torch.Tensor]:
+    """Find-or-claim slots for a batch of **deduplicated** keys, in place:
+    the created keys are written into ``table.keys``, and ``table.size``
+    and ``table.overflow`` advance by the created and the failed keys.
+    EMPTY keys are padding and map to the null slot. Returns ``(table,
+    slots, created)``, ``table`` the same tensors."""
+    if _device_type(table, ukeys) == "cpu":
+        return lookup_or_insert_plain_(table, ukeys, max_probes)
+    slots, created = hash_probe.hash_lookup_or_insert_(
+        table.keys, table.size, table.overflow, ukeys, max_probes)
+    return table, slots, created
+
+
 def lookup_or_insert(table: HashTable, ukeys: torch.Tensor,
                      max_probes: int = 32
                      ) -> Tuple[HashTable, torch.Tensor, torch.Tensor]:
-    """Find-or-claim slots for a batch of **deduplicated** keys. EMPTY keys
-    are padding and map to the null slot. Returns ``(table, slots,
-    created)``; the input table is left as it was."""
-    if _device_type(table, ukeys) == "cpu":
-        return lookup_or_insert_plain(table, ukeys, max_probes)
-    keys, size, overflow, slots, created = hash_probe.hash_lookup_or_insert(
-        table.keys, table.size, table.overflow, ukeys, max_probes)
-    return HashTable(keys=keys, size=size, overflow=overflow), slots, created
+    """:func:`lookup_or_insert_` into a clone of ``table``: returns
+    ``(new table, slots, created)`` and leaves the input as it was."""
+    return lookup_or_insert_(clone(table), ukeys, max_probes)
 
 
-def lookup_or_insert_plain(table: HashTable, ukeys: torch.Tensor,
-                           max_probes: int = 32
-                           ) -> Tuple[HashTable, torch.Tensor, torch.Tensor]:
-    """The plain version of :func:`lookup_or_insert` (any device)."""
+def lookup_or_insert_plain_(table: HashTable, ukeys: torch.Tensor,
+                            max_probes: int = 32
+                            ) -> Tuple[HashTable, torch.Tensor, torch.Tensor]:
+    """The plain version of :func:`lookup_or_insert_` (any device), in
+    place on the same tensors."""
     cap = table.capacity
     n = ukeys.shape[0]
     dev = ukeys.device
@@ -137,16 +160,13 @@ def lookup_or_insert_plain(table: HashTable, ukeys: torch.Tensor,
     rank = torch.arange(n, device=dev)
     lane = torch.arange(w, device=dev)
     off = torch.zeros_like(ukeys)
-    # working key plane with one trash slot at ``cap`` for losers' writes
-    plane = torch.cat([table.keys,
-                       torch.full((1,), K.EMPTY, dtype=torch.int64,
-                                  device=dev)])
+    planes = table.keys.view(-1, w)
     rounds = 0
     # each key probes at most max_probes buckets; contention within a
     # bucket retries the same bucket, bounded by w extra rounds
     while rounds < max_probes + w and bool(pending.any()):
         b = (home + off * step) & bmask
-        kw = plane[:cap].view(-1, w)[b]
+        kw = planes[b]
         match = kw == ukeys[:, None]
         empty = K.is_empty(kw)
         # a hit can only be a pre-existing key (keys are deduplicated)
@@ -166,7 +186,7 @@ def lookup_or_insert_plain(table: HashTable, ukeys: torch.Tensor,
                          device=dev)
         arb.scatter_reduce_(0, claim, rank, "amin")
         win = want & (arb[target] == rank)
-        plane[torch.where(win, target, cap)] = ukeys
+        table.keys[target[win]] = ukeys[win]
         slots = torch.where(win, target, slots)
         pending &= ~win
         # losers of a bucket with an empty lane retry the same bucket;
@@ -177,10 +197,17 @@ def lookup_or_insert_plain(table: HashTable, ukeys: torch.Tensor,
         rounds += 1
 
     created = (slots != cap) & ~found & ~invalid
-    n_failed = (~invalid & (slots == cap)).sum()
-    return HashTable(keys=plane[:cap],
-                     size=table.size + created.sum(),
-                     overflow=table.overflow + n_failed), slots, created
+    table.size.add_(created.sum())
+    table.overflow.add_((~invalid & (slots == cap)).sum())
+    return table, slots, created
+
+
+def lookup_or_insert_plain(table: HashTable, ukeys: torch.Tensor,
+                           max_probes: int = 32
+                           ) -> Tuple[HashTable, torch.Tensor, torch.Tensor]:
+    """The plain version of :func:`lookup_or_insert` (any device): the
+    in-place plain insert into a clone of ``table``."""
+    return lookup_or_insert_plain_(clone(table), ukeys, max_probes)
 
 
 def occupied_mask(table: HashTable) -> torch.Tensor:
@@ -198,6 +225,6 @@ def rebuild(table: HashTable, keep: torch.Tensor,
     new_cap = new_capacity or table.capacity
     live = occupied_mask(table) & keep
     kkeys = torch.where(live, table.keys, K.EMPTY)
-    fresh, new_slots, _ = lookup_or_insert(
+    fresh, new_slots, _ = lookup_or_insert_(
         create(new_cap, table.keys.device), kkeys, max_probes)
     return fresh, torch.where(live, new_slots, new_cap + 1)

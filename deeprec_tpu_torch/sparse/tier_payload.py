@@ -141,14 +141,14 @@ def scatter(bundle, cfg, spec_: PayloadSpec, keys: torch.Tensor,
             payload: torch.Tensor):
     """Promotion into a device-index table bundle: insert ``keys`` into
     its index and write the payload rows into the values, the metadata
-    planes and the optimizer slot rows, in place and at full fidelity.
+    planes and the optimizer slot rows, all in place and at full fidelity.
     Returns ``(bundle, live)``: ``live`` marks the rows the index placed
     (a near-full table can refuse one; its host-tier row must stay)."""
     from ..optim.sparse import _scatter_set  # it imports embedding_var
     st = bundle.ev
     cap = cfg.capacity
     dim = spec_.dim
-    index, slots, _ = ht.lookup_or_insert(st.index, keys, cfg.max_probes)
+    index, slots, _ = ht.lookup_or_insert_(st.index, keys, cfg.max_probes)
     live = ~K.is_empty(keys) & (slots != cap)
     dest = torch.where(live, slots, cap + 1)  # cap + 1: dropped
     _scatter_set(st.values, dest, payload[:, :dim])

@@ -1,8 +1,8 @@
 """The hand-written CUDA kernels K1 (row gather), K2 (gather+pool, forward
 and backward, f32 and bf16), K3a (lookup_meta, meta_scatter), K3b
 (blocked_rmw_set), K4 and K5 (the hash index's lookup and
-lookup_or_insert) against their plain PyTorch versions, on the card, and
-how far two card runs of one training stream drift apart (the backward's
+lookup_or_insert_, in place and in its functional form) against their
+plain PyTorch versions, on the card, and how far two card runs of one training stream drift apart (the backward's
 atomics add in a run-dependent order), and the mesh engine's step on a
 world-1 NCCL group against a CPU twin on gloo. A CUDA kernel has no CPU mode, so
 every test here skips without a card. This file imports no JAX, so it
@@ -22,8 +22,9 @@ from deeprec_tpu_torch.ops.gather import gather_rows, gather_rows_plain
 from deeprec_tpu_torch.ops.meta_scatter import (
     blocked_rmw_set, blocked_rmw_set_plain, lookup_meta, lookup_meta_plain,
     meta_scatter, meta_scatter_plain, scatter_set)
-from deeprec_tpu_torch.ops.hash_probe import (hash_lookup,
-                                              hash_lookup_or_insert)
+from deeprec_tpu_torch.ops.hash_probe import (arbitration_words,
+                                              hash_lookup,
+                                              hash_lookup_or_insert_)
 from deeprec_tpu_torch.sparse import hashtable as TH
 import torch_hash_cases as HC
 
@@ -980,21 +981,37 @@ def _same_table(a, b):
             and torch.equal(a.overflow.cpu(), b.overflow.cpu()))
 
 
-def _insert_matches_plain(table, keys, max_probes=32):
-    """K5 (through hashtable.lookup_or_insert) against the plain version
-    on the same card tensors: key plane, size, overflow, slots and created
-    bit-equal, one launch (none for no keys), the input table as it was.
-    Returns the kernel's table and slots."""
-    before_keys = table.keys.clone()
+FORMS = ["in_place", "functional"]
+
+
+def _insert_matches_plain(table, keys, max_probes=32, form="in_place"):
+    """K5 (through hashtable.lookup_or_insert_, or the functional
+    lookup_or_insert) against the plain version on the same card tensors:
+    key plane, size, overflow, slots and created bit-equal, one launch
+    (none for no keys), the arbitration words all zero after the call.
+    In place: the table's own tensors written where they lie; functional:
+    new tensors, the input table as it was. Returns the kernel's table and
+    slots."""
+    before = TH.clone(table)
+    ptrs = [t.data_ptr() for t in table]
     ref = TH.lookup_or_insert_plain(table, keys, max_probes)
-    n0 = hash_lookup_or_insert.launches
-    got = TH.lookup_or_insert(table, keys, max_probes)
+    n0 = hash_lookup_or_insert_.launches
+    if form == "in_place":
+        got = TH.lookup_or_insert_(table, keys, max_probes)
+    else:
+        got = TH.lookup_or_insert(table, keys, max_probes)
     torch.cuda.synchronize()
-    assert hash_lookup_or_insert.launches == n0 + (keys.shape[0] > 0)
+    assert hash_lookup_or_insert_.launches == n0 + (keys.shape[0] > 0)
     assert _same_table(got[0], ref[0])
     assert torch.equal(got[1], ref[1]) and torch.equal(got[2], ref[2])
     assert got[1].dtype == torch.int64 and got[2].dtype == torch.bool
-    assert torch.equal(table.keys, before_keys)
+    if form == "in_place":
+        assert got[0] is table and [t.data_ptr() for t in table] == ptrs
+    else:
+        assert _same_table(table, before)
+        assert not any(t.data_ptr() in ptrs for t in got[0])
+    assert not bool(arbitration_words(table.keys.device,
+                                      table.capacity).any())
     return got[0], got[1]
 
 
@@ -1018,48 +1035,55 @@ def _random_keys(n, seed, n_empty=0, dev="cuda"):
     return torch.from_numpy(out).to(dev)
 
 
+@pytest.mark.parametrize("form", FORMS)
 @pytest.mark.parametrize("case", list(HC.CONTENTION))
-def test_hash_kernels_contention(cuda, case):
+def test_hash_kernels_contention(cuda, case, form):
     """The CPU contention cases: colliding claims, retries, full buckets,
-    both bounds; K4 then looks every key up."""
+    both bounds (overflow, max_probes 1); K4 then looks every key up."""
     cap, max_probes, sizes, spread = HC.CONTENTION[case]
     table, seen = TH.create(cap, cuda), []
     for keys in HC.batches(cap, len(case), sizes, spread):
         keys = torch.from_numpy(keys).to(cuda)
-        table, _ = _insert_matches_plain(table, keys, max_probes)
+        table, _ = _insert_matches_plain(table, keys, max_probes, form)
         seen.append(keys)
     probe = torch.cat(seen + [torch.from_numpy(
         HC.colliding_keys(cap, 5, 99)).to(cuda)])
     _lookup_matches_plain(table, probe, max_probes)
 
 
+@pytest.mark.parametrize("form", FORMS)
 @pytest.mark.parametrize("cap", [1, 2, 4])
-def test_hash_kernels_tiny_tables(cuda, cap):
+def test_hash_kernels_tiny_tables(cuda, cap, form):
     """Tables of fewer slots than a bucket: one bucket of cap lanes."""
     table = TH.create(cap, cuda)
     for seed in range(3):
-        table, _ = _insert_matches_plain(table, _random_keys(3, seed, 1))
+        table, _ = _insert_matches_plain(table, _random_keys(3, seed, 1),
+                                         form=form)
     _lookup_matches_plain(table, _random_keys(6, 0, 2))
 
 
+@pytest.mark.parametrize("form", FORMS)
 @pytest.mark.parametrize("max_probes", [0, 1])
-def test_hash_kernels_short_probe_bounds(cuda, max_probes):
+def test_hash_kernels_short_probe_bounds(cuda, max_probes, form):
     table = TH.create(256, cuda)
     for seed in range(2):
         table, _ = _insert_matches_plain(table, _random_keys(150, seed, 5),
-                                         max_probes)
+                                         max_probes, form)
     _lookup_matches_plain(table, _random_keys(300, 0, 5), max_probes)
 
 
-def test_hash_kernels_device_index_shape(cuda):
+@pytest.mark.parametrize("form", FORMS)
+def test_hash_kernels_device_index_shape(cuda, form):
     """The device-index engine's shape: 26,625 lanes (a few EMPTY) into
     2^21 slots, first step (all created) and steady (all found in the
     first round); K4 over them and over absent keys."""
     keys = _random_keys(26_000, 7, 625)
-    table, slots = _insert_matches_plain(TH.create(1 << 21, cuda), keys)
+    table, slots = _insert_matches_plain(TH.create(1 << 21, cuda), keys,
+                                         form=form)
     assert int(table.size) == 26_000 and int(table.overflow) == 0
-    again, slots2 = _insert_matches_plain(table, keys)
-    assert torch.equal(slots2, slots) and torch.equal(again.keys, table.keys)
+    plane = table.keys.clone()
+    again, slots2 = _insert_matches_plain(table, keys, form=form)
+    assert torch.equal(slots2, slots) and torch.equal(again.keys, plane)
     _lookup_matches_plain(table, torch.cat([keys, _random_keys(5000, 8)]))
 
 
@@ -1070,10 +1094,11 @@ def test_hash_kernels_rebuild_growth(cuda):
     for seed in range(4):  # ~0.8 load
         table, _ = _insert_matches_plain(table, _random_keys(13_000, seed))
     keep = torch.rand(1 << 16, generator=_gen()).to(cuda) < 0.9
-    n0 = hash_lookup_or_insert.launches
+    n0 = hash_lookup_or_insert_.launches
     got, gmap = TH.rebuild(table, keep, 1 << 17)
     torch.cuda.synchronize()
-    assert hash_lookup_or_insert.launches == n0 + 1
+    assert hash_lookup_or_insert_.launches == n0 + 1
+    assert not bool(arbitration_words(cuda, 1 << 17).any())
     cpu = TH.HashTable(*(t.cpu() for t in table))
     ref, rmap = TH.rebuild(cpu, keep.cpu(), 1 << 17)
     assert _same_table(got, ref) and torch.equal(gmap.cpu(), rmap)
@@ -1084,21 +1109,27 @@ def test_hash_kernels_no_keys(cuda):
     table, _ = _insert_matches_plain(TH.create(64, cuda),
                                      _random_keys(20, 1))
     empty = torch.zeros((0,), dtype=torch.int64, device=cuda)
-    n4, n5 = hash_lookup.launches, hash_lookup_or_insert.launches
+    n4, n5 = hash_lookup.launches, hash_lookup_or_insert_.launches
     t2, slots, created = TH.lookup_or_insert(table, empty)
+    t3, slots3, created3 = TH.lookup_or_insert_(table, empty)
     s4, f4 = TH.lookup(table, empty)
-    assert (hash_lookup.launches, hash_lookup_or_insert.launches) == (n4, n5)
+    assert (hash_lookup.launches, hash_lookup_or_insert_.launches) == \
+        (n4, n5)
     assert slots.shape == created.shape == s4.shape == f4.shape == (0,)
+    assert slots3.shape == created3.shape == (0,)
     assert _same_table(t2, table) and t2.keys is not table.keys
+    assert t3 is table
 
 
-def test_hash_kernels_beyond_one_wave(cuda):
+@pytest.mark.parametrize("form", FORMS)
+def test_hash_kernels_beyond_one_wave(cuda, form):
     """2^20 + 5 lanes, several times the keys a resident wave of
     half-warps takes at once: the grid-stride loops."""
     keys = _random_keys((1 << 20) + 2, 3, 3)
-    table, _ = _insert_matches_plain(TH.create(1 << 21, cuda), keys)
+    table, _ = _insert_matches_plain(TH.create(1 << 21, cuda), keys,
+                                     form=form)
     table, _ = _insert_matches_plain(table, torch.cat(
-        [keys[: 1 << 19], _random_keys(1 << 18, 4)]))
+        [keys[: 1 << 19], _random_keys(1 << 18, 4)]), form=form)
     _lookup_matches_plain(table, torch.cat([keys, _random_keys(1 << 18, 5)]))
 
 
@@ -1152,18 +1183,103 @@ def test_k3a_and_k1_read_the_slots_of_the_k5_before_them(cuda):
         keys = _random_keys(26_625, 20 + i // 2, 64)  # steps 1-2 repeat
         counts = torch.ones(keys.shape, dtype=torch.int32, device=cuda)
         ref_freqs = freqs.clone()
-        new, slots, created = TH.lookup_or_insert(table, keys)
+        ref, rslots, rcreated = TH.lookup_or_insert_plain(table, keys)
+        torch.cuda.synchronize()
+        # the step's order: the in-place insert, then K3a and K1 on its
+        # slots, each launched right after the one before
+        table, slots, created = TH.lookup_or_insert_(table, keys)
         dest = torch.where(created, slots, cap + 1)
         adm = lookup_meta(slots, counts, ro, dest, 3, cap, freqs=freqs,
                           add_freqs=True, filter_freq=2)
         rows = gather_rows(values, slots, 16)
         torch.cuda.synchronize()
-        _, rslots, rcreated = TH.lookup_or_insert_plain(table, keys)
         radm = lookup_meta_plain(rslots, counts, ro,
                                  torch.where(rcreated, rslots, cap + 1), 3,
                                  cap, freqs=ref_freqs, add_freqs=True,
                                  filter_freq=2)
-        assert torch.equal(slots, rslots)
+        assert torch.equal(slots, rslots) and _same_table(table, ref)
         assert torch.equal(adm, radm) and torch.equal(freqs, ref_freqs)
         assert torch.equal(rows, gather_rows_plain(values, rslots, 16))
-        table = new
+
+
+def test_hash_insert_alternating_capacities(cuda):
+    """In-place inserts into tables of three capacities in turn, each with
+    its own arbitration words (one buffer per device, capacity and
+    stream): bit-equal to the plain version, every buffer all zero after
+    every call, under contention (near-full tables) too."""
+    tables = {cap: TH.create(cap, cuda) for cap in (64, 1 << 12, 1 << 16)}
+    for step in range(4):
+        for cap, table in tables.items():
+            keys = _random_keys(int(cap * 0.3), 100 * step + cap % 97, 3)
+            _insert_matches_plain(table, keys)
+            for c in tables:
+                assert not bool(arbitration_words(cuda, c).any())
+    assert int(tables[64].overflow) > 0
+
+
+def test_hash_insert_on_two_streams(cuda):
+    """Inserts into two tables of one capacity, each on its own stream
+    with both in flight: each stream has its own arbitration words, and
+    both results equal the plain version's."""
+    cap = 1 << 14
+    tables = [TH.create(cap, cuda) for _ in range(2)]
+    keys = [_random_keys(12_000, 40 + k, 5) for k in range(2)]
+    refs = [TH.lookup_or_insert_plain(t, k) for t, k in zip(tables, keys)]
+    streams = [torch.cuda.Stream() for _ in range(2)]
+    torch.cuda.synchronize()
+    out = []
+    for t, k, st in zip(tables, keys, streams):
+        with torch.cuda.stream(st):
+            torch.cuda._sleep(20_000_000)
+            out.append(TH.lookup_or_insert_(t, k))
+    torch.cuda.synchronize()
+    words = []
+    for st in streams:
+        with torch.cuda.stream(st):
+            words.append(arbitration_words(cuda, cap))
+    assert words[0].data_ptr() != words[1].data_ptr()
+    for (t, s, c), (rt, rs, rc), w in zip(out, refs, words):
+        assert _same_table(t, rt) and torch.equal(s, rs)
+        assert torch.equal(c, rc) and not bool(w.any())
+
+
+# K4 runs a half-warp over several keys: n below the run, n not a
+# multiple of it, EMPTY lanes among the keys, absent keys
+_K4_SIZES = {"n1": (1, 0), "n5": (5, 0), "n8": (8, 0), "n13": (13, 2),
+             "n4099": (4097, 2), "n70003_empty": (60_000, 10_003)}
+
+
+@pytest.mark.parametrize("case", list(_K4_SIZES))
+def test_hash_lookup_key_runs(cuda, case):
+    """K4 at run-ragged sizes, half the keys stored, the rest absent, EMPTY
+    lanes mixed in."""
+    n, n_empty = _K4_SIZES[case]
+    keys = _random_keys(n, 5, n_empty)
+    stored = keys[torch.arange(keys.shape[0], device=cuda) % 2 == 0]
+    table, _ = _insert_matches_plain(TH.create(1 << 16, cuda), stored)
+    slots, found = _lookup_matches_plain(table, keys)
+    assert int(found.sum()) == int((stored != -1).sum())
+
+
+@pytest.mark.parametrize("max_probes", [2, 32])
+def test_hash_lookup_second_probe(cuda, max_probes):
+    """K4 where home buckets are full: keys stored past their home bucket
+    (found at the second probe or later), absent keys whose probes go on
+    past a full bucket, in runs shared with keys found at home."""
+    cap = 256
+    table, seen = TH.create(cap, cuda), []
+    for b in range(3):  # overfill buckets 0-2: keys land in later buckets
+        keys = torch.from_numpy(HC.colliding_keys(cap, 24, 7 + b, b)).to(
+            cuda)
+        table, _ = _insert_matches_plain(table, keys, max_probes)
+        seen.append(keys)
+    spread = _random_keys(60, 11)
+    table, _ = _insert_matches_plain(table, spread, max_probes)
+    absent = torch.from_numpy(HC.colliding_keys(cap, 9, 99, 1)).to(cuda)
+    probe = torch.cat(seen + [spread, absent, _random_keys(7, 12, 4)])
+    probe = probe[torch.randperm(probe.shape[0], generator=_gen()).to(cuda)]
+    slots, found = _lookup_matches_plain(table, probe, max_probes)
+    w = TH.WINDOW
+    home = (TH.K.hash32(probe) & (cap // w - 1)) * w
+    far = found & (slots // w * w != home)
+    assert int(far.sum()) > 0  # keys found past their home bucket
