@@ -8,7 +8,8 @@ DeepRec checkpoints and the multi-device engines (the device-index and
 host-sharded ShardedTrainer, multi-shard saves, ShardedPredictor,
 TieredShardedTrainer, DistributedHashTable and the server's --mesh), and
 the long-run checks (the soak on both one-card engines and the DIN/DIEN
-fidelity bisect).
+fidelity bisect), and that a training step is a function of its inputs
+(two runs of one step bit-equal on every one-card path).
 
 Run from the root of a checkout on a machine with one CUDA card:
 
@@ -37,7 +38,12 @@ comparison compute in full f32. Phases (any failure exits non-zero):
    K1 -> K2 pair of the serving path is timed with either K1 the same
    way; and the probe's variants of K1 and of K2's forward (each checked
    bit-equal where it writes the output) say what remains of their
-   time. K2 at bf16 (both
+   time. K2's backward, at every shape it is checked at, runs twice
+   bit-equal, is held to its plain version run on the CPU (every row of
+   at most 32 valid lanes bit-equal, longer rows within BWD_TOL of the
+   magnitudes) and is timed in turns with the atomic design it replaced
+   (the design probe's probe_k2_bwd_atomic), beside zeros + index_add_ and
+   the deterministic zeros + index_put_(accumulate=True). K2 at bf16 (both
    directions, at the serving and the training shape) is checked against
    its plain version (both sum in f32 and round once: one bf16 step of the
    value apart at most, beside the f32 order term) and timed beside
@@ -311,10 +317,11 @@ comparison compute in full f32. Phases (any failure exits non-zero):
    losses at every fence, tier rows on the device-index engine; K1, K2,
    K2's backward and K3a launched, and K5 and K4 (the eval) on the
    device-index engine. Each engine runs twice with the same seeds, and
-   the two final full saves must be bit-equal in every integer column
-   (keys, freqs, versions, create steps, the tier's keys and its payloads'
-   integer columns, the step); the largest difference of value rows, slot
-   rows, tier payload values and dense leaves is printed (ROADMAP C3).
+   the two final full saves must be bit-equal in every column: the
+   integer ones (keys, freqs, versions, create steps, the tier's keys and
+   its payloads' integer columns, the step) and the float ones (value
+   rows, slot rows, tier payload values, dense leaves), whose largest
+   difference, 0, is printed (ROADMAP C3).
    Prints ms per step (p50, p90, p99, the last 10 fences over the first
    10), growths, saves, the final capacity and tier rows and the eval AUC.
    Phase 2 also holds K1, K2 (both ways), K3a, K5 (first and steady step)
@@ -326,7 +333,17 @@ comparison compute in full f32. Phases (any failure exits non-zero):
    FIDELITY_B, FIDELITY_STEPS steps, eval every 250 steps on 20 held-out
    batches, beside harness/behavior_oracle.py's ceilings() of the stream:
    each planted arm above bias_repeat and above its random arm. Its
-   tables are read by plain indexing: no hand-written kernel is on it.
+   tables are read by plain indexing: no hand-written kernel is on it;
+24. determinism (``determinism``): one step of each one-card training
+   path (bench.py's --metadata DLRM on the host-index engine, staged and
+   through a HostStepPipeline's copies; the device-index DLRM; the four
+   variant tables; DIN and DIEN; the device-index DLRM as --mesh 1 on a
+   world-1 NCCL group), each after DETERMINISM_WARM steps at full width,
+   run twice from one state and one batch by
+   deeprec_tpu_torch/probes/step_bisect.py: every tensor the step makes
+   (pooled embeddings, each module's output, the rows' cotangents, every
+   gradient, the updated tables, slot states, parameters, buffers, dense
+   optimizer state and metrics) bit-equal between the two runs.
 
 The last line is {"ok": true, "device": {...}}; the line before it holds
 the kernels' numbers as JSON, the line before that the training numbers.
@@ -453,6 +470,7 @@ SOAK_STEPS_TO_LIVE = 20  # GlobalStepEvict(20),
 SOAK_DEMOTE_EVERY = 2    # a demotion sweep every 2 fences
 # phase 23 (fidelity): harness.sequence_fidelity, both arms of DIN and
 # DIEN at the JAX script's B and eval cadence, for FIDELITY_STEPS steps
+DETERMINISM_WARM = 2     # phase 24: steps before the step run twice
 FIDELITY_STEPS = 500
 FIDELITY_B = 2048
 # an eval step's AUC and loss, card vs CPU: the AUC is a histogram of 1024
@@ -857,14 +875,12 @@ def check_training_kernels(dev, probe):
     shape of one resolved B=4096 batch; scatter_set and K3b at the JAX
     benchmark's shape. Returns the kernels' JSON entries."""
     from deeprec_tpu_torch.data.criteo import SyntheticCriteo
-    from deeprec_tpu_torch.ops.fused_lookup import (
-        fused_pooled_lookup, fused_pooled_lookup_backward,
-        fused_pooled_lookup_backward_plain, fused_pooled_lookup_plain)
+    from deeprec_tpu_torch.ops.fused_lookup import (fused_pooled_lookup,
+                                                    fused_pooled_lookup_plain)
     from deeprec_tpu_torch.ops.meta_scatter import (
         blocked_rmw_set, blocked_rmw_set_plain, meta_scatter,
         meta_scatter_plain, scatter_set)
-    from deeprec_tpu_torch.probes.kernel_probe import (behind_ms, k2_forward,
-                                                       window_groups)
+    from deeprec_tpu_torch.probes.kernel_probe import behind_ms, k2_forward
 
     g = torch.Generator().manual_seed(SEED + 1)
     coll = host_collection(metadata=True)
@@ -879,30 +895,8 @@ def check_training_kernels(dev, probe):
     slots = r.inverse.view(-1, 1)
     valid = (r.uslots != CAPACITY)[r.inverse].view(-1, 1)
     d_pooled = torch.randn(slots.shape[0], EMB_DIM, generator=g).to(dev)
-    got = fused_pooled_lookup_backward(d_pooled, slots, valid, "sum", u)
-    ref = fused_pooled_lookup_backward_plain(d_pooled, slots, valid, "sum",
-                                             u)
-    mag = fused_pooled_lookup_backward_plain(d_pooled.abs(), slots, valid,
-                                             "sum", u)
-    bwd_err = (got - ref).abs().max().item()
-    if not bool(((got - ref).abs() <= BWD_TOL * mag + 1e-7).all()):
-        fail(f"K2 backward differs from its plain version by {bwd_err}")
-    # one add per (32-id window, row) once a warp groups its ids
-    adds, hot, windows = window_groups(r.inverse, valid.view(-1))
-    bwd_ms = time_ms(lambda: fused_pooled_lookup_backward(
-        d_pooled, slots, valid, "sum", u))
-    bwd_plain = time_ms(lambda: fused_pooled_lookup_backward_plain(
-        d_pooled, slots, valid, "sum", u))
-    idx, src = r.inverse.long(), torch.where(valid, d_pooled, 0.0)
-    bwd_lib = time_ms(lambda: torch.zeros(u, EMB_DIM, device=dev).index_add_(
-        0, idx, src))
-    bwd_bytes = (d_pooled.numel() * 4 + slots.numel() * 4 + valid.numel()
-                 + u * EMB_DIM * 4)
-    log_times("K2 fused_pooled_lookup_backward ([26*4096, 1] sum, D 16)",
-              bwd_ms, bwd_plain, bwd_lib, bwd_bytes,
-              f"; library: zeros + index_add_; max_abs_err {bwd_err:.3g}; "
-              f"hottest lane takes {hot} ids from {windows} 32-id windows; "
-              f"{adds} row adds after warp grouping")
+    bwd = k2_bwd_case(f"([26*{B}, 1] sum, D {EMB_DIM})", "", d_pooled,
+                      slots, valid, "sum", u)
 
     # K2's forward at the same training shape
     urows = torch.randn(u, EMB_DIM, generator=g).to(dev)
@@ -924,38 +918,15 @@ def check_training_kernels(dev, probe):
                "sum)")
 
     # K2 at bf16, both directions at the training shape: the gradient
-    # widened to f32, added in f32, rounded once to bf16 after the adds
+    # widened to f32, each row summed in f32 and rounded once to bf16
     d16, u16 = d_pooled.to(torch.bfloat16), urows.to(torch.bfloat16)
-    got = fused_pooled_lookup_backward(d16, slots, valid, "sum", u).float()
-    ref = fused_pooled_lookup_backward_plain(d16, slots, valid, "sum",
-                                             u).float()
-    mag = fused_pooled_lookup_backward_plain(d16.float().abs(), slots, valid,
-                                             "sum", u)
-    bwd16_err = (got - ref).abs().max().item()
-    # one bf16 step of the value, or the f32 order term (BWD_TOL above)
-    if not bool(((got - ref).abs() <= BF16_STEP * ref.abs() + BWD_TOL * mag
-                 + 1e-7).all()):
-        fail(f"K2 backward at bf16 differs from its plain version by "
-             f"{bwd16_err}")
+    bwd16 = k2_bwd_case(f"at bf16 ([26*{B}, 1] sum, D {EMB_DIM})", "bf16",
+                        d16, slots, valid, "sum", u)
     if not torch.equal(
             fused_pooled_lookup(u16, slots, valid, "sum").view(torch.int16),
             fused_pooled_lookup_plain(u16, slots, valid,
                                       "sum").view(torch.int16)):
         fail("K2 at bf16 (training shape) differs from its plain version")
-    src16 = torch.where(valid, d16, 0.0)
-    bwd16_ms = time_ms(lambda: fused_pooled_lookup_backward(
-        d16, slots, valid, "sum", u))
-    bwd16_plain = time_ms(lambda: fused_pooled_lookup_backward_plain(
-        d16, slots, valid, "sum", u))
-    bwd16_lib = time_ms(lambda: torch.zeros(
-        u, EMB_DIM, dtype=torch.bfloat16, device=dev).index_add_(0, idx,
-                                                                   src16))
-    bwd16_bytes = (d16.numel() * 2 + slots.numel() * 4 + valid.numel()
-                   + u * EMB_DIM * 2)
-    log_times("K2 fused_pooled_lookup_backward at bf16 ([26*4096, 1] sum, "
-              "D 16)", bwd16_ms, bwd16_plain, bwd16_lib, bwd16_bytes,
-              f"; library: zeros + index_add_ at bf16; max_abs_err "
-              f"{bwd16_err:.3g}")
     fwd16_ms = time_ms(lambda: fused_pooled_lookup(u16, slots, valid, "sum"))
     fwd16_plain = time_ms(lambda: fused_pooled_lookup_plain(u16, slots, valid,
                                                             "sum"))
@@ -1077,16 +1048,10 @@ def check_training_kernels(dev, probe):
               f"; library: torch.index_put out of place; the in-place "
               f"index_put_ (no copy of the plane, another function) "
               f"{k3b_inplace:.4f} ms")
+    bwd.pop("counter")  # the entries' names are the counters' own
+    bwd16.pop("counter")
     return k1_entries + [
-        entry("fused_pooled_lookup_backward",
-              "deeprec_tpu_torch/csrc/fused_pooled_lookup.cu",
-              "deeprec_tpu/ops/pallas_fused_lookup.py:80", bwd_err, bwd_ms,
-              bwd_plain, bwd_lib, bwd_bytes),
-        entry("fused_pooled_lookup_backward_bf16",
-              "deeprec_tpu_torch/csrc/fused_pooled_lookup.cu",
-              "deeprec_tpu/ops/pallas_fused_lookup.py:80", bwd16_err,
-              bwd16_ms, bwd16_plain, bwd16_lib, bwd16_bytes),
-        k3a,
+        bwd, bwd16, k3a,
         entry("meta_scatter", "deeprec_tpu_torch/csrc/meta_scatter.cu",
               "benchmarks/pallas_meta_bench.py:108", 0.0, old_ms, ms_plain,
               ms_lib, ms_bytes),
@@ -1903,70 +1868,132 @@ def zoo_batches(kind, seed, n):
     return list(gen.take(n))
 
 
-def k2_pair(what, urows, slots, valid, combiner, d_pooled, lib_fwd,
-            lib_bwd, suffix):
-    """K2 and K2's backward at one shape against their plain versions,
-    timed beside one PyTorch call each (``lib_fwd``, ``lib_bwd``: checked
-    to compute the same function) and their HBM-bytes bound. Returns the
-    two kernels' entries."""
+def bits(t):
+    """A float tensor's bits (NaN and -0.0 compared as such)."""
+    return t.contiguous().view(torch.int16 if t.dtype == torch.bfloat16
+                               else torch.int32)
+
+
+def k2_bwd_case(what, suffix, d_pooled, slots, valid, combiner, u):
+    """K2's backward at one shape: two launches bit-equal; held to its
+    plain version run on the CPU (every row of at most 32 valid lanes
+    bit-equal, as both add them in lane order; a longer row within BWD_TOL
+    of the magnitudes, a bf16 one within a bf16 step more); timed in turns
+    with the atomic design it replaced (the design probe's
+    probe_k2_bwd_atomic: old, new, new, old), beside its plain version on
+    the card, zeros + index_add_ (``library_ms``) and the deterministic
+    zeros + index_put_(accumulate=True) over the same lane terms, and its
+    HBM-bytes bound (this data's: the gradient rows of the bags that hold
+    a valid lane, the valid lanes' slots, every flag, the output written
+    once). Returns the kernel's entry."""
     from deeprec_tpu_torch.ops.fused_lookup import (
-        fused_pooled_lookup, fused_pooled_lookup_backward,
-        fused_pooled_lookup_backward_plain, fused_pooled_lookup_plain)
-    from deeprec_tpu_torch.probes.kernel_probe import window_groups
+        fused_pooled_lookup_backward, fused_pooled_lookup_backward_plain)
+    from deeprec_tpu_torch.probes.kernel_probe import build, k2_bwd_turns
+
+    def kernel():
+        return fused_pooled_lookup_backward(d_pooled, slots, valid, combiner,
+                                            u)
+    got, again = kernel(), kernel()
+    if not torch.equal(bits(got), bits(again)):
+        fail(f"K2 backward {what}: two launches differ")
+    dc, sc, vc = d_pooled.cpu(), slots.cpu(), valid.cpu()
+    ref = fused_pooled_lookup_backward_plain(dc, sc, vc, combiner, u)
+    mag = fused_pooled_lookup_backward_plain(dc.float().abs(), sc, vc,
+                                             combiner, u)
+    lanes = torch.bincount(sc.clamp(0, u - 1)[vc].long(), minlength=u)
+    short = lanes <= 32
+    got = got.cpu()
+    if not torch.equal(bits(got)[short], bits(ref)[short]):
+        fail(f"K2 backward {what}: a row of at most 32 lanes differs from "
+             f"the plain version's bits")
+    bf16 = d_pooled.dtype == torch.bfloat16
+    err = (got.float() - ref.float()).abs()
+    limit = (BF16_STEP if bf16 else 0.0) * ref.float().abs() \
+        + BWD_TOL * mag + 1e-7
+    if not bool((err <= limit).all()):
+        fail(f"K2 backward {what} differs from its plain version by "
+             f"{err.max().item()}")
+    # the library calls' lane terms, as the plain version makes them
+    n = valid.sum(1, keepdim=True).clamp_min(1).float()
+    g = d_pooled.float() if combiner == "sum" else \
+        d_pooled.float() / (n if combiner == "mean" else n.sqrt())
+    d = d_pooled.shape[1]
+    src = torch.where(valid[..., None], g[:, None, :], 0.0).reshape(-1, d)
+    src = src.to(d_pooled.dtype)
+    idx = slots.clamp(0, u - 1).reshape(-1).long()
+
+    def lib_add():
+        return torch.zeros(u, d, dtype=d_pooled.dtype,
+                           device=d_pooled.device).index_add_(0, idx, src)
+
+    def lib_put():
+        return torch.zeros(u, d, dtype=d_pooled.dtype,
+                           device=d_pooled.device).index_put_(
+            (idx,), src, accumulate=True)
+    for call in (lib_add, lib_put) if not bf16 else ():  # bf16: per-add
+        if not bool(((call().cpu() - ref).abs() <= limit).all()):  # rounding
+            fail(f"K2 backward {what}: a library yardstick computes "
+                 f"another function")
+    turns = k2_bwd_turns(build(), d_pooled, slots, valid, combiner, u,
+                         what, samples=7)
+    plain_ms = time_ms(lambda: fused_pooled_lookup_backward_plain(
+        d_pooled, slots, valid, combiner, u))
+    # index_put_ takes 0.1-27 ms a call here: a few long samples do
+    add_ms = time_ms(lib_add)
+    put_ms = time_ms(lib_put, samples=5, per_sample=2, warmup=1)
+    n_ids, n_valid = slots.numel(), int(valid.sum())
+    nbytes = (int(valid.any(1).sum()) * d * d_pooled.element_size()
+              + n_valid * slots.element_size() + n_ids
+              + u * d * d_pooled.element_size())
+    log_times(f"K2 fused_pooled_lookup_backward {what}", turns["new"],
+              plain_ms, add_ms, nbytes,
+              f"; atomic design {turns['old']:.4f} ms (in turns); library: "
+              f"zeros + index_add_, zeros + index_put_(accumulate=True) "
+              f"{put_ms:.4f} ms; max_abs_err {err.max().item():.3g}; "
+              f"{n_valid} valid lanes, {int((lanes > 0).sum())} rows "
+              f"touched, the hottest takes {int(lanes.max())}, "
+              f"{int((lanes > 32).sum())} rows of more than 32")
+    return entry(f"fused_pooled_lookup_backward_{suffix}".rstrip("_"),
+                 "deeprec_tpu_torch/csrc/fused_pooled_lookup.cu",
+                 "deeprec_tpu/ops/pallas_fused_lookup.py:80",
+                 err.max().item(), turns["new"], plain_ms, add_ms, nbytes,
+                 previous_ms=turns["old"], on_path_ms=turns["new_behind"],
+                 previous_on_path_ms=turns["old_behind"],
+                 deterministic_library_ms=put_ms,
+                 counter="fused_pooled_lookup_backward")
+
+
+def k2_pair(what, urows, slots, valid, combiner, d_pooled, lib_fwd, suffix):
+    """K2 and K2's backward at one shape against their plain versions,
+    timed beside one PyTorch call each (``lib_fwd``: checked to compute
+    the same function; the backward's: :func:`k2_bwd_case`) and their
+    HBM-bytes bound. Returns the two kernels' entries."""
+    from deeprec_tpu_torch.ops.fused_lookup import (fused_pooled_lookup,
+                                                    fused_pooled_lookup_plain)
     u, d = urows.shape
     ref = fused_pooled_lookup_plain(urows, slots, valid, combiner)
     got = fused_pooled_lookup(urows, slots, valid, combiner)
     torch.testing.assert_close(got, ref, rtol=POOL_RTOL, atol=1e-6)
     torch.testing.assert_close(lib_fwd(), ref, rtol=POOL_RTOL, atol=1e-6)
     fwd_err = (got - ref).abs().max().item()
-    bref = fused_pooled_lookup_backward_plain(d_pooled, slots, valid,
-                                              combiner, u)
-    bgot = fused_pooled_lookup_backward(d_pooled, slots, valid, combiner, u)
-    mag = fused_pooled_lookup_backward_plain(d_pooled.abs(), slots, valid,
-                                             combiner, u)
-    bwd_err = (bgot - bref).abs().max().item()
-    if not bool(((bgot - bref).abs() <= BWD_TOL * mag + 1e-7).all()):
-        fail(f"K2 backward {what} differs from its plain version by "
-             f"{bwd_err}")
-    if not bool(((lib_bwd() - bref).abs() <= BWD_TOL * mag + 1e-7).all()):
-        fail(f"K2 backward {what}: the library yardstick computes another "
-             f"function")
     # what the function needs from this run's data: every id's flag, the
-    # slot of each valid id; forward: each distinct row read once, every
-    # bag written; backward: the gradient row of each bag that holds a
-    # valid id, every row of d_values written
+    # slot of each valid id, each distinct row read once, every bag written
     n_ids, n_valid = slots.numel(), int(valid.sum())
     rows_read = int(torch.unique(slots[valid]).numel())
-    bags_used = int(valid.any(1).sum())
-    adds, hot, windows = window_groups(slots.reshape(-1), valid.reshape(-1))
     fwd_bytes = (n_valid * slots.element_size() + n_ids + rows_read * d * 4
                  + slots.shape[0] * d * 4)
-    bwd_bytes = (bags_used * d_pooled.shape[1] * d_pooled.element_size()
-                 + n_valid * slots.element_size() + n_ids + u * d * 4)
-    times = {}
-    for key, fn, plain, lib in (
-            ("fwd", lambda: fused_pooled_lookup(urows, slots, valid,
-                                                combiner),
-             lambda: fused_pooled_lookup_plain(urows, slots, valid,
-                                               combiner), lib_fwd),
-            ("bwd", lambda: fused_pooled_lookup_backward(
-                d_pooled, slots, valid, combiner, u),
-             lambda: fused_pooled_lookup_backward_plain(
-                 d_pooled, slots, valid, combiner, u), lib_bwd)):
-        times[key] = (time_ms(fn), time_ms(plain), time_ms(lib))
-    log_times(f"K2 fused_pooled_lookup {what}", *times["fwd"], fwd_bytes,
+    times = (time_ms(lambda: fused_pooled_lookup(urows, slots, valid,
+                                                 combiner)),
+             time_ms(lambda: fused_pooled_lookup_plain(urows, slots, valid,
+                                                       combiner)),
+             time_ms(lib_fwd))
+    log_times(f"K2 fused_pooled_lookup {what}", *times, fwd_bytes,
               f"; max_abs_err {fwd_err:.3g}; {rows_read} rows read")
-    log_times(f"K2 fused_pooled_lookup_backward {what}", *times["bwd"],
-              bwd_bytes, f"; max_abs_err {bwd_err:.3g}; hottest lane takes "
-              f"{hot} ids from {windows} 32-id windows; {adds} row adds "
-              f"after warp grouping")
-    src = "deeprec_tpu_torch/csrc/fused_pooled_lookup.cu"
-    k2 = "deeprec_tpu/ops/pallas_fused_lookup.py:80"
-    return [entry(f"fused_pooled_lookup_{suffix}", src, k2, fwd_err,
-                  *times["fwd"], fwd_bytes, counter="fused_pooled_lookup"),
-            entry(f"fused_pooled_lookup_backward_{suffix}", src, k2, bwd_err,
-                  *times["bwd"], bwd_bytes,
-                  counter="fused_pooled_lookup_backward")]
+    return [entry(f"fused_pooled_lookup_{suffix}",
+                  "deeprec_tpu_torch/csrc/fused_pooled_lookup.cu",
+                  "deeprec_tpu/ops/pallas_fused_lookup.py:80", fwd_err,
+                  *times, fwd_bytes, counter="fused_pooled_lookup"),
+            k2_bwd_case(what, suffix, d_pooled, slots, valid, combiner, u)]
 
 
 def k1_extra(turns):
@@ -2211,7 +2238,6 @@ def check_zoo_kernels(dev):
     valid = (r.uslots != cap)[r.inverse].view(-1, 1)
     urows = torch.randn(u, 1, generator=g).to(dev)
     d_pooled = torch.randn(slots.shape[0], 1, generator=g).to(dev)
-    idx, src = r.inverse.long(), torch.where(valid, d_pooled, 0.0)
     log(f"wide shape: {slots.shape[0]} ids, {n_real} unique keys in {u} "
         f"lanes, D 1")
     entries += k2_pair(
@@ -2219,7 +2245,6 @@ def check_zoo_kernels(dev):
         d_pooled,
         lambda: Fn.embedding_bag(slots, urows, per_sample_weights=valid.float(),
                                  mode="sum"),
-        lambda: torch.zeros(u, 1, device=dev).index_add_(0, idx, src),
         "d1")
     table = torch.randn(cap + 1, 1, generator=g).to(dev)
     entries.append(k1_case("(wide unique-row fetch, D 1)", table, r.uslots,
@@ -2249,16 +2274,10 @@ def check_zoo_kernels(dev):
     # the library's mean: invalid lanes point at an extra padding row
     ext = torch.cat([urows, torch.zeros(1, EMB_DIM, device=dev)])
     lidx = torch.where(valid, slots, u).long()
-    n = valid.sum(1, keepdim=True).clamp_min(1).float()
-    bsrc = torch.where(valid[..., None], (d_pooled / n)[:, None, :],
-                       0.0).reshape(-1, EMB_DIM)
-    bidx = slots.reshape(-1).long()
     pair = k2_pair(
         f"(DSSM hist_item, [{B}, {w}] {comb}, D {EMB_DIM})", urows, slots,
         valid, comb, d_pooled,
         lambda: Fn.embedding_bag(lidx, ext, mode="mean", padding_idx=u),
-        lambda: torch.zeros(u, EMB_DIM, device=dev).index_add_(0, bidx,
-                                                               bsrc),
         "w32_mean")
     table = torch.randn(cap + 1, EMB_DIM, generator=g).to(dev)
     pair.append(k1_case("(DSSM unique-row fetch)", table, r.uslots, "dssm"))
@@ -2400,15 +2419,12 @@ def check_seq_kernels(dev):
         f"bags, {pad} padded lanes")
     urows = torch.randn(u, EMB_DIM, generator=g).to(dev)
     d_pooled = torch.randn(slots.shape[0], EMB_DIM, generator=g).to(dev)
-    idx = slots[:, 0].long()
-    src = torch.where(valid, d_pooled, 0.0)
     pair = k2_pair(
         f"(DIN histories, [{n}*{B}*{w}, 1] sum, D {EMB_DIM})", urows, slots,
         valid, "sum", d_pooled,
         lambda: Fn.embedding_bag(slots, urows,
                                  per_sample_weights=valid.float(),
                                  mode="sum"),
-        lambda: torch.zeros(u, EMB_DIM, device=dev).index_add_(0, idx, src),
         "seq")
     # the JAX package's way, two calls: gather every id, zero the padding
     def gather_where():
@@ -3082,14 +3098,12 @@ def check_device_kernels(dev):
         f"inverse and slots")
     urows = torch.randn(u, EMB_DIM, generator=g).to(dev)
     d_pooled = torch.randn(slots.shape[0], EMB_DIM, generator=g).to(dev)
-    idx, src = uniq.inverse, torch.where(valid, d_pooled, 0.0)
     entries = k2_pair(
         f"(device-index, [26*{B}, 1] sum, D {EMB_DIM}, int64 inverse)",
         urows, slots, valid, "sum", d_pooled,
         lambda: Fn.embedding_bag(slots, urows,
                                  per_sample_weights=valid.float(),
                                  mode="sum"),
-        lambda: torch.zeros(u, EMB_DIM, device=dev).index_add_(0, idx, src),
         "device")
     table = torch.randn(cap + 1, 2 * EMB_DIM, generator=g).to(dev)
     entries.append(k1_case("(device-index unique-row fetch, int64 slots)",
@@ -3501,8 +3515,6 @@ def check_variant_kernels(dev):
         lambda: Fn.embedding_bag(mslots, murows,
                                  per_sample_weights=mvalid.float(),
                                  mode="sum"),
-        lambda: torch.zeros(n, EMB_DIM, device=dev).index_add_(
-            0, mslots.view(-1), torch.where(mvalid, md, 0.0)),
         "multihash")
     cap = VARIANT_CAPACITY
     uniq = unique(ids)
@@ -3516,14 +3528,12 @@ def check_variant_kernels(dev):
     valid = (uslots != cap)[uniq.inverse].view(-1, 1)
     urows = torch.randn(u, EMB_DIM, generator=g).to(dev)
     d_pooled = torch.randn(slots.shape[0], EMB_DIM, generator=g).to(dev)
-    idx, src = uniq.inverse, torch.where(valid, d_pooled, 0.0)
     entries += k2_pair(
         f"(variants, [26*{B}, 1] sum over a flat dedup of {u} lanes)",
         urows, slots, valid, "sum", d_pooled,
         lambda: Fn.embedding_bag(slots, urows,
                                  per_sample_weights=valid.float(),
                                  mode="sum"),
-        lambda: torch.zeros(u, EMB_DIM, device=dev).index_add_(0, idx, src),
         "variants")
     table = torch.randn(cap + 1, EMB_DIM, generator=g).to(dev)
     entries.append(k1_case(f"(variant row fetch, {u} int64 lanes of a 2^20 "
@@ -4579,15 +4589,12 @@ def check_hs_kernels(dev):
     valid = routed[slots.view(-1).long()].view(-1, 1)
     urows = torch.randn(u, EMB_DIM, generator=g).to(dev)
     d_pooled = torch.randn(slots.shape[0], EMB_DIM, generator=g).to(dev)
-    idx = slots.view(-1).long()
-    src = torch.where(valid, d_pooled, 0.0)
     entries += k2_pair(
         f"(host-sharded requester, [26*{B // S}, 1] sum, D {EMB_DIM}, int32 "
         f"inverse)", urows, slots, valid, "sum", d_pooled,
         lambda: Fn.embedding_bag(slots.long(), urows,
                                  per_sample_weights=valid.float(),
                                  mode="sum"),
-        lambda: torch.zeros(u, EMB_DIM, device=dev).index_add_(0, idx, src),
         "mesh4_hs")
     for e in entries:
         e["path"] = "mesh4_hs"
@@ -5117,14 +5124,12 @@ def check_soak_kernels(dev):
         f"a {cap}-slot index")
     urows = torch.randn(u, EMB_DIM, generator=g).to(dev)
     d_pooled = torch.randn(slots.shape[0], EMB_DIM, generator=g).to(dev)
-    idx, src = uniq.inverse, torch.where(valid, d_pooled, 0.0)
     entries = k2_pair(
         f"(device-index soak, [26*{B}, 1] sum, D {EMB_DIM}, int64 inverse)",
         urows, slots, valid, "sum", d_pooled,
         lambda: Fn.embedding_bag(slots, urows,
                                  per_sample_weights=valid.float(),
                                  mode="sum"),
-        lambda: torch.zeros(u, EMB_DIM, device=dev).index_add_(0, idx, src),
         "soak")
     table = torch.randn(cap + 1, EMB_DIM, generator=g).to(dev)
     entries.append(k1_case("(device-index soak unique-row fetch, int64 "
@@ -5174,13 +5179,14 @@ def soak_drift(ck_a, ck_b, what):
     (keys, freqs, versions, create steps, the tier's keys and its
     payloads' freq, version and create-step columns, the step) must be
     bit-equal; returns the largest |difference| of each float column
-    (value rows, slot rows, tier payload values, dense leaves)."""
+    (value rows, slot rows, tier payload values, dense leaves) and the
+    float columns whose bits differ."""
     from deeprec_tpu_torch.checkpoint import format as F
     (a, ta), (b, tb) = _final_full(ck_a), _final_full(ck_b)
     if a["step"] != b["step"] or ta != tb:
         fail(f"{what}: the two runs' final saves differ in step or tables: "
              f"{a['step']} {ta} against {b['step']} {tb}")
-    drift = {}
+    drift, differ = {}, []
     for t in ta:
         xa, xb = (F.read_table(s["path"], t) for s in (a, b))
         oa, ob = np.argsort(xa["keys"]), np.argsort(xb["keys"])
@@ -5203,17 +5209,25 @@ def soak_drift(ck_a, ck_b, what):
                     fail(f"{what}: {t} {col} differs between the runs")
             elif x.size:
                 drift[f"{t}/{col}"] = float(np.abs(x - y).max())
+                if not np.array_equal(_float_bits(x), _float_bits(y)):
+                    differ.append(f"{t}/{col}")
     da, db = F.read_dense(a["path"]), F.read_dense(b["path"])
     dense = 0.0
-    for x, y in zip(da, db):
+    for i, (x, y) in enumerate(zip(da, db)):
         x, y = np.asarray(x), np.asarray(y)
         if x.dtype.kind in "iu":
             if not np.array_equal(x, y):
                 fail(f"{what}: an integer dense leaf differs")
         elif x.size:
             dense = max(dense, float(np.abs(x - y).max()))
+            if not np.array_equal(_float_bits(x), _float_bits(y)):
+                differ.append(f"dense leaf {i}")
     drift["dense"] = dense
-    return drift
+    return drift, differ
+
+
+def _float_bits(x):
+    return np.ascontiguousarray(x).view(f"u{x.dtype.itemsize}")
 
 
 def check_soak(dev, smi, tmp):
@@ -5223,7 +5237,8 @@ def check_soak(dev, smi, tmp):
     on the device-index engine, and its first run's launches (K1, K2,
     K2's backward and K3a; K5 and K4 on the device-index engine). The two
     runs: the same integer trajectory and final saves bit-equal in every
-    integer column (:func:`soak_drift`, whose float drift is printed).
+    column, integer and float (:func:`soak_drift`; the float drift, 0, is
+    printed).
     Returns the first runs' launches by path and the phase's numbers."""
     from deeprec_tpu_torch.harness import soak
     from deeprec_tpu_torch.utils import native
@@ -5287,10 +5302,15 @@ def check_soak(dev, smi, tmp):
                 [{k: r[k] for k in ints if k in r} for r in t1_]:
             fail(f"soak {engine}-index: the two runs' integer trajectories "
                  "differ")
-        drift = soak_drift(ck0, ck1, f"soak {engine}-index")
+        drift, differ = soak_drift(ck0, ck1, f"soak {engine}-index")
         log(f"soak {engine}-index, two runs of one stream (ROADMAP C3): "
             f"final saves bit-equal in every integer column; largest float "
-            f"|difference| {drift}; on {smi}")
+            f"|difference| {drift}; float columns whose bits differ: "
+            f"{differ or 'none'}; on {smi}")
+        if differ:
+            fail(f"soak {engine}-index: the two runs' final saves differ in "
+                 f"the float columns {differ}: a training step on the card "
+                 f"must be a function of its inputs")
         paths[f"soak_{engine}"] = l0
         out[engine] = {"summary": s0, "repeat": s1, "launches": l0,
                        "wall_s": [w0, w1], "drift": drift,
@@ -5338,8 +5358,95 @@ def check_fidelity(dev, smi):
     return out
 
 
+# -- phase 24: determinism --------------------------------------------------
+def determinism_paths(dev):
+    """``(name, trainer, state, args())`` of each one-card training path at
+    full width, after DETERMINISM_WARM steps: bench.py's --metadata DLRM on
+    the host-index engine, staged (one resolve, its wire reused) and
+    pipelined (the pinned host wire through a HostStepPipeline's side-stream
+    copy at each call); the device-index DLRM; the four variant tables;
+    DIN and DIEN; the device-index DLRM as ``--mesh 1`` on a world-1 NCCL
+    group (torn down after)."""
+    import torch.distributed as dist
+    from deeprec_tpu_torch.data.criteo import SyntheticCriteo
+    from deeprec_tpu_torch.parallel import make_mesh, multihost
+    from deeprec_tpu_torch.train.pipeline import HostStepPipeline
+    crit = list(SyntheticCriteo(batch_size=B, seed=7).take(
+        DETERMINISM_WARM + 1))
+
+    def trained(tr, batches):
+        st = tr.init(batches[0])
+        for b in batches[:-1]:
+            st = tr.train_step(st, b)
+        return st
+
+    def warm(tr, batches):
+        st = trained(tr, batches)
+        args = tr.prepare_batch(batches[-1])  # one resolve
+        return tr, st, lambda: args
+
+    yield ("host-index staged", *warm(trainer(dev, True), crit))
+    tr = trainer(dev, True)
+    st = trained(tr, crit)
+    host = tr.prepare_host(crit[-1], pin=True)
+    with HostStepPipeline(lambda h: h, depth=3, device=dev) as pipe:
+        def piped():
+            pipe.feed(host)
+            return pipe.take()
+        yield "host-index pipelined", tr, st, piped
+    yield ("device-index", *warm(device_trainer(dev), crit))
+    for kind in VARIANT_KINDS:
+        yield (f"variant {kind}", *warm(variant_trainer(kind, dev), crit))
+    for kind in SEQ_MODELS:
+        yield (kind, *warm(zoo_trainer(kind, dev),
+                           zoo_batches(kind, 3, DETERMINISM_WARM + 1)))
+    multihost.initialize(f"127.0.0.1:{free_port()}", 1, 0, backend="nccl")
+    try:
+        yield ("mesh1", *warm(mesh_trainer(dev, make_mesh(1, device=dev)),
+                              crit))
+    finally:
+        dist.destroy_process_group()
+
+
+def check_determinism(dev, smi):
+    """Phase 24: one step of each path of :func:`determinism_paths` run
+    twice from one state and one batch (probes.step_bisect.bisect): every
+    tensor the step makes (the pooled embeddings, each module's output,
+    the rows' cotangents, every parameter's gradient, the updated tables,
+    slot states, parameters, buffers, dense optimizer state and metrics)
+    must be bit-equal between the two runs. Returns the tensors compared
+    by path."""
+    from deeprec_tpu_torch.probes.step_bisect import bisect
+    t0, out = time.perf_counter(), {}
+    for name, tr, state, args in determinism_paths(dev):
+        diff, n, _ = bisect(tr, state, args)
+        if diff is not None:
+            fail(f"determinism: two runs of one {name} step first differ at "
+                 f"{diff[0]} (max |d| {diff[1]:.3g})")
+        out[name] = n
+        log(f"determinism, {name}: two runs of one step from one state and "
+            f"batch bit-equal in all {n} tensors it makes")
+    log(f"determinism phase {time.perf_counter() - t0:.1f} s on {smi}")
+    return out
+
+
+def find_nondeterminism(dev):
+    """``--find-nondeterminism``: on each path of :func:`determinism_paths`,
+    the nondeterministic torch ops one step reaches
+    (probes.step_bisect.finder, a finder only) and the first tensor whose
+    bits differ between two runs of that step, one line each."""
+    from deeprec_tpu_torch.probes.step_bisect import bisect, finder
+    for name, tr, state, args in determinism_paths(dev):
+        found = finder(tr, state, args())
+        log(f"{name}: nondeterministic torch ops on the step: "
+            f"{found or 'none'}")
+        diff, n, _ = bisect(tr, state, args)
+        log(f"{name}: two runs of one step, {n} tensors: "
+            f"{'bit-equal' if diff is None else f'first differ at {diff}'}")
+
+
 def run(dev, smi, probe):
-    """Phases 2-23 on ``dev`` (``probe``: the built design probes); returns
+    """Phases 2-24 on ``dev`` (``probe``: the built design probes); returns
     the kernels' JSON entries and the training numbers."""
     from deeprec_tpu_torch.data.criteo import SyntheticCriteo
     from deeprec_tpu_torch.ops.fused_lookup import fused_pooled_lookup
@@ -5347,13 +5454,24 @@ def run(dev, smi, probe):
     from deeprec_tpu_torch.ops.hash_probe import hash_lookup
     from deeprec_tpu_torch.ops import _build
 
-    kernels = (check_kernels(dev, probe) + check_training_kernels(dev, probe)
-               + check_zoo_kernels(dev) + check_seq_kernels(dev)
-               + check_device_kernels(dev) + check_variant_kernels(dev)
-               + check_mesh_kernels(dev) + check_hs_kernels(dev)
-               + check_soak_kernels(dev))
+    took = {}  # host seconds of each phase, printed at the end
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        took[name] = round(time.perf_counter() - t0, 1)
+        return out
+
+    kernels = []
+    for check in (check_kernels, check_training_kernels):
+        kernels += timed(check.__name__, check, dev, probe)
+    for check in (check_zoo_kernels, check_seq_kernels, check_device_kernels,
+                  check_variant_kernels, check_mesh_kernels,
+                  check_hs_kernels, check_soak_kernels):
+        kernels += timed(check.__name__, check, dev)
 
     _build.BUILD.mkdir(parents=True, exist_ok=True)  # git-ignored
+    t_serving = time.perf_counter()
     with tempfile.TemporaryDirectory(dir=str(_build.BUILD)) as path:
         t0 = time.perf_counter()
         table = write_checkpoint(path)
@@ -5416,42 +5534,44 @@ def run(dev, smi, probe):
 
         check_http(path, gpu, cpu, table, held[1])
         del gpu, cpu
+    took["serving"] = round(time.perf_counter() - t_serving, 1)
 
-    paths, training = check_training(dev, smi)
+    paths, training = timed("train", check_training, dev, smi)
     paths["serving"] = launches
-    with tempfile.TemporaryDirectory(dir=str(_build.BUILD)) as path:
-        paths["loop"], training["loop"] = check_loop(dev, smi, path)
-    with tempfile.TemporaryDirectory(dir=str(_build.BUILD)) as path:
-        paths["tier"], training["tier"] = check_tier(dev, smi, path)
+    for name, check in (("loop", check_loop), ("tier", check_tier)):
+        with tempfile.TemporaryDirectory(dir=str(_build.BUILD)) as path:
+            paths[name], training[name] = timed(name, check, dev, smi, path)
     for phase, kinds in (("zoo", ZOO_MODELS), ("seq", SEQ_MODELS)):
         with tempfile.TemporaryDirectory(dir=str(_build.BUILD)) as path:
-            phase_paths, training[phase] = check_models(dev, smi, path,
-                                                        phase, kinds)
+            phase_paths, training[phase] = timed(phase, check_models, dev,
+                                                 smi, path, phase, kinds)
         paths.update(phase_paths)
-    paths["optim"], training["optim"] = check_optimizers(dev, smi)
-    training["bf16_forward"] = check_bf16_forward(dev)
+    paths["optim"], training["optim"] = timed("optim", check_optimizers, dev,
+                                              smi)
+    training["bf16_forward"] = timed("bf16_forward", check_bf16_forward, dev)
+    for name, check in (("cli", check_cli), ("device", check_device),
+                        ("variants", check_variants),
+                        ("migrate", check_migrate)):
+        with tempfile.TemporaryDirectory(dir=str(_build.BUILD)) as path:
+            paths[name], training[name] = timed(name, check, dev, smi, path)
+    paths["mesh1"], training["mesh1"] = timed("mesh1", check_mesh1, dev, smi)
+    paths["hsmesh1"], training["hsmesh1"] = timed("hsmesh1", check_hsmesh1,
+                                                  dev, smi)
     with tempfile.TemporaryDirectory(dir=str(_build.BUILD)) as path:
-        paths["cli"], training["cli"] = check_cli(dev, smi, path)
-    with tempfile.TemporaryDirectory(dir=str(_build.BUILD)) as path:
-        paths["device"], training["device"] = check_device(dev, smi, path)
-    with tempfile.TemporaryDirectory(dir=str(_build.BUILD)) as path:
-        paths["variants"], training["variants"] = check_variants(dev, smi,
-                                                                 path)
-    with tempfile.TemporaryDirectory(dir=str(_build.BUILD)) as path:
-        paths["migrate"], training["migrate"] = check_migrate(dev, smi, path)
-    paths["mesh1"], training["mesh1"] = check_mesh1(dev, smi)
-    paths["hsmesh1"], training["hsmesh1"] = check_hsmesh1(dev, smi)
-    with tempfile.TemporaryDirectory(dir=str(_build.BUILD)) as path:
-        p, training["mesh4"] = check_mesh4(dev, smi, path)
+        p, training["mesh4"] = timed("mesh4", check_mesh4, dev, smi, path)
         paths.update(p)
-        p, mesh2 = check_mesh2(dev, smi, path,
-                               os.path.join(path, "mesh4_ck"))
+        p, mesh2 = timed("mesh2", check_mesh2, dev, smi, path,
+                         os.path.join(path, "mesh4_ck"))
         paths.update(p)
         training.update(mesh2)
     with tempfile.TemporaryDirectory(dir=str(_build.BUILD)) as path:
-        p, training["soak"] = check_soak(dev, smi, path)
+        p, training["soak"] = timed("soak", check_soak, dev, smi, path)
         paths.update(p)
-    training["fidelity"] = check_fidelity(dev, smi)
+    training["fidelity"] = timed("fidelity", check_fidelity, dev, smi)
+    training["determinism"] = timed("determinism", check_determinism, dev,
+                                    smi)
+    log(f"host seconds by phase: {took}; {sum(took.values()):.1f} s in "
+        f"all")
     for k in kernels:
         # launches on the slice's main path, --metadata (the bf16 rows: on
         # the bf16 table's, where every K2 launch is a bf16 one; a zoo or
@@ -5477,6 +5597,12 @@ def main():
     if sys.argv[1:2] == ["--mesh2-rank"]:  # one of phases 19-21's ranks
         mesh2_rank(sys.argv[3], int(sys.argv[2]))
         return
+    # full f32 products on both sides of every comparison
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if sys.argv[1:2] == ["--find-nondeterminism"]:
+        find_nondeterminism(torch.device("cuda"))
+        return
     from deeprec_tpu_torch.ops import _build
     from deeprec_tpu_torch.probes import kernel_probe
 
@@ -5486,9 +5612,6 @@ def main():
     log(smi)
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python "
         f"{sys.version.split()[0]}")
-    # full f32 products on both sides of every comparison
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
 
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(1) as pool:

@@ -49,12 +49,16 @@
 // that work finishes, and each waits for it before its first access to
 // memory (out may be a block the allocator just reused).
 
+#include <cooperative_groups.h>
+#include <cub/block/block_radix_sort.cuh>
+#include <cub/block/block_scan.cuh>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
-#include <stdlib.h>
 
 #include "launch.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -262,246 +266,6 @@ __global__ void __launch_bounds__(kFwdThreads) pooled_lookup_kernel(
   }
 }
 
-// K2 backward: the pooling's gradient with respect to values,
-//   d_values[clamp(slots[b, k], 0, R-1), :] += d_pooled[b, :] / scale_b
-// for every valid lane (b, k), scale_b = 1 (sum), max(n_b,1) (mean) or
-// sqrt(max(n_b,1)) (sqrtn). The Pallas TPU kernel has no backward (its
-// caller differentiated the XLA gather instead); this is the port's own.
-// Bound by HBM bytes: d_pooled read once, slots/valid read once, the
-// [R, D] output written once.
-//
-// Design: contention on a row must not grow with that row's id count.
-// Criteo's skew puts ~1,400 of a batch's 106,496 ids on one of ~17,750
-// rows; one f32 atomic per id and column serialises ~22,700 adds on that
-// row's 64 bytes in L2. Here one thread owns one (bag, lane) id and holds
-// its scaled gradient row in registers, kChunk vectors (float4 where D
-// allows) at a time. __match_any_sync on the clamped row groups the warp's
-// valid ids that hit one row; the group's rows are summed with shuffles in
-// log2(group size) steps (reduce_peers), and only the group's leader's sum
-// reaches global memory, as vector atomics (float4/float2 atomicAdd,
-// compute capability 9.x: one RED.128 per 16 bytes). A row then takes at
-// most one add per 32-id window that touches it. Ids run bag-major, or
-// lane-major when the lane stride is the larger one (the transposed views
-// inverse.view(W, B)[o:o+w].T), so a warp reads consecutive slots and, on
-// the training layout, holds 32 consecutive examples of one column, where
-// duplicates are common.
-//
-// What then bounds it is the number of 16-byte adds L2 must take, not
-// their contention: with plain stores in place of the atomics the kernel
-// is as slow. So the leaders' sums are written kChunk lanes to a leader
-// (add_leaders): each warp instruction adds whole 64-byte runs of 8 rows,
-// full 32-byte sectors, not one 16-byte piece of 32 rows.
-//
-// The output must be zero before the first add. A zero-fill kernel runs
-// first and lets this kernel launch at once (programmatic dependent
-// launch, griddepcontrol): the loads, the grouping and the shuffles
-// overlap the fill, and every thread waits for it (griddepcontrol.wait)
-// only before its first add. The atomics add in a different order on
-// every run, so results agree with the plain version to rounding, not
-// bits.
-constexpr int kChunk = 4;  // vectors of a row held in registers at a time
-constexpr int kBwdThreads = 256;
-
-__device__ __forceinline__ float shfl(float v, int src) {
-  return __shfl_sync(kFull, v, src);
-}
-__device__ __forceinline__ float2 shfl(float2 v, int src) {
-  return make_float2(__shfl_sync(kFull, v.x, src),
-                     __shfl_sync(kFull, v.y, src));
-}
-__device__ __forceinline__ float4 shfl(float4 v, int src) {
-  return make_float4(__shfl_sync(kFull, v.x, src), __shfl_sync(kFull, v.y, src),
-                     __shfl_sync(kFull, v.z, src), __shfl_sync(kFull, v.w, src));
-}
-__device__ __forceinline__ float2 add_(float2 a, float2 b) {
-  return make_float2(a.x + b.x, a.y + b.y);
-}
-__device__ __forceinline__ float2 div_(float2 a, float d) {
-  return make_float2(a.x / d, a.y / d);
-}
-template <> __device__ __forceinline__ float2 zero<float2>() {
-  return make_float2(0.f, 0.f);
-}
-__device__ __forceinline__ void red_add(float* p, float v) { atomicAdd(p, v); }
-__device__ __forceinline__ void red_add(float2* p, float2 v) {
-  atomicAdd(p, v);  // sm_90: one vector reduction, the result unused
-}
-__device__ __forceinline__ void red_add(float4* p, float4 v) {
-  atomicAdd(p, v);
-}
-
-// Sums x over the lanes of `peers` (this lane's group, from
-// __match_any_sync) into the group's lowest lane. Each round, every live
-// lane adds the value of the next live peer above it; the peers of odd
-// rank are then done, and ranks halve. Every lane of the warp must call.
-template <typename V>
-__device__ __forceinline__ void reduce_peers(unsigned peers, int lane,
-                                             V (&x)[kChunk]) {
-  unsigned rank = __popc(peers & ((1u << lane) - 1u));
-  unsigned above = peers & (0xfffffffeu << lane);
-  while (__any_sync(kFull, above != 0u)) {
-    const int next = __ffs(above) - 1;  // -1 when none: read, unused
-#pragma unroll
-    for (int j = 0; j < kChunk; ++j) {
-      const V t = shfl(x[j], next & 31);
-      if (next >= 0) x[j] = add_(x[j], t);
-    }
-    above &= ~__ballot_sync(kFull, rank & 1u);
-    rank >>= 1;
-  }
-}
-
-// Adds the sums that the lanes of `leaders` hold (x, at row) to d_values,
-// kChunk lanes to a leader: lane q*kChunk + j adds vector j of the q-th
-// leader, so each instruction writes the chunks of 32/kChunk leaders as
-// contiguous runs. c0 is the chunk's first vector; dv is d in units of V.
-// Every lane of the warp must call.
-template <typename V>
-__device__ __forceinline__ void add_leaders(unsigned leaders, int lane,
-                                            const V (&x)[kChunk],
-                                            int64_t row, int64_t c0,
-                                            int64_t dv, V* d_values) {
-  const int n = __popc(leaders);
-  const int j = lane % kChunk;
-  for (int base = 0; base < n; base += 32 / kChunk) {  // warp-uniform
-    const int q = base + lane / kChunk;
-    const int src = q < n ? (int)__fns(leaders, 0, q + 1) : 0;
-    V v = zero<V>();
-#pragma unroll
-    for (int i = 0; i < kChunk; ++i) {
-      const V s = shfl(x[i], src);
-      if (i == j) v = s;
-    }
-    const int64_t r = __shfl_sync(kFull, row, src);
-    if (q < n && c0 + j < dv) red_add(d_values + r * dv + c0 + j, v);
-  }
-}
-
-// The f32 lanes of one gradient vector: an f32 vector as it is, or the
-// same number of bf16 lanes (uint2: 4, unsigned: 2, bf16x1: 1) widened.
-__device__ __forceinline__ float4 widen(float4 v) { return v; }
-__device__ __forceinline__ float2 widen(float2 v) { return v; }
-__device__ __forceinline__ float widen(float v) { return v; }
-__device__ __forceinline__ float4 widen(uint2 v) {
-  return make_float4(bf_lo(v.x), bf_hi(v.x), bf_lo(v.y), bf_hi(v.y));
-}
-__device__ __forceinline__ float2 widen(unsigned v) {
-  return make_float2(bf_lo(v), bf_hi(v));
-}
-__device__ __forceinline__ float widen(bf16x1 v) { return bf_lo(v); }
-
-// x[j] = g[c0 + j] (widened to f32) for the vectors of the chunk below dv;
-// 0 past it or when !load.
-template <typename V, typename G>
-__device__ __forceinline__ void load_chunk(V (&x)[kChunk], const G* g,
-                                           int64_t c0, int64_t dv, bool load) {
-#pragma unroll
-  for (int j = 0; j < kChunk; ++j)
-    x[j] = load && c0 + j < dv ? widen(__ldg(g + c0 + j)) : zero<V>();
-}
-
-// bf16 d_values: out[i] = round(sums[i]) once every add has landed. Each
-// thread narrows 4 values (one float4 load, one 8-byte store).
-__global__ void narrow_bf16_kernel(const float* __restrict__ sums,
-                                   unsigned* __restrict__ out, int64_t n) {
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  const int64_t n4 = n / 4;
-  if (i < n4) {
-    const float4 v = reinterpret_cast<const float4*>(sums)[i];
-    reinterpret_cast<uint2*>(out)[i] =
-        make_uint2(bf_pack(v.x, v.y), bf_pack(v.z, v.w));
-  }
-  if (i < n - 4 * n4)
-    reinterpret_cast<bf16x1*>(out)[4 * n4 + i] =
-        __bfloat16_as_ushort(__float2bfloat16_rn(sums[4 * n4 + i]));
-}
-
-// Zero-fills out[0, n) and lets the dependent backward launch at once.
-__global__ void zero_fill_kernel(float* __restrict__ out, int64_t n) {
-  launch_dependents();
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  const int64_t n4 = n / 4;  // out is 16-byte aligned (see the entry)
-  if (i < n4) reinterpret_cast<float4*>(out)[i] = make_float4(0.f, 0.f, 0.f, 0.f);
-  if (i < n - 4 * n4) out[4 * n4 + i] = 0.f;
-}
-
-// Zeroes the lanes that are not ok, divides the others by their bag's
-// scale (kScaled: mean or sqrtn) and sums each group into its leader.
-template <bool kScaled, typename V>
-__device__ __forceinline__ void scale_and_reduce(V (&x)[kChunk], bool ok,
-                                                 float scale, unsigned peers,
-                                                 int lane) {
-#pragma unroll
-  for (int j = 0; j < kChunk; ++j)
-    x[j] = !ok ? zero<V>() : kScaled ? div_(x[j], scale) : x[j];
-  reduce_peers(peers, lane, x);
-}
-
-// V: float4, float2 or float (the vector unit of the f32 sums); dv is d
-// in units of V. G: the gradient's vector of as many lanes, V itself (f32)
-// or bf16 bits (uint2, unsigned, bf16x1), widened as it is loaded.
-// kScaled: mean or sqrtn (combiner 1 or 2); sum has no scale code at all.
-template <typename V, typename G, typename I, bool kScaled>
-__global__ void __launch_bounds__(kBwdThreads) fused_pooled_lookup_bwd_kernel(
-    const G* __restrict__ d_pooled, int64_t dv,
-    const I* __restrict__ slots, int64_t s_b, int64_t s_k,
-    const bool* __restrict__ valid, int64_t v_b, int64_t v_k, int64_t n_bags,
-    int64_t w, int combiner, V* __restrict__ d_values, int64_t n_rows,
-    int lane_major) {
-  const int64_t n_ids = n_bags * w;
-  const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t - (threadIdx.x & 31) >= n_ids) {  // the whole warp is past the end
-    wait_for_prerequisite();  // no thread ends before the zero-fill
-    return;
-  }
-  const int lane = threadIdx.x & 31;
-  int64_t b = t, k = 0;  // w == 1, the width-1 columns: no division
-  if (w > 1 && lane_major) {
-    k = t / n_bags;
-    b = t - k * n_bags;
-  } else if (w > 1) {
-    b = t / w;
-    k = t - b * w;
-  }
-  // The flag, the slot and the first chunk of the gradient row are loaded
-  // together, whatever the flag says: one round trip to memory, not three
-  // dependent ones.
-  const bool in = t < n_ids;
-  const G* g = d_pooled + b * dv;
-  bool ok = false;
-  int64_t row = 0;
-  V x[kChunk];
-  if (in) {
-    ok = valid[b * v_b + k * v_k];
-    row = (int64_t)slots[b * s_b + k * s_k];
-  }
-  load_chunk(x, g, 0, dv, in);
-  row = row < 0 ? 0 : (row >= n_rows ? n_rows - 1 : row);
-  float scale = 1.f;
-  if (kScaled && ok) {
-    int n = 0;
-    for (int64_t j = 0; j < w; ++j) n += valid[b * v_b + j * v_k] ? 1 : 0;
-    const float m = (float)(n > 1 ? n : 1);
-    scale = combiner == 1 ? m : sqrtf(m);
-  }
-  // invalid and past-the-end ids each form a group of their own; a 32-bit
-  // key where the rows allow it (half the match's work)
-  const long long key = ok ? (long long)row : -1ll - lane;
-  const unsigned peers = n_rows <= INT32_MAX
-                             ? __match_any_sync(kFull, (int)key)
-                             : __match_any_sync(kFull, key);
-  const unsigned leaders =
-      __ballot_sync(kFull, ok && lane == __ffs(peers) - 1);
-  scale_and_reduce<kScaled>(x, ok, scale, peers, lane);
-  wait_for_prerequisite();  // the zero-fill has landed
-  add_leaders(leaders, lane, x, row, 0, dv, d_values);
-  // rows wider than one chunk (D > 16 in float4): the rest, chunk by chunk
-  for (int64_t c0 = kChunk; c0 < dv; c0 += kChunk) {  // warp-uniform loop
-    load_chunk(x, g, c0, dv, ok);
-    scale_and_reduce<kScaled>(x, ok, scale, peers, lane);
-    add_leaders(leaders, lane, x, row, c0, dv, d_values);
-  }
-}
 
 template <typename V, typename I>
 cudaError_t launch_fwd(const V* values, int64_t ld, int64_t n_rows, int64_t d,
@@ -544,72 +308,508 @@ cudaError_t launch(const void* values, int64_t ld, int64_t n_rows, int64_t d,
                     combiner, (V*)out, stream);
 }
 
-// Launches the backward as the programmatic dependent of the zero-fill
-// just queued on `stream`.
-template <typename V, typename G, typename I>
-cudaError_t launch_bwd(const void* d_pooled, int64_t dv, const void* slots,
-                       int64_t s_b, int64_t s_k, const void* valid,
-                       int64_t v_b, int64_t v_k, int64_t n_bags, int64_t w,
-                       int combiner, void* d_values, int64_t n_rows,
-                       cudaStream_t stream) {
-  const int lane_major = w > 1 && llabs(s_k) > llabs(s_b);
-  const auto kernel = combiner != 0
-                          ? fused_pooled_lookup_bwd_kernel<V, G, I, true>
-                          : fused_pooled_lookup_bwd_kernel<V, G, I, false>;
-  return launch_dependent(kernel, (n_bags * w + kBwdThreads - 1) / kBwdThreads,
-                          kBwdThreads, stream, (const G*)d_pooled, dv,
-                          (const I*)slots, s_b, s_k, (const bool*)valid, v_b,
-                          v_k, n_bags, w, combiner, (V*)d_values, n_rows,
-                          lane_major);
+// K2 backward: the pooling's gradient with respect to values,
+//   d_values[r, :] = sum over the valid lanes (b, k) with
+//                    clamp(slots[b, k], 0, R-1) == r of d_pooled[b, :] / scale_b
+// scale_b = 1 (sum), max(n_b,1) (mean) or sqrt(max(n_b,1)) (sqrtn); a row
+// that no valid lane touches gets 0. The Pallas TPU kernel has no backward
+// (its caller differentiated the XLA gather, whose transpose XLA sums in a
+// fixed order); this is the port's own. Bound by HBM bytes: the gradient
+// rows of the bags that hold a valid lane, the slots and flags, the [R, D]
+// output written once.
+//
+// Design: the result is a function of the inputs alone, so two runs of one
+// training stream stay bit-equal. No float atomics: each row is summed in
+// an order fixed by its lanes and written once (zeros too), with no fill
+// before. Two launches, as the atomic design's fill + adds: steps 1-3 in
+// one cooperative launch (order_kernel) on at most the blocks the card
+// holds at once, parted by grid barriers, and step 4 (rows_kernel) as its
+// programmatic dependent:
+//  1. Each lane (b, k), at position b*w + k (the plain version's lane
+//     order), gets the key clamp(slot) where valid and R where not, and
+//     the value b; each bag its scale (mean, sqrtn); the row bounds are
+//     cleared.
+//  2. An LSD radix sort of the pairs, 8 bits a pass over the bits R needs:
+//     each tile of kTile lanes counts its digits; then each tile sums
+//     every tile's counts into its digits' offsets, sorts its lanes by
+//     digit (cub::BlockRadixSort, stable) and writes them there. Stable at
+//     every pass, so each row's lanes stay in lane order.
+//  3. Each row's range [lo, hi) of the sorted lanes, where the key
+//     changes; an untouched row keeps [0, 0).
+//  4. A block takes 32 rows at a time, 8 lanes a row. A row of at most
+//     kExact lanes is summed in lane order by one lane per vector column:
+//     the order of the plain version, whose index_add_ adds in index order,
+//     so the sums are bit-equal to it. A row of up to kWarpLanes lanes is
+//     left to its warp, a longer one to the whole block (Criteo's skew puts
+//     ~1,400 of a batch's 106,496 ids on one of ~17,750 rows): 32 or 256
+//     threads each sum a contiguous run of the row's lanes in order, and
+//     the runs' sums are added in run order (a warp's through shared
+//     memory, one lane a vector; then the 8 warps' sums). A row of at most
+//     32 lanes thus still adds in lane order; a longer one adds in a tree
+//     that its lane count fixes.
+// A bf16 gradient is widened to f32 as it is loaded, and each row's f32
+// sum is rounded once to bf16 as it is written.
+constexpr int kBwdThreads = 256;
+constexpr int kSortItems = 8;  // lanes a thread holds in a tile's sort
+constexpr int kTile = kBwdThreads * kSortItems;
+constexpr int kDigits = 256;   // 8 bits a pass
+constexpr int kRowLanes = 8;   // a row's lanes in the first pass
+constexpr int kBlockRows = kBwdThreads / kRowLanes;
+constexpr int kExact = 16;     // rows of at most this many lanes: pass 1
+constexpr int kWarpLanes = 128;  // ... at most this many: a warp; more: the block
+constexpr int kDepth = 8;      // pass 1: gradient loads in flight a lane
+constexpr int kChunk = 4;      // runs: vectors of a row a thread holds
+constexpr int kRunDepth = 2;   // runs: lanes in flight a thread
+static_assert(kBwdThreads == kDigits, "a thread a digit");
+
+__device__ __forceinline__ float2 add_(float2 a, float2 b) {
+  return make_float2(a.x + b.x, a.y + b.y);
+}
+__device__ __forceinline__ float2 div_(float2 a, float d) {
+  return make_float2(a.x / d, a.y / d);
+}
+template <> __device__ __forceinline__ float2 zero<float2>() {
+  return make_float2(0.f, 0.f);
 }
 
-template <typename V, typename G>
-cudaError_t launch_bwd(const void* d_pooled, int64_t dv, const void* slots,
+// The gradient's vector of a vector unit V of f32 sums (float4, float2 or
+// float) and its output vector: V itself for f32, as many bf16 lanes
+// (uint2: 4, unsigned: 2, bf16x1: 1) for bf16; `up` widens, `down` rounds
+// to nearest even.
+template <typename V, bool kBf16> struct Lanes {
+  using G = V;
+  static __device__ __forceinline__ V up(G v) { return v; }
+  static __device__ __forceinline__ G down(V v) { return v; }
+};
+template <> struct Lanes<float4, true> {
+  using G = uint2;
+  static __device__ __forceinline__ float4 up(G v) {
+    return make_float4(bf_lo(v.x), bf_hi(v.x), bf_lo(v.y), bf_hi(v.y));
+  }
+  static __device__ __forceinline__ G down(float4 v) {
+    return make_uint2(bf_pack(v.x, v.y), bf_pack(v.z, v.w));
+  }
+};
+template <> struct Lanes<float2, true> {
+  using G = unsigned;
+  static __device__ __forceinline__ float2 up(G v) {
+    return make_float2(bf_lo(v), bf_hi(v));
+  }
+  static __device__ __forceinline__ G down(float2 v) {
+    return bf_pack(v.x, v.y);
+  }
+};
+template <> struct Lanes<float, true> {
+  using G = bf16x1;
+  static __device__ __forceinline__ float up(G v) { return bf_lo(v); }
+  static __device__ __forceinline__ G down(float v) {
+    return __bfloat16_as_ushort(__float2bfloat16_rn(v));
+  }
+};
+
+// The ordering's arrays: the inputs and the scratch the wrapper allocates
+// (keys[0], bags[0] in lane order; keys[1], bags[1] the sort's other
+// buffer; hist the tiles' digit counts; scales; bounds). Scratch written
+// during the launch is read with __ldcg (L2), never through the read-only
+// cache.
+struct OrderArgs {
+  const void* slots;
+  int slots_are_64;
+  int64_t s_b, s_k;
+  const bool* valid;
+  int64_t v_b, v_k, n_bags, w, n_rows;
+  int combiner;
+  unsigned* keys[2];
+  int* bags[2];
+  unsigned* hist;  // [kDigits][n_tiles], digit-major
+  float* scales;
+  int2* bounds;
+  int64_t n, n_tiles;
+  int end_bit;
+};
+
+// Step 1 for lane/bag/row t.
+template <typename I, typename A>
+__device__ __forceinline__ void order_one(const A& a, int64_t t) {
+  const I* slots = (const I*)a.slots;
+  if (t < a.n) {
+    const int64_t b = a.w == 1 ? t : t / a.w, k = t - b * a.w;
+    const bool ok = a.valid[b * a.v_b + k * a.v_k];
+    const int64_t row =
+        clamp_row((int64_t)slots[b * a.s_b + k * a.s_k], a.n_rows);
+    a.keys[0][t] = ok ? (unsigned)row : (unsigned)a.n_rows;
+    a.bags[0][t] = (int)b;
+  }
+  if (a.combiner != 0 && t < a.n_bags) {
+    int n = 0;
+    for (int64_t j = 0; j < a.w; ++j) n += a.valid[t * a.v_b + j * a.v_k];
+    const float m = (float)(n > 1 ? n : 1);
+    a.scales[t] = a.combiner == 1 ? m : sqrtf(m);
+  }
+  if (t < a.n_rows) a.bounds[t] = make_int2(0, 0);
+}
+
+using TileSort = cub::BlockRadixSort<unsigned, kBwdThreads, kSortItems, int>;
+using DigitScan = cub::BlockScan<unsigned, kBwdThreads>;
+
+// Step 2, one pass: the lanes of keys[src], bags[src] stably sorted by
+// their digit at `bit` into keys[1 - src], bags[1 - src]. `cnt` counts a
+// tile's digits, `offset` holds where they go.
+template <typename A>
+__device__ void sort_pass(const A& a, int src, int bit, cg::grid_group& grid,
+                          unsigned* cnt, unsigned* offset,
+                          typename TileSort::TempStorage& sort,
+                          typename DigitScan::TempStorage& scan) {
+  const unsigned* keys = a.keys[src];
+  const int* bags = a.bags[src];
+  const int t = threadIdx.x;
+  // each tile's digit counts, digit-major
+  for (int64_t tile = blockIdx.x; tile < a.n_tiles; tile += gridDim.x) {
+    cnt[t] = 0;
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < kSortItems; ++j) {
+      const int64_t i = tile * kTile + j * kBwdThreads + t;
+      if (i < a.n) atomicAdd(cnt + (__ldcg(keys + i) >> bit & 255u), 1u);
+    }
+    __syncthreads();
+    a.hist[(int64_t)t * a.n_tiles + tile] = cnt[t];
+    __syncthreads();
+  }
+  grid.sync();
+  // each tile sorted by digit (its lanes past n: digit 255, after the
+  // real ones) and written at its digits' offsets
+  for (int64_t tile = blockIdx.x; tile < a.n_tiles; tile += gridDim.x) {
+    unsigned digit[kSortItems];
+    int local[kSortItems];
+#pragma unroll
+    for (int j = 0; j < kSortItems; ++j) {
+      local[j] = t * kSortItems + j;  // blocked: the stable order
+      const int64_t i = tile * kTile + local[j];
+      digit[j] = i < a.n ? __ldcg(keys + i) >> bit & 255u : 255u;
+    }
+    // where digit t's lanes of this tile go: after every tile's lanes of
+    // smaller digits and this digit's lanes of the tiles before
+    unsigned total = 0, before = 0;
+    const unsigned* counts = a.hist + (int64_t)t * a.n_tiles;
+#pragma unroll 16
+    for (int64_t q = 0; q < a.n_tiles; ++q) {
+      const unsigned c = __ldcg(counts + q);
+      total += c;
+      before += q < tile ? c : 0u;
+    }
+    unsigned below;
+    DigitScan(scan).ExclusiveSum(total, below);
+    offset[t] = below + before;
+    TileSort(sort).Sort(digit, local, 0, 8);
+    cnt[t] = 0;
+    __syncthreads();
+    const int64_t base = tile * kTile;
+    const int real = a.n - base < kTile ? (int)(a.n - base) : kTile;
+#pragma unroll
+    for (int j = 0; j < kSortItems; ++j)
+      if (local[j] < real) atomicAdd(cnt + digit[j], 1u);
+    __syncthreads();
+    unsigned first;  // where this thread's digit starts in the sorted tile
+    DigitScan(scan).ExclusiveSum(cnt[t], first);
+    __syncthreads();
+    cnt[t] = first;
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < kSortItems; ++j) {
+      if (local[j] >= real) continue;
+      const unsigned pos = t * kSortItems + j - cnt[digit[j]];
+      const int64_t dst = (int64_t)offset[digit[j]] + pos;
+      a.keys[1 - src][dst] = __ldcg(keys + base + local[j]);
+      a.bags[1 - src][dst] = __ldcg(bags + base + local[j]);
+    }
+    __syncthreads();
+  }
+  grid.sync();
+}
+
+// Loads the term of sorted lane i: bag bags[i]'s gradient vector col.
+template <typename V, bool kBf16>
+__device__ __forceinline__ V load_term(const typename Lanes<V, kBf16>::G* g,
+                                       int64_t dv, int bag, int64_t col) {
+  return Lanes<V, kBf16>::up(__ldg(g + (int64_t)bag * dv + col));
+}
+
+// acc[j] = the sum, in order, of the terms of run `run` of `n_runs`
+// contiguous runs of the sorted lanes [lo, hi), vector columns c0 + j
+// (zero past dv).
+template <typename V, bool kBf16, bool kScaled>
+__device__ __forceinline__ void run_sum(
+    V (&acc)[kChunk], const typename Lanes<V, kBf16>::G* g, int64_t dv,
+    const int* bags, const float* scales, int lo, int hi, int run, int n_runs,
+    int64_t c0) {
+  const int len = hi - lo, per = (len + n_runs - 1) / n_runs;
+  const int a = lo + min(run * per, len), e = lo + min((run + 1) * per, len);
+#pragma unroll
+  for (int j = 0; j < kChunk; ++j) acc[j] = zero<V>();
+  for (int i0 = a; i0 < e; i0 += kRunDepth) {
+    int bag[kRunDepth];
+#pragma unroll
+    for (int u = 0; u < kRunDepth; ++u)
+      bag[u] = i0 + u < e ? __ldcg(bags + i0 + u) : 0;
+    V x[kRunDepth][kChunk];
+    float s[kRunDepth];
+#pragma unroll
+    for (int u = 0; u < kRunDepth; ++u) {
+      s[u] = kScaled && i0 + u < e ? __ldcg(scales + bag[u]) : 1.f;
+#pragma unroll
+      for (int j = 0; j < kChunk; ++j)
+        x[u][j] = i0 + u < e && c0 + j < dv
+                      ? load_term<V, kBf16>(g, dv, bag[u], c0 + j) : zero<V>();
+    }
+#pragma unroll
+    for (int u = 0; u < kRunDepth; ++u)
+      if (i0 + u < e)
+#pragma unroll
+        for (int j = 0; j < kChunk; ++j)
+          acc[j] = add_(acc[j], kScaled ? div_(x[u][j], s[u]) : x[u][j]);
+  }
+}
+
+// Lane j < kChunk's acc[0] becomes the sum of the warp's 32 acc[j] in lane
+// order, staged through `buf`, the warp's 32 x kChunk vectors of shared
+// memory (a few loads a lane, where 31 rounds of shuffles of every vector
+// contend for the shuffle unit). Every lane of the warp must call.
+template <typename V>
+__device__ __forceinline__ void lanes_in_order(V (&acc)[kChunk], int lane,
+                                               V (*buf)[kChunk]) {
+#pragma unroll
+  for (int j = 0; j < kChunk; ++j) buf[lane][j] = acc[j];
+  __syncwarp();
+  if (lane < kChunk) {
+    V tot = buf[0][lane];
+#pragma unroll
+    for (int src = 1; src < 32; ++src) tot = add_(tot, buf[src][lane]);
+    acc[0] = tot;
+  }
+  __syncwarp();  // buf is free again
+}
+
+// Step 4, rows [32 * blockIdx.x, + 32): a row of at most kExact lanes by
+// its 8 lanes, then each warp's rows of up to kWarpLanes lanes, then the
+// block's longer rows; bags, bounds, scales: the ordering's. dv: D in
+// units of V. A programmatic dependent of the ordering.
+template <typename V, bool kBf16, bool kScaled>
+__global__ void __launch_bounds__(kBwdThreads) rows_kernel(
+    const typename Lanes<V, kBf16>::G* __restrict__ g, int64_t dv,
+    const int* __restrict__ bags, const float* __restrict__ scales,
+    const int2* __restrict__ bounds, int64_t n_rows,
+    typename Lanes<V, kBf16>::G* __restrict__ out) {
+  using L = Lanes<V, kBf16>;
+  __shared__ V stage[kBwdThreads / 32][32][kChunk];  // lanes_in_order's
+  __shared__ V part[kBwdThreads / 32][kChunk];
+  __shared__ int long_rows[kBlockRows];
+  __shared__ int n_long;
+  wait_for_prerequisite();  // the ordering has landed
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int c = threadIdx.x % kRowLanes;
+  const int64_t r0 = (int64_t)blockIdx.x * kBlockRows;
+  const int64_t r = r0 + threadIdx.x / kRowLanes;
+  if (threadIdx.x == 0) n_long = 0;
+  const int2 bd = r < n_rows ? __ldcg(bounds + r) : make_int2(0, 0);
+  const int len = bd.y - bd.x;
+  if (r < n_rows && len <= kExact) {  // in lane order: the plain version's
+    for (int64_t col = c; col < dv; col += kRowLanes) {
+      V acc = zero<V>();
+      for (int i0 = bd.x; i0 < bd.y; i0 += kDepth) {
+        V x[kDepth];
+        float s[kDepth];
+#pragma unroll
+        for (int u = 0; u < kDepth; ++u) {
+          const int bag = i0 + u < bd.y ? __ldcg(bags + i0 + u) : 0;
+          s[u] = kScaled && i0 + u < bd.y ? __ldcg(scales + bag) : 1.f;
+          x[u] = i0 + u < bd.y ? load_term<V, kBf16>(g, dv, bag, col)
+                               : zero<V>();
+        }
+#pragma unroll
+        for (int u = 0; u < kDepth; ++u)
+          if (i0 + u < bd.y) acc = add_(acc, kScaled ? div_(x[u], s[u]) : x[u]);
+      }
+      out[r * dv + col] = L::down(acc);
+    }
+  }
+  // the warp's rows of kExact < len <= kWarpLanes, one at a time
+  unsigned mine = __ballot_sync(kFull, c == 0 && len > kExact &&
+                                           len <= kWarpLanes);
+  while (mine) {  // warp-uniform
+    const int src = __ffs(mine) - 1;
+    mine &= mine - 1;
+    const int lo = __shfl_sync(kFull, bd.x, src);
+    const int hi = __shfl_sync(kFull, bd.y, src);
+    const int64_t row = r0 + warp * (32 / kRowLanes) + src / kRowLanes;
+    for (int64_t c0 = 0; c0 < dv; c0 += kChunk) {
+      V acc[kChunk];
+      run_sum<V, kBf16, kScaled>(acc, g, dv, bags, scales, lo, hi, lane, 32,
+                                 c0);
+      lanes_in_order(acc, lane, stage[warp]);
+      if (lane < kChunk && c0 + lane < dv)
+        out[row * dv + c0 + lane] = L::down(acc[0]);
+    }
+  }
+  // the block's rows of more than kWarpLanes lanes, with every thread
+  __syncthreads();
+  if (c == 0 && len > kWarpLanes)  // any order: the rows are independent
+    long_rows[atomicAdd(&n_long, 1)] = (int)(r - r0);
+  __syncthreads();
+  for (int h = 0; h < n_long; ++h) {  // block-uniform
+    const int64_t row = r0 + long_rows[h];
+    const int2 hb = __ldcg(bounds + row);
+    for (int64_t c0 = 0; c0 < dv; c0 += kChunk) {
+      V acc[kChunk];
+      run_sum<V, kBf16, kScaled>(acc, g, dv, bags, scales, hb.x, hb.y,
+                                 threadIdx.x, kBwdThreads, c0);
+      lanes_in_order(acc, lane, stage[warp]);
+      if (lane < kChunk) part[warp][lane] = acc[0];
+      __syncthreads();
+      if (threadIdx.x < kChunk) {  // the 8 warps' sums in warp order
+        V tot = part[0][threadIdx.x];
+        for (int q = 1; q < kBwdThreads / 32; ++q)
+          tot = add_(tot, part[q][threadIdx.x]);
+        if (c0 + threadIdx.x < dv)
+          out[row * dv + c0 + threadIdx.x] = L::down(tot);
+      }
+      __syncthreads();
+    }
+  }
+}
+
+
+// Steps 1-3 in one cooperative launch, grid barriers between them.
+__global__ void __launch_bounds__(kBwdThreads) order_kernel(
+    const OrderArgs a) {
+  __shared__ typename TileSort::TempStorage sort;
+  __shared__ typename DigitScan::TempStorage scan;
+  __shared__ unsigned cnt[kDigits], offset[kDigits];
+  cg::grid_group grid = cg::this_grid();
+  const int64_t stride = (int64_t)gridDim.x * kBwdThreads;
+  const int64_t n1 = a.n > a.n_rows ? a.n : a.n_rows;
+  for (int64_t t = (int64_t)blockIdx.x * kBwdThreads + threadIdx.x; t < n1;
+       t += stride) {
+    if (a.slots_are_64)
+      order_one<int64_t>(a, t);
+    else
+      order_one<int32_t>(a, t);
+  }
+  grid.sync();
+  int src = 0;
+  for (int bit = 0; bit < a.end_bit; bit += 8) {
+    sort_pass(a, src, bit, grid, cnt, offset, sort, scan);
+    src = 1 - src;
+  }
+  // step 3: position i of the sorted keys (i == n: past the last) opens
+  // the range of its key and closes the range of the key before it
+  launch_dependents();
+  const unsigned* keys = a.keys[src];
+  for (int64_t i = (int64_t)blockIdx.x * kBwdThreads + threadIdx.x;
+       i <= a.n; i += stride) {
+    const int64_t key = i < a.n ? __ldcg(keys + i) : a.n_rows;
+    const int64_t prev = i > 0 ? __ldcg(keys + i - 1) : -1;
+    if (key == prev) continue;
+    if (key < a.n_rows) a.bounds[key].x = (int)i;
+    if (prev >= 0 && prev < a.n_rows) a.bounds[prev].y = (int)i;
+  }
+}
+
+int key_bits(int64_t n_rows) {  // keys are 0 .. n_rows
+  int bits = 1;
+  while (bits < 32 && (int64_t{1} << bits) <= n_rows) ++bits;
+  return bits;
+}
+
+// Lays the scratch out from `base` (NULL: sizes only) into `a`; returns
+// its bytes.
+template <typename A>
+size_t bwd_scratch(int64_t n, int64_t n_bags, int64_t n_rows, void* base,
+                   A* a) {
+  size_t off = 0;
+  auto take = [&](size_t bytes) {
+    void* p = base == nullptr ? nullptr : (char*)base + off;
+    off += (bytes + 255) & ~size_t{255};
+    return p;
+  };
+  a->n_tiles = (n + kTile - 1) / kTile;
+  for (int i = 0; i < 2; ++i) {
+    a->keys[i] = (unsigned*)take(n * sizeof(unsigned));
+    a->bags[i] = (int*)take(n * sizeof(int));
+  }
+  a->hist = (unsigned*)take(kDigits * a->n_tiles * sizeof(unsigned));
+  a->scales = (float*)take(n_bags * sizeof(float));
+  a->bounds = (int2*)take(n_rows * sizeof(int2));
+  return off;
+}
+
+// Steps 1-3 as one cooperative launch on as many blocks as its tiles need
+// (at least one an SM, for the lane-wise steps), at most the blocks the
+// card holds at once.
+cudaError_t launch_order(const OrderArgs& a, cudaStream_t stream) {
+  static int resident = 0;
+  const int64_t sms = sm_count();
+  const int64_t wave = sms * resident_blocks(order_kernel, kBwdThreads,
+                                             &resident);
+  int64_t blocks = a.n_tiles > sms ? a.n_tiles : sms;
+  if (blocks > wave) blocks = wave;
+  if (blocks < 1) return cudaErrorInvalidConfiguration;  // the card holds none
+  return launch_cooperative(order_kernel, blocks, kBwdThreads, stream, a);
+}
+
+// Step 4 at vector unit V, f32 or bf16 lanes, as the ordering's
+// programmatic dependent; `sorted` names the buffer the sort left its
+// lanes in.
+template <typename V, bool kBf16>
+cudaError_t launch_rows(const void* d_pooled, int64_t dv, const OrderArgs& a,
+                        int sorted, void* out, cudaStream_t stream) {
+  using G = typename Lanes<V, kBf16>::G;
+  const auto kernel = a.combiner != 0 ? rows_kernel<V, kBf16, true>
+                                      : rows_kernel<V, kBf16, false>;
+  return launch_dependent(kernel, (a.n_rows + kBlockRows - 1) / kBlockRows,
+                          kBwdThreads, stream, (const G*)d_pooled, dv,
+                          (const int*)a.bags[sorted], (const float*)a.scales,
+                          (const int2*)a.bounds, a.n_rows, (G*)out);
+}
+
+// The backward: the ordering, then the rows at vector width vec (4, 2 or
+// 1 lanes) of f32 or bf16.
+cudaError_t launch_bwd(const void* d_pooled, int64_t d, const void* slots,
                        int slots_are_64, int64_t s_b, int64_t s_k,
                        const void* valid, int64_t v_b, int64_t v_k,
-                       int64_t n_bags, int64_t w, int combiner, void* d_values,
-                       int64_t n_rows, cudaStream_t stream) {
-  if (slots_are_64)
-    return launch_bwd<V, G, int64_t>(d_pooled, dv, slots, s_b, s_k, valid,
-                                     v_b, v_k, n_bags, w, combiner, d_values,
-                                     n_rows, stream);
-  return launch_bwd<V, G, int32_t>(d_pooled, dv, slots, s_b, s_k, valid, v_b,
-                                   v_k, n_bags, w, combiner, d_values, n_rows,
-                                   stream);
-}
-
-// The backward at vector width vec (4, 2 or 1 lanes) for gradients of
-// f32 (bf16 == 0) or bf16 lanes.
-cudaError_t launch_bwd_vec(const void* d_pooled, int64_t d, const void* slots,
-                           int slots_are_64, int64_t s_b, int64_t s_k,
-                           const void* valid, int64_t v_b, int64_t v_k,
-                           int64_t n_bags, int64_t w, int combiner,
-                           void* d_values, int64_t n_rows, int vec, int bf16,
-                           cudaStream_t st) {
+                       int64_t n_bags, int64_t w, int combiner, void* out,
+                       int64_t n_rows, int vec, int bf16, void* scratch,
+                       cudaStream_t st) {
+  OrderArgs a = {};
+  a.slots = slots;
+  a.slots_are_64 = slots_are_64;
+  a.s_b = s_b;
+  a.s_k = s_k;
+  a.valid = (const bool*)valid;
+  a.v_b = v_b;
+  a.v_k = v_k;
+  a.n_bags = n_bags;
+  a.w = w;
+  a.n_rows = n_rows;
+  a.combiner = combiner;
+  a.n = n_bags * w;
+  a.end_bit = a.n > 0 ? key_bits(n_rows) : 0;
+  bwd_scratch(a.n, n_bags, n_rows, scratch, &a);
+  cudaError_t err = launch_order(a, st);
+  if (err != cudaSuccess) return err;
+  const int sorted = (a.end_bit + 7) / 8 % 2;
   if (vec == 4)
-    return bf16 ? launch_bwd<float4, uint2>(d_pooled, d / 4, slots,
-                                            slots_are_64, s_b, s_k, valid, v_b,
-                                            v_k, n_bags, w, combiner, d_values,
-                                            n_rows, st)
-                : launch_bwd<float4, float4>(d_pooled, d / 4, slots,
-                                             slots_are_64, s_b, s_k, valid,
-                                             v_b, v_k, n_bags, w, combiner,
-                                             d_values, n_rows, st);
+    return bf16 ? launch_rows<float4, true>(d_pooled, d / 4, a, sorted, out,
+                                            st)
+                : launch_rows<float4, false>(d_pooled, d / 4, a, sorted, out,
+                                             st);
   if (vec == 2)
-    return bf16 ? launch_bwd<float2, unsigned>(d_pooled, d / 2, slots,
-                                               slots_are_64, s_b, s_k, valid,
-                                               v_b, v_k, n_bags, w, combiner,
-                                               d_values, n_rows, st)
-                : launch_bwd<float2, float2>(d_pooled, d / 2, slots,
-                                             slots_are_64, s_b, s_k, valid,
-                                             v_b, v_k, n_bags, w, combiner,
-                                             d_values, n_rows, st);
-  return bf16 ? launch_bwd<float, bf16x1>(d_pooled, d, slots, slots_are_64,
-                                          s_b, s_k, valid, v_b, v_k, n_bags,
-                                          w, combiner, d_values, n_rows, st)
-              : launch_bwd<float, float>(d_pooled, d, slots, slots_are_64, s_b,
-                                         s_k, valid, v_b, v_k, n_bags, w,
-                                         combiner, d_values, n_rows, st);
+    return bf16 ? launch_rows<float2, true>(d_pooled, d / 2, a, sorted, out,
+                                            st)
+                : launch_rows<float2, false>(d_pooled, d / 2, a, sorted, out,
+                                             st);
+  return bf16 ? launch_rows<float, true>(d_pooled, d, a, sorted, out, st)
+              : launch_rows<float, false>(d_pooled, d, a, sorted, out, st);
 }
 
 }  // namespace
@@ -646,33 +846,35 @@ extern "C" int deeprec_fused_pooled_lookup(
                        valid, v_b, v_k, n_bags, w, combiner, out, st);
 }
 
-// d_pooled [n_bags, d] contiguous, f32 (bf16_out NULL) or bf16; slots/valid
-// as for the forward; d_values [n_rows, d] contiguous f32, 16-byte aligned
-// (the wrapper allocates it), receives the sums (zero-filled here first,
-// on the stream). bf16_out: NULL, or [n_rows, d] bf16 (8-byte aligned),
-// which receives the sums rounded once after every add (bf16 atomics
-// would round at each add). vec: 4, 2 or 1, the widest vector of lanes
-// that d and d_pooled's base address allow (the wrapper checks). Returns
-// the first cudaError_t; 0 is success.
+// The backward's scratch bytes for n_bags * w lanes and n_rows rows (the
+// wrapper allocates them; 256-byte aligned).
+extern "C" int64_t deeprec_fused_pooled_lookup_bwd_scratch(int64_t n_bags,
+                                                          int64_t w,
+                                                          int64_t n_rows) {
+  OrderArgs a;
+  return (int64_t)bwd_scratch(n_bags * w, n_bags, n_rows, nullptr, &a);
+}
+
+// d_pooled [n_bags, d] contiguous, f32 (bf16 == 0) or bf16; slots/valid as
+// for the forward; out [n_rows, d] contiguous, of d_pooled's type: every
+// row written once, 0 where no valid lane touches it. vec: 4, 2 or 1, the
+// widest vector of lanes that d and the base addresses allow (the wrapper
+// checks); scratch: deeprec_fused_pooled_lookup_bwd_scratch bytes, 256-byte
+// aligned. n_bags * w and n_rows below 2^31 - 1. Two launches (the
+// ordering, cooperative; the rows); returns the first cudaError_t, 0 on
+// success.
 extern "C" int deeprec_fused_pooled_lookup_bwd(
     const void* d_pooled, int64_t d, const void* slots, int slots_are_64,
     int64_t s_b, int64_t s_k, const void* valid, int64_t v_b, int64_t v_k,
-    int64_t n_bags, int64_t w, int combiner, void* d_values, int64_t n_rows,
-    int vec, void* bf16_out, void* stream) {
-  const int64_t n = n_rows * d;
-  if (n == 0) return 0;
-  cudaStream_t st = (cudaStream_t)stream;
-  const int64_t zero_blocks = (n / 4 + kBwdThreads - 1) / kBwdThreads;
-  const unsigned fill_blocks = (unsigned)(zero_blocks > 0 ? zero_blocks : 1);
-  zero_fill_kernel<<<fill_blocks, kBwdThreads, 0, st>>>((float*)d_values, n);
-  cudaError_t err = cudaSuccess;
-  if (n_bags > 0 && w > 0)
-    err = launch_bwd_vec(d_pooled, d, slots, slots_are_64, s_b, s_k, valid,
-                         v_b, v_k, n_bags, w, combiner, d_values, n_rows, vec,
-                         bf16_out != nullptr, st);
-  if (bf16_out != nullptr && err == cudaSuccess)  // an ordinary launch: after
-    narrow_bf16_kernel<<<fill_blocks, kBwdThreads, 0, st>>>(
-        (const float*)d_values, (unsigned*)bf16_out, n);
+    int64_t n_bags, int64_t w, int combiner, void* out, int64_t n_rows,
+    int vec, int bf16, void* scratch, void* stream) {
+  if (n_rows * d == 0) return 0;
+  if (n_bags * w >= INT32_MAX || n_rows >= INT32_MAX)
+    return (int)cudaErrorInvalidValue;
+  const cudaError_t err =
+      launch_bwd(d_pooled, d, slots, slots_are_64, s_b, s_k, valid, v_b, v_k,
+                 n_bags, w, combiner, out, n_rows, vec, bf16, scratch,
+                 (cudaStream_t)stream);
   const cudaError_t last = cudaGetLastError();  // the first failed launch
-  return (int)(last != cudaSuccess ? last : err);
+  return (int)(err != cudaSuccess ? err : last);
 }

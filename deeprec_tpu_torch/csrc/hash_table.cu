@@ -93,7 +93,6 @@ namespace ht {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kHalves = kThreads / 16;
-constexpr int kMaxDevices = 64;
 // keys a half-warp (the design probe's K4 and K5 variants time 1-16)
 constexpr int kLookupRun = 4;  // K4's
 constexpr int kInsertRun = 4;  // K5's
@@ -438,26 +437,6 @@ __global__ void __launch_bounds__(kThreads) lookup_or_insert_kernel(
   leave(counts);
 }
 
-// The card's SM count, taken once a device.
-int sm_count() {
-  static int cached[kMaxDevices];
-  int dev = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess || dev >= kMaxDevices) return 0;
-  if (cached[dev] == 0)
-    cudaDeviceGetAttribute(&cached[dev], cudaDevAttrMultiProcessorCount, dev);
-  return cached[dev];
-}
-
-// Resident blocks of `kernel` on one SM (the same on every SM of a card;
-// the cards of one process are taken to be of one kind).
-template <typename F>
-int resident_blocks(F kernel, int* cached) {
-  if (*cached == 0)
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(cached, kernel, kThreads,
-                                                  0);
-  return *cached;
-}
-
 // The bucket geometry: w lanes a bucket, the bucket mask.
 void geometry(int64_t cap, int* w, uint32_t* bmask) {
   *w = cap < 16 ? (int)cap : 16;
@@ -474,8 +453,8 @@ cudaError_t launch_lookup(const void* plane, int64_t cap, const void* keys,
   uint32_t bmask;
   geometry(cap, &w, &bmask);
   static int per_sm = 0;
-  const int64_t wave =
-      (int64_t)sm_count() * resident_blocks(lookup_kernel<kRun>, &per_sm);
+  const int64_t wave = (int64_t)sm_count() *
+                       resident_blocks(lookup_kernel<kRun>, kThreads, &per_sm);
   const int64_t runs = (n + kRun - 1) / kRun;
   int64_t blocks = (runs + kHalves - 1) / kHalves;
   if (wave > 0 && blocks > wave) blocks = wave;
@@ -498,26 +477,10 @@ int64_t insert_blocks(int64_t n, bool full_grid) {
   static int per_sm = 0;
   const int64_t resident =
       (int64_t)sm_count() *
-      resident_blocks(lookup_or_insert_kernel<kRun>, &per_sm);
+      resident_blocks(lookup_or_insert_kernel<kRun>, kThreads, &per_sm);
   const int64_t runs = (n + kRun - 1) / kRun;
   const int64_t blocks = full_grid ? resident : (runs + kHalves - 1) / kHalves;
   return blocks < resident ? blocks : resident;
-}
-
-// A cooperative launch of `kernel` on `blocks` blocks.
-template <typename... K, typename... A>
-cudaError_t launch_cooperative(void (*kernel)(K...), int64_t blocks,
-                               cudaStream_t stream, A... args) {
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((unsigned)blocks);
-  cfg.blockDim = dim3(kThreads);
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeCooperative;
-  attr[0].val.cooperative = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, kernel, (K)args...);
 }
 
 // K5 as one cooperative launch: a half-warp a run of kRun keys on
@@ -534,10 +497,10 @@ cudaError_t launch_insert(void* plane, int64_t cap, const void* ukeys,
   const int64_t blocks = insert_blocks<kRun>(n, full_grid);
   if (blocks <= 0) return cudaErrorInvalidConfiguration;
   return launch_cooperative(
-      lookup_or_insert_kernel<kRun>, blocks, stream, (int64_t*)plane,
-      cap, w, bmask, (const int64_t*)ukeys, n, max_probes, max_probes + w,
-      (int64_t*)size, (int64_t*)overflow, (int64_t*)slots, (bool*)created,
-      (uint2*)kst, (uint32_t*)arb);
+      lookup_or_insert_kernel<kRun>, blocks, kThreads, stream,
+      (int64_t*)plane, cap, w, bmask, (const int64_t*)ukeys, n, max_probes,
+      max_probes + w, (int64_t*)size, (int64_t*)overflow, (int64_t*)slots,
+      (bool*)created, (uint2*)kst, (uint32_t*)arb);
 }
 
 }  // namespace ht

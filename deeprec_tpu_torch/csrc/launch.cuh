@@ -1,5 +1,5 @@
-// Programmatic dependent launch (Hopper's griddepcontrol), shared by the
-// kernels that use it.
+// Programmatic dependent launch (Hopper's griddepcontrol) and cooperative
+// launch, shared by the kernels that use them.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -33,6 +33,44 @@ cudaError_t launch_dependent(void (*kernel)(K...), int64_t blocks,
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
   attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, (K)args...);
+}
+
+// The current device's SM count, taken once a device.
+inline int sm_count() {
+  constexpr int kDevices = 64;
+  static int cached[kDevices];
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev >= kDevices) return 0;
+  if (cached[dev] == 0)
+    cudaDeviceGetAttribute(&cached[dev], cudaDevAttrMultiProcessorCount, dev);
+  return cached[dev];
+}
+
+// Resident blocks of `kernel` at `threads` a block on one SM (the same on
+// every SM of a card; the cards of one process are taken to be of one
+// kind), taken once into *cached.
+template <typename F>
+int resident_blocks(F kernel, int threads, int* cached) {
+  if (*cached == 0)
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(cached, kernel, threads, 0);
+  return *cached;
+}
+
+// A cooperative launch of kernel on `blocks` blocks of `threads`: all of
+// them resident at once, so that the grid may cross grid.sync().
+template <typename... K, typename... A>
+cudaError_t launch_cooperative(void (*kernel)(K...), int64_t blocks,
+                               int threads, cudaStream_t stream, A... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)blocks);
+  cfg.blockDim = dim3(threads);
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeCooperative;
+  attr[0].val.cooperative = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   return cudaLaunchKernelEx(&cfg, kernel, (K)args...);

@@ -42,10 +42,12 @@ _SIGNATURES = {
                                     _I64, _P, _I64, _I64, _I64, _I64, _I, _P,
                                     _I, _I, _P],
     # d_pooled, d, slots, slots_are_64, s_b, s_k, valid, v_b, v_k, n_bags,
-    # w, combiner, d_values, n_rows, vec, bf16_out (NULL for f32), stream
+    # w, combiner, d_values, n_rows, vec, bf16, scratch, stream
     "deeprec_fused_pooled_lookup_bwd": [_P, _I64, _P, _I, _I64, _I64, _P,
                                         _I64, _I64, _I64, _I64, _I, _P, _I64,
-                                        _I, _P, _P],
+                                        _I, _I, _P, _P],
+    # n_bags, w, n_rows -> scratch bytes (int64)
+    "deeprec_fused_pooled_lookup_bwd_scratch": [_I64, _I64, _I64],
     # create_steps, dest, versions, freqs, mdest, counts, idx_are_64, gs,
     # n, cap, stream (absent planes are NULL)
     "deeprec_meta_scatter": [_P, _P, _P, _P, _P, _P, _I, _I, _I64, _I64, _P],
@@ -63,6 +65,8 @@ _SIGNATURES = {
     "deeprec_hash_lookup_or_insert": [_P, _I64, _P, _I64, _I, _P, _P, _P,
                                       _P, _P, _P, _P],
 }
+
+_RESTYPES = {"deeprec_fused_pooled_lookup_bwd_scratch": _I64}  # else c_int
 
 
 def _nvcc() -> str:
@@ -124,7 +128,7 @@ def library() -> ctypes.CDLL:
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        fn.restype = _RESTYPES.get(name, ctypes.c_int)
     return lib
 
 

@@ -14,7 +14,9 @@ and ``valid`` may be strided views.
 
 The backward, ``fused_pooled_lookup_backward`` (``d_values [R, D]`` from
 ``d_pooled [B, D]``), is the port's own kernel in the same source: the
-Pallas kernel has no VJP.
+Pallas kernel has no VJP. Its result is a function of its inputs: it adds
+no float atomics, so two runs of one training stream stay bit-equal, as
+the JAX package's XLA scatter-adds do.
 
 On the card both directions take float32 and bfloat16 (a
 ``value_dtype="bfloat16"`` table) and raise for any other dtype. A bf16
@@ -22,13 +24,15 @@ forward adds the rows in f32, applies the combiner in f32 and rounds the
 pooled row once to bf16, as :func:`fused_pooled_lookup_plain` (torch's
 CPU bf16 sum accumulates in f32) and the JAX package's XLA path do; the
 Pallas kernel's accumulator has the table's dtype, which the port does
-not copy. A bf16 backward widens ``d_pooled`` to f32 as it loads it, adds
-into an f32 buffer and rounds ``d_values`` to bf16 in one pass after the
-adds (autograd wants the dtype of ``values``). :func:`pooled_lookup` is the differentiable
+not copy. A bf16 backward widens ``d_pooled`` to f32 as it loads it, sums
+each row in f32 and rounds it once to bf16 as it writes it (autograd wants
+the dtype of ``values``). :func:`pooled_lookup` is the differentiable
 entry, a ``torch.autograd.Function`` whose forward is K2 and whose
 backward is that kernel; the collections pool through it.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -121,12 +125,16 @@ def fused_pooled_lookup_backward(d_pooled: torch.Tensor,
                                  slots: torch.Tensor, valid: torch.Tensor,
                                  combiner: str, n_rows: int) -> torch.Tensor:
     """``[n_rows, D]`` gradient of :func:`fused_pooled_lookup` with respect
-    to ``values``, given ``d_pooled [B, D]``. On CUDA a zero-fill kernel
-    and the backward kernel run as one dependent pair: the kernel sums the
-    ids of a warp that share a row in registers and adds each row's sum
-    with f32 vector atomics, which add in a different order on every run,
-    so results agree to rounding. A bf16 ``d_pooled`` gets bf16
-    ``d_values``, rounded from the f32 sums by a third kernel."""
+    to ``values``, given ``d_pooled [B, D]``, of ``d_pooled``'s dtype. On
+    CUDA two kernels compute it: a cooperative one sorts the valid lanes
+    by row, stably (a radix sort), and its dependent adds each row's terms
+    in an order that its lanes fix, with no float atomics, writing each
+    row once (zeros where no valid lane lands). A row of at most 32 valid lanes adds
+    them in lane order, as :func:`fused_pooled_lookup_backward_plain`'s
+    ``index_add_`` does on the CPU, so its sum is bit-equal to the plain
+    version's; a longer row adds contiguous runs of its lanes, then the
+    runs in order. A bf16 ``d_pooled`` is summed in f32 and each row
+    rounded once to bf16."""
     d_pooled = d_pooled.contiguous()  # autograd may hand an expanded view
     if n_rows <= 0 or d_pooled.dim() != 2 or \
             d_pooled.shape[0] != slots.shape[0]:
@@ -144,28 +152,37 @@ def fused_pooled_lookup_backward(d_pooled: torch.Tensor,
                          f"float32 or bfloat16 gradients, not "
                          f"{d_pooled.dtype}")
     n_bags, w = slots.shape
+    if n_bags * w >= 2 ** 31 - 1 or n_rows >= 2 ** 31 - 1:
+        raise ValueError("the CUDA fused_pooled_lookup_backward takes fewer "
+                         "than 2^31 - 1 lanes and rows")
     d = d_pooled.shape[1]
-    # the kernel's entry zero-fills it on the stream before adding; the
-    # caching allocator's blocks are 16-byte aligned, as the fill needs
-    out = torch.empty((n_rows, d), dtype=torch.float32,
+    out = torch.empty((n_rows, d), dtype=d_pooled.dtype,
                       device=d_pooled.device)
-    narrow = (torch.empty((n_rows, d), dtype=torch.bfloat16,
-                          device=d_pooled.device)
-              if d_pooled.dtype == torch.bfloat16 else None)
     es = d_pooled.element_size()
     vec = next(v for v in (4, 2, 1) if d % v == 0
                and d_pooled.data_ptr() % (es * v) == 0)
     with torch.cuda.device(d_pooled.device):
+        scratch = torch.empty(_scratch_bytes(n_bags, w, n_rows),
+                              dtype=torch.uint8, device=d_pooled.device)
         stream = torch.cuda.current_stream().cuda_stream
         err = _build.library().deeprec_fused_pooled_lookup_bwd(
             d_pooled.data_ptr(), d, slots.data_ptr(),
             int(slots.dtype == torch.int64), slots.stride(0), slots.stride(1),
             valid.data_ptr(), valid.stride(0), valid.stride(1), n_bags, w,
             COMBINERS.index(combiner), out.data_ptr(), n_rows, vec,
-            0 if narrow is None else narrow.data_ptr(), stream)
+            int(d_pooled.dtype == torch.bfloat16), scratch.data_ptr(),
+            stream)
     _build.check(err, "fused_pooled_lookup_backward")
     fused_pooled_lookup_backward.launches += 1
-    return out if narrow is None else narrow
+    return out
+
+
+@functools.lru_cache(maxsize=64)
+def _scratch_bytes(n_bags: int, w: int, n_rows: int) -> int:
+    """The backward's scratch (the sort's keys and values, twice, its
+    digit counts, the bags' scales, the rows' bounds)."""
+    return max(1, _build.library().deeprec_fused_pooled_lookup_bwd_scratch(
+        n_bags, w, n_rows))
 
 
 class _PooledLookup(torch.autograd.Function):

@@ -44,6 +44,10 @@
 //  10 block aggregation: zero-fill, then tiles of 1024 ids sorted by row
 //     (cub::BlockRadixSort) and summed run by run, as a dependent launch
 // Variants 1-7 do not zero the output: they are timed, not checked.
+// These variants probe the atomic design the port ran until it was made
+// deterministic; that design itself, whole (every vector width, bf16,
+// int32 and int64 slots, strided views, the combiners), is
+// probe_k2_bwd_atomic in k2_bwd_atomic.cuh, included below.
 //
 // K3b variants (int4 copy of plane[:cap], then U int32 stores), selected
 // by probe_k3b's mode:
@@ -92,6 +96,8 @@
 // dependent launch.
 #include "../csrc/gather_rows.cu"
 #include "../csrc/hash_table.cu"
+
+#include "k2_bwd_atomic.cuh"
 
 #include <cooperative_groups.h>
 #include <cub/block/block_radix_sort.cuh>
@@ -884,8 +890,8 @@ cudaError_t probe_k4_launch(int mode, const void* plane, int64_t cap,
       ht::geometry(cap, &w, &bmask);
       static int per_sm = 0;
       const int64_t wave =
-          (int64_t)ht::sm_count() *
-          ht::resident_blocks(ht_old::lookup_kernel, &per_sm);
+          (int64_t)sm_count() *
+          resident_blocks(ht_old::lookup_kernel, kThreads, &per_sm);
       int64_t blocks = (n * 16 + kThreads - 1) / kThreads;
       if (wave > 0 && blocks > wave) blocks = wave;
       ht_old::lookup_kernel<<<(unsigned)blocks, kThreads, 0, st>>>(
@@ -945,9 +951,9 @@ extern "C" int probe_k5(int mode, const void* plane_in, void* plane,
         plane, cap, ukeys, n, max_probes, size, overflow, slots, created,
         scratch, arb, st, true);
   if (mode == 2)
-    return (int)ht::launch_cooperative(
+    return (int)launch_cooperative(
         ht_old::barrier_only, ht::insert_blocks<ht::kInsertRun>(n, false),
-        st);
+        kThreads, st);
   if (mode >= 3 && mode <= 6) {
     const auto run = mode == 3   ? ht::launch_insert<2>
                      : mode == 4 ? ht::launch_insert<4>
@@ -962,23 +968,15 @@ extern "C" int probe_k5(int mode, const void* plane_in, void* plane,
   ht::geometry(cap, &w, &bmask);
   static int per_sm = 0;
   const int64_t blocks =
-      (int64_t)ht::sm_count() *
-      ht::resident_blocks(ht_old::lookup_or_insert_kernel, &per_sm);
+      (int64_t)sm_count() *
+      resident_blocks(ht_old::lookup_or_insert_kernel, kThreads, &per_sm);
   if (blocks <= 0) return (int)cudaErrorInvalidConfiguration;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((unsigned)blocks);
-  cfg.blockDim = dim3(kThreads);
-  cfg.stream = st;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeCooperative;
-  attr[0].val.cooperative = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return (int)cudaLaunchKernelEx(
-      &cfg, ht_old::lookup_or_insert_kernel, (const int64_t*)plane_in,
-      (int64_t*)plane, cap, w, bmask, (const int64_t*)ukeys, n, max_probes,
-      max_probes + w, (const int64_t*)size_in, (const int64_t*)overflow_in,
-      (int64_t*)size, (int64_t*)overflow, (int64_t*)slots, (bool*)created,
+  return (int)launch_cooperative(
+      ht_old::lookup_or_insert_kernel, blocks, kThreads, st,
+      (const int64_t*)plane_in, (int64_t*)plane, cap, w, bmask,
+      (const int64_t*)ukeys, n, max_probes, max_probes + w,
+      (const int64_t*)size_in, (const int64_t*)overflow_in, (int64_t*)size,
+      (int64_t*)overflow, (int64_t*)slots, (bool*)created,
       (int32_t*)scratch);
 }
 

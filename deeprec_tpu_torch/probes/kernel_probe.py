@@ -13,7 +13,10 @@ The previous design of K1 and of K2's forward is each one's variant 0:
 turns (old, new, new, old), back to back and behind a PyTorch kernel
 (:func:`behind_ms`), which ``chip_smoke.py`` also does at its shapes; so
 are the previous designs of the hash index's K4 and K5 (:func:`k4_turns`,
-:func:`k5_turns`, which ``chip_smoke.py`` runs at every K4 and K5 shape).
+:func:`k5_turns`, which ``chip_smoke.py`` runs at every K4 and K5 shape)
+and K2's atomic backward, which the port ran until it was made
+deterministic (:func:`k2_bwd_turns`, at every K2-backward shape of
+``chip_smoke.py``).
 Run from the root of a checkout on a machine with one card:
 
     python -m deeprec_tpu_torch.probes.kernel_probe
@@ -162,7 +165,8 @@ def behind_ms(fn, samples=21, alone=None):
 def build() -> ctypes.CDLL:
     """The probe library (built once a process)."""
     src = b"".join(f.read_bytes() for f in (
-        SOURCE, _build.CSRC / "gather_rows.cu", _build.CSRC / "hash_table.cu",
+        SOURCE, SOURCE.with_name("k2_bwd_atomic.cuh"),
+        _build.CSRC / "gather_rows.cu", _build.CSRC / "hash_table.cu",
         _build.CSRC / "launch.cuh"))
     digest = hashlib.sha256(src).hexdigest()[:16]
     path = _build.BUILD / f"kernel_probe_{digest}.so"
@@ -179,7 +183,61 @@ def build() -> ctypes.CDLL:
     lib.probe_k4.argtypes = [i, p, i64, p, i64, i, p, p, p]
     lib.probe_k5.argtypes = [i, p, p, i64, p, i64, i, p, p, p, p, p, p, p,
                              p, p]
+    # the atomic K2 backward: the port's entry's arguments before it was
+    # made deterministic (d_pooled ... n_rows, vec, bf16_out, stream)
+    lib.probe_k2_bwd_atomic.argtypes = [p, i64, p, i, i64, i64, p, i64, i64,
+                                        i64, i64, i, p, i64, i, p, p]
     return lib
+
+
+def k2_bwd_atomic(lib, d_pooled, slots, valid, combiner, n_rows):
+    """K2's backward as the port ran it before it was made deterministic
+    (``k2_bwd_atomic.cuh``): a zero-fill, the warp-grouped float4 atomics
+    and, for a bf16 gradient, a rounding pass; called as its wrapper did.
+    Its sums land in a different order on every run."""
+    from ..ops.fused_lookup import COMBINERS
+    n_bags, w = slots.shape
+    d = d_pooled.shape[1]
+    out = torch.empty((n_rows, d), dtype=torch.float32,
+                      device=d_pooled.device)
+    narrow = (torch.empty((n_rows, d), dtype=torch.bfloat16,
+                          device=d_pooled.device)
+              if d_pooled.dtype == torch.bfloat16 else None)
+    es = d_pooled.element_size()
+    vec = next(v for v in (4, 2, 1) if d % v == 0
+               and d_pooled.data_ptr() % (es * v) == 0)
+    err = lib.probe_k2_bwd_atomic(
+        d_pooled.data_ptr(), d, slots.data_ptr(),
+        int(slots.dtype == torch.int64), slots.stride(0), slots.stride(1),
+        valid.data_ptr(), valid.stride(0), valid.stride(1), n_bags, w,
+        COMBINERS.index(combiner), out.data_ptr(), n_rows, vec,
+        0 if narrow is None else narrow.data_ptr(),
+        torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"probe_k2_bwd_atomic: CUDA error {err}")
+    return out if narrow is None else narrow
+
+
+def k2_bwd_turns(lib, d_pooled, slots, valid, combiner, n_rows, what,
+                 samples=21):
+    """K2's backward at one shape: the atomic design (checked within 1e-4
+    of the magnitudes against the port's kernel first) and the port's
+    deterministic kernel timed in turns (old, new, new, old), back to back
+    and behind a one-element add. Returns :func:`in_turns`'s dict."""
+    from ..ops.fused_lookup import fused_pooled_lookup_backward as port
+    d32 = d_pooled.float().abs()
+    mag = port(d32, slots, valid, combiner, n_rows)
+    old = k2_bwd_atomic(lib, d_pooled, slots, valid, combiner, n_rows)
+    new = port(d_pooled, slots, valid, combiner, n_rows)
+    step = 2.0 ** -7 if d_pooled.dtype == torch.bfloat16 else 0.0
+    if not bool(((old.float() - new.float()).abs()
+                 <= step * new.float().abs() + 1e-4 * mag + 1e-7).all()):
+        raise SystemExit(f"kernel_probe: the atomic K2 backward {what} "
+                         f"differs from the port's")
+    return in_turns(
+        lambda: k2_bwd_atomic(lib, d_pooled, slots, valid, combiner, n_rows),
+        lambda: port(d_pooled, slots, valid, combiner, n_rows),
+        f"K2 backward {what}", "atomic", samples)
 
 
 def k1_runner(lib, values, slots, d, out):
@@ -645,6 +703,8 @@ def main():
         0, idx, src))
     print(f"  library zeros + index_add_: {library:.4f} ms", flush=True)
     timed(port, K2_VARIANTS, k2, "K2")
+    k2_bwd_turns(lib, dp, slots2, valid2, "sum", u,
+                 "(training shape, the atomic design against the port's)")
 
     cap = CAPACITY
     plane = torch.randint(-1, 9, (cap + 1,), generator=g,

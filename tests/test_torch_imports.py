@@ -68,6 +68,9 @@ def test_port_imports_without_jax():
     assert {f"deeprec_tpu_torch.{m}" for m in (
         "harness", "harness.soak", "harness.behavior_oracle",
         "harness.sequence_fidelity")} <= names
+    # the design probes, the step bisect among them
+    assert {f"deeprec_tpu_torch.{m}" for m in (
+        "probes.kernel_probe", "probes.step_bisect")} <= names
 
 
 def test_resolver_binding_copy_is_the_source():
