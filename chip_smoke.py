@@ -41,9 +41,12 @@ comparison compute in full f32. Phases (any failure exits non-zero):
    time. K2's backward, at every shape it is checked at, runs twice
    bit-equal, is held to its plain version run on the CPU (every row of
    at most 32 valid lanes bit-equal, longer rows within BWD_TOL of the
-   magnitudes) and is timed in turns with the atomic design it replaced
-   (the design probe's probe_k2_bwd_atomic), beside zeros + index_add_ and
-   the deterministic zeros + index_put_(accumulate=True). K2 at bf16 (both
+   magnitudes), is held bit-equal to the radix-sorted design it replaced
+   (the design probe's probe_k2_bwd_radix: one order and run tree, so one
+   result) and timed in turns with it, beside the atomic design before
+   that (probe_k2_bwd_atomic), zeros + index_add_ and the deterministic
+   zeros + index_put_(accumulate=True), and its device time is split by
+   kernel against the floor of its cooperative ordering. K2 at bf16 (both
    directions, at the serving and the training shape) is checked against
    its plain version (both sum in f32 and round once: one bf16 step of the
    value apart at most, beside the f32 order term) and timed beside
@@ -373,8 +376,9 @@ CAPACITY = 1 << 21
 EMB_DIM = 16
 PROB_ATOL = 1e-4   # card vs CPU probabilities: f32 sums in another order
 POOL_RTOL = 1e-5   # kernel K2 vs plain: f32 sums in another order
-# K2 backward vs plain: f32 atomics add in a run-dependent order; a sum of
-# k terms errs by at most ~k*eps of the sum of their magnitudes
+# K2 backward vs plain: a row of more than 32 lanes adds contiguous runs of
+# its lanes, then the runs, where the plain version adds in index order; a
+# sum of k terms errs by at most ~k*eps of the sum of their magnitudes
 BWD_TOL = 1e-4
 LOSS_ATOL = 1e-4   # card vs CPU trainer per-step loss (f32, other orders)
 ROW_ATOL = 1e-4    # card vs CPU trainer table rows after the lockstep
@@ -1878,17 +1882,20 @@ def k2_bwd_case(what, suffix, d_pooled, slots, valid, combiner, u):
     """K2's backward at one shape: two launches bit-equal; held to its
     plain version run on the CPU (every row of at most 32 valid lanes
     bit-equal, as both add them in lane order; a longer row within BWD_TOL
-    of the magnitudes, a bf16 one within a bf16 step more); timed in turns
-    with the atomic design it replaced (the design probe's
-    probe_k2_bwd_atomic: old, new, new, old), beside its plain version on
-    the card, zeros + index_add_ (``library_ms``) and the deterministic
+    of the magnitudes, a bf16 one within a bf16 step more); bit-equal to
+    the radix design it replaced and timed in turns with it (the design
+    probe's probe_k2_bwd_radix: old, new, new, old), beside the atomic
+    design before that (probe_k2_bwd_atomic), its plain version on the
+    card, zeros + index_add_ (``library_ms``) and the deterministic
     zeros + index_put_(accumulate=True) over the same lane terms, and its
     HBM-bytes bound (this data's: the gradient rows of the bags that hold
     a valid lane, the valid lanes' slots, every flag, the output written
-    once). Returns the kernel's entry."""
+    once); each design's device time split by kernel. Returns the
+    kernel's entry."""
     from deeprec_tpu_torch.ops.fused_lookup import (
         fused_pooled_lookup_backward, fused_pooled_lookup_backward_plain)
-    from deeprec_tpu_torch.probes.kernel_probe import build, k2_bwd_turns
+    from deeprec_tpu_torch.probes.kernel_probe import (build, k2_bwd_split,
+                                                       k2_bwd_turns)
 
     def kernel():
         return fused_pooled_lookup_backward(d_pooled, slots, valid, combiner,
@@ -1936,6 +1943,7 @@ def k2_bwd_case(what, suffix, d_pooled, slots, valid, combiner, u):
                  f"another function")
     turns = k2_bwd_turns(build(), d_pooled, slots, valid, combiner, u,
                          what, samples=7)
+    split = k2_bwd_split(build(), d_pooled, slots, valid, combiner, u)
     plain_ms = time_ms(lambda: fused_pooled_lookup_backward_plain(
         d_pooled, slots, valid, combiner, u))
     # index_put_ takes 0.1-27 ms a call here: a few long samples do
@@ -1947,7 +1955,8 @@ def k2_bwd_case(what, suffix, d_pooled, slots, valid, combiner, u):
               + u * d * d_pooled.element_size())
     log_times(f"K2 fused_pooled_lookup_backward {what}", turns["new"],
               plain_ms, add_ms, nbytes,
-              f"; atomic design {turns['old']:.4f} ms (in turns); library: "
+              f"; radix design {turns['old']:.4f} ms (in turns), "
+              f"atomic design {turns['atomic']:.4f} ms; library: "
               f"zeros + index_add_, zeros + index_put_(accumulate=True) "
               f"{put_ms:.4f} ms; max_abs_err {err.max().item():.3g}; "
               f"{n_valid} valid lanes, {int((lanes > 0).sum())} rows "
@@ -1959,7 +1968,8 @@ def k2_bwd_case(what, suffix, d_pooled, slots, valid, combiner, u):
                  err.max().item(), turns["new"], plain_ms, add_ms, nbytes,
                  previous_ms=turns["old"], on_path_ms=turns["new_behind"],
                  previous_on_path_ms=turns["old_behind"],
-                 deterministic_library_ms=put_ms,
+                 atomic_design_ms=turns["atomic"],
+                 deterministic_library_ms=put_ms, kernel_us=split,
                  counter="fused_pooled_lookup_backward")
 
 

@@ -50,7 +50,6 @@
 // memory (out may be a block the allocator just reused).
 
 #include <cooperative_groups.h>
-#include <cub/block/block_radix_sort.cuh>
 #include <cub/block/block_scan.cuh>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -321,46 +320,72 @@ cudaError_t launch(const void* values, int64_t ld, int64_t n_rows, int64_t d,
 // Design: the result is a function of the inputs alone, so two runs of one
 // training stream stay bit-equal. No float atomics: each row is summed in
 // an order fixed by its lanes and written once (zeros too), with no fill
-// before. Two launches, as the atomic design's fill + adds: steps 1-3 in
-// one cooperative launch (order_kernel) on at most the blocks the card
-// holds at once, parted by grid barriers, and step 4 (rows_kernel) as its
-// programmatic dependent:
-//  1. Each lane (b, k), at position b*w + k (the plain version's lane
-//     order), gets the key clamp(slot) where valid and R where not, and
-//     the value b; each bag its scale (mean, sqrtn); the row bounds are
-//     cleared.
-//  2. An LSD radix sort of the pairs, 8 bits a pass over the bits R needs:
-//     each tile of kTile lanes counts its digits; then each tile sums
-//     every tile's counts into its digits' offsets, sorts its lanes by
-//     digit (cub::BlockRadixSort, stable) and writes them there. Stable at
-//     every pass, so each row's lanes stay in lane order.
-//  3. Each row's range [lo, hi) of the sorted lanes, where the key
-//     changes; an untouched row keeps [0, 0).
-//  4. A block takes 32 rows at a time, 8 lanes a row. A row of at most
-//     kExact lanes is summed in lane order by one lane per vector column:
-//     the order of the plain version, whose index_add_ adds in index order,
-//     so the sums are bit-equal to it. A row of up to kWarpLanes lanes is
-//     left to its warp, a longer one to the whole block (Criteo's skew puts
-//     ~1,400 of a batch's 106,496 ids on one of ~17,750 rows): 32 or 256
-//     threads each sum a contiguous run of the row's lanes in order, and
+// before. Two launches, as the atomic design's fill + adds: the ordering
+// (order_kernel), one cooperative launch on at most the blocks the card
+// holds at once, parted by grid barriers, and the rows (rows_kernel) as
+// its programmatic dependent. The ordering is a counting sort on the whole
+// row, placed with integer atomics (exact in any order); only where a lane
+// lands inside its row's segment depends on scheduling, and the rows
+// kernel restores lane order before it adds:
+//  1. Each row's count is cleared; each bag gets its scale (mean, sqrtn).
+//  2. Each valid lane (b, k), at position t = b*w + k (the plain version's
+//     lane order), adds one to its row's count. A warp's lanes of one row
+//     (__match_any_sync) add their number with one atomic: Criteo's hot row
+//     (~1,400 of a batch's 106,496 ids, all in one column's 4,096 lanes)
+//     costs ~128 atomics, not 1,400.
+//  3. Each touched row claims its segment [lo, lo + count) of the lanes
+//     with an atomic add on one total, a warp's rows at once. Where a
+//     segment lies changes no sum, so no scan over the rows is needed.
+//     A row of more than kExact lanes is listed (medium up to kWarpLanes,
+//     long beyond).
+//  4. Each valid lane writes t into its row's segment at a position taken
+//     with an atomic add on the row's cursor, a warp's lanes of a row at
+//     once; the cursor ends at the segment's end. A thread keeps the row
+//     of its first lane from step 2, so wherever the grid has a thread a
+//     lane, a lane's slot and flag are read once.
+//  5. (rows_kernel) A block takes 64 rows, 4 threads a row, and sums the
+//     rows of at most kExact lanes: the 4 threads rank the row's lanes
+//     (each compares its four with all the row's) and one thread per vector
+//     column adds them in lane order: the order of the plain version,
+//     whose index_add_ adds in index order, so the sums are bit-equal to
+//     it. The listed rows go to blocks of their own at the front of the
+//     grid, so the longest chains start first and a block of rows never
+//     takes several long rows one after another: a medium row to a warp
+//     (8 to a block), which ranks its lanes in shared memory; a long row to a
+//     block, which sorts them through a bitmap (set bits in order are the
+//     lanes in order; windows of kMapWords * 32 lane indices from the
+//     row's smallest lane, empty windows skipped), kept in shared memory
+//     up to kBlockLanes lanes and in the scratch beyond. Then 32 or 256
+//     threads each sum a contiguous run of the sorted lanes in order, and
 //     the runs' sums are added in run order (a warp's through shared
 //     memory, one lane a vector; then the 8 warps' sums). A row of at most
 //     32 lanes thus still adds in lane order; a longer one adds in a tree
-//     that its lane count fixes.
-// A bf16 gradient is widened to f32 as it is loaded, and each row's f32
-// sum is rounded once to bf16 as it is written.
-constexpr int kBwdThreads = 256;
-constexpr int kSortItems = 8;  // lanes a thread holds in a tile's sort
-constexpr int kTile = kBwdThreads * kSortItems;
-constexpr int kDigits = 256;   // 8 bits a pass
-constexpr int kRowLanes = 8;   // a row's lanes in the first pass
+//     that its lane count fixes (the radix-sorted design this one
+//     replaced, kept as probes/k2_bwd_radix.cuh, adds in the same order
+//     and tree, so the two agree bit for bit).
+// Steps 1-4 cross three grid barriers, every lane-parallel step has a
+// thread a lane (blocks of 1,024 threads, at least one an SM), and no pass
+// depends on R's bits. A bf16 gradient is widened to f32 as it is loaded,
+// and each row's f32 sum is rounded once to bf16 as it is written.
+constexpr int kBwdThreads = 256;  // the rows kernel's block
+constexpr int kWarps = kBwdThreads / 32;
+constexpr int kOrderThreads = 1024;  // the ordering's block: a lane a thread
+constexpr int kOrderWarps = kOrderThreads / 32;
+static_assert(kOrderWarps <= 32, "one warp scans the block's warps");
+constexpr int kRowLanes = 4;    // a short row's threads
 constexpr int kBlockRows = kBwdThreads / kRowLanes;
-constexpr int kExact = 16;     // rows of at most this many lanes: pass 1
-constexpr int kWarpLanes = 128;  // ... at most this many: a warp; more: the block
-constexpr int kDepth = 8;      // pass 1: gradient loads in flight a lane
-constexpr int kChunk = 4;      // runs: vectors of a row a thread holds
-constexpr int kRunDepth = 2;   // runs: lanes in flight a thread
-static_assert(kBwdThreads == kDigits, "a thread a digit");
+constexpr int kExact = 16;      // short rows: at most this many lanes
+constexpr int kWarpLanes = 128;  // medium rows (a warp): at most this many
+constexpr int kHold = 8;        // a long row's lanes a thread keeps
+constexpr int kBlockLanes = kHold * kBwdThreads;  // sorted in shared memory
+constexpr int kMapWords = 4096;  // a long row's bitmap: 131,072 lanes a window
+constexpr int kDepth = 8;       // short rows: gradient loads in flight a lane
+constexpr int kChunk = 4;       // runs: vectors of a row a thread holds
+constexpr int kRunDepth = 2;    // runs: lanes in flight a thread
+constexpr int kRowHeld = kExact / kRowLanes;  // a short row's lanes a thread
+static_assert(kExact % kRowLanes == 0 && 32 % kRowLanes == 0,
+              "a short row: whole lanes a thread, whole rows a warp");
+static_assert(kWarpLanes == 4 * 32, "a warp's row: four lanes a thread");
 
 __device__ __forceinline__ float2 add_(float2 a, float2 b) {
   return make_float2(a.x + b.x, a.y + b.y);
@@ -407,11 +432,9 @@ template <> struct Lanes<float, true> {
   }
 };
 
-// The ordering's arrays: the inputs and the scratch the wrapper allocates
-// (keys[0], bags[0] in lane order; keys[1], bags[1] the sort's other
-// buffer; hist the tiles' digit counts; scales; bounds). Scratch written
-// during the launch is read with __ldcg (L2), never through the read-only
-// cache.
+// The ordering's arrays: the inputs and the scratch the wrapper allocates.
+// Scratch written during the launch is read with __ldcg (L2), never
+// through the read-only cache.
 struct OrderArgs {
   const void* slots;
   int slots_are_64;
@@ -419,139 +442,180 @@ struct OrderArgs {
   const bool* valid;
   int64_t v_b, v_k, n_bags, w, n_rows;
   int combiner;
-  unsigned* keys[2];
-  int* bags[2];
-  unsigned* hist;  // [kDigits][n_tiles], digit-major
-  float* scales;
-  int2* bounds;
-  int64_t n, n_tiles;
-  int end_bit;
+  int2* rows;     // [n_rows]: x the row's valid lanes, y its segment's cursor
+  int* lanes;     // [n]: each row's lanes in its segment, in no set order
+  int* sorted;    // [n]: the lanes of a row longer than kBlockLanes, sorted
+  float* scales;  // [n_bags]
+  int4* mids;     // {row, lo, count, 0} of kExact < count <= kWarpLanes
+  int4* longs;    // ... of more than kWarpLanes lanes
+  int* counters;  // [3]: lanes claimed so far, mids and longs listed
+  int64_t n;
 };
 
-// Step 1 for lane/bag/row t.
-template <typename I, typename A>
-__device__ __forceinline__ void order_one(const A& a, int64_t t) {
+// Lane t's row, or -1 where the lane is not valid (the flag and the slot
+// loaded at once).
+template <typename I>
+__device__ __forceinline__ int lane_row(const OrderArgs& a, int64_t t) {
   const I* slots = (const I*)a.slots;
-  if (t < a.n) {
-    const int64_t b = a.w == 1 ? t : t / a.w, k = t - b * a.w;
-    const bool ok = a.valid[b * a.v_b + k * a.v_k];
-    const int64_t row =
-        clamp_row((int64_t)slots[b * a.s_b + k * a.s_k], a.n_rows);
-    a.keys[0][t] = ok ? (unsigned)row : (unsigned)a.n_rows;
-    a.bags[0][t] = (int)b;
-  }
-  if (a.combiner != 0 && t < a.n_bags) {
-    int n = 0;
-    for (int64_t j = 0; j < a.w; ++j) n += a.valid[t * a.v_b + j * a.v_k];
-    const float m = (float)(n > 1 ? n : 1);
-    a.scales[t] = a.combiner == 1 ? m : sqrtf(m);
-  }
-  if (t < a.n_rows) a.bounds[t] = make_int2(0, 0);
+  const int64_t b = a.w == 1 ? t : t / a.w, k = t - b * a.w;
+  const bool ok = a.valid[b * a.v_b + k * a.v_k];
+  const int64_t s = (int64_t)slots[b * a.s_b + k * a.s_k];
+  return ok ? (int)clamp_row(s, a.n_rows) : -1;
 }
 
-using TileSort = cub::BlockRadixSort<unsigned, kBwdThreads, kSortItems, int>;
-using DigitScan = cub::BlockScan<unsigned, kBwdThreads>;
-
-// Step 2, one pass: the lanes of keys[src], bags[src] stably sorted by
-// their digit at `bit` into keys[1 - src], bags[1 - src]. `cnt` counts a
-// tile's digits, `offset` holds where they go.
-template <typename A>
-__device__ void sort_pass(const A& a, int src, int bit, cg::grid_group& grid,
-                          unsigned* cnt, unsigned* offset,
-                          typename TileSort::TempStorage& sort,
-                          typename DigitScan::TempStorage& scan) {
-  const unsigned* keys = a.keys[src];
-  const int* bags = a.bags[src];
-  const int t = threadIdx.x;
-  // each tile's digit counts, digit-major
-  for (int64_t tile = blockIdx.x; tile < a.n_tiles; tile += gridDim.x) {
-    cnt[t] = 0;
-    __syncthreads();
-#pragma unroll
-    for (int j = 0; j < kSortItems; ++j) {
-      const int64_t i = tile * kTile + j * kBwdThreads + t;
-      if (i < a.n) atomicAdd(cnt + (__ldcg(keys + i) >> bit & 255u), 1u);
-    }
-    __syncthreads();
-    a.hist[(int64_t)t * a.n_tiles + tile] = cnt[t];
-    __syncthreads();
-  }
-  grid.sync();
-  // each tile sorted by digit (its lanes past n: digit 255, after the
-  // real ones) and written at its digits' offsets
-  for (int64_t tile = blockIdx.x; tile < a.n_tiles; tile += gridDim.x) {
-    unsigned digit[kSortItems];
-    int local[kSortItems];
-#pragma unroll
-    for (int j = 0; j < kSortItems; ++j) {
-      local[j] = t * kSortItems + j;  // blocked: the stable order
-      const int64_t i = tile * kTile + local[j];
-      digit[j] = i < a.n ? __ldcg(keys + i) >> bit & 255u : 255u;
-    }
-    // where digit t's lanes of this tile go: after every tile's lanes of
-    // smaller digits and this digit's lanes of the tiles before
-    unsigned total = 0, before = 0;
-    const unsigned* counts = a.hist + (int64_t)t * a.n_tiles;
-#pragma unroll 16
-    for (int64_t q = 0; q < a.n_tiles; ++q) {
-      const unsigned c = __ldcg(counts + q);
-      total += c;
-      before += q < tile ? c : 0u;
-    }
-    unsigned below;
-    DigitScan(scan).ExclusiveSum(total, below);
-    offset[t] = below + before;
-    TileSort(sort).Sort(digit, local, 0, 8);
-    cnt[t] = 0;
-    __syncthreads();
-    const int64_t base = tile * kTile;
-    const int real = a.n - base < kTile ? (int)(a.n - base) : kTile;
-#pragma unroll
-    for (int j = 0; j < kSortItems; ++j)
-      if (local[j] < real) atomicAdd(cnt + digit[j], 1u);
-    __syncthreads();
-    unsigned first;  // where this thread's digit starts in the sorted tile
-    DigitScan(scan).ExclusiveSum(cnt[t], first);
-    __syncthreads();
-    cnt[t] = first;
-    __syncthreads();
-#pragma unroll
-    for (int j = 0; j < kSortItems; ++j) {
-      if (local[j] >= real) continue;
-      const unsigned pos = t * kSortItems + j - cnt[digit[j]];
-      const int64_t dst = (int64_t)offset[digit[j]] + pos;
-      a.keys[1 - src][dst] = __ldcg(keys + base + local[j]);
-      a.bags[1 - src][dst] = __ldcg(bags + base + local[j]);
-    }
-    __syncthreads();
-  }
-  grid.sync();
+// Lane t's row as lane_row gives it, or -1 past the last lane.
+__device__ __forceinline__ int any_lane_row(const OrderArgs& a, int64_t t) {
+  if (t >= a.n) return -1;
+  return a.slots_are_64 ? lane_row<int64_t>(a, t) : lane_row<int32_t>(a, t);
 }
 
-// Loads the term of sorted lane i: bag bags[i]'s gradient vector col.
+// Steps 2 (kPlace false) and 4 for lane t of row `row`; every lane of the
+// warp calls. A warp's lanes of one row share one atomic; their positions
+// follow their lane order.
+template <bool kPlace>
+__device__ __forceinline__ void lane_step(const OrderArgs& a, int64_t t,
+                                          int row, int lane) {
+  const unsigned peers = __match_any_sync(kFull, row);
+  const int leader = __ffs(peers) - 1;
+  int base = 0;
+  if (row >= 0 && lane == leader) {
+    if (kPlace)
+      base = atomicAdd(&a.rows[row].y, __popc(peers));
+    else
+      atomicAdd(&a.rows[row].x, __popc(peers));
+  }
+  if (!kPlace) return;
+  base = __shfl_sync(kFull, base, leader) +
+         __popc(peers & ((1u << lane) - 1u));
+  if (row >= 0) a.lanes[base] = (int)t;
+}
+
+// Steps 1-4 in one cooperative launch, grid barriers between them.
+__global__ void __launch_bounds__(kOrderThreads) order_kernel(
+    const OrderArgs a) {
+  cg::grid_group grid = cg::this_grid();
+  const int lane = threadIdx.x & 31;
+  const int64_t stride = (int64_t)gridDim.x * kOrderThreads;
+  const int64_t warp =
+      ((int64_t)blockIdx.x * kOrderThreads + threadIdx.x) / 32;
+  // 1. counts cleared, scales
+  const int64_t n1 = a.combiner != 0 && a.n_bags > a.n_rows ? a.n_bags
+                                                            : a.n_rows;
+  for (int64_t t = (int64_t)blockIdx.x * kOrderThreads + threadIdx.x; t < n1;
+       t += stride) {
+    if (t < a.n_rows) a.rows[t] = make_int2(0, 0);
+    if (a.combiner != 0 && t < a.n_bags) {
+      int n = 0;
+      for (int64_t j = 0; j < a.w; ++j) n += a.valid[t * a.v_b + j * a.v_k];
+      const float m = (float)(n > 1 ? n : 1);
+      a.scales[t] = a.combiner == 1 ? m : sqrtf(m);
+    }
+  }
+  if (blockIdx.x == 0 && threadIdx.x < 3) a.counters[threadIdx.x] = 0;
+  grid.sync();
+  // 2. counts (whole warps: the loop's bound is a warp's first lane); a
+  // thread keeps its first lane's row for step 4
+  int kept = -1;
+  for (int64_t t0 = warp * 32; t0 < a.n; t0 += stride) {
+    const int row = any_lane_row(a, t0 + lane);
+    if (t0 == warp * 32) kept = row;
+    lane_step<false>(a, t0 + lane, row, lane);
+  }
+  grid.sync();
+  // 3. segments: a block's rows take one atomic on the total; the rows
+  // longer than kExact lanes are listed for the rows kernel's own blocks,
+  // each with its segment, one atomic a block for each list
+  __shared__ int3 claims[kOrderWarps];  // a warp's lanes, mids, longs
+  const unsigned below = (1u << lane) - 1u;
+  const int wid = threadIdx.x >> 5;
+  for (int64_t r0 = (int64_t)blockIdx.x * kOrderThreads; r0 < a.n_rows;
+       r0 += stride) {  // block-uniform
+    const int64_t r = r0 + threadIdx.x;
+    const int c = r < a.n_rows ? __ldcg(&a.rows[r].x) : 0;
+    int incl = c;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int v = __shfl_up_sync(kFull, incl, o);
+      if (lane >= o) incl += v;
+    }
+    const unsigned mid = __ballot_sync(kFull, c > kExact && c <= kWarpLanes);
+    const unsigned big = __ballot_sync(kFull, c > kWarpLanes);
+    if (lane == 31) claims[wid] = make_int3(incl, __popc(mid), __popc(big));
+    __syncthreads();
+    if (wid == 0) {  // the warps' claims scanned, the block's taken
+      const int3 mine = lane < kOrderWarps ? claims[lane] : make_int3(0, 0, 0);
+      int3 sum = mine;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int x = __shfl_up_sync(kFull, sum.x, o);
+        const int y = __shfl_up_sync(kFull, sum.y, o);
+        const int z = __shfl_up_sync(kFull, sum.z, o);
+        if (lane >= o) sum = make_int3(sum.x + x, sum.y + y, sum.z + z);
+      }
+      int3 at = make_int3(0, 0, 0);
+      if (lane == 31) {
+        if (sum.x) at.x = atomicAdd(a.counters, sum.x);
+        if (sum.y) at.y = atomicAdd(a.counters + 1, sum.y);
+        if (sum.z) at.z = atomicAdd(a.counters + 2, sum.z);
+      }
+      at = make_int3(__shfl_sync(kFull, at.x, 31), __shfl_sync(kFull, at.y, 31),
+                     __shfl_sync(kFull, at.z, 31));
+      if (lane < kOrderWarps)
+        claims[lane] = make_int3(at.x + sum.x - mine.x, at.y + sum.y - mine.y,
+                                 at.z + sum.z - mine.z);
+    }
+    __syncthreads();
+    const int3 at = claims[wid];
+    const int lo = at.x + incl - c;
+    if (r < a.n_rows) a.rows[r].y = lo;
+    const int4 entry = make_int4((int)r, lo, c, 0);
+    if (mid >> lane & 1u) a.mids[at.y + __popc(mid & below)] = entry;
+    if (big >> lane & 1u) a.longs[at.z + __popc(big & below)] = entry;
+    __syncthreads();  // claims are free again
+  }
+  grid.sync();
+  // 4. placement; the rows kernel's blocks may be scheduled from here
+  launch_dependents();
+  for (int64_t t0 = warp * 32; t0 < a.n; t0 += stride) {
+    const int row = t0 == warp * 32 ? kept : any_lane_row(a, t0 + lane);
+    lane_step<true>(a, t0 + lane, row, lane);
+  }
+}
+
+// Loads the term of lane t: its bag's gradient vector col.
 template <typename V, bool kBf16>
 __device__ __forceinline__ V load_term(const typename Lanes<V, kBf16>::G* g,
                                        int64_t dv, int bag, int64_t col) {
   return Lanes<V, kBf16>::up(__ldg(g + (int64_t)bag * dv + col));
 }
 
+__device__ __forceinline__ int lane_bag(int t, int w) {
+  return w == 1 ? t : t / w;
+}
+
+// srt[i], srt in shared memory or in global memory this block wrote (read
+// through L2 there).
+__device__ __forceinline__ int sorted_lane(const int* srt, int i) {
+  return __isGlobal(srt) ? __ldcg(srt + i) : srt[i];
+}
+
 // acc[j] = the sum, in order, of the terms of run `run` of `n_runs`
-// contiguous runs of the sorted lanes [lo, hi), vector columns c0 + j
+// contiguous runs of the sorted lanes srt[0, len), vector columns c0 + j
 // (zero past dv).
 template <typename V, bool kBf16, bool kScaled>
 __device__ __forceinline__ void run_sum(
     V (&acc)[kChunk], const typename Lanes<V, kBf16>::G* g, int64_t dv,
-    const int* bags, const float* scales, int lo, int hi, int run, int n_runs,
+    int w, const int* srt, const float* scales, int len, int run, int n_runs,
     int64_t c0) {
-  const int len = hi - lo, per = (len + n_runs - 1) / n_runs;
-  const int a = lo + min(run * per, len), e = lo + min((run + 1) * per, len);
+  const int per = (len + n_runs - 1) / n_runs;
+  const int a = min(run * per, len), e = min((run + 1) * per, len);
 #pragma unroll
   for (int j = 0; j < kChunk; ++j) acc[j] = zero<V>();
   for (int i0 = a; i0 < e; i0 += kRunDepth) {
     int bag[kRunDepth];
 #pragma unroll
     for (int u = 0; u < kRunDepth; ++u)
-      bag[u] = i0 + u < e ? __ldcg(bags + i0 + u) : 0;
+      bag[u] = i0 + u < e ? lane_bag(sorted_lane(srt, i0 + u), w) : 0;
     V x[kRunDepth][kChunk];
     float s[kRunDepth];
 #pragma unroll
@@ -590,135 +654,277 @@ __device__ __forceinline__ void lanes_in_order(V (&acc)[kChunk], int lane,
   __syncwarp();  // buf is free again
 }
 
-// Step 4, rows [32 * blockIdx.x, + 32): a row of at most kExact lanes by
-// its 8 lanes, then each warp's rows of up to kWarpLanes lanes, then the
-// block's longer rows; bags, bounds, scales: the ordering's. dv: D in
-// units of V. A programmatic dependent of the ordering.
+// The block's smallest v.x and largest v.y; `red` holds kWarps pairs.
+// Every thread calls; ends with the block synchronised.
+__device__ __forceinline__ int2 block_min_max(int2 v, int2* red) {
+  v = make_int2(__reduce_min_sync(kFull, v.x), __reduce_max_sync(kFull, v.y));
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+  __syncthreads();
+  v = red[0];
+#pragma unroll
+  for (int q = 1; q < kWarps; ++q)
+    v = make_int2(min(v.x, red[q].x), max(v.y, red[q].y));
+  __syncthreads();
+  return v;
+}
+
+using WordScan = cub::BlockScan<int, kBwdThreads>;
+
+// Shared memory of the rows kernel. The bitmap of a long row and the
+// warps' staging of their runs' sums are never live together.
+template <typename V> struct RowsSmem {
+  union {
+    V stage[kWarps][32][kChunk];  // lanes_in_order's
+    unsigned map[kMapWords];      // a long row's bitmap
+  };
+  union {
+    struct {
+      int4 held[kWarps][kWarpLanes / 4];  // a warp's row as loaded
+      int sorted[kWarps][kWarpLanes];     // ... in lane order
+    } mid;
+    int long_lanes[kBlockLanes];  // a long row's, in lane order
+  };
+  int short_lanes[kBlockRows][kExact];
+  V part[kWarps][kChunk];
+  typename WordScan::TempStorage scan;
+  int2 red[kWarps];
+};
+
+// The block sorts the n lanes src[0, n) of one row (in no set order, each
+// lane once) into lane order: into sm.long_lanes when n <= kBlockLanes,
+// else into dst (global scratch, n ints); returns where. Each window of
+// kMapWords * 32 lane indices, from the row's smallest lane up, becomes a
+// bitmap whose set bits, in order, are the window's lanes; a window with
+// no lane is skipped. Every thread calls; ends with the block
+// synchronised.
+template <typename V>
+__device__ const int* sort_long(const int* src, int n, int* dst,
+                                RowsSmem<V>& sm) {
+  const int tid = threadIdx.x;
+  const bool hold = n <= kBlockLanes;
+  int held[kHold];
+  int lo = INT32_MAX, hi = -1;
+  if (hold) {
+#pragma unroll
+    for (int j = 0; j < kHold; ++j) {
+      const int i = tid + j * kBwdThreads;
+      held[j] = i < n ? __ldcg(src + i) : INT32_MAX;
+      if (i < n) {
+        lo = min(lo, held[j]);
+        hi = max(hi, held[j]);
+      }
+    }
+  } else {
+    for (int i = tid; i < n; i += kBwdThreads) {
+      const int t = __ldcg(src + i);
+      lo = min(lo, t);
+      hi = max(hi, t);
+    }
+  }
+  const int2 span = block_min_max(make_int2(lo, hi), sm.red);
+  lo = span.x;
+  hi = span.y;
+  int* out = hold ? sm.long_lanes : dst;
+  int done = 0;
+  for (int64_t base = lo; base <= hi;) {  // block-uniform
+    const int64_t full = base + (int64_t)kMapWords * 32;
+    const int64_t end = full < (int64_t)hi + 1 ? full : (int64_t)hi + 1;
+    const int words = (int)((end - base + 31) / 32);
+    for (int i = tid; i < words; i += kBwdThreads) sm.map[i] = 0u;
+    __syncthreads();
+    int next = INT32_MAX;  // the smallest lane past this window
+    auto mark = [&](int t) {
+      if (t >= base && t < end) {
+        const int64_t bit = t - base;
+        atomicOr(sm.map + (bit >> 5), 1u << (bit & 31));
+      } else if (t >= end) {
+        next = min(next, t);
+      }
+    };
+    if (hold) {
+#pragma unroll
+      for (int j = 0; j < kHold; ++j)
+        if (tid + j * kBwdThreads < n) mark(held[j]);
+    } else {
+      for (int i = tid; i < n; i += kBwdThreads) mark(__ldcg(src + i));
+    }
+    next = block_min_max(make_int2(next, 0), sm.red).x;  // the map is done too
+    const int per = (words + kBwdThreads - 1) / kBwdThreads;
+    const int w0 = min(tid * per, words), w1 = min(w0 + per, words);
+    int cnt = 0;
+    for (int i = w0; i < w1; ++i) cnt += __popc(sm.map[i]);
+    int at, found;
+    WordScan(sm.scan).ExclusiveSum(cnt, at, found);
+    at += done;
+    for (int i = w0; i < w1; ++i)
+      for (unsigned m = sm.map[i]; m; m &= m - 1u)
+        out[at++] = (int)(base + 32 * i + __ffs(m) - 1);
+    done += found;
+    __syncthreads();  // out complete, the map and the scan free again
+    base = next == INT32_MAX ? (int64_t)hi + 1 : next;
+  }
+  return out;
+}
+
+// Step 5's arguments: the gradient, the ordering's scratch and the output.
+template <typename G> struct RowsArgs {
+  const G* g;
+  int64_t dv;  // D in units of V
+  int w;
+  const int* lanes;
+  int* sorted;
+  const float* scales;
+  const int2* rows;
+  int64_t n_rows;
+  const int4* mids;
+  const int4* longs;
+  const int* counters;
+  int big_blocks;  // the blocks that take the listed rows
+  G* out;
+};
+
+// A listed row of kExact < len <= kWarpLanes lanes by one warp: each lane
+// holds four of its lanes and ranks them against the row's others (four a
+// shared-memory load), then 32 contiguous runs are summed and added in run
+// order. Every lane of the warp calls.
+template <typename V, bool kBf16, bool kScaled>
+__device__ void mid_row(const RowsArgs<typename Lanes<V, kBf16>::G>& a,
+                        int4 e, RowsSmem<V>& sm, int lane, int warp) {
+  const int64_t row = e.x;
+  const int lo = e.y, len = e.z;
+  int* held = (int*)sm.mid.held[warp];
+  int* srt = sm.mid.sorted[warp];
+  int v[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const int i = lane + 32 * q;
+    v[q] = i < len ? __ldcg(a.lanes + lo + i) : INT32_MAX;
+    held[i] = v[q];  // past the row: INT32_MAX, never below a lane
+  }
+  __syncwarp();
+  int k[4] = {0, 0, 0, 0};
+#pragma unroll 4
+  for (int j = 0; j < (len + 3) >> 2; ++j) {
+    const int4 x = sm.mid.held[warp][j];
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      k[q] += (x.x < v[q]) + (x.y < v[q]) + (x.z < v[q]) + (x.w < v[q]);
+  }
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+    if (lane + 32 * q < len) srt[k[q]] = v[q];
+  __syncwarp();
+  for (int64_t c0 = 0; c0 < a.dv; c0 += kChunk) {
+    V acc[kChunk];
+    run_sum<V, kBf16, kScaled>(acc, a.g, a.dv, a.w, srt, a.scales, len, lane,
+                               32, c0);
+    lanes_in_order(acc, lane, sm.stage[warp]);
+    if (lane < kChunk && c0 + lane < a.dv)
+      a.out[row * a.dv + c0 + lane] = Lanes<V, kBf16>::down(acc[0]);
+  }
+}
+
+// A listed row of more than kWarpLanes lanes by the whole block: sorted
+// (sort_long), then 256 contiguous runs summed, each warp's added in run
+// order, then the 8 warps' in warp order. Every thread calls.
+template <typename V, bool kBf16, bool kScaled>
+__device__ void long_row(const RowsArgs<typename Lanes<V, kBf16>::G>& a,
+                         int4 e, RowsSmem<V>& sm, int lane, int warp) {
+  const int64_t row = e.x;
+  const int* srt = sort_long(a.lanes + e.y, e.z, a.sorted + e.y, sm);
+  for (int64_t c0 = 0; c0 < a.dv; c0 += kChunk) {
+    V acc[kChunk];
+    run_sum<V, kBf16, kScaled>(acc, a.g, a.dv, a.w, srt, a.scales, e.z,
+                               threadIdx.x, kBwdThreads, c0);
+    lanes_in_order(acc, lane, sm.stage[warp]);
+    if (lane < kChunk) sm.part[warp][lane] = acc[0];
+    __syncthreads();
+    if (threadIdx.x < kChunk) {  // the 8 warps' sums in warp order
+      V tot = sm.part[0][threadIdx.x];
+      for (int q = 1; q < kWarps; ++q) tot = add_(tot, sm.part[q][threadIdx.x]);
+      if (c0 + threadIdx.x < a.dv)
+        a.out[row * a.dv + c0 + threadIdx.x] = Lanes<V, kBf16>::down(tot);
+    }
+    __syncthreads();
+  }
+}
+
+// Step 5. Blocks [0, big_blocks) take the listed rows in units, a unit a
+// block in turn: first each long row, then each 8 medium rows (a warp
+// each). They come first in the grid, so the longest chains start with
+// the kernel. Every later block takes kBlockRows rows, kRowLanes threads a
+// row, and sums those of at most kExact lanes: each thread holds kRowHeld
+// lanes and ranks them against the row's others, and one thread per vector
+// column adds them in lane order (the plain version's). A programmatic
+// dependent of the ordering.
 template <typename V, bool kBf16, bool kScaled>
 __global__ void __launch_bounds__(kBwdThreads) rows_kernel(
-    const typename Lanes<V, kBf16>::G* __restrict__ g, int64_t dv,
-    const int* __restrict__ bags, const float* __restrict__ scales,
-    const int2* __restrict__ bounds, int64_t n_rows,
-    typename Lanes<V, kBf16>::G* __restrict__ out) {
+    const RowsArgs<typename Lanes<V, kBf16>::G> a) {
   using L = Lanes<V, kBf16>;
-  __shared__ V stage[kBwdThreads / 32][32][kChunk];  // lanes_in_order's
-  __shared__ V part[kBwdThreads / 32][kChunk];
-  __shared__ int long_rows[kBlockRows];
-  __shared__ int n_long;
+  __shared__ RowsSmem<V> sm;
   wait_for_prerequisite();  // the ordering has landed
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if ((int)blockIdx.x < a.big_blocks) {  // block-uniform
+    const int n_mid = __ldcg(a.counters + 1), n_long = __ldcg(a.counters + 2);
+    const int units = n_long + (n_mid + kWarps - 1) / kWarps;
+    for (int u = blockIdx.x; u < units; u += a.big_blocks) {
+      if (u < n_long) {
+        long_row<V, kBf16, kScaled>(a, __ldcg(a.longs + u), sm, lane, warp);
+      } else {
+        const int m = (u - n_long) * kWarps + warp;
+        if (m < n_mid)
+          mid_row<V, kBf16, kScaled>(a, __ldcg(a.mids + m), sm, lane, warp);
+        __syncthreads();  // the next unit may be a long row
+      }
+    }
+    return;
+  }
   const int c = threadIdx.x % kRowLanes;
-  const int64_t r0 = (int64_t)blockIdx.x * kBlockRows;
-  const int64_t r = r0 + threadIdx.x / kRowLanes;
-  if (threadIdx.x == 0) n_long = 0;
-  const int2 bd = r < n_rows ? __ldcg(bounds + r) : make_int2(0, 0);
-  const int len = bd.y - bd.x;
-  if (r < n_rows && len <= kExact) {  // in lane order: the plain version's
-    for (int64_t col = c; col < dv; col += kRowLanes) {
-      V acc = zero<V>();
-      for (int i0 = bd.x; i0 < bd.y; i0 += kDepth) {
-        V x[kDepth];
-        float s[kDepth];
+  const int64_t r = (int64_t)(blockIdx.x - a.big_blocks) * kBlockRows +
+                    threadIdx.x / kRowLanes;
+  const int2 rb = r < a.n_rows ? __ldcg(a.rows + r) : make_int2(0, 0);
+  const int len = rb.x, lo = rb.y - rb.x;  // the cursor ended at the end
+  const bool few = r < a.n_rows && len <= kExact;
+  int l[kRowHeld], k[kRowHeld];  // lane c + kRowLanes * q of the row
 #pragma unroll
-        for (int u = 0; u < kDepth; ++u) {
-          const int bag = i0 + u < bd.y ? __ldcg(bags + i0 + u) : 0;
-          s[u] = kScaled && i0 + u < bd.y ? __ldcg(scales + bag) : 1.f;
-          x[u] = i0 + u < bd.y ? load_term<V, kBf16>(g, dv, bag, col)
-                               : zero<V>();
-        }
+  for (int q = 0; q < kRowHeld; ++q) {
+    const int i = c + kRowLanes * q;
+    l[q] = few && i < len ? __ldcg(a.lanes + lo + i) : INT32_MAX;
+    k[q] = 0;
+  }
+  const int most = __reduce_max_sync(kFull, few ? len : 0);
 #pragma unroll
-        for (int u = 0; u < kDepth; ++u)
-          if (i0 + u < bd.y) acc = add_(acc, kScaled ? div_(x[u], s[u]) : x[u]);
+  for (int j = 0; j < kExact; ++j) {  // warp-uniform
+    if (j >= most) break;
+    const int v = __shfl_sync(kFull, l[j / kRowLanes],
+                              (lane & ~(kRowLanes - 1)) | (j % kRowLanes));
+#pragma unroll
+    for (int q = 0; q < kRowHeld; ++q) k[q] += v < l[q];
+  }
+  int* srt = sm.short_lanes[threadIdx.x / kRowLanes];
+#pragma unroll
+  for (int q = 0; q < kRowHeld; ++q)
+    if (few && c + kRowLanes * q < len) srt[k[q]] = l[q];
+  __syncwarp();
+  if (!few) return;  // a listed row, or past the end
+  for (int64_t col = c; col < a.dv; col += kRowLanes) {
+    V acc = zero<V>();
+    for (int i0 = 0; i0 < len; i0 += kDepth) {
+      V x[kDepth];
+      float s[kDepth];
+#pragma unroll
+      for (int u = 0; u < kDepth; ++u) {
+        const int bag = i0 + u < len ? lane_bag(srt[i0 + u], a.w) : 0;
+        s[u] = kScaled && i0 + u < len ? __ldcg(a.scales + bag) : 1.f;
+        x[u] = i0 + u < len ? load_term<V, kBf16>(a.g, a.dv, bag, col)
+                            : zero<V>();
       }
-      out[r * dv + col] = L::down(acc);
+#pragma unroll
+      for (int u = 0; u < kDepth; ++u)
+        if (i0 + u < len) acc = add_(acc, kScaled ? div_(x[u], s[u]) : x[u]);
     }
+    a.out[r * a.dv + col] = L::down(acc);
   }
-  // the warp's rows of kExact < len <= kWarpLanes, one at a time
-  unsigned mine = __ballot_sync(kFull, c == 0 && len > kExact &&
-                                           len <= kWarpLanes);
-  while (mine) {  // warp-uniform
-    const int src = __ffs(mine) - 1;
-    mine &= mine - 1;
-    const int lo = __shfl_sync(kFull, bd.x, src);
-    const int hi = __shfl_sync(kFull, bd.y, src);
-    const int64_t row = r0 + warp * (32 / kRowLanes) + src / kRowLanes;
-    for (int64_t c0 = 0; c0 < dv; c0 += kChunk) {
-      V acc[kChunk];
-      run_sum<V, kBf16, kScaled>(acc, g, dv, bags, scales, lo, hi, lane, 32,
-                                 c0);
-      lanes_in_order(acc, lane, stage[warp]);
-      if (lane < kChunk && c0 + lane < dv)
-        out[row * dv + c0 + lane] = L::down(acc[0]);
-    }
-  }
-  // the block's rows of more than kWarpLanes lanes, with every thread
-  __syncthreads();
-  if (c == 0 && len > kWarpLanes)  // any order: the rows are independent
-    long_rows[atomicAdd(&n_long, 1)] = (int)(r - r0);
-  __syncthreads();
-  for (int h = 0; h < n_long; ++h) {  // block-uniform
-    const int64_t row = r0 + long_rows[h];
-    const int2 hb = __ldcg(bounds + row);
-    for (int64_t c0 = 0; c0 < dv; c0 += kChunk) {
-      V acc[kChunk];
-      run_sum<V, kBf16, kScaled>(acc, g, dv, bags, scales, hb.x, hb.y,
-                                 threadIdx.x, kBwdThreads, c0);
-      lanes_in_order(acc, lane, stage[warp]);
-      if (lane < kChunk) part[warp][lane] = acc[0];
-      __syncthreads();
-      if (threadIdx.x < kChunk) {  // the 8 warps' sums in warp order
-        V tot = part[0][threadIdx.x];
-        for (int q = 1; q < kBwdThreads / 32; ++q)
-          tot = add_(tot, part[q][threadIdx.x]);
-        if (c0 + threadIdx.x < dv)
-          out[row * dv + c0 + threadIdx.x] = L::down(tot);
-      }
-      __syncthreads();
-    }
-  }
-}
-
-
-// Steps 1-3 in one cooperative launch, grid barriers between them.
-__global__ void __launch_bounds__(kBwdThreads) order_kernel(
-    const OrderArgs a) {
-  __shared__ typename TileSort::TempStorage sort;
-  __shared__ typename DigitScan::TempStorage scan;
-  __shared__ unsigned cnt[kDigits], offset[kDigits];
-  cg::grid_group grid = cg::this_grid();
-  const int64_t stride = (int64_t)gridDim.x * kBwdThreads;
-  const int64_t n1 = a.n > a.n_rows ? a.n : a.n_rows;
-  for (int64_t t = (int64_t)blockIdx.x * kBwdThreads + threadIdx.x; t < n1;
-       t += stride) {
-    if (a.slots_are_64)
-      order_one<int64_t>(a, t);
-    else
-      order_one<int32_t>(a, t);
-  }
-  grid.sync();
-  int src = 0;
-  for (int bit = 0; bit < a.end_bit; bit += 8) {
-    sort_pass(a, src, bit, grid, cnt, offset, sort, scan);
-    src = 1 - src;
-  }
-  // step 3: position i of the sorted keys (i == n: past the last) opens
-  // the range of its key and closes the range of the key before it
-  launch_dependents();
-  const unsigned* keys = a.keys[src];
-  for (int64_t i = (int64_t)blockIdx.x * kBwdThreads + threadIdx.x;
-       i <= a.n; i += stride) {
-    const int64_t key = i < a.n ? __ldcg(keys + i) : a.n_rows;
-    const int64_t prev = i > 0 ? __ldcg(keys + i - 1) : -1;
-    if (key == prev) continue;
-    if (key < a.n_rows) a.bounds[key].x = (int)i;
-    if (prev >= 0 && prev < a.n_rows) a.bounds[prev].y = (int)i;
-  }
-}
-
-int key_bits(int64_t n_rows) {  // keys are 0 .. n_rows
-  int bits = 1;
-  while (bits < 32 && (int64_t{1} << bits) <= n_rows) ++bits;
-  return bits;
 }
 
 // Lays the scratch out from `base` (NULL: sizes only) into `a`; returns
@@ -732,44 +938,53 @@ size_t bwd_scratch(int64_t n, int64_t n_bags, int64_t n_rows, void* base,
     off += (bytes + 255) & ~size_t{255};
     return p;
   };
-  a->n_tiles = (n + kTile - 1) / kTile;
-  for (int i = 0; i < 2; ++i) {
-    a->keys[i] = (unsigned*)take(n * sizeof(unsigned));
-    a->bags[i] = (int*)take(n * sizeof(int));
-  }
-  a->hist = (unsigned*)take(kDigits * a->n_tiles * sizeof(unsigned));
+  a->rows = (int2*)take(n_rows * sizeof(int2));
+  a->lanes = (int*)take(n * sizeof(int));
+  a->sorted = (int*)take(n * sizeof(int));
   a->scales = (float*)take(n_bags * sizeof(float));
-  a->bounds = (int2*)take(n_rows * sizeof(int2));
+  const int64_t mids = n / (kExact + 1), longs = n / (kWarpLanes + 1);
+  a->mids = (int4*)take((mids < n_rows ? mids : n_rows) * sizeof(int4));
+  a->longs = (int4*)take((longs < n_rows ? longs : n_rows) * sizeof(int4));
+  a->counters = (int*)take(3 * sizeof(int));
   return off;
 }
 
-// Steps 1-3 as one cooperative launch on as many blocks as its tiles need
-// (at least one an SM, for the lane-wise steps), at most the blocks the
-// card holds at once.
+// Steps 1-4 as one cooperative launch on as many blocks as its widest
+// step needs (at least one an SM), at most the blocks the card holds at
+// once.
 cudaError_t launch_order(const OrderArgs& a, cudaStream_t stream) {
   static int resident = 0;
   const int64_t sms = sm_count();
-  const int64_t wave = sms * resident_blocks(order_kernel, kBwdThreads,
+  const int64_t wave = sms * resident_blocks(order_kernel, kOrderThreads,
                                              &resident);
-  int64_t blocks = a.n_tiles > sms ? a.n_tiles : sms;
+  int64_t blocks = (a.n + kOrderThreads - 1) / kOrderThreads;
+  const int64_t row_blocks = (a.n_rows + kOrderThreads - 1) / kOrderThreads;
+  if (row_blocks > blocks) blocks = row_blocks;
+  if (blocks < sms) blocks = sms;
   if (blocks > wave) blocks = wave;
   if (blocks < 1) return cudaErrorInvalidConfiguration;  // the card holds none
-  return launch_cooperative(order_kernel, blocks, kBwdThreads, stream, a);
+  return launch_cooperative(order_kernel, blocks, kOrderThreads, stream, a);
 }
 
-// Step 4 at vector unit V, f32 or bf16 lanes, as the ordering's
-// programmatic dependent; `sorted` names the buffer the sort left its
-// lanes in.
+// Step 5 at vector unit V, f32 or bf16 lanes, as the ordering's
+// programmatic dependent: as many blocks for the listed rows as they could
+// need (a warp a row of more than kExact lanes, at most two an SM), then a
+// block for each kBlockRows rows.
 template <typename V, bool kBf16>
 cudaError_t launch_rows(const void* d_pooled, int64_t dv, const OrderArgs& a,
-                        int sorted, void* out, cudaStream_t stream) {
+                        void* out, cudaStream_t stream) {
   using G = typename Lanes<V, kBf16>::G;
+  RowsArgs<G> r = {(const G*)d_pooled, dv, (int)a.w, a.lanes, a.sorted,
+                   a.scales, a.rows, a.n_rows, a.mids, a.longs, a.counters,
+                   0, (G*)out};
+  const int64_t listed = a.n / (kExact + 1);  // at most
+  const int64_t big = (listed + kWarps - 1) / kWarps, most = 2 * sm_count();
+  r.big_blocks = (int)(big < most ? big : most);
   const auto kernel = a.combiner != 0 ? rows_kernel<V, kBf16, true>
                                       : rows_kernel<V, kBf16, false>;
-  return launch_dependent(kernel, (a.n_rows + kBlockRows - 1) / kBlockRows,
-                          kBwdThreads, stream, (const G*)d_pooled, dv,
-                          (const int*)a.bags[sorted], (const float*)a.scales,
-                          (const int2*)a.bounds, a.n_rows, (G*)out);
+  return launch_dependent(
+      kernel, r.big_blocks + (a.n_rows + kBlockRows - 1) / kBlockRows,
+      kBwdThreads, stream, r);
 }
 
 // The backward: the ordering, then the rows at vector width vec (4, 2 or
@@ -793,23 +1008,17 @@ cudaError_t launch_bwd(const void* d_pooled, int64_t d, const void* slots,
   a.n_rows = n_rows;
   a.combiner = combiner;
   a.n = n_bags * w;
-  a.end_bit = a.n > 0 ? key_bits(n_rows) : 0;
   bwd_scratch(a.n, n_bags, n_rows, scratch, &a);
   cudaError_t err = launch_order(a, st);
   if (err != cudaSuccess) return err;
-  const int sorted = (a.end_bit + 7) / 8 % 2;
   if (vec == 4)
-    return bf16 ? launch_rows<float4, true>(d_pooled, d / 4, a, sorted, out,
-                                            st)
-                : launch_rows<float4, false>(d_pooled, d / 4, a, sorted, out,
-                                             st);
+    return bf16 ? launch_rows<float4, true>(d_pooled, d / 4, a, out, st)
+                : launch_rows<float4, false>(d_pooled, d / 4, a, out, st);
   if (vec == 2)
-    return bf16 ? launch_rows<float2, true>(d_pooled, d / 2, a, sorted, out,
-                                            st)
-                : launch_rows<float2, false>(d_pooled, d / 2, a, sorted, out,
-                                             st);
-  return bf16 ? launch_rows<float, true>(d_pooled, d, a, sorted, out, st)
-              : launch_rows<float, false>(d_pooled, d, a, sorted, out, st);
+    return bf16 ? launch_rows<float2, true>(d_pooled, d / 2, a, out, st)
+                : launch_rows<float2, false>(d_pooled, d / 2, a, out, st);
+  return bf16 ? launch_rows<float, true>(d_pooled, d, a, out, st)
+              : launch_rows<float, false>(d_pooled, d, a, out, st);
 }
 
 }  // namespace

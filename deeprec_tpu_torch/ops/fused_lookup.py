@@ -126,11 +126,12 @@ def fused_pooled_lookup_backward(d_pooled: torch.Tensor,
                                  combiner: str, n_rows: int) -> torch.Tensor:
     """``[n_rows, D]`` gradient of :func:`fused_pooled_lookup` with respect
     to ``values``, given ``d_pooled [B, D]``, of ``d_pooled``'s dtype. On
-    CUDA two kernels compute it: a cooperative one sorts the valid lanes
-    by row, stably (a radix sort), and its dependent adds each row's terms
-    in an order that its lanes fix, with no float atomics, writing each
-    row once (zeros where no valid lane lands). A row of at most 32 valid lanes adds
-    them in lane order, as :func:`fused_pooled_lookup_backward_plain`'s
+    CUDA two kernels compute it: a cooperative one groups the valid lanes
+    by row (a counting sort placed with integer atomics), and its
+    dependent puts each row's lanes back in lane order and adds their
+    terms in that order, with no float atomics, writing each row once
+    (zeros where no valid lane lands). A row of at most 32 valid lanes
+    adds them in lane order, as :func:`fused_pooled_lookup_backward_plain`'s
     ``index_add_`` does on the CPU, so its sum is bit-equal to the plain
     version's; a longer row adds contiguous runs of its lanes, then the
     runs in order. A bf16 ``d_pooled`` is summed in f32 and each row
@@ -179,8 +180,9 @@ def fused_pooled_lookup_backward(d_pooled: torch.Tensor,
 
 @functools.lru_cache(maxsize=64)
 def _scratch_bytes(n_bags: int, w: int, n_rows: int) -> int:
-    """The backward's scratch (the sort's keys and values, twice, its
-    digit counts, the bags' scales, the rows' bounds)."""
+    """The backward's scratch (each row's count and segment, the lanes
+    grouped by row, a long row's lanes sorted, the bags' scales, the rows
+    of more than 16 lanes listed)."""
     return max(1, _build.library().deeprec_fused_pooled_lookup_bwd_scratch(
         n_bags, w, n_rows))
 

@@ -47,7 +47,12 @@
 // These variants probe the atomic design the port ran until it was made
 // deterministic; that design itself, whole (every vector width, bf16,
 // int32 and int64 slots, strided views, the combiners), is
-// probe_k2_bwd_atomic in k2_bwd_atomic.cuh, included below.
+// probe_k2_bwd_atomic in k2_bwd_atomic.cuh, included below. The sorted
+// design that followed it (an LSD radix sort of the lanes by row in one
+// cooperative launch, then the rows) is probe_k2_bwd_radix in
+// k2_bwd_radix.cuh, also included below. probe_grid_barriers times the
+// floor of a cooperative ordering: an empty kernel crossing a number of
+// grid barriers on a number of blocks.
 //
 // K3b variants (int4 copy of plane[:cap], then U int32 stores), selected
 // by probe_k3b's mode:
@@ -98,6 +103,7 @@
 #include "../csrc/hash_table.cu"
 
 #include "k2_bwd_atomic.cuh"
+#include "k2_bwd_radix.cuh"
 
 #include <cooperative_groups.h>
 #include <cub/block/block_radix_sort.cuh>
@@ -877,6 +883,11 @@ __global__ void __launch_bounds__(kThreads) barrier_only() {
   cg::this_grid().sync();
 }
 
+__global__ void __launch_bounds__(1024) barriers_only(int barriers) {
+  cg::grid_group grid = cg::this_grid();
+  for (int i = 0; i < barriers; ++i) grid.sync();
+}
+
 }  // namespace ht_old
 
 // K4 as probe mode `mode` (see the top of the file).
@@ -1091,4 +1102,18 @@ extern "C" int probe_k2f(int mode, const void* values, int64_t ld,
   return (int)probe_k2f_typed(mode, (const float4*)values, ld, n_rows,
                               (const int32_t*)slots, (const bool*)valid, n,
                               (float4*)out, st);
+}
+
+// An empty cooperative kernel of `threads` threads a block (at most
+// 1,024) crossing `barriers` grid barriers on `blocks` blocks (at most one
+// wave).
+extern "C" int probe_grid_barriers(int barriers, int64_t blocks, int threads,
+                                   void* stream) {
+  int per_sm = 0;
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, ht_old::barriers_only,
+                                                threads, 0);
+  if (blocks < 1 || blocks > (int64_t)sm_count() * per_sm)
+    return (int)cudaErrorInvalidValue;
+  return (int)launch_cooperative(ht_old::barriers_only, blocks, threads,
+                                 (cudaStream_t)stream, barriers);
 }

@@ -14,15 +14,21 @@ turns (old, new, new, old), back to back and behind a PyTorch kernel
 (:func:`behind_ms`), which ``chip_smoke.py`` also does at its shapes; so
 are the previous designs of the hash index's K4 and K5 (:func:`k4_turns`,
 :func:`k5_turns`, which ``chip_smoke.py`` runs at every K4 and K5 shape)
-and K2's atomic backward, which the port ran until it was made
-deterministic (:func:`k2_bwd_turns`, at every K2-backward shape of
-``chip_smoke.py``).
+and K2's backward in its previous design, an LSD radix sort in one
+cooperative launch, then the rows (``k2_bwd_radix.cuh``, timed in turns
+with the port's counting sort by :func:`k2_bwd_turns` at every
+K2-backward shape of ``chip_smoke.py``, beside the atomic design the port
+ran before that, timed once; :func:`k2_bwd_split` splits each design's
+device time between its two kernels and times the floor of a cooperative
+ordering, an empty kernel crossing as many grid barriers).
 Run from the root of a checkout on a machine with one card:
 
-    python -m deeprec_tpu_torch.probes.kernel_probe
+    python -m deeprec_tpu_torch.probes.kernel_probe [--k2-bwd]
 
-It builds ``kernel_probe.cu`` (which includes ``csrc/gather_rows.cu`` and
-``csrc/hash_table.cu``)
+(``--k2-bwd``: K2's backward alone, at :func:`k2_bwd_shapes`.)
+
+It builds ``kernel_probe.cu`` (which includes ``csrc/gather_rows.cu``,
+``csrc/hash_table.cu``, ``k2_bwd_atomic.cuh`` and ``k2_bwd_radix.cuh``)
 with nvcc into the git-ignored build directory, prints one line per
 variant (device ms per call: the median of 21 CUDA-event samples of 20
 back-to-back calls behind a sleep kernel, L2 warm) and the card's name
@@ -35,6 +41,7 @@ import functools
 import hashlib
 import statistics
 import subprocess
+import sys
 from pathlib import Path
 
 import torch
@@ -166,6 +173,7 @@ def build() -> ctypes.CDLL:
     """The probe library (built once a process)."""
     src = b"".join(f.read_bytes() for f in (
         SOURCE, SOURCE.with_name("k2_bwd_atomic.cuh"),
+        SOURCE.with_name("k2_bwd_radix.cuh"),
         _build.CSRC / "gather_rows.cu", _build.CSRC / "hash_table.cu",
         _build.CSRC / "launch.cuh"))
     digest = hashlib.sha256(src).hexdigest()[:16]
@@ -187,6 +195,12 @@ def build() -> ctypes.CDLL:
     # made deterministic (d_pooled ... n_rows, vec, bf16_out, stream)
     lib.probe_k2_bwd_atomic.argtypes = [p, i64, p, i, i64, i64, p, i64, i64,
                                         i64, i64, i, p, i64, i, p, p]
+    # the radix-sorted K2 backward: the port's entry's arguments
+    lib.probe_k2_bwd_radix.argtypes = [p, i64, p, i, i64, i64, p, i64, i64,
+                                       i64, i64, i, p, i64, i, i, p, p]
+    lib.probe_k2_bwd_radix_scratch.argtypes = [i64, i64, i64]
+    lib.probe_k2_bwd_radix_scratch.restype = i64
+    lib.probe_grid_barriers.argtypes = [i, i64, i, p]
     return lib
 
 
@@ -218,26 +232,106 @@ def k2_bwd_atomic(lib, d_pooled, slots, valid, combiner, n_rows):
     return out if narrow is None else narrow
 
 
+def k2_bwd_radix(lib, d_pooled, slots, valid, combiner, n_rows):
+    """K2's backward in its previous design (``k2_bwd_radix.cuh``): the valid
+    lanes stably sorted by row, an LSD radix sort 8 bits a pass in one
+    cooperative launch, then each row summed as its programmatic
+    dependent; called as the port's wrapper calls its kernel."""
+    from ..ops.fused_lookup import COMBINERS
+    n_bags, w = slots.shape
+    d = d_pooled.shape[1]
+    out = torch.empty((n_rows, d), dtype=d_pooled.dtype,
+                      device=d_pooled.device)
+    es = d_pooled.element_size()
+    vec = next(v for v in (4, 2, 1) if d % v == 0
+               and d_pooled.data_ptr() % (es * v) == 0)
+    scratch = torch.empty(max(1, lib.probe_k2_bwd_radix_scratch(
+        n_bags, w, n_rows)), dtype=torch.uint8, device=d_pooled.device)
+    err = lib.probe_k2_bwd_radix(
+        d_pooled.data_ptr(), d, slots.data_ptr(),
+        int(slots.dtype == torch.int64), slots.stride(0), slots.stride(1),
+        valid.data_ptr(), valid.stride(0), valid.stride(1), n_bags, w,
+        COMBINERS.index(combiner), out.data_ptr(), n_rows, vec,
+        int(d_pooled.dtype == torch.bfloat16), scratch.data_ptr(),
+        torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"probe_k2_bwd_radix: CUDA error {err}")
+    return out
+
+
 def k2_bwd_turns(lib, d_pooled, slots, valid, combiner, n_rows, what,
                  samples=21):
-    """K2's backward at one shape: the atomic design (checked within 1e-4
-    of the magnitudes against the port's kernel first) and the port's
-    deterministic kernel timed in turns (old, new, new, old), back to back
-    and behind a one-element add. Returns :func:`in_turns`'s dict."""
+    """K2's backward at one shape: the radix design, checked bit-equal
+    to the port's kernel (both add each row's lanes in one order and one
+    run tree), timed in turns with it (old, new, new, old), back to back
+    and behind a one-element add; the atomic design, checked within 1e-4
+    of the magnitudes, timed once. Returns :func:`in_turns`'s dict with
+    ``atomic``: the atomic design's ms."""
     from ..ops.fused_lookup import fused_pooled_lookup_backward as port
-    d32 = d_pooled.float().abs()
-    mag = port(d32, slots, valid, combiner, n_rows)
-    old = k2_bwd_atomic(lib, d_pooled, slots, valid, combiner, n_rows)
     new = port(d_pooled, slots, valid, combiner, n_rows)
+    radix = k2_bwd_radix(lib, d_pooled, slots, valid, combiner, n_rows)
+    if not torch.equal(_bits(radix), _bits(new)):
+        raise SystemExit(f"kernel_probe: the radix K2 backward {what} "
+                         f"differs from the port's bits")
+    mag = port(d_pooled.float().abs(), slots, valid, combiner, n_rows)
+    old = k2_bwd_atomic(lib, d_pooled, slots, valid, combiner, n_rows)
     step = 2.0 ** -7 if d_pooled.dtype == torch.bfloat16 else 0.0
     if not bool(((old.float() - new.float()).abs()
                  <= step * new.float().abs() + 1e-4 * mag + 1e-7).all()):
         raise SystemExit(f"kernel_probe: the atomic K2 backward {what} "
                          f"differs from the port's")
-    return in_turns(
-        lambda: k2_bwd_atomic(lib, d_pooled, slots, valid, combiner, n_rows),
+    res = in_turns(
+        lambda: k2_bwd_radix(lib, d_pooled, slots, valid, combiner, n_rows),
         lambda: port(d_pooled, slots, valid, combiner, n_rows),
-        f"K2 backward {what}", "atomic", samples)
+        f"K2 backward {what}", "radix", samples)
+    res["atomic"] = time_ms(lambda: k2_bwd_atomic(
+        lib, d_pooled, slots, valid, combiner, n_rows), samples)
+    return res
+
+
+def k2_bwd_split(lib, d_pooled, slots, valid, combiner, n_rows, calls=20):
+    """Each K2-backward design's device time split by kernel (a
+    torch.profiler window of ``calls`` back-to-back calls each), and the
+    floor of each design's ordering: an empty cooperative kernel crossing
+    as many grid barriers on the port's grid (its three barriers;
+    the radix design's: two a pass and one more). Returns ``{"port" |
+    "radix": {"order" | "rows": device us a call}, "floor": {barriers:
+    us}}``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from ..ops.fused_lookup import fused_pooled_lookup_backward as port
+    n_bags, w = slots.shape
+    bits = max(1, int(n_rows).bit_length())  # keys 0 .. n_rows
+    out = {}
+    for name, fn in (("port", port), ("radix", functools.partial(
+            k2_bwd_radix, lib))):
+        for _ in range(3):
+            fn(d_pooled, slots, valid, combiner, n_rows)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn(d_pooled, slots, valid, combiner, n_rows)
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA]
+        out[name] = {k: sum(getattr(e, "self_device_time_total", 0.0)
+                            for e in kernels if f"{k}_kernel" in e.key)
+                     / calls for k in ("order", "rows")}
+    stream = torch.cuda.current_stream().cuda_stream
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    blocks = max(sms, -(-n_bags * w // 1024), -(-n_rows // 1024))
+    floor = {}
+    for barriers in (3, 2 * -(-bits // 8) + 1):
+        def run(k=barriers):
+            err = lib.probe_grid_barriers(k, blocks, 1024, stream)
+            if err:
+                raise RuntimeError(f"probe_grid_barriers: CUDA error {err}")
+        floor[barriers] = 1000 * time_ms(run, 7)
+    out["floor"] = floor
+    print(f"  split (device us a call): port {out['port']}; radix "
+          f"{out['radix']}; an empty cooperative kernel on {blocks} blocks "
+          f"of 1,024 threads crossing k barriers: {floor}", flush=True)
+    return out
 
 
 def k1_runner(lib, values, slots, d, out):
@@ -570,6 +664,57 @@ def window_groups(inverse, valid, width=32):
         int(torch.unique(pos[rows == hot] // width).numel())
 
 
+def k2_bwd_shapes(dev, g):
+    """K2-backward probe shapes, ``{what: (d_pooled, slots, valid,
+    n_rows)}``, D 16, sum: the training shape (one resolved batch's
+    106,496 ids into ~17,750 rows, Criteo's skew: rows of 17-128 and of
+    more than 128 lanes), the multi-hash one (a row per id), short rows
+    only (106,496 ids uniform over 26,624 rows, at most ~16 a row) and a
+    DIN-like expansion (262,144 one-id bags, 56 % valid, onto 205,825 rows
+    with a squared skew)."""
+    inv, valid, u = training_batch(dev)
+    n = inv.shape[0]
+    dp = torch.randn(n, EMB_DIM, generator=g).to(dev)
+    every = torch.ones(n, 1, dtype=torch.bool, device=dev)
+    m, din = 2 * B * 32, 205_825
+    return {
+        "training": (dp, inv.view(-1, 1), valid.view(-1, 1), u),
+        "multi-hash": (dp, torch.arange(n, device=dev).view(-1, 1), every,
+                       n),
+        "short rows only": (dp, torch.randint(0, n // 4, (n, 1),
+                                              generator=g).to(dev),
+                            every, n // 4),
+        "DIN-like": (torch.randn(m, EMB_DIM, generator=g).to(dev),
+                     (torch.rand(m, generator=g) ** 2 * din).long()
+                     .view(-1, 1).to(dev),
+                     (torch.rand(m, 1, generator=g) < 0.56).to(dev), din),
+    }
+
+
+def k2_bwd_rows(slots, valid, n_rows):
+    """A K2-backward shape's rows by lane count: (touched, of 17-128 lanes,
+    of more, the most lanes a row)."""
+    lanes = torch.bincount(slots.clamp(0, n_rows - 1)[valid].long().cpu(),
+                           minlength=n_rows)
+    return (int((lanes > 0).sum()), int(((lanes > 16) & (lanes <= 128))
+                                        .sum()),
+            int((lanes > 128).sum()), int(lanes.max()))
+
+
+def k2_bwd_probe(lib, dev, g):
+    """K2's backward at :func:`k2_bwd_shapes`: in turns with the radix
+    design, the atomic design beside, each design's time by kernel."""
+    for what, (dp, slots, valid, u) in k2_bwd_shapes(dev, g).items():
+        touched, mid, long, most = k2_bwd_rows(slots, valid, u)
+        print(f"K2 backward {what}: {slots.numel()} ids into {u} rows, "
+              f"{touched} touched, {mid} of 17-128 lanes, {long} of more "
+              f"(the most {most})", flush=True)
+        res = k2_bwd_turns(lib, dp, slots, valid, "sum", u, what)
+        print(f"  port {res['new']:.4f} ms, radix {res['old']:.4f}, "
+              f"atomic {res['atomic']:.4f}", flush=True)
+        k2_bwd_split(lib, dp, slots, valid, "sum", u)
+
+
 def k2_forward(lib, values, slots, valid, what):
     """K2's forward at ``[n, 1]`` bags of ``values [R, 16]`` (f32, rows
     16-byte aligned), sum: the old kernel (variant 0) and the port's in
@@ -666,6 +811,10 @@ def main():
     stream = torch.cuda.current_stream().cuda_stream
 
     g = torch.Generator().manual_seed(1)
+    if "--k2-bwd" in sys.argv[1:]:  # K2's backward alone
+        k2_bwd_probe(lib, dev, g)
+        print(smi, flush=True)
+        return
     k1_shapes(lib, dev, g)
 
     inv, valid, u = training_batch(dev)
@@ -703,8 +852,7 @@ def main():
         0, idx, src))
     print(f"  library zeros + index_add_: {library:.4f} ms", flush=True)
     timed(port, K2_VARIANTS, k2, "K2")
-    k2_bwd_turns(lib, dp, slots2, valid2, "sum", u,
-                 "(training shape, the atomic design against the port's)")
+    k2_bwd_probe(lib, dev, g)
 
     cap = CAPACITY
     plane = torch.randint(-1, 9, (cap + 1,), generator=g,

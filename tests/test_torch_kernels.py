@@ -221,3 +221,70 @@ def test_pooling_gradient_matches_jax_vjp(combiner, case):
     np.testing.assert_allclose(tr.grad.numpy(), np.asarray(ref_grad),
                                rtol=1e-5, atol=1e-6)
     assert fused_pooled_lookup_backward.launches == 0
+
+
+def _stress_columns(mod, combiner):
+    """A 40-id column (w > 32: a bag's lanes over two of the card's 32-lane
+    loads) between two width-1 ones."""
+    cat = mod.CategoricalColumn
+    return [mod.EmbeddingColumn(cat("a"), 16),
+            mod.EmbeddingColumn(cat("w", max_length=40), 16,
+                                combiner=combiner),
+            mod.EmbeddingColumn(cat("b"), 16, combiner=combiner)]
+
+
+@pytest.mark.parametrize("case,combiner", [
+    ("hot_row", "sum"), ("hot_row", "mean"), ("one_row", "sqrtn"),
+    ("all_invalid", "mean"), ("wide", "mean"), ("wide", "sqrtn")])
+def test_pooling_gradient_stress_matches_jax_vjp(case, combiner):
+    """The plain backward, which the card's kernel is held to, against
+    jax.vjp of the JAX collection's pooling where the card's counting sort
+    is stressed: one row taking most lanes (hot_row: ~80 % of 2,688),
+    R = 1 (one_row), an all-invalid batch (zero everywhere), and w > 32
+    with mean and sqrtn (wide)."""
+    rng = np.random.default_rng(23)
+    b = 64
+    jcoll = jfc.EmbeddingCollection(_stress_columns(jfc, combiner),
+                                    capacity=1024)
+    tcoll = tfc.EmbeddingCollection(_stress_columns(tfc, combiner),
+                                    capacity=1024)
+    n = jcoll.total_width * b
+    u = {"hot_row": 300, "one_row": 1, "all_invalid": 200, "wide": 500}[case]
+    inverse = rng.integers(0, u, n).astype(np.int32)
+    valid = rng.random(n) < 0.8
+    if case == "hot_row":
+        inverse[rng.random(n) < 0.8] = 7
+    elif case == "all_invalid":
+        valid[:] = False
+    else:
+        valid[b:5 * b:b] = False  # bag 0 of the wide column: 4 lanes fewer
+    urows = rng.normal(size=(u, 16)).astype(np.float32)
+    cots = {c.name: rng.normal(size=(b, 16)).astype(np.float32)
+            for c in jcoll.columns}
+
+    def pool(r):
+        return jcoll.embeddings_from_rows(r[jnp.asarray(inverse)],
+                                          jnp.asarray(valid))
+
+    _, vjp = jax.vjp(pool, jnp.asarray(urows))
+    (ref_grad,) = vjp({k: jnp.asarray(v) for k, v in cots.items()})
+    def port_grad(cot):
+        tr = torch.from_numpy(urows).requires_grad_(True)
+        out = tcoll.embeddings_from_rows(tr, torch.from_numpy(inverse),
+                                         torch.from_numpy(valid))
+        sum((out[k] * torch.from_numpy(v)).sum() for k, v in cot.items()
+            ).backward()
+        return tr.grad.numpy()
+    grad = port_grad(cots)
+    # the rows' summed magnitudes: the same pooling is linear, scales > 0
+    mag = port_grad({k: np.abs(v) for k, v in cots.items()})
+    ref = np.asarray(ref_grad)
+    if case == "all_invalid":
+        assert not grad.any() and not ref.any()
+    lanes = np.bincount(inverse[valid], minlength=u)
+    assert case != "hot_row" or lanes[7] > 0.7 * valid.sum()
+    # f32 sums of up to ~2,150 lanes a row in another order than XLA's
+    # scatter-add: within 1e-5 of each row's summed magnitudes
+    assert (np.abs(grad - ref) <= 1e-5 * np.abs(ref) + 1e-5 * mag
+            + 1e-6).all()
+    assert fused_pooled_lookup_backward.launches == 0

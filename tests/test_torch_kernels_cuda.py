@@ -519,6 +519,143 @@ def test_fused_pooled_lookup_backward_criteo_skew_is_deterministic(
     assert torch.count_nonzero(got[untouched]) == 0
 
 
+def _bwd_contended(d_pooled, slots, valid, combiner, n_rows):
+    """The card's backward while elementwise kernels on a second stream
+    hold the SMs, so its blocks run in another order and its atomics
+    place lanes elsewhere in their rows' segments. Returns it on the
+    CPU."""
+    side = torch.cuda.Stream()
+    busy = torch.ones(1 << 25, device=d_pooled.device)
+    torch.cuda.synchronize()
+    with torch.cuda.stream(side):
+        for _ in range(8):
+            busy.mul_(1.0000001)
+    got = fused_pooled_lookup_backward(d_pooled, slots, valid, combiner,
+                                       n_rows)
+    torch.cuda.synchronize()
+    return got.cpu()
+
+
+def _rows_of(g, n, n_rows, sizes):
+    """n slots onto n_rows rows: row i of ``sizes`` (row, lanes) takes
+    exactly that many lanes, spread over the batch; the others draw
+    uniformly from the rows not named."""
+    named = torch.tensor([r for r, _ in sizes], dtype=torch.long)
+    free = torch.ones(n_rows, dtype=torch.bool)
+    free[named] = False
+    others = free.nonzero().view(-1)
+    slots = others[torch.randint(0, others.numel(), (n,), generator=g)]
+    at = torch.randperm(n, generator=g)
+    k = 0
+    for r, lanes in sizes:
+        slots[at[k:k + lanes]] = r
+        k += lanes
+    return slots
+
+
+def _bwd_edge(g, case):
+    """(slots, valid, d_pooled, n_rows) at an edge of the ordering or of
+    the rows kernel. Every lane valid unless the case says otherwise, so
+    the named rows take exactly their lanes."""
+    d, dtype, idx = 16, torch.float32, torch.int64
+    if case == "one_row":  # R = 1: every valid lane on row 0, > kBlockLanes
+        bags, w, n_rows = 4096, 3, 1
+        slots = torch.randint(-3, 4, (bags, w), generator=g)
+        valid = torch.rand(bags, w, generator=g) < 0.7
+        idx = torch.int32
+    elif case == "all_invalid":
+        bags, w, n_rows = 3000, 2, 500
+        slots = torch.randint(0, n_rows, (bags, w), generator=g)
+        valid = torch.zeros(bags, w, dtype=torch.bool)
+    elif case == "lane_per_row":  # the multi-hash layout: slots = arange
+        bags, w = 26 * 4096, 1
+        n_rows = bags
+        slots = torch.arange(bags).view(-1, 1)
+        valid = torch.ones(bags, w, dtype=torch.bool)
+    elif case.startswith("rows_"):  # R at the warps' and blocks' edges
+        n_rows = int(case[5:])
+        bags, w = 6000, 2
+        slots = torch.randint(0, n_rows, (bags, w), generator=g)
+        valid = torch.rand(bags, w, generator=g) < 0.8
+        idx = torch.int32 if n_rows % 2 else torch.int64
+    elif case == "row_classes":  # each side of 16, 32, 128 and 2048 lanes
+        bags, w, n_rows = 20_000, 1, 9000
+        sizes = [(3, 1), (11, 16), (12, 17), (13, 32), (14, 33), (15, 128),
+                 (16, 129), (17, 2048), (18, 2049), (19, 4000)]
+        slots = _rows_of(g, bags, n_rows, sizes).view(-1, 1)
+        valid = torch.ones(bags, w, dtype=torch.bool)
+        d = 6
+    elif case == "half_batch":  # one row takes half of 106,496 lanes
+        bags, w, n_rows = 26 * 4096, 1, 17750
+        slots = _rows_of(g, bags, n_rows, [(4321, bags // 2)]).view(-1, 1)
+        valid = torch.ones(bags, w, dtype=torch.bool)
+        idx = torch.int32
+    elif case == "windows":  # long rows spanning several 131,072-lane maps
+        bags, w, n_rows = 300_000, 1, 5000
+        slots = torch.randint(100, n_rows, (bags,), generator=g)
+        slots[1001:299_000:2] = 6  # every other lane: contiguous windows
+        slots[:1000] = 5  # three clusters: the empty spans are skipped
+        slots[150_000:151_000] = 5
+        slots[-1000:] = 5
+        slots = slots.view(-1, 1)
+        valid = torch.ones(bags, w, dtype=torch.bool)
+        d = 4
+    elif case == "w40":  # w > 32: a bag's lanes over two 32-lane loads
+        bags, w, n_rows = 2048, 40, 3000
+        slots = (torch.rand(bags, w, generator=g) ** 3 * n_rows).long()
+        valid = torch.rand(bags, w, generator=g) < 0.75
+        valid[5] = False
+    else:  # "strided_bf16": inv.view(W, B)[o:o+w].T of an int32 inverse
+        bags, w, n_rows = 4096, 3, 2500
+        inv = (torch.rand(7, bags, generator=g) ** 3 * n_rows).long()
+        val = torch.rand(7, bags, generator=g) < 0.8
+        slots, valid = inv[2:5].to(torch.int32).T, val[2:5].T
+        dtype, idx = torch.bfloat16, torch.int32
+    d_pooled = torch.randn(bags, d, generator=g).to(dtype)
+    if slots.dtype != idx:
+        slots = slots.to(idx)
+    return slots, valid, d_pooled, n_rows
+
+
+_BWD_EDGES = ["one_row", "all_invalid", "lane_per_row", "rows_1", "rows_31",
+              "rows_32", "rows_33", "rows_63", "rows_64", "rows_65",
+              "rows_1023", "rows_1024", "rows_1025", "row_classes",
+              "half_batch", "windows", "w40", "strided_bf16"]
+
+
+@pytest.mark.parametrize("combiner", ["sum", "mean", "sqrtn"])
+@pytest.mark.parametrize("case", _BWD_EDGES)
+def test_fused_pooled_lookup_backward_edges(cuda, case, combiner):
+    """K2's backward at the edges of its counting sort and of its rows
+    kernel: R = 1, an all-invalid batch, a row per lane, R on both sides
+    of a warp's 32 rows in the ordering, a block's 64 in the rows kernel
+    and the ordering's 1,024, rows of 16/17, 32/33, 128/129 and 2048/2049
+    lanes (the thread group's, the warp's and the block's sorts, the
+    scratch beyond), one row taking half the batch,
+    rows whose lanes span several bitmap windows with empty spans between,
+    w > 32, a strided bf16 case; int32 and int64 slots. Two launches
+    bit-equal, rows of at most 32 lanes bit-equal to the plain version
+    (longer within 1e-4 of the magnitudes), and bit-equal again while a
+    second stream holds the SMs."""
+    slots, valid, d_pooled, n_rows = _bwd_edge(_gen(), case)
+    ref = fused_pooled_lookup_backward_plain(d_pooled, slots, valid,
+                                             combiner, n_rows)
+    mag = fused_pooled_lookup_backward_plain(d_pooled.float().abs(), slots,
+                                             valid, combiner, n_rows)
+    args = (d_pooled.to(cuda), slots.to(cuda), valid.to(cuda), combiner,
+            n_rows)
+    got = _bwd_twice(*args)
+    assert got.dtype == d_pooled.dtype and got.shape == ref.shape
+    _bwd_holds(got, ref, mag, slots, valid, n_rows)
+    assert torch.equal(_bits(_bwd_contended(*args)), _bits(got))
+    lanes = torch.bincount(slots.clamp(0, n_rows - 1)[valid].long(),
+                           minlength=n_rows)
+    assert torch.count_nonzero(got[lanes == 0]) == 0
+    if case == "row_classes":
+        assert lanes[11:20].tolist() == [16, 17, 32, 33, 128, 129, 2048,
+                                         2049, 4000]
+
+
 _SEGMENT_CASES = {  # name: (rows, trailing shape, segments, id draw)
     "dropped_and_empty": (3000, (16,), 700, "mixed"),
     "one_segment": (2500, (8,), 1, "zero"),
