@@ -62,7 +62,8 @@ Where it differs from the JAX CLI:
 * ``--device`` (default ``cuda``; the counterpart of ``JAX_PLATFORMS``)
   raises when the card is missing. ``--seed`` seeds a ``torch.Generator``
   that draws the model's initial weights (:func:`init_params`).
-* ``--profile DIR`` writes a ``torch.profiler`` trace. ``--jit_cache``
+* ``--profile DIR`` writes a ``torch.profiler`` trace, with the loop's
+  spans and counters (``utils/spans.py``) in it. ``--jit_cache``
   parses, for command-line parity, and does nothing: it names an XLA
   compile cache.
 
@@ -82,6 +83,8 @@ import time
 from typing import Callable, Dict, Optional, Sequence
 
 import torch
+
+from ..utils import spans
 
 
 @dataclasses.dataclass
@@ -457,6 +460,8 @@ def run(spec: ModelSpec, args) -> dict:
             [ProfilerActivity.CUDA] if device.type == "cuda" else [])
         prof = profile(activities=acts)
         prof.start()
+        spans.start()
+        rows0 = _index_rows(tr, state)
     writer = None
     if args.summary_dir and lead:
         from .summary import SummaryWriter
@@ -538,10 +543,13 @@ def run(spec: ModelSpec, args) -> dict:
     train_secs = time.perf_counter() - t0 - eval_secs
 
     if prof is not None:
+        spans.count("rows.created", _index_rows(tr, state) - rows0)
+        snap = spans.stop()
         prof.stop()
         os.makedirs(args.profile, exist_ok=True)
-        prof.export_chrome_trace(os.path.join(
-            args.profile, f"{spec.name}_trace.json"))
+        path = os.path.join(args.profile, f"{spec.name}_trace.json")
+        prof.export_chrome_trace(path)
+        spans.add_to_chrome_trace(path, snap)
     if mgr is not None:
         mgr.save(tr, state)
 
@@ -568,22 +576,40 @@ def run(spec: ModelSpec, args) -> dict:
     return out
 
 
+def _index_rows(tr, state) -> int:
+    """Keys in the device-index tables' indexes (reads the device)."""
+    n = 0
+    for name, coll in tr.collections.items():
+        view = coll.index_view(state.tables[name].ev)
+        if view is not None:
+            n += int(view.index.size.sum())
+    return n
+
+
 def _host_index_loop(tr, state, stream, args, log_steps, fence_work):
     """The host-index loop: prefetch workers pack numpy, a
     ``HostStepPipeline`` resolves in step order and copies on a side
     stream, the main thread launches steps. The pipeline is fed no further
     than the next multiple of ``log_steps``, so it is empty when the step
-    counter reaches a fence. Returns the state and the steps run."""
+    counter reaches a fence. Each batch carries the number of the step it
+    feeds into the spans (``utils/spans.py``). Returns the state and the
+    steps run."""
     from ..data.prefetch import staged
     from .pipeline import HostStepPipeline
     pin = tr.device.type == "cuda"
+
+    def pack(item):
+        k, batch = item
+        with spans.span("pack", k):
+            return k, tr.pack_np(batch)
 
     def finish(packed):
         """The pipeline's resolve stage: step-order index mutation into
         (pinned) host tensors; the transfer stage copies them."""
         return tr.resolve_packed(packed, train=True, pin=pin)
     done = 0
-    with staged(stream, prepare=tr.pack_np, depth=args.prefetch_depth,
+    with staged(enumerate(stream, state.step), prepare=pack,
+                depth=args.prefetch_depth,
                 workers=args.prefetch_workers) as pf, \
             HostStepPipeline(finish, depth=max(2, args.prefetch_depth),
                              device=tr.device) as pipe:
@@ -594,16 +620,20 @@ def _host_index_loop(tr, state, stream, args, log_steps, fence_work):
         while True:
             while not exhausted and len(pipe) < pipe.depth and fed < fence:
                 try:
-                    pipe.feed(next(pf_it))
+                    k, packed = next(pf_it)
+                    pipe.feed(packed, batch=k)
                     fed += 1
                 except StopIteration:
                     exhausted = True
             if not len(pipe):
                 break
-            state = tr._train_step(state, *pipe.take())
+            with spans.span("loop.next_batch", state.step):
+                item = pipe.take()
+            state = tr._train_step(state, *item)
             done += 1
             if state.step == fence:
-                state = fence_work(state, done)
+                with spans.span("loop.fence", state.step - 1):
+                    state = fence_work(state, done)
                 fence += log_steps
     return state, done
 
@@ -614,35 +644,48 @@ def _device_index_loop(tr, state, stream, args, log_steps, fence_work):
     asynchronously, computing the tier probes of a ``TieredTrainer``
     beside it; the main thread promotes the probed tier rows, launches the
     step and runs the fence work at every multiple of ``log_steps``.
-    Returns the state and the steps run."""
+    Each batch carries the number of the step it feeds, from before the
+    prefetcher to the step, into the spans (``utils/spans.py``). Returns
+    the state and the steps run."""
     from ..data.prefetch import staged
     from .pipeline import to_device
     pin = tr.device.type == "cuda"
+    tiered = hasattr(tr, "promote_packed")
 
     def put(host):
         return to_device(host, tr.device, non_blocking=pin)
-    tiered = hasattr(tr, "promote_packed")
-    if tiered:
-        def prepare(b):
-            return tr.prepare_host(b, pin=pin), tr.prepare_probe(b)
 
-        def device_put(item):
-            return put(item[0]), item[1]  # the probes stay on the host
-    else:
-        def prepare(b):
-            return tr.prepare_host(b, pin=pin)
-        device_put = put
+    def prepare(item):
+        k, b = item
+        with spans.span("pack", k):
+            host = tr.prepare_host(b, pin=pin)
+            return k, (host, tr.prepare_probe(b)) if tiered else host
+
+    def device_put(item):
+        k, host = item
+        with spans.span("copy", k):
+            if tiered:  # the probes stay on the host
+                return k, (put(host[0]), host[1])
+            return k, put(host)
     done = 0
-    with staged(stream, prepare=prepare, depth=args.prefetch_depth,
-                workers=args.prefetch_workers, device_put=device_put) as pf:
-        for item in pf:
+    with staged(enumerate(stream, state.step), prepare=prepare,
+                depth=args.prefetch_depth, workers=args.prefetch_workers,
+                device_put=device_put) as pf:
+        it = iter(pf)
+        while True:
+            with spans.span("loop.next_batch", state.step):
+                item = next(it, None)
+            if item is None:
+                break
+            item = item[1]
             if tiered:
                 item, probe = item
                 state = tr.promote_packed(state, probe)
             state = tr._train_step(state, *item)
             done += 1
             if state.step % log_steps == 0:
-                state = fence_work(state, done)
+                with spans.span("loop.fence", state.step - 1):
+                    state = fence_work(state, done)
     return state, done
 
 

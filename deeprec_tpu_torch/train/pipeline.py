@@ -35,6 +35,8 @@ from typing import Any, Callable, Iterable, List, NamedTuple, Optional
 
 import torch
 
+from ..utils import spans
+
 
 def to_device(tree, device, non_blocking: bool = False):
     """Copy every tensor (and wire: an object with ``to`` and
@@ -104,15 +106,22 @@ class HostStepPipeline:
         done.record(self._side)
         return _InFlight(out, done)
 
-    def feed(self, item) -> None:
-        """Schedule one source item through resolve -> transfer."""
+    def feed(self, item, batch: Optional[int] = None) -> None:
+        """Schedule one source item through resolve -> transfer (spans
+        ``resolve`` and ``transfer``, numbered ``batch``)."""
         if self._closed:
             raise RuntimeError("pipeline closed")
-        fr = self._exR.submit(self._resolve, item)
-        self._q.append(self._exT.submit(self._stage_t, fr))
+        fr = self._exR.submit(self._stage_r, item, batch)
+        self._q.append(self._exT.submit(self._stage_t, fr, batch))
 
-    def _stage_t(self, fr: Future):
-        return self._copy(fr.result())
+    def _stage_r(self, item, batch):
+        with spans.span("resolve", batch):
+            return self._resolve(item)
+
+    def _stage_t(self, fr: Future, batch):
+        host = fr.result()
+        with spans.span("transfer", batch):
+            return self._copy(host)
 
     def take(self):
         """The oldest item, ready for the current stream: its copies are

@@ -50,6 +50,7 @@ from ..feature_column import (EmbeddingCollection, NumericColumn,
 from ..optim.dense import SGD, Adagrad, Adam
 from ..optim.sparse import SparseOptimizer
 from ..sparse import embedding_var as ev
+from ..utils import spans
 from . import metrics as metrics_lib
 from .pipeline import to_device
 
@@ -90,6 +91,18 @@ def _bump_health(health, aux):
     return torch.stack([health[0],
                         health[1] + (uniq.n_overflow > 0).to(torch.int32),
                         torch.maximum(health[2], nu)])
+
+
+def _count_lookup(aux) -> None:
+    """The recorder's counters of one lookup: its key lanes (a shape) and
+    its dedup's ``n_unique`` and ``n_overflow`` (0-dim tensors the step
+    already holds; summed when the recorder stops)."""
+    uniq = getattr(getattr(aux, "ev_aux", None), "uniq", None)
+    if uniq is None:
+        return
+    spans.count("lookup.lanes", uniq.inverse.numel())
+    spans.count("lookup.unique", uniq.n_unique)
+    spans.count("lookup.overflow", uniq.n_overflow)
 
 
 def _mb_split(x: Optional[torch.Tensor], k: int):
@@ -216,7 +229,10 @@ class Trainer:
         """The host half of a step's inputs, touching no device
         (:meth:`pack_np`, then :meth:`resolve_packed`). The resolve stage
         of ``train.pipeline.HostStepPipeline`` runs it."""
-        return self.resolve_packed(self.pack_np(batch), train, pin)
+        with spans.span("pack.np"):
+            packed = self.pack_np(batch)
+        with spans.span("pack.pin"):
+            return self.resolve_packed(packed, train, pin)
 
     def prepare_batch(self, batch: Dict[str, np.ndarray], train: bool = True):
         """Host packing and the copies to the device, inline:
@@ -236,6 +252,8 @@ class Trainer:
                 b = b._replace(ev=ev_state, slot=slot)
             ev_state, auxs[name] = coll.lookup_or_create(b.ev, cats[name],
                                                          step)
+            if spans.recording():
+                _count_lookup(auxs[name])
             tables[name] = b._replace(
                 ev=ev_state, health=_bump_health(b.health, auxs[name]))
         return tables, auxs
@@ -276,22 +294,31 @@ class Trainer:
 
     def _train_step(self, state: TrainState, dense, cats, labels
                     ) -> TrainState:
+        """One step, recorded as span ``step`` with the step number as its
+        batch (``utils/spans.py``)."""
         step = state.step
-        if dense is not None:
-            dense = normalize_dense(self.numeric_columns, dense)
-        params = list(self.model.parameters())
-        if self.microbatches == 1:
-            tables, auxs = self._sparse_forward(dict(state.tables), cats,
-                                                step)
-            loss, logits, gu, urows = self._loss_and_grads(
-                tables, auxs, dense, labels)
-            tables = self._apply_sparse(tables, auxs, gu, step, urows)
-        else:
-            tables, loss, logits = self._microbatched(
-                dict(state.tables), params, dense, cats, labels, step)
-        self.dense_optimizer.step(params, state.opt_state)
-        m = metrics_lib.update(state.metrics, logits,
-                               labels.reshape(logits.shape), loss)
+        with spans.span("step", step):
+            if dense is not None:
+                dense = normalize_dense(self.numeric_columns, dense)
+            params = list(self.model.parameters())
+            if self.microbatches == 1:
+                with spans.span("step.sparse_lookup"):
+                    tables, auxs = self._sparse_forward(dict(state.tables),
+                                                        cats, step)
+                with spans.span("step.forward_backward"):
+                    loss, logits, gu, urows = self._loss_and_grads(
+                        tables, auxs, dense, labels)
+                with spans.span("step.sparse_apply"):
+                    tables = self._apply_sparse(tables, auxs, gu, step,
+                                                urows)
+            else:
+                tables, loss, logits = self._microbatched(
+                    dict(state.tables), params, dense, cats, labels, step)
+            with spans.span("step.dense_apply"):
+                self.dense_optimizer.step(params, state.opt_state)
+            with spans.span("step.metrics"):
+                m = metrics_lib.update(state.metrics, logits,
+                                       labels.reshape(logits.shape), loss)
         return TrainState(opt_state=state.opt_state, tables=tables,
                           metrics=m, step=step + 1)
 
