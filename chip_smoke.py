@@ -63,7 +63,12 @@ comparison compute in full f32. Phases (any failure exits non-zero):
    K5 at the device-index shape (26,625 lanes into 2^21 slots, first step
    and steady), at growth's rebuild (2^16 -> 2^17), at the variants' flat
    dedup and at the mesh4 owner's lanes, K4 at the serving dedup and at
-   the mesh4 owner's 53,248 read-only lanes;
+   the mesh4 owner's 53,248 read-only lanes. DLRM's dot interaction,
+   forward and backward, at the benchmark cell's shape [65,536, 27, 16]
+   is held to its plain versions, each kernel bit-equal across two
+   calls, and timed beside the plain path (bmm + gather, autograd's index
+   backward and batched GEMMs, by kernel) and its HBM bound; its launches
+   are counted on the paths that train a DLRM;
 3. writes a full-width DLRM serving checkpoint (13 dense + 26 categorical
    columns, emb dim 16, fused adagrad columns, a 2^21-slot table holding the
    keys of 20 synthetic Criteo batches; weights and rows from seed 0);
@@ -720,6 +725,108 @@ def check_kernels(dev, probe):
     ]
 
 
+# -- phase 2: DLRM's dot interaction -------------------------------------------
+INTER_B, INTER_F = 65536, 27  # the benchmark cell's batch; bottom + 26 columns
+INTER_RTOL = 1e-5  # kernel vs plain, of the magnitudes a sum adds: f32 order
+
+
+def check_interaction_kernels(dev):
+    """DLRM's dot interaction at the benchmark cell's shape [INTER_B,
+    INTER_F, EMB_DIM]: both kernels held to the plain forward and its
+    autograd backward (a bmm, a tril_indices gather, the index backward and
+    batched GEMMs) on the same card tensors (within INTER_RTOL of the
+    magnitudes each sum adds), each bit-equal across two calls, and timed
+    back to back and behind a one-element add, beside the plain path
+    (device time by kernel from torch.profiler) and the HBM bound."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from deeprec_tpu_torch.ops.interaction import (
+        dot_interaction, dot_interaction_backward, dot_interaction_plain)
+    from deeprec_tpu_torch.probes.kernel_probe import behind_ms
+
+    g = torch.Generator(device="cpu").manual_seed(SEED)
+    b, f, d = INTER_B, INTER_F, EMB_DIM
+    pairs = f * (f - 1) // 2
+    feats = torch.randn(b, f, d, generator=g).to(dev)
+    grad = torch.randn(b, pairs, generator=g).to(dev)
+
+    def plain_backward(x, gr):  # autograd through the plain forward
+        x = x.detach().requires_grad_(True)
+        dot_interaction_plain(x).backward(gr)
+        return x.grad
+
+    errs = {}
+    for what, kernel, plain, args in (
+            ("forward", dot_interaction, dot_interaction_plain, (feats,)),
+            ("backward", dot_interaction_backward, plain_backward,
+             (feats, grad))):
+        got = kernel(*args)
+        if not torch.equal(got.view(torch.int32),
+                           kernel(*args).view(torch.int32)):
+            fail(f"dot interaction {what}: two calls differ")
+        ref = plain(*args)
+        mag = plain(*(a.abs() for a in args))
+        errs[what] = (got - ref).abs().max().item()
+        if not bool(((got - ref).abs() <= INTER_RTOL * mag).all()):
+            fail(f"dot interaction {what} differs from its plain version by "
+                 f"{errs[what]}")
+
+    x = feats.clone().requires_grad_(True)
+
+    def plain_path():  # the step's interaction before the kernels
+        dot_interaction_plain(x).backward(grad)
+        x.grad = None
+
+    ms = {"forward": time_ms(lambda: dot_interaction(feats)),
+          "backward": time_ms(lambda: dot_interaction_backward(feats, grad))}
+    alone = time_ms(lambda: torch.zeros(1, device=dev).add_(1))
+    on_path = {"forward": behind_ms(lambda: dot_interaction(feats),
+                                    alone=alone),
+               "backward": behind_ms(
+                   lambda: dot_interaction_backward(feats, grad),
+                   alone=alone)}
+    plain = {"forward": time_ms(lambda: dot_interaction_plain(feats)),
+             "path": time_ms(plain_path)}
+    plain["backward"] = plain["path"] - plain["forward"]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            plain_path()
+        torch.cuda.synchronize()
+    ka = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    by_kernel = sorted(((e.key[:90], getattr(
+        e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
+        / 1e3 / 5, e.count / 5) for e in ka), key=lambda t: -t[1])
+    log(f"dot interaction's plain path (forward + autograd backward) at "
+        f"[{b}, {f}, {d}]: {plain['path']:.4f} ms; by kernel (ms, calls):")
+    for key, kms, calls in by_kernel:
+        log(f"  {kms:8.4f} ms {calls:4.1f}  {key}")
+    size = 4 * b * f * d
+    nbytes = {"forward": size + 4 * b * pairs,
+              "backward": 4 * b * pairs + 2 * size}
+    out = []
+    for what, name in (("forward", "dot_interaction"),
+                       ("backward", "dot_interaction_backward")):
+        # plain backward: the plain path less its forward
+        log_times(f"dot interaction {what} [{b}, {f}, {d}]", ms[what],
+                  plain[what], None, nbytes[what],
+                  f"; on path {on_path[what]:.4f} ms; max_abs_err "
+                  f"{errs[what]:.3g}")
+        out.append(entry(name, "deeprec_tpu_torch/csrc/dot_interaction.cu",
+                         None, errs[what], ms[what], plain[what], None,
+                         nbytes[what], on_path_ms=on_path[what],
+                         plain_path_ms=plain["path"],
+                         plain_by_kernel=by_kernel if what == "forward"
+                         else None))
+    total = sum(bound(n)[0] for n in nbytes.values())
+    log(f"dot interaction forward + backward: kernels {sum(ms.values()):.4f}"
+        f" ms, on path {sum(on_path.values()):.4f} ms, plain path "
+        f"{plain['path']:.4f} ms, bound {total:.4f} ms")
+    return out
+
+
 # -- phase 3 -----------------------------------------------------------------
 def write_checkpoint(path):
     """A full save of the DLRM at full width, made without JAX."""
@@ -1087,15 +1194,18 @@ def trainer(dev, metadata, capacity=CAPACITY, **overrides):
                    device=dev)
 
 
-def path_counters(index=False):
+def path_counters(index=False, dlrm=False):
     """The launch counters of the kernels on the training paths; ``index``
     adds the hash index's K4 and K5 (the paths that key a table on the
-    card)."""
+    card), ``dlrm`` the dot interaction's two kernels (the paths that train
+    a DLRM)."""
     from deeprec_tpu_torch.ops.fused_lookup import (
         fused_pooled_lookup, fused_pooled_lookup_backward)
     from deeprec_tpu_torch.ops.gather import gather_rows
     from deeprec_tpu_torch.ops.hash_probe import (hash_lookup,
                                                   hash_lookup_or_insert_)
+    from deeprec_tpu_torch.ops.interaction import (dot_interaction,
+                                                   dot_interaction_backward)
     from deeprec_tpu_torch.ops.meta_scatter import lookup_meta
     out = {"gather_rows": gather_rows,
            "fused_pooled_lookup": fused_pooled_lookup,
@@ -1104,6 +1214,9 @@ def path_counters(index=False):
     if index:
         out.update(hash_lookup=hash_lookup,
                    hash_lookup_or_insert=hash_lookup_or_insert_)
+    if dlrm:
+        out.update(dot_interaction=dot_interaction,
+                   dot_interaction_backward=dot_interaction_backward)
     return out
 
 
@@ -1224,7 +1337,7 @@ def check_training(dev, smi):
     """Phases 6 and 7. Returns (launches by path, training summary)."""
     from deeprec_tpu_torch.data.criteo import SyntheticCriteo
     from deeprec_tpu_torch.train import metrics
-    counters = path_counters()
+    counters = path_counters(dlrm=True)
     batches = list(SyntheticCriteo(batch_size=B, seed=7).take(68))
     out = {}
 
@@ -1270,7 +1383,8 @@ def check_training(dev, smi):
     light = {k: fn.launches for k, fn in counters.items()}
     log(f"light layout ({sg.step} steps) launches: {light}")
     for k in ("gather_rows", "fused_pooled_lookup",
-              "fused_pooled_lookup_backward"):
+              "fused_pooled_lookup_backward", "dot_interaction",
+              "dot_interaction_backward"):
         if light[k] <= 0:
             fail(f"{k} was not launched on the light training path")
     if light["lookup_meta"]:
@@ -1435,7 +1549,7 @@ def check_loop(dev, smi, tmp):
             box["serve"] = _serve_pair(mg.directory, cg, held, dev,
                                        f"loop serving {saves[-1][0]}")
 
-    counters = path_counters()
+    counters = path_counters(dlrm=True)
     for fn in counters.values():
         fn.launches = 0
     stage_s = {"resolve": 0.0, "step": 0.0}
@@ -2830,7 +2944,7 @@ def check_cli(dev, smi, tmp):
     from deeprec_tpu_torch.serving import Predictor
     from deeprec_tpu_torch.serving.server import build_server
     from deeprec_tpu_torch.train import cli
-    counters = path_counters()
+    counters = path_counters(dlrm=True)
     total = dict.fromkeys(counters, 0)
     out, t_phase = [], time.perf_counter()
     for kind, opt, own, host_index in cli_runs(tmp):
@@ -2865,6 +2979,8 @@ def check_cli(dev, smi, tmp):
         need = ["gather_rows", "fused_pooled_lookup",
                 "fused_pooled_lookup_backward"] + (["lookup_meta"]
                                                    if meta else [])
+        if kind == "dlrm":
+            need += ["dot_interaction", "dot_interaction_backward"]
         for k in need:
             if launches[k] <= 0:
                 fail(f"cli {kind} {opt}: {k} was not launched")
@@ -3176,7 +3292,7 @@ def check_device(dev, smi, tmp):
     from deeprec_tpu_torch.checkpoint.saver import CheckpointManager
     from deeprec_tpu_torch.data.criteo import SyntheticCriteo
     from deeprec_tpu_torch.train import metrics
-    counters = path_counters(index=True)
+    counters = path_counters(index=True, dlrm=True)
     batches = list(SyntheticCriteo(batch_size=B, seed=7).take(
         DEVICE_STEPS + 33))
     held = list(SyntheticCriteo(batch_size=B, seed=11).take(2))
@@ -4060,7 +4176,7 @@ def check_mesh1(dev, smi):
         batches = list(SyntheticCriteo(batch_size=B, seed=7).take(
             MESH_STEPS + 40))
         tg, tc = mesh_trainer(dev, nccl), mesh_trainer("cpu", gloo)
-        counters = path_counters(index=True)
+        counters = path_counters(index=True, dlrm=True)
         for fn in counters.values():
             fn.launches = 0
         sg, sc, dloss, drow = mesh_lockstep(tg, tc, batches[:MESH_STEPS],
@@ -4203,7 +4319,7 @@ def mesh4_rank(job_path, rank):
         batches = list(SyntheticCriteo(batch_size=B, seed=7).take(
             max(MESH4_STEPS, HSMESH4_STEPS) + 20))
         tg, tc = mesh_trainer(dev, card), mesh_trainer("cpu", twin)
-        counters = path_counters(index=True)
+        counters = path_counters(index=True, dlrm=True)
         for fn in counters.values():
             fn.launches = 0
         sg, sc, dloss, drow = mesh_lockstep(tg, tc, batches[:MESH4_STEPS],
@@ -4242,7 +4358,7 @@ def mesh4_rank(job_path, rank):
         # slice, the buckets cross the host exchange, every rank against
         # its CPU twin (whose exchange is a second TCP mesh)
         hg, hc = hs_trainer(dev, card), hs_trainer("cpu", twin)
-        counters = path_counters()  # no hash index on the card here
+        counters = path_counters(dlrm=True)  # no hash index on the card
         for fn in counters.values():
             fn.launches = 0
         shg, shc, hloss, hrow = hs_lockstep(
@@ -4644,7 +4760,7 @@ def check_hsmesh1(dev, smi):
         batches = list(SyntheticCriteo(batch_size=B, seed=7).take(
             HS_STEPS + 60))
         tg, tc = hs_trainer(dev, nccl), hs_trainer("cpu", gloo)
-        counters = path_counters()
+        counters = path_counters(dlrm=True)
         for fn in counters.values():
             fn.launches = 0
         sg, sc, dloss, drow = hs_lockstep(tg, tc, batches[:HS_STEPS],
@@ -5477,7 +5593,8 @@ def run(dev, smi, probe):
         kernels += timed(check.__name__, check, dev, probe)
     for check in (check_zoo_kernels, check_seq_kernels, check_device_kernels,
                   check_variant_kernels, check_mesh_kernels,
-                  check_hs_kernels, check_soak_kernels):
+                  check_hs_kernels, check_soak_kernels,
+                  check_interaction_kernels):
         kernels += timed(check.__name__, check, dev)
 
     _build.BUILD.mkdir(parents=True, exist_ok=True)  # git-ignored

@@ -19,6 +19,8 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
+from ..ops.interaction import interact
+
 
 def linear(layer: nn.Linear, x: torch.Tensor,
           compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
@@ -72,13 +74,12 @@ class MLPTower(nn.Module):
 class DotInteraction(nn.Module):
     """DLRM pairwise dot interaction: ``[B, F, d]`` features -> the
     strictly-lower-triangular entries of the ``[F, F]`` Gram matrix,
-    row-major (the order of ``jnp.tril_indices(F, k=-1)``)."""
+    row-major (the order of ``jnp.tril_indices(F, k=-1)``). On the card
+    the hand-written kernels of ``ops.interaction`` (forward and backward,
+    no Gram matrix); on the CPU a ``bmm`` and a gather."""
 
     def forward(self, feats: torch.Tensor) -> torch.Tensor:
-        f = feats.shape[1]
-        gram = torch.bmm(feats, feats.transpose(1, 2))
-        rows, cols = torch.tril_indices(f, f, -1, device=feats.device)
-        return gram[:, rows, cols]
+        return interact(feats)
 
 
 class CrossNetV2(nn.Module):

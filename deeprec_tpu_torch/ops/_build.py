@@ -64,6 +64,10 @@ _SIGNATURES = {
     # key scratch, arbitration words, stream
     "deeprec_hash_lookup_or_insert": [_P, _I64, _P, _I64, _I, _P, _P, _P,
                                       _P, _P, _P, _P],
+    # feats, b, f, d, out, stream
+    "deeprec_dot_interaction": [_P, _I64, _I, _I, _P, _P],
+    # feats, g, b, f, d, d_feats, stream
+    "deeprec_dot_interaction_backward": [_P, _P, _I64, _I, _I, _P, _P],
 }
 
 _RESTYPES = {"deeprec_fused_pooled_lookup_bwd_scratch": _I64}  # else c_int

@@ -67,7 +67,9 @@ LAUNCH_COUNTERS = (("ops.gather", "gather_rows"),
                    ("ops.meta_scatter", "meta_scatter"),
                    ("ops.meta_scatter", "blocked_rmw_set"),
                    ("ops.hash_probe", "hash_lookup"),
-                   ("ops.hash_probe", "hash_lookup_or_insert_"))
+                   ("ops.hash_probe", "hash_lookup_or_insert_"),
+                   ("ops.interaction", "dot_interaction"),
+                   ("ops.interaction", "dot_interaction_backward"))
 _PACKAGE = __name__.rsplit(".", 2)[0]
 
 

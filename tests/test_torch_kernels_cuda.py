@@ -1,8 +1,9 @@
 """The hand-written CUDA kernels K1 (row gather), K2 (gather+pool, forward
 and backward, f32 and bf16), K3a (lookup_meta, meta_scatter), K3b
 (blocked_rmw_set), K4 and K5 (the hash index's lookup and
-lookup_or_insert_, in place and in its functional form) against their
-plain PyTorch versions, on the card; that two card runs of one training
+lookup_or_insert_, in place and in its functional form) and DLRM's dot
+interaction (forward and backward) against their plain PyTorch versions,
+on the card; that two card runs of one training
 stream are bit-equal (K2's backward adds in an order its inputs fix) on
 both one-card engines, a multi-hash table and DIN; and the mesh engine's
 step on a world-1 NCCL group against a CPU twin on gloo. A CUDA kernel has no CPU mode, so
@@ -1660,3 +1661,123 @@ def test_hash_lookup_second_probe(cuda, max_probes):
     home = (TH.K.hash32(probe) & (cap // w - 1)) * w
     far = found & (slots // w * w != home)
     assert int(far.sum()) > 0  # keys found past their home bucket
+
+
+# -- DLRM's dot interaction ---------------------------------------------------
+# (B, F, d): the benchmark's 27 x 16 and the MLPerf width 128 at one
+# example, past one block's examples and at the benchmark's batch; other
+# widths (8: the mesh tests' DLRM; 12, 24, 20: float4 rows of 3, 6 and 5
+# units; 3, 5, 6: float rows), the fewest and more than 64 features, and
+# rows past 48 KB of shared memory (d 512: the opt-in limit)
+_DOT_CASES = [(b, 27, d) for d in (16, 128) for b in (1, 4097, 65536)] + [
+    (4097, 2, 32), (333, 64, 64), (77, 64, 128), (4097, 39, 16),
+    (4097, 9, 8), (513, 27, 4), (65, 64, 8), (4097, 27, 12),
+    (4097, 27, 24), (1025, 27, 20), (4097, 27, 3), (1025, 13, 5),
+    (1025, 27, 6), (257, 65, 16), (129, 100, 32), (33, 27, 512)]
+
+
+def _dot_inputs(cuda, b, f, d, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    feats = torch.randn(b, f, d, generator=g).to(cuda)
+    grad = torch.randn(b, f * (f - 1) // 2, generator=g).to(cuda)
+    return feats, grad
+
+
+def _dot_plain_backward(feats, grad):
+    """The plain backward: autograd through the ``bmm`` and the gather."""
+    from deeprec_tpu_torch.ops.interaction import dot_interaction_plain
+    x = feats.detach().clone().requires_grad_(True)
+    dot_interaction_plain(x).backward(grad)
+    return x.grad
+
+
+@pytest.mark.parametrize("b,f,d", _DOT_CASES)
+def test_dot_interaction_kernels_match_plain(cuda, b, f, d):
+    """Both directions against their plain versions on the same card
+    tensors, within 1e-5 of the magnitudes each sum adds (f32 sums in
+    another order)."""
+    from deeprec_tpu_torch.ops.interaction import (
+        dot_interaction, dot_interaction_backward, dot_interaction_plain)
+    feats, grad = _dot_inputs(cuda, b, f, d)
+    got = dot_interaction(feats)
+    torch.cuda.synchronize()
+    ref = dot_interaction_plain(feats)
+    mag = dot_interaction_plain(feats.abs())
+    assert got.shape == ref.shape
+    assert bool(((got - ref).abs() <= 1e-5 * mag).all())
+    d_got = dot_interaction_backward(feats, grad)
+    torch.cuda.synchronize()
+    d_ref = _dot_plain_backward(feats, grad)
+    d_mag = _dot_plain_backward(feats.abs(), grad.abs())
+    assert bool(((d_got - d_ref).abs() <= 1e-5 * d_mag).all())
+
+
+def test_dot_interaction_backward_is_bit_equal_across_calls(cuda):
+    """At the benchmark's shape, and at float4 rows of 3 units (d 12) and
+    float rows (d 3)."""
+    from deeprec_tpu_torch.ops.interaction import (dot_interaction,
+                                                   dot_interaction_backward)
+    for d in (16, 12, 3):
+        feats, grad = _dot_inputs(cuda, 65536, 27, d, seed=1)
+        assert torch.equal(dot_interaction(feats), dot_interaction(feats))
+        first = dot_interaction_backward(feats, grad)
+        for _ in range(3):
+            assert torch.equal(dot_interaction_backward(feats, grad).view(
+                torch.int32), first.view(torch.int32))
+
+
+def test_dot_interaction_module_gradients_on_card(cuda):
+    """The DLRM layer on the card (the kernels, through the autograd
+    function) against the plain ops under autograd, and its launches."""
+    from deeprec_tpu_torch.models.layers import DotInteraction
+    from deeprec_tpu_torch.ops.interaction import (dot_interaction,
+                                                   dot_interaction_backward)
+    feats, grad = _dot_inputs(cuda, 4097, 27, 16, seed=2)
+    before = dot_interaction.launches, dot_interaction_backward.launches
+    x = feats.clone().requires_grad_(True)
+    DotInteraction()(x).backward(grad)
+    assert (dot_interaction.launches - before[0],
+            dot_interaction_backward.launches - before[1]) == (1, 1)
+    ref = _dot_plain_backward(feats, grad)
+    mag = _dot_plain_backward(feats.abs(), grad.abs())
+    assert bool(((x.grad - ref).abs() <= 1e-5 * mag).all())
+    with torch.no_grad():  # serving: the forward alone
+        DotInteraction()(feats)
+    assert dot_interaction_backward.launches - before[1] == 1
+
+
+def test_dot_interaction_rejects_on_cuda(cuda):
+    """Another dtype raises before a launch; rows past the card's shared
+    memory (d 8192: 885 KB an example) are refused by the kernel's entry."""
+    from deeprec_tpu_torch.ops.interaction import (dot_interaction,
+                                                   dot_interaction_backward)
+    for shape, dtype, err in (((2, 6, 16), torch.float64, ValueError),
+                              ((2, 6, 16), torch.bfloat16, ValueError),
+                              ((2, 27, 8192), torch.float32, RuntimeError)):
+        feats = torch.zeros(shape, dtype=dtype, device=cuda)
+        with pytest.raises(err):
+            dot_interaction(feats)
+        with pytest.raises(err):
+            dot_interaction_backward(feats, torch.zeros(
+                2, shape[1] * (shape[1] - 1) // 2, dtype=dtype, device=cuda))
+
+
+def test_dot_interaction_empty_and_unaligned(cuda):
+    from deeprec_tpu_torch.ops.interaction import (
+        dot_interaction, dot_interaction_backward, dot_interaction_plain)
+    empty = torch.zeros(0, 27, 16, device=cuda)
+    assert dot_interaction(empty).shape == (0, 351)
+    assert dot_interaction_backward(empty, torch.zeros(
+        0, 351, device=cuda)).shape == (0, 27, 16)
+    # a view 4 bytes past an aligned base: the wrapper copies it
+    base, grad = _dot_inputs(cuda, 101, 27, 16, seed=3)
+    feats = base.reshape(-1)[1:1 + 100 * 27 * 16].view(100, 27, 16)
+    grad = grad[:feats.shape[0]]
+    got = dot_interaction(feats)
+    mag = dot_interaction_plain(feats.abs())
+    assert bool(((got - dot_interaction_plain(feats)).abs()
+                 <= 1e-5 * mag).all())
+    d_mag = _dot_plain_backward(feats.abs(), grad.abs())
+    assert bool(((dot_interaction_backward(feats, grad)
+                  - _dot_plain_backward(feats, grad)).abs()
+                 <= 1e-5 * d_mag).all())
