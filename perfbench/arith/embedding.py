@@ -2,12 +2,13 @@
 shapes (as ``chip_smoke.py``'s ``bound``: each input byte read once, each
 output byte written once, whatever kernel does the work).
 
-``lanes`` ids a step (columns x batch), ``width`` the dedup's static width
+``lanes`` ids a step (id lanes an example x batch, padding included:
+K2 reads and writes every lane), ``width`` the dedup's static width
 (``max_unique + 1``), ``n_unique`` the valid distinct keys of the step
 (the rows that hold data; the rest of the width points at the null row),
-``dim`` the embedding width, ``row`` the stored row's width (the value and
-the fused Adagrad columns). float32 rows, int64 ids and slots, int32
-counts and metadata, bool masks.
+``dim`` the embedding width, ``row`` the stored row's width (the value
+and the optimizer's fused slot columns, :func:`row_floats`). float32
+rows, int64 ids and slots, int32 counts and metadata, bool masks.
 
 * the row fetch (K1, ``gather_rows``): slots, the rows read, the
   ``[width, dim]`` leaf written;
@@ -32,3 +33,11 @@ def step_bytes(lanes: int, width: int, n_unique: int, dim: int,
     opt_read = width * I64 + n_unique * row * F32 + width * row * F32
     meta = width * (I64 + I32 + I64) + n_unique * 3 * I32 * 2 + width * BOOL
     return fetch + pool + pool_bwd + opt_read + meta
+
+
+SLOT_ROWS = {"adagrad": 1, "adam": 2}  # the fused slots: a, or m and v
+
+
+def row_floats(cfg: dict) -> int:
+    """The stored row's width under the configuration's optimizer."""
+    return cfg["emb_dim"] * (1 + SLOT_ROWS[cfg["optimizer"]])

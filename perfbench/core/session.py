@@ -1,13 +1,15 @@
 """One run of a cell: set-up, the measured (or traced) window, the check.
 
 Set-up, all counted in ``setup_s``: the pool from ``--seed`` (on the
-device), the trainer built as the entry points build it, the benchmark's
-weights copied in, the table filled (``program.admit``: the pool's keys,
-then every id of the dataset's range), the cell's first three steps (the
-steps the reference follows), then ``warm_steps`` more: every shape the
-window uses has run. Every step, those of set-up too, goes through the
-CLI's device-index loop (``program.drive``): prefetch workers pack and copy
-each batch while the main thread runs the step. The window drives that
+device, by the mix's generator), the trainer built as the entry points
+build it, the benchmark's weights copied in (the reference's parameter
+list, ``core/weights.py``), the table filled (``program.admit``, space by
+space: the pool's keys, then every id of the dataset's range), the cell's
+first three steps (the steps the reference follows), then ``warm_steps``
+more: every shape the window uses has run. Every step, those of set-up
+too, goes through the CLI's device-index loop (``program.drive``):
+prefetch workers pack and copy each batch while the main thread runs the
+step. The window drives that
 loop over the pool with no fences until ``--seconds`` have passed on the
 host clock (the workers draw no batch after that), and ends on a
 synchronize after the last step: the rate is every step the window ran
@@ -71,6 +73,7 @@ class TracedRun(NamedTuple):
     arith: object
     width: int
     unique_counts: List[int]
+    lanes: List[int]      # id lanes of each traced step, padding included
 
 
 def _sync(device):
@@ -89,7 +92,14 @@ class Prepared(NamedTuple):
     checked: list
     keyset: reference.KeySet
     side: dict            # the program's readings of the checked steps
-    most_distinct: int    # the pool's most distinct keys in a batch
+    most_distinct: int    # the most dedup groups of a pool batch
+
+
+def dedup_groups(pool: traffic.Pool) -> List[int]:
+    """Each pool batch's dedup groups: its distinct keys, and one more
+    where it holds padding (the padding's key is a group of its own)."""
+    full = pool.width * pool.batch
+    return [u + (v < full) for u, v in zip(pool.unique_counts, pool.lanes)]
 
 
 def prepare(cell: dict, cfg: dict, mix: dict, seed: int,
@@ -98,20 +108,19 @@ def prepare(cell: dict, cfg: dict, mix: dict, seed: int,
     batch = int(cell["batch"])
     pool = traffic.make_pool(mix, int(cell["pool_examples"]), batch, seed,
                              device)
-    lanes = len(mix["columns"]) * batch
-    most = max(pool.unique_counts)
-    tr, args = program.build(cfg, batch, (most + 0.5) / lanes, seed,
+    most = max(dedup_groups(pool))
+    tr, args = program.build(cfg, batch,
+                             (most + 0.5) / (pool.width * batch), seed,
                              device)
-    layers = ctr.layers(cfg)
-    w = weights.make(layers, seed, device)
-    program.load_weights(tr, layers, w)
+    params = ctr.model(cfg).params(cfg)
+    w = weights.make(params, seed, device)
+    program.load_weights(tr, params, w)
     state = tr.init(pool.batches[0])
-    state = program.admit(tr, state, mix, pool.ids, batch,
-                          int(cfg["admission_passes"]))
+    state = program.admit(tr, state, pool, int(cfg["admission_passes"]))
     checked = pool.batches[:3]
-    keyset = reference.KeySet(mix["columns"], checked)
-    state, side = program.checked_steps(tr, args, state, cfg, layers, w,
-                                        checked, keyset)
+    keyset = reference.KeySet(pool.spaces, checked)
+    state, side = program.checked_steps(tr, args, state, cfg, w, checked,
+                                        keyset)
     return Prepared(tr, args, state, pool, w, checked, keyset, side, most)
 
 
@@ -120,7 +129,7 @@ def reference_readings(cfg: dict, p: Prepared, device: str,
     """The reference's readings of ``p``'s checked steps (``variant``:
     ``tf32`` or ``half``, see ``reference.train.readings``)."""
     freq0 = int(cfg["admission_passes"]) * (1 + reference.pool_counts(
-        p.keyset, p.pool.ids, device))
+        p.keyset, p.pool, device))
     return reference.readings(cfg, p.weights, p.checked, p.keyset, freq0,
                               device, **variant)
 
@@ -158,8 +167,8 @@ def run(cell: dict, cfg: dict, mix: dict, seed: int, seconds: float,
     _sync(device)
     setup_s = time.perf_counter() - t_start
     log(f"set-up {setup_s:.3f} s: pool of {nb} batches of {batch}, dedup "
-        f"width {tr.collections['emb'].config.max_unique} (most distinct "
-        f"keys a batch {p.most_distinct}); table {table}")
+        f"width {tr.collections['emb'].config.max_unique} (most dedup "
+        f"groups a batch {p.most_distinct}); table {table}")
 
     traced = None
     if trace:
@@ -191,7 +200,8 @@ def run(cell: dict, cfg: dict, mix: dict, seed: int, seconds: float,
         uniq = [pool.unique_counts[(first + k) % nb] for k in range(n_traced)]
         traced = TracedRun(tr_, n_traced, batch, n_traced * batch, pack_s,
                            cfg, arith.load(cfg["name"]),
-                           tr.collections["emb"].config.max_unique + 1, uniq)
+                           tr.collections["emb"].config.max_unique + 1, uniq,
+                           [pool.width * batch] * n_traced)
         attempted = n_traced
         log(f"traced {n_traced} steps after {lead} in {tr_.window_s:.4f} s: "
             f"{n_traced * batch / tr_.window_s:.1f} examples/s, device busy "

@@ -1,11 +1,17 @@
-"""The one traffic generator: a mix is a data file of parameters.
+"""Traffic: a mix is a data file of parameters, read by a generator.
+
+:func:`make_pool` draws a pool of examples from ``--seed`` on the device
+and returns it in the program's input format (numpy column arrays, the
+dict a ``Trainer.train_step`` takes) cut into batches, with what set-up,
+the reference and the readers need of it (:class:`Pool`). A mix that
+names a ``generator`` is drawn by ``generators/<generator>.py``, whose
+``make_pool(mix, n, batch, seed, device)`` returns a :class:`Pool`; a mix
+without one by this module's Criteo generator:
 
 ``traffic/<mix>.json`` gives each categorical column's id count, its Zipf
 exponent (``zipf_exponents``, one a column, or one ``zipf_exponent`` for
-all), and the dense-feature and label model. :func:`make_pool` draws a
-pool of examples from ``--seed`` on the device, in a few large calls, and
-returns it in the program's input format (numpy column arrays, the dict a
-``Trainer.train_step`` takes) cut into batches.
+all), and the dense-feature and label model; each column is an embedding
+space of its own.
 
 Ids: each column draws a rank ``k`` in ``1..v`` (``v`` its count) from the
 Zipf law ``P(k) ~ k^-a`` truncated at ``v`` and renormalised over
@@ -30,6 +36,7 @@ the column and the rank in ``[-1, 1)``: the loss is learnable.
 """
 from __future__ import annotations
 
+import importlib
 import json
 import math
 from pathlib import Path
@@ -48,11 +55,26 @@ def load_mix(name: str) -> dict:
         return json.load(f)
 
 
+class Space(NamedTuple):
+    """An embedding space: the columns whose ids share table rows, in the
+    order the program's collection lists them (the first names the space
+    where set-up looks its ids up), and the ids it holds, ``0..count-1``.
+    A pool's spaces come in the order of the program's salt groups: space
+    ``s``'s key of id ``x`` is ``x ^ salt(s)`` (``reference/keys.py``)."""
+    name: str
+    columns: List[str]
+    count: int
+    ids: np.ndarray    # int64 raw ids of every valid lane, batch by batch
+    ends: np.ndarray   # [batches + 1]: batch b is ids[ends[b]:ends[b + 1]]
+
+
 class Pool(NamedTuple):
     batches: List[Dict[str, np.ndarray]]  # the program's input format
-    ids: np.ndarray          # [columns, examples] int64 raw ids
-    unique_counts: List[int]  # distinct (column, id) pairs of each batch
+    unique_counts: List[int]  # distinct (space, id) pairs of each batch
     batch: int
+    lanes: List[int]          # valid id lanes of each batch (no padding)
+    width: int                # id lanes an example, padding included
+    spaces: List[Space]
 
 
 def multiplier(v: int) -> int:
@@ -183,11 +205,26 @@ def distinct_per_batch(ids: torch.Tensor, batch: int) -> List[int]:
 
 
 def make_pool(mix: dict, n: int, batch: int, seed: int, device) -> Pool:
-    """The pool of ``n`` examples (a multiple of ``batch``) from ``seed``.
-    The device arrays are freed before it returns."""
+    """The pool of ``n`` examples (a multiple of ``batch``) from ``seed``,
+    by the mix's ``generator`` (``generators/<name>.py``) or, without
+    one, by :func:`criteo_pool`."""
     if n % batch:
         raise ValueError(f"pool of {n} examples is not whole batches of "
                          f"{batch}")
+    if "generator" in mix:
+        return generator(mix["generator"]).make_pool(mix, n, batch, seed,
+                                                     device)
+    return criteo_pool(mix, n, batch, seed, device)
+
+
+def generator(name: str):
+    """The module ``generators/<name>.py``."""
+    return importlib.import_module(f"perfbench.generators.{name}")
+
+
+def criteo_pool(mix: dict, n: int, batch: int, seed: int, device) -> Pool:
+    """One-id columns, dense counts and labels (:func:`draw`), each column
+    its own space. The device arrays are freed before it returns."""
     ids, dense, label = draw(mix, n, seed, device)
     uniq = distinct_per_batch(ids, batch)
     ids_h, dense_h, label_h = ids.cpu().numpy(), dense.cpu().numpy(), \
@@ -201,7 +238,12 @@ def make_pool(mix: dict, n: int, batch: int, seed: int, device) -> Pool:
         for c, nm in enumerate(mix["columns"]):
             b[nm] = ids_h[c, s:s + batch]
         batches.append(b)
-    return Pool(batches, ids_h, uniq, batch)
+    ends = np.arange(0, n + 1, batch)
+    spaces = [Space(nm, [nm], int(v), ids_h[c], ends) for c, (nm, v) in
+              enumerate(zip(mix["columns"], mix["column_counts"]))]
+    width = len(mix["columns"])
+    return Pool(batches, uniq, batch, [width * batch] * len(batches), width,
+                spaces)
 
 
 if __name__ == "__main__":

@@ -70,3 +70,27 @@ def test_benchmark_json_keeps_the_contract_shape():
     assert all(len(w["why"]) <= 200 for w in BENCH["workloads"])
     assert all(w["chips"] == 1 for w in BENCH["workloads"])
     assert len(json.dumps(BENCH)) < 64 * 1024
+
+
+DATA = Path(__file__).resolve().parent / "data"
+CONFIGS = [json.loads((ROOT / c["file"]).read_text())
+           for c in BENCH["configs"]] + [
+    session.load_json("configs", "dcn_kaggle"),
+    json.loads((DATA / "configs" / "dien_tiny.json").read_text())]
+
+
+@pytest.mark.parametrize("cfg", CONFIGS, ids=lambda c: c["name"])
+def test_a_reference_is_found_by_the_configuration_model(cfg):
+    """``reference/<model>.py`` lists the program model's parameters by
+    name and shape, in its order (``program.load_weights`` holds them to
+    it), and ``flags`` reach the entry's argv last."""
+    from perfbench.core import program
+    from perfbench.reference import ctr
+    ref = ctr.model(cfg)
+    assert ref.__name__ == f"perfbench.reference.{cfg['model']}"
+    tr, args = program.build({**cfg, "capacity": 1 << 10,
+                              "flags": ["--prefetch_depth", "3"]},
+                             64, 0.5, 7, "cpu")
+    assert args.prefetch_depth == 3
+    assert [(n, tuple(p.shape)) for n, p in tr.model.named_parameters()] \
+        == [(n, tuple(s)) for n, s, _ in ref.params(cfg)]

@@ -39,9 +39,11 @@ def test_nothing_a_run_loads_is_jax_or_the_jax_package():
         "from perfbench import metrics, arith; "
         "[metrics.load(m['name']) for m in session.benchmark()['per_layer']]; "
         "[arith.load(c['name']) for c in session.benchmark()['configs']]; "
+        "import perfbench.generators.behavior, perfbench.reference.dien; "
         "import deeprec_tpu_torch.train.cli, "
         "deeprec_tpu_torch.modelzoo.DLRM.train, "
         "deeprec_tpu_torch.modelzoo.DCN.train, "
+        "deeprec_tpu_torch.modelzoo.DIEN.train, "
         "deeprec_tpu_torch.sparse.hashtable")
     assert "deeprec_tpu_torch" in mods
     assert session.forbidden_modules(mods) == []
@@ -49,7 +51,8 @@ def test_nothing_a_run_loads_is_jax_or_the_jax_package():
 
 def test_the_reference_imports_nothing_of_the_port():
     mods = _loaded_after("import perfbench.reference.train, "
-                         "perfbench.reference.ctr, perfbench.reference.keys")
+                         "perfbench.reference.ctr, perfbench.reference.keys, "
+                         "perfbench.reference.dien")
     assert not [m for m in mods if m.split(".")[0] in
                 ("deeprec_tpu_torch", "deeprec_tpu", "jax", "flax")]
     for f in sorted((PB / "reference").glob("*.py")):

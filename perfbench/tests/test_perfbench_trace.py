@@ -47,7 +47,8 @@ def test_reduce_finds_busy_time_and_gaps_by_host_call():
 
 def _ctx(trace):
     return session.TracedRun(trace, 2, 4, 8, [0.001, 0.003], CFG,
-                             arith.load("dlrm_kaggle"), 5, [3, 3])
+                             arith.load("dlrm_kaggle"), 5, [3, 3],
+                             [26 * 4, 26 * 4])
 
 
 def test_readers_take_their_metrics_from_the_trace():

@@ -16,12 +16,21 @@ def test_pool_is_a_function_of_the_seed():
     a = traffic.make_pool(MIX, 512, 128, 2 ** 31 + 7, "cpu")
     b = traffic.make_pool(MIX, 512, 128, 2 ** 31 + 7, "cpu")
     c = traffic.make_pool(MIX, 512, 128, 2 ** 31 + 8, "cpu")
-    assert np.array_equal(a.ids, b.ids)
     for x, y in zip(a.batches, b.batches):
         assert x.keys() == y.keys()
         assert all(np.array_equal(x[k], y[k]) for k in x)
-    assert not np.array_equal(a.ids, c.ids)
+    assert not np.array_equal(a.batches[0]["C3"], c.batches[0]["C3"])
     assert len(a.batches) == 4 and len(a.batches[0]["C1"]) == 128
+
+
+def test_each_column_is_a_space_of_its_own():
+    p = traffic.make_pool(MIX, 256, 128, 5, "cpu")
+    assert [s.columns for s in p.spaces] == [[c] for c in MIX["columns"]]
+    for s, v in zip(p.spaces, MIX["column_counts"]):
+        assert s.count == v and list(s.ends) == [0, 128, 256]
+        assert np.array_equal(s.ids, np.concatenate(
+            [b[s.name] for b in p.batches]))
+    assert p.lanes == [26 * 128] * 2 and p.width == 26
 
 
 def test_pool_holds_the_program_input_columns():
