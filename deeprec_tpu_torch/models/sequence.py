@@ -17,6 +17,7 @@ from typing import Dict, Sequence
 import torch
 from torch import nn
 
+from ..utils import spans
 from .ctr import concat_emb
 from .layers import AUGRU, GRU, DINAttention, Dice
 
@@ -151,7 +152,14 @@ class DIEN(_SequenceModel):
     auxiliary loss: the GRU state at t scores behaviour t + 1 against a
     negative, the same position of the previous example in the batch
     (``roll`` over the batch, padding included), through ONE shared
-    ``aux_proj``; the log-sigmoid terms are masked by ``mask[:, 1:]``."""
+    ``aux_proj``; the log-sigmoid terms are masked by ``mask[:, 1:]``.
+
+    The forward records spans ``dien.interest_extractor``,
+    ``dien.attention``, ``dien.interest_evolution``, ``dien.tower`` and
+    ``dien.aux_loss`` and counters ``seq.lanes``, ``seq.valid_lanes`` and
+    ``seq.recurrence_steps`` (``utils/spans.py``); the mask's sum, which
+    ``seq.valid_lanes`` reads, is one reduction made whether or not the
+    recorder is on."""
 
     activation = "dice"
 
@@ -180,20 +188,32 @@ class DIEN(_SequenceModel):
         cand, hist, mask = _concat_item_eb(
             emb, seq, self.candidate_name, self.seq_name,
             self.candidate_context_names, self.seq_context_names)
-        states = self.interest_extractor(hist, mask)
-        att = self.att(self.cand_proj(cand), states, mask)
-        final = self.interest_evolution(states, att, mask)
-        logits = self._head([cand, final, (hist * mask[..., None]).sum(1)],
-                            dense, emb, train)
+        b, L = mask.shape
+        spans.count("seq.lanes", b * L)
+        spans.count("seq.valid_lanes", mask.sum())
+        spans.count("seq.recurrence_steps", 2 * L)
+        with spans.span("dien.interest_extractor"):
+            states = self.interest_extractor(hist, mask)
+        with spans.span("dien.attention"):
+            att = self.att(self.cand_proj(cand), states, mask)
+        with spans.span("dien.interest_evolution"):
+            final = self.interest_evolution(states, att, mask)
+        with spans.span("dien.tower"):
+            logits = self._head(
+                [cand, final, (hist * mask[..., None]).sum(1)], dense, emb,
+                train)
         if not (return_aux and self.use_aux_loss):
             return logits
-        prev = states[:, :-1]
-        pos = (prev * self.aux_proj(hist[:, 1:])).sum(-1)
-        neg = (prev * self.aux_proj(torch.roll(hist[:, 1:], 1, 0))).sum(-1)
-        m = mask[:, 1:].float()
-        aux = -(torch.log(torch.sigmoid(pos) + 1e-8)
-                + torch.log(1 - torch.sigmoid(neg) + 1e-8)) * m
-        return logits, aux.sum() / m.sum().clamp_min(1.0)
+        with spans.span("dien.aux_loss"):
+            prev = states[:, :-1]
+            pos = (prev * self.aux_proj(hist[:, 1:])).sum(-1)
+            neg = (prev * self.aux_proj(
+                torch.roll(hist[:, 1:], 1, 0))).sum(-1)
+            m = mask[:, 1:].float()
+            aux = -(torch.log(torch.sigmoid(pos) + 1e-8)
+                    + torch.log(1 - torch.sigmoid(neg) + 1e-8)) * m
+            aux = aux.sum() / m.sum().clamp_min(1.0)
+        return logits, aux
 
     def flax_tree(self) -> dict:
         tree = {"att": self.att.flax_tree(), "cand_proj": self.cand_proj,

@@ -5,6 +5,9 @@ states over the behaviour sequence, attention vs. the candidate, AUGRU
 final interest, with the auxiliary next-behaviour loss in training
 (``models.sequence.dien_forward``, weight 1.0). No ``--bf16`` policy, as
 in the JAX model.
+
+Histories hold ``--max_len`` positions, or ``MAX_LEN`` (read when
+:func:`build` runs) without it.
 """
 from ... import feature_column as fc
 from ...config import Initializer
@@ -16,6 +19,7 @@ dien_forward = sequence.dien_forward
 
 
 def build(args) -> cli.ModelSpec:
+    max_len = args.max_len or MAX_LEN
     cols = [
         fc.EmbeddingColumn(
             fc.CategoricalColumn("item", shared_embedding="item_space"),
@@ -26,11 +30,11 @@ def build(args) -> cli.ModelSpec:
             args.emb_dim),
         fc.EmbeddingColumn(fc.CategoricalColumn("uid"), args.emb_dim),
         fc.SequenceEmbeddingColumn(
-            fc.CategoricalColumn("hist_item", max_length=MAX_LEN,
+            fc.CategoricalColumn("hist_item", max_length=max_len,
                                  shared_embedding="item_space"),
             args.emb_dim),
         fc.SequenceEmbeddingColumn(
-            fc.CategoricalColumn("hist_cate", max_length=MAX_LEN,
+            fc.CategoricalColumn("hist_cate", max_length=max_len,
                                  shared_embedding="cate_space"),
             args.emb_dim),
     ]

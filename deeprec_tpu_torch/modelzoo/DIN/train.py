@@ -4,6 +4,9 @@ Port of ``modelzoo/DIN/train.py``: the candidate
 item embedding attends over the clicked-item history (DIN local activation
 unit), Dice activations in the MLP. Candidate and history share the item
 embedding space. No ``--bf16`` policy, as in the JAX model.
+
+Histories hold ``--max_len`` positions, or ``MAX_LEN`` (read when
+:func:`build` runs) without it.
 """
 from ... import feature_column as fc
 from ...config import Initializer
@@ -14,6 +17,7 @@ MAX_LEN = 32
 
 
 def build(args) -> cli.ModelSpec:
+    max_len = args.max_len or MAX_LEN
     cols = [
         fc.EmbeddingColumn(
             fc.CategoricalColumn("item", shared_embedding="item_space"),
@@ -24,11 +28,11 @@ def build(args) -> cli.ModelSpec:
             args.emb_dim),
         fc.EmbeddingColumn(fc.CategoricalColumn("uid"), args.emb_dim),
         fc.SequenceEmbeddingColumn(
-            fc.CategoricalColumn("hist_item", max_length=MAX_LEN,
+            fc.CategoricalColumn("hist_item", max_length=max_len,
                                  shared_embedding="item_space"),
             args.emb_dim),
         fc.SequenceEmbeddingColumn(
-            fc.CategoricalColumn("hist_cate", max_length=MAX_LEN,
+            fc.CategoricalColumn("hist_cate", max_length=max_len,
                                  shared_embedding="cate_space"),
             args.emb_dim),
     ]

@@ -5,6 +5,9 @@ Port of ``modelzoo/DSSM/train.py``: user tower over
 category]; logit = scaled cosine similarity. The history shares the item
 embedding space with the candidate; ``--bf16`` runs the towers in
 bfloat16.
+
+Histories hold ``--max_len`` positions, or ``MAX_LEN`` (read when
+:func:`build` runs) without it.
 """
 import torch
 
@@ -17,6 +20,7 @@ MAX_LEN = 32
 
 
 def build(args) -> cli.ModelSpec:
+    max_len = args.max_len or MAX_LEN
     cols = [
         fc.EmbeddingColumn(fc.CategoricalColumn("uid"), args.emb_dim),
         fc.EmbeddingColumn(
@@ -24,7 +28,7 @@ def build(args) -> cli.ModelSpec:
             args.emb_dim),
         fc.EmbeddingColumn(fc.CategoricalColumn("cate"), args.emb_dim),
         fc.EmbeddingColumn(
-            fc.CategoricalColumn("hist_item", max_length=MAX_LEN,
+            fc.CategoricalColumn("hist_item", max_length=max_len,
                                  shared_embedding="item_space"),
             args.emb_dim, combiner="mean"),
     ]

@@ -60,7 +60,8 @@ Where it differs from the JAX CLI:
 * **What it refuses**: ``--micro_batch > 1`` with ``--host_index`` on
   one device (the JAX package crashes there, ROADMAP C6).
 * ``--device`` (default ``cuda``; the counterpart of ``JAX_PLATFORMS``)
-  raises when the card is missing. ``--seed`` seeds a ``torch.Generator``
+  raises when the card is missing. ``--max_len`` sets the behaviour
+  models' history length (the JAX entries fix it at 32). ``--seed`` seeds a ``torch.Generator``
   that draws the model's initial weights (:func:`init_params`).
 * ``--profile DIR`` writes a ``torch.profiler`` trace, with the loop's
   spans and counters (``utils/spans.py``) in it. ``--jit_cache``
@@ -101,7 +102,10 @@ class ModelSpec:
 
 
 def base_parser(desc: str) -> argparse.ArgumentParser:
-    """The JAX CLI's flags, names and defaults, and ``--device``."""
+    """The JAX CLI's flags, names and defaults, and two of the port's own:
+    ``--device`` and ``--max_len`` (the behaviour models' history length:
+    DIN's, DIEN's and DSSM's history columns and the behaviour streams;
+    without it each entry's ``MAX_LEN``)."""
     p = argparse.ArgumentParser(description=desc)
     p.add_argument("--steps", type=int, default=200)
     p.add_argument("--batch_size", type=int, default=512)
@@ -189,6 +193,10 @@ def base_parser(desc: str) -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda",
                    help="torch device to train on (cuda, or cpu); never "
                         "falls back")
+    p.add_argument("--max_len", type=int, default=None,
+                   help="history length of the behaviour models' sequence "
+                        "columns and streams (default: the entry's "
+                        "MAX_LEN)")
     return p
 
 
@@ -750,18 +758,25 @@ def criteo_eval_stream(args):
     return gen.take(args.eval_steps)
 
 
+def _behavior_kwargs(args) -> dict:
+    """The behaviour stream's sizes; its history length only where
+    ``--max_len`` is given (else the stream's own default)."""
+    kw = {"n_items": args.synthetic_items, "n_users": args.synthetic_users}
+    if args.max_len:
+        kw["max_len"] = args.max_len
+    return kw
+
+
 def behavior_train_stream(args):
     from ..data.behavior import SyntheticBehavior
     return SyntheticBehavior(batch_size=args.batch_size, seed=args.seed,
-                             n_items=args.synthetic_items,
-                             n_users=args.synthetic_users)
+                             **_behavior_kwargs(args))
 
 
 def behavior_eval_stream(args):
     from ..data.behavior import SyntheticBehavior
     gen = SyntheticBehavior(batch_size=args.batch_size, seed=args.seed + 999,
-                            n_items=args.synthetic_items,
-                            n_users=args.synthetic_users)
+                            **_behavior_kwargs(args))
     return gen.take(args.eval_steps)
 
 

@@ -37,13 +37,22 @@ The spans of the training loop (``train/cli.py``, ``train/trainer.py``,
 * main: ``loop.next_batch`` (waiting for the next batch), ``step``
   (``Trainer._train_step``: ``step.sparse_lookup``,
   ``step.forward_backward``, ``step.sparse_apply``, ``step.dense_apply``,
-  ``step.metrics``) and ``loop.fence`` (the loop's fence work).
+  ``step.metrics``) and ``loop.fence`` (the loop's fence work); inside
+  ``step.forward_backward``, DIEN's forward (``models/sequence.py``):
+  ``dien.interest_extractor`` (the GRU), ``dien.attention``,
+  ``dien.interest_evolution`` (the AUGRU), ``dien.tower`` and
+  ``dien.aux_loss`` (the forward's launches only: the backward runs in
+  ``loss.backward()`` after them).
 
 Counters: ``lookup.lanes`` (the key lanes of a step's lookups),
 ``lookup.unique`` and ``lookup.overflow`` (their dedup's ``n_unique`` and
 ``n_overflow``: the device's, or the host resolver's, as its wire carries
 them); the CLI's ``--profile`` adds ``rows.created`` (keys its
-device-index indexes gained while it recorded).
+device-index indexes gained while it recorded). DIEN's forward counts
+``seq.lanes`` (history positions, padding included, an int),
+``seq.valid_lanes`` (the valid ones: the mask's sum, a 0-dim tensor the
+forward makes on or off) and ``seq.recurrence_steps`` (GRU and AUGRU cell
+steps, ``2 * L``).
 """
 from __future__ import annotations
 
