@@ -68,7 +68,13 @@ comparison compute in full f32. Phases (any failure exits non-zero):
    is held to its plain versions, each kernel bit-equal across two
    calls, and timed beside the plain path (bmm + gather, autograd's index
    backward and batched GEMMs, by kernel) and its HBM bound; its launches
-   are counted on the paths that train a DLRM;
+   are counted on the paths that train a DLRM. DIEN's GRU and AUGRU
+   recurrence kernels at the benchmark cell's shape [16,384, 100, 36]
+   (its traffic's lengths) are held to the modules' loop (output, input,
+   attention and parameter gradients), the backward bit-equal across two
+   calls, and timed alone, on the path and beside the loop, with their
+   bytes and FLOP bounds; their launches are counted on the paths that
+   may train a DIEN (seq, cli);
 3. writes a full-width DLRM serving checkpoint (13 dense + 26 categorical
    columns, emb dim 16, fused adagrad columns, a 2^21-slot table holding the
    keys of 20 synthetic Criteo batches; weights and rows from seed 0);
@@ -827,6 +833,148 @@ def check_interaction_kernels(dev):
     return out
 
 
+# -- phase 2: DIEN's GRU and AUGRU recurrences --------------------------------
+# the benchmark cell's batch and history; emb 18 (item + category: d 36),
+# GRU and AUGRU 36
+REC_B, REC_L, REC_D, REC_G = 16384, 100, 36, 36
+# kernels vs the loop, of each tensor's largest magnitude: f32 sums in
+# another order over 72 terms a step, 100 steps and B L positions
+REC_RTOL = 1e-4
+F32_FLOPS = 67e12  # H100 SXM f32 FMA peak
+
+
+def check_recurrence_kernels(dev):
+    """DIEN's two recurrences at the benchmark cell's shape [REC_B, REC_L,
+    REC_D], the lengths drawn as the cell's traffic draws them: the modules
+    on the card (the kernels) held to their loop on the same card tensors
+    (the output, the input, attention and parameter gradients, within
+    REC_RTOL of each tensor's largest magnitude), the backward bit-equal
+    across two calls, and timed: each kernel alone, the path (the forward
+    with its sort; the backward with the weight gradients' product), the
+    loop, and the bound (bytes at 3.35 TB/s against the valid positions'
+    FLOPs at the f32 peak)."""
+    from perfbench.generators.behavior import lengths
+
+    from deeprec_tpu_torch.models.layers import AUGRU, GRU
+    from deeprec_tpu_torch.ops.recurrence import (act_width, gru_scan,
+                                                  gru_scan_backward)
+
+    with open(os.path.join(REPO, "perfbench", "traffic",
+                           "amazon_books_behavior.json")) as f:
+        mix = json.load(f)
+    g = torch.Generator(device="cpu").manual_seed(SEED)
+    lens = lengths(mix, torch.rand(REC_B, generator=g, dtype=torch.float64))
+    mask = (torch.arange(REC_L)[None, :] < lens[:, None]).to(dev)
+    n_valid = int(mask.sum())
+    xs = (torch.randn(REC_B, REC_L, REC_D, generator=g) * 0.5).to(dev)
+    att = torch.rand(REC_B, REC_L, generator=g).to(dev) * mask
+    att = att / att.sum(1, keepdim=True).clamp_min(1e-6)
+    log(f"recurrences at [{REC_B}, {REC_L}, {REC_D}], g {REC_G}: "
+        f"{n_valid} valid positions of {REC_B * REC_L} "
+        f"({100 * n_valid / (REC_B * REC_L):.1f} %), lengths "
+        f"{int(lens.min())}-{int(lens.max())}")
+    out = []
+    for kind in ("gru", "augru"):
+        torch.manual_seed(SEED)
+        m = (GRU if kind == "gru" else AUGRU)(REC_D, REC_G).to(dev)
+        a = att if kind == "augru" else None
+        weights = tuple(w.detach() for w in m.cell.weights())
+        x = xs.clone().requires_grad_(True)
+        at = att.clone().requires_grad_(kind == "augru")
+
+        def call(run):
+            return run(x, mask) if kind == "gru" else run(x, at, mask)
+
+        def step(run, up=None):
+            m.zero_grad(set_to_none=True)
+            x.grad = at.grad = None
+            y = call(run)
+            if up is None:
+                up = torch.randn(y.shape, generator=torch.Generator(
+                    device="cpu").manual_seed(SEED + 1)).to(dev)
+            y.backward(up)
+            grads = [x.grad] + ([at.grad] if kind == "augru" else [])
+            return ([y.detach()] + grads
+                    + [p.grad.clone() for p in m.parameters()]), up
+
+        want, up = step(m._scan)
+        got, _ = step(m, up)
+        again, _ = step(m, up)
+        names = ["output", "d_xs"] + (["d_att"] if kind == "augru" else []) \
+            + [n for n, _ in m.named_parameters()]
+        errs = {}
+        for name, w_, g_, a_ in zip(names, want, got, again):
+            if not torch.equal(g_, a_):
+                fail(f"{kind} recurrence: two calls differ in {name}")
+            errs[name] = ((g_ - w_).abs().max() / w_.abs().max()).item()
+            if not errs[name] <= REC_RTOL:
+                fail(f"{kind} recurrence: {name} differs from the loop by "
+                     f"{errs[name]:.3g} of its largest magnitude")
+
+        # timings: the kernels alone, the path, the loop
+        y, hs, gates, span, order = gru_scan(xs, mask, weights, a, save=True)
+        d_out = up.contiguous()
+        ms = {"forward": time_ms(lambda: gru_scan(xs, mask, weights, a,
+                                                  save=True)),
+              "backward": time_ms(lambda: gru_scan_backward(
+                  d_out, xs, mask, weights[0], weights[2], a, hs, gates,
+                  span, order))}
+        with torch.no_grad():
+            ms["eval"] = time_ms(lambda: call(m))
+
+        def path(run, backward=True):
+            y_ = call(run)
+            if backward:
+                y_.backward(d_out)
+            m.zero_grad(set_to_none=True)
+            x.grad = at.grad = None
+
+        on_path = {"forward": time_ms(lambda: path(m, False))}
+        on_path["backward"] = time_ms(lambda: path(m)) - on_path["forward"]
+        plain = {"forward": time_ms(lambda: path(m._scan, False), samples=5,
+                                    per_sample=2, warmup=1)}
+        plain["backward"] = time_ms(lambda: path(m._scan), samples=5,
+                                    per_sample=2, warmup=1) - plain["forward"]
+        # bytes each direction needs at these inputs, read or written once
+        b_, l_, d_, g_ = REC_B, REC_L, REC_D, REC_G
+        a_bytes = 4 * b_ * l_ if kind == "augru" else 0
+        out_bytes = 4 * b_ * (l_ if kind == "gru" else 1) * g_
+        nbytes = {
+            "forward": (4 * n_valid * d_ + b_ * l_ + a_bytes + out_bytes
+                        + (4 * n_valid * g_ if kind == "augru" else 0)
+                        + 4 * n_valid * 3 * g_),
+            "backward": (out_bytes + b_ * l_ + a_bytes
+                         + 4 * n_valid * (d_ + 4 * g_)
+                         + 4 * b_ * l_ * (d_ + 3 * g_ + act_width(d_, g_))
+                         + a_bytes)}
+        flops = 2 * n_valid * (d_ + g_) * 3 * g_  # each direction
+        for what in ("forward", "backward"):
+            fbound = flops / F32_FLOPS * 1e3
+            name = "gru_scan" if what == "forward" else "gru_scan_backward"
+            log_times(f"{kind} recurrence {what} [{b_}, {l_}, {d_}]",
+                      ms[what], plain[what], None, nbytes[what],
+                      f"; FLOP bound {fbound:.4f} ms ({flops} FLOPs of the "
+                      f"valid positions at 67 TFLOP/s); on path "
+                      f"{on_path[what]:.4f} ms"
+                      + (f"; no-grad forward {ms['eval']:.4f} ms"
+                         if what == "forward" else ""))
+            out.append(entry(f"{name}_{kind}",
+                             "deeprec_tpu_torch/csrc/gru_scan.cu", None,
+                             max(errs.values()), ms[what], plain[what], None,
+                             nbytes[what], on_path_ms=on_path[what],
+                             flops=flops, flop_bound_ms=fbound,
+                             eval_ms=ms["eval"] if what == "forward"
+                             else None, rel_errs=errs, counter=name,
+                             path="seq_dien"))
+        log(f"{kind} recurrence forward + backward: kernels "
+            f"{ms['forward'] + ms['backward']:.4f} ms, on path "
+            f"{on_path['forward'] + on_path['backward']:.4f} ms, loop "
+            f"{plain['forward'] + plain['backward']:.4f} ms; worst error "
+            f"against the loop {errs}")
+        del want, got, again, y, hs, gates
+    return out
+
+
 # -- phase 3 -----------------------------------------------------------------
 def write_checkpoint(path):
     """A full save of the DLRM at full width, made without JAX."""
@@ -1194,11 +1342,12 @@ def trainer(dev, metadata, capacity=CAPACITY, **overrides):
                    device=dev)
 
 
-def path_counters(index=False, dlrm=False):
+def path_counters(index=False, dlrm=False, seq=False):
     """The launch counters of the kernels on the training paths; ``index``
     adds the hash index's K4 and K5 (the paths that key a table on the
     card), ``dlrm`` the dot interaction's two kernels (the paths that train
-    a DLRM)."""
+    a DLRM), ``seq`` the GRU/AUGRU recurrence's two (the paths that may
+    train a DIEN)."""
     from deeprec_tpu_torch.ops.fused_lookup import (
         fused_pooled_lookup, fused_pooled_lookup_backward)
     from deeprec_tpu_torch.ops.gather import gather_rows
@@ -1217,6 +1366,10 @@ def path_counters(index=False, dlrm=False):
     if dlrm:
         out.update(dot_interaction=dot_interaction,
                    dot_interaction_backward=dot_interaction_backward)
+    if seq:
+        from deeprec_tpu_torch.ops.recurrence import (gru_scan,
+                                                      gru_scan_backward)
+        out.update(gru_scan=gru_scan, gru_scan_backward=gru_scan_backward)
     return out
 
 
@@ -2438,7 +2591,7 @@ def check_models(dev, smi, tmp, phase, kinds):
     from deeprec_tpu_torch.models.ctr import flax_leaf_count, flax_leaves
     from deeprec_tpu_torch.serving import Predictor
     from deeprec_tpu_torch.train import metrics
-    counters = path_counters()
+    counters = path_counters(seq=phase == "seq")
     paths, out = {}, {}
     for kind in kinds:
         spec, what = model_kind(kind), f"{phase} {kind}"
@@ -2467,7 +2620,9 @@ def check_models(dev, smi, tmp, phase, kinds):
         launches = {k: fn.launches for k, fn in counters.items()}
         paths[f"{phase}_{kind}"] = launches
         for k in ("gather_rows", "fused_pooled_lookup",
-                  "fused_pooled_lookup_backward"):
+                  "fused_pooled_lookup_backward") + (
+                      ("gru_scan", "gru_scan_backward") if kind == "dien"
+                      else ()):
             if launches[k] <= 0:
                 fail(f"{k} was not launched on the {what} path")
         med, dev_ms = statistics.median(staged), None
@@ -2944,7 +3099,7 @@ def check_cli(dev, smi, tmp):
     from deeprec_tpu_torch.serving import Predictor
     from deeprec_tpu_torch.serving.server import build_server
     from deeprec_tpu_torch.train import cli
-    counters = path_counters(dlrm=True)
+    counters = path_counters(dlrm=True, seq=True)
     total = dict.fromkeys(counters, 0)
     out, t_phase = [], time.perf_counter()
     for kind, opt, own, host_index in cli_runs(tmp):
@@ -2981,6 +3136,8 @@ def check_cli(dev, smi, tmp):
                                                    if meta else [])
         if kind == "dlrm":
             need += ["dot_interaction", "dot_interaction_backward"]
+        if kind == "dien":
+            need += ["gru_scan", "gru_scan_backward"]
         for k in need:
             if launches[k] <= 0:
                 fail(f"cli {kind} {opt}: {k} was not launched")
@@ -5594,7 +5751,7 @@ def run(dev, smi, probe):
     for check in (check_zoo_kernels, check_seq_kernels, check_device_kernels,
                   check_variant_kernels, check_mesh_kernels,
                   check_hs_kernels, check_soak_kernels,
-                  check_interaction_kernels):
+                  check_interaction_kernels, check_recurrence_kernels):
         kernels += timed(check.__name__, check, dev)
 
     _build.BUILD.mkdir(parents=True, exist_ok=True)  # git-ignored

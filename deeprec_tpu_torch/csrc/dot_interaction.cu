@@ -56,6 +56,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "launch.cuh"
+
 namespace {
 namespace di {
 
@@ -86,23 +88,6 @@ inline int examples_per_block(int items, int f, int u, int k, int unit) {
   int e = kThreads / items > 1 ? kThreads / items : 1;
   while (e > 1 && smem_bytes(e, f, u, k, unit) > kSmemBytes) --e;
   return e;
-}
-
-// Lets kernel take smem bytes of dynamic shared memory, past 48 KB up to
-// the card's opt-in limit; cudaErrorInvalidValue past that.
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, int64_t smem) {
-  if (smem <= kSmemBytes) return cudaSuccess;
-  int dev = 0, most = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(
-        &most, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err != cudaSuccess) return err;
-  if (smem > most) return cudaErrorInvalidValue;
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)smem);
 }
 
 __device__ __forceinline__ float dot(float4 a, float4 b, float acc) {

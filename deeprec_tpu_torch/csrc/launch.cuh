@@ -1,5 +1,6 @@
-// Programmatic dependent launch (Hopper's griddepcontrol) and cooperative
-// launch, shared by the kernels that use them.
+// Programmatic dependent launch (Hopper's griddepcontrol), cooperative
+// launch and the opt-in to more shared memory, shared by the kernels that
+// use them.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -74,6 +75,24 @@ cudaError_t launch_cooperative(void (*kernel)(K...), int64_t blocks,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   return cudaLaunchKernelEx(&cfg, kernel, (K)args...);
+}
+
+// Lets kernel take smem bytes of dynamic shared memory: past the 48 KB any
+// launch may take, up to the card's opt-in limit; cudaErrorInvalidValue
+// past that.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, int64_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  int dev = 0, most = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(
+        &most, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return err;
+  if (smem > most) return cudaErrorInvalidValue;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)smem);
 }
 
 }  // namespace

@@ -2,7 +2,7 @@
 ``MLPTower``, ``DotInteraction``, ``CrossNetV2``, ``FMInteraction``, and
 the sequence models' ``Dice``, ``DINAttention``, ``GRUCellP`` (also
 flax's ``AUGRUCell`` when given an attention weight), ``GRU`` and
-``AUGRU`` (replayed from CUDA graphs in training on a card: ``graphed``).
+``AUGRU`` (on a card the recurrence kernels of ``ops.recurrence``).
 
 torch needs input widths up front, so each layer with weights takes its
 ``in_dim``. Each also describes its flax param tree (:meth:`flax_tree`):
@@ -14,11 +14,12 @@ running statistics as buffers and describes them too
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Optional, Sequence
+from typing import Optional, Sequence
 
 import torch
 from torch import nn
 
+from ..ops import recurrence
 from ..ops.interaction import interact
 
 
@@ -224,106 +225,23 @@ class GRUCellP(nn.Module):
             z = a[..., None] * z
         return (1.0 - z) * h + z * n
 
+    def weights(self):
+        """``(gates.weight, gates.bias, cand.weight, cand.bias)``, what the
+        recurrence kernels read (``ops.recurrence``)."""
+        return (self.gates.weight, self.gates.bias, self.cand.weight,
+                self.cand.bias)
+
     def flax_tree(self) -> dict:
         return {"cand": self.cand, "gates": self.gates}
 
 
-class _Captured(NamedTuple):
-    """A recurrence's forward and backward for one input signature, each
-    captured as one CUDA graph over static tensors (:func:`graphed`)."""
-    key: tuple
-    fwd: object            # torch.cuda.CUDAGraph
-    bwd: object
-    inputs: tuple          # the static inputs the forward graph reads
-    out: torch.Tensor      # the static output it writes
-    grad_out: torch.Tensor  # the output's gradient the backward graph reads
-    grads: tuple           # the gradients it writes: inputs, then params
-
-
-def _signature(args) -> tuple:
-    return tuple((tuple(a.shape), a.dtype, a.requires_grad) for a in args)
-
-
-def _capture(run, args, params) -> _Captured:
-    """``torch.cuda.make_graphed_callables`` for one callable, captured in
-    the thread-local mode: its global mode fails the capture when another
-    thread (a prefetch worker copying a batch) makes a call unsafe under
-    capture."""
-    static = tuple(a.detach().clone().requires_grad_(a.requires_grad)
-                   for a in args)
-    surface = static + tuple(params)
-    wants = [t for t in surface if t.requires_grad]
-    torch.cuda.synchronize()
-    with torch.cuda.stream(torch.cuda.Stream()):  # lazy set-up, uncaptured
-        for _ in range(2):
-            out = run(*static)
-            torch.autograd.grad(out, wants, torch.ones_like(out))
-    # a live warm-up graph would keep the parameters' gradient
-    # accumulators on the warm-up stream, which the capture then meets
-    del out
-    torch.cuda.synchronize()
-    pool = torch.cuda.graph_pool_handle()
-    fwd, bwd = torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph()
-    with torch.cuda.graph(fwd, pool=pool, capture_error_mode="thread_local"):
-        out = run(*static)
-    grad_out = torch.empty_like(out)
-    with torch.cuda.graph(bwd, pool=pool, capture_error_mode="thread_local"):
-        got = iter(torch.autograd.grad(out, wants, grad_out))
-    grads = tuple(next(got) if t.requires_grad else None for t in surface)
-    return _Captured(_signature(args), fwd, bwd, static, out.detach(),
-                     grad_out, grads)
-
-
-class _Replay(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, cap: _Captured, *surface):
-        for s, x in zip(cap.inputs, surface):
-            if s.data_ptr() != x.data_ptr():
-                s.copy_(x)
-        cap.fwd.replay()
-        ctx.cap = cap
-        return cap.out.detach()
-
-    @staticmethod
-    @torch.autograd.function.once_differentiable
-    def backward(ctx, grad):
-        cap = ctx.cap
-        cap.grad_out.copy_(grad)
-        cap.bwd.replay()
-        n = len(cap.inputs)
-        # the parameters' gradients outlive the next replay (.grad)
-        return (None, *cap.grads[:n],
-                *(g if g is None else g.clone() for g in cap.grads[n:]))
-
-
-def graphed(module: nn.Module, run, *args: torch.Tensor) -> torch.Tensor:
-    """``run(*args)``, a recurrence of ``module`` returning one tensor. On
-    a card with gradients on, the first call captures its forward and
-    backward as two CUDA graphs (a private memory pool each module) and
-    every call of that input signature replays them: one launch each way
-    where the loop makes dozens a time step. Other signatures, the
-    CPU and no-grad calls run ``run`` as it is; the kernels, and so the
-    numbers, are the same either way."""
-    if not (module.cuda_graph and args[0].is_cuda
-            and torch.is_grad_enabled()):
-        return run(*args)
-    cap = getattr(module, "_captured", None)
-    if cap is None:
-        cap = module._captured = _capture(run, args,
-                                          tuple(module.parameters()))
-    if cap.key != _signature(args):
-        return run(*args)
-    return _Replay.apply(cap, *args, *module.parameters())
-
-
 class GRU(nn.Module):
     """GRU over ``[B, L, d]``: all hidden states ``[B, L, features]``, from
-    zeros; a padded step holds the previous state. A Python loop over L
-    (``nn.scan`` in flax, whose names :meth:`flax_tree` gives), replayed
-    from CUDA graphs in training on a card (:func:`graphed`;
-    ``cuda_graph`` False runs it as launched)."""
-
-    cuda_graph = True
+    zeros; a padded step holds the previous state. On a card the
+    hand-written recurrence kernels (``ops.recurrence``, forward and
+    backward); elsewhere a Python loop over L (``nn.scan`` in flax, whose
+    names :meth:`flax_tree` gives), the plain version the kernels are held
+    to."""
 
     def __init__(self, in_dim: int, features: int):
         super().__init__()
@@ -331,7 +249,9 @@ class GRU(nn.Module):
         self.cell = GRUCellP(in_dim, features)
 
     def forward(self, xs: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-        return graphed(self, self._scan, xs, mask)
+        if xs.is_cuda:
+            return recurrence.scan(xs, mask, self.cell.weights())
+        return self._scan(xs, mask)
 
     def _scan(self, xs: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         h = xs.new_zeros((xs.shape[0], self.features))
@@ -349,10 +269,8 @@ class AUGRU(nn.Module):
     """AUGRU over ``[B, L, d]`` with attention weights ``[B, L]``: the
     last hidden state ``[B, features]``; a padded step holds the
     previous state. Its cell is a :class:`GRUCellP` whose update gate is
-    scaled by the step's attention weight (flax's ``AUGRUCell``). Replayed
-    from CUDA graphs as :class:`GRU` is."""
-
-    cuda_graph = True
+    scaled by the step's attention weight (flax's ``AUGRUCell``). On a card
+    the recurrence kernels, elsewhere the loop, as :class:`GRU`."""
 
     def __init__(self, in_dim: int, features: int):
         super().__init__()
@@ -361,7 +279,9 @@ class AUGRU(nn.Module):
 
     def forward(self, xs: torch.Tensor, att: torch.Tensor,
                 mask: torch.Tensor) -> torch.Tensor:
-        return graphed(self, self._scan, xs, att, mask)
+        if xs.is_cuda:
+            return recurrence.scan(xs, mask, self.cell.weights(), att)
+        return self._scan(xs, att, mask)
 
     def _scan(self, xs: torch.Tensor, att: torch.Tensor,
               mask: torch.Tensor) -> torch.Tensor:

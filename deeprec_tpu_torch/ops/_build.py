@@ -68,6 +68,14 @@ _SIGNATURES = {
     "deeprec_dot_interaction": [_P, _I64, _I, _I, _P, _P],
     # feats, g, b, f, d, d_feats, stream
     "deeprec_dot_interaction_backward": [_P, _P, _I64, _I, _I, _P, _P],
+    # xs, mask, att, wg, bg, wc, bc, order, span, hs, last, gates, n_rows,
+    # L, d, g, stream (att, hs or last, gates may be NULL)
+    "deeprec_gru_scan": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                         _I64, _I, _I, _I, _P],
+    # mask, att, wg, wc, order, span, xs, hs, gates, grad, dx, d_pre, act,
+    # d_att, n_rows, L, d, g, w_act, stream (att, d_att NULL for the GRU)
+    "deeprec_gru_scan_backward": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                  _P, _P, _P, _P, _I64, _I, _I, _I, _I, _P],
 }
 
 _RESTYPES = {"deeprec_fused_pooled_lookup_bwd_scratch": _I64}  # else c_int

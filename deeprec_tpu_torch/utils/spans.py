@@ -78,7 +78,9 @@ LAUNCH_COUNTERS = (("ops.gather", "gather_rows"),
                    ("ops.hash_probe", "hash_lookup"),
                    ("ops.hash_probe", "hash_lookup_or_insert_"),
                    ("ops.interaction", "dot_interaction"),
-                   ("ops.interaction", "dot_interaction_backward"))
+                   ("ops.interaction", "dot_interaction_backward"),
+                   ("ops.recurrence", "gru_scan"),
+                   ("ops.recurrence", "gru_scan_backward"))
 _PACKAGE = __name__.rsplit(".", 2)[0]
 
 
