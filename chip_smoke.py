@@ -20,48 +20,42 @@ switched off for matrix products and convolutions, so both sides of every
 comparison compute in full f32. Phases (any failure exits non-zero):
 
 1. builds the hand-written CUDA kernels from deeprec_tpu_torch/csrc/ (nvcc,
-   sm_90a, one process per source) and, at the same time, the design
-   probes of deeprec_tpu_torch/probes/kernel_probe.cu, and prints the
-   build time;
+   sm_90a, one process per source) and prints the build time;
 2. runs each kernel's wrapper against its plain PyTorch version at the
    shapes the main paths give it (a B=4096 Criteo batch), and times the
    kernel, the plain version and one PyTorch library call computing the
    same function with CUDA events, beside the kernel's HBM-bytes bound:
    K1 and K2 at the serving shape; K2 (both directions), K1's unique-row
    fetch and optimizer read and K3a (lookup_meta, and the three-plane
-   meta_scatter it replaced on the path) at the training shape of one
-   resolved batch; K3a's scatter_set and K3b at the JAX benchmark's own
-   shape (CAP 2^21, U 17,664). The previous designs of K1 and of K2's
-   forward (probe variants 0) and the three-plane K3a are timed in turns
-   with their successors (old, new, new, old), back to back and behind a
-   PyTorch kernel as on the path, K1 at every shape it is checked at; the
-   K1 -> K2 pair of the serving path is timed with either K1 the same
-   way; and the probe's variants of K1 and of K2's forward (each checked
-   bit-equal where it writes the output) say what remains of their
-   time. K2's backward, at every shape it is checked at, runs twice
-   bit-equal, is held to its plain version run on the CPU (every row of
+   meta_scatter, held to lookup_meta's planes) at the training shape of
+   one resolved batch; K3a's scatter_set and K3b at the JAX benchmark's
+   own shape (CAP 2^21, U 17,664). K1 at every shape it is checked at,
+   K2 at the serving shape, K2's backward, K3a at the training shape, K4
+   and K5 are also timed on path, behind a one-element PyTorch add (its
+   time subtracted); the K1 -> K2 pair of the serving path is held
+   bit-equal to the plain versions and timed the same way. K2's
+   backward, at every shape it is checked at, runs twice bit-equal, is
+   held bit-equal on every row to the order reference
+   (tests/torch_k2_order.py: the kernel's lane order and run tree in
+   plain PyTorch) and to its plain version run on the CPU (every row of
    at most 32 valid lanes bit-equal, longer rows within BWD_TOL of the
-   magnitudes), is held bit-equal to the radix-sorted design it replaced
-   (the design probe's probe_k2_bwd_radix: one order and run tree, so one
-   result) and timed in turns with it, beside the atomic design before
-   that (probe_k2_bwd_atomic), zeros + index_add_ and the deterministic
-   zeros + index_put_(accumulate=True), and its device time is split by
-   kernel against the floor of its cooperative ordering. K2 at bf16 (both
+   magnitudes), and is timed beside zeros + index_add_ and the
+   deterministic zeros + index_put_(accumulate=True). K2 at bf16 (both
    directions, at the serving and the training shape) is checked against
    its plain version (both sum in f32 and round once: one bf16 step of the
    value apart at most, beside the f32 order term) and timed beside
    embedding_bag / index_add_ at bf16, its bound at 2 bytes a value. K4
    and K5, the hash index's lookup and lookup_or_insert_ (in place; the
-   functional lookup_or_insert too), are held bit-equal to their plain
-   versions (hashtable.lookup_plain, lookup_or_insert_plain) on the same
-   card tensors, K5's arbitration words all zero after every call, and
-   timed in turns with their previous designs (the design probe's K4 and
-   K5 variants 0: old, new, new, old), back to back (an insert that
-   changes the table: a call at a time on a fresh copy) and behind a
-   one-element add, beside the plain versions, the functional form's
-   clone of the table and their bound (no PyTorch call computes either):
-   K5 at the device-index shape (26,625 lanes into 2^21 slots, first step
-   and steady), at growth's rebuild (2^16 -> 2^17), at the variants' flat
+   functional lookup_or_insert too, which must leave its input table as
+   it was), are held bit-equal to their plain versions
+   (hashtable.lookup_plain, lookup_or_insert_plain) on the same card
+   tensors, K5's arbitration words all zero after every call and K5 held
+   again after its timing, and timed back to back (an insert that
+   changes the table: a call at a time on a fresh copy), beside the plain
+   versions, the functional form's clone of the table and their bound (no
+   PyTorch call computes either): K5 at the device-index shape (26,625
+   lanes into 2^21 slots, first step and steady), at growth's rebuild
+   (2^16 -> 2^17), at the variants' flat
    dedup and at the mesh4 owner's lanes, K4 at the serving dedup and at
    the mesh4 owner's 53,248 read-only lanes. DLRM's dot interaction,
    forward and backward, at the benchmark cell's shape [65,536, 27, 16]
@@ -364,7 +358,6 @@ the kernels' numbers as JSON, the line before that the training numbers.
 """
 from __future__ import annotations
 
-import concurrent.futures
 import contextlib
 import io
 import json
@@ -533,6 +526,51 @@ def time_ms(fn, samples=21, per_sample=20, warmup=5):
     return statistics.median(times)
 
 
+def behind_ms(fn, samples=21, alone=None):
+    """Device ms per call of ``fn`` behind a one-element PyTorch add, as on
+    the training path, where a PyTorch kernel (which never lets a
+    programmatic dependent start early) precedes each kernel: the time of
+    the pair less the add's own (``alone``, when the caller has it).
+    Back to back, a kernel launched as a programmatic dependent also
+    overlaps its own previous call."""
+    tiny = torch.zeros(1, device="cuda")
+    if alone is None:
+        alone = time_ms(lambda: tiny.add_(1), samples)
+
+    def pair():
+        tiny.add_(1)
+        fn()
+    return time_ms(pair, samples) - alone
+
+
+def call_ms(fn, reset, samples=21, behind=False):
+    """Device ms of one call of ``fn`` (the median over ``samples``), each
+    sample timed alone between CUDA events after ``reset()`` (outside the
+    events) and a sleep kernel that holds the stream while the host
+    enqueues: for a call that changes its inputs (an insert into a table),
+    which ``reset`` restores. ``behind``: behind a one-element add, the
+    add's own time (timed the same way) subtracted."""
+    tiny = torch.zeros(1, device="cuda")
+
+    def one(f):
+        times = []
+        for _ in range(samples + 2):  # the first two warm up
+            reset()
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(2_000_000)
+            a.record()
+            if behind:
+                tiny.add_(1)
+            f()
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b))
+        return statistics.median(times[2:])
+    alone = one(lambda: None) if behind else 0.0
+    return one(fn) - alone
+
+
 def wall_ms(fn, calls=100):
     """Host-clock ms per call over ``calls`` back-to-back calls, including
     the host's launch overhead (what a caller on the serving path pays)."""
@@ -585,13 +623,12 @@ def criteo_parts():
 
 
 # -- phase 2 -----------------------------------------------------------------
-def check_kernels(dev, probe):
+def check_kernels(dev):
     from deeprec_tpu_torch.data.criteo import SyntheticCriteo
     from deeprec_tpu_torch.ops.fused_lookup import (
         COMBINERS, fused_pooled_lookup, fused_pooled_lookup_plain)
     from deeprec_tpu_torch.ops.gather import gather_rows, gather_rows_plain
     from deeprec_tpu_torch.ops.unique import unique
-    from deeprec_tpu_torch.probes.kernel_probe import k1_k2_pair, k1_turns
 
     g = torch.Generator(device="cpu").manual_seed(SEED)
     # the serving path's shapes: the unique keys of one B=4096 batch
@@ -610,11 +647,8 @@ def check_kernels(dev, probe):
     k1_err = (got - ref).abs().max().item()
     if k1_err != 0:
         fail(f"K1 differs from its plain version by {k1_err}")
-    # the previous design (probe variant 0) and the port's in turns, and the
-    # probe's variants
-    k1 = k1_turns(probe, table, slots, EMB_DIM, "(serving shape)",
-                  variants=True)
-    k1_ms = k1["new"]
+    k1_ms = time_ms(lambda: gather_rows(table, slots, EMB_DIM))
+    k1_path = behind_ms(lambda: gather_rows(table, slots, EMB_DIM))
     k1_plain = time_ms(lambda: gather_rows_plain(table, slots, EMB_DIM))
     log(f"K1 gather_rows: kernel {k1_ms:.4f} ms, plain {k1_plain:.4f} ms "
         f"(device); host clock per call: kernel "
@@ -659,21 +693,29 @@ def check_kernels(dev, probe):
                 + torch.unique(slots).numel() * EMB_DIM * 4
                 + n_slots * EMB_DIM * 4)
     log_times("K1 gather_rows (serving shape)", k1_ms, k1_plain, k1_lib,
-              k1_bytes, "; library: torch.index_select")
+              k1_bytes, f"; library: torch.index_select; on path "
+              f"{k1_path:.4f} ms")
     valid_f = valid.float()
     k2_lib = time_ms(lambda: torch.nn.functional.embedding_bag(
         inv, urows, per_sample_weights=valid_f, mode="sum"))
     k2_bytes = (inv.numel() * inv.element_size() + valid.numel()
                 + int(uniq.n_unique) * EMB_DIM * 4 + inv.shape[0] * EMB_DIM * 4)
+    k2_path = behind_ms(lambda: fused_pooled_lookup(urows, inv, valid, "sum"))
     log_times("K2 fused_pooled_lookup (serving shape, [26*4096, 1] sum)",
               k2_ms, k2_plain, k2_lib, k2_bytes,
-              "; library: embedding_bag(mode='sum', per_sample_weights)")
-    from deeprec_tpu_torch.probes.kernel_probe import k2_forward
-    k2_turns = k2_forward(probe, urows, inv, valid,
-                          "(serving shape, [26*4096, 1] sum)")
+              f"; library: embedding_bag(mode='sum', per_sample_weights); "
+              f"on path {k2_path:.4f} ms")
+
     # the serving path's order: K1, then K2 on K1's rows
-    pair = k1_k2_pair(probe, table, slots, EMB_DIM, inv, valid,
-                      "(serving shape, [26*4096, 1] sum)")
+    def pair():
+        return fused_pooled_lookup(gather_rows(table, slots, EMB_DIM), inv,
+                                   valid, "sum")
+    if not torch.equal(bits(pair()), bits(fused_pooled_lookup_plain(
+            gather_rows_plain(table, slots, EMB_DIM), inv, valid, "sum"))):
+        fail("the K1 -> K2 pair differs from its plain versions")
+    pair_ms, pair_path = time_ms(pair), behind_ms(pair)
+    log(f"K1 -> K2 pair (serving shape, [26*4096, 1] sum): {pair_ms:.4f} ms "
+        f"back to back, on path {pair_path:.4f} ms")
 
     # K2 on a bf16 table: the same bags over bf16 rows (one row a bag: the
     # rows' bits), and a multi-hot mean summed in f32 and rounded once
@@ -709,21 +751,12 @@ def check_kernels(dev, probe):
     return [
         entry("gather_rows", "deeprec_tpu_torch/csrc/gather_rows.cu",
               "deeprec_tpu/ops/pallas_gather.py:78", k1_err, k1_ms,
-              k1_plain, k1_lib, k1_bytes, **k1_extra(k1),
-              probe_ms={str(m): t for m, t in k1.items()
-                        if isinstance(m, int)},
-              probe_on_path_ms={str(m): t for m, t in k1["behind"].items()},
-              k1_k2_pair_ms=pair["new"], previous_k1_k2_pair_ms=pair["old"],
-              k1_k2_pair_on_path_ms=pair["new_behind"],
-              previous_k1_k2_pair_on_path_ms=pair["old_behind"]),
+              k1_plain, k1_lib, k1_bytes, on_path_ms=k1_path,
+              k1_k2_pair_ms=pair_ms, k1_k2_pair_on_path_ms=pair_path),
         entry("fused_pooled_lookup",
               "deeprec_tpu_torch/csrc/fused_pooled_lookup.cu",
               "deeprec_tpu/ops/pallas_fused_lookup.py:80", k2_err, k2_ms,
-              k2_plain, k2_lib, k2_bytes, previous_ms=k2_turns["old"],
-              on_path_ms=k2_turns["behind"]["new"],
-              previous_on_path_ms=k2_turns["behind"]["old"],
-              probe_ms={str(m): t for m, t in k2_turns.items()
-                        if isinstance(m, int)}),
+              k2_plain, k2_lib, k2_bytes, on_path_ms=k2_path),
         entry("fused_pooled_lookup_bf16",
               "deeprec_tpu_torch/csrc/fused_pooled_lookup.cu",
               "deeprec_tpu/ops/pallas_fused_lookup.py:80", k2b_err, k2b_ms,
@@ -749,7 +782,6 @@ def check_interaction_kernels(dev):
 
     from deeprec_tpu_torch.ops.interaction import (
         dot_interaction, dot_interaction_backward, dot_interaction_plain)
-    from deeprec_tpu_torch.probes.kernel_probe import behind_ms
 
     g = torch.Generator(device="cpu").manual_seed(SEED)
     b, f, d = INTER_B, INTER_F, EMB_DIM
@@ -1129,7 +1161,7 @@ def host_collection(metadata, capacity=CAPACITY, **overrides):
         max_unique=MAX_UNIQUE, use_native=True, **{**kw, **overrides})
 
 
-def check_training_kernels(dev, probe):
+def check_training_kernels(dev):
     """K2 (both directions), K1's optimizer read and K3a at the training
     shape of one resolved B=4096 batch; scatter_set and K3b at the JAX
     benchmark's shape. Returns the kernels' JSON entries."""
@@ -1137,9 +1169,8 @@ def check_training_kernels(dev, probe):
     from deeprec_tpu_torch.ops.fused_lookup import (fused_pooled_lookup,
                                                     fused_pooled_lookup_plain)
     from deeprec_tpu_torch.ops.meta_scatter import (
-        blocked_rmw_set, blocked_rmw_set_plain, meta_scatter,
+        blocked_rmw_set, blocked_rmw_set_plain, lookup_meta, meta_scatter,
         meta_scatter_plain, scatter_set)
-    from deeprec_tpu_torch.probes.kernel_probe import behind_ms, k2_forward
 
     g = torch.Generator().manual_seed(SEED + 1)
     coll = host_collection(metadata=True)
@@ -1173,8 +1204,6 @@ def check_training_kernels(dev, probe):
               slots.numel() * 4 + valid.numel() + n_real * EMB_DIM * 4
               + slots.shape[0] * EMB_DIM * 4,
               "; library: embedding_bag(mode='sum', per_sample_weights)")
-    k2_forward(probe, urows, slots, valid, "(training shape, [26*4096, 1] "
-               "sum)")
 
     # K2 at bf16, both directions at the training shape: the gradient
     # widened to f32, each row summed in f32 and rounded once to bf16
@@ -1206,51 +1235,24 @@ def check_training_kernels(dev, probe):
                       ("optimizer row read", "optim_read", 2 * EMB_DIM))]
 
     # K3a on the path: lookup_or_create's metadata step (--metadata:
-    # create steps, versions, freqs, CounterFilter(1)) in one launch,
-    # timed in turns with the three-plane kernel the path ran before it
+    # create steps, versions, freqs, CounterFilter(1)) in one launch; the
+    # three-plane kernel, off the path, held to its planes
     cap, ff = CAPACITY, 1
     dest = torch.where(r.created & ~r.readonly, r.uslots, cap + 1)
     live = (r.counts > 0) & (r.uslots != cap) & ~r.readonly
     mdest = torch.where(live, r.uslots, cap + 1)
-    op = [torch.full((cap + 1,), v, dtype=torch.int32, device=dev)
-          for v in (-1, -1, 0)]
+    k3a = k3a_case(f"(training shape, planes of {cap + 1})", "", r.uslots,
+                   r.counts, r.readonly, dest, cap, ff, on_path=True)
+    op, pp = [[torch.full((cap + 1,), v, dtype=torch.int32, device=dev)
+               for v in (-1, -1, 0)] for _ in range(2)]
 
     def old_kernel():
         meta_scatter(op[0], dest, op[1], op[2], mdest, r.counts, 3)
-
-    def old_path():
-        # what the path ran before the fused kernel: live/mdest, the
-        # three-plane kernel, the admission test
-        lv = (r.counts > 0) & (r.uslots != cap) & ~r.readonly
-        meta_scatter(op[0], dest, op[1], op[2],
-                     torch.where(lv, r.uslots, cap + 1), r.counts, 3)
-        return (r.uslots != cap) & (op[2][r.uslots] >= ff)
-
-    def k3a_turns(fused, kp, pp):
-        old_kernel()
-        if not all(torch.equal(a, b) for a, b in zip(op, pp)):
-            fail("K3a meta_scatter differs from the fused kernel's planes")
-        turns = [time_ms(old_kernel), time_ms(lambda: fused(kp)),
-                 time_ms(lambda: fused(kp)), time_ms(old_kernel)]
-        # each behind a PyTorch kernel, as on the path
-        on_path = [behind_ms(old_kernel), behind_ms(lambda: fused(kp)),
-                   behind_ms(lambda: fused(kp)), behind_ms(old_kernel)]
-        old_path_ms = time_ms(old_path)
-        log(f"K3a turns (old three-plane kernel, fused, fused, old): "
-            f"{turns[0]:.4f}, {turns[1]:.4f}, {turns[2]:.4f}, "
-            f"{turns[3]:.4f} ms back to back; behind a one-element add: "
-            + ", ".join(f"{t:.4f}" for t in on_path)
-            + f" ms; the old path (live/mdest + three-plane kernel + "
-            f"admission test) {old_path_ms:.4f} ms")
-        return (turns[1] + turns[2]) / 2, dict(
-            previous_ms=(turns[0] + turns[3]) / 2,
-            previous_path_ms=old_path_ms,
-            on_path_ms=(on_path[1] + on_path[2]) / 2,
-            previous_on_path_ms=(on_path[0] + on_path[3]) / 2)
-    k3a, pp = k3a_case(f"(training shape, planes of {cap + 1})", "",
-                       r.uslots, r.counts, r.readonly, dest, cap, ff,
-                       timing=k3a_turns)
-    old_ms, m_in = k3a["previous_ms"], mdest < cap
+    old_kernel()
+    lookup_meta(r.uslots, r.counts, r.readonly, dest, 3, cap, *pp, True, ff)
+    if not all(torch.equal(a, b) for a, b in zip(op, pp)):
+        fail("K3a meta_scatter differs from the fused kernel's planes")
+    old_ms, m_in = time_ms(old_kernel), mdest < cap
     n_d, n_m = int((dest < cap).sum()), int(m_in.sum())
     gs = torch.tensor(3, dtype=torch.int32, device=dev)
     # the three-plane kernel alone, with its own yardstick (pre-filtered
@@ -2139,6 +2141,17 @@ def zoo_batches(kind, seed, n):
     return list(gen.take(n))
 
 
+def tests_module(name, *subdir):
+    """``tests/<subdir>/<name>.py``, loaded by its path (a ``tests``
+    package installed elsewhere would shadow the repo's directory)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(REPO, "tests", *subdir, f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def bits(t):
     """A float tensor's bits (NaN and -0.0 compared as such)."""
     return t.contiguous().view(torch.int16 if t.dtype == torch.bfloat16
@@ -2146,23 +2159,20 @@ def bits(t):
 
 
 def k2_bwd_case(what, suffix, d_pooled, slots, valid, combiner, u):
-    """K2's backward at one shape: two launches bit-equal; held to its
-    plain version run on the CPU (every row of at most 32 valid lanes
-    bit-equal, as both add them in lane order; a longer row within BWD_TOL
-    of the magnitudes, a bf16 one within a bf16 step more); bit-equal to
-    the radix design it replaced and timed in turns with it (the design
-    probe's probe_k2_bwd_radix: old, new, new, old), beside the atomic
-    design before that (probe_k2_bwd_atomic), its plain version on the
-    card, zeros + index_add_ (``library_ms``) and the deterministic
-    zeros + index_put_(accumulate=True) over the same lane terms, and its
+    """K2's backward at one shape: two launches bit-equal; bit-equal on
+    every row to the order reference (tests/torch_k2_order.py: the
+    kernel's lane order and run tree in plain PyTorch); held to its plain
+    version run on the CPU (every row of at most 32 valid lanes bit-equal,
+    as both add them in lane order; a longer row within BWD_TOL of the
+    magnitudes, a bf16 one within a bf16 step more); timed back to back
+    and behind a one-element add, beside its plain version on the card,
+    zeros + index_add_ (``library_ms``) and the deterministic zeros +
+    index_put_(accumulate=True) over the same lane terms, and its
     HBM-bytes bound (this data's: the gradient rows of the bags that hold
     a valid lane, the valid lanes' slots, every flag, the output written
-    once); each design's device time split by kernel. Returns the
-    kernel's entry."""
+    once). Returns the kernel's entry."""
     from deeprec_tpu_torch.ops.fused_lookup import (
         fused_pooled_lookup_backward, fused_pooled_lookup_backward_plain)
-    from deeprec_tpu_torch.probes.kernel_probe import (build, k2_bwd_split,
-                                                       k2_bwd_turns)
 
     def kernel():
         return fused_pooled_lookup_backward(d_pooled, slots, valid, combiner,
@@ -2171,12 +2181,15 @@ def k2_bwd_case(what, suffix, d_pooled, slots, valid, combiner, u):
     if not torch.equal(bits(got), bits(again)):
         fail(f"K2 backward {what}: two launches differ")
     dc, sc, vc = d_pooled.cpu(), slots.cpu(), valid.cpu()
+    got = got.cpu()
+    order = tests_module("torch_k2_order").k2_backward_in_order
+    if not torch.equal(bits(got), bits(order(dc, sc, vc, combiner, u))):
+        fail(f"K2 backward {what} differs from the order reference's bits")
     ref = fused_pooled_lookup_backward_plain(dc, sc, vc, combiner, u)
     mag = fused_pooled_lookup_backward_plain(dc.float().abs(), sc, vc,
                                              combiner, u)
     lanes = torch.bincount(sc.clamp(0, u - 1)[vc].long(), minlength=u)
     short = lanes <= 32
-    got = got.cpu()
     if not torch.equal(bits(got)[short], bits(ref)[short]):
         fail(f"K2 backward {what}: a row of at most 32 lanes differs from "
              f"the plain version's bits")
@@ -2208,9 +2221,7 @@ def k2_bwd_case(what, suffix, d_pooled, slots, valid, combiner, u):
         if not bool(((call().cpu() - ref).abs() <= limit).all()):  # rounding
             fail(f"K2 backward {what}: a library yardstick computes "
                  f"another function")
-    turns = k2_bwd_turns(build(), d_pooled, slots, valid, combiner, u,
-                         what, samples=7)
-    split = k2_bwd_split(build(), d_pooled, slots, valid, combiner, u)
+    ms, on_path = time_ms(kernel, samples=7), behind_ms(kernel, samples=7)
     plain_ms = time_ms(lambda: fused_pooled_lookup_backward_plain(
         d_pooled, slots, valid, combiner, u))
     # index_put_ takes 0.1-27 ms a call here: a few long samples do
@@ -2220,23 +2231,19 @@ def k2_bwd_case(what, suffix, d_pooled, slots, valid, combiner, u):
     nbytes = (int(valid.any(1).sum()) * d * d_pooled.element_size()
               + n_valid * slots.element_size() + n_ids
               + u * d * d_pooled.element_size())
-    log_times(f"K2 fused_pooled_lookup_backward {what}", turns["new"],
-              plain_ms, add_ms, nbytes,
-              f"; radix design {turns['old']:.4f} ms (in turns), "
-              f"atomic design {turns['atomic']:.4f} ms; library: "
-              f"zeros + index_add_, zeros + index_put_(accumulate=True) "
-              f"{put_ms:.4f} ms; max_abs_err {err.max().item():.3g}; "
-              f"{n_valid} valid lanes, {int((lanes > 0).sum())} rows "
-              f"touched, the hottest takes {int(lanes.max())}, "
-              f"{int((lanes > 32).sum())} rows of more than 32")
+    log_times(f"K2 fused_pooled_lookup_backward {what}", ms, plain_ms, add_ms,
+              nbytes,
+              f"; on path {on_path:.4f} ms; library: zeros + index_add_, "
+              f"zeros + index_put_(accumulate=True) {put_ms:.4f} ms; "
+              f"max_abs_err {err.max().item():.3g}; {n_valid} valid lanes, "
+              f"{int((lanes > 0).sum())} rows touched, the hottest takes "
+              f"{int(lanes.max())}, {int((lanes > 32).sum())} rows of more "
+              f"than 32")
     return entry(f"fused_pooled_lookup_backward_{suffix}".rstrip("_"),
                  "deeprec_tpu_torch/csrc/fused_pooled_lookup.cu",
                  "deeprec_tpu/ops/pallas_fused_lookup.py:80",
-                 err.max().item(), turns["new"], plain_ms, add_ms, nbytes,
-                 previous_ms=turns["old"], on_path_ms=turns["new_behind"],
-                 previous_on_path_ms=turns["old_behind"],
-                 atomic_design_ms=turns["atomic"],
-                 deterministic_library_ms=put_ms, kernel_us=split,
+                 err.max().item(), ms, plain_ms, add_ms, nbytes,
+                 on_path_ms=on_path, deterministic_library_ms=put_ms,
                  counter="fused_pooled_lookup_backward")
 
 
@@ -2273,28 +2280,18 @@ def k2_pair(what, urows, slots, valid, combiner, d_pooled, lib_fwd, suffix):
             k2_bwd_case(what, suffix, d_pooled, slots, valid, combiner, u)]
 
 
-def k1_extra(turns):
-    """The entry's keys for K1's turns against the previous design."""
-    return dict(previous_ms=turns["old"], on_path_ms=turns["new_behind"],
-                previous_on_path_ms=turns["old_behind"],
-                turns_ms=turns["turns"],
-                on_path_turns_ms=turns["behind_turns"])
-
-
 def k1_case(what, table, slots, suffix, d=None):
     """K1 at one shape (``d``: the columns read, all by default):
-    bit-equal to its plain version, timed in turns with the previous design
-    (back to back and behind a one-element add) and beside
-    ``index_select`` and its bound. Returns its entry."""
+    bit-equal to its plain version, timed back to back and behind a
+    one-element add, beside ``index_select`` and its bound. Returns its
+    entry."""
     from deeprec_tpu_torch.ops.gather import gather_rows, gather_rows_plain
-    from deeprec_tpu_torch.probes import kernel_probe
     d = d or table.shape[1]
     if not torch.equal(gather_rows(table, slots, d),
                        gather_rows_plain(table, slots, d)):
         fail(f"K1 {what} differs from its plain version")
-    turns = kernel_probe.k1_turns(kernel_probe.build(), table, slots, d,
-                                  what)
-    kt = turns["new"]
+    kt = time_ms(lambda: gather_rows(table, slots, d), samples=11)
+    on_path = behind_ms(lambda: gather_rows(table, slots, d), samples=11)
     pt = time_ms(lambda: gather_rows_plain(table, slots, d))
     lt = time_ms(lambda: torch.index_select(table[:, :d], 0, slots))
     # the slots, each distinct row read once, every lane's row written
@@ -2302,25 +2299,22 @@ def k1_case(what, table, slots, suffix, d=None):
     nbytes = (u * slots.element_size()
               + (torch.unique(slots).numel() + u) * d * 4)
     log_times(f"K1 gather_rows {what} ([{u}] x {d})", kt, pt, lt, nbytes,
-              f"; library: torch.index_select; on path "
-              f"{turns['new_behind']:.4f} ms; the previous design "
-              f"{turns['old']:.4f} ms, on path {turns['old_behind']:.4f} ms")
+              f"; library: torch.index_select; on path {on_path:.4f} ms")
     return entry(f"gather_rows_{suffix}", "deeprec_tpu_torch/csrc/"
                  "gather_rows.cu", "deeprec_tpu/ops/pallas_gather.py:78", 0.0,
-                 kt, pt, lt, nbytes, counter="gather_rows", **k1_extra(turns))
+                 kt, pt, lt, nbytes, counter="gather_rows",
+                 on_path_ms=on_path)
 
 
 def k3a_case(what, suffix, uslots, counts, readonly, dest, cap, ff,
-             planes=("create", "version", "freq"), timing=None):
+             planes=("create", "version", "freq"), on_path=False):
     """K3a (lookup_meta) at one shape with the planes its path passes
     (``planes``, of the create-step, version and freq planes; the freqs
     always, for the admission test at ``ff``): bit-equal to its plain
     version, its library yardstick checked to compute the same function,
-    both timed beside it, and its bound from the bytes this run's lanes
-    need. ``timing(fused, kp, pp)``, where given, times the kernel
-    instead (``fused(kp)`` launches it; ``pp`` holds the plain version's
-    planes after one call) and returns its ms and more entry keys. Returns
-    the entry and ``pp``."""
+    both timed beside it (with ``on_path``, the kernel behind a one-element
+    add too), and its bound from the bytes this run's lanes need. Returns
+    its entry."""
     from deeprec_tpu_torch.ops.meta_scatter import (lookup_meta,
                                                     lookup_meta_plain)
     dev = uslots.device
@@ -2359,8 +2353,8 @@ def k3a_case(what, suffix, uslots, counts, readonly, dest, cap, ff,
         return (uslots != cap) & (lp[2][uslots] >= ff)
     if not (torch.equal(torch_chain(), adm_ref) and same(lp, pp)):
         fail(f"K3a's library yardstick {what} computes another function")
-    ms, extra = ((time_ms(lambda: fused(kp)), {}) if timing is None
-                 else timing(fused, kp, pp))
+    ms = time_ms(lambda: fused(kp))
+    extra = {"on_path_ms": behind_ms(lambda: fused(kp))} if on_path else {}
     plain_ms = time_ms(lambda: fused(pp, lookup_meta_plain))
     lib_ms = time_ms(torch_chain)
     # what this run's lanes need: each lane's slot and count read and its
@@ -2384,11 +2378,13 @@ def k3a_case(what, suffix, uslots, counts, readonly, dest, cap, ff,
               f" + CounterFilter({ff}): {n_d} created, {n_m} live)", ms,
               plain_ms, lib_ms, nbytes, "; library: the same function in "
               "torch calls (live, masked indices, index_put_ per written "
-              "plane, index_add_, null-row resets, the admission test)")
+              "plane, index_add_, null-row resets, the admission test)"
+              + (f"; on path {extra['on_path_ms']:.4f} ms" if on_path
+                 else ""))
     return entry(f"lookup_meta{suffix}", "deeprec_tpu_torch/csrc/"
                  "meta_scatter.cu", "benchmarks/pallas_meta_bench.py:108",
                  0.0, ms, plain_ms, lib_ms, nbytes, counter="lookup_meta",
-                 **extra), pp
+                 **extra)
 
 
 def hash_buckets(table, keys, max_probes, slots=None):
@@ -2420,29 +2416,58 @@ def hash_buckets(table, keys, max_probes, slots=None):
 
 def hash_case(kind, what, table, keys, suffix, max_probes=32):
     """K4 (``kind`` "lookup") or K5 ("insert") at one shape: bit-equal to
-    its plain version on the same card tensors, then its previous design
-    and the port's kernel in turns (``kernel_probe.k4_turns`` and
-    ``k5_turns``, which hold K5 in both forms to the plain version, its
-    arbitration words all zero after each call: back to back, or for an
-    insert that changes the table a call at a time on a fresh copy, and
-    behind a one-element add), beside the plain version and its bound from
-    the bytes this run's keys need. K5's functional form's clone of the
-    table gets a line of its own. No one PyTorch call computes either.
-    Returns its entry."""
-    from deeprec_tpu_torch.probes import kernel_probe
+    its plain version on the same card tensors (K5 in place and in its
+    functional form, which must leave ``table`` as it was, its arbitration
+    words all zero after every call, and in place again after the
+    timing); timed back to back, or for an insert that changes the table
+    a call at a time on a fresh copy, and behind a one-element add, beside
+    the plain version and its bound from the bytes this run's keys need.
+    K5's functional form's clone of the table gets a line of its own. No
+    one PyTorch call computes either. Returns its entry."""
+    from deeprec_tpu_torch.ops.hash_probe import arbitration_words
     from deeprec_tpu_torch.sparse import hashtable as ht
-    lib = kernel_probe.build()
     name = "K4" if kind == "lookup" else "K5"
+    steady = True  # the call leaves the table as it was
     if kind == "lookup":
         ref = ht.lookup_plain(table, keys, max_probes)
         got = ht.lookup(table, keys, max_probes)
         if not all(torch.equal(a, b) for a, b in zip(got, ref)):
             fail(f"K4 {what} differs from its plain version")
-        turns = kernel_probe.k4_turns(lib, table, keys, max_probes, what)
+
+        def port():
+            return ht.lookup(table, keys, max_probes)
     else:
         ref = ht.lookup_or_insert_plain(table, keys, max_probes)
-        turns = kernel_probe.k5_turns(lib, table, keys, max_probes, what)
-    ms, on_path = turns["new"], turns["new_behind"]
+        steady = all(torch.equal(a, b) for a, b in zip(ref[0], table))
+        before, work = ht.clone(table), ht.clone(table)
+        arb = arbitration_words(keys.device, table.capacity)
+
+        def reset():
+            for a, b in zip(work, table):
+                a.copy_(b)
+
+        def port():
+            return ht.lookup_or_insert_(work, keys, max_probes)
+
+        def check(form, got_t, got_slots, got_created):
+            if not (all(torch.equal(a, b) for a, b in zip(got_t, ref[0]))
+                    and torch.equal(got_slots, ref[1])
+                    and torch.equal(got_created, ref[2])):
+                fail(f"K5 {form} {what} differs from its plain version")
+            if bool(arb.any()):
+                fail(f"K5 {form} {what} left arbitration words set")
+        check("in place", *port())
+        check("in its functional form",
+              *ht.lookup_or_insert(table, keys, max_probes))
+        if not all(torch.equal(a, b) for a, b in zip(table, before)):
+            fail(f"K5's functional form wrote its input {what}")
+    if steady:
+        ms, on_path = time_ms(port), behind_ms(port)
+    else:
+        ms, on_path = call_ms(port, reset), call_ms(port, reset, behind=True)
+    if kind == "insert":
+        reset()
+        check("after the timing", *port())
     if kind == "lookup":
         def plain():
             return ht.lookup_plain(table, keys, max_probes)
@@ -2458,38 +2483,29 @@ def hash_case(kind, what, table, keys, suffix, max_probes=32):
     # insert also writes each created key, and size and overflow
     nbytes = 8 * n + 8 * w * buckets + 9 * n
     extra = {"lanes": n, "capacity": cap, "buckets_read": buckets,
-             "previous_ms": turns["old"], "on_path_ms": on_path,
-             "previous_on_path_ms": turns["old_behind"],
-             "turns": turns["turns"], "behind_turns": turns["behind_turns"]}
+             "on_path_ms": on_path}
     if kind == "lookup":
         counter, loop = "hash_lookup", 147
         found = int(ref[1].sum())
         note = f"{found} found"
-        extra.update(found=found, variants={
-            str(m): turns[m] for m in kernel_probe.K4_VARIANTS})
+        extra.update(found=found)
     else:
         created = int(ref[2].sum())
         nbytes += 8 * created + 32
         counter, loop = "hash_lookup_or_insert", 231
         failed = int(ref[0].overflow) - int(table.overflow)
         note = f"{created} created, {failed} failed"
-        extra.update(created=created, steady=turns["steady"],
-                     clone_ms=turns["clone_ms"],
-                     variants={str(m): turns[m]
-                               for m in list(kernel_probe.K5_VARIANTS)[1:]},
-                     # the previous design's: its new plane read and written
-                     bound_with_copy_ms=bound(16 * cap + 17 * n + 32)[0])
-    timing = ("back to back" if kind == "lookup" or turns["steady"]
+        extra.update(created=created, steady=steady,
+                     clone_ms=time_ms(lambda: ht.clone(table)))
+    timing = ("back to back" if steady
               else "a call at a time on a fresh table")
     log_times(f"{name} {counter} {what} ({n} lanes, {cap} slots: {note}; "
               f"{buckets} buckets read)", ms, plain_ms, None, nbytes,
-              f"; {timing}; on path {on_path:.4f} ms; the previous design "
-              f"{turns['old']:.4f} ms, on path {turns['old_behind']:.4f} ms")
+              f"; {timing}; on path {on_path:.4f} ms")
     if kind == "insert":
         log(f"K5 {what}: the functional form's clone of the {cap}-slot "
-            f"table {turns['clone_ms']:.4f} ms (back to back), beside the "
-            f"in-place kernel's {ms:.4f} ms; the previous design's bound "
-            f"with its plane copy {extra['bound_with_copy_ms']:.4f} ms")
+            f"table {extra['clone_ms']:.4f} ms (back to back), beside the "
+            f"in-place kernel's {ms:.4f} ms")
     entry_name = "hash_lookup" if kind == "lookup" else "hash_lookup_or_insert"
     return entry(f"{entry_name}_{suffix}",
                  "deeprec_tpu_torch/csrc/hash_table.cu",
@@ -3399,7 +3415,7 @@ def check_device_kernels(dev):
         uniq.counts.to(torch.int32),
         torch.zeros((1,), dtype=torch.bool, device=dev),
         torch.where(created, uslots, cap + 1), cap,
-        cfg.counter_filter.filter_freq)[0])
+        cfg.counter_filter.filter_freq))
 
     # K5: the step's lookup_or_insert, first (every key created) and
     # steady (every key found in the first round); growth's rebuild of a
@@ -3828,7 +3844,7 @@ def check_variant_kernels(dev):
         f"(variant shape, the freq plane of {cap + 1})", "_variants", uslots,
         uniq.counts.to(torch.int32),
         torch.zeros((1,), dtype=torch.bool, device=dev),
-        torch.where(created, uslots, cap + 1), cap, 2, planes=("freq",))[0])
+        torch.where(created, uslots, cap + 1), cap, 2, planes=("freq",)))
     for e in entries:
         e["path"] = "variants"
     return entries
@@ -3975,18 +3991,6 @@ def migrate_trainer(dev):
                    Adagrad(0.05), device=dev)
 
 
-def fixture_script():
-    """tests/torch_fixtures/make_bundle.py, loaded by its path (a ``tests``
-    package installed elsewhere would shadow the repo's directory)."""
-    import importlib.util
-    spec = importlib.util.spec_from_file_location(
-        "make_bundle", os.path.join(REPO, "tests", "torch_fixtures",
-                                    "make_bundle.py"))
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
-
-
 def check_migrate(dev, smi, tmp):
     """Phase 15, DeepRec checkpoint migration: the committed DeepRec-shaped
     bundle (tests/torch_fixtures/deeprec_bundle: 26 per-column EV quads of
@@ -4003,7 +4007,7 @@ def check_migrate(dev, smi, tmp):
     from deeprec_tpu_torch.checkpoint import migrate
     from deeprec_tpu_torch.checkpoint.saver import table_snapshot_host
     from deeprec_tpu_torch.data.criteo import SyntheticCriteo
-    mb = fixture_script()
+    mb = tests_module("make_bundle", "torch_fixtures")
     t_phase = time.perf_counter()
     prefix = mb.PREFIX
     fx = mb.fixture_arrays()
@@ -4304,7 +4308,7 @@ def check_mesh_kernels(dev):
                  "_mesh4_owner", uslots, freq,
                  torch.zeros((1,), dtype=torch.bool, device=dev),
                  torch.where(created, uslots, cap + 1), cap,
-                 cfg.counter_filter.filter_freq)[0]] + hash_entries
+                 cfg.counter_filter.filter_freq)] + hash_entries
     for e in entries:
         e["path"] = "mesh4"
     return entries
@@ -4863,7 +4867,7 @@ def check_hs_kernels(dev):
     entries = [k3a_case(
         f"(host-sharded owner, planes of {cap + 1})", "_mesh4_hs", uslots,
         counts, torch.zeros((1,), dtype=torch.bool, device=dev),
-        torch.where(cr, uslots, cap + 1), cap, 2)[0]]
+        torch.where(cr, uslots, cap + 1), cap, 2)]
     table = torch.randn(cap + 1, 2 * EMB_DIM, generator=g).to(dev)
     entries.append(k1_case("(host-sharded owner rows at host slots, int32)",
                            table, uslots, "mesh4_hs", d=EMB_DIM))
@@ -5422,7 +5426,7 @@ def check_soak_kernels(dev):
         uniq.counts.to(torch.int32),
         torch.zeros((1,), dtype=torch.bool, device=dev),
         torch.where(created, uslots, cap + 1), cap,
-        cfg.counter_filter.filter_freq)[0])
+        cfg.counter_filter.filter_freq))
     entries.append(hash_case("insert", "(device-index soak first step)",
                              ht.create(cap, dev), uniq.ukeys, "soak_first",
                              cfg.max_probes))
@@ -5728,9 +5732,9 @@ def find_nondeterminism(dev):
             f"{'bit-equal' if diff is None else f'first differ at {diff}'}")
 
 
-def run(dev, smi, probe):
-    """Phases 2-24 on ``dev`` (``probe``: the built design probes); returns
-    the kernels' JSON entries and the training numbers."""
+def run(dev, smi):
+    """Phases 2-24 on ``dev``; returns the kernels' JSON entries and the
+    training numbers."""
     from deeprec_tpu_torch.data.criteo import SyntheticCriteo
     from deeprec_tpu_torch.ops.fused_lookup import fused_pooled_lookup
     from deeprec_tpu_torch.ops.gather import gather_rows
@@ -5746,9 +5750,8 @@ def run(dev, smi, probe):
         return out
 
     kernels = []
-    for check in (check_kernels, check_training_kernels):
-        kernels += timed(check.__name__, check, dev, probe)
-    for check in (check_zoo_kernels, check_seq_kernels, check_device_kernels,
+    for check in (check_kernels, check_training_kernels, check_zoo_kernels,
+                  check_seq_kernels, check_device_kernels,
                   check_variant_kernels, check_mesh_kernels,
                   check_hs_kernels, check_soak_kernels,
                   check_interaction_kernels, check_recurrence_kernels):
@@ -5888,7 +5891,6 @@ def main():
         find_nondeterminism(torch.device("cuda"))
         return
     from deeprec_tpu_torch.ops import _build
-    from deeprec_tpu_torch.probes import kernel_probe
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -5898,15 +5900,11 @@ def main():
         f"{sys.version.split()[0]}")
 
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(1) as pool:
-        probe = pool.submit(kernel_probe.build)  # its own nvcc, alongside
-        _build.library()
-        log(f"kernels built (nvcc sm_90a) and loaded in "
-            f"{time.perf_counter() - t0:.2f} s")
-        probe = probe.result()
-    log(f"design probes built in {time.perf_counter() - t0:.2f} s")
+    _build.library()
+    log(f"kernels built (nvcc sm_90a) and loaded in "
+        f"{time.perf_counter() - t0:.2f} s")
 
-    kernels, training = run(torch.device("cuda"), smi, probe)
+    kernels, training = run(torch.device("cuda"), smi)
     log(json.dumps({"training": training, "card": smi}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

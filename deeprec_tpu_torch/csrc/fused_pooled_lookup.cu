@@ -43,11 +43,11 @@
 // What bounds it at the Criteo shapes is not the index round trips but
 // their order: the rows must arrive (two dependent loads, ~0.9 us) before
 // the 6.8 MB write (~1.7 us) can start, and a launch costs ~2 us more back
-// to back (probes/kernel_probe.cu's variants on an H100 80GB HBM3 at
-// 700 W). So both kernels are launched as programmatic dependents of the
-// work before them (griddepcontrol): their blocks are scheduled while
-// that work finishes, and each waits for it before its first access to
-// memory (out may be a block the allocator just reused).
+// to back (measured on an H100 80GB HBM3 at 700 W). So both kernels are
+// launched as programmatic dependents of the work before them
+// (griddepcontrol): their blocks are scheduled while that work finishes,
+// and each waits for it before its first access to memory (out may be a
+// block the allocator just reused).
 
 #include <cooperative_groups.h>
 #include <cub/block/block_scan.cuh>
@@ -360,9 +360,9 @@ cudaError_t launch(const void* values, int64_t ld, int64_t n_rows, int64_t d,
 //     the runs' sums are added in run order (a warp's through shared
 //     memory, one lane a vector; then the 8 warps' sums). A row of at most
 //     32 lanes thus still adds in lane order; a longer one adds in a tree
-//     that its lane count fixes (the radix-sorted design this one
-//     replaced, kept as probes/k2_bwd_radix.cuh, adds in the same order
-//     and tree, so the two agree bit for bit).
+//     that its lane count fixes (tests/torch_k2_order.py states that
+//     order and tree in plain PyTorch, and the card tests hold this
+//     kernel bit-equal to it on every row).
 // Steps 1-4 cross three grid barriers, every lane-parallel step has a
 // thread a lane (blocks of 1,024 threads, at least one an SM), and no pass
 // depends on R's bits. A bf16 gradient is widened to f32 as it is loaded,

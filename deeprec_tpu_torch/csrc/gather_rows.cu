@@ -34,9 +34,9 @@
 //   schedule its blocks as soon as they have issued their first row loads.
 // - Index arithmetic inside a tile is 32-bit with shifts; the row offset
 //   slot * ld stays 64-bit, as a table may pass 2^31 bytes.
-// The previous design (one 16-byte unit a thread behind its own slot load, a
-// grid of n * lanes / 256 blocks, an ordinary launch) is variant 0 of the
-// K1 probe (probes/kernel_probe.cu), which times it beside this one.
+// One 16-byte unit a thread behind its own slot load, on a grid of
+// n * lanes / 256 blocks with an ordinary launch, measured slower on the
+// card at every shape the paths give it.
 //
 // The copy is dtype-agnostic: the wrapper (ops/gather.py) passes row sizes
 // and strides in bytes and picks the vector unit.

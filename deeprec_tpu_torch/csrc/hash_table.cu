@@ -74,10 +74,9 @@
 //   and K1, programmatic dependents launched after it, read its slots after
 //   it has finished. (Launched as a programmatic dependent itself, it
 //   measured no faster on the card.)
-// The previous designs (K4 a key a half-warp; K5 copying the plane and
-// zeroing the words each call, three barriers on a steady step) are
-// variants 0 of the design probe's K4 and K5 (probes/kernel_probe.cu), which
-// times them beside these.
+// K4 a key a half-warp, an ordinary launch of K4, and K5 copying the plane
+// and zeroing the words each call (three barriers on a steady step) or on
+// every resident block, each measured slower on the card.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -93,7 +92,8 @@ namespace ht {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kHalves = kThreads / 16;
-// keys a half-warp (the design probe's K4 and K5 variants time 1-16)
+// keys a half-warp: of 1, 2, 4, 8 and 16, 4 was the fastest for both
+// kernels on an H100
 constexpr int kLookupRun = 4;  // K4's
 constexpr int kInsertRun = 4;  // K5's
 constexpr int64_t kEmpty = -1;
@@ -444,11 +444,11 @@ void geometry(int64_t cap, int* w, uint32_t* bmask) {
 }
 
 // K4 with kRun keys a half-warp on at most one wave of blocks, as a
-// programmatic dependent or (dependent false) an ordinary launch.
+// programmatic dependent.
 template <int kRun>
 cudaError_t launch_lookup(const void* plane, int64_t cap, const void* keys,
                           int64_t n, int max_probes, void* slots, void* found,
-                          cudaStream_t stream, bool dependent) {
+                          cudaStream_t stream) {
   int w;
   uint32_t bmask;
   geometry(cap, &w, &bmask);
@@ -458,44 +458,30 @@ cudaError_t launch_lookup(const void* plane, int64_t cap, const void* keys,
   const int64_t runs = (n + kRun - 1) / kRun;
   int64_t blocks = (runs + kHalves - 1) / kHalves;
   if (wave > 0 && blocks > wave) blocks = wave;
-  const int64_t* p = (const int64_t*)plane;
-  const int64_t* k = (const int64_t*)keys;
-  if (dependent)
-    return launch_dependent(lookup_kernel<kRun>, blocks, kThreads, stream, p,
-                            cap, w, bmask, k, n, max_probes, (int64_t*)slots,
-                            (bool*)found);
-  lookup_kernel<kRun><<<(unsigned)blocks, kThreads, 0, stream>>>(
-      p, cap, w, bmask, k, n, max_probes, (int64_t*)slots, (bool*)found);
-  return cudaGetLastError();
+  return launch_dependent(lookup_kernel<kRun>, blocks, kThreads, stream,
+                          (const int64_t*)plane, cap, w, bmask,
+                          (const int64_t*)keys, n, max_probes,
+                          (int64_t*)slots, (bool*)found);
 }
 
-// K5's grid: as many blocks as its runs of kRun keys need (full_grid:
-// every block the card holds), at most the blocks resident at once; 0 where
-// the card holds none.
+// K5 as one cooperative launch: a half-warp a run of kRun keys, on as many
+// blocks as the runs need, at most the blocks resident at once.
 template <int kRun>
-int64_t insert_blocks(int64_t n, bool full_grid) {
+cudaError_t launch_insert(void* plane, int64_t cap, const void* ukeys,
+                          int64_t n, int max_probes, void* size,
+                          void* overflow, void* slots, void* created,
+                          void* kst, void* arb, cudaStream_t stream) {
+  int w;
+  uint32_t bmask;
+  geometry(cap, &w, &bmask);
   static int per_sm = 0;
   const int64_t resident =
       (int64_t)sm_count() *
       resident_blocks(lookup_or_insert_kernel<kRun>, kThreads, &per_sm);
   const int64_t runs = (n + kRun - 1) / kRun;
-  const int64_t blocks = full_grid ? resident : (runs + kHalves - 1) / kHalves;
-  return blocks < resident ? blocks : resident;
-}
-
-// K5 as one cooperative launch: a half-warp a run of kRun keys on
-// insert_blocks(n, full_grid) blocks.
-template <int kRun>
-cudaError_t launch_insert(void* plane, int64_t cap, const void* ukeys,
-                          int64_t n, int max_probes, void* size,
-                          void* overflow, void* slots, void* created,
-                          void* kst, void* arb, cudaStream_t stream,
-                          bool full_grid) {
-  int w;
-  uint32_t bmask;
-  geometry(cap, &w, &bmask);
-  const int64_t blocks = insert_blocks<kRun>(n, full_grid);
-  if (blocks <= 0) return cudaErrorInvalidConfiguration;
+  int64_t blocks = (runs + kHalves - 1) / kHalves;
+  if (blocks > resident) blocks = resident;
+  if (blocks <= 0) return cudaErrorInvalidConfiguration;  // the card holds none
   return launch_cooperative(
       lookup_or_insert_kernel<kRun>, blocks, kThreads, stream,
       (int64_t*)plane, cap, w, bmask, (const int64_t*)ukeys, n, max_probes,
@@ -513,8 +499,7 @@ extern "C" int deeprec_hash_lookup(const void* plane, int64_t cap,
                                    void* stream) {
   if (n == 0) return 0;
   return (int)ht::launch_lookup<ht::kLookupRun>(
-      plane, cap, keys, n, max_probes, slots, found, (cudaStream_t)stream,
-      true);
+      plane, cap, keys, n, max_probes, slots, found, (cudaStream_t)stream);
 }
 
 // K5, in place on plane, size and overflow. kst: 8 bytes a key of scratch
@@ -528,5 +513,5 @@ extern "C" int deeprec_hash_lookup_or_insert(
   if (n == 0) return 0;
   return (int)ht::launch_insert<ht::kInsertRun>(
       plane, cap, ukeys, n, max_probes, size, overflow, slots, created, kst,
-      arb, (cudaStream_t)stream, false);
+      arb, (cudaStream_t)stream);
 }

@@ -1,3 +1,3 @@
-"""Design probes run on the card (``python -m deeprec_tpu_torch.probes.kernel_probe``):
-variants of the port's kernels that measure what bounds them. Nothing in
-the port imports them."""
+"""The step bisect (``step_bisect``): one training step run twice on the
+card, every tensor it makes compared bit for bit. Nothing in the port
+imports it; ``chip_smoke.py`` runs it."""

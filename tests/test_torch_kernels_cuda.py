@@ -29,6 +29,7 @@ from deeprec_tpu_torch.ops.hash_probe import (arbitration_words,
                                               hash_lookup_or_insert_)
 from deeprec_tpu_torch.sparse import hashtable as TH
 import torch_hash_cases as HC
+from torch_k2_order import K_BLOCK_LANES, k2_backward_in_order
 
 pytestmark = pytest.mark.cuda
 
@@ -342,7 +343,7 @@ def test_fused_pooled_lookup_bf16_backward(cuda, combiner, case):
                      combiner, n_rows)
     assert fused_pooled_lookup_backward.launches == before + 2
     assert got.dtype == torch.bfloat16
-    _bwd_holds(got, ref, mag, slots, valid, n_rows)
+    _bwd_holds(got, ref, mag, d_pooled, slots, valid, combiner, n_rows)
     assert not got.isnan().any()
 
 
@@ -395,16 +396,21 @@ def _bwd_twice(d_pooled, slots, valid, combiner, n_rows):
     return a.cpu()
 
 
-def _bwd_holds(got, ref, mag, slots, valid, n_rows):
-    """The card's backward against the plain version's ``ref`` (``mag``:
-    the plain version of the gradient's magnitudes). A row of at most 32
-    valid lanes adds them in lane order on both sides (``index_add_`` on
-    the CPU adds in index order), so it is bit-equal, at bf16 too (one
-    rounding of the same f32 sum). A longer row adds contiguous runs of
-    its lanes, then the runs in order: k sequential f32 adds err by at
-    most ~k*eps of the summed magnitudes, and random sums stay orders of
-    magnitude below that, so 1e-4 of the magnitudes holds with a wide
-    margin; at bf16 that can move the one rounding by one bf16 step."""
+def _bwd_holds(got, ref, mag, d_pooled, slots, valid, combiner, n_rows):
+    """The card's backward against the order reference
+    (``torch_k2_order.k2_backward_in_order``: the kernel's lane order and
+    run tree, in plain PyTorch), bit-equal on every row, and against the
+    plain version's ``ref`` (``mag``: the plain version of the gradient's
+    magnitudes). A row of at most 32 valid lanes adds them in lane order
+    on both sides (``index_add_`` on the CPU adds in index order), so it
+    is bit-equal to ``ref``, at bf16 too (one rounding of the same f32
+    sum). A longer row adds contiguous runs of its lanes, then the runs in
+    order: k sequential f32 adds err by at most ~k*eps of the summed
+    magnitudes, and random sums stay orders of magnitude below that, so
+    1e-4 of the magnitudes holds with a wide margin; at bf16 that can move
+    the one rounding by one bf16 step."""
+    order = k2_backward_in_order(d_pooled, slots, valid, combiner, n_rows)
+    assert torch.equal(_bits(got), _bits(order))
     lanes = torch.bincount(slots.clamp(0, n_rows - 1)[valid].long(),
                            minlength=n_rows)
     short = lanes <= 32
@@ -484,7 +490,8 @@ def test_fused_pooled_lookup_backward_matches_plain(cuda, combiner, case):
     got = _bwd_twice(d_pooled.to(cuda), slots.to(cuda), valid.to(cuda),
                      combiner, n_rows)
     assert fused_pooled_lookup_backward.launches == before + 2
-    _bwd_holds(got, ref, bound, slots, valid, n_rows)
+    _bwd_holds(got, ref, bound, d_pooled, slots, valid, combiner,
+               n_rows)
     assert not got.isnan().any()
 
 
@@ -515,9 +522,40 @@ def test_fused_pooled_lookup_backward_criteo_skew_is_deterministic(
     got = _bwd_twice(d_pooled.to(cuda), slots.to(cuda), valid.to(cuda),
                      combiner, n_rows)
     assert got.dtype == dtype
-    _bwd_holds(got, ref, mag, slots, valid, n_rows)
+    _bwd_holds(got, ref, mag, d_pooled, slots, valid, combiner, n_rows)
     untouched = lanes == 0
     assert torch.count_nonzero(got[untouched]) == 0
+
+
+def test_fused_pooled_lookup_backward_dien_history(cuda):
+    """DIEN's history lookup at the benchmark cell's shape, K2's backward's
+    heaviest use on a path: 16,384 x 100 one-id bags, each example's first
+    4-100 positions valid (mean ~14, so ~14 % of the lanes), rows drawn
+    Zipf(1.1) over 20,000 unique rows, emb 18 (the float2 path), sum. The
+    hottest rows take more than kBlockLanes lanes, spread over the whole
+    batch, so they are sorted through the scratch over several bitmap
+    windows. Two launches bit-equal, every row bit-equal to the order
+    reference, and held to the plain version."""
+    g = _gen()
+    b, length, n_rows, d = 16384, 100, 20000, 18
+    lens = (4 + torch.empty(b).exponential_(1 / 10.2, generator=g)).long()
+    valid = (torch.arange(length)[None, :]
+             < lens.clamp(max=length)[:, None]).view(-1, 1)
+    zipf = torch.arange(1, n_rows + 1, dtype=torch.float64) ** -1.1
+    rank = torch.multinomial(zipf, b * length, replacement=True, generator=g)
+    slots = torch.randperm(n_rows, generator=g)[rank].view(-1, 1)
+    assert 0.12 < float(valid.float().mean()) < 0.16
+    lanes = torch.bincount(slots[valid], minlength=n_rows)
+    assert int(lanes.max()) > K_BLOCK_LANES
+    d_pooled = torch.randn(b * length, d, generator=g)
+    ref = fused_pooled_lookup_backward_plain(d_pooled, slots, valid, "sum",
+                                             n_rows)
+    mag = fused_pooled_lookup_backward_plain(d_pooled.abs(), slots, valid,
+                                             "sum", n_rows)
+    got = _bwd_twice(d_pooled.to(cuda), slots.to(cuda), valid.to(cuda), "sum",
+                     n_rows)
+    _bwd_holds(got, ref, mag, d_pooled, slots, valid, "sum", n_rows)
+    assert torch.count_nonzero(got[lanes == 0]) == 0
 
 
 def _bwd_contended(d_pooled, slots, valid, combiner, n_rows):
@@ -647,7 +685,7 @@ def test_fused_pooled_lookup_backward_edges(cuda, case, combiner):
             n_rows)
     got = _bwd_twice(*args)
     assert got.dtype == d_pooled.dtype and got.shape == ref.shape
-    _bwd_holds(got, ref, mag, slots, valid, n_rows)
+    _bwd_holds(got, ref, mag, d_pooled, slots, valid, combiner, n_rows)
     assert torch.equal(_bits(_bwd_contended(*args)), _bits(got))
     lanes = torch.bincount(slots.clamp(0, n_rows - 1)[valid].long(),
                            minlength=n_rows)
@@ -833,7 +871,8 @@ def test_fused_pooled_lookup_zoo_shapes(cuda, combiner, case):
         assert ((got.cpu() - ref).abs() <= 1e-5 * mag + 1e-7).all()
     # the backward's order, as in the test above; at D 1 the hottest row's
     # lanes are scalar adds
-    _bwd_holds(bgot, bref, bound, slots, valid, values.shape[0])
+    _bwd_holds(bgot, bref, bound, d_pooled, slots, valid, combiner,
+               values.shape[0])
 
 
 def test_pooled_lookup_autograd_on_card(cuda):
