@@ -68,7 +68,11 @@ comparison compute in full f32. Phases (any failure exits non-zero):
    attention and parameter gradients), the backward bit-equal across two
    calls, and timed alone, on the path and beside the loop, with their
    bytes and FLOP bounds; their launches are counted on the paths that
-   may train a DIEN (seq, cli);
+   may train a DIEN (seq, cli). DIN's attention unit at the same shape
+   (DIEN's unscaled scores and DIN's scaled ones, hidden 80-40) is held
+   to the module's plain code (the weights and every gradient), the
+   backward bit-equal across two calls, and timed alike; its two kernels'
+   launches are counted on the paths that train a DIN or a DIEN;
 3. writes a full-width DLRM serving checkpoint (13 dense + 26 categorical
    columns, emb dim 16, fused adagrad columns, a 2^21-slot table holding the
    keys of 20 synthetic Criteo batches; weights and rows from seed 0);
@@ -361,6 +365,7 @@ from __future__ import annotations
 import contextlib
 import io
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -1007,6 +1012,160 @@ def check_recurrence_kernels(dev):
     return out
 
 
+# -- phase 2: DIN's attention unit (DIEN's attention scores) -----------------
+# the DIEN cell's attention: [REC_B, REC_L] positions, keys and query of
+# REC_G, hidden layers 80 and 40
+ATT_HIDDEN = (80, 40)
+# kernels vs the plain code, of each tensor's largest magnitude: f32 sums
+# in another order (the first layer regrouped, the parameter gradients
+# over 225,000 positions); att_out's bias gradient, zero but for
+# round-off, against the sum of its terms' magnitudes
+ATT_RTOL, ATT_DB3_SHARE = 1e-4, 1e-5
+
+
+def check_attention_kernels(dev):
+    """DIN's attention unit at the DIEN cell's shape [REC_B, REC_L,
+    REC_G], the lengths drawn as the cell's traffic draws them, for DIEN's
+    unscaled scores and DIN's scaled ones: the module on the card (the
+    kernels) held to its plain code on the same card tensors (the weights,
+    the query's, the keys' and the six parameters' gradients, within
+    ATT_RTOL of each tensor's largest magnitude), the backward bit-equal
+    across two calls, and timed: each kernel alone, the path (the module's
+    forward; its backward through autograd), the plain code, and the
+    bound (bytes at 3.35 TB/s against the FLOPs of the regrouped layer at
+    the f32 peak: 2g h1 + h1 h2 + h2 multiply-adds a valid position and
+    the query's share, g h1, an example; twice those for the backward)."""
+    from perfbench.generators.behavior import lengths
+
+    from deeprec_tpu_torch.models.layers import DINAttention
+    from deeprec_tpu_torch.models.sequence import DINAttentionScores
+    from deeprec_tpu_torch.ops.din_attention import (din_attention,
+                                                     din_attention_backward)
+
+    with open(os.path.join(REPO, "perfbench", "traffic",
+                           "amazon_books_behavior.json")) as f:
+        mix = json.load(f)
+    g = torch.Generator(device="cpu").manual_seed(SEED + 2)
+    lens = lengths(mix, torch.rand(REC_B, generator=g, dtype=torch.float64))
+    mask = (torch.arange(REC_L)[None, :] < lens[:, None]).to(dev)
+    n_valid = int(mask.sum())
+    keys = torch.tanh(torch.randn(REC_B, REC_L, REC_G, generator=g)).to(dev)
+    query = torch.randn(REC_B, REC_G, generator=g).to(dev)
+    up = torch.randn(REC_B, REC_L, generator=g).to(dev)
+    h1, h2 = ATT_HIDDEN
+    log(f"attention at [{REC_B}, {REC_L}, {REC_G}], hidden {h1}-{h2}: "
+        f"{n_valid} valid positions of {REC_B * REC_L} "
+        f"({100 * n_valid / (REC_B * REC_L):.1f} %)")
+    out = []
+    for kind in ("dien", "din"):
+        torch.manual_seed(SEED)
+        m = (DINAttentionScores if kind == "dien" else DINAttention)(
+            REC_G, ATT_HIDDEN).to(dev)
+        params = tuple(p.detach() for p in (
+            m.att[0].weight, m.att[0].bias, m.att[1].weight, m.att[1].bias,
+            m.att_out.weight, m.att_out.bias))
+        scale = 1.0 / math.sqrt(REC_G) if m.scaled else 1.0
+        q = query.clone().requires_grad_(True)
+        k = keys.clone().requires_grad_(True)
+
+        def step(run):
+            m.zero_grad(set_to_none=True)
+            q.grad = k.grad = None
+            w = run(q, k, mask)
+            w.backward(up)
+            return [w.detach(), q.grad, k.grad] + [
+                p.grad.clone() for p in m.parameters()]
+
+        want, got, again = step(m._plain), step(m.weights), step(m.weights)
+        names = ["weights", "d_query", "d_keys"] + [
+            n for n, _ in m.named_parameters()]
+        w = want[0]
+        ds_sum = (w * (up - (w * up).sum(1, keepdim=True))).abs().sum() \
+            * scale
+        errs = {}
+        for name, w_, g_, a_ in zip(names, want, got, again):
+            if not torch.equal(g_, a_):
+                fail(f"{kind} attention: two calls differ in {name}")
+            if name == "att_out.bias":
+                errs[name] = ((g_ - w_).abs().max() / ds_sum).item()
+                limit = ATT_DB3_SHARE
+            else:
+                errs[name] = ((g_ - w_).abs().max() / w_.abs().max()).item()
+                limit = ATT_RTOL
+            if not errs[name] <= limit:
+                fail(f"{kind} attention: {name} differs from the plain "
+                     f"code by {errs[name]:.3g} of its scale")
+        if got[0][~mask].any() or got[2][~mask].any():
+            fail(f"{kind} attention: a padded position has a weight or a "
+                 f"key gradient")
+
+        # timings: the kernels alone, the path, the plain code
+        wts = din_attention(query, keys, mask, params, scale)
+        ms = {"forward": time_ms(lambda: din_attention(
+                  query, keys, mask, params, scale)),
+              "backward": time_ms(lambda: din_attention_backward(
+                  up, query, keys, mask, params, wts, scale))}
+        with torch.no_grad():
+            ms["eval"] = time_ms(lambda: m.weights(query, keys, mask))
+
+        def path(run, backward=True):
+            w_ = run(q, k, mask)
+            if backward:
+                w_.backward(up)
+            m.zero_grad(set_to_none=True)
+            q.grad = k.grad = None
+
+        on_path = {"forward": time_ms(lambda: path(m.weights, False))}
+        on_path["backward"] = time_ms(lambda: path(m.weights)) - \
+            on_path["forward"]
+        plain = {"forward": time_ms(lambda: path(m._plain, False),
+                                    samples=5, per_sample=2, warmup=1)}
+        plain["backward"] = time_ms(lambda: path(m._plain), samples=5,
+                                    per_sample=2, warmup=1) - \
+            plain["forward"]
+        # bytes each direction needs at these inputs, read or written once:
+        # the mask, the valid keys, the query, the weights (and their
+        # gradient); the backward writes every key gradient and d_query
+        b_, l_, g_ = REC_B, REC_L, REC_G
+        nbytes = {
+            "forward": (b_ * l_ + 4 * n_valid * g_ + 4 * b_ * g_
+                        + 4 * b_ * l_),
+            "backward": (b_ * l_ + 4 * n_valid * g_ + 4 * b_ * g_
+                         + 2 * 4 * b_ * l_
+                         + 4 * b_ * l_ * g_ + 4 * b_ * g_)}
+        # the regrouped layer's multiply-adds: a valid position's, then the
+        # query's share an example; the backward takes two products of each
+        macs = n_valid * (2 * g_ * h1 + h1 * h2 + h2) + b_ * g_ * h1
+        flops = {"forward": 2 * macs, "backward": 4 * macs}
+        for what in ("forward", "backward"):
+            fbound = flops[what] / F32_FLOPS * 1e3
+            name = ("din_attention" if what == "forward"
+                    else "din_attention_backward")
+            log_times(f"{kind} attention {what} [{b_}, {l_}, {g_}]",
+                      ms[what], plain[what], None, nbytes[what],
+                      f"; FLOP bound {fbound:.4f} ms ({flops[what]} FLOPs "
+                      f"of the regrouped layer at 67 TFLOP/s); on path "
+                      f"{on_path[what]:.4f} ms"
+                      + (f"; no-grad forward {ms['eval']:.4f} ms"
+                         if what == "forward" else ""))
+            out.append(entry(f"{name}_{kind}",
+                             "deeprec_tpu_torch/csrc/din_attention.cu", None,
+                             max(errs.values()), ms[what], plain[what], None,
+                             nbytes[what], on_path_ms=on_path[what],
+                             flops=flops[what], flop_bound_ms=fbound,
+                             eval_ms=ms["eval"] if what == "forward"
+                             else None, rel_errs=errs, counter=name,
+                             path="seq_dien" if kind == "dien"
+                             else "seq_din"))
+        log(f"{kind} attention forward + backward: kernels "
+            f"{ms['forward'] + ms['backward']:.4f} ms, on path "
+            f"{on_path['forward'] + on_path['backward']:.4f} ms, plain "
+            f"{plain['forward'] + plain['backward']:.4f} ms; worst error "
+            f"against the plain code {errs}")
+        del want, got, again, wts
+    return out
+
+
 # -- phase 3 -----------------------------------------------------------------
 def write_checkpoint(path):
     """A full save of the DLRM at full width, made without JAX."""
@@ -1348,8 +1507,8 @@ def path_counters(index=False, dlrm=False, seq=False):
     """The launch counters of the kernels on the training paths; ``index``
     adds the hash index's K4 and K5 (the paths that key a table on the
     card), ``dlrm`` the dot interaction's two kernels (the paths that train
-    a DLRM), ``seq`` the GRU/AUGRU recurrence's two (the paths that may
-    train a DIEN)."""
+    a DLRM), ``seq`` the GRU/AUGRU recurrence's two and the attention
+    unit's two (the paths that may train a DIN or a DIEN)."""
     from deeprec_tpu_torch.ops.fused_lookup import (
         fused_pooled_lookup, fused_pooled_lookup_backward)
     from deeprec_tpu_torch.ops.gather import gather_rows
@@ -1369,9 +1528,13 @@ def path_counters(index=False, dlrm=False, seq=False):
         out.update(dot_interaction=dot_interaction,
                    dot_interaction_backward=dot_interaction_backward)
     if seq:
+        from deeprec_tpu_torch.ops.din_attention import (
+            din_attention, din_attention_backward)
         from deeprec_tpu_torch.ops.recurrence import (gru_scan,
                                                       gru_scan_backward)
-        out.update(gru_scan=gru_scan, gru_scan_backward=gru_scan_backward)
+        out.update(gru_scan=gru_scan, gru_scan_backward=gru_scan_backward,
+                   din_attention=din_attention,
+                   din_attention_backward=din_attention_backward)
     return out
 
 
@@ -2638,7 +2801,9 @@ def check_models(dev, smi, tmp, phase, kinds):
         for k in ("gather_rows", "fused_pooled_lookup",
                   "fused_pooled_lookup_backward") + (
                       ("gru_scan", "gru_scan_backward") if kind == "dien"
-                      else ()):
+                      else ()) + (
+                      ("din_attention", "din_attention_backward")
+                      if kind in SEQ_MODELS else ()):
             if launches[k] <= 0:
                 fail(f"{k} was not launched on the {what} path")
         med, dev_ms = statistics.median(staged), None
@@ -3154,6 +3319,8 @@ def check_cli(dev, smi, tmp):
             need += ["dot_interaction", "dot_interaction_backward"]
         if kind == "dien":
             need += ["gru_scan", "gru_scan_backward"]
+        if kind in SEQ_MODELS:
+            need += ["din_attention", "din_attention_backward"]
         for k in need:
             if launches[k] <= 0:
                 fail(f"cli {kind} {opt}: {k} was not launched")
@@ -5754,7 +5921,8 @@ def run(dev, smi):
                   check_seq_kernels, check_device_kernels,
                   check_variant_kernels, check_mesh_kernels,
                   check_hs_kernels, check_soak_kernels,
-                  check_interaction_kernels, check_recurrence_kernels):
+                  check_interaction_kernels, check_recurrence_kernels,
+                  check_attention_kernels):
         kernels += timed(check.__name__, check, dev)
 
     _build.BUILD.mkdir(parents=True, exist_ok=True)  # git-ignored

@@ -2,7 +2,8 @@
 ``MLPTower``, ``DotInteraction``, ``CrossNetV2``, ``FMInteraction``, and
 the sequence models' ``Dice``, ``DINAttention``, ``GRUCellP`` (also
 flax's ``AUGRUCell`` when given an attention weight), ``GRU`` and
-``AUGRU`` (on a card the recurrence kernels of ``ops.recurrence``).
+``AUGRU`` (on a card the recurrence kernels of ``ops.recurrence``; the
+attention's, ``ops.din_attention``).
 
 torch needs input widths up front, so each layer with weights takes its
 ``in_dim``. Each also describes its flax param tree (:meth:`flax_tree`):
@@ -19,7 +20,7 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
-from ..ops import recurrence
+from ..ops import din_attention, recurrence
 from ..ops.interaction import interact
 
 
@@ -175,7 +176,9 @@ class DINAttention(nn.Module):
     ``att_i``, then ``att_out``) scores each history position ``k``
     against the query ``q`` from ``[q, k, q - k, q * k]``; a softmax over
     the valid positions of the scores over sqrt(d) (padding at -1e9, its
-    weight then 0) weights the history's sum -> ``[B, d]``."""
+    weight then 0) weights the history's sum -> ``[B, d]``. On a card the
+    weights come from the hand-written kernels of ``ops.din_attention``
+    (forward and backward, the valid positions only)."""
 
     scaled = True  # scores over sqrt(d) (DINAttentionScores: unscaled)
 
@@ -188,7 +191,20 @@ class DINAttention(nn.Module):
 
     def weights(self, query: torch.Tensor, keys: torch.Tensor,
                 mask: torch.Tensor) -> torch.Tensor:
-        """``[B, L]`` attention weights, 0 at padded positions."""
+        """``[B, L]`` attention weights, 0 at padded positions: on a card
+        the hand-written kernels of ``ops.din_attention`` (which raise on
+        inputs outside their limits), on the CPU the plain code
+        (:meth:`_plain`)."""
+        if keys.is_cuda:
+            params = (*(p for layer in self.att
+                        for p in (layer.weight, layer.bias)),
+                      self.att_out.weight, self.att_out.bias)
+            scale = 1.0 / math.sqrt(keys.shape[-1]) if self.scaled else 1.0
+            return din_attention.attention(query, keys, mask, params, scale)
+        return self._plain(query, keys, mask)
+
+    def _plain(self, query: torch.Tensor, keys: torch.Tensor,
+               mask: torch.Tensor) -> torch.Tensor:
         q = query[:, None, :].expand_as(keys)
         x = torch.cat([q, keys, q - keys, q * keys], -1)
         for layer in self.att:

@@ -31,7 +31,8 @@ BUILD = _PKG / "build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
-_P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+_P, _I, _I64, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
+                   ctypes.c_float)
 _SIGNATURES = {
     # values, ld_bytes, n_rows, slots, slots_are_64, n, row_bytes, out,
     # unit, stream
@@ -76,9 +77,21 @@ _SIGNATURES = {
     # d_att, n_rows, L, d, g, w_act, stream (att, d_att NULL for the GRU)
     "deeprec_gru_scan_backward": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                   _P, _P, _P, _P, _I64, _I, _I, _I, _I, _P],
+    # n_rows, L, g, h1, h2, backward -> scratch bytes (int64; 0: refused)
+    "deeprec_din_attention_scratch": [_I64, _I, _I, _I, _I, _I],
+    # query, keys, mask, w1, b1, w2, b2, w3, b3, scale, out, scratch,
+    # n_rows, L, g, h1, h2, stream
+    "deeprec_din_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _F, _P,
+                              _P, _I64, _I, _I, _I, _I, _P],
+    # query, keys, mask, w1, b1, w2, b2, w3, weights, grad, scale, d_query,
+    # d_keys, d_params, scratch, n_rows, L, g, h1, h2, stream
+    "deeprec_din_attention_backward": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                       _P, _F, _P, _P, _P, _P, _I64, _I, _I,
+                                       _I, _I, _P],
 }
 
-_RESTYPES = {"deeprec_fused_pooled_lookup_bwd_scratch": _I64}  # else c_int
+_RESTYPES = {"deeprec_fused_pooled_lookup_bwd_scratch": _I64,
+             "deeprec_din_attention_scratch": _I64}  # else c_int
 
 
 def _nvcc() -> str:

@@ -80,7 +80,9 @@ LAUNCH_COUNTERS = (("ops.gather", "gather_rows"),
                    ("ops.interaction", "dot_interaction"),
                    ("ops.interaction", "dot_interaction_backward"),
                    ("ops.recurrence", "gru_scan"),
-                   ("ops.recurrence", "gru_scan_backward"))
+                   ("ops.recurrence", "gru_scan_backward"),
+                   ("ops.din_attention", "din_attention"),
+                   ("ops.din_attention", "din_attention_backward"))
 _PACKAGE = __name__.rsplit(".", 2)[0]
 
 
