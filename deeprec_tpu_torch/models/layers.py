@@ -3,7 +3,9 @@
 the sequence models' ``Dice``, ``DINAttention``, ``GRUCellP`` (also
 flax's ``AUGRUCell`` when given an attention weight), ``GRU`` and
 ``AUGRU`` (on a card the recurrence kernels of ``ops.recurrence``; the
-attention's, ``ops.din_attention``).
+attention's, ``ops.din_attention``), and BST's
+``MultiHeadSelfAttention`` and ``TransformerBlock`` (the port's own: the
+JAX package has no transformer).
 
 torch needs input widths up front, so each layer with weights takes its
 ``in_dim``. Each also describes its flax param tree (:meth:`flax_tree`):
@@ -18,10 +20,13 @@ import math
 from typing import Optional, Sequence
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.nn.attention import SDPBackend, sdpa_kernel
 
 from ..ops import din_attention, recurrence
 from ..ops.interaction import interact
+from ..ops.segment import segment_sum
 
 
 def linear(layer: nn.Linear, x: torch.Tensor,
@@ -309,3 +314,121 @@ class AUGRU(nn.Module):
 
     def flax_tree(self) -> dict:
         return {"augru": {"AUGRUCell_0": self.cell.flax_tree()}}
+
+
+class PositionRows(torch.autograd.Function):
+    """``PositionRows.apply(table, index, keep)``: rows ``table[index]``
+    (``[..., width]``), whose gradient sums each row's lanes in an order
+    the indices fix (``ops.segment.segment_sum``: on the card K2's
+    backward; ``nn.Embedding``'s backward there adds in an order that
+    changes from run to run), over the lanes where ``keep`` holds alone:
+    the caller's other lanes must take no gradient (BST's padded slots,
+    whose keys it masks out and whose outputs it zeroes)."""
+
+    @staticmethod
+    def forward(ctx, table, index, keep):
+        ctx.save_for_backward(index, keep)
+        ctx.rows = table.shape[0]
+        return table[index]
+
+    @staticmethod
+    def backward(ctx, grad):
+        index, keep = ctx.saved_tensors
+        ids = torch.where(keep, index, -1).reshape(-1)
+        g = segment_sum(grad.reshape(ids.shape[0], -1), ids, ctx.rows)
+        return g, None, None
+
+
+def _layer_norm_tree(norm: nn.LayerNorm) -> dict:
+    """flax's ``nn.LayerNorm`` names: ``scale`` and ``bias``."""
+    return {"bias": norm.bias, "scale": norm.weight}
+
+
+class MultiHeadSelfAttention(nn.Module):
+    """Multi-head self-attention over ``[B, S, d]`` with a key-padding
+    mask ``[B, S]`` (True where a position takes part): one ``qkv`` product
+    (d -> 3d: the queries, keys and values, each ``heads`` heads of
+    ``d / heads``), ``softmax(Q K^T / sqrt(d / heads))`` over the valid
+    keys of each query, the weighted values, then ``out`` (d -> d). Every
+    row must hold a valid key. On a CUDA tensor the attention is
+    ``F.scaled_dot_product_attention`` held to its memory-efficient
+    backend (the flash backend takes no float32; any input that backend
+    refuses raises rather than falling back to the dense math); elsewhere
+    the plain softmax (:meth:`_plain`)."""
+
+    def __init__(self, dim: int, heads: int):
+        super().__init__()
+        if dim % heads:
+            raise ValueError(f"{heads} heads do not divide width {dim}")
+        self.heads = heads
+        self.qkv = nn.Linear(dim, 3 * dim)
+        self.out = nn.Linear(dim, dim)
+
+    def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        b, s, d = x.shape
+        # [3, B, H, S, d / H]
+        q, k, v = self.qkv(x).view(b, s, 3, self.heads, -1).permute(
+            2, 0, 3, 1, 4)
+        if x.is_cuda:
+            with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
+                o = F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=mask[:, None, None, :])
+        else:
+            o = self._plain(q, k, v, mask)
+        return self.out(o.transpose(1, 2).reshape(b, s, d))
+
+    @staticmethod
+    def _plain(q, k, v, mask):
+        scores = q @ k.transpose(-1, -2) / math.sqrt(q.shape[-1])
+        scores = scores.masked_fill(~mask[:, None, None, :], float("-inf"))
+        return torch.softmax(scores, -1) @ v
+
+    def flax_tree(self) -> dict:
+        return {"out": self.out, "qkv": self.qkv}
+
+
+class TransformerBlock(nn.Module):
+    """BST's post-LN transformer block (Chen et al., arXiv:1905.06874,
+    section 2): ``S' = LayerNorm(S + Dropout(MH(S)))``, then ``F =
+    LayerNorm(S' + Dropout(LeakyReLU(S' W1 + b1) W2 + b2))``, ``MH`` a
+    :class:`MultiHeadSelfAttention`, ``W1`` ``ffn_in`` (d -> d_ff),
+    ``W2`` ``ffn_out``. The paper gives neither LeakyReLU's slope nor
+    LayerNorm's epsilon: 0.01 and 1e-5 here (PyTorch's defaults). Dropout
+    at ``dropout`` acts in training alone (inverted: a kept value is
+    scaled by ``1 / (1 - dropout)``). :meth:`attend` gives ``S'`` and
+    :meth:`feed_forward` ``F`` from it."""
+
+    slope = 0.01
+
+    def __init__(self, dim: int, heads: int, d_ff: int, dropout: float):
+        super().__init__()
+        self.dropout = dropout
+        self.attention = MultiHeadSelfAttention(dim, heads)
+        self.norm1 = nn.LayerNorm(dim, eps=1e-5)
+        self.ffn_in = nn.Linear(dim, d_ff)
+        self.ffn_out = nn.Linear(d_ff, dim)
+        self.norm2 = nn.LayerNorm(dim, eps=1e-5)
+
+    def attend(self, x: torch.Tensor, mask: torch.Tensor,
+               train: bool = False) -> torch.Tensor:
+        return self.norm1(x + self._drop(self.attention(x, mask), train))
+
+    def feed_forward(self, s: torch.Tensor,
+                     train: bool = False) -> torch.Tensor:
+        f = self.ffn_out(F.leaky_relu(self.ffn_in(s), self.slope))
+        return self.norm2(s + self._drop(f, train))
+
+    def _drop(self, x: torch.Tensor, train: bool) -> torch.Tensor:
+        if train and self.dropout > 0:
+            return F.dropout(x, self.dropout, True)
+        return x
+
+    def forward(self, x: torch.Tensor, mask: torch.Tensor,
+                train: bool = False) -> torch.Tensor:
+        return self.feed_forward(self.attend(x, mask, train), train)
+
+    def flax_tree(self) -> dict:
+        return {"attention": self.attention.flax_tree(),
+                "ffn_in": self.ffn_in, "ffn_out": self.ffn_out,
+                "norm1": _layer_norm_tree(self.norm1),
+                "norm2": _layer_norm_tree(self.norm2)}

@@ -1,6 +1,7 @@
 """Sequence (user-behaviour) models, port of
 ``deeprec_tpu/models/sequence.py``: DIN, DIEN, ``DINAttentionScores`` and
-the zoo's ``dien_forward`` (``modelzoo/DIEN/train.py``).
+the zoo's ``dien_forward`` (``modelzoo/DIEN/train.py``); and the port's
+own BST (Behavior Sequence Transformer), which the JAX package lacks.
 
 Inputs: ``dense`` ``[B, Dd]`` or None; ``emb``, pooled embeddings name ->
 ``[B, d]`` (candidate item, its category, user); ``seq``, behaviour
@@ -15,11 +16,13 @@ from __future__ import annotations
 from typing import Dict, Sequence
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..utils import spans
 from .ctr import concat_emb
-from .layers import AUGRU, GRU, DINAttention, Dice
+from .layers import (AUGRU, GRU, DINAttention, Dice, PositionRows,
+                     TransformerBlock)
 
 
 def _concat_item_eb(emb, seq, candidate_name, seq_name,
@@ -34,8 +37,10 @@ def _concat_item_eb(emb, seq, candidate_name, seq_name,
 
 
 class _SequenceModel(nn.Module):
-    """What DIN and DIEN share: the item embedding widths, the head's
-    context parts, the ``fc_i`` tower and its ``Dice`` running stats."""
+    """What the sequence models share: the item embedding widths, the
+    head's context parts, the ``fc_i`` tower (``activation`` after each
+    layer: ``dice``, ``relu``, ``leaky_relu`` at slope 0.01, or
+    ``sigmoid``) and its ``Dice`` running stats."""
 
     def __init__(self, candidate_name: str, seq_name: str, emb_dim: int,
                  context_names: Sequence[str],
@@ -74,6 +79,8 @@ class _SequenceModel(nn.Module):
                 x = self.dice[i](x, train=train)
             elif self.activation == "relu":
                 x = torch.relu(x)
+            elif self.activation == "leaky_relu":
+                x = F.leaky_relu(x, 0.01)
             else:
                 x = torch.sigmoid(x)
         return self.out(x)[:, 0]
@@ -223,6 +230,96 @@ class DIEN(_SequenceModel):
         if self.aux_proj is not None:
             tree["aux_proj"] = self.aux_proj
         return tree
+
+
+class BST(_SequenceModel):
+    """Behavior Sequence Transformer (Chen et al., "Behavior Sequence
+    Transformer for E-commerce Recommendation in Alibaba", DLP-KDD 2019,
+    arXiv:1905.06874). The sequence is the ``L`` history slots followed
+    by the candidate: token ``t < L`` is ``[hist_item, hist_cate, ...,
+    pos]``, token ``L`` is ``[item, cate, ..., pos]``, width ``d`` =
+    ``item_dim + emb_dim``. ``pos`` is a row of the learned ``pos_emb``
+    table ``[L + 1, emb_dim]``, indexed by recency rank: a valid slot's
+    rank is the count of valid slots at or after it (``n - t`` for slot
+    ``t`` of a history of ``n`` right-padded slots), the candidate's and
+    a padded slot's 0. The paper indexes it by the time between the
+    behaviour and the candidate, which the behaviour data does not carry.
+    One post-LN :class:`~.layers.TransformerBlock` (``heads`` heads, an
+    FFN ``4 * d`` wide, ``dropout``) runs over the tokens, padded slots
+    masked out as keys; the block's outputs at padded slots are then set
+    to zero, and the ``[B, (L + 1) * d]`` flatten, with the context
+    embeddings and dense features, goes through ``fc_i`` with LeakyReLU,
+    then ``out``.
+
+    The forward records spans ``bst.tokens``, ``bst.attention`` (the
+    attention and the first LayerNorm), ``bst.ffn`` and ``bst.tower``
+    (the forward's launches only) and counters ``seq.lanes``,
+    ``seq.valid_lanes``, ``bst.tokens`` (``B * (L + 1)``, an int) and
+    ``bst.valid_tokens`` (the valid slots and the candidates, a 0-dim
+    tensor the forward makes on or off)."""
+
+    activation = "leaky_relu"
+
+    def __init__(self, candidate_name: str, seq_name: str, emb_dim: int,
+                 max_len: int, context_names: Sequence[str] = (),
+                 candidate_context_names: Sequence[str] = (),
+                 seq_context_names: Sequence[str] = (), heads: int = 8,
+                 hidden_units: Sequence[int] = (1024, 512, 256),
+                 dropout: float = 0.2, dense_dim: int = 0):
+        super().__init__(candidate_name, seq_name, emb_dim, context_names,
+                         candidate_context_names, seq_context_names,
+                         dense_dim)
+        self.max_len = max_len
+        d = self.item_dim + emb_dim
+        self.pos_emb = nn.Embedding(max_len + 1, emb_dim)
+        self.block = TransformerBlock(d, heads, 4 * d, dropout)
+        self._tower((max_len + 1) * d + self.context_dim, hidden_units,
+                    False)
+
+    def forward(self, dense, emb: Dict[str, torch.Tensor], seq,
+                train: bool = False) -> torch.Tensor:
+        cand, hist, mask = _concat_item_eb(
+            emb, seq, self.candidate_name, self.seq_name,
+            self.candidate_context_names, self.seq_context_names)
+        b, L = mask.shape
+        if L != self.max_len:
+            raise ValueError(f"histories of {L} slots; the model holds "
+                             f"{self.max_len} positions")
+        valid = mask.sum()
+        spans.count("seq.lanes", b * L)
+        spans.count("seq.valid_lanes", valid)
+        spans.count("bst.tokens", b * (L + 1))
+        spans.count("bst.valid_tokens", valid)
+        spans.count("bst.valid_tokens", b)
+        with spans.span("bst.tokens"):
+            rank, keep = self.ranks(mask)
+            x = torch.cat([torch.cat([hist, cand[:, None]], 1),
+                           PositionRows.apply(self.pos_emb.weight, rank,
+                                              keep)], -1)
+        with spans.span("bst.attention"):
+            s = self.block.attend(x, keep, train)
+        with spans.span("bst.ffn"):
+            f = torch.where(keep[..., None],
+                            self.block.feed_forward(s, train), 0.0)
+        with spans.span("bst.tower"):
+            return self._head([f.reshape(b, -1)], dense, emb, train)
+
+    @staticmethod
+    def ranks(mask: torch.Tensor):
+        """``(rank, keep)``, each ``[B, L + 1]``: each token's recency rank
+        (the valid slots at or after it, 0 at padding and for the
+        candidate) and whether it takes part (the valid slots and the
+        candidate)."""
+        m = mask.long()
+        rank = (m.sum(1, keepdim=True) - m.cumsum(1) + 1) * m
+        rank = torch.cat([rank, rank.new_zeros((m.shape[0], 1))], 1)
+        keep = torch.cat([mask, mask.new_ones((m.shape[0], 1))], 1)
+        return rank, keep
+
+    def flax_tree(self) -> dict:
+        return {"block": self.block.flax_tree(),
+                "pos_emb": {"embedding": self.pos_emb.weight},
+                **self._tower_tree()}
 
 
 def dien_forward(apply_fn, dense, outputs, train):

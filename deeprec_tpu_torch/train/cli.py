@@ -61,7 +61,8 @@ Where it differs from the JAX CLI:
   one device (the JAX package crashes there, ROADMAP C6).
 * ``--device`` (default ``cuda``; the counterpart of ``JAX_PLATFORMS``)
   raises when the card is missing. ``--max_len`` sets the behaviour
-  models' history length (the JAX entries fix it at 32). ``--seed`` seeds a ``torch.Generator``
+  models' history length (the JAX entries fix it at 32), ``--dropout``
+  BST's dropout rate. ``--seed`` seeds a ``torch.Generator``
   that draws the model's initial weights (:func:`init_params`).
 * ``--profile DIR`` writes a ``torch.profiler`` trace, with the loop's
   spans and counters (``utils/spans.py``) in it. ``--jit_cache``
@@ -102,10 +103,11 @@ class ModelSpec:
 
 
 def base_parser(desc: str) -> argparse.ArgumentParser:
-    """The JAX CLI's flags, names and defaults, and two of the port's own:
-    ``--device`` and ``--max_len`` (the behaviour models' history length:
-    DIN's, DIEN's and DSSM's history columns and the behaviour streams;
-    without it each entry's ``MAX_LEN``)."""
+    """The JAX CLI's flags, names and defaults, and three of the port's
+    own: ``--device``, ``--max_len`` (the behaviour models' history
+    length: DIN's, DIEN's, DSSM's and BST's history columns and the
+    behaviour streams; without it each entry's ``MAX_LEN``) and
+    ``--dropout`` (BST's block; without it the entry's ``DROPOUT``)."""
     p = argparse.ArgumentParser(description=desc)
     p.add_argument("--steps", type=int, default=200)
     p.add_argument("--batch_size", type=int, default=512)
@@ -197,6 +199,9 @@ def base_parser(desc: str) -> argparse.ArgumentParser:
                    help="history length of the behaviour models' sequence "
                         "columns and streams (default: the entry's "
                         "MAX_LEN)")
+    p.add_argument("--dropout", type=float, default=None,
+                   help="dropout rate of BST's transformer block, read by "
+                        "BST alone (default: the entry's DROPOUT)")
     return p
 
 
@@ -287,9 +292,10 @@ def init_params(model: torch.nn.Module, seed: int) -> torch.nn.Module:
     ``torch.Generator`` seeded with ``seed``: every ``nn.Linear`` kernel
     from ``lecun_normal`` (a normal of std ``1/sqrt(fan_in)`` truncated at
     two deviations, rescaled as flax's ``variance_scaling``), its bias
-    zero. Other parameters (Dice's ``alpha``, the scalar biases) keep
-    their zero init. The same seed gives the same weights on any
-    device."""
+    zero; every ``nn.Embedding`` table (BST's position table) from a
+    normal of std ``1/sqrt(width)``. Other parameters (Dice's ``alpha``,
+    the scalar biases, LayerNorm's scale and bias) keep their init. The
+    same seed gives the same weights on any device."""
     g = torch.Generator().manual_seed(int(seed))
     std_scale = 0.87962566103423978  # std of a unit normal cut at +-2
     with torch.no_grad():
@@ -302,6 +308,11 @@ def init_params(model: torch.nn.Module, seed: int) -> torch.nn.Module:
                 m.weight.copy_((w * std).T)
                 if m.bias is not None:
                     m.bias.zero_()
+            elif isinstance(m, torch.nn.Embedding):
+                w = torch.empty(m.weight.shape)
+                torch.nn.init.normal_(w, 0.0, m.embedding_dim ** -0.5,
+                                      generator=g)
+                m.weight.copy_(w)
     return model
 
 

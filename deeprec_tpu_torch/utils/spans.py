@@ -42,7 +42,10 @@ The spans of the training loop (``train/cli.py``, ``train/trainer.py``,
   ``dien.interest_extractor`` (the GRU), ``dien.attention``,
   ``dien.interest_evolution`` (the AUGRU), ``dien.tower`` and
   ``dien.aux_loss`` (the forward's launches only: the backward runs in
-  ``loss.backward()`` after them).
+  ``loss.backward()`` after them); BST's forward: ``bst.tokens`` (the
+  token layout and the position rows), ``bst.attention`` (the attention
+  and the first LayerNorm), ``bst.ffn`` (the FFN, the second LayerNorm,
+  the padded outputs zeroed) and ``bst.tower``, forward only too.
 
 Counters: ``lookup.lanes`` (the key lanes of a step's lookups),
 ``lookup.unique`` and ``lookup.overflow`` (their dedup's ``n_unique`` and
@@ -52,7 +55,9 @@ device-index indexes gained while it recorded). DIEN's forward counts
 ``seq.lanes`` (history positions, padding included, an int),
 ``seq.valid_lanes`` (the valid ones: the mask's sum, a 0-dim tensor the
 forward makes on or off) and ``seq.recurrence_steps`` (GRU and AUGRU cell
-steps, ``2 * L``).
+steps, ``2 * L``); BST's counts ``seq.lanes``, ``seq.valid_lanes``,
+``bst.tokens`` (the block's tokens, ``B * (L + 1)``, an int) and
+``bst.valid_tokens`` (the valid slots and the candidates).
 """
 from __future__ import annotations
 
